@@ -1,0 +1,81 @@
+"""Build the port's native code into shared libraries loaded with ctypes:
+the CUDA kernels of ``raytracer_tpu_torch/csrc`` with ``nvcc``, and the host
+BVH library (``native/bvhtool.py``) with the C++ compiler.
+
+The sources export plain ``extern "C"`` functions (no PyTorch headers), so a
+build takes seconds. Libraries go to the gitignored
+``raytracer_tpu_torch/_build/``, named by a hash of the sources and the
+flags: a changed source or flag set builds anew, an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from collections.abc import Callable, Sequence
+from pathlib import Path
+
+__all__ = ["build_shared", "build_library", "NVCC_FLAGS", "CSRC", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# -fmad=false and no fast math: an FMA contraction or an approximate
+# divide/sqrt shifts ulps in the slab and Möller–Trumbore math and flips
+# the triangle id of razor-edge rays against the plain torch version.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME (/usr/local/cuda)")
+
+
+def build_shared(name: str, sources: Sequence[Path], compiler: Callable[[], str],
+                 flags: Sequence[str], key: str = "") -> tuple[ctypes.CDLL, str]:
+    """Compile ``sources`` with ``compiler()`` and ``flags`` into
+    ``BUILD_DIR/<name>-<hash>.so`` unless that library exists, and load it.
+    The hash covers the sources, the flags and ``key`` (for what else the
+    output depends on, such as the host CPU under ``-march=native``).
+
+    Returns (library, compiler log). Raises ``RuntimeError`` with the
+    compiler's output when the compile fails."""
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(flags).encode() + key.encode())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build to a temporary name, then rename: concurrent builders never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([compiler(), *flags, "-o", tmp, *map(str, sources)],
+                              capture_output=True, text=True, timeout=600, check=False)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"compiling {name} failed (rc={proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    log = log_path.read_text() if log_path.exists() else ""
+    return ctypes.CDLL(str(out)), log
+
+
+def build_library(source: str) -> tuple[ctypes.CDLL, str]:
+    """Compile the CUDA source ``csrc/<source>`` for sm_90a (if not built
+    yet) and load it; returns (library, nvcc log)."""
+    return build_shared(Path(source).stem, [CSRC / source], _nvcc, NVCC_FLAGS)

@@ -1,0 +1,343 @@
+"""Supernode records and the primary-ray traversal: the CUDA kernel K1a
+(``csrc/traverse_tiles.cu``), its wrapper and its plain torch version.
+
+Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on the main path:
+:func:`make_qnodes` builds the same records byte for byte, and
+:func:`trace_tiles` computes what ``trace_tiles_pallas(qnodes, pos, quat, W,
+H, fov, leaf_k=K)[:5]`` computes — one frame, no jitter, 4-wide records.
+
+Record layout (f32 words, width w = 4 child slots, K triangles per leaf):
+  [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
+  [6w : 7w]   child refs as integer-valued floats: idx ≥ 0 internal node,
+              −(first+1) leaf whose triangles start at row ``first``,
+              −2^28 empty slot
+  [7w : 8w]   triangle count (leaf) or bounding-sphere radius (internal)
+  [8w + (kK+j)·12 : +12]  [v0, e1=v1−v0, e2=v2−v0, g=e1×e2] of slot k's
+              j-th triangle
+  [8w + 12wK + kK + j]    its original triangle id
+padded to a multiple of 128 words.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir
+from ..trace import STACK_MAX, WideBVH, moller_trumbore
+
+__all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
+           "trace_tiles_reference", "load_kernel", "LAUNCHES", "EMPTY_REF"]
+
+EMPTY_REF = -float(1 << 28)
+_MAX_NODES = 1 << 24      # refs are exact integer-valued f32
+_LEAF_BIT = 1 << 30
+# rays traversed together by the plain version: bounds its (R, recw) gathers
+_REFERENCE_CHUNK = 1 << 16
+
+# Launches of K1a since the count was last set to 0; raised only where the
+# wrapper launches the kernel.
+LAUNCHES = 0
+
+
+def rec_layout(leaf_size: int, width: int = 4) -> tuple[int, int, int]:
+    """(verts_base, ids_base, record_width) for K = leaf_size tris/leaf and
+    ``width`` child slots per record."""
+    vbase = 8 * width
+    ibase = vbase + width * 12 * leaf_size
+    return vbase, ibase, -(-(ibase + width * leaf_size) // 128) * 128
+
+
+def infer_rec_width(leaf_k: int, recw: int) -> int:
+    """Recover the record's child-slot count (4 or 8) from its word width."""
+    for width in (4, 8):
+        if rec_layout(leaf_k, width)[2] == recw:
+            return width
+    raise ValueError(
+        f"record width {recw} matches no supported child count for "
+        f"leaf_k={leaf_k} (expected {rec_layout(leaf_k, 4)[2]} for 4-wide "
+        f"or {rec_layout(leaf_k, 8)[2]} for 8-wide) — pass the leaf_size "
+        "the records were built with")
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → the int32 value C arithmetic would wrap it to."""
+    return ((x + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c rounded once to f32 (a fused multiply-add), exactly.
+
+    XLA contracts the records' cross products ``a·b − c·d`` into
+    ``fma(a, b, −(c·d))`` and the sphere radius' sum of squares into a chain
+    of fmas, so byte-equal records need the fused forms. The
+    f32 product is exact in f64; the f64 sum is rounded to odd (from its
+    TwoSum error), after which rounding to f32 is correct."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, torch.inf), torch.full_like(s, -torch.inf))
+    s = torch.where((err != 0) & torch.isfinite(err) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def make_qnodes(wide: WideBVH, tris: torch.Tensor, tri_ids: torch.Tensor | None = None,
+                leaf_size: int = 1) -> torch.Tensor:
+    """WideBVH + (T,3,3) triangles → supernode records (M, recw) f32.
+
+    Leaf refs in ``wide.cref`` are cluster indices: pass the cluster-ordered
+    triangles as ``tris`` and the original-id permutation as ``tri_ids`` so
+    hits report the scene's own indices."""
+    m, wd = wide.cref.shape
+    n_tris = tris.shape[0]
+    k_sz = leaf_size
+    if m >= _MAX_NODES or n_tris >= _MAX_NODES:
+        raise ValueError(
+            f"scene too large for the f32 ref encoding: {m} nodes / {n_tris} "
+            f"triangles (max {_MAX_NODES - 1}) — indices above 2^24 lose "
+            "precision as f32")
+    dev = tris.device
+    f32 = torch.float32
+    vbase, ibase, recw = rec_layout(k_sz, wd)
+    rec = torch.zeros((m, recw), dtype=f32, device=dev)
+    rec[:, 0:6 * wd] = torch.cat([wide.cmn, wide.cmx], dim=-1).reshape(m, 6 * wd)
+
+    cref = wide.cref.to(torch.int64)
+    is_leaf = (cref & _LEAF_BIT) != 0
+    # int32 arithmetic as in the JAX package: an empty slot (cref = −1)
+    # wraps to first = −K, so its payload holds K copies of triangle 0
+    first = _wrap_i32((cref & (_LEAF_BIT - 1)) * k_sz)
+    if k_sz == 1 and tri_ids is not None:
+        leaf_row = tri_ids[first.clamp(0, n_tris - 1)].to(f32)
+    else:
+        leaf_row = first.to(f32)
+    enc = torch.where(cref < 0, torch.full_like(leaf_row, EMPTY_REF),
+                      torch.where(is_leaf, -(leaf_row + 1.0), cref.to(f32)))
+    rec[:, 6 * wd:7 * wd] = enc
+
+    count = (n_tris - first).clamp(0, k_sz).to(f32)
+    ext = wide.cmx - wide.cmn
+    ex, ey, ez = ext.unbind(-1)
+    radius = 0.5 * torch.sqrt(_fma_f32(ez, ez, _fma_f32(ey, ey, ex * ex)))
+    radius = torch.where(torch.isfinite(radius), radius, torch.zeros_like(radius))
+    rec[:, 7 * wd:8 * wd] = torch.where(is_leaf, count, radius)
+
+    flat = tris.reshape(n_tris, 9)
+    v0, v1, v2 = flat[:, 0:3], flat[:, 3:6], flat[:, 6:9]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    g = torch.stack([
+        _fma_f32(e1[:, 1], e2[:, 2], -(e1[:, 2] * e2[:, 1])),
+        _fma_f32(e1[:, 2], e2[:, 0], -(e1[:, 0] * e2[:, 2])),
+        _fma_f32(e1[:, 0], e2[:, 1], -(e1[:, 1] * e2[:, 0])),
+    ], dim=-1)
+    tri_rec = torch.cat([v0, e1, e2, g], dim=-1)  # (T, 12)
+    lanes = torch.arange(k_sz, device=dev)
+    for k in range(wd):
+        idx = first[:, k, None] + lanes                         # (M, K)
+        valid = is_leaf[:, k, None] & (idx < n_tris)
+        safe = idx.clamp(0, n_tris - 1)
+        v = torch.where(valid[..., None], tri_rec[safe], 0.0)   # (M, K, 12)
+        vb = vbase + k * k_sz * 12
+        rec[:, vb:vb + k_sz * 12] = v.reshape(m, k_sz * 12)
+        ids = tri_ids[safe].to(f32) if tri_ids is not None else idx.to(f32)
+        rec[:, ibase + k * k_sz:ibase + (k + 1) * k_sz] = torch.where(valid, ids, -1.0)
+    return rec
+
+
+def _check_qnodes(qnodes: torch.Tensor, leaf_k: int) -> torch.Tensor:
+    """Validate the records and view them as (M, recw)."""
+    if qnodes.dtype != torch.float32:
+        raise TypeError(f"qnodes must be float32, got {qnodes.dtype}")
+    if not qnodes.is_contiguous():
+        raise ValueError("qnodes must be contiguous")
+    if qnodes.dim() < 2:
+        raise ValueError(f"qnodes must be (M, recw), got shape {tuple(qnodes.shape)}")
+    qn = qnodes.reshape(qnodes.shape[0], -1)
+    width = infer_rec_width(leaf_k, qn.shape[1])
+    if width != 4:
+        raise NotImplementedError("8-wide records (BVH8) are not ported yet")
+    return qn
+
+
+def _camera(cam_pos, cam_quat) -> tuple[list[float], list[float]]:
+    pos = torch.as_tensor(cam_pos, dtype=torch.float32).reshape(3).tolist()
+    quat = torch.as_tensor(cam_quat, dtype=torch.float32).reshape(4).tolist()
+    return pos, quat
+
+
+@functools.cache
+def load_kernel() -> tuple[ctypes.CDLL, str]:
+    """Build (at first use) and load K1a; returns (library, nvcc log)."""
+    from .build import build_library
+
+    lib, log = build_library("traverse_tiles.cu")
+    fn = lib.rt_trace_tiles_k1a
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_float] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 6)
+    return lib, log
+
+
+def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int,
+                fov_degrees: float = 70.0, leaf_k: int = 1,
+                raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
+                col_offset: int = 0):
+    """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W):
+    t is 1e30 and the normal 0 on a miss, tri (int32) is −1.
+
+    ``raygen_size``/``row_offset``/``col_offset`` trace the ``width`` ×
+    ``height`` window at that pixel offset of a larger (W, H) frame, with the
+    frame's rays (as ``trace_tiles_pallas`` does).
+
+    Launches K1a for records on a CUDA device; runs the plain version for
+    records on the CPU; raises for any other device."""
+    global LAUNCHES
+    qn = _check_qnodes(qnodes, leaf_k)
+    rg_w, rg_h = raygen_size if raygen_size is not None else (width, height)
+    if not (width >= 1 and height >= 1 and 0 <= col_offset <= rg_w - width
+            and 0 <= row_offset <= rg_h - height):
+        raise ValueError(f"window {width}x{height} at ({row_offset}, {col_offset}) "
+                         f"does not fit the {rg_w}x{rg_h} frame")
+    if qn.device.type == "cpu":
+        rows = torch.arange(row_offset, row_offset + height)
+        cols = torch.arange(col_offset, col_offset + width)
+        pixels = (rows[:, None] * rg_w + cols[None, :]).reshape(-1)
+        planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h,
+                                       fov_degrees, leaf_k, pixels=pixels)
+        return tuple(p.reshape(height, width) for p in planes)
+    if qn.device.type != "cuda":
+        raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
+    lib, _ = load_kernel()
+    pos, quat = _camera(cam_pos, cam_quat)
+    focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
+    planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
+              for _ in range(4)]
+    tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
+    with torch.cuda.device(qn.device):
+        stream = torch.cuda.current_stream(qn.device).cuda_stream
+        err = lib.rt_trace_tiles_k1a(
+            qn.data_ptr(), qn.shape[1], leaf_k, *pos, *quat, focal, aspect,
+            rg_w, rg_h, row_offset, col_offset, width, height,
+            *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"K1a launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return (*planes, tri)
+
+
+def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
+                          height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
+                          pixels: torch.Tensor | None = None):
+    """The plain torch version of K1a: the same rays, visit order, culling
+    and stack-drop rule, vectorized over chunks of rays.
+
+    ``pixels`` (flat indices py·W + px) traces only those pixels and returns
+    (P,) planes; without it, (H, W) planes of the whole image."""
+    qn = _check_qnodes(qnodes, leaf_k)
+    dev = qn.device
+    pix = (torch.arange(width * height, device=dev) if pixels is None
+           else pixels.to(dev).long())
+    pos, quat = _camera(cam_pos, cam_quat)
+    d = primary_dirs(pix % width, pix // width, width, height, quat, fov_degrees)
+    o = torch.tensor(pos, dtype=torch.float32, device=dev)
+    outs = [torch.empty((pix.numel(),), dtype=torch.float32, device=dev) for _ in range(4)]
+    tri = torch.empty((pix.numel(),), dtype=torch.int32, device=dev)
+    for a in range(0, pix.numel(), _REFERENCE_CHUNK):
+        b = min(a + _REFERENCE_CHUNK, pix.numel())
+        t_c, n_c, tri_c = _traverse(qn, o, d[a:b], leaf_k)
+        outs[0][a:b] = t_c
+        outs[1][a:b], outs[2][a:b], outs[3][a:b] = n_c.unbind(-1)
+        tri[a:b] = tri_c
+    if pixels is None:
+        return (*(p.reshape(height, width) for p in outs), tri.reshape(height, width))
+    return (*outs, tri)
+
+
+def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
+    """Per-ray closest-hit traversal of the 4-wide records, one stack pop
+    per ray and step → (t (R,), normal (R,3), tri (R,) int32)."""
+    dev = qn.device
+    r = d.shape[0]
+    vbase, ibase, _ = rec_layout(leaf_k, 4)
+    inv = safe_inv_dir(d)
+    best = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    nrm = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    stack_n = torch.zeros((r, STACK_MAX), dtype=torch.int64, device=dev)
+    stack_d = torch.zeros((r, STACK_MAX), dtype=torch.float32, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # the root is entry 0
+    lanes = torch.arange(leaf_k, device=dev, dtype=torch.float32)
+
+    while True:
+        live = torch.nonzero(sp >= 0).squeeze(1)
+        if live.numel() == 0:
+            break
+        top = sp[live]
+        node, key = stack_n[live, top], stack_d[live, top]
+        sp[live] = top - 1
+        keep = key < best[live]
+        rays, node = live[keep], node[keep]
+        if rays.numel() == 0:
+            continue
+
+        hdr = qn[node, 0:32]
+        best0 = best[rays]
+        rd, ri = d[rays], inv[rays]
+        boxes = hdr[:, 0:24].reshape(-1, 4, 6)
+        t1 = (boxes[..., 0:3] - o) * ri[:, None, :]
+        t2 = (boxes[..., 3:6] - o) * ri[:, None, :]
+        tmin = torch.minimum(t1, t2).amax(dim=-1)
+        tmax = torch.maximum(t1, t2).amin(dim=-1)
+        hit = (tmax >= tmin.clamp_min(0.0)) & (tmin < best0[:, None])
+        refs, cnt = hdr[:, 24:28], hdr[:, 28:32]
+
+        # leaf slots: every (slot, triangle) candidate at once; the first
+        # minimum in (slot, triangle) order is what the kernel's sequential
+        # strict t < best update keeps
+        do_mt = hit & (refs < 0.0) & (refs > EMPTY_REF)
+        mrow = torch.nonzero(do_mt.any(dim=1)).squeeze(1)
+        if mrow.numel() > 0:
+            mnode = node[mrow]
+            recs = qn[mnode, vbase:vbase + 48 * leaf_k].reshape(-1, 4, leaf_k, 12)
+            gate = do_mt[mrow][:, :, None] & (lanes < cnt[mrow][:, :, None])
+            tt, ok = moller_trumbore(o, rd[mrow][:, None, None, :], recs[..., 0:3],
+                                     recs[..., 3:6], recs[..., 6:9])
+            cur = best0[mrow]
+            ok = gate & ok & (tt < cur[:, None, None])
+            tt = torch.where(ok, tt, torch.full_like(tt, INF)).reshape(-1, 4 * leaf_k)
+            j = torch.argmin(tt, dim=1)
+            tbest = tt.gather(1, j[:, None])[:, 0]
+            upd = tbest < cur
+            if bool(upd.any()):
+                urow, uj = mrow[upd], j[upd]
+                g = recs.reshape(-1, 4 * leaf_k, 12)[upd, uj, 9:12]
+                g_inv = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]
+                                   + g[:, 2] * g[:, 2]).reciprocal()
+                dst = rays[urow]
+                best[dst] = tbest[upd]
+                nrm[dst] = g * g_inv[:, None]
+                tri[dst] = qn[node[urow], ibase + uj].to(torch.int32)
+
+        # internal slots that passed: push far→near by slab entry distance;
+        # a stable descending sort keeps slot order among equal keys
+        push = hit & (refs >= 0.0)
+        skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
+        _, order = torch.sort(skey, dim=1, descending=True, stable=True)
+        for i in range(4):
+            slot = order[:, i]
+            can = push.gather(1, slot[:, None])[:, 0] & (sp[rays] < STACK_MAX - 1)
+            if not bool(can.any()):
+                continue
+            cr, cs = rays[can], slot[can]
+            top = sp[cr] + 1
+            sp[cr] = top
+            stack_n[cr, top] = refs[can, cs].to(torch.int64)
+            stack_d[cr, top] = tmin[can, cs]
+    return best, nrm, tri

@@ -1,0 +1,90 @@
+"""Shared inputs and the traversal tolerance rule of the PyTorch port's tests.
+
+Imports neither JAX nor the JAX package, so the tests of the CUDA kernel can
+run on a machine that has only the port.
+
+The rule for every traversal comparison:
+* tri is exact, except for ties — a pixel where both triangles are accepted
+  hits of that ray and their t values agree within rtol 1e-6; ties are
+  counted and must be <= 0.1% of pixels;
+* t within rtol 1e-5 on hits, exactly 1e30 on misses;
+* normals unit within 1e-4 on hits and zero on misses, and within atol 1e-5
+  of the reference's.
+"""
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.models.scene import Scene
+from raytracer_tpu_torch.ops.camera import INF, primary_dirs
+from raytracer_tpu_torch.ops.trace import moller_trumbore
+from raytracer_tpu_torch.utils import procgen
+
+CAM_POS = (0.15, -0.1, 2.5)
+CAM_QUAT = (0.0, 0.1, 0.0, 0.9949874)
+FOV = 70.0
+T_RTOL, TIE_RTOL, MAX_TIE_SHARE = 1e-5, 1e-6, 1e-3
+UNIT_ATOL, NORMAL_ATOL = 1e-4, 1e-5
+SEED = 7
+
+
+def seeded_scene(subdivisions: int) -> np.ndarray:
+    """Cube-normalized icosphere under a seeded random rotation and
+    anisotropic scale (watertight: shared vertices stay shared)."""
+    rng = np.random.default_rng(SEED + subdivisions)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    m = q @ np.diag(rng.uniform(0.6, 1.6, size=3))
+    tris = (procgen.make_icosphere(subdivisions).astype(np.float64) @ m.T).astype(np.float32)
+    scene = Scene().set_triangles(tris)
+    scene._normalize_enabled, scene._normalize_mode = True, "cube"
+    scene.normalize_mesh()
+    return scene.triangles
+
+
+def image_dirs(w: int, h: int, quat=CAM_QUAT) -> torch.Tensor:
+    py, px = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    return primary_dirs(px.reshape(-1), py.reshape(-1), w, h, quat, FOV)
+
+
+def assert_hits_parity(t, tri, ref_t, ref_tri, tris: np.ndarray, dirs: torch.Tensor):
+    """tri and t of the port against a reference's, by the rule above;
+    returns the mask of pixels whose tri agree."""
+    t, tri = np.asarray(t).reshape(-1), np.asarray(tri).reshape(-1)
+    ref_t, ref_tri = np.asarray(ref_t).reshape(-1), np.asarray(ref_tri).reshape(-1)
+    diff = np.nonzero(tri != ref_tri)[0]
+    if diff.size:
+        assert (tri[diff] >= 0).all() and (ref_tri[diff] >= 0).all(), \
+            "hit/miss disagreement is never a tie"
+        tt = torch.from_numpy(tris)
+        o = torch.tensor(CAM_POS, dtype=torch.float32)
+
+        def mt(ids):
+            v = tt[torch.from_numpy(ids).long()]
+            return moller_trumbore(o, dirs[diff], v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+
+        (ta, oka), (tb, okb) = mt(tri[diff]), mt(ref_tri[diff])
+        assert bool((oka & okb).all()), "a tri mismatch must be two accepted hits"
+        assert torch.allclose(ta, tb, rtol=TIE_RTOL, atol=0.0), \
+            f"tie: t of both triangles within rtol {TIE_RTOL}"
+    assert diff.size <= MAX_TIE_SHARE * tri.size, f"{diff.size} ties > 0.1% of pixels"
+    same = tri == ref_tri
+    hit = same & (tri >= 0)
+    np.testing.assert_allclose(t[hit], ref_t[hit], rtol=T_RTOL, atol=0,
+                               err_msg=f"t within rtol {T_RTOL} on hits")
+    assert (t[tri < 0] == np.float32(INF)).all(), "t is 1e30 on misses"
+    return same
+
+
+def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: torch.Tensor):
+    """The rule above on the port's (t, nx, ny, nz, tri) planes against a
+    reference's t, tri and (optional) normals."""
+    tri = ours[4].reshape(-1).numpy()
+    same = assert_hits_parity(ours[0].numpy(), tri, ref_t, ref_tri, tris, dirs)
+    n = np.stack([p.reshape(-1).numpy() for p in ours[1:4]], -1)
+    ln = np.linalg.norm(n, axis=-1)
+    np.testing.assert_allclose(ln[tri >= 0], 1.0, atol=UNIT_ATOL, err_msg="unit normals on hits")
+    assert (n[tri < 0] == 0).all(), "zero normals on misses"
+    if ref_n is not None:
+        hit = same & (tri >= 0)
+        np.testing.assert_allclose(n[hit], np.asarray(ref_n).reshape(-1, 3)[hit],
+                                   atol=NORMAL_ATOL, rtol=0, err_msg="normals within atol 1e-5")
