@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check its kernel.
+"""Drive the PyTorch port's main paths once on one CUDA card and check its kernels.
 
 Run from the repository root, with one card:
 
@@ -8,21 +8,54 @@ Phases, each printing what it measures; the first failure exits non-zero:
 
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
-2. the builds: the native BVH library and the traversal kernel K1a, with
-   their seconds;
-3. the main path at full size: the 871,200-triangle dragon stand-in at
-   1920×1080 through Scene.load_glb → PathTracer.set_scene → render (framed
-   and sparse view) → render_presented, counting K1a's launches;
-4. K1a against its plain torch version on a 256×256 centre crop of the framed
-   view (65,536 pixels), and the shaded image against the plain version's;
+2. the builds, started together: the native BVH library, the primary-ray
+   kernels K1a/K1b (csrc/traverse_tiles.cu) and the ray-buffer kernels
+   K2a/K2b (csrc/traverse_rays.cu), with their seconds and each kernel's
+   ptxas registers, stack frame and spills;
+3. the primary-ray main path at full size: the 871,200-triangle dragon
+   stand-in at 1920×1080 through Scene.load_glb → PathTracer.set_scene →
+   render (framed and sparse view) → render_presented, counting K1a's
+   launches;
+4. K1a against its plain torch version on a 256×256 centre crop of the
+   framed view (65,536 pixels), and the shaded image against the plain
+   version's;
 5. K1a against the brute-force tracer on 1,024 seeded framed-view pixels;
-6. times: K1a's ms per frame and Mrays/s on both views, and K1a against the
-   plain version on the crop, with CUDA events.
+6. K1b (jittered rays) against its plain version on the centre crop of the
+   jittered framed view, and against brute force on 1,024 seeded pixels;
+7. the progressive main path at full size: render_progressive(bounces=3)
+   four times and present_progressive, counting the launches (per sample 1
+   K1b, bounces−1 K2a, bounces K2b), the frame count, a finite
+   non-negative buffer and the reset on a camera move; then
+   render_progressive(bounces=0) four times (4 K1b);
+8. K2a and K2b against their plain versions on every wave of one 1080p
+   sample: the rays and active mask of each wave are captured, and 65,536
+   seeded active rays of each are traced by the plain version;
+9. one whole 256×256 sample of the dragon through the kernels and through
+   the plain versions, from the same generator state;
+10. times with CUDA events (per frame, per wave, per progressive sample,
+   each plain version on its subset), one synchronised render_progressive
+   on the host clock, peak device memory, and each kernel's bound;
+11. where a progressive sample's time goes: torch.profiler over a few
+   samples — device busy time per sample, its top kernels, and the
+   device's idle share of the wall time.
 
-Tolerances (what the kernel must meet): tri equal on >= 99.99% of the
-pixels and every other pixel a tie (both triangles are accepted hits of that
-ray with t within rtol 1e-6); t within rtol 1e-5 on hits and 1e30 on misses;
-normals within atol 1e-5 of the reference, zero on misses.
+Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K2a),
+tri equal on >= 99.99% of the rays and every other ray a tie (both
+triangles are accepted hits of that ray with t within rtol 1e-6), t within
+rtol 1e-5 on hits and 1e30 on misses, normals within atol 1e-5 of the
+reference and zero on misses; for any hit (K2b), the occlusion mask equal
+on every ray; for the whole sample, radiance within atol 1e-5 on >= 99.9%
+of the pixels.
+
+Bounds: a kernel's least time on the card is the larger of its bytes over
+3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM's published
+peaks). Bytes: each ray read once (24 bytes; K2 only), each output written
+once (20 bytes a ray), and the distinct record headers and triangle
+records that a seeded subset of the rays reads (a lower bound on what the
+whole wave reads). Operations: 100 per node visit (four slab tests) and 54
+per Möller–Trumbore test, counted by the plain version on that subset and
+scaled to the wave. No PyTorch call computes BVH traversal, so there is no
+library yardstick (library_ms is null).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -35,20 +68,37 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 ROOT = Path(__file__).resolve().parent
 WIDTH, HEIGHT, LEAF_K, FOV = 1920, 1080, 32, 70.0
-FRAMED, SPARSE = (0.0, 0.0, 1.15), (0.0, 0.0, 2.5)
+FRAMED, SPARSE, MOVED = (0.0, 0.0, 1.15), (0.0, 0.0, 2.5), (0.05, 0.0, 1.15)
 QUAT = (0.0, 0.0, 0.0, 1.0)
 CROP = 256
 BRUTE_SAMPLES = 1024
-SEED = 0
+WAVE_SAMPLES = 65536
+SEED, JITTER_SEED, SAMPLE_SEED = 0, 123457, 7
+BOUNCES, SAMPLES = 3, 4
 T_RTOL, NORMAL_ATOL, TIE_RTOL, MIN_TRI_MATCH = 1e-5, 1e-5, 1e-6, 0.9999
+RADIANCE_ATOL, MIN_RADIANCE_MATCH = 1e-5, 0.999
 MIN_FRAMED_HIT_RATE = 0.4
 FRAMES, REPEATS = 16, 5
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+SLAB_OPS, MT_OPS = 100, 54
+OUT_BYTES, RAY_BYTES = 20, 24
+KERNELS = {
+    "trace_tiles_k1a": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_tiles_k1b": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_rays_k2a": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                       "raytracer_tpu/ops/pallas/traverse.py:914"),
+    "trace_rays_k2b": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                       "raytracer_tpu/ops/pallas/traverse.py:914"),
+}
 
 
 def log(msg: str) -> None:
@@ -66,9 +116,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def check_against(kernel, ref, tris, origin, dirs, what: str) -> dict:
-    """Hold K1a's flat (t, nx, ny, nz, tri) planes against a reference's on
-    the same rays; fail on any breach of the tolerances above."""
+def check_against(kernel, ref, tris, origins, dirs, what: str) -> dict:
+    """Hold a closest-hit kernel's flat (t, nx, ny, nz, tri) planes against
+    a reference's on the same rays (``origins``: one point (3,) or (R, 3));
+    fail on any breach of the tolerances above."""
     from raytracer_tpu_torch.ops.camera import INF
     from raytracer_tpu_torch.ops.trace import moller_trumbore
 
@@ -82,11 +133,11 @@ def check_against(kernel, ref, tris, origin, dirs, what: str) -> dict:
         a, b = ktri[diff].long(), rtri[diff].long()
         if bool((a < 0).any() | (b < 0).any()):
             fail(f"{what}: hit/miss disagreement on {int(((a < 0) | (b < 0)).sum())} rays")
+        o = origins[diff] if origins.dim() == 2 else origins
 
         def hit_t(idx):
             v = tris[idx]
-            return moller_trumbore(origin, dirs[diff], v[:, 0], v[:, 1] - v[:, 0],
-                                   v[:, 2] - v[:, 0])
+            return moller_trumbore(o, dirs[diff], v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
 
         (ta, oka), (tb, okb) = hit_t(a), hit_t(b)
         tie = oka & okb & torch.isclose(ta, tb, rtol=TIE_RTOL, atol=0.0) \
@@ -95,7 +146,7 @@ def check_against(kernel, ref, tris, origin, dirs, what: str) -> dict:
             fail(f"{what}: {int((~tie).sum())} tri mismatches are not ties")
     match = float(same.float().mean())
     if match < MIN_TRI_MATCH:
-        fail(f"{what}: tri equal on {match:.6f} < {MIN_TRI_MATCH} of pixels")
+        fail(f"{what}: tri equal on {match:.6f} < {MIN_TRI_MATCH} of rays")
     hit, miss = same & (rtri >= 0), same & (rtri < 0)
     if not torch.allclose(kt[hit], rt[hit], rtol=T_RTOL, atol=0.0):
         fail(f"{what}: t beyond rtol {T_RTOL} on hits")
@@ -108,6 +159,20 @@ def check_against(kernel, ref, tris, origin, dirs, what: str) -> dict:
     max_err = max([float(x.max()) for x in (t_err, n_err) if x.numel()] or [0.0])
     stats = {"rays": n, "tri_equal": match, "ties": int(diff.numel()),
              "hit_rate": float((rtri >= 0).float().mean()), "max_abs_err": max_err}
+    log(f"[check] {what}: {json.dumps(stats)}")
+    return stats
+
+
+def check_occlusion(kernel, ref, what: str) -> dict:
+    """K2b's contract: the occlusion mask (tri >= 0) equal on every ray, t
+    = 0 where occluded and 1e30 elsewhere."""
+    occ, ref_occ = kernel[4] >= 0, ref[4] >= 0
+    if not torch.equal(occ, ref_occ):
+        fail(f"{what}: occlusion mask differs on {int((occ != ref_occ).sum())} rays")
+    if not bool((kernel[0][occ] == 0).all() & (kernel[0][~occ] == 1e30).all()):
+        fail(f"{what}: t must be 0 on occluded rays and 1e30 elsewhere")
+    stats = {"rays": occ.numel(), "mask_equal": 1.0, "occluded": float(occ.float().mean()),
+             "max_abs_err": 0.0}
     log(f"[check] {what}: {json.dumps(stats)}")
     return stats
 
@@ -130,13 +195,94 @@ def cuda_ms(fn, frames: int, repeats: int) -> list[float]:
     return reps
 
 
+def timed_once(fn):
+    """(result, ms) of one call of ``fn``, with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound(counts, scale: float, fixed_bytes: int) -> tuple[float, str, dict]:
+    """The least time of a traversal (module docstring): ``counts`` from the
+    plain version on a subset, scaled by ``scale`` to the wave, plus
+    ``fixed_bytes`` of rays read and outputs written."""
+    nbytes = fixed_bytes + counts.unique_record_bytes()
+    ops = (counts.visits * SLAB_OPS + counts.mt_tests * MT_OPS) * scale
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    detail = {"bytes": nbytes, "ops": ops, "bytes_ms": b_ms, "ops_ms": o_ms,
+              "visits_per_ray": counts.visits / max(counts.rays, 1),
+              "mt_per_ray": counts.mt_tests / max(counts.rays, 1)}
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations"), detail
+
+
+def profile_samples(pt, card: str, n: int = 3) -> None:
+    """torch.profiler over ``n`` framed render_progressive(bounces=3) calls:
+    device busy ms per sample (the sum of the CUDA kernels' own times), the
+    top kernels, and the device's idle share of the wall time (inflated by
+    the profiler's own host cost)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pt.set_camera_position(*FRAMED)
+    pt.render_progressive(bounces=BOUNCES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pt.render_progressive(bounces=BOUNCES)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy_ms == 0:
+        log("[profile] the profiler recorded no device time: device busy share not measured")
+        return
+    log(f"[profile] render_progressive(bounces={BOUNCES}) under torch.profiler: wall "
+        f"{wall_ms:.4f} ms/sample, device busy {busy_ms:.4f} ms/sample, idle share "
+        f"{1 - busy_ms / wall_ms:.4f} on {card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} ms/sample "
+            f"x{e.count / n:6.1f}  {e.key[:110]}")
+
+
+def build_all() -> dict:
+    """Build the native library and both kernel sources at once."""
+    from raytracer_tpu_torch.native import bvhtool
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
+                "traverse_tiles.cu (K1a, K1b)": pool.submit(timed, traverse.load_kernel,
+                                                            "traverse_tiles.cu"),
+                "traverse_rays.cu (K2a, K2b)": pool.submit(timed, traverse.load_kernel,
+                                                           "traverse_rays.cu")}
+        results = {name: job.result() for name, job in jobs.items()}
+    for name, (out, secs) in results.items():
+        log(f"[build] {name} ready in {secs:.2f} s")
+        if isinstance(out, tuple):
+            for line in out[1].splitlines():
+                if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                           "stack frame")):
+                    log(f"[build] ptxas {name.split()[0]}: {line.strip()}")
+    return results
+
+
 def main() -> None:
     # 1. the device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    from raytracer_tpu_torch import PathTracer, Scene
-    from raytracer_tpu_torch.native import bvhtool
-    from raytracer_tpu_torch.ops.camera import primary_dirs
+    from raytracer_tpu_torch import PathTracer, Scene, render_pt
+    from raytracer_tpu_torch.ops.camera import primary_dirs, subpixel_hash01
     from raytracer_tpu_torch.ops.cuda import traverse
     from raytracer_tpu_torch.ops.shade import (MISS_COLOR, quantize_rgba8, shade_lambert,
                                                triangle_normals)
@@ -150,17 +296,9 @@ def main() -> None:
         f"| python {sys.version.split()[0]}")
 
     # 2. the builds
-    t0 = time.perf_counter()
-    bvhtool.ensure_built()
-    log(f"[build] native BVH library ready in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    _, nvcc_log = traverse.load_kernel()
-    log(f"[build] K1a nvcc build + load in {time.perf_counter() - t0:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    build_all()
 
-    # 3. the main path
+    # 3. the primary-ray main path
     glb = ROOT / "data" / "dragon_standin.glb"
     if not glb.exists():
         glb.parent.mkdir(parents=True, exist_ok=True)
@@ -174,13 +312,14 @@ def main() -> None:
     t0 = time.perf_counter()
     pt.set_scene(scene)
     qn = pt._qnodes
+    tris = pt._tris_dev
     log(f"[main] set_scene in {time.perf_counter() - t0:.2f} s: {json.dumps(pt.build_stats)}; "
         f"records {tuple(qn.shape)} = {qn.numel() * 4 / 2**20:.1f} MiB")
 
     pt.set_camera_quaternion(*QUAT)
     pt.fov_degrees = FOV
     torch.cuda.synchronize()
-    traverse.LAUNCHES = 0
+    traverse.reset_launches()
     pt.set_camera_position(*FRAMED)
     img_framed = pt.render()
     pt.set_camera_position(*SPARSE)
@@ -188,10 +327,11 @@ def main() -> None:
     pt.set_camera_position(*FRAMED)
     presented = pt.render_presented()
     torch.cuda.synchronize()
-    launches = traverse.LAUNCHES
-    log(f"[main] K1a launches during the main path: {launches}")
-    if launches < 3:
-        fail(f"the main path launched K1a {launches} times, expected 3")
+    render_launches = dict(traverse.LAUNCHES)
+    log(f"[main] launches during render/render_presented: {json.dumps(render_launches)}")
+    if render_launches != {"trace_tiles_k1a": 3, "trace_tiles_k1b": 0, "trace_rays_k2a": 0,
+                           "trace_rays_k2b": 0}:
+        fail(f"the primary path launched {render_launches}, expected 3 K1a and nothing else")
     miss_u8 = int(quantize_rgba8(torch.full((1, 3), MISS_COLOR))[0, 0])
     hit_rates = {}
     for name, img in (("framed", img_framed), ("sparse", img_sparse), ("presented", presented)):
@@ -218,9 +358,9 @@ def main() -> None:
                                          leaf_k=LEAF_K, pixels=crop_pix)
     ker = [p.reshape(-1)[crop_pix] for p in planes]
     origin = torch.tensor(FRAMED, dtype=torch.float32, device=dev)
-    tris = pt._tris_dev
     crop_dirs = primary_dirs(crop_pix % WIDTH, crop_pix // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
-    plain = check_against(ker, ref, tris, origin, crop_dirs, "K1a vs plain, 256x256 crop")
+    checks = {"trace_tiles_k1a": check_against(ker, ref, tris, origin, crop_dirs,
+                                               "K1a vs plain, 256x256 crop")}
     ref_rgb = quantize_rgba8(shade_lambert(torch.stack(ref[1:4], -1), ref[4] >= 0))
     img_crop = img_framed.reshape(-1, 4)[crop_pix]
     same = ker[4] == ref[4]
@@ -233,15 +373,173 @@ def main() -> None:
     # 5. K1a vs the brute-force tracer on seeded framed-view pixels
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     sample = torch.randperm(WIDTH * HEIGHT, generator=gen)[:BRUTE_SAMPLES].to(dev)
-    s_dirs = primary_dirs(sample % WIDTH, sample // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
-    bt, btri = trace_rays_brute(tris, origin.expand(BRUTE_SAMPLES, 3), s_dirs)
-    bn = torch.where((btri >= 0)[:, None], triangle_normals(tris, btri),
-                     torch.zeros((BRUTE_SAMPLES, 3), device=dev))
-    brute = (bt, bn[:, 0], bn[:, 1], bn[:, 2], btri)
-    check_against([p.reshape(-1)[sample] for p in planes], brute, tris, origin, s_dirs,
-                  f"K1a vs brute force, {BRUTE_SAMPLES} framed pixels")
 
-    # 6. times
+    def brute_planes(dirs):
+        bt, btri = trace_rays_brute(tris, origin.expand(dirs.shape[0], 3), dirs)
+        bn = torch.where((btri >= 0)[:, None], triangle_normals(tris, btri),
+                         torch.zeros((dirs.shape[0], 3), device=dev))
+        return (bt, bn[:, 0], bn[:, 1], bn[:, 2], btri)
+
+    s_dirs = primary_dirs(sample % WIDTH, sample // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
+    check_against([p.reshape(-1)[sample] for p in planes], brute_planes(s_dirs), tris, origin,
+                  s_dirs, f"K1a vs brute force, {BRUTE_SAMPLES} framed pixels")
+
+    # 6. K1b (jittered) vs its plain version on the crop and vs brute force
+    def jittered_dirs(pix, seed):
+        px, py = pix % WIDTH, pix // WIDTH
+        return primary_dirs(px, py, WIDTH, HEIGHT, QUAT, FOV, subpixel_hash01(px, py, 2 * seed),
+                            subpixel_hash01(px, py, 2 * seed + 1))
+
+    jplanes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                   jitter=True, jitter_seed=JITTER_SEED)
+    jref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                          pixels=crop_pix, jitter=True,
+                                          jitter_seed=JITTER_SEED)
+    checks["trace_tiles_k1b"] = check_against(
+        [p.reshape(-1)[crop_pix] for p in jplanes], jref, tris, origin,
+        jittered_dirs(crop_pix, JITTER_SEED), "K1b vs plain, jittered 256x256 crop")
+    js_dirs = jittered_dirs(sample, JITTER_SEED)
+    check_against([p.reshape(-1)[sample] for p in jplanes], brute_planes(js_dirs), tris, origin,
+                  js_dirs, f"K1b vs brute force, {BRUTE_SAMPLES} jittered framed pixels")
+
+    # 7. the progressive main path
+    pt.set_camera_position(*FRAMED)
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    for _ in range(SAMPLES):
+        accum = pt.render_progressive(bounces=BOUNCES)
+    shown = pt.present_progressive()
+    torch.cuda.synchronize()
+    pt_launches = dict(traverse.LAUNCHES)
+    want = {"trace_tiles_k1a": 0, "trace_tiles_k1b": SAMPLES,
+            "trace_rays_k2a": SAMPLES * (BOUNCES - 1), "trace_rays_k2b": SAMPLES * BOUNCES}
+    log(f"[progressive] launches during {SAMPLES} x render_progressive(bounces={BOUNCES}) + "
+        f"present_progressive: {json.dumps(pt_launches)}")
+    if pt_launches != want:
+        fail(f"progressive launches {pt_launches}, expected {want}")
+    if pt.frame_count != SAMPLES:
+        fail(f"frame_count {pt.frame_count} after {SAMPLES} samples")
+    if accum.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(accum).all()
+                                                     & (accum >= 0).all()):
+        fail("the accumulation buffer is not a finite non-negative (H, W, 3) image")
+    if shown.shape != (HEIGHT, WIDTH, 4) or shown.dtype != torch.uint8:
+        fail(f"present_progressive gave {tuple(shown.shape)} {shown.dtype}")
+    log(f"[progressive] frame_count {pt.frame_count}; mean radiance "
+        f"{float(accum.mean()):.6f}, max {float(accum.max()):.6f}; background share "
+        f"{float((accum[..., 0] == MISS_COLOR).float().mean()):.4f}")
+    pt.set_camera_position(*MOVED)
+    pt.render_progressive(bounces=BOUNCES)
+    if pt.frame_count != 1:
+        fail(f"frame_count {pt.frame_count} after a camera move: no reset")
+    pt.set_camera_position(*FRAMED)
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    for _ in range(SAMPLES):
+        aa = pt.render_progressive(bounces=0)
+    torch.cuda.synchronize()
+    aa_launches = dict(traverse.LAUNCHES)
+    log(f"[progressive] launches during {SAMPLES} x render_progressive(bounces=0): "
+        f"{json.dumps(aa_launches)}")
+    if aa_launches != {"trace_tiles_k1a": 0, "trace_tiles_k1b": SAMPLES, "trace_rays_k2a": 0,
+                       "trace_rays_k2b": 0}:
+        fail(f"bounces=0 launches {aa_launches}, expected {SAMPLES} K1b")
+    if pt.frame_count != SAMPLES or not bool(torch.isfinite(aa).all() & (aa >= 0).all()):
+        fail("bounces=0: wrong frame_count or a non-finite/negative buffer")
+
+    # 8. K2a/K2b vs their plain versions on every wave of one 1080p sample
+    waves = []
+    real_trace_rays = render_pt.trace_rays
+
+    def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
+        out = real_trace_rays(qnodes, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
+                              active=active)
+        waves.append({"any_hit": any_hit, "o": origins, "d": dirs, "active": active,
+                      "out": out})
+        return out
+
+    render_pt.trace_rays = capturing
+    try:
+        _, sample_stats = render_pt.pt_sample_frame(
+            qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED), stats=True)
+    finally:
+        render_pt.trace_rays = real_trace_rays
+    alive_rays = int(sample_stats["alive_rays"])
+    log(f"[waves] captured {len(waves)} ray-buffer waves; alive rays per sample {alive_rays} "
+        f"of {int(sample_stats['lane_rays'])} lanes")
+    pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    wave_stats = {"trace_rays_k2a": [], "trace_rays_k2b": []}
+    for i, w in enumerate(waves):
+        name = "trace_rays_k2b" if w["any_hit"] else "trace_rays_k2a"
+        r = w["o"].shape[0]
+        act = w["active"] if w["active"] is not None else torch.ones(r, dtype=torch.bool,
+                                                                      device=dev)
+        live = torch.nonzero(act).squeeze(1)
+        if live.numel() == 0:
+            fail(f"wave {i} ({name}) has no active ray to check")
+        out = w["out"]
+        if not bool((out[0][~act] == 1e30).all() & (out[4][~act] == -1).all()):
+            fail(f"wave {i} ({name}): inactive lanes must return the miss values")
+        pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
+        o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
+        ref, plain_ms = timed_once(lambda: traverse.trace_rays_reference(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K))
+        counts = traverse.TraversalCounts()
+        traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
+                                      counts=counts)
+        kout = [p[pick] for p in out]
+        what = f"{name} vs plain, wave {i}, {pick.numel()} of {live.numel()} active rays"
+        stats = (check_occlusion(kout, ref, what) if w["any_hit"]
+                 else check_against(kout, ref, tris, o, d, what))
+        ms = statistics.median(cuda_ms(lambda w=w: traverse.trace_rays(
+            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"]),
+            3, 3))
+        n_live = live.numel()
+        b_ms, b_by, detail = bound(counts, n_live / pick.numel(),
+                                   r * OUT_BYTES + n_live * RAY_BYTES + r)
+        wave_stats[name].append({**stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "active": n_live})
+        log(f"[time] wave {i} {name}: {ms:.4f} ms for {r} lanes ({n_live} active) = "
+            f"{n_live / ms / 1e3:.2f} M active rays/s; plain {plain_ms:.2f} ms on "
+            f"{pick.numel()} rays; bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+    for name, n_waves in (("trace_rays_k2a", BOUNCES - 1), ("trace_rays_k2b", BOUNCES)):
+        if len(wave_stats[name]) != n_waves:
+            fail(f"captured {len(wave_stats[name])} {name} waves, expected {n_waves}")
+    del waves
+
+    # 9. one whole 256x256 sample: kernels vs plain versions
+    def plain_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
+                    jitter=False, jitter_seed=0):
+        return traverse.trace_tiles_reference(qnodes, cam_pos, cam_quat, width, height,
+                                              fov_degrees, leaf_k, jitter=jitter,
+                                              jitter_seed=jitter_seed)
+
+    def plain_rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
+        return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
+                                             leaf_k=leaf_k, active=active)
+
+    def small_sample():
+        return render_pt.pt_sample_frame(
+            qn, tris, FRAMED, QUAT, CROP, CROP, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+    by_kernels = small_sample()
+    real = (render_pt.trace_tiles, render_pt.trace_rays)
+    render_pt.trace_tiles, render_pt.trace_rays = plain_tiles, plain_rays
+    try:
+        by_plain, whole_plain_ms = timed_once(small_sample)
+    finally:
+        render_pt.trace_tiles, render_pt.trace_rays = real
+    err = (by_kernels - by_plain).abs().amax(-1)
+    share = float((err <= RADIANCE_ATOL).float().mean())
+    log(f"[check] whole {CROP}x{CROP} sample, kernels vs plain: {share:.6f} of pixels within "
+        f"{RADIANCE_ATOL} (max |d| {float(err.max()):.3g}); plain sample {whole_plain_ms:.1f} ms")
+    if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(by_kernels).all()):
+        fail(f"whole sample: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels within {RADIANCE_ATOL}")
+
+    # 10. times and bounds
     timings = {}
     for name, pos in (("framed", FRAMED), ("sparse", SPARSE)):
         reps = cuda_ms(lambda pos=pos: traverse.trace_tiles(
@@ -251,29 +549,98 @@ def main() -> None:
         log(f"[time] K1a {name} 1920x1080: {ms:.4f} ms/frame = "
             f"{WIDTH * HEIGHT / ms / 1e3:.2f} Mrays/s (median of {REPEATS} x {FRAMES} "
             f"frames; reps {[round(r, 4) for r in reps]}) on {card}")
+    jreps = cuda_ms(lambda: traverse.trace_tiles(
+        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, jitter=True,
+        jitter_seed=JITTER_SEED), FRAMES, REPEATS)
+    timings["jittered"] = statistics.median(jreps)
+    log(f"[time] K1b framed 1920x1080 (the camera wave): {timings['jittered']:.4f} ms/frame "
+        f"(reps {[round(r, 4) for r in jreps]}) on {card}")
     crop_reps = cuda_ms(lambda: traverse.trace_tiles(
         qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
         row_offset=r0, col_offset=c0), FRAMES, REPEATS)
-    plain_reps = cuda_ms(lambda: traverse.trace_tiles_reference(
-        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, pixels=crop_pix), 1, 3)
-    crop_ms, plain_ms = statistics.median(crop_reps), statistics.median(plain_reps)
-    log(f"[time] framed 256x256 crop: K1a {crop_ms:.4f} ms, plain torch {plain_ms:.2f} ms "
-        f"(medians; plain reps {[round(r, 2) for r in plain_reps]}) on {card}")
+    crop_ms = statistics.median(crop_reps)
+    plain_ms = {}
+    for name, jitter in (("trace_tiles_k1a", False), ("trace_tiles_k1b", True)):
+        plain_ms[name] = statistics.median(cuda_ms(lambda jitter=jitter: (
+            traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
+                                           leaf_k=LEAF_K, pixels=crop_pix, jitter=jitter,
+                                           jitter_seed=JITTER_SEED)), 1, 3))
+    log(f"[time] framed 256x256 crop: K1a {crop_ms:.4f} ms; plain torch K1a "
+        f"{plain_ms['trace_tiles_k1a']:.2f} ms, K1b {plain_ms['trace_tiles_k1b']:.2f} ms "
+        f"(medians of 3) on {card}")
     window = traverse.trace_tiles(qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K,
                                   raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0)
     if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
         fail("the kernel's crop window differs from the same pixels of its full frame")
+
+    frame_bounds = {}
+    bound_pix = torch.randperm(WIDTH * HEIGHT, generator=gen)[:WAVE_SAMPLES].to(dev)
+    for name, jitter in (("trace_tiles_k1a", False), ("trace_tiles_k1b", True)):
+        counts = traverse.TraversalCounts()
+        traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                       pixels=bound_pix, jitter=jitter,
+                                       jitter_seed=JITTER_SEED, counts=counts)
+        frame_bounds[name] = bound(counts, WIDTH * HEIGHT / WAVE_SAMPLES,
+                                   WIDTH * HEIGHT * OUT_BYTES)
+        log(f"[bound] {name} framed 1080p frame: {frame_bounds[name][0]:.4f} ms by "
+            f"{frame_bounds[name][1]} {json.dumps(frame_bounds[name][2])}")
+
+    sample_reps = {}
+    for b in (BOUNCES, 0):
+        pt.set_camera_position(*FRAMED)
+        sample_reps[b] = cuda_ms(lambda b=b: pt.render_progressive(bounces=b), SAMPLES, 3)
+        ms = statistics.median(sample_reps[b])
+        rays = WIDTH * HEIGHT * max(b, 1) * (2 if b else 1)
+        extra = (f", alive {alive_rays / ms / 1e3:.2f} Mrays/s" if b else "")
+        log(f"[time] render_progressive(bounces={b}) 1920x1080: {ms:.4f} ms/sample = "
+            f"{rays / ms / 1e3:.2f} Mrays/s (W*H*{'bounces*2' if b else '1'}){extra} "
+            f"(reps {[round(r, 4) for r in sample_reps[b]]}) on {card}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.render_progressive(bounces=BOUNCES)
+    torch.cuda.synchronize()
+    log(f"[time] one synchronised render_progressive(bounces={BOUNCES}): "
+        f"{(time.perf_counter() - t0) * 1e3:.4f} ms host clock on {card}")
     log(f"[mem] peak device memory allocated: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    wave_ms = {name: sum(s["ms"] for s in stats) for name, stats in wave_stats.items()}
+    log(f"[time] traversal kernels per 1080p sample: K1b {timings['jittered']:.4f} ms + K2a "
+        f"{wave_ms['trace_rays_k2a']:.4f} ms + K2b {wave_ms['trace_rays_k2b']:.4f} ms = "
+        f"{timings['jittered'] + sum(wave_ms.values()):.4f} ms of "
+        f"{statistics.median(sample_reps[BOUNCES]):.4f} ms per sample on {card}")
 
+    # 11. where the time of a progressive sample goes
+    profile_samples(pt, card)
+
+    def mean(name, key):
+        return statistics.mean(s[key] for s in wave_stats[name])
+
+    rows = {
+        "trace_tiles_k1a": {"launches": render_launches["trace_tiles_k1a"],
+                            "max_abs_err": checks["trace_tiles_k1a"]["max_abs_err"],
+                            "ms": timings["framed"], "plain_ms": plain_ms["trace_tiles_k1a"],
+                            "bound_ms": frame_bounds["trace_tiles_k1a"][0],
+                            "bound_by": frame_bounds["trace_tiles_k1a"][1],
+                            "crop_ms": crop_ms},
+        "trace_tiles_k1b": {"launches": pt_launches["trace_tiles_k1b"],
+                            "max_abs_err": checks["trace_tiles_k1b"]["max_abs_err"],
+                            "ms": timings["jittered"], "plain_ms": plain_ms["trace_tiles_k1b"],
+                            "bound_ms": frame_bounds["trace_tiles_k1b"][0],
+                            "bound_by": frame_bounds["trace_tiles_k1b"][1]},
+    }
+    for name in ("trace_rays_k2a", "trace_rays_k2b"):
+        by = [s["bound_by"] for s in wave_stats[name]]
+        rows[name] = {"launches": pt_launches[name],
+                      "max_abs_err": max(s["max_abs_err"] for s in wave_stats[name]),
+                      "ms": mean(name, "ms"), "plain_ms": mean(name, "plain_ms"),
+                      "bound_ms": mean(name, "bound_ms"), "bound_by": max(set(by), key=by.count),
+                      "waves_ms": [s["ms"] for s in wave_stats[name]]}
     log(card)
     print(json.dumps({"kernels": [{
-        "name": "trace_tiles_k1a", "route": "cuda",
-        "source": "raytracer_tpu_torch/csrc/traverse_tiles.cu",
-        "replaces": "raytracer_tpu/ops/pallas/traverse.py:666",
-        "launches": launches, "max_abs_err": plain["max_abs_err"],
-        "ms": crop_ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], **row, "library_ms": None,
+        "plain_rays": WAVE_SAMPLES,
+    } for name, row in rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

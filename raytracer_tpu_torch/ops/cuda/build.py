@@ -4,8 +4,9 @@ BVH library (``native/bvhtool.py``) with the C++ compiler.
 
 The sources export plain ``extern "C"`` functions (no PyTorch headers), so a
 build takes seconds. Libraries go to the gitignored
-``raytracer_tpu_torch/_build/``, named by a hash of the sources and the
-flags: a changed source or flag set builds anew, an unchanged one is reused.
+``raytracer_tpu_torch/_build/``, named by a hash of the sources, the local
+headers they include (``#include "x.cuh"``, recursively) and the flags: a
+changed source, header or flag set builds anew, an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -13,13 +14,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from collections.abc import Callable, Sequence
 from pathlib import Path
 
-__all__ = ["build_shared", "build_library", "NVCC_FLAGS", "CSRC", "BUILD_DIR"]
+__all__ = ["build_shared", "build_library", "content_hash", "local_includes", "NVCC_FLAGS",
+           "CSRC", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -42,20 +45,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME (/usr/local/cuda)")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> list[Path]:
+    """The files ``src`` includes with ``#include "..."`` relative to its own
+    directory, recursively, each once, in the order first seen."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(cur.read_text()):
+            hdr = (cur.parent / name).resolve()
+            if hdr.exists() and hdr not in found:
+                found.append(hdr)
+                todo.append(hdr)
+    return found
+
+
+def content_hash(sources: Sequence[Path], flags: Sequence[str], key: str = "") -> str:
+    """Hex digest of the sources, the local headers they include, the flags
+    and ``key``: the name of the library they build."""
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.read_bytes())
+        for hdr in local_includes(src):
+            digest.update(hdr.name.encode() + hdr.read_bytes())
+    digest.update(" ".join(flags).encode() + key.encode())
+    return digest.hexdigest()
+
+
 def build_shared(name: str, sources: Sequence[Path], compiler: Callable[[], str],
                  flags: Sequence[str], key: str = "") -> tuple[ctypes.CDLL, str]:
     """Compile ``sources`` with ``compiler()`` and ``flags`` into
     ``BUILD_DIR/<name>-<hash>.so`` unless that library exists, and load it.
-    The hash covers the sources, the flags and ``key`` (for what else the
-    output depends on, such as the host CPU under ``-march=native``).
+    The hash (:func:`content_hash`) covers the sources, their local headers,
+    the flags and ``key`` (for what else the output depends on, such as the
+    host CPU under ``-march=native``).
 
     Returns (library, compiler log). Raises ``RuntimeError`` with the
     compiler's output when the compile fails."""
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(flags).encode() + key.encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{name}-{content_hash(sources, flags, key)[:16]}.so"
     log_path = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

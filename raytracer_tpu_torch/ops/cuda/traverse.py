@@ -1,10 +1,16 @@
-"""Supernode records and the primary-ray traversal: the CUDA kernel K1a
-(``csrc/traverse_tiles.cu``), its wrapper and its plain torch version.
+"""Supernode records and their traversal: the CUDA kernels K1a/K1b
+(``csrc/traverse_tiles.cu``) and K2a/K2b (``csrc/traverse_rays.cu``), their
+wrappers and their plain torch versions.
 
-Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on the main path:
-:func:`make_qnodes` builds the same records byte for byte, and
+Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on 4-wide records:
+:func:`make_qnodes` builds the same records byte for byte;
 :func:`trace_tiles` computes what ``trace_tiles_pallas(qnodes, pos, quat, W,
-H, fov, leaf_k=K)[:5]`` computes — one frame, no jitter, 4-wide records.
+H, fov, leaf_k=K, jitter=…, jitter_seed=…)[:5]`` computes for one frame
+(K1a without jitter, K1b with it); :func:`trace_rays` what
+``trace_rays_pallas(qnodes, origins, dirs, any_hit=…, leaf_k=K)`` computes
+(K2a closest hit, K2b any hit). Both kernels run the one per-ray traversal
+of ``csrc/traverse_core.cuh``, and both plain versions the one
+:func:`_traverse`.
 
 Record layout (f32 words, width w = 4 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
@@ -25,11 +31,12 @@ import functools
 
 import torch
 
-from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir
+from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir, subpixel_hash01
 from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
-           "trace_tiles_reference", "load_kernel", "LAUNCHES", "EMPTY_REF"]
+           "trace_tiles_reference", "trace_rays", "trace_rays_reference", "load_kernel",
+           "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -37,9 +44,18 @@ _LEAF_BIT = 1 << 30
 # rays traversed together by the plain version: bounds its (R, recw) gathers
 _REFERENCE_CHUNK = 1 << 16
 
-# Launches of K1a since the count was last set to 0; raised only where the
-# wrapper launches the kernel.
-LAUNCHES = 0
+_MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
+
+# Launches of each kernel since its count was last set to 0; raised only
+# where a wrapper launches that kernel.
+LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_rays_k2a": 0,
+            "trace_rays_k2b": 0}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def rec_layout(leaf_size: int, width: int = 4) -> tuple[int, int, int]:
@@ -171,35 +187,56 @@ def _camera(cam_pos, cam_quat) -> tuple[list[float], list[float]]:
     return pos, quat
 
 
+def _check_seed(jitter_seed) -> int:
+    seed = int(jitter_seed)
+    if not 0 <= seed < _MAX_SEED:
+        raise ValueError(f"jitter_seed must be in [0, 2^24), got {seed}")
+    return seed
+
+
+_ARGTYPES = {
+    "traverse_tiles.cu": ("rt_trace_tiles",
+                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                          + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p] * 6),
+    "traverse_rays.cu": ("rt_trace_rays",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p] * 6),
+}
+
+
 @functools.cache
-def load_kernel() -> tuple[ctypes.CDLL, str]:
-    """Build (at first use) and load K1a; returns (library, nvcc log)."""
+def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
+    """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
+    (K1a/K1b) or ``traverse_rays.cu`` (K2a/K2b); returns (library, nvcc log)."""
     from .build import build_library
 
-    lib, log = build_library("traverse_tiles.cu")
-    fn = lib.rt_trace_tiles_k1a
+    name, argtypes = _ARGTYPES[source]
+    lib, log = build_library(source)
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_float] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 6)
+    fn.argtypes = argtypes
     return lib, log
 
 
 def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int,
                 fov_degrees: float = 70.0, leaf_k: int = 1,
                 raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
-                col_offset: int = 0):
+                col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0):
     """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W):
     t is 1e30 and the normal 0 on a miss, tri (int32) is −1.
 
     ``raygen_size``/``row_offset``/``col_offset`` trace the ``width`` ×
     ``height`` window at that pixel offset of a larger (W, H) frame, with the
-    frame's rays (as ``trace_tiles_pallas`` does).
+    frame's rays (as ``trace_tiles_pallas`` does). ``jitter`` moves each
+    ray from the pixel centre to the ``subpixel_hash01`` offsets of
+    ``jitter_seed`` (an int in [0, 2^24)).
 
-    Launches K1a for records on a CUDA device; runs the plain version for
-    records on the CPU; raises for any other device."""
-    global LAUNCHES
+    Launches K1a (K1b with ``jitter``) for records on a CUDA device; runs
+    the plain version for records on the CPU; raises for any other device."""
     qn = _check_qnodes(qnodes, leaf_k)
+    seed = _check_seed(jitter_seed)
     rg_w, rg_h = raygen_size if raygen_size is not None else (width, height)
     if not (width >= 1 and height >= 1 and 0 <= col_offset <= rg_w - width
             and 0 <= row_offset <= rg_h - height):
@@ -209,12 +246,13 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
         rows = torch.arange(row_offset, row_offset + height)
         cols = torch.arange(col_offset, col_offset + width)
         pixels = (rows[:, None] * rg_w + cols[None, :]).reshape(-1)
-        planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h,
-                                       fov_degrees, leaf_k, pixels=pixels)
+        planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
+                                       leaf_k, pixels=pixels, jitter=jitter,
+                                       jitter_seed=seed)
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel()
+    lib, _ = load_kernel("traverse_tiles.cu")
     pos, quat = _camera(cam_pos, cam_quat)
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
@@ -222,47 +260,185 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
-        err = lib.rt_trace_tiles_k1a(
+        err = lib.rt_trace_tiles(
             qn.data_ptr(), qn.shape[1], leaf_k, *pos, *quat, focal, aspect,
-            rg_w, rg_h, row_offset, col_offset, width, height,
+            rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
             *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+    name = "trace_tiles_k1b" if jitter else "trace_tiles_k1a"
     if err != 0:
-        raise RuntimeError(f"K1a launch failed: cudaError {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return (*planes, tri)
 
 
 def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
                           height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
-                          pixels: torch.Tensor | None = None):
-    """The plain torch version of K1a: the same rays, visit order, culling
-    and stack-drop rule, vectorized over chunks of rays.
+                          pixels: torch.Tensor | None = None, jitter: bool = False,
+                          jitter_seed: int = 0, counts: "TraversalCounts | None" = None):
+    """The plain torch version of K1a/K1b: the same rays, visit order,
+    culling and stack-drop rule, vectorized over chunks of rays.
 
     ``pixels`` (flat indices py·W + px) traces only those pixels and returns
-    (P,) planes; without it, (H, W) planes of the whole image."""
+    (P,) planes; without it, (H, W) planes of the whole image. ``counts``
+    adds up the work of the traversal (:class:`TraversalCounts`)."""
     qn = _check_qnodes(qnodes, leaf_k)
+    seed = _check_seed(jitter_seed)
     dev = qn.device
     pix = (torch.arange(width * height, device=dev) if pixels is None
            else pixels.to(dev).long())
     pos, quat = _camera(cam_pos, cam_quat)
-    d = primary_dirs(pix % width, pix // width, width, height, quat, fov_degrees)
-    o = torch.tensor(pos, dtype=torch.float32, device=dev)
-    outs = [torch.empty((pix.numel(),), dtype=torch.float32, device=dev) for _ in range(4)]
-    tri = torch.empty((pix.numel(),), dtype=torch.int32, device=dev)
-    for a in range(0, pix.numel(), _REFERENCE_CHUNK):
-        b = min(a + _REFERENCE_CHUNK, pix.numel())
-        t_c, n_c, tri_c = _traverse(qn, o, d[a:b], leaf_k)
+    px, py = pix % width, pix // width
+    jx = jy = 0.5
+    if jitter:
+        jx, jy = subpixel_hash01(px, py, 2 * seed), subpixel_hash01(px, py, 2 * seed + 1)
+    d = primary_dirs(px, py, width, height, quat, fov_degrees, jx, jy)
+    o = torch.tensor(pos, dtype=torch.float32, device=dev).expand(pix.numel(), 3)
+    planes = _traverse_chunks(qn, o, d, leaf_k, False, counts)
+    if pixels is None:
+        return tuple(p.reshape(height, width) for p in planes)
+    return planes
+
+
+def _check_rays(qn: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
+                active: torch.Tensor | None) -> None:
+    for name, a in (("origins", origins), ("dirs", dirs)):
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dim() != 2 or a.shape[1] != 3:
+            raise ValueError(f"{name} must be (R, 3), got shape {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if a.device != qn.device:
+            raise ValueError(f"{name} on {a.device}, records on {qn.device}")
+    if origins.shape != dirs.shape:
+        raise ValueError(f"origins {tuple(origins.shape)} and dirs {tuple(dirs.shape)} differ")
+    if origins.shape[0] >= 1 << 31:
+        raise ValueError(f"{origins.shape[0]} rays: at most 2^31 - 1 per call")
+    if active is not None:
+        if active.dtype != torch.bool:
+            raise TypeError(f"active must be bool, got {active.dtype}")
+        if active.shape != origins.shape[:1] or not active.is_contiguous():
+            raise ValueError(f"active must be a contiguous ({origins.shape[0]},) mask, "
+                             f"got shape {tuple(active.shape)}")
+        if active.device != qn.device:
+            raise ValueError(f"active on {active.device}, records on {qn.device}")
+
+
+def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
+               any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None):
+    """Trace a buffer of rays — origins and dirs (R, 3) f32 — → (t, nx, ny,
+    nz, tri) planes of (R,): the nearest hit, with t = 1e30, a zero normal
+    and tri = −1 on a miss. ``any_hit`` makes it an occlusion query: a ray
+    stops at its first accepted triangle and reports t = 0 with that
+    triangle's normal and id (``tri >= 0`` is the occlusion mask; which
+    occluder is reported depends on the visit order). Rays where the bool
+    mask ``active`` is False are not read (they may hold inf or NaN) and
+    return the miss values.
+
+    Launches K2a (K2b with ``any_hit``) for records on a CUDA device; runs
+    the plain version for records on the CPU; raises for any other device."""
+    qn = _check_qnodes(qnodes, leaf_k)
+    _check_rays(qn, origins, dirs, active)
+    if qn.device.type == "cpu":
+        return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
+                                    active=active)
+    if qn.device.type != "cuda":
+        raise ValueError(f"trace_rays runs on cuda or cpu tensors, got {qn.device}")
+    lib, _ = load_kernel("traverse_rays.cu")
+    r = origins.shape[0]
+    planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
+    tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
+    with torch.cuda.device(qn.device):
+        stream = torch.cuda.current_stream(qn.device).cuda_stream
+        err = lib.rt_trace_rays(
+            qn.data_ptr(), qn.shape[1], leaf_k, origins.data_ptr(), dirs.data_ptr(),
+            None if active is None else active.data_ptr(), r, int(bool(any_hit)),
+            *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+    name = "trace_rays_k2b" if any_hit else "trace_rays_k2a"
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return (*planes, tri)
+
+
+def trace_rays_reference(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
+                         any_hit: bool = False, leaf_k: int,
+                         active: torch.Tensor | None = None,
+                         counts: "TraversalCounts | None" = None):
+    """The plain torch version of K2a/K2b: the same per-ray traversal,
+    vectorized over chunks of the active rays. ``counts`` adds up the work
+    of the traversal (:class:`TraversalCounts`)."""
+    qn = _check_qnodes(qnodes, leaf_k)
+    _check_rays(qn, origins, dirs, active)
+    if active is None:
+        return _traverse_chunks(qn, origins, dirs, leaf_k, any_hit, counts)
+    r = origins.shape[0]
+    t = torch.full((r,), INF, dtype=torch.float32, device=qn.device)
+    nrm = [torch.zeros((r,), dtype=torch.float32, device=qn.device) for _ in range(3)]
+    tri = torch.full((r,), -1, dtype=torch.int32, device=qn.device)
+    idx = torch.nonzero(active).squeeze(1)
+    outs = _traverse_chunks(qn, origins[idx], dirs[idx], leaf_k, any_hit, counts)
+    for full, part in zip((t, *nrm, tri), outs):
+        full[idx] = part
+    return (t, *nrm, tri)
+
+
+class TraversalCounts:
+    """The work a plain-version traversal does, added up over its calls:
+    rays, node visits (one 32-word header read each), Möller–Trumbore tests
+    (one 12-word triangle record each), and the distinct headers and
+    triangle records read (the record bytes a traversal must move at least
+    once)."""
+
+    def __init__(self) -> None:
+        self.rays = 0
+        self.visits = 0
+        self.mt_tests = 0
+        self._nodes: list[torch.Tensor] = []
+        self._tris: list[torch.Tensor] = []
+
+    def add_visits(self, nodes: torch.Tensor) -> None:
+        """One visit of each record in ``nodes``."""
+        self.visits += nodes.numel()
+        self._nodes.append(torch.unique(nodes))
+
+    def add_tests(self, tri_slots: torch.Tensor) -> None:
+        """One MT test of each triangle record in ``tri_slots`` (node·4K +
+        slot·K + j)."""
+        self.mt_tests += tri_slots.numel()
+        self._tris.append(torch.unique(tri_slots))
+
+    def unique_record_bytes(self) -> int:
+        """Bytes of the distinct headers (128 each) and triangle records (48
+        each) read."""
+        def n_unique(parts):
+            return torch.unique(torch.cat(parts)).numel() if parts else 0
+        return 128 * n_unique(self._nodes) + 48 * n_unique(self._tris)
+
+
+def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
+                     any_hit: bool, counts: TraversalCounts | None):
+    """:func:`_traverse` over chunks of rays → (t, nx, ny, nz, tri) (R,)."""
+    dev = qn.device
+    r = d.shape[0]
+    outs = [torch.empty((r,), dtype=torch.float32, device=dev) for _ in range(4)]
+    tri = torch.empty((r,), dtype=torch.int32, device=dev)
+    for a in range(0, r, _REFERENCE_CHUNK):
+        b = min(a + _REFERENCE_CHUNK, r)
+        t_c, n_c, tri_c = _traverse(qn, o[a:b], d[a:b], leaf_k, any_hit, counts)
         outs[0][a:b] = t_c
         outs[1][a:b], outs[2][a:b], outs[3][a:b] = n_c.unbind(-1)
         tri[a:b] = tri_c
-    if pixels is None:
-        return (*(p.reshape(height, width) for p in outs), tri.reshape(height, width))
     return (*outs, tri)
 
 
-def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
-    """Per-ray closest-hit traversal of the 4-wide records, one stack pop
-    per ray and step → (t (R,), normal (R,3), tri (R,) int32)."""
+def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
+              any_hit: bool = False, counts: TraversalCounts | None = None):
+    """Per-ray traversal of the 4-wide records from origins ``o`` and
+    directions ``d`` (R, 3), one stack pop per ray and step → (t (R,),
+    normal (R,3), tri (R,) int32). Closest hit keeps the first minimum in
+    visit order; ``any_hit`` stops a ray at its first accepted triangle in
+    visit order with t = 0."""
     dev = qn.device
     r = d.shape[0]
     vbase, ibase, _ = rec_layout(leaf_k, 4)
@@ -274,6 +450,8 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
     stack_d = torch.zeros((r, STACK_MAX), dtype=torch.float32, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # the root is entry 0
     lanes = torch.arange(leaf_k, device=dev, dtype=torch.float32)
+    if counts is not None:
+        counts.rays += r
 
     while True:
         live = torch.nonzero(sp >= 0).squeeze(1)
@@ -287,34 +465,46 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
         if rays.numel() == 0:
             continue
 
+        if counts is not None:
+            counts.add_visits(node)
         hdr = qn[node, 0:32]
         best0 = best[rays]
-        rd, ri = d[rays], inv[rays]
+        ro, rd, ri = o[rays], d[rays], inv[rays]
         boxes = hdr[:, 0:24].reshape(-1, 4, 6)
-        t1 = (boxes[..., 0:3] - o) * ri[:, None, :]
-        t2 = (boxes[..., 3:6] - o) * ri[:, None, :]
+        t1 = (boxes[..., 0:3] - ro[:, None, :]) * ri[:, None, :]
+        t2 = (boxes[..., 3:6] - ro[:, None, :]) * ri[:, None, :]
         tmin = torch.minimum(t1, t2).amax(dim=-1)
         tmax = torch.maximum(t1, t2).amin(dim=-1)
         hit = (tmax >= tmin.clamp_min(0.0)) & (tmin < best0[:, None])
         refs, cnt = hdr[:, 24:28], hdr[:, 28:32]
 
         # leaf slots: every (slot, triangle) candidate at once; the first
-        # minimum in (slot, triangle) order is what the kernel's sequential
-        # strict t < best update keeps
+        # minimum (closest hit) or the first accepted triangle (any hit) in
+        # (slot, triangle) order is what the kernel's sequential loop keeps
         do_mt = hit & (refs < 0.0) & (refs > EMPTY_REF)
         mrow = torch.nonzero(do_mt.any(dim=1)).squeeze(1)
+        done = None
         if mrow.numel() > 0:
             mnode = node[mrow]
             recs = qn[mnode, vbase:vbase + 48 * leaf_k].reshape(-1, 4, leaf_k, 12)
             gate = do_mt[mrow][:, :, None] & (lanes < cnt[mrow][:, :, None])
-            tt, ok = moller_trumbore(o, rd[mrow][:, None, None, :], recs[..., 0:3],
-                                     recs[..., 3:6], recs[..., 6:9])
+            tt, ok = moller_trumbore(ro[mrow][:, None, None, :], rd[mrow][:, None, None, :],
+                                     recs[..., 0:3], recs[..., 3:6], recs[..., 6:9])
             cur = best0[mrow]
-            ok = gate & ok & (tt < cur[:, None, None])
-            tt = torch.where(ok, tt, torch.full_like(tt, INF)).reshape(-1, 4 * leaf_k)
-            j = torch.argmin(tt, dim=1)
-            tbest = tt.gather(1, j[:, None])[:, 0]
-            upd = tbest < cur
+            ok = (gate & ok & (tt < cur[:, None, None])).reshape(-1, 4 * leaf_k)
+            tt = tt.reshape(-1, 4 * leaf_k)
+            if any_hit:
+                j = torch.argmax(ok.to(torch.uint8), dim=1)
+                upd = ok.any(dim=1)
+                tbest = torch.zeros_like(cur)
+            else:
+                tt = torch.where(ok, tt, torch.full_like(tt, INF))
+                j = torch.argmin(tt, dim=1)
+                tbest = tt.gather(1, j[:, None])[:, 0]
+                upd = tbest < cur
+            if counts is not None:
+                cand = torch.nonzero(gate.reshape(-1, 4 * leaf_k))
+                counts.add_tests(mnode[cand[:, 0]] * (4 * leaf_k) + cand[:, 1])
             if bool(upd.any()):
                 urow, uj = mrow[upd], j[upd]
                 g = recs.reshape(-1, 4 * leaf_k, 12)[upd, uj, 9:12]
@@ -324,10 +514,15 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
                 best[dst] = tbest[upd]
                 nrm[dst] = g * g_inv[:, None]
                 tri[dst] = qn[node[urow], ibase + uj].to(torch.int32)
+                if any_hit:
+                    done = urow
 
         # internal slots that passed: push far→near by slab entry distance;
-        # a stable descending sort keeps slot order among equal keys
+        # a stable descending sort keeps slot order among equal keys. A ray
+        # that any-hit ends here: it pushes nothing and its stack empties.
         push = hit & (refs >= 0.0)
+        if done is not None:
+            push[done] = False
         skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
         _, order = torch.sort(skey, dim=1, descending=True, stable=True)
         for i in range(4):
@@ -340,4 +535,6 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int):
             sp[cr] = top
             stack_n[cr, top] = refs[can, cs].to(torch.int64)
             stack_d[cr, top] = tmin[can, cs]
+        if done is not None:
+            sp[rays[done]] = -1
     return best, nrm, tri

@@ -1,16 +1,26 @@
-"""PathTracer — the orchestrator of the primary-ray frame, with the public
-surface of ``raytracer_tpu/pathtracer.py::PathTracer``.
+"""PathTracer — the orchestrator of the primary-ray frame and of progressive
+path tracing, with the public surface of
+``raytracer_tpu/pathtracer.py::PathTracer``.
 
 The main path: ``set_scene`` → native SAH build with K-triangle clusters →
-BVH2→BVH4 collapse → wide nodes → supernode records on ``device`` →
-``render``: the traversal kernel K1a on a CUDA device (its plain torch
-version on the CPU) → Lambert shade → rgba8 → ``render_presented``'s
-tonemap. Scenes of at most 8 triangles trace brute force, as in the JAX
-package.
+BVH2→BVH4 collapse → wide nodes → supernode records on ``device``. Then:
+
+* ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
+  ``render_presented``'s tonemap;
+* ``render_progressive(bounces)``: one path-traced sample
+  (``render_pt.pt_sample_frame``: the jittered camera wave through K1b,
+  bounce waves through K2a, shadow rays through K2b) added to a running
+  mean that resets when the camera moves; ``bounces=0`` accumulates
+  jittered primary frames (K1b) with the Lambert shade instead;
+  ``present_progressive`` tonemaps the mean.
+
+On a CUDA device every traversal is a kernel; on the CPU each runs its plain
+torch version. Scenes of at most 8 triangles trace brute force, as in the
+JAX package.
 
 Ported so far: the SAH builder with clusters of K > 1 triangles. The other
-builders (LBVH, PLOC, single-triangle leaves), progressive path tracing and
-refit come with later slices and raise ``NotImplementedError``.
+builders (LBVH, PLOC, single-triangle leaves) and refit come with later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,18 +32,19 @@ import torch
 
 from .io import artifacts
 from .models.scene import Scene
-from .ops.camera import generate_rays
+from .ops.camera import generate_rays, generate_rays_jittered
 from .ops.cluster import build_sah2_clustered, records_pipeline, state_from_numpy
 from .ops.cuda.traverse import trace_tiles
 from .ops.shade import present_frame, quantize_rgba8, shade_lambert, triangle_normals
 from .ops.trace import trace_rays_brute
+from .render_pt import accumulate, pt_sample_frame
 
 __all__ = ["PathTracer"]
 
 _BRUTE_FORCE_MAX_TRIS = 8
 _LATER = ("only the SAH builder with K>1 triangle clusters is ported; "
-          "LBVH/PLOC builds and single-triangle leaves come with the torch "
-          "build chain (slice 2)")
+          "LBVH/PLOC builds and single-triangle leaves come with later slices "
+          "of the torch build chain (ROADMAP slices 3 and 7)")
 
 
 def _default_tetrahedron() -> np.ndarray:
@@ -75,6 +86,9 @@ class PathTracer:
         self.camera_position = [0.0, 0.0, 3.5]
         self.camera_quaternion = [0.0, 0.0, 0.0, 1.0]
         self.fov_degrees = 70.0
+        self.frame_count = 0
+        self._accum: torch.Tensor | None = None
+        self._accum_sig = None
 
         self.triangles_data: np.ndarray = _default_tetrahedron()
         self._tris_dev: torch.Tensor | None = None
@@ -134,19 +148,25 @@ class PathTracer:
 
     # -- rendering ---------------------------------------------------------------
 
+    def _brute(self) -> bool:
+        return len(self.triangles_data) <= _BRUTE_FORCE_MAX_TRIS
+
+    def _require_records(self) -> None:
+        if not self._brute() and self._qnodes is None:
+            raise RuntimeError("no acceleration structure: call set_scene, "
+                               "build_bvh or load_checkpoint first")
+
     def _render_planes(self):
         """(linear rgb (H,W,3), t (H,W), tri (H,W)) of the current frame."""
         w, h = self.width, self.height
-        if len(self.triangles_data) <= _BRUTE_FORCE_MAX_TRIS:
+        self._require_records()
+        if self._brute():
             o, d = generate_rays(w, h, self.camera_position, self.camera_quaternion,
                                  self.fov_degrees, device=self.device)
             t, tri = trace_rays_brute(self._tris_dev, o.reshape(-1, 3), d.reshape(-1, 3))
             t, tri = t.reshape(h, w), tri.reshape(h, w)
             rgb = shade_lambert(triangle_normals(self._tris_dev, tri), tri >= 0)
             return rgb, t, tri
-        if self._qnodes is None:
-            raise RuntimeError("no acceleration structure: call set_scene, "
-                               "build_bvh or load_checkpoint first")
         t, nx, ny, nz, tri = trace_tiles(
             self._qnodes, self.camera_position, self.camera_quaternion, w, h,
             self.fov_degrees, leaf_k=self.leaf_size)
@@ -161,6 +181,71 @@ class PathTracer:
     def render_presented(self) -> torch.Tensor:
         """render() + the tonemap present pass."""
         return present_frame(self.render())
+
+    # -- progressive path tracing --------------------------------------------------
+
+    def render_progressive(self, bounces: int = 3) -> torch.Tensor:
+        """One progressive sample added to the running-mean buffer, which
+        resets (with ``frame_count``) whenever the camera has moved since
+        the last call. Returns the mean linear radiance (H, W, 3) f32.
+
+        ``bounces=0``: a jittered primary frame with the Lambert shade (the
+        anti-aliasing mode). Otherwise a path-traced sample of that many
+        bounces. Its random numbers come from a ``torch.Generator`` on
+        ``device`` seeded with ``frame_count``: they differ from the JAX
+        package's ``jax.random`` stream, so the two converge to the same
+        image by different samples. Unlike the JAX package, no wave is
+        compacted."""
+        if bounces < 0:
+            raise ValueError("bounces must be >= 0")
+        self._require_records()
+        cam_sig = (tuple(self.camera_position), tuple(self.camera_quaternion))
+        if self._accum_sig != cam_sig or self._accum is None:
+            self._accum_sig = cam_sig
+            self._accum = torch.zeros((self.height, self.width, 3), dtype=torch.float32,
+                                      device=self.device)
+            self.frame_count = 0
+
+        if bounces == 0:
+            sample = self._primary_sample_jittered()
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.frame_count)
+            brute = self._brute()
+            sample = pt_sample_frame(
+                None if brute else self._qnodes, self._tris_dev, self.camera_position,
+                self.camera_quaternion, self.width, self.height, bounces=bounces,
+                fov_degrees=self.fov_degrees, leaf_k=self.leaf_size, brute=brute,
+                tile_primary=not brute, generator=gen)
+        self._accum = accumulate(self._accum, sample, self.frame_count)
+        self.frame_count += 1
+        return self._accum
+
+    def _primary_sample_jittered(self) -> torch.Tensor:
+        """One primary frame at the ``subpixel_hash01`` offsets of seed
+        ``frame_count + 1``, Lambert-shaded → linear radiance (H, W, 3)."""
+        w, h, seed = self.width, self.height, self.frame_count + 1
+        if self._brute():
+            o, d = generate_rays_jittered(w, h, self.camera_position, self.camera_quaternion,
+                                          seed, self.fov_degrees, device=self.device)
+            _, tri = trace_rays_brute(self._tris_dev, o.reshape(-1, 3), d.reshape(-1, 3))
+            tri = tri.reshape(h, w)
+            return shade_lambert(triangle_normals(self._tris_dev, tri), tri >= 0)
+        _, nx, ny, nz, tri = trace_tiles(
+            self._qnodes, self.camera_position, self.camera_quaternion, w, h,
+            self.fov_degrees, leaf_k=self.leaf_size, jitter=True, jitter_seed=seed)
+        return shade_lambert(torch.stack([nx, ny, nz], dim=-1), tri >= 0)
+
+    def present_progressive(self) -> torch.Tensor:
+        """Tonemap the accumulation buffer → display rgba8 (H, W, 4): HDR
+        Reinhard x/(x+1) and gamma 1/2.2."""
+        if self._accum is None:
+            raise RuntimeError("nothing accumulated: call render_progressive first")
+        c = self._accum
+        return quantize_rgba8(torch.pow(c / (c + 1.0), 1.0 / 2.2))
+
+    def set_frame_count(self, frame_count: int) -> None:
+        self.frame_count = frame_count
 
     # -- camera state ----------------------------------------------------------
 

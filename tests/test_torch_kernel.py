@@ -1,4 +1,6 @@
-"""The traversal kernel K1a's wrapper, and K1a against its plain torch version.
+"""The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K2a/K2b
+``trace_rays``), their build, and each kernel against its plain torch
+version.
 
 Needs neither JAX nor the JAX package, so the tests marked ``cuda`` run on
 a machine with a card and only the port:
@@ -7,34 +9,129 @@ a machine with a card and only the port:
 
 (``--noconftest``: the suite's conftest.py configures JAX). Without a card
 they skip; the wrapper's CPU path and checks are tested everywhere.
-Tolerances: the traversal rule of ``torch_parity``.
+Tolerances: the traversal rule of ``torch_parity`` for closest hit (K1a,
+K1b, K2a); the occlusion mask equal on every ray for any hit (K2b).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from raytracer_tpu_torch.ops.camera import generate_rays_jittered
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
-from raytracer_tpu_torch.ops.cuda import traverse
-from torch_parity import CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, seeded_scene
+from raytracer_tpu_torch.ops.cuda import build, traverse
+from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, ray_buffer,
+                          room_scene, seeded_scene)
+
+SUN = (np.float32([1.0, 1.5, 1.0]) / np.linalg.norm([1.0, 1.5, 1.0])).astype(np.float32)
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1a has no CPU mode")
+        pytest.skip("needs a CUDA card: the traversal kernels have no CPU mode")
     return torch.device("cuda")
 
 
+def room(device, k: int = 8, n: int = 4096):
+    """Records of the room scene on ``device`` and a seeded ray buffer."""
+    tris = room_scene()
+    qn = records_pipeline(build_sah2_clustered(tris, k, device)[0])
+    o, d = ray_buffer(qn, k, n)
+    return tris, qn, torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+
+
 def test_cpu_records_run_the_plain_version():
-    """On the CPU the wrapper returns the plain version's planes and
-    launches nothing."""
+    """On the CPU the wrappers return the plain versions' planes and launch
+    nothing."""
     tris = seeded_scene(2)
     qn = records_pipeline(build_sah2_clustered(tris, 8, "cpu")[0])
-    before = traverse.LAUNCHES
-    planes = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 48, 32, FOV, leaf_k=8)
-    ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, 48, 32, FOV, leaf_k=8)
+    before = dict(traverse.LAUNCHES)
+    for jitter in (False, True):
+        planes = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 48, 32, FOV, leaf_k=8,
+                                      jitter=jitter, jitter_seed=5)
+        ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, 48, 32, FOV, leaf_k=8,
+                                             jitter=jitter, jitter_seed=5)
+        assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+    _, qn, o, d = room("cpu", n=512)
+    for any_hit in (False, True):
+        rays = traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=8)
+        ref = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=8)
+        assert all(torch.equal(a, b) for a, b in zip(rays, ref))
     assert traverse.LAUNCHES == before
-    assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+
+
+def test_jittered_tiles_differ_by_seed_and_match_the_jittered_rays():
+    """K1b's plain version traces the rays of generate_rays_jittered (the
+    same seed gives the same planes, another seed other ones), and K1a's is
+    the same function at the pixel centres."""
+    tris = seeded_scene(2)
+    qn = records_pipeline(build_sah2_clustered(tris, 8, "cpu")[0])
+    w, h = 40, 24
+    a = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=8, jitter=True,
+                             jitter_seed=9)
+    b = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=8, jitter=True,
+                             jitter_seed=10)
+    centre = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=8)
+    assert not torch.equal(a[0], b[0]) and not torch.equal(a[0], centre[0])
+    o, d = generate_rays_jittered(w, h, CAM_POS, CAM_QUAT, 9, FOV, device="cpu")
+    rays = traverse.trace_rays(qn, o.reshape(-1, 3).contiguous(), d.reshape(-1, 3), leaf_k=8)
+    assert all(torch.equal(x.reshape(-1), y) for x, y in zip(a, rays))
+
+
+def test_active_mask_skips_nan_rays_on_cpu():
+    """Inactive rays are never read: NaN there changes nothing, and they
+    return t = 1e30, a zero normal and tri = -1."""
+    _, qn, o, d = room("cpu", n=1024)
+    active = torch.from_numpy(np.random.default_rng(1).random(1024) < 0.6)
+    o_nan, d_nan = o.clone(), d.clone()
+    o_nan[~active], d_nan[~active] = float("nan"), float("inf")
+    for any_hit in (False, True):
+        full = traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=8)
+        masked = traverse.trace_rays(qn, o_nan, d_nan, any_hit=any_hit, leaf_k=8,
+                                     active=active)
+        assert all(torch.equal(m[active], f[active]) for m, f in zip(masked, full))
+        assert (masked[0][~active] == 1e30).all() and (masked[4][~active] == -1).all()
+        assert all((p[~active] == 0).all() for p in masked[1:4])
+
+
+def test_trace_rays_rejects_bad_inputs():
+    qn = torch.zeros((4, traverse.rec_layout(8, 4)[2]), dtype=torch.float32)
+    o = torch.zeros((16, 3))
+    with pytest.raises(TypeError):
+        traverse.trace_rays(qn, o.double(), o, leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, torch.zeros((16, 4)), torch.zeros((16, 4)), leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, torch.zeros((3, 16)).t(), o, leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, o, torch.zeros((8, 3)), leaf_k=8)
+    with pytest.raises(TypeError):
+        traverse.trace_rays(qn, o, o, leaf_k=8, active=torch.ones(16, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, o, o, leaf_k=8, active=torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, o, o, leaf_k=8, active=torch.ones(32, dtype=torch.bool)[::2])
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn.to("meta"), o, o, leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 8, 8, leaf_k=8, jitter=True,
+                             jitter_seed=1 << 24)
+
+
+def test_build_hash_covers_included_headers(tmp_path):
+    """A change to a header that a source includes (and only to it) changes
+    the library's hash, so the next build compiles anew. Needs no nvcc."""
+    src, hdr = tmp_path / "k.cu", tmp_path / "core.cuh"
+    src.write_text('#include <stdint.h>\n#include "core.cuh"\nint f() { return g(); }\n')
+    hdr.write_text("inline int g() { return 1; }\n")
+    assert build.local_includes(src) == [hdr.resolve()]
+    before = build.content_hash([src], build.NVCC_FLAGS)
+    assert build.content_hash([src], build.NVCC_FLAGS) == before
+    hdr.write_text("inline int g() { return 2; }\n")
+    assert build.content_hash([src], build.NVCC_FLAGS) != before
+    real = build.local_includes(build.CSRC / "traverse_rays.cu")
+    assert [p.name for p in real] == ["traverse_core.cuh"]
 
 
 def test_trace_tiles_window_matches_full_frame():
@@ -71,10 +168,10 @@ def test_kernel_matches_reference_on_card(cuda_device, k):
     tris = seeded_scene(4)
     w, h = 192, 128
     qn = records_pipeline(build_sah2_clustered(tris, k, cuda_device)[0])
-    before = traverse.LAUNCHES
+    before = traverse.LAUNCHES["trace_tiles_k1a"]
     ours = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k)
     torch.cuda.synchronize()
-    assert traverse.LAUNCHES == before + 1
+    assert traverse.LAUNCHES["trace_tiles_k1a"] == before + 1
     ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k)
     ours, ref = [p.cpu() for p in ours], [p.cpu() for p in ref]
     assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(),
@@ -91,3 +188,76 @@ def test_kernel_refuses_strided_records(cuda_device):
     qn = torch.zeros((4, traverse.rec_layout(8, 4)[2]), device=cuda_device)
     with pytest.raises(ValueError):
         traverse.trace_tiles(qn[:, ::2], CAM_POS, CAM_QUAT, 8, 8, leaf_k=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_jittered_kernel_matches_reference_on_card(cuda_device, k):
+    """K1b vs its plain torch version on the card, with a 22-bit seed."""
+    tris = seeded_scene(4)
+    w, h, seed = 192, 128, (1 << 22) - 7
+    qn = records_pipeline(build_sah2_clustered(tris, k, cuda_device)[0])
+    before = dict(traverse.LAUNCHES)
+    ours = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k, jitter=True,
+                                jitter_seed=seed)
+    torch.cuda.synchronize()
+    assert traverse.LAUNCHES["trace_tiles_k1b"] == before["trace_tiles_k1b"] + 1
+    assert traverse.LAUNCHES["trace_tiles_k1a"] == before["trace_tiles_k1a"]
+    ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                         jitter=True, jitter_seed=seed)
+    ours, ref = [p.cpu() for p in ours], [p.cpu() for p in ref]
+    dirs = generate_rays_jittered(w, h, CAM_POS, CAM_QUAT, seed, FOV, device="cpu")[1]
+    assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                        dirs.reshape(-1, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_ray_kernels_match_reference_on_card(cuda_device, k):
+    """K2a by the traversal rule with per-ray origins and K2b's occlusion
+    mask against their plain versions on the card, with and without an
+    active mask (inactive rays hold NaN); each wrapper counts one launch."""
+    tris, qn, o, d = room(cuda_device, k)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(o).contiguous()
+    active = torch.from_numpy(np.random.default_rng(2).random(o.shape[0]) < 0.7).to(cuda_device)
+    o_nan = torch.where(active[:, None], o, torch.full_like(o, float("nan")))
+    before = dict(traverse.LAUNCHES)
+    k2a = traverse.trace_rays(qn, o, d, leaf_k=k)
+    k2a_masked = traverse.trace_rays(qn, o_nan, d, leaf_k=k, active=active)
+    k2b = traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=k)
+    k2b_masked = traverse.trace_rays(qn, o_nan, sun, any_hit=True, leaf_k=k, active=active)
+    torch.cuda.synchronize()
+    assert traverse.LAUNCHES["trace_rays_k2a"] == before["trace_rays_k2a"] + 2
+    assert traverse.LAUNCHES["trace_rays_k2b"] == before["trace_rays_k2b"] + 2
+    assert traverse.LAUNCHES["trace_tiles_k1a"] == before["trace_tiles_k1a"]
+
+    ref = [p.cpu() for p in traverse.trace_rays_reference(qn, o, d, leaf_k=k)]
+    k2a = [p.cpu() for p in k2a]
+    assert_trace_parity(k2a, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                        d.cpu(), o.cpu().numpy())
+    act = active.cpu()
+    for m, f in zip(k2a_masked, k2a):
+        assert torch.equal(m.cpu()[act], f[act])
+    assert (k2a_masked[4].cpu()[~act] == -1).all() and (k2a_masked[0].cpu()[~act] == 1e30).all()
+
+    ref_b = traverse.trace_rays_reference(qn, o, sun, any_hit=True, leaf_k=k)
+    occ = (k2b[4] >= 0).cpu()
+    assert torch.equal(occ, (ref_b[4] >= 0).cpu())
+    assert 0.05 < float(occ.float().mean()) < 0.95
+    assert (k2b[0].cpu()[occ] == 0).all() and (k2b[0].cpu()[~occ] == 1e30).all()
+    assert torch.equal((k2b_masked[4] >= 0).cpu(), occ & act)
+
+
+@pytest.mark.cuda
+def test_ray_kernel_refuses_inputs_on_card(cuda_device):
+    """The wrapper checks device, type, shape and contiguity on the card."""
+    qn = torch.zeros((4, traverse.rec_layout(8, 4)[2]), device=cuda_device)
+    o = torch.zeros((16, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, o.cpu(), o, leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, o, o, leaf_k=8, active=torch.ones(16, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        traverse.trace_rays(qn, o.half(), o, leaf_k=8)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(qn, torch.zeros((3, 16), device=cuda_device).t(), o, leaf_k=8)

@@ -11,6 +11,7 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from raytracer_tpu.ops.cluster import build_sah2_clustered as jax_build_sah2_clustered
@@ -22,6 +23,7 @@ from raytracer_tpu.ops.pallas.traverse import (
 )
 from raytracer_tpu.ops.trace import make_wide_bvh as jax_make_wide_bvh
 from raytracer_tpu.ops.trace import trace_rays_brute as jax_trace_rays_brute
+from raytracer_tpu_torch.ops.camera import generate_rays_jittered
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
 from raytracer_tpu_torch.ops.cuda import traverse
 from raytracer_tpu_torch.ops.trace import trace_rays_brute
@@ -58,20 +60,27 @@ def test_ray_directions_match_jax_rsqrt():
     np.testing.assert_allclose(np.linalg.norm(ours, axis=-1), 1.0, atol=1e-6)
 
 
-def test_reference_matches_pallas_interpret():
+@pytest.mark.parametrize("jitter,size", [(False, 64), (True, 32)], ids=["k1a", "k1b"])
+def test_reference_matches_pallas_interpret(jitter, size):
     """trace_tiles_reference vs the Pallas kernel (interpret mode) on the
-    same K=8 records, 64×64."""
+    same K=8 records: 64×64 at the pixel centres (K1a), 32×32 jittered with
+    a 22-bit seed (K1b)."""
     tris = seeded_scene(3)
     qn = jax_records(tris, 8)
-    w = h = 64
+    w = h = size
+    seed = (1 << 22) - 3
     ref = trace_tiles_pallas(jnp.asarray(qn), jnp.asarray(CAM_POS, jnp.float32),
                              jnp.asarray(CAM_QUAT, jnp.float32), w, h, FOV,
-                             interpret=True, leaf_k=8)
+                             interpret=True, leaf_k=8, jitter=jitter, jitter_seed=seed)
     ours = traverse.trace_tiles_reference(torch.from_numpy(qn), CAM_POS, CAM_QUAT, w, h,
-                                          FOV, leaf_k=8)
+                                          FOV, leaf_k=8, jitter=jitter, jitter_seed=seed)
     assert all(p.shape == (h, w) for p in ours) and ours[4].dtype == torch.int32
     ref_n = np.stack([np.asarray(p) for p in ref[1:4]], -1)
-    assert_trace_parity(ours, ref[0], ref[4], ref_n, tris, image_dirs(w, h))
+    dirs = image_dirs(w, h)
+    if jitter:
+        dirs = generate_rays_jittered(w, h, CAM_POS, CAM_QUAT, seed, FOV,
+                                      device="cpu")[1].reshape(-1, 3)
+    assert_trace_parity(ours, ref[0], ref[4], ref_n, tris, dirs)
     assert 0.2 < float((ours[4] >= 0).float().mean()) < 0.9
 
 

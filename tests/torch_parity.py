@@ -3,10 +3,11 @@
 Imports neither JAX nor the JAX package, so the tests of the CUDA kernel can
 run on a machine that has only the port.
 
-The rule for every traversal comparison:
-* tri is exact, except for ties — a pixel where both triangles are accepted
-  hits of that ray and their t values agree within rtol 1e-6; ties are
-  counted and must be <= 0.1% of pixels;
+The rule for every closest-hit traversal comparison, on rays from one
+camera origin or from per-ray origins:
+* tri is exact, except for ties — a ray where both triangles are accepted
+  hits of it and their t values agree within rtol 1e-6; ties are counted
+  and must be <= 0.1% of rays;
 * t within rtol 1e-5 on hits, exactly 1e30 on misses;
 * normals unit within 1e-4 on hits and zero on misses, and within atol 1e-5
   of the reference's.
@@ -17,7 +18,9 @@ import torch
 
 from raytracer_tpu_torch.models.scene import Scene
 from raytracer_tpu_torch.ops.camera import INF, primary_dirs
+from raytracer_tpu_torch.ops.cuda.traverse import trace_rays_reference
 from raytracer_tpu_torch.ops.trace import moller_trumbore
+from raytracer_tpu_torch.render_pt import _cosine_sample
 from raytracer_tpu_torch.utils import procgen
 
 CAM_POS = (0.15, -0.1, 2.5)
@@ -41,14 +44,65 @@ def seeded_scene(subdivisions: int) -> np.ndarray:
     return scene.triangles
 
 
+def room_scene() -> np.ndarray:
+    """An open-front room (floor, ceiling, back and side walls of a 2-unit
+    box, two triangles each, as in the Cornell box) around an icosphere(2):
+    a scene where bounce rays hit something."""
+    s = 1.0
+    walls = [
+        [[-s, -s, -s], [s, -s, -s], [s, -s, s], [-s, -s, s]],
+        [[-s, s, -s], [-s, s, s], [s, s, s], [s, s, -s]],
+        [[-s, -s, -s], [-s, s, -s], [s, s, -s], [s, -s, -s]],
+        [[-s, -s, -s], [-s, -s, s], [-s, s, s], [-s, s, -s]],
+        [[s, -s, -s], [s, s, -s], [s, s, s], [s, -s, s]],
+    ]
+    quads = np.asarray(walls, np.float32)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    ball = procgen.make_icosphere(2, 0.35) + np.float32([0.2, -0.3, 0.1])
+    return np.concatenate([tris, ball]).astype(np.float32)
+
+
+ROOM_CAM = (0.0, 0.1, 2.2)
+
+
+def ray_buffer(qnodes: torch.Tensor, leaf_k: int, n: int, seed: int = SEED):
+    """(origins, dirs) (n, 3) f32 of two kinds, from a seed: bounce-like
+    rays — from the hit points of camera rays into the room, offset 1e-4
+    along the ray-facing normal, in cosine-sampled directions — then rays
+    from a sphere of radius 3 outside the scene toward points inside it."""
+    rng = np.random.default_rng(seed)
+    m = n // 2
+    d = (rng.normal(size=(m, 3)) * [0.3, 0.3, 0.1] + [0.0, 0.0, -1.0]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(np.float32(ROOM_CAM), (m, 3)).copy()
+    t, nx, ny, nz, tri = trace_rays_reference(qnodes.cpu(), torch.from_numpy(o),
+                                              torch.from_numpy(d), leaf_k=leaf_k)
+    hit = (tri >= 0).numpy()
+    nrm = torch.stack([nx, ny, nz], -1).numpy()
+    nrm *= np.where((nrm * d).sum(-1, keepdims=True) > 0, -1.0, 1.0).astype(np.float32)
+    p = o + d * t.numpy()[:, None] + nrm * np.float32(1e-4)
+    u1, u2 = (torch.from_numpy(rng.random(m).astype(np.float32)) for _ in range(2))
+    bd = _cosine_sample(torch.from_numpy(nrm), u1, u2).numpy()
+    k = n - int(hit.sum())
+    oo = rng.normal(size=(k, 3))
+    oo = oo / np.linalg.norm(oo, axis=1, keepdims=True) * 3.0
+    od = rng.uniform(-0.8, 0.8, size=(k, 3)) - oo
+    od /= np.linalg.norm(od, axis=1, keepdims=True)
+    origins = np.concatenate([p[hit], oo]).astype(np.float32)
+    dirs = np.concatenate([bd[hit], od]).astype(np.float32)
+    return origins, dirs
+
+
 def image_dirs(w: int, h: int, quat=CAM_QUAT) -> torch.Tensor:
     py, px = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     return primary_dirs(px.reshape(-1), py.reshape(-1), w, h, quat, FOV)
 
 
-def assert_hits_parity(t, tri, ref_t, ref_tri, tris: np.ndarray, dirs: torch.Tensor):
-    """tri and t of the port against a reference's, by the rule above;
-    returns the mask of pixels whose tri agree."""
+def assert_hits_parity(t, tri, ref_t, ref_tri, tris: np.ndarray, dirs: torch.Tensor,
+                       origins=CAM_POS):
+    """tri and t of the port against a reference's, by the rule above, for
+    rays from ``origins`` — one point (3,) for all rays, or (R, 3) — along
+    ``dirs`` (R, 3); returns the mask of rays whose tri agree."""
     t, tri = np.asarray(t).reshape(-1), np.asarray(tri).reshape(-1)
     ref_t, ref_tri = np.asarray(ref_t).reshape(-1), np.asarray(ref_tri).reshape(-1)
     diff = np.nonzero(tri != ref_tri)[0]
@@ -56,7 +110,8 @@ def assert_hits_parity(t, tri, ref_t, ref_tri, tris: np.ndarray, dirs: torch.Ten
         assert (tri[diff] >= 0).all() and (ref_tri[diff] >= 0).all(), \
             "hit/miss disagreement is never a tie"
         tt = torch.from_numpy(tris)
-        o = torch.tensor(CAM_POS, dtype=torch.float32)
+        o = torch.as_tensor(np.asarray(origins, np.float32))
+        o = o[torch.from_numpy(diff)] if o.dim() == 2 else o
 
         def mt(ids):
             v = tt[torch.from_numpy(ids).long()]
@@ -75,11 +130,13 @@ def assert_hits_parity(t, tri, ref_t, ref_tri, tris: np.ndarray, dirs: torch.Ten
     return same
 
 
-def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: torch.Tensor):
+def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: torch.Tensor,
+                        origins=CAM_POS):
     """The rule above on the port's (t, nx, ny, nz, tri) planes against a
-    reference's t, tri and (optional) normals."""
+    reference's t, tri and (optional) normals, for rays from ``origins``
+    (one point or (R, 3)) along ``dirs``."""
     tri = ours[4].reshape(-1).numpy()
-    same = assert_hits_parity(ours[0].numpy(), tri, ref_t, ref_tri, tris, dirs)
+    same = assert_hits_parity(ours[0].numpy(), tri, ref_t, ref_tri, tris, dirs, origins)
     n = np.stack([p.reshape(-1).numpy() for p in ours[1:4]], -1)
     ln = np.linalg.norm(n, axis=-1)
     np.testing.assert_allclose(ln[tri >= 0], 1.0, atol=UNIT_ATOL, err_msg="unit normals on hits")
