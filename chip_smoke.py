@@ -26,15 +26,18 @@ Phases, each printing what it measures; the first failure exits non-zero:
    four times and present_progressive, counting the launches (per sample 1
    K1b, bounces−1 K2a, bounces K2b), the frame count, a finite
    non-negative buffer and the reset on a camera move; then
-   render_progressive(bounces=0) four times (4 K1b);
+   render_progressive(bounces=0) four times (4 K1b); and one sample of each
+   kind under torch's sync debug mode, which fails on any host-device
+   synchronisation;
 8. K2a and K2b against their plain versions on every wave of one 1080p
    sample: the rays and active mask of each wave are captured, and 65,536
    seeded active rays of each are traced by the plain version;
 9. one whole 256×256 sample of the dragon through the kernels and through
    the plain versions, from the same generator state;
-10. times with CUDA events (per frame, per wave, per progressive sample,
-   each plain version on its subset), one synchronised render_progressive
-   on the host clock, peak device memory, and each kernel's bound;
+10. times with CUDA events (each kernel and its plain version on the same
+   checked rays, each kernel on its whole frame or wave, each progressive
+   sample), one synchronised render_progressive on the host clock, peak
+   device memory, and each kernel's bound;
 11. where a progressive sample's time goes: torch.profiler over a few
    samples — device busy time per sample, its top kernels, and the
    device's idle share of the wall time.
@@ -44,18 +47,27 @@ tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
 rtol 1e-5 on hits and 1e30 on misses, normals within atol 1e-5 of the
 reference and zero on misses; for any hit (K2b), the occlusion mask equal
-on every ray; for the whole sample, radiance within atol 1e-5 on >= 99.9%
+on every ray, t 0 where occluded and 1e30 elsewhere, and normals within
+atol 1e-5 where both report the same occluder; for the whole sample, radiance within atol 1e-5 on >= 99.9%
 of the pixels.
 
 Bounds: a kernel's least time on the card is the larger of its bytes over
 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM's published
 peaks). Bytes: each ray read once (24 bytes; K2 only), each output written
 once (20 bytes a ray), and the distinct record headers and triangle
-records that a seeded subset of the rays reads (a lower bound on what the
-whole wave reads). Operations: 100 per node visit (four slab tests) and 54
-per Möller–Trumbore test, counted by the plain version on that subset and
-scaled to the wave. No PyTorch call computes BVH traversal, so there is no
+records that the rays read. Operations: 100 per node visit (four slab
+tests) and 54 per Möller–Trumbore test, as the plain version counts them
+(an any-hit ray stops testing at its first accepted triangle). On the
+checked rays the counts are exact; for a whole frame or wave they are
+counted on a seeded subset and scaled to it (its distinct record bytes are
+then a lower bound). No PyTorch call computes BVH traversal, so there is no
 library yardstick (library_ms is null).
+
+The kernels line: ``ms``, ``plain_ms`` and ``bound_ms`` are all on the
+same ``rays`` — the 256×256 crop for K1a/K1b, the checked subset of each
+wave for K2a/K2b (summed over the waves of one 1080p sample) — and
+``path_ms``/``path_bound_ms`` on the main path's whole frame or waves
+(``path_rays`` rays, active lanes for K2).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -165,14 +177,22 @@ def check_against(kernel, ref, tris, origins, dirs, what: str) -> dict:
 
 def check_occlusion(kernel, ref, what: str) -> dict:
     """K2b's contract: the occlusion mask (tri >= 0) equal on every ray, t
-    = 0 where occluded and 1e30 elsewhere."""
+    = 0 where occluded and 1e30 elsewhere; and where both report the same
+    occluder, its normal within the tolerance. The error is over t on
+    every ray and the normals where tri agrees."""
     occ, ref_occ = kernel[4] >= 0, ref[4] >= 0
     if not torch.equal(occ, ref_occ):
         fail(f"{what}: occlusion mask differs on {int((occ != ref_occ).sum())} rays")
     if not bool((kernel[0][occ] == 0).all() & (kernel[0][~occ] == 1e30).all()):
         fail(f"{what}: t must be 0 on occluded rays and 1e30 elsewhere")
+    same = kernel[4] == ref[4]
+    n_err = (torch.stack(kernel[1:4], -1)[same] - torch.stack(ref[1:4], -1)[same]).abs()
+    if n_err.numel() and float(n_err.max()) > NORMAL_ATOL:
+        fail(f"{what}: normals of the same occluder beyond atol {NORMAL_ATOL}")
+    max_err = max(float((kernel[0] - ref[0]).abs().max()),
+                  float(n_err.max()) if n_err.numel() else 0.0)
     stats = {"rays": occ.numel(), "mask_equal": 1.0, "occluded": float(occ.float().mean()),
-             "max_abs_err": 0.0}
+             "tri_equal": float(same.float().mean()), "max_abs_err": max_err}
     log(f"[check] {what}: {json.dumps(stats)}")
     return stats
 
@@ -354,8 +374,11 @@ def main() -> None:
     rows = torch.arange(r0, r0 + CROP, device=dev)
     cols = torch.arange(c0, c0 + CROP, device=dev)
     crop_pix = (rows[:, None] * WIDTH + cols[None, :]).reshape(-1)
+    crop_counts = {name: traverse.TraversalCounts()
+                   for name in ("trace_tiles_k1a", "trace_tiles_k1b")}
     ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
-                                         leaf_k=LEAF_K, pixels=crop_pix)
+                                         leaf_k=LEAF_K, pixels=crop_pix,
+                                         counts=crop_counts["trace_tiles_k1a"])
     ker = [p.reshape(-1)[crop_pix] for p in planes]
     origin = torch.tensor(FRAMED, dtype=torch.float32, device=dev)
     crop_dirs = primary_dirs(crop_pix % WIDTH, crop_pix // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
@@ -394,7 +417,8 @@ def main() -> None:
                                    jitter=True, jitter_seed=JITTER_SEED)
     jref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
                                           pixels=crop_pix, jitter=True,
-                                          jitter_seed=JITTER_SEED)
+                                          jitter_seed=JITTER_SEED,
+                                          counts=crop_counts["trace_tiles_k1b"])
     checks["trace_tiles_k1b"] = check_against(
         [p.reshape(-1)[crop_pix] for p in jplanes], jref, tris, origin,
         jittered_dirs(crop_pix, JITTER_SEED), "K1b vs plain, jittered 256x256 crop")
@@ -445,6 +469,16 @@ def main() -> None:
         fail(f"bounces=0 launches {aa_launches}, expected {SAMPLES} K1b")
     if pt.frame_count != SAMPLES or not bool(torch.isfinite(aa).all() & (aa >= 0).all()):
         fail("bounces=0: wrong frame_count or a non-finite/negative buffer")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt.render_progressive(bounces=BOUNCES)
+        pt.render_progressive(bounces=0)
+    except RuntimeError as exc:
+        fail(f"render_progressive waited for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[progressive] render_progressive(bounces=3) and (bounces=0) issued without a "
+        "host-device synchronisation")
 
     # 8. K2a/K2b vs their plain versions on every wave of one 1080p sample
     waves = []
@@ -483,26 +517,33 @@ def main() -> None:
             fail(f"wave {i} ({name}): inactive lanes must return the miss values")
         pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
         o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
-        ref, plain_ms = timed_once(lambda: traverse.trace_rays_reference(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K))
         counts = traverse.TraversalCounts()
-        traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
-                                      counts=counts)
+        ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
+                                            counts=counts)
         kout = [p[pick] for p in out]
-        what = f"{name} vs plain, wave {i}, {pick.numel()} of {live.numel()} active rays"
+        n, n_live = pick.numel(), live.numel()
+        what = f"{name} vs plain, wave {i}, {n} of {n_live} active rays"
         stats = (check_occlusion(kout, ref, what) if w["any_hit"]
                  else check_against(kout, ref, tris, o, d, what))
-        ms = statistics.median(cuda_ms(lambda w=w: traverse.trace_rays(
+        plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays_reference(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), 1, 3))
+        ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), FRAMES, 3))
+        path_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
             qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"]),
             3, 3))
-        n_live = live.numel()
-        b_ms, b_by, detail = bound(counts, n_live / pick.numel(),
-                                   r * OUT_BYTES + n_live * RAY_BYTES + r)
+        b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
+        pb_ms, pb_by, p_detail = bound(counts, n_live / n,
+                                       r * OUT_BYTES + n_live * RAY_BYTES + r)
         wave_stats[name].append({**stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                 "bound_by": b_by, "active": n_live})
-        log(f"[time] wave {i} {name}: {ms:.4f} ms for {r} lanes ({n_live} active) = "
-            f"{n_live / ms / 1e3:.2f} M active rays/s; plain {plain_ms:.2f} ms on "
-            f"{pick.numel()} rays; bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+                                 "bound_detail": detail, "path_ms": path_ms,
+                                 "path_bound_ms": pb_ms, "path_bound_detail": p_detail,
+                                 "active": n_live})
+        log(f"[time] wave {i} {name} on its {n} checked rays: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+        log(f"[time] wave {i} {name} whole: {path_ms:.4f} ms for {r} lanes ({n_live} active) "
+            f"= {n_live / path_ms / 1e3:.2f} M active rays/s; bound {pb_ms:.4f} ms by {pb_by} "
+            f"{json.dumps(p_detail)} on {card}")
     for name, n_waves in (("trace_rays_k2a", BOUNCES - 1), ("trace_rays_k2b", BOUNCES)):
         if len(wave_stats[name]) != n_waves:
             fail(f"captured {len(wave_stats[name])} {name} waves, expected {n_waves}")
@@ -555,19 +596,20 @@ def main() -> None:
     timings["jittered"] = statistics.median(jreps)
     log(f"[time] K1b framed 1920x1080 (the camera wave): {timings['jittered']:.4f} ms/frame "
         f"(reps {[round(r, 4) for r in jreps]}) on {card}")
-    crop_reps = cuda_ms(lambda: traverse.trace_tiles(
-        qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
-        row_offset=r0, col_offset=c0), FRAMES, REPEATS)
-    crop_ms = statistics.median(crop_reps)
-    plain_ms = {}
+    crop_ms, plain_ms, crop_bounds = {}, {}, {}
     for name, jitter in (("trace_tiles_k1a", False), ("trace_tiles_k1b", True)):
+        crop_ms[name] = statistics.median(cuda_ms(lambda jitter=jitter: traverse.trace_tiles(
+            qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
+            row_offset=r0, col_offset=c0, jitter=jitter, jitter_seed=JITTER_SEED),
+            FRAMES, REPEATS))
         plain_ms[name] = statistics.median(cuda_ms(lambda jitter=jitter: (
             traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
                                            leaf_k=LEAF_K, pixels=crop_pix, jitter=jitter,
                                            jitter_seed=JITTER_SEED)), 1, 3))
-    log(f"[time] framed 256x256 crop: K1a {crop_ms:.4f} ms; plain torch K1a "
-        f"{plain_ms['trace_tiles_k1a']:.2f} ms, K1b {plain_ms['trace_tiles_k1b']:.2f} ms "
-        f"(medians of 3) on {card}")
+        crop_bounds[name] = bound(crop_counts[name], 1.0, crop_pix.numel() * OUT_BYTES)
+        log(f"[time] {name} framed 256x256 crop: kernel {crop_ms[name]:.4f} ms, plain torch "
+            f"{plain_ms[name]:.2f} ms (median of 3), bound {crop_bounds[name][0]:.4f} ms by "
+            f"{crop_bounds[name][1]} {json.dumps(crop_bounds[name][2])} on {card}")
     window = traverse.trace_tiles(qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K,
                                   raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0)
     if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
@@ -603,7 +645,7 @@ def main() -> None:
         f"{(time.perf_counter() - t0) * 1e3:.4f} ms host clock on {card}")
     log(f"[mem] peak device memory allocated: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    wave_ms = {name: sum(s["ms"] for s in stats) for name, stats in wave_stats.items()}
+    wave_ms = {name: sum(s["path_ms"] for s in stats) for name, stats in wave_stats.items()}
     log(f"[time] traversal kernels per 1080p sample: K1b {timings['jittered']:.4f} ms + K2a "
         f"{wave_ms['trace_rays_k2a']:.4f} ms + K2b {wave_ms['trace_rays_k2b']:.4f} ms = "
         f"{timings['jittered'] + sum(wave_ms.values()):.4f} ms of "
@@ -612,34 +654,40 @@ def main() -> None:
     # 11. where the time of a progressive sample goes
     profile_samples(pt, card)
 
-    def mean(name, key):
-        return statistics.mean(s[key] for s in wave_stats[name])
+    def summed(details):
+        """The bound of several waves run one after another: the sum of
+        their bounds, labelled by the larger of its bytes and its
+        operations parts."""
+        by_bytes = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details
+                       if x["bytes_ms"] >= x["ops_ms"])
+        total = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details)
+        return total, ("bytes" if 2 * by_bytes >= total else "operations")
 
-    rows = {
-        "trace_tiles_k1a": {"launches": render_launches["trace_tiles_k1a"],
-                            "max_abs_err": checks["trace_tiles_k1a"]["max_abs_err"],
-                            "ms": timings["framed"], "plain_ms": plain_ms["trace_tiles_k1a"],
-                            "bound_ms": frame_bounds["trace_tiles_k1a"][0],
-                            "bound_by": frame_bounds["trace_tiles_k1a"][1],
-                            "crop_ms": crop_ms},
-        "trace_tiles_k1b": {"launches": pt_launches["trace_tiles_k1b"],
-                            "max_abs_err": checks["trace_tiles_k1b"]["max_abs_err"],
-                            "ms": timings["jittered"], "plain_ms": plain_ms["trace_tiles_k1b"],
-                            "bound_ms": frame_bounds["trace_tiles_k1b"][0],
-                            "bound_by": frame_bounds["trace_tiles_k1b"][1]},
-    }
+    rows = {}
+    for name, launches, frame_ms in (
+            ("trace_tiles_k1a", render_launches["trace_tiles_k1a"], timings["framed"]),
+            ("trace_tiles_k1b", pt_launches["trace_tiles_k1b"], timings["jittered"])):
+        rows[name] = {"launches": launches, "max_abs_err": checks[name]["max_abs_err"],
+                      "rays": crop_pix.numel(), "ms": crop_ms[name], "plain_ms": plain_ms[name],
+                      "bound_ms": crop_bounds[name][0], "bound_by": crop_bounds[name][1],
+                      "path_rays": WIDTH * HEIGHT, "path_ms": frame_ms,
+                      "path_bound_ms": frame_bounds[name][0],
+                      "path_bound_by": frame_bounds[name][1]}
     for name in ("trace_rays_k2a", "trace_rays_k2b"):
-        by = [s["bound_by"] for s in wave_stats[name]]
+        ws = wave_stats[name]
+        b_ms, b_by = summed([s["bound_detail"] for s in ws])
+        pb_ms, pb_by = summed([s["path_bound_detail"] for s in ws])
         rows[name] = {"launches": pt_launches[name],
-                      "max_abs_err": max(s["max_abs_err"] for s in wave_stats[name]),
-                      "ms": mean(name, "ms"), "plain_ms": mean(name, "plain_ms"),
-                      "bound_ms": mean(name, "bound_ms"), "bound_by": max(set(by), key=by.count),
-                      "waves_ms": [s["ms"] for s in wave_stats[name]]}
+                      "max_abs_err": max(s["max_abs_err"] for s in ws),
+                      "rays": sum(s["rays"] for s in ws), "ms": sum(s["ms"] for s in ws),
+                      "plain_ms": sum(s["plain_ms"] for s in ws), "bound_ms": b_ms,
+                      "bound_by": b_by, "path_rays": sum(s["active"] for s in ws),
+                      "path_ms": sum(s["path_ms"] for s in ws), "path_bound_ms": pb_ms,
+                      "path_bound_by": pb_by, "waves_path_ms": [s["path_ms"] for s in ws]}
     log(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], **row, "library_ms": None,
-        "plain_rays": WAVE_SAMPLES,
     } for name, row in rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -21,13 +21,20 @@ import numpy as np
 import torch
 
 __all__ = ["rotate_by_quat", "safe_inv_dir", "camera_constants", "primary_dirs", "generate_rays",
-           "subpixel_hash01", "generate_rays_jittered", "INF"]
+           "subpixel_hash01", "generate_rays_jittered", "to_device", "INF"]
 
 INF = 1e30
 
 _MASK32 = 0xFFFFFFFF
 # the hash's int32 multipliers (-1640531535, -2048144777, -1028477379) as uint32
 _HASH_PX, _HASH_PY, _HASH_SEED = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
+
+
+def to_device(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A few host values as a tensor on ``device``, copied without a stream
+    synchronisation: a blocking host-to-device copy would wait for all the
+    work queued on the card, so the host could not issue ahead of it."""
+    return torch.as_tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 
 def rotate_by_quat(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -65,8 +72,8 @@ def primary_dirs(px: torch.Tensor, py: torch.Tensor, width: int, height: int,
     dev = px.device
     f32 = torch.float32
     focal, aspect = camera_constants(width, height, fov_degrees)
-    w = torch.tensor(float(width), dtype=f32, device=dev)
-    h = torch.tensor(float(height), dtype=f32, device=dev)
+    w = torch.full((), float(width), dtype=f32, device=dev)
+    h = torch.full((), float(height), dtype=f32, device=dev)
     u = (px.to(f32) + jx) / w * 2.0 - 1.0
     v = (py.to(f32) + jy) / h * 2.0 - 1.0
     dx = u * aspect
@@ -74,7 +81,7 @@ def primary_dirs(px: torch.Tensor, py: torch.Tensor, width: int, height: int,
     dz = torch.full_like(u, -focal)
     inv_len = torch.sqrt(dx * dx + dy * dy + dz * dz).reciprocal()
     d = torch.stack([dx * inv_len, dy * inv_len, dz * inv_len], dim=-1)
-    q = torch.as_tensor(cam_quat, dtype=f32).to(dev).reshape(4)
+    q = to_device(cam_quat, dev).reshape(4)
     return rotate_by_quat(d, q)
 
 
@@ -85,7 +92,7 @@ def generate_rays(width: int, height: int, cam_pos, cam_quat,
                             torch.arange(width, device=device), indexing="ij")
     d = primary_dirs(px.reshape(-1), py.reshape(-1), width, height, cam_quat,
                      fov_degrees).reshape(height, width, 3)
-    o = torch.as_tensor(cam_pos, dtype=torch.float32).to(device).reshape(1, 1, 3)
+    o = to_device(cam_pos, device).reshape(1, 1, 3)
     return o.expand(height, width, 3), d
 
 
@@ -100,11 +107,14 @@ def subpixel_hash01(px, py, seed) -> torch.Tensor:
     """Counter-based subpixel jitter in [0, 1): the integer finalizer hash of
     (pixel x, pixel y, seed) of ``raytracer_tpu/ops/camera.py``, bit for bit.
     The JAX package wraps in int32/uint32; torch lacks uint32 arithmetic on
-    the CPU, so every step runs in int64 masked to 32 bits."""
+    the CPU, so every step runs in int64 masked to 32 bits; a Python int
+    seed stays a host scalar."""
     px = torch.as_tensor(px)
     dev = px.device
 
     def u32(x):
+        if isinstance(x, int):
+            return x & _MASK32
         return torch.as_tensor(x, device=dev).to(torch.int64) & _MASK32
 
     h = (_mul32(u32(px), _HASH_PX) + _mul32(u32(py), _HASH_PY)
@@ -131,5 +141,5 @@ def generate_rays_jittered(width: int, height: int, cam_pos, cam_quat, seed: int
     jx = subpixel_hash01(px, py, 2 * int(seed))
     jy = subpixel_hash01(px, py, 2 * int(seed) + 1)
     d = primary_dirs(px, py, width, height, cam_quat, fov_degrees, jx, jy).reshape(height, width, 3)
-    o = torch.as_tensor(cam_pos, dtype=torch.float32).to(device).reshape(1, 1, 3)
+    o = to_device(cam_pos, device).reshape(1, 1, 3)
     return o.expand(height, width, 3), d

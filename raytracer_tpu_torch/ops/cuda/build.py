@@ -4,9 +4,9 @@ BVH library (``native/bvhtool.py``) with the C++ compiler.
 
 The sources export plain ``extern "C"`` functions (no PyTorch headers), so a
 build takes seconds. Libraries go to the gitignored
-``raytracer_tpu_torch/_build/``, named by a hash of the sources, the local
-headers they include (``#include "x.cuh"``, recursively) and the flags: a
-changed source, header or flag set builds anew, an unchanged one is reused.
+``raytracer_tpu_torch/_build/``, named by a hash of the sources, the headers
+(every ``csrc/*.cuh`` for a CUDA build) and the flags: a changed source,
+header or flag set builds anew, an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -14,14 +14,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
 from collections.abc import Callable, Sequence
 from pathlib import Path
 
-__all__ = ["build_shared", "build_library", "content_hash", "local_includes", "NVCC_FLAGS",
+__all__ = ["build_shared", "build_library", "content_hash", "cuda_headers", "NVCC_FLAGS",
            "CSRC", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -45,47 +44,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME (/usr/local/cuda)")
 
 
-_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+def cuda_headers() -> list[Path]:
+    """Every header of ``csrc``, sorted: what each CUDA source may include."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
-def local_includes(src: Path) -> list[Path]:
-    """The files ``src`` includes with ``#include "..."`` relative to its own
-    directory, recursively, each once, in the order first seen."""
-    found: list[Path] = []
-    todo = [src]
-    while todo:
-        cur = todo.pop(0)
-        for name in _LOCAL_INCLUDE.findall(cur.read_text()):
-            hdr = (cur.parent / name).resolve()
-            if hdr.exists() and hdr not in found:
-                found.append(hdr)
-                todo.append(hdr)
-    return found
-
-
-def content_hash(sources: Sequence[Path], flags: Sequence[str], key: str = "") -> str:
-    """Hex digest of the sources, the local headers they include, the flags
-    and ``key``: the name of the library they build."""
+def content_hash(sources: Sequence[Path], flags: Sequence[str], key: str = "",
+                 headers: Sequence[Path] = ()) -> str:
+    """Hex digest of the sources, the headers, the flags and ``key``: the
+    name of the library they build."""
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.read_bytes())
-        for hdr in local_includes(src):
-            digest.update(hdr.name.encode() + hdr.read_bytes())
+    for hdr in headers:
+        digest.update(hdr.name.encode() + hdr.read_bytes())
     digest.update(" ".join(flags).encode() + key.encode())
     return digest.hexdigest()
 
 
 def build_shared(name: str, sources: Sequence[Path], compiler: Callable[[], str],
-                 flags: Sequence[str], key: str = "") -> tuple[ctypes.CDLL, str]:
+                 flags: Sequence[str], key: str = "",
+                 headers: Sequence[Path] = ()) -> tuple[ctypes.CDLL, str]:
     """Compile ``sources`` with ``compiler()`` and ``flags`` into
     ``BUILD_DIR/<name>-<hash>.so`` unless that library exists, and load it.
-    The hash (:func:`content_hash`) covers the sources, their local headers,
-    the flags and ``key`` (for what else the output depends on, such as the
-    host CPU under ``-march=native``).
+    The hash (:func:`content_hash`) covers the sources, the ``headers`` they
+    may include, the flags and ``key`` (for what else the output depends on,
+    such as the host CPU under ``-march=native``).
 
     Returns (library, compiler log). Raises ``RuntimeError`` with the
     compiler's output when the compile fails."""
-    out = BUILD_DIR / f"{name}-{content_hash(sources, flags, key)[:16]}.so"
+    out = BUILD_DIR / f"{name}-{content_hash(sources, flags, key, headers)[:16]}.so"
     log_path = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -107,5 +95,7 @@ def build_shared(name: str, sources: Sequence[Path], compiler: Callable[[], str]
 
 def build_library(source: str) -> tuple[ctypes.CDLL, str]:
     """Compile the CUDA source ``csrc/<source>`` for sm_90a (if not built
-    yet) and load it; returns (library, nvcc log)."""
-    return build_shared(Path(source).stem, [CSRC / source], _nvcc, NVCC_FLAGS)
+    yet) and load it; returns (library, nvcc log). Every ``csrc/*.cuh`` is
+    hashed in, so a changed header rebuilds every kernel source."""
+    return build_shared(Path(source).stem, [CSRC / source], _nvcc, NVCC_FLAGS,
+                        headers=cuda_headers())

@@ -503,7 +503,13 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
                 tbest = tt.gather(1, j[:, None])[:, 0]
                 upd = tbest < cur
             if counts is not None:
-                cand = torch.nonzero(gate.reshape(-1, 4 * leaf_k))
+                tested = gate.reshape(-1, 4 * leaf_k)
+                if any_hit:
+                    # the kernel returns at the first accepted triangle and
+                    # tests none after it
+                    last = torch.where(upd, j, torch.full_like(j, 4 * leaf_k - 1))
+                    tested = tested & (torch.arange(4 * leaf_k, device=dev) <= last[:, None])
+                cand = torch.nonzero(tested)
                 counts.add_tests(mnode[cand[:, 0]] * (4 * leaf_k) + cand[:, 1])
             if bool(upd.any()):
                 urow, uj = mrow[upd], j[upd]

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .camera import to_device
+
 __all__ = ["triangle_normals", "shade_lambert", "quantize_rgba8", "present_frame",
            "MISS_COLOR"]
 
@@ -32,9 +34,9 @@ def triangle_normals(tris: torch.Tensor, tri_idx: torch.Tensor) -> torch.Tensor:
 
 def shade_lambert(normals: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
     """(..., 3) normals + (...) hit mask → (..., 3) linear LDR color."""
-    light = torch.tensor(_LIGHT_DIR, dtype=torch.float32, device=normals.device)
-    light = light / torch.linalg.vector_norm(light)
-    base = torch.tensor(_BASE_COLOR, dtype=torch.float32, device=normals.device)
+    light = torch.tensor(_LIGHT_DIR, dtype=torch.float32)
+    light = to_device(light / torch.linalg.vector_norm(light), normals.device)
+    base = to_device(_BASE_COLOR, normals.device)
     ndotl = torch.clamp_min((normals * light).sum(-1), 0.0)
     lit = base * (_AMBIENT + ndotl)[..., None]
     return torch.where(hit[..., None], lit, torch.full_like(lit, MISS_COLOR))

@@ -34,7 +34,7 @@ from collections.abc import Mapping
 
 import torch
 
-from .ops.camera import generate_rays_jittered, primary_dirs
+from .ops.camera import generate_rays_jittered, primary_dirs, to_device
 from .ops.cuda.traverse import trace_rays, trace_tiles
 from .ops.shade import MISS_COLOR
 from .ops.trace import trace_rays_brute
@@ -50,8 +50,8 @@ _MAX_PSEED = 1 << 22
 
 
 def _sun(device) -> torch.Tensor:
-    sun = torch.tensor(_SUN_DIR, dtype=torch.float32, device=device)
-    return sun / torch.linalg.vector_norm(sun)
+    sun = torch.tensor(_SUN_DIR, dtype=torch.float32)
+    return to_device(sun / torch.linalg.vector_norm(sun), device)
 
 
 def _onb(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -155,12 +155,15 @@ class _Draws:
         return u
 
     def pseed(self) -> int:
+        """The jitter seed, a host int the kernel takes as an argument: drawn
+        on the host from the generator's initial seed, so that a sample
+        never waits for the device's previous work."""
         if "pseed" in self.uniforms:
             return int(self.uniforms["pseed"])
         if self.generator is None:
             raise ValueError("uniforms lack 'pseed' and no generator was given")
-        return int(torch.randint(0, _MAX_PSEED, (), generator=self.generator,
-                                 device=self.device))
+        host = torch.Generator(device="cpu").manual_seed(self.generator.initial_seed())
+        return int(torch.randint(0, _MAX_PSEED, (), generator=host))
 
     def jitter(self, height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
         return self._given("jx", (height, width)), self._given("jy", (height, width))
@@ -205,11 +208,13 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     offsets ``jx``, ``jy`` (H, W).
 
     Random numbers: ``generator`` (a ``torch.Generator`` on the device)
-    draws ``pseed`` or ``jx``/``jy``, then per bounce b the cosine-sample
-    uniforms ``u1[b]``, ``u2[b]`` (H·W,) in lane order. ``uniforms`` may
-    inject any of them under those keys (``u1``/``u2`` as sequences over
-    the bounces): the JAX package's draws make the two sample streams the
-    same. ``compact=True`` (between-wave compaction) is not ported: the
+    draws ``jx``/``jy``, then per bounce b the cosine-sample uniforms
+    ``u1[b]``, ``u2[b]`` (H·W,) in lane order; ``pseed`` comes from a host
+    generator seeded with ``generator.initial_seed()``, so seed the
+    generator anew for each sample, as ``render_progressive`` does.
+    ``uniforms`` may inject any of them under those keys (``u1``/``u2`` as
+    sequences over the bounces): the JAX package's draws make the two
+    sample streams the same. ``compact=True`` (between-wave compaction) is not ported: the
     JAX package's own bench measured it as a loss and turned it off."""
     if compact:
         raise NotImplementedError("between-wave compaction is not ported: it measured as "
@@ -235,11 +240,11 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         d = primary_dirs(px.reshape(-1), py.reshape(-1), width, height, cam_quat, fov_degrees,
                          jx.reshape(-1), jy.reshape(-1)).reshape(height, width, 3)
         d = _img_to_lanes(d, width, height)
-        o = torch.as_tensor(cam_pos, dtype=f32).to(dev).reshape(1, 3).expand(r, 3)
+        o = to_device(cam_pos, dev).reshape(1, 3).expand(r, 3)
 
     sun = _sun(dev)
     sun_dirs = sun.expand(r, 3).contiguous()
-    base = torch.tensor(_BASE, dtype=f32, device=dev)
+    base = to_device(_BASE, dev)
     radiance = torch.zeros((r, 3), dtype=f32, device=dev)
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
@@ -284,7 +289,7 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     img = _lanes_to_img(radiance, width, height)
     if stats:
         return img, {"alive_rays": alive_rays,
-                     "lane_rays": torch.tensor(2 * r * bounces, device=dev)}
+                     "lane_rays": torch.full((), 2 * r * bounces, device=dev)}
     return img
 
 
@@ -297,6 +302,6 @@ def accumulate(accum: torch.Tensor, sample: torch.Tensor, frame_count: int) -> t
     two roundings would drift up to 2 ulps from it. The division is by a
     tensor: CUDA torch would run a division by a Python scalar as a multiply
     by its reciprocal."""
-    n = torch.tensor(float(frame_count), dtype=torch.float32, device=accum.device)
+    n = torch.full((), float(frame_count), dtype=torch.float32, device=accum.device)
     fused = (accum.double() * n.double() + sample.double()).float()
     return fused / (n + 1.0)

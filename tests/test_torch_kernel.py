@@ -20,6 +20,7 @@ import torch
 from raytracer_tpu_torch.ops.camera import generate_rays_jittered
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
 from raytracer_tpu_torch.ops.cuda import build, traverse
+from raytracer_tpu_torch.ops.trace import moller_trumbore
 from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, ray_buffer,
                           room_scene, seeded_scene)
 
@@ -120,18 +121,75 @@ def test_trace_rays_rejects_bad_inputs():
 
 
 def test_build_hash_covers_included_headers(tmp_path):
-    """A change to a header that a source includes (and only to it) changes
-    the library's hash, so the next build compiles anew. Needs no nvcc."""
+    """A change to a header (and only to it) changes the library's hash, so
+    the next build compiles anew; every CUDA build hashes every csrc/*.cuh.
+    Needs no nvcc."""
     src, hdr = tmp_path / "k.cu", tmp_path / "core.cuh"
     src.write_text('#include <stdint.h>\n#include "core.cuh"\nint f() { return g(); }\n')
     hdr.write_text("inline int g() { return 1; }\n")
-    assert build.local_includes(src) == [hdr.resolve()]
-    before = build.content_hash([src], build.NVCC_FLAGS)
-    assert build.content_hash([src], build.NVCC_FLAGS) == before
+    before = build.content_hash([src], build.NVCC_FLAGS, headers=[hdr])
+    assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) == before
     hdr.write_text("inline int g() { return 2; }\n")
-    assert build.content_hash([src], build.NVCC_FLAGS) != before
-    real = build.local_includes(build.CSRC / "traverse_rays.cu")
-    assert [p.name for p in real] == ["traverse_core.cuh"]
+    assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) != before
+    assert [p.name for p in build.cuda_headers()] == ["traverse_core.cuh"]
+
+
+def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hit: bool):
+    """One ray walked one stack pop at a time, as the kernels' loop
+    (csrc/traverse_core.cuh) walks it → (tri, node visits, MT tests)."""
+    vbase, ibase, _ = traverse.rec_layout(leaf_k, 4)
+    inv = torch.where(d.abs() > 1e-8, d.reciprocal(), torch.full_like(d, 1e30))
+    best, tri, visits, tests = 1e30, -1, 0, 0
+    stack = [(0, 0.0)]
+    while stack:
+        node, key = stack.pop()
+        if not key < best:
+            continue
+        visits += 1
+        boxes = qn[node, 0:24].reshape(4, 6)
+        t1, t2 = (boxes[:, 0:3] - o) * inv, (boxes[:, 3:6] - o) * inv
+        tmin = torch.minimum(t1, t2).amax(-1)
+        tmax = torch.maximum(t1, t2).amin(-1)
+        hit = ((tmax >= tmin.clamp_min(0.0)) & (tmin < best)).tolist()
+        refs, cnt = qn[node, 24:28].tolist(), qn[node, 28:32].tolist()
+        for k in range(4):
+            if not (hit[k] and traverse.EMPTY_REF < refs[k] < 0.0):
+                continue
+            recs = qn[node, vbase + 12 * leaf_k * k:vbase + 12 * leaf_k * (k + 1)]
+            recs = recs.reshape(leaf_k, 12)
+            tt, ok = moller_trumbore(o, d, recs[:, 0:3], recs[:, 3:6], recs[:, 6:9])
+            for j in range(leaf_k):
+                if not j < cnt[k]:
+                    break
+                tests += 1
+                if bool(ok[j]) and float(tt[j]) < best:
+                    best, tri = float(tt[j]), int(qn[node, ibase + k * leaf_k + j])
+                    if any_hit:
+                        return tri, visits, tests
+        order = sorted((k for k in range(4) if hit[k] and refs[k] >= 0.0),
+                       key=lambda k: -float(tmin[k]))
+        for k in order:
+            if len(stack) < traverse.STACK_MAX:
+                stack.append((int(refs[k]), float(tmin[k])))
+    return tri, visits, tests
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_counts_match_a_per_ray_walk(any_hit):
+    """The plain version counts the node visits and Möller–Trumbore tests
+    that the kernel's sequential loop does: an any-hit ray stops testing at
+    its first accepted triangle. These counts set the kernels' bounds."""
+    tris, qn, o, d = room("cpu", n=96)
+    sun = torch.from_numpy(SUN).expand_as(o).contiguous()
+    dirs = sun if any_hit else d
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_rays_reference(qn, o, dirs, any_hit=any_hit, leaf_k=8, counts=counts)
+    walked = [walk(qn, o[i], dirs[i], 8, any_hit) for i in range(o.shape[0])]
+    assert counts.rays == o.shape[0]
+    assert counts.visits == sum(w[1] for w in walked)
+    assert counts.mt_tests == sum(w[2] for w in walked)
+    assert [w[0] for w in walked] == ref[4].tolist()
+    assert 0 < sum(w[0] >= 0 for w in walked) < o.shape[0]
 
 
 def test_trace_tiles_window_matches_full_frame():

@@ -144,6 +144,30 @@ def test_tile_primary_sample_matches_uniform_camera_wave():
     assert float((err <= 1e-5).float().mean()) >= 0.99
 
 
+def test_tile_primary_seed_is_drawn_on_the_host():
+    """Without injected uniforms the camera wave's jitter seed comes from a
+    host generator seeded with the generator's initial seed: the same seed
+    gives the same sample, another seed another one, and the generator's
+    own stream (the device draws u1/u2) is not advanced by it."""
+    tris = jax_procgen.make_cornell_box()
+    qn = torch.from_numpy(jax_records(tris, 8))
+
+    def sample(seed):
+        gen = torch.Generator().manual_seed(seed)
+        out = pt_sample_frame(qn, torch.from_numpy(tris), ROOM_POS, ROOM_QUAT, 16, 8,
+                              bounces=1, leaf_k=8, tile_primary=True, generator=gen)
+        return out, gen
+
+    a, gen = sample(3)
+    b, _ = sample(3)
+    c, _ = sample(4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    after = torch.Generator().manual_seed(3)
+    torch.rand((16 * 8,), generator=after)
+    torch.rand((16 * 8,), generator=after)
+    assert torch.equal(gen.get_state(), after.get_state())
+
+
 def test_accumulate_and_present_match_jax():
     rng = np.random.default_rng(4)
     acc = rng.random((24, 40, 3)).astype(np.float32) * 3
