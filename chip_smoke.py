@@ -9,7 +9,7 @@ Phases, each printing what it measures; the first failure exits non-zero:
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
-   kernels K1a/K1b (csrc/traverse_tiles.cu) and the ray-buffer kernels
+   kernels K1a/K1b/K1c (csrc/traverse_tiles.cu) and the ray-buffer kernels
    K2a/K2b (csrc/traverse_rays.cu), with their seconds and each kernel's
    ptxas registers, stack frame and spills;
 3. the primary-ray main path at full size: the 871,200-triangle dragon
@@ -40,7 +40,32 @@ Phases, each printing what it measures; the first failure exits non-zero:
    device memory, and each kernel's bound;
 11. where a progressive sample's time goes: torch.profiler over a few
    samples — device busy time per sample, its top kernels, and the
-   device's idle share of the wall time.
+   device's idle share of the wall time;
+12. the frame batch K1c on the dragon: 8 cameras at (x, 0, 1.15), x in
+   linspace(-0.3, 0.3, 8), at 1920×1080 in one trace_tiles_batch call
+   (exactly 1 K1c launch and nothing else); each frame bit-identical to K1a
+   for its camera, and with jitter (seeds JITTER_SEED + f) to K1b; K1c
+   against its plain version on the 256×256 centre crop of frames 0 and 7;
+   K1c's 8 frames against 8 host-issued K1a calls (CUDA events), and, to
+   split that difference, one camera as F = 1 against K1a and 8 copies of
+   one camera against 8 K1a calls; its bound counted on seeded pixels of
+   each frame;
+13. the dynamic dragon at full size: each frame i deforms the 871,200
+   triangles on the card by 1 + 0.1·sin(0.1·i), then refit →
+   collapse_apply_refit → make_wide_bvh → make_qnodes → K1c over the 8
+   cameras. Checks: (a) the chain's records equal byte for byte the records
+   pipeline's (native full collapse) of the refitted tree; (b) every
+   refitted internal box contains its children's boxes and every leaf box
+   its cluster's deformed triangles; (c) PathTracer.refit_bvh then render()
+   agree with brute force on 1,024 seeded pixels; (d) 1 K1c launch per
+   frame and nothing else; (e) a frame issues without a host-device
+   synchronisation (sync debug mode). Prints CUDA-event times of the refit,
+   apply + widen + records, K1c and the whole frame, Mrays/s =
+   W·H·cameras / frame ms, the host's issue time against the device's busy
+   time under torch.profiler, and peak device memory;
+14. BASELINE config 5 as bench_suite.py defines it: icosphere(4) (5,120
+   triangles), SAH K = 32, 8 cameras at (x, 0, 3.0) at 256×256, the same
+   frame chain: times, per-camera hit counts and launches.
 
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K2a),
 tri equal on >= 99.99% of the rays and every other ray a tie (both
@@ -64,10 +89,10 @@ then a lower bound). No PyTorch call computes BVH traversal, so there is no
 library yardstick (library_ms is null).
 
 The kernels line: ``ms``, ``plain_ms`` and ``bound_ms`` are all on the
-same ``rays`` — the 256×256 crop for K1a/K1b, the checked subset of each
-wave for K2a/K2b (summed over the waves of one 1080p sample) — and
-``path_ms``/``path_bound_ms`` on the main path's whole frame or waves
-(``path_rays`` rays, active lanes for K2).
+same ``rays`` — the 256×256 crop for K1a/K1b (of frames 0 and 7 for K1c),
+the checked subset of each wave for K2a/K2b (summed over the waves of one
+1080p sample) — and ``path_ms``/``path_bound_ms`` on the main path's whole
+frame, batch or waves (``path_rays`` rays, active lanes for K2).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -76,6 +101,7 @@ the kernels as JSON, and the line before that the card.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -98,6 +124,8 @@ T_RTOL, NORMAL_ATOL, TIE_RTOL, MIN_TRI_MATCH = 1e-5, 1e-5, 1e-6, 0.9999
 RADIANCE_ATOL, MIN_RADIANCE_MATCH = 1e-5, 0.999
 MIN_FRAMED_HIT_RATE = 0.4
 FRAMES, REPEATS = 16, 5
+N_CAMS, CAM_XS, CAM_Z, CONFIG5_Z, CONFIG5_SIZE = 8, (-0.3, 0.3), 1.15, 3.0, 256
+DYN_FRAMES = 8
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 SLAB_OPS, MT_OPS = 100, 54
 OUT_BYTES, RAY_BYTES = 20, 24
@@ -106,11 +134,18 @@ KERNELS = {
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
     "trace_tiles_k1b": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_tiles_k1c": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
     "trace_rays_k2a": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
     "trace_rays_k2b": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
 }
+
+
+def expected(**counts: int) -> dict:
+    """The launch counts of a run that launched ``counts`` and nothing else."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def log(msg: str) -> None:
@@ -240,34 +275,35 @@ def bound(counts, scale: float, fixed_bytes: int) -> tuple[float, str, dict]:
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations"), detail
 
 
-def profile_samples(pt, card: str, n: int = 3) -> None:
-    """torch.profiler over ``n`` framed render_progressive(bounces=3) calls:
-    device busy ms per sample (the sum of the CUDA kernels' own times), the
-    top kernels, and the device's idle share of the wall time (inflated by
-    the profiler's own host cost)."""
+def profile_calls(fn, what: str, card: str, n: int = 3) -> dict | None:
+    """torch.profiler over ``n`` calls of ``fn`` after one warm-up: device
+    busy ms per call (the sum of the CUDA kernels' own times), the top
+    kernels, and the device's idle share of the wall time (inflated by the
+    profiler's own host cost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pt.set_camera_position(*FRAMED)
-    pt.render_progressive(bounces=BOUNCES)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            pt.render_progressive(bounces=BOUNCES)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy_ms == 0:
-        log("[profile] the profiler recorded no device time: device busy share not measured")
-        return
-    log(f"[profile] render_progressive(bounces={BOUNCES}) under torch.profiler: wall "
-        f"{wall_ms:.4f} ms/sample, device busy {busy_ms:.4f} ms/sample, idle share "
-        f"{1 - busy_ms / wall_ms:.4f} on {card}")
+        log(f"[profile] {what}: the profiler recorded no device time: device busy share "
+            "not measured")
+        return None
+    log(f"[profile] {what} under torch.profiler: wall {wall_ms:.4f} ms/call, device busy "
+        f"{busy_ms:.4f} ms/call, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kernels) / n:.0f} kernels/call on {card}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} ms/sample "
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} ms/call "
             f"x{e.count / n:6.1f}  {e.key[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
 def build_all() -> dict:
@@ -282,8 +318,8 @@ def build_all() -> dict:
 
     with ThreadPoolExecutor(max_workers=3) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
-                "traverse_tiles.cu (K1a, K1b)": pool.submit(timed, traverse.load_kernel,
-                                                            "traverse_tiles.cu"),
+                "traverse_tiles.cu (K1a, K1b, K1c)": pool.submit(timed, traverse.load_kernel,
+                                                                 "traverse_tiles.cu"),
                 "traverse_rays.cu (K2a, K2b)": pool.submit(timed, traverse.load_kernel,
                                                            "traverse_rays.cu")}
         results = {name: job.result() for name, job in jobs.items()}
@@ -304,9 +340,7 @@ def main() -> None:
     from raytracer_tpu_torch import PathTracer, Scene, render_pt
     from raytracer_tpu_torch.ops.camera import primary_dirs, subpixel_hash01
     from raytracer_tpu_torch.ops.cuda import traverse
-    from raytracer_tpu_torch.ops.shade import (MISS_COLOR, quantize_rgba8, shade_lambert,
-                                               triangle_normals)
-    from raytracer_tpu_torch.ops.trace import trace_rays_brute
+    from raytracer_tpu_torch.ops.shade import MISS_COLOR, quantize_rgba8, shade_lambert
     from raytracer_tpu_torch.utils import procgen
 
     dev = torch.device("cuda:0")
@@ -349,8 +383,7 @@ def main() -> None:
     torch.cuda.synchronize()
     render_launches = dict(traverse.LAUNCHES)
     log(f"[main] launches during render/render_presented: {json.dumps(render_launches)}")
-    if render_launches != {"trace_tiles_k1a": 3, "trace_tiles_k1b": 0, "trace_rays_k2a": 0,
-                           "trace_rays_k2b": 0}:
+    if render_launches != expected(trace_tiles_k1a=3):
         fail(f"the primary path launched {render_launches}, expected 3 K1a and nothing else")
     miss_u8 = int(quantize_rgba8(torch.full((1, 3), MISS_COLOR))[0, 0])
     hit_rates = {}
@@ -397,14 +430,8 @@ def main() -> None:
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     sample = torch.randperm(WIDTH * HEIGHT, generator=gen)[:BRUTE_SAMPLES].to(dev)
 
-    def brute_planes(dirs):
-        bt, btri = trace_rays_brute(tris, origin.expand(dirs.shape[0], 3), dirs)
-        bn = torch.where((btri >= 0)[:, None], triangle_normals(tris, btri),
-                         torch.zeros((dirs.shape[0], 3), device=dev))
-        return (bt, bn[:, 0], bn[:, 1], bn[:, 2], btri)
-
     s_dirs = primary_dirs(sample % WIDTH, sample // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
-    check_against([p.reshape(-1)[sample] for p in planes], brute_planes(s_dirs), tris, origin,
+    check_against([p.reshape(-1)[sample] for p in planes], brute_planes(tris, origin, s_dirs), tris, origin,
                   s_dirs, f"K1a vs brute force, {BRUTE_SAMPLES} framed pixels")
 
     # 6. K1b (jittered) vs its plain version on the crop and vs brute force
@@ -423,7 +450,7 @@ def main() -> None:
         [p.reshape(-1)[crop_pix] for p in jplanes], jref, tris, origin,
         jittered_dirs(crop_pix, JITTER_SEED), "K1b vs plain, jittered 256x256 crop")
     js_dirs = jittered_dirs(sample, JITTER_SEED)
-    check_against([p.reshape(-1)[sample] for p in jplanes], brute_planes(js_dirs), tris, origin,
+    check_against([p.reshape(-1)[sample] for p in jplanes], brute_planes(tris, origin, js_dirs), tris, origin,
                   js_dirs, f"K1b vs brute force, {BRUTE_SAMPLES} jittered framed pixels")
 
     # 7. the progressive main path
@@ -435,8 +462,8 @@ def main() -> None:
     shown = pt.present_progressive()
     torch.cuda.synchronize()
     pt_launches = dict(traverse.LAUNCHES)
-    want = {"trace_tiles_k1a": 0, "trace_tiles_k1b": SAMPLES,
-            "trace_rays_k2a": SAMPLES * (BOUNCES - 1), "trace_rays_k2b": SAMPLES * BOUNCES}
+    want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
+                    trace_rays_k2b=SAMPLES * BOUNCES)
     log(f"[progressive] launches during {SAMPLES} x render_progressive(bounces={BOUNCES}) + "
         f"present_progressive: {json.dumps(pt_launches)}")
     if pt_launches != want:
@@ -464,8 +491,7 @@ def main() -> None:
     aa_launches = dict(traverse.LAUNCHES)
     log(f"[progressive] launches during {SAMPLES} x render_progressive(bounces=0): "
         f"{json.dumps(aa_launches)}")
-    if aa_launches != {"trace_tiles_k1a": 0, "trace_tiles_k1b": SAMPLES, "trace_rays_k2a": 0,
-                       "trace_rays_k2b": 0}:
+    if aa_launches != expected(trace_tiles_k1b=SAMPLES):
         fail(f"bounces=0 launches {aa_launches}, expected {SAMPLES} K1b")
     if pt.frame_count != SAMPLES or not bool(torch.isfinite(aa).all() & (aa >= 0).all()):
         fail("bounces=0: wrong frame_count or a non-finite/negative buffer")
@@ -652,7 +678,16 @@ def main() -> None:
         f"{statistics.median(sample_reps[BOUNCES]):.4f} ms per sample on {card}")
 
     # 11. where the time of a progressive sample goes
-    profile_samples(pt, card)
+    pt.set_camera_position(*FRAMED)
+    profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
+                  f"render_progressive(bounces={BOUNCES})", card)
+
+    # 12.-14. the frame batch, the dynamic dragon and config 5
+    env = {"qn": qn, "tris": tris, "card": card, "dev": dev, "crop_pix": crop_pix,
+           "crop_dirs": crop_dirs, "r0": r0, "c0": c0, "gen": gen, "sample": sample}
+    rows_k1c = batch_phase(env)
+    dynamic_phase(env, pt)
+    config5_phase(env)
 
     def summed(details):
         """The bound of several waves run one after another: the sum of
@@ -684,6 +719,7 @@ def main() -> None:
                       "bound_by": b_by, "path_rays": sum(s["active"] for s in ws),
                       "path_ms": sum(s["path_ms"] for s in ws), "path_bound_ms": pb_ms,
                       "path_bound_by": pb_by, "waves_path_ms": [s["path_ms"] for s in ws]}
+    rows["trace_tiles_k1c"] = rows_k1c
     log(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -691,6 +727,396 @@ def main() -> None:
     } for name, row in rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def batch_cameras(z: float) -> tuple[list, list]:
+    xs = torch.linspace(*CAM_XS, N_CAMS).tolist()
+    return [(x, 0.0, z) for x in xs], [QUAT] * N_CAMS
+
+
+def brute_planes(tris: torch.Tensor, origin: torch.Tensor, dirs: torch.Tensor):
+    """Brute-force (t, nx, ny, nz, tri) of rays from one origin."""
+    from raytracer_tpu_torch.ops.shade import triangle_normals
+    from raytracer_tpu_torch.ops.trace import trace_rays_brute
+
+    bt, btri = trace_rays_brute(tris, origin.expand(dirs.shape[0], 3), dirs)
+    bn = torch.where((btri >= 0)[:, None], triangle_normals(tris, btri),
+                     torch.zeros((dirs.shape[0], 3), device=dirs.device))
+    return (bt, bn[:, 0], bn[:, 1], bn[:, 2], btri)
+
+
+def batch_phase(env: dict) -> dict:
+    """12. K1c on the dragon: launches, bit-identity with K1a/K1b, the plain
+    version on two crops, times and bounds → its kernels-line row."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    qn, tris, card, dev = env["qn"], env["tris"], env["card"], env["dev"]
+    crop_pix, r0, c0 = env["crop_pix"], env["r0"], env["c0"]
+    cams, quats = batch_cameras(CAM_Z)
+    seeds = [JITTER_SEED + f for f in range(N_CAMS)]
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    batch = traverse.trace_tiles_batch(qn, cams, quats, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    log(f"[batch] launches during one trace_tiles_batch of {N_CAMS} cameras: "
+        f"{json.dumps(launches)}")
+    if launches != expected(trace_tiles_k1c=1):
+        fail(f"the batch launched {launches}, expected 1 K1c and nothing else")
+    if any(p.shape != (N_CAMS, HEIGHT, WIDTH) for p in batch):
+        fail(f"batch planes of shapes {[tuple(p.shape) for p in batch]}")
+    if not all(bool(torch.isfinite(p).all()) for p in batch[:4]):
+        fail("the batch holds non-finite values")
+    jbatch = traverse.trace_tiles_batch(qn, cams, quats, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                        jitter=True, jitter_seeds=seeds)
+    for f in range(N_CAMS):
+        single = traverse.trace_tiles(qn, cams[f], QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+        jsingle = traverse.trace_tiles(qn, cams[f], QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                       jitter=True, jitter_seed=seeds[f])
+        if not all(torch.equal(b[f], x) for b, x in zip(batch, single)):
+            fail(f"K1c frame {f} differs from K1a for its camera")
+        if not all(torch.equal(b[f], x) for b, x in zip(jbatch, jsingle)):
+            fail(f"jittered K1c frame {f} differs from K1b with seed {seeds[f]}")
+    hits = [float((batch[4][f] >= 0).float().mean()) for f in range(N_CAMS)]
+    log(f"[check] K1c: all {N_CAMS} frames bit-identical to K1a, and jittered to K1b; "
+        f"hit rates {[round(h, 4) for h in hits]}")
+
+    ends = [0, N_CAMS - 1]
+    crop_counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_batch_reference(qn, [cams[f] for f in ends], [QUAT, QUAT],
+                                               WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                               pixels=crop_pix, counts=crop_counts)
+    ker = [p[ends].reshape(len(ends), -1)[:, crop_pix].reshape(-1) for p in batch]
+    origins = torch.tensor([cams[f] for f in ends], dtype=torch.float32, device=dev)
+    origins = origins.repeat_interleave(crop_pix.numel(), dim=0)
+    dirs = env["crop_dirs"].repeat(len(ends), 1)
+    stats = check_against(ker, [p.reshape(-1) for p in ref], tris, origins, dirs,
+                          "K1c vs plain, 256x256 crops of frames 0 and 7")
+    window = traverse.trace_tiles_batch(qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP,
+                                        FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
+                                        row_offset=r0, col_offset=c0)
+    if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
+        fail("K1c's crop window differs from the same pixels of its full frames")
+
+    crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch(
+        qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP, FOV, leaf_k=LEAF_K,
+        raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0), FRAMES, REPEATS))
+    plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch_reference(
+        qn, [cams[f] for f in ends], [QUAT, QUAT], WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+        pixels=crop_pix), 1, 3))
+    cam_bytes = 16 * 4
+    crop_bound = bound(crop_counts, 1.0, len(ends) * (crop_pix.numel() * OUT_BYTES + cam_bytes))
+    log(f"[time] K1c on the 256x256 crops of frames 0 and 7: kernel {crop_ms:.4f} ms, plain "
+        f"torch {plain_ms:.2f} ms (median of 3), bound {crop_bound[0]:.4f} ms by "
+        f"{crop_bound[1]} {json.dumps(crop_bound[2])} on {card}")
+
+    reps = cuda_ms(lambda: traverse.trace_tiles_batch(qn, cams, quats, WIDTH, HEIGHT, FOV,
+                                                      leaf_k=LEAF_K), FRAMES // 2, REPEATS)
+    singles = cuda_ms(lambda: [traverse.trace_tiles(qn, c, QUAT, WIDTH, HEIGHT, FOV,
+                                                    leaf_k=LEAF_K) for c in cams],
+                      FRAMES // 2, REPEATS)
+    path_ms = statistics.median(reps)
+    rays = N_CAMS * WIDTH * HEIGHT
+    log(f"[time] K1c {N_CAMS} cameras x 1920x1080 in one launch: {path_ms:.4f} ms = "
+        f"{rays / path_ms / 1e3:.2f} Mrays/s (reps {[round(r, 4) for r in reps]}); "
+        f"{N_CAMS} host-issued K1a calls {statistics.median(singles):.4f} ms (reps "
+        f"{[round(r, 4) for r in singles]}) on {card}")
+    # where the batch's lead comes from: one camera as F = 1 (the same work
+    # as K1a), and N_CAMS copies of one camera (no other camera's records)
+    split = {
+        "K1c F=1": lambda: traverse.trace_tiles_batch(qn, cams[:1], quats[:1], WIDTH, HEIGHT,
+                                                      FOV, leaf_k=LEAF_K),
+        "K1a": lambda: traverse.trace_tiles(qn, cams[0], QUAT, WIDTH, HEIGHT, FOV,
+                                            leaf_k=LEAF_K),
+        f"K1c {N_CAMS} x camera 0": lambda: traverse.trace_tiles_batch(
+            qn, cams[:1] * N_CAMS, quats, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K),
+        f"{N_CAMS} x K1a camera 0": lambda: [traverse.trace_tiles(
+            qn, cams[0], QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K) for _ in range(N_CAMS)]}
+    split_ms = {k: statistics.median(cuda_ms(fn, FRAMES // 2, REPEATS)) for k, fn in split.items()}
+    log(f"[time] K1c against K1a on camera 0: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split_ms.items()) + f" on {card}")
+
+    counts = traverse.TraversalCounts()
+    pick = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    for f in range(N_CAMS):
+        pix = torch.randperm(WIDTH * HEIGHT, generator=pick)[:WAVE_SAMPLES].to(dev)
+        traverse.trace_tiles_reference(qn, cams[f], QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                       pixels=pix, counts=counts)
+    path_bound = bound(counts, WIDTH * HEIGHT / WAVE_SAMPLES,
+                       rays * OUT_BYTES + N_CAMS * cam_bytes)
+    log(f"[bound] K1c {N_CAMS}-camera 1080p batch: {path_bound[0]:.4f} ms by {path_bound[1]} "
+        f"{json.dumps(path_bound[2])}")
+    return {"launches": launches["trace_tiles_k1c"], "max_abs_err": stats["max_abs_err"],
+            "rays": len(ends) * crop_pix.numel(), "ms": crop_ms, "plain_ms": plain_ms,
+            "bound_ms": crop_bound[0], "bound_by": crop_bound[1], "path_rays": rays,
+            "path_ms": path_ms, "path_bound_ms": path_bound[0], "path_bound_by": path_bound[1],
+            "k1a_x8_ms": statistics.median(singles)}
+
+
+def refit_chain(cs, plan, sweeps: int, tris0: torch.Tensor, cams, quats, size):
+    """The dynamic frame chain of BASELINE config 5: deform → refit →
+    collapse_apply_refit → make_wide_bvh → make_qnodes → K1c. Returns the
+    stage functions and the frame."""
+    from raytracer_tpu_torch.ops.cluster import refit_lbvh2_clustered
+    from raytracer_tpu_torch.ops.collapse import collapse_apply_refit
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+
+    w, h = size
+
+    def refit(i):
+        return refit_lbvh2_clustered(cs, tris0 * (1.0 + 0.1 * math.sin(0.1 * i)),
+                                     num_sweeps=sweeps)
+
+    def records(r):
+        bvh4 = collapse_apply_refit(plan, r.bvh2.bounds_u32)
+        return traverse.make_qnodes(make_wide_bvh(bvh4), r.tris_sorted, tri_ids=r.tri_order,
+                                    leaf_size=r.leaf_size)
+
+    def trace(q):
+        return traverse.trace_tiles_batch(q, cams, quats, w, h, FOV, leaf_k=cs.leaf_size)
+
+    def frame(i):
+        r = refit(i)
+        q = records(r)
+        return r, q, trace(q)
+
+    return refit, records, trace, frame
+
+
+def device_topology(cs, dev):
+    """The cluster tree with its topology copied to the card (once)."""
+    from raytracer_tpu_torch.ops.collapse import LBVH2
+
+    return cs._replace(bvh2=LBVH2(*(a.to(dev) for a in cs.bvh2)))
+
+
+def full_collapse_bounds(plan, bvh2) -> torch.Tensor:
+    """The full collapse's BVH4 bounds, merged apart from the plan's gather:
+    each row's box is the union of the BVH2 leaf boxes under it, merged
+    leaf-up over the plan's children with −0 below +0 (the JAX package's
+    device collapse), then packed with the fp16 subnormals of internal rows
+    flushed to signed zero (its truncating re-pack of fp16 values)."""
+    from raytracer_tpu_torch.ops.collapse import INVALID
+    from raytracer_tpu_torch.ops.lbvh import from_ordered_key, ordered_key
+    from raytracer_tpu_torch.utils.fp16 import pack_bounds, unpack_bounds
+
+    m = plan.src.shape[0]
+    leaf = plan.meta != 0
+    mn, mx = unpack_bounds(bvh2.bounds_u32[plan.src])
+    kmn0, kmx0 = ordered_key(mn), ordered_key(mx)
+    valid = (plan.children != INVALID)[..., None]
+    kids = plan.children.clamp(0, m - 1)
+    big = torch.iinfo(torch.int32).max
+    kmn, kmx = kmn0, kmx0
+    while True:
+        nmn = torch.where(leaf[:, None], kmn0, torch.where(valid, kmn[kids], big).amin(dim=1))
+        nmx = torch.where(leaf[:, None], kmx0, torch.where(valid, kmx[kids], -big).amax(dim=1))
+        if torch.equal(nmn, kmn) and torch.equal(nmx, kmx):
+            break
+        kmn, kmx = nmn, nmx
+    words = pack_bounds(from_ordered_key(kmn), from_ordered_key(kmx))
+    lo, hi = words & 0xFFFF, words >> 16
+    lo = torch.where((lo & 0x7C00) == 0, lo & 0x8000, lo)
+    hi = torch.where((hi & 0x7C00) == 0, hi & 0x8000, hi)
+    words = torch.where(leaf[:, None], words, lo | (hi << 16))
+    return torch.where(plan.emitted[:, None], words, 0)
+
+
+def check_plan_contract(r, q: torch.Tensor, plan, what: str) -> None:
+    """(a): the refit chain's records against the full collapse of the
+    refitted tree. Byte-equal to the records of the full collapse's bounds
+    in the JAX package's semantics (full_collapse_bounds); against the
+    records pipeline's native collapse, equal except f32 box words that are
+    +0 in one and −0 in the other: the native collapse merges children
+    already flushed to signed zeros with std::fmin/fmax in child order,
+    which keeps the first of two zeros (the boxes are numerically equal)."""
+    from raytracer_tpu_torch.ops.cluster import records_pipeline
+    from raytracer_tpu_torch.ops.collapse import BVH4
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+
+    full = BVH4(full_collapse_bounds(plan, r.bvh2), plan.children, plan.meta, plan.num_nodes)
+    ref = traverse.make_qnodes(make_wide_bvh(full), r.tris_sorted, tri_ids=r.tri_order,
+                               leaf_size=r.leaf_size)
+    qi = q.view(torch.int32)
+    if not torch.equal(qi, ref.view(torch.int32)):
+        bad = int((qi != ref.view(torch.int32)).any(dim=1).sum())
+        fail(f"{what}: refit-chain records differ from the full collapse's on {bad} rows")
+    native = records_pipeline(r).view(torch.int32)
+    diff = qi != native
+    signed_zero = ((qi | native) == -2**31) & ((qi ^ native) == -2**31)
+    if bool((diff & ~signed_zero).any()):
+        fail(f"{what}: refit-chain records differ from the native collapse's beyond the sign "
+             f"of a zero on {int((diff & ~signed_zero).any(dim=1).sum())} rows")
+    log(f"[check] {what}: the refit chain's records {tuple(q.shape)} equal the full collapse's "
+        f"byte for byte; the native collapse's on all but {int(diff.sum())} box words "
+        f"(in {int(diff.any(dim=1).sum())} rows) that hold +0 for its -0")
+
+
+def check_refit_boxes(r) -> None:
+    """(b): every internal box contains its children's boxes, every leaf box
+    its cluster's triangles (fp16 boxes decoded exactly)."""
+    from raytracer_tpu_torch.ops.collapse import LEAF_FLAG
+    from raytracer_tpu_torch.utils.fp16 import unpack_bounds
+
+    b = r.bvh2
+    mn, mx = unpack_bounds(b.bounds_u32)
+    leaf = (b.meta & LEAF_FLAG) != 0
+    inner = ~leaf
+    for kid in (b.left, b.right):
+        if not bool(((mn[kid] >= mn) & (mx[kid] <= mx))[inner].all()):
+            fail("a refitted internal box does not contain its child's box")
+    k, n = r.leaf_size, r.tris_sorted.shape[0]
+    c = b.num_internal + 1
+    pad = torch.full((c * k - n, 3), float("inf"), device=mn.device)
+    tmn = torch.cat([r.tris_sorted.amin(dim=1), pad]).reshape(c, k, 3).amin(dim=1)
+    tmx = torch.cat([r.tris_sorted.amax(dim=1), -pad]).reshape(c, k, 3).amax(dim=1)
+    cidx = (b.meta & 0x7FFFFFFF)[leaf]
+    if not bool(((mn[leaf] <= tmn[cidx]) & (mx[leaf] >= tmx[cidx])).all()):
+        fail("a refitted leaf box does not contain its cluster's triangles")
+
+
+def dynamic_phase(env: dict, pt) -> None:
+    """13. the dynamic dragon at full size, 8 cameras at 1080p per frame."""
+    from raytracer_tpu_torch.ops.camera import primary_dirs
+    from raytracer_tpu_torch.ops.collapse import collapse_plan
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.shade import quantize_rgba8, shade_lambert
+
+    card, dev, tris0 = env["card"], env["dev"], env["tris"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweeps = pt._bvh2_height + 2
+    t0 = time.perf_counter()
+    cs = device_topology(pt._cluster, dev)
+    plan = collapse_plan(cs.bvh2, sweeps=sweeps)
+    torch.cuda.synchronize()
+    log(f"[dynamic] topology to the card and collapse plan ({plan.num_nodes} BVH4 rows, "
+        f"{sweeps} sweeps) in {(time.perf_counter() - t0) * 1e3:.2f} ms host clock")
+    cams, quats = batch_cameras(CAM_Z)
+    refit, records, trace, frame = refit_chain(cs, plan, sweeps, tris0, cams, quats,
+                                               (WIDTH, HEIGHT))
+    frame(0)
+    torch.cuda.synchronize()
+
+    # (d) launches, (e) no synchronisation
+    for i in (1, 2):
+        traverse.reset_launches()
+        if i == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            r, q, out = frame(i)
+        except RuntimeError as exc:
+            fail(f"the dynamic frame waited for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = dict(traverse.LAUNCHES)
+        if launches != expected(trace_tiles_k1c=1):
+            fail(f"dynamic frame {i} launched {launches}, expected 1 K1c and nothing else")
+    log(f"[dynamic] each frame launched {json.dumps(launches)}; frame 2 issued from refit to "
+        "K1c without a host-device synchronisation")
+    if any(p.shape != (N_CAMS, HEIGHT, WIDTH) for p in out) or not all(
+            bool(torch.isfinite(p).all()) for p in out[:4]):
+        fail("the dynamic frame's planes are misshapen or not finite")
+
+    # (a) the plan's contract at full size, (b) containment
+    check_plan_contract(r, q, plan, "dynamic frame 2")
+    check_refit_boxes(r)
+    log("[check] dynamic frame 2: every internal box contains its children's, every leaf box "
+        "its cluster's deformed triangles")
+
+    # (c) PathTracer.refit_bvh + render() against brute force
+    deformed = tris0 * (1.0 + 0.1 * math.sin(0.1 * 3))
+    pt.set_camera_position(*FRAMED)
+    pt.refit_bvh(deformed.cpu().numpy())
+    traverse.reset_launches()
+    img = pt.render()
+    torch.cuda.synchronize()
+    if traverse.LAUNCHES["trace_tiles_k1a"] != 1:
+        fail(f"render() after refit_bvh launched {traverse.LAUNCHES}")
+    log(f"[dynamic] PathTracer.refit_bvh build_stats {json.dumps(pt.build_stats)}")
+    origin = torch.tensor(FRAMED, dtype=torch.float32, device=dev)
+    sample = env["sample"]
+    planes = traverse.trace_tiles(pt._qnodes, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    ker = [p.reshape(-1)[sample] for p in planes]
+    s_dirs = primary_dirs(sample % WIDTH, sample // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
+    check_against(ker, brute_planes(pt._tris_dev, origin, s_dirs), pt._tris_dev, origin, s_dirs,
+                  f"refit_bvh + render vs brute force, {BRUTE_SAMPLES} deformed framed pixels")
+    shade = quantize_rgba8(shade_lambert(torch.stack(ker[1:4], -1), ker[4] >= 0))
+    if not torch.equal(img.reshape(-1, 4)[sample], shade):
+        fail("render() after refit_bvh differs from the shading of its traced planes")
+
+    # (f) times
+    n = DYN_FRAMES
+    stage = {"refit": statistics.median(cuda_ms(lambda: refit(5), n, 3)),
+             "apply+widen+records": statistics.median(cuda_ms(lambda: records(r), n, 3)),
+             "K1c": statistics.median(cuda_ms(lambda: trace(q), n, 3))}
+    frame_reps = cuda_ms(lambda: frame(6), n, REPEATS)
+    frame_ms = statistics.median(frame_reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame(7)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    rays = WIDTH * HEIGHT * N_CAMS
+    log(f"[time] dynamic dragon frame ({N_CAMS} cameras x 1920x1080, refit every frame): "
+        f"{frame_ms:.4f} ms/frame = {rays / frame_ms / 1e3:.2f} Mrays/s (W*H*cameras / ms; reps "
+        f"{[round(x, 4) for x in frame_reps]}); stages alone: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items()) + f" on {card}")
+    log(f"[time] one dynamic frame on the host clock: issued in {issue_ms:.4f} ms, done "
+        f"{sync_ms:.4f} ms after a synchronise on {card}")
+    profile_calls(lambda: frame(8), "dynamic dragon frame", card)
+    log(f"[mem] peak device memory allocated in the dynamic phase: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+
+def config5_phase(env: dict) -> None:
+    """14. BASELINE config 5: the dynamic icosphere(4), 8 cameras at 256x256."""
+    from raytracer_tpu_torch import Scene
+    from raytracer_tpu_torch.ops.cluster import build_sah2_clustered
+    from raytracer_tpu_torch.ops.collapse import collapse_plan
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.utils import procgen
+
+    card, dev = env["card"], env["dev"]
+    scene = Scene().set_triangles(procgen.make_icosphere(4))
+    scene._normalize_enabled, scene._normalize_mode = True, "cube"
+    scene.normalize_mesh()
+    tris0 = torch.from_numpy(scene.triangles).to(dev)
+    cs, height = build_sah2_clustered(scene.triangles, LEAF_K, dev)
+    cs = device_topology(cs, dev)
+    plan = collapse_plan(cs.bvh2, sweeps=height + 2)
+    cams, quats = batch_cameras(CONFIG5_Z)
+    size = CONFIG5_SIZE
+    _, _, _, frame = refit_chain(cs, plan, height + 2, tris0, cams, quats, (size, size))
+    frame(0)
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    hits = torch.zeros(N_CAMS, dtype=torch.int64, device=dev)
+    for i in range(1, 1 + DYN_FRAMES):
+        r, q, out = frame(i)
+        hits += (out[4] >= 0).sum(dim=(1, 2))
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    if launches != expected(trace_tiles_k1c=DYN_FRAMES):
+        fail(f"config 5 launched {launches} in {DYN_FRAMES} frames, expected one K1c each")
+    check_plan_contract(r, q, plan, "config 5")
+    per_cam = (hits / DYN_FRAMES).tolist()
+    if min(per_cam) <= 0:
+        fail(f"config 5: a camera hit nothing ({per_cam})")
+    reps = cuda_ms(lambda: frame(9), FRAMES, REPEATS)
+    ms = statistics.median(reps)
+    rays = size * size * N_CAMS
+    log(f"[config5] icosphere(4) {scene.num_triangles} triangles, SAH K={LEAF_K}, height "
+        f"{height}; {N_CAMS} cameras at {size}x{size}; launches in {DYN_FRAMES} frames "
+        f"{json.dumps(launches)}; mean hits per camera per frame {per_cam}")
+    log(f"[time] config 5 frame (refit + records + K1c): {ms:.4f} ms/frame = "
+        f"{rays / ms / 1e3:.2f} Mrays/s (W*H*cameras / ms; reps {[round(x, 4) for x in reps]}) "
+        f"on {card}")
+    profile_calls(lambda: frame(10), "config 5 frame", card)
 
 
 if __name__ == "__main__":

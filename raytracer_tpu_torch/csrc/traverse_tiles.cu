@@ -1,23 +1,27 @@
 // K1a / K1b — closest-hit primary-ray traversal of the supernode records, one
 // frame, one ray per pixel; K1b jitters each ray's subpixel position.
+// K1c — the same for a batch of F frames (cameras) in one launch.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
-// _persistent_kernel (with its per-visit core _consume) on the path of one
-// frame, 4-wide records, K triangles per leaf, and no per-tile entry nodes
-// or depth bounds. K1a computes what
-// trace_tiles_pallas(qnodes, pos, quat, W, H, fov, leaf_k=K)[:5] computes;
-// K1b what the same call computes with jitter=True, jitter_seed=seed: the
-// fixed pixel-centre offset 0.5 becomes subpixel_hash01(px, py, 2·seed) and
-// (…, 2·seed + 1), the hash of raytracer_tpu/ops/camera.py. Both write the
-// same five (H, W) planes. Like the TPU kernel they can trace a window of a
-// larger frame (raygen_size with row/col offsets), which renders one band or
-// crop with the full frame's rays.
+// _persistent_kernel (with its per-visit core _consume) on the path of
+// 4-wide records, K triangles per leaf, and no per-tile entry nodes or depth
+// bounds. K1a computes what trace_tiles_pallas(qnodes, pos, quat, W, H, fov,
+// leaf_k=K)[:5] computes; K1b what the same call computes with jitter=True,
+// jitter_seed=seed: the fixed pixel-centre offset 0.5 becomes
+// subpixel_hash01(px, py, 2·seed) and (…, 2·seed + 1), the hash of
+// raytracer_tpu/ops/camera.py. Both write the same five (H, W) planes. Like
+// the TPU kernel they can trace a window of a larger frame (raygen_size with
+// row/col offsets), which renders one band or crop with the full frame's
+// rays. K1c computes what trace_tiles_batch_pallas(qnodes, pos (F,3), quat
+// (F,4), W, H, fov, leaf_k=K, jitter=…, jitter_seeds=…)[:5] computes: five
+// (F, H, W) planes, frame f from camera row f.
 //
 // What bounds it on the card: every visit is a dependent fetch of one record
 // (1,792 f32 words = 7,168 bytes at K = 32) through L1 and L2, and the
 // records of the 871,200-triangle main-path scene (54,449 rows, ~390 MB)
 // are far larger than the 50 MB L2, so a visit that misses waits on device
-// memory before the next node is known.
+// memory before the next node is known. K1c does the same fetches F times
+// over; cameras that see the same part of the scene read the same records.
 //
 // What the design does about it:
 //  * One thread per pixel with its own 64-entry stack, in 8×8 blocks: the
@@ -26,6 +30,14 @@
 //  * The traversal itself (traverse_core.cuh, shared with K2) reads only what
 //    a visit needs, orders children near-first by the ray's own slab entry
 //    distance and culls entries at or beyond the best t.
+//  * K1c is one launch over a grid of (⌈W/8⌉, ⌈H/8⌉, F) blocks. The TPU
+//    kernel's tile queue spans all frames so that no frame's tail idles the
+//    chip; here the block scheduler does that: the slow blocks of one frame
+//    run beside the blocks of the others, and the F launches' overhead is
+//    paid once. Blocks of one frame are adjacent in launch order, so the
+//    blocks in flight share the upper levels of the tree in L2. Camera rows
+//    are read from a device table of (F, 16) f32 (the TPU kernel's layout),
+//    so F is bounded only by the grid (65,535).
 //
 // The TPU kernel shares one stack among the 1,024 rays of a 32×32 tile and
 // orders children by the tile-centre ray; ordering by each ray's own entry
@@ -34,6 +46,8 @@
 // Exactness: ray generation follows traverse.py:714-736 in the operation
 // order of the plain torch version (raytracer_tpu_torch/ops/camera.py::
 // primary_dirs), with IEEE 1.0f / sqrtf where the TPU kernel uses rsqrt.
+// All three kernels generate rays with the one function trace_primary, so a
+// K1c frame is bit-identical to K1a (K1b with its seed) for its camera.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,18 +74,16 @@ __device__ __forceinline__ float subpixel_hash01(int px, int py, int seed) {
   return (float)(h >> 8) * 5.9604644775390625e-8f;  // 2^-24
 }
 
-template <bool kJitter>
-__global__ void __launch_bounds__(64)
-trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera cam,
-                   int seed, int width, int height, int row_off, int col_off,
-                   float* __restrict__ t_out,
-                   float* __restrict__ nx_out, float* __restrict__ ny_out,
-                   float* __restrict__ nz_out, int* __restrict__ tri_out) {
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
-  const int gx = px + col_off, gy = py + row_off;  // pixel of the whole frame
+// Columns of a camera row of K1c's table (the TPU kernel's (F, 16) layout;
+// columns 14 and 15 are unused).
+enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSeed = 11,
+              kRowOff = 12, kColOff = 13, kCamCols = 16 };
 
+// The primary ray of pixel (gx, gy) of the whole frame, traversed.
+template <bool kJitter>
+__device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, int recw,
+                                                 int leaf_k, const Camera& cam, int seed,
+                                                 int gx, int gy) {
   float jx = 0.5f, jy = 0.5f;
   if (kJitter) {
     jx = subpixel_hash01(gx, gy, seed * 2);
@@ -97,15 +109,57 @@ trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera ca
     dy = 2.0f * (cam.qw * uvy + uuvy) + dy;
     dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
   }
+  return rt::traverse_ray<false>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz);
+}
 
-  const rt::Hit hit =
-      rt::traverse_ray<false>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz);
-  const size_t p = (size_t)py * (size_t)width + (size_t)px;
+__device__ __forceinline__ void store_hit(const rt::Hit& hit, size_t p, float* __restrict__ t_out,
+                                          float* __restrict__ nx_out,
+                                          float* __restrict__ ny_out,
+                                          float* __restrict__ nz_out,
+                                          int* __restrict__ tri_out) {
   t_out[p] = hit.t;
   nx_out[p] = hit.nx;
   ny_out[p] = hit.ny;
   nz_out[p] = hit.nz;
   tri_out[p] = hit.tri;
+}
+
+template <bool kJitter>
+__global__ void __launch_bounds__(64)
+trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera cam,
+                   int seed, int width, int height, int row_off, int col_off,
+                   float* __restrict__ t_out,
+                   float* __restrict__ nx_out, float* __restrict__ ny_out,
+                   float* __restrict__ nz_out, int* __restrict__ tri_out) {
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= width || py >= height) return;
+  const rt::Hit hit =
+      trace_primary<kJitter>(qn, recw, leaf_k, cam, seed, px + col_off, py + row_off);
+  store_hit(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out, nz_out,
+            tri_out);
+}
+
+// K1c: frame blockIdx.z, its camera from row blockIdx.z of `cams`.
+template <bool kJitter>
+__global__ void __launch_bounds__(64)
+trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
+                         const float* __restrict__ cams, int width, int height,
+                         float* __restrict__ t_out, float* __restrict__ nx_out,
+                         float* __restrict__ ny_out, float* __restrict__ nz_out,
+                         int* __restrict__ tri_out) {
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= width || py >= height) return;
+  const float* row = cams + (size_t)blockIdx.z * kCamCols;
+  const Camera cam{row[kOx],     row[kOx + 1],  row[kOx + 2],   row[kQx],
+                   row[kQx + 1], row[kQx + 2],  row[kQx + 3],   row[kFocal],
+                   row[kAspect], row[kFw],      row[kFh]};
+  const rt::Hit hit =
+      trace_primary<kJitter>(qn, recw, leaf_k, cam, (int)row[kSeed],
+                             px + (int)row[kColOff], py + (int)row[kRowOff]);
+  const size_t p = ((size_t)blockIdx.z * (size_t)height + (size_t)py) * (size_t)width + px;
+  store_hit(hit, p, t_out, nx_out, ny_out, nz_out, tri_out);
 }
 
 }  // namespace
@@ -134,6 +188,28 @@ extern "C" int rt_trace_tiles(const float* qnodes, int recw, int leaf_k, float o
     trace_tiles_kernel<false><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cam, seed, width,
                                                      height, row_off, col_off, t, nx, ny, nz,
                                                      tri);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch K1c on `stream`: `num_frames` frames of width × height pixels, frame
+// f from row f of `cams` ((num_frames, 16) f32 on the device: origin,
+// quaternion xyzw, focal, aspect, raygen W and H, jitter seed, row and column
+// offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
+// Outputs: (num_frames, height, width) planes. Returns cudaGetLastError()
+// after the launch (0 on success); synchronises nothing.
+extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, const float* cams,
+                                    int num_frames, int width, int height, int jitter, float* t,
+                                    float* nx, float* ny, float* nz, int* tri, void* stream) {
+  const dim3 block(8, 8);
+  const dim3 grid((width + 7) / 8, (height + 7) / 8, num_frames);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (jitter) {
+    trace_tiles_batch_kernel<true><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cams, width,
+                                                          height, t, nx, ny, nz, tri);
+  } else {
+    trace_tiles_batch_kernel<false><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cams, width,
+                                                           height, t, nx, ny, nz, tri);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Packed-leaf (K triangles per leaf) trees: the SAH cluster build and the
-records pipeline of the main path.
+"""Packed-leaf (K triangles per leaf) trees: the SAH cluster build, its
+refit to deformed triangles, and the records pipeline of the main path.
 
 Torch counterpart of ``raytracer_tpu/ops/cluster.py``: cluster ``c`` owns
 the sorted triangles [cK, min(N, (c+1)K)); the tree's leaves reference
@@ -15,18 +15,20 @@ import numpy as np
 import torch
 
 from ..native.bvhtool import build_sah_clustered_native
-from .collapse import LBVH2, collapse_lbvh2_to_bvh4
+from ..utils.fp16 import pack_bounds_conservative
+from .collapse import LBVH2, LEAF_FLAG, collapse_lbvh2_to_bvh4
 from .cuda.traverse import make_qnodes
+from .lbvh import _tri_bounds, from_ordered_key, ordered_key
 from .trace import make_wide_bvh
 
-__all__ = ["ClusteredScene", "build_sah2_clustered", "records_pipeline",
-           "state_from_numpy"]
+__all__ = ["ClusteredScene", "build_sah2_clustered", "refit_lbvh2_clustered", "tree_height",
+           "records_pipeline", "state_from_numpy"]
 
 
 class ClusteredScene(NamedTuple):
     """A packed-leaf BVH2 plus the cluster-ordered geometry it indexes."""
 
-    bvh2: LBVH2                # host tensors; leaves carry LEAF_FLAG|cluster
+    bvh2: LBVH2                # leaves carry LEAF_FLAG|cluster
     tris_sorted: torch.Tensor  # (N,3,3) f32 — cluster members contiguous
     tri_order: torch.Tensor    # (N,) int64 — original index per sorted position
     leaf_size: int             # K — max triangles per cluster
@@ -61,6 +63,90 @@ def build_sah2_clustered(triangles: np.ndarray, leaf_size: int, device
         **{f"bvh2_{k}": v for k, v in arrays.items()},
     }, device)
     return state, height
+
+
+def tree_height(bvh2: LBVH2) -> int:
+    """Max leaf depth (0 for a single leaf), read on the host: the number of
+    bottom-up union sweeps after which a refit's bounds stop changing."""
+    left, right, meta = (a.cpu().numpy() for a in (bvh2.left, bvh2.right, bvh2.meta))
+    leaf = (meta & LEAF_FLAG) != 0
+    level, height = np.zeros(1, np.int64), 0
+    while True:
+        level = level[~leaf[level]]
+        if level.size == 0:
+            return height
+        level = np.concatenate([left[level], right[level]]).astype(np.int64)
+        height += 1
+
+
+def _f16_order(h: torch.Tensor) -> torch.Tensor:
+    """fp16 bit patterns → keys in [0, 2^16) ordered by value, −0 < +0."""
+    return torch.where((h & 0x8000) != 0, (~h) & 0xFFFF, h ^ 0x8000)
+
+
+def _f16_unorder(k: torch.Tensor) -> torch.Tensor:
+    return torch.where((k & 0x8000) != 0, k ^ 0x8000, (~k) & 0xFFFF)
+
+
+def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
+                          num_sweeps: int | None = None) -> ClusteredScene:
+    """Refit a packed-cluster tree to deformed triangles (same count,
+    ORIGINAL order), keeping topology and the cluster assignment; only the
+    bounds move. Runs on the device of ``triangles``, where the returned
+    scene's tree lives: the topology is copied there once, by the first
+    refit of a tree built on the host.
+
+    Leaf rows (found by ``LEAF_FLAG``, never by row position: the SAH tree
+    is pre-order with leaves interleaved) get their cluster's union, packed
+    conservatively; internal rows the plain-packed union of their children,
+    swept bottom-up. The JAX package sweeps until nothing changes (at most
+    ``num_sweeps``), which on the card would read a flag back every sweep.
+    Here ``num_sweeps`` sweeps run with no test (pass ``height + 2`` from
+    the build: a bounded frame that never waits on the card); the result is
+    the same bit for bit, because the sweeps converge in ``tree_height``
+    steps to the one fixed point of an acyclic tree and change nothing
+    after. Without ``num_sweeps`` (the JAX package's cap is then the node
+    count, never below the height) the height is read on the host and
+    that many sweeps run.
+
+    Each sweep takes the min/max on fp16 keys ordered by value: a union of
+    fp16 values is an fp16 value, so this is the JAX package's unpack →
+    f32 min/max (−0 below +0) → pack, without the conversions."""
+    dev = triangles.device
+    bvh = LBVH2(*(a.to(dev) for a in cs.bvh2))
+    order = cs.tri_order.to(dev)
+    k, n = cs.leaf_size, triangles.shape[0]
+    c = bvh.num_internal + 1
+    if num_sweeps is None:
+        num_sweeps = tree_height(bvh)
+
+    tris_sorted = triangles[order]
+    tmn, tmx = _tri_bounds(tris_sorted)
+    pad = torch.full((c * k - n, 3), torch.inf, dtype=torch.float32, device=dev)
+    cl_mn = from_ordered_key(ordered_key(torch.cat([tmn, pad])).reshape(c, k, 3).amin(dim=1))
+    cl_mx = from_ordered_key(ordered_key(torch.cat([tmx, -pad])).reshape(c, k, 3).amax(dim=1))
+
+    leaf = (bvh.meta & LEAF_FLAG) != 0
+    cidx = torch.where(leaf, bvh.meta & 0x7FFFFFFF, 0)
+    leaf_bounds = torch.where(leaf[:, None], pack_bounds_conservative(cl_mn[cidx], cl_mx[cidx]), 0)
+    bounds = leaf_bounds
+    if bvh.num_internal > 0:
+        # keys of (mn.x, mn.y, mn.z) and 0xFFFF − keys of (mx.x, mx.y, mx.z):
+        # one min over both children is then the union of their boxes
+        h = torch.stack([(bounds[:, i // 2] >> (16 * (i % 2))) & 0xFFFF for i in range(6)], -1)
+        key = _f16_order(h)
+        key[:, 3:] = 0xFFFF - key[:, 3:]
+        key = key.to(torch.int32)
+        left, right = bvh.left, bvh.right
+        for _ in range(num_sweeps):
+            key = torch.where(leaf[:, None], key, torch.minimum(key[left], key[right]))
+        key = key.to(torch.int64)
+        key[:, 3:] = 0xFFFF - key[:, 3:]
+        h = _f16_unorder(key)
+        packed = torch.stack([h[:, 0] | (h[:, 1] << 16), h[:, 2] | (h[:, 3] << 16),
+                              h[:, 4] | (h[:, 5] << 16)], -1)
+        bounds = torch.where(leaf[:, None], leaf_bounds, packed)
+    return ClusteredScene(bvh._replace(bounds_u32=bounds), tris_sorted, order, k)
 
 
 def records_pipeline(cs: ClusteredScene) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Supernode records and their traversal: the CUDA kernels K1a/K1b
+"""Supernode records and their traversal: the CUDA kernels K1a/K1b/K1c
 (``csrc/traverse_tiles.cu``) and K2a/K2b (``csrc/traverse_rays.cu``), their
 wrappers and their plain torch versions.
 
@@ -6,11 +6,13 @@ Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on 4-wide records:
 :func:`make_qnodes` builds the same records byte for byte;
 :func:`trace_tiles` computes what ``trace_tiles_pallas(qnodes, pos, quat, W,
 H, fov, leaf_k=K, jitter=…, jitter_seed=…)[:5]`` computes for one frame
-(K1a without jitter, K1b with it); :func:`trace_rays` what
-``trace_rays_pallas(qnodes, origins, dirs, any_hit=…, leaf_k=K)`` computes
-(K2a closest hit, K2b any hit). Both kernels run the one per-ray traversal
-of ``csrc/traverse_core.cuh``, and both plain versions the one
-:func:`_traverse`.
+(K1a without jitter, K1b with it); :func:`trace_tiles_batch` what
+``trace_tiles_batch_pallas(qnodes, pos (F,3), quat (F,4), W, H, fov,
+leaf_k=K, jitter=…, jitter_seeds=…)[:5]`` computes for F frames in one
+launch (K1c); :func:`trace_rays` what ``trace_rays_pallas(qnodes, origins,
+dirs, any_hit=…, leaf_k=K)`` computes (K2a closest hit, K2b any hit). All
+kernels run the one per-ray traversal of ``csrc/traverse_core.cuh``, and all
+plain versions the one :func:`_traverse`.
 
 Record layout (f32 words, width w = 4 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
@@ -31,12 +33,13 @@ import functools
 
 import torch
 
-from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir, subpixel_hash01
+from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir, subpixel_hash01, to_device
 from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
-           "trace_tiles_reference", "trace_rays", "trace_rays_reference", "load_kernel",
-           "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF"]
+           "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
+           "trace_rays", "trace_rays_reference", "load_kernel", "TraversalCounts", "LAUNCHES",
+           "reset_launches", "EMPTY_REF"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -45,11 +48,12 @@ _LEAF_BIT = 1 << 30
 _REFERENCE_CHUNK = 1 << 16
 
 _MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
+_MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
 # Launches of each kernel since its count was last set to 0; raised only
 # where a wrapper launches that kernel.
-LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_rays_k2a": 0,
-            "trace_rays_k2b": 0}
+LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
+            "trace_rays_k2a": 0, "trace_rays_k2b": 0}
 
 
 def reset_launches() -> None:
@@ -139,7 +143,9 @@ def make_qnodes(wide: WideBVH, tris: torch.Tensor, tri_ids: torch.Tensor | None 
     count = (n_tris - first).clamp(0, k_sz).to(f32)
     ext = wide.cmx - wide.cmn
     ex, ey, ez = ext.unbind(-1)
-    radius = 0.5 * torch.sqrt(_fma_f32(ez, ez, _fma_f32(ey, ey, ex * ex)))
+    # torch's f32 sqrt on the CPU can be 1 ulp off; the f64 root of an f32,
+    # rounded to f32, is the correctly rounded f32 root on any device
+    radius = 0.5 * torch.sqrt(_fma_f32(ez, ez, _fma_f32(ey, ey, ex * ex)).double()).float()
     radius = torch.where(torch.isfinite(radius), radius, torch.zeros_like(radius))
     rec[:, 7 * wd:8 * wd] = torch.where(is_leaf, count, radius)
 
@@ -189,34 +195,50 @@ def _camera(cam_pos, cam_quat) -> tuple[list[float], list[float]]:
 
 def _check_seed(jitter_seed) -> int:
     seed = int(jitter_seed)
-    if not 0 <= seed < _MAX_SEED:
-        raise ValueError(f"jitter_seed must be in [0, 2^24), got {seed}")
+    if seed != jitter_seed or not 0 <= seed < _MAX_SEED:
+        raise ValueError(f"jitter_seed must be an integer in [0, 2^24), got {jitter_seed}")
     return seed
 
 
+def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[int, int]:
+    """The (W, H) of the frame whose rays the ``width`` × ``height`` window
+    at (row_offset, col_offset) traces."""
+    rg_w, rg_h = raygen_size if raygen_size is not None else (width, height)
+    if not (width >= 1 and height >= 1 and 0 <= col_offset <= rg_w - width
+            and 0 <= row_offset <= rg_h - height):
+        raise ValueError(f"window {width}x{height} at ({row_offset}, {col_offset}) "
+                         f"does not fit the {rg_w}x{rg_h} frame")
+    return rg_w, rg_h
+
+
 _ARGTYPES = {
-    "traverse_tiles.cu": ("rt_trace_tiles",
-                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                          + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
+    "traverse_tiles.cu": {
+        "rt_trace_tiles": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                           + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p] * 6),
+        "rt_trace_tiles_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6),
+    },
+    "traverse_rays.cu": {
+        "rt_trace_rays": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                           + [ctypes.c_void_p] * 6),
-    "traverse_rays.cu": ("rt_trace_rays",
-                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                         + [ctypes.c_void_p] * 6),
+    },
 }
 
 
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b) or ``traverse_rays.cu`` (K2a/K2b); returns (library, nvcc log)."""
+    (K1a/K1b/K1c) or ``traverse_rays.cu`` (K2a/K2b); returns (library, nvcc
+    log)."""
     from .build import build_library
 
-    name, argtypes = _ARGTYPES[source]
     lib, log = build_library(source)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    for name, argtypes in _ARGTYPES[source].items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     return lib, log
 
 
@@ -237,15 +259,9 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     the plain version for records on the CPU; raises for any other device."""
     qn = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
-    rg_w, rg_h = raygen_size if raygen_size is not None else (width, height)
-    if not (width >= 1 and height >= 1 and 0 <= col_offset <= rg_w - width
-            and 0 <= row_offset <= rg_h - height):
-        raise ValueError(f"window {width}x{height} at ({row_offset}, {col_offset}) "
-                         f"does not fit the {rg_w}x{rg_h} frame")
+    rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     if qn.device.type == "cpu":
-        rows = torch.arange(row_offset, row_offset + height)
-        cols = torch.arange(col_offset, col_offset + width)
-        pixels = (rows[:, None] * rg_w + cols[None, :]).reshape(-1)
+        pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
                                        leaf_k, pixels=pixels, jitter=jitter,
                                        jitter_seed=seed)
@@ -297,6 +313,97 @@ def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
     if pixels is None:
         return tuple(p.reshape(height, width) for p in planes)
     return planes
+
+
+def _window_pixels(width: int, height: int, rg_w: int, row_offset: int,
+                   col_offset: int) -> torch.Tensor:
+    """Flat indices py·W + px of a window's pixels in a frame of width rg_w."""
+    rows = torch.arange(row_offset, row_offset + height)
+    cols = torch.arange(col_offset, col_offset + width)
+    return (rows[:, None] * rg_w + cols[None, :]).reshape(-1)
+
+
+def _cameras(cam_pos, cam_quat, jitter_seeds) -> tuple[list, list, list[int]]:
+    """Host lists of F positions, F quaternions and F seeds, checked."""
+    pos = torch.as_tensor(cam_pos, dtype=torch.float32).cpu()
+    quat = torch.as_tensor(cam_quat, dtype=torch.float32).cpu()
+    if pos.dim() != 2 or pos.shape[1] != 3 or quat.shape != (pos.shape[0], 4):
+        raise ValueError(f"cam_pos must be (F, 3) and cam_quat (F, 4), got "
+                         f"{tuple(pos.shape)} and {tuple(quat.shape)}")
+    f = pos.shape[0]
+    if not 1 <= f <= _MAX_FRAMES:
+        raise ValueError(f"{f} frames: a batch holds 1 to {_MAX_FRAMES}")
+    if jitter_seeds is None:
+        seeds = [0] * f
+    else:
+        raw = torch.as_tensor(jitter_seeds).cpu().reshape(-1).tolist()
+        if len(raw) != f:
+            raise ValueError(f"jitter_seeds must hold one seed per frame ({f}), got {len(raw)}")
+        seeds = [_check_seed(x) for x in raw]
+    return pos.tolist(), quat.tolist(), seeds
+
+
+def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int,
+                      fov_degrees: float = 70.0, leaf_k: int = 1, jitter: bool = False,
+                      jitter_seeds=None, stats: bool = False, *,
+                      raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
+                      col_offset: int = 0):
+    """Trace F frames in one launch, frame f from camera ``cam_pos[f]``
+    (F, 3), ``cam_quat[f]`` (F, 4) → (t, nx, ny, nz, tri) planes of (F, H, W),
+    each frame equal to :func:`trace_tiles` for its camera. ``jitter``
+    takes frame f's subpixel offsets from ``jitter_seeds[f]`` (integers in
+    [0, 2^24)). ``raygen_size``/``row_offset``/``col_offset`` trace the same
+    window of every frame, as in :func:`trace_tiles`. The cameras are host
+    values (array-likes or CPU tensors): the camera table is built on the
+    host and copied to the card without a synchronisation.
+
+    Launches K1c for records on a CUDA device; runs the plain version for
+    records on the CPU; raises for any other device. ``stats=True`` (the
+    visits plane) is not ported yet."""
+    if stats:
+        raise NotImplementedError("the visits plane (stats=True, kernel K1f) is not ported "
+                                  "yet: ROADMAP slice 6")
+    qn = _check_qnodes(qnodes, leaf_k)
+    pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
+    rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
+    f = len(pos)
+    if qn.device.type == "cpu":
+        pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
+        planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
+                                             pixels=pixels, jitter=jitter, jitter_seeds=seeds)
+        return tuple(p.reshape(f, height, width) for p in planes)
+    if qn.device.type != "cuda":
+        raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
+    lib, _ = load_kernel("traverse_tiles.cu")
+    focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
+    table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
+                       for p, q, s in zip(pos, quat, seeds)], qn.device)
+    planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
+              for _ in range(4)]
+    tri = torch.empty((f, height, width), dtype=torch.int32, device=qn.device)
+    with torch.cuda.device(qn.device):
+        stream = torch.cuda.current_stream(qn.device).cuda_stream
+        err = lib.rt_trace_tiles_batch(
+            qn.data_ptr(), qn.shape[1], leaf_k, table.data_ptr(), f, width, height,
+            int(bool(jitter)), *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"trace_tiles_k1c launch failed: cudaError {err}")
+    LAUNCHES["trace_tiles_k1c"] += 1
+    return (*planes, tri)
+
+
+def trace_tiles_batch_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
+                                height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
+                                pixels: torch.Tensor | None = None, jitter: bool = False,
+                                jitter_seeds=None, counts: "TraversalCounts | None" = None):
+    """The plain torch version of K1c: :func:`trace_tiles_reference` of each
+    frame on the same rays, stacked → (F, H, W) planes, or (F, P) with
+    ``pixels``. ``counts`` adds up the work of all frames."""
+    pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
+    frames = [trace_tiles_reference(qnodes, p, q, width, height, fov_degrees, leaf_k,
+                                    pixels=pixels, jitter=jitter, jitter_seed=s, counts=counts)
+              for p, q, s in zip(pos, quat, seeds)]
+    return tuple(torch.stack(planes) for planes in zip(*frames))
 
 
 def _check_rays(qn: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,

@@ -3,7 +3,10 @@ path tracing, with the public surface of
 ``raytracer_tpu/pathtracer.py::PathTracer``.
 
 The main path: ``set_scene`` → native SAH build with K-triangle clusters →
-BVH2→BVH4 collapse → wide nodes → supernode records on ``device``. Then:
+BVH2→BVH4 collapse → wide nodes → supernode records on ``device``.
+``refit_bvh`` moves the triangles of that tree and keeps its topology:
+refit → the collapse plan's gather → wide nodes → records, all on
+``device``. Then:
 
 * ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
   ``render_presented``'s tonemap;
@@ -18,9 +21,9 @@ On a CUDA device every traversal is a kernel; on the CPU each runs its plain
 torch version. Scenes of at most 8 triangles trace brute force, as in the
 JAX package.
 
-Ported so far: the SAH builder with clusters of K > 1 triangles. The other
-builders (LBVH, PLOC, single-triangle leaves) and refit come with later
-slices and raise ``NotImplementedError``.
+Ported so far: the SAH builder with clusters of K > 1 triangles, and its
+refit. The other builders (LBVH, PLOC, single-triangle leaves) come with a
+later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,18 +36,20 @@ import torch
 from .io import artifacts
 from .models.scene import Scene
 from .ops.camera import generate_rays, generate_rays_jittered
-from .ops.cluster import build_sah2_clustered, records_pipeline, state_from_numpy
-from .ops.cuda.traverse import trace_tiles
+from .ops.cluster import (build_sah2_clustered, records_pipeline, refit_lbvh2_clustered,
+                          state_from_numpy, tree_height)
+from .ops.collapse import LBVH2, collapse_apply_refit, collapse_plan
+from .ops.cuda.traverse import make_qnodes, trace_tiles
 from .ops.shade import present_frame, quantize_rgba8, shade_lambert, triangle_normals
-from .ops.trace import trace_rays_brute
+from .ops.trace import make_wide_bvh, trace_rays_brute
 from .render_pt import accumulate, pt_sample_frame
 
 __all__ = ["PathTracer"]
 
 _BRUTE_FORCE_MAX_TRIS = 8
 _LATER = ("only the SAH builder with K>1 triangle clusters is ported; "
-          "LBVH/PLOC builds and single-triangle leaves come with later slices "
-          "of the torch build chain (ROADMAP slices 3 and 7)")
+          "LBVH/PLOC builds and single-triangle leaves come with a later slice "
+          "of the torch build chain (ROADMAP slice 7)")
 
 
 def _default_tetrahedron() -> np.ndarray:
@@ -93,6 +98,8 @@ class PathTracer:
         self.triangles_data: np.ndarray = _default_tetrahedron()
         self._tris_dev: torch.Tensor | None = None
         self._cluster = None
+        self._bvh2_height: int | None = None
+        self._collapse_plan = None
         self._qnodes: torch.Tensor | None = None
         self.build_stats: dict = {}
 
@@ -118,7 +125,8 @@ class PathTracer:
             tris = tris.reshape(-1, 3, 3)
         self.triangles_data = tris
         self._tris_dev = torch.from_numpy(tris).to(self.device)
-        self._cluster = self._qnodes = None
+        self._cluster = self._qnodes = self._bvh2_height = None
+        self._collapse_plan = None  # new topology → new plan (refit_bvh)
         n = len(tris)
         if n <= _BRUTE_FORCE_MAX_TRIS:
             # traced brute force (_render_planes): no tree needed
@@ -128,18 +136,59 @@ class PathTracer:
             raise NotImplementedError(_LATER)
 
         t0 = time.perf_counter()
-        self._cluster, height = build_sah2_clustered(tris, self.leaf_size, self.device)
+        self._cluster, self._bvh2_height = build_sah2_clustered(tris, self.leaf_size,
+                                                                self.device)
         t1 = time.perf_counter()
         self._records()
         t2 = time.perf_counter()
         self.build_stats = {
             "num_triangles": n,
             "num_nodes2": self._cluster.bvh2.num_nodes,
-            "bvh2_height": height,
+            "bvh2_height": self._bvh2_height,
             "lbvh2_ms": (t1 - t0) * 1e3,
             "records_ms": (t2 - t1) * 1e3,
             "total_ms": (t2 - t0) * 1e3,
         }
+
+    def refit_bvh(self, triangles) -> None:
+        """Refit the tree to deformed triangles — same count, moved vertices —
+        instead of rebuilding: topology, cluster assignment and the
+        BVH2→BVH4 collapse decisions all survive, so a refit is the bounds
+        sweep (``refit_lbvh2_clustered``), one gather through the collapse
+        plan (``collapse_apply_refit``, equal to the full collapse) and the
+        records, all on ``device``. The plan is made at the first refit of a
+        tree, when the tree's topology is also copied to ``device``. Falls
+        back to ``build_bvh`` for another triangle count, no cluster tree or
+        the brute-force scene. Adds ``plan_ms`` (first refit only) and
+        ``refit_ms`` (host clock, ending in a device synchronise) to
+        ``build_stats``."""
+        tris = np.asarray(triangles, dtype=np.float32)
+        if tris.ndim == 1:
+            tris = tris.reshape(-1, 3, 3)
+        if self._cluster is None or len(tris) != len(self.triangles_data):
+            self.build_bvh(tris)
+            return
+        stats = {}
+        sweeps = self._bvh2_height + 2
+        if self._collapse_plan is None:
+            t0 = time.perf_counter()
+            bvh2 = LBVH2(*(a.to(self.device) for a in self._cluster.bvh2))
+            self._cluster = self._cluster._replace(bvh2=bvh2)
+            self._collapse_plan = collapse_plan(bvh2, sweeps=sweeps)
+            stats["plan_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
+        cs = refit_lbvh2_clustered(self._cluster, tris_dev, num_sweeps=sweeps)
+        bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
+        self._qnodes = make_qnodes(make_wide_bvh(bvh4), cs.tris_sorted, tri_ids=cs.tri_order,
+                                   leaf_size=cs.leaf_size)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        stats["refit_ms"] = (time.perf_counter() - t0) * 1e3
+        self._cluster = cs
+        self.triangles_data = tris
+        self._tris_dev = tris_dev
+        self.build_stats = {**self.build_stats, **stats}
 
     def _records(self) -> None:
         self._qnodes = records_pipeline(self._cluster)
@@ -272,4 +321,7 @@ class PathTracer:
         self._tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
         self._cluster = state_from_numpy(data, self.device)
         self.leaf_size = self._cluster.leaf_size
+        # the checkpoint does not store the height, which sets the refit's sweeps
+        self._bvh2_height = tree_height(self._cluster.bvh2)
+        self._collapse_plan = None
         self._records()

@@ -1,6 +1,7 @@
-"""The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K2a/K2b
-``trace_rays``), their build, and each kernel against its plain torch
-version.
+"""The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K1c
+``trace_tiles_batch``, K2a/K2b ``trace_rays``), their build, each kernel
+against its plain torch version, and the refit chain on the card against
+the same chain on the CPU.
 
 Needs neither JAX nor the JAX package, so the tests marked ``cuda`` run on
 a machine with a card and only the port:
@@ -10,7 +11,9 @@ a machine with a card and only the port:
 (``--noconftest``: the suite's conftest.py configures JAX). Without a card
 they skip; the wrapper's CPU path and checks are tested everywhere.
 Tolerances: the traversal rule of ``torch_parity`` for closest hit (K1a,
-K1b, K2a); the occlusion mask equal on every ray for any hit (K2b).
+K1b, K1c, K2a); the occlusion mask equal on every ray for any hit (K2b);
+K1c's frames bit-equal to K1a's (K1b's); the refit chain's records
+byte-equal.
 """
 
 import numpy as np
@@ -18,8 +21,11 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.ops.camera import generate_rays_jittered
-from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
+from raytracer_tpu_torch.ops.cluster import (build_sah2_clustered, records_pipeline,
+                                             refit_lbvh2_clustered)
+from raytracer_tpu_torch.ops.collapse import LBVH2, collapse_apply_refit, collapse_plan
 from raytracer_tpu_torch.ops.cuda import build, traverse
+from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.ops.trace import moller_trumbore
 from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, ray_buffer,
                           room_scene, seeded_scene)
@@ -319,3 +325,84 @@ def test_ray_kernel_refuses_inputs_on_card(cuda_device):
         traverse.trace_rays(qn, o.half(), o, leaf_k=8)
     with pytest.raises(ValueError):
         traverse.trace_rays(qn, torch.zeros((3, 16), device=cuda_device).t(), o, leaf_k=8)
+
+
+BATCH_POS = np.float32([CAM_POS, [0.4, 0.1, 2.2], [-0.3, -0.2, 2.9], [0.0, 0.0, 3.2]])
+BATCH_QUAT = np.float32([CAM_QUAT, [0, 0, 0, 1], [0.05, -0.1, 0.02, 0.9934], [0, 0.2, 0, 0.9798]])
+BATCH_SEEDS = [(1 << 22) - 7, 3, 123457, 99]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_batch_kernel_equals_single_frame_kernels_on_card(cuda_device, k):
+    """Each K1c frame is bit-identical to K1a for its camera, and with
+    jitter to K1b with its seed; each batch is one K1c launch."""
+    tris = seeded_scene(4)
+    w, h = 150, 98
+    qn = records_pipeline(build_sah2_clustered(tris, k, cuda_device)[0])
+    for jitter in (False, True):
+        seeds = BATCH_SEEDS if jitter else None
+        before = dict(traverse.LAUNCHES)
+        batch = traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k,
+                                           jitter=jitter, jitter_seeds=seeds)
+        torch.cuda.synchronize()
+        assert traverse.LAUNCHES["trace_tiles_k1c"] == before["trace_tiles_k1c"] + 1
+        assert all(traverse.LAUNCHES[n] == before[n] for n in before if n != "trace_tiles_k1c")
+        for f in range(len(BATCH_POS)):
+            single = traverse.trace_tiles(qn, BATCH_POS[f], BATCH_QUAT[f], w, h, FOV, leaf_k=k,
+                                          jitter=jitter, jitter_seed=seeds[f] if jitter else 0)
+            assert all(torch.equal(b[f], s) for b, s in zip(batch, single))
+
+
+@pytest.mark.cuda
+def test_batch_kernel_matches_reference_on_card(cuda_device):
+    """K1c against trace_tiles_batch_reference by the traversal rule."""
+    tris = seeded_scene(4)
+    w, h, k = 128, 96, 32
+    qn = records_pipeline(build_sah2_clustered(tris, k, cuda_device)[0])
+    ours = traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k,
+                                      jitter=True, jitter_seeds=BATCH_SEEDS)
+    ref = traverse.trace_tiles_batch_reference(qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k,
+                                               jitter=True, jitter_seeds=BATCH_SEEDS)
+    for f in range(len(BATCH_POS)):
+        o, r = [p[f].cpu() for p in ours], [p[f].cpu() for p in ref]
+        dirs = generate_rays_jittered(w, h, BATCH_POS[f], BATCH_QUAT[f], BATCH_SEEDS[f], FOV,
+                                      device="cpu")[1]
+        assert_trace_parity(o, r[0], r[4], torch.stack(r[1:4], -1).numpy(), tris,
+                            dirs.reshape(-1, 3), BATCH_POS[f])
+
+
+def refit_chain_records(tris: np.ndarray, device, k: int = 8) -> list[torch.Tensor]:
+    """Build on ``device``, then per deformation: refit → collapse plan
+    gather → wide nodes → records, on ``device``."""
+    cs, height = build_sah2_clustered(tris, k, device)
+    cs = cs._replace(bvh2=LBVH2(*(a.to(device) for a in cs.bvh2)))
+    plan = collapse_plan(cs.bvh2, sweeps=height + 2)
+    base = torch.from_numpy(tris).to(device)
+    out = []
+    for phase in (0.4, 1.9):
+        r = refit_lbvh2_clustered(cs, base * (1.0 + 0.1 * np.sin(phase)), num_sweeps=height + 2)
+        bvh4 = collapse_apply_refit(plan, r.bvh2.bounds_u32)
+        out.append(traverse.make_qnodes(make_wide_bvh(bvh4), r.tris_sorted, tri_ids=r.tri_order,
+                                        leaf_size=k))
+    return out
+
+
+@pytest.mark.cuda
+def test_refit_chain_on_card_equals_cpu(cuda_device):
+    """The refit chain's records on the card byte-equal the same chain's on
+    the CPU."""
+    tris = room_scene()
+    for card, cpu in zip(refit_chain_records(tris, cuda_device), refit_chain_records(tris, "cpu")):
+        assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_refit_chain_runs_on_cpu():
+    """The chain the card test runs, on the CPU: the refitted records equal
+    the records pipeline's (native full collapse) of the refitted scene."""
+    tris = room_scene()
+    qn = refit_chain_records(tris, "cpu")[1]
+    cs, height = build_sah2_clustered(tris, 8, "cpu")
+    r = refit_lbvh2_clustered(cs, torch.from_numpy(tris) * (1.0 + 0.1 * np.sin(1.9)),
+                              num_sweeps=height + 2)
+    assert torch.equal(qn.view(torch.int32), records_pipeline(r).view(torch.int32))
