@@ -9,9 +9,10 @@ Phases, each printing what it measures; the first failure exits non-zero:
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
-   kernels K1a/K1b/K1c (csrc/traverse_tiles.cu) and the ray-buffer kernels
-   K2a/K2b (csrc/traverse_rays.cu), with their seconds and each kernel's
-   ptxas registers, stack frame and spills;
+   kernels K1a/K1b/K1c/K1e/K1f (csrc/traverse_tiles.cu) and the ray-buffer
+   kernels K2a/K2b/K2c (csrc/traverse_rays.cu), with their seconds and the
+   ptxas registers, stack frame and spills of every instantiation (child
+   slots × jitter × visits, any hit);
 3. the primary-ray main path at full size: the 871,200-triangle dragon
    stand-in at 1920×1080 through Scene.load_glb → PathTracer.set_scene →
    render (framed and sparse view) → render_presented, counting K1a's
@@ -65,23 +66,52 @@ Phases, each printing what it measures; the first failure exits non-zero:
    time under torch.profiler, and peak device memory;
 14. BASELINE config 5 as bench_suite.py defines it: icosphere(4) (5,120
    triangles), SAH K = 32, 8 cameras at (x, 0, 3.0) at 256×256, the same
-   frame chain: times, per-camera hit counts and launches.
+   frame chain: times, per-camera hit counts and launches;
+15. the 8-wide main path at full size: PathTracer(widener="collapse8") on
+   the dragon: set_scene (build seconds, BVH8 rows, record bytes, peak
+   memory), render framed and sparse (1 K1e each, images equal to the
+   4-wide tree's but for ties), render_progressive(bounces=3) four times
+   (per sample 1 K1e and 2·bounces−1 K2c, nothing else), and one sample
+   under sync debug mode;
+16. K1e against its plain version on the centre crop, with and without
+   jitter, and against brute force on the 1,024 seeded pixels; K2c closest
+   hit and any hit against the plain version on 65,536 seeded active rays
+   of every captured wave of one 1080p sample; their times and bounds as
+   in phases 8 and 10;
+17. K1f at both widths: stats=True leaves the five planes of the whole
+   frame bit-identical; on the crop the visits plane equals the plain
+   version's on every ray whose triangle agrees, and its sum equals
+   TraversalCounts.visits when every triangle agrees; every pixel counts
+   at least the root;
+18. the structure of the full-size BVH8 (collapsed once more on the card,
+   timed): every emitted row reached once, every BVH2 leaf present once,
+   every internal node 2–8 children, each box containing its children's
+   within 2^-14 (the truncating re-pack flushes fp16 subnormals of internal
+   rows; leaf rows keep theirs);
+19. BVH4 against BVH8 in this one process, back to back in the order 4, 8,
+   8, 4 (CUDA events): the framed and sparse 1080p frame (ms, Mrays/s,
+   total visits from K1f, hit counts, which must be equal, and the cost of
+   the visits plane), every captured wave of the 8-wide sample through
+   K2a/K2b and through K2c, and one whole 3-bounce sample from the same
+   generator state.
 
-Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K2a),
-tri equal on >= 99.99% of the rays and every other ray a tie (both
+Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
+K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
 rtol 1e-5 on hits and 1e30 on misses, normals within atol 1e-5 of the
-reference and zero on misses; for any hit (K2b), the occlusion mask equal
+reference and zero on misses; for any hit (K2b, K2c), the occlusion mask equal
 on every ray, t 0 where occluded and 1e30 elsewhere, and normals within
-atol 1e-5 where both report the same occluder; for the whole sample, radiance within atol 1e-5 on >= 99.9%
-of the pixels.
+atol 1e-5 where both report the same occluder; for the whole sample,
+radiance within atol 1e-5 on >= 99.9% of the pixels; K1f's visits plane
+equal to the plain version's on every ray whose triangle agrees.
 
 Bounds: a kernel's least time on the card is the larger of its bytes over
 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM's published
 peaks). Bytes: each ray read once (24 bytes; K2 only), each output written
 once (20 bytes a ray), and the distinct record headers and triangle
-records that the rays read. Operations: 100 per node visit (four slab
-tests) and 54 per Möller–Trumbore test, as the plain version counts them
+records that the rays read (a header is 32·w bytes, w the records' child
+slots). Operations: 25·w per node visit (w slab tests: 100 at 4 slots, 200
+at 8) and 54 per Möller–Trumbore test, as the plain version counts them
 (an any-hit ray stops testing at its first accepted triangle). On the
 checked rays the counts are exact; for a whole frame or wave they are
 counted on a seeded subset and scaled to it (its distinct record bytes are
@@ -91,8 +121,12 @@ library yardstick (library_ms is null).
 The kernels line: ``ms``, ``plain_ms`` and ``bound_ms`` are all on the
 same ``rays`` — the 256×256 crop for K1a/K1b (of frames 0 and 7 for K1c),
 the checked subset of each wave for K2a/K2b (summed over the waves of one
-1080p sample) — and ``path_ms``/``path_bound_ms`` on the main path's whole
-frame, batch or waves (``path_rays`` rays, active lanes for K2).
+1080p sample; K2c: all five waves of the 8-wide sample), the un-jittered
+crop for K1e (8-wide records), the crop at both widths for K1f — and
+``path_ms``/``path_bound_ms`` on the main path's whole frame, batch or
+waves (``path_rays`` rays, active lanes for K2; for K1f the framed frame
+at both widths). ``launches``: K1e's are those of phase 15's render calls
+and samples, K2c's of its samples, K1f's of phase 19's frames.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -102,6 +136,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -127,7 +162,7 @@ FRAMES, REPEATS = 16, 5
 N_CAMS, CAM_XS, CAM_Z, CONFIG5_Z, CONFIG5_SIZE = 8, (-0.3, 0.3), 1.15, 3.0, 256
 DYN_FRAMES = 8
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
-SLAB_OPS, MT_OPS = 100, 54
+SLAB_OPS, MT_OPS = 25, 54  # per child slot of a visited record; per triangle test
 OUT_BYTES, RAY_BYTES = 20, 24
 KERNELS = {
     "trace_tiles_k1a": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
@@ -140,6 +175,12 @@ KERNELS = {
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
     "trace_rays_k2b": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
+    "trace_tiles_k1e": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_rays_k2c": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                       "raytracer_tpu/ops/pallas/traverse.py:914"),
+    "trace_tiles_k1f": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
 }
 
 
@@ -267,7 +308,7 @@ def bound(counts, scale: float, fixed_bytes: int) -> tuple[float, str, dict]:
     plain version on a subset, scaled by ``scale`` to the wave, plus
     ``fixed_bytes`` of rays read and outputs written."""
     nbytes = fixed_bytes + counts.unique_record_bytes()
-    ops = (counts.visits * SLAB_OPS + counts.mt_tests * MT_OPS) * scale
+    ops = (counts.visits * SLAB_OPS * (counts.width or 4) + counts.mt_tests * MT_OPS) * scale
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     detail = {"bytes": nbytes, "ops": ops, "bytes_ms": b_ms, "ops_ms": o_ms,
               "visits_per_ray": counts.visits / max(counts.rays, 1),
@@ -306,8 +347,29 @@ def profile_calls(fn, what: str, card: str, n: int = 3) -> dict | None:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
-def build_all() -> dict:
-    """Build the native library and both kernel sources at once."""
+def ptxas_rows(nvcc_log: str) -> list[tuple]:
+    """(kernel<template arguments>, registers, stack frame bytes, spill store
+    bytes, spill load bytes) of every entry function in an ``nvcc -Xptxas -v``
+    log. The template arguments are <child slots, jitter, visits> for the
+    tile kernels and <child slots, any hit> for the ray kernel."""
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in nvcc_log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            k = re.search(r"(trace_\w+?_kernel)I((?:L[ib]\d+E)+)", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append((name, int(m.group(1)), *frame))
+            name = None
+    return rows
+
+
+def build_all() -> None:
+    """Build the native library and both kernel sources at once, and print
+    what ptxas says of every kernel instantiation."""
     from raytracer_tpu_torch.native import bvhtool
     from raytracer_tpu_torch.ops.cuda import traverse
 
@@ -318,19 +380,265 @@ def build_all() -> dict:
 
     with ThreadPoolExecutor(max_workers=3) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
-                "traverse_tiles.cu (K1a, K1b, K1c)": pool.submit(timed, traverse.load_kernel,
-                                                                 "traverse_tiles.cu"),
-                "traverse_rays.cu (K2a, K2b)": pool.submit(timed, traverse.load_kernel,
-                                                           "traverse_rays.cu")}
+                "traverse_tiles.cu (K1a, K1b, K1c, K1e, K1f)": pool.submit(
+                    timed, traverse.load_kernel, "traverse_tiles.cu"),
+                "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
+                    timed, traverse.load_kernel, "traverse_rays.cu")}
         results = {name: job.result() for name, job in jobs.items()}
     for name, (out, secs) in results.items():
         log(f"[build] {name} ready in {secs:.2f} s")
-        if isinstance(out, tuple):
-            for line in out[1].splitlines():
-                if any(k in line for k in ("Compiling entry", "registers", "spill",
-                                           "stack frame")):
-                    log(f"[build] ptxas {name.split()[0]}: {line.strip()}")
-    return results
+        if not isinstance(out, tuple):
+            continue
+        rows = ptxas_rows(out[1])
+        if not rows:
+            fail(f"no ptxas report in the build log of {name}")
+        for kernel, regs, stack, st, ld in rows:
+            log(f"[build] ptxas {kernel}: {regs} registers, {stack} bytes stack frame, "
+                f"{st} bytes spill stores, {ld} bytes spill loads")
+
+
+def frame_dirs(pix: torch.Tensor, jitter: bool = False) -> torch.Tensor:
+    """Directions of the framed view's primary rays through the pixels
+    ``pix`` (flat indices), at the pixel centres or at JITTER_SEED's
+    subpixel offsets."""
+    from raytracer_tpu_torch.ops.camera import primary_dirs, subpixel_hash01
+
+    px, py = pix % WIDTH, pix // WIDTH
+    if not jitter:
+        return primary_dirs(px, py, WIDTH, HEIGHT, QUAT, FOV)
+    return primary_dirs(px, py, WIDTH, HEIGHT, QUAT, FOV,
+                        subpixel_hash01(px, py, 2 * JITTER_SEED),
+                        subpixel_hash01(px, py, 2 * JITTER_SEED + 1))
+
+
+def check_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool) -> dict:
+    """A tile kernel (K1a, K1b, or K1e on 8-wide ``qn``) on the framed 1080p
+    view: against its plain version on the centre crop, and against brute
+    force on the seeded pixels. Returns the frame's planes, the crop's
+    kernel and plain planes, the crop check's numbers and the crop's
+    traversal counts."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    tris, origin, crop_pix, sample = env["tris"], env["origin"], env["crop_pix"], env["sample"]
+    kw = dict(leaf_k=LEAF_K, jitter=jitter, jitter_seed=JITTER_SEED)
+    planes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, **kw)
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=crop_pix,
+                                         counts=counts, **kw)
+    ker = [p.reshape(-1)[crop_pix] for p in planes]
+    view = "jittered 256x256 crop" if jitter else "256x256 crop"
+    stats = check_against(ker, ref, tris, origin, frame_dirs(crop_pix, jitter),
+                          f"{label} vs plain, {view}")
+    s_dirs = frame_dirs(sample, jitter)
+    check_against([p.reshape(-1)[sample] for p in planes], brute_planes(tris, origin, s_dirs),
+                  tris, origin, s_dirs,
+                  f"{label} vs brute force, {BRUTE_SAMPLES} {'jittered ' if jitter else ''}"
+                  "framed pixels")
+    return {"planes": planes, "ker": ker, "ref": ref, "stats": stats, "counts": counts}
+
+
+def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: dict,
+               launches: int) -> dict:
+    """CUDA-event times of a tile kernel on the framed 1080p frame and on the
+    crop window, its plain version on the crop, and the bounds of both →
+    its kernels-line row."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, crop_pix, r0, c0 = env["card"], env["crop_pix"], env["r0"], env["c0"]
+    kw = dict(leaf_k=LEAF_K, jitter=jitter, jitter_seed=JITTER_SEED)
+    reps = cuda_ms(lambda: traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, **kw),
+                   FRAMES, REPEATS)
+    path_ms = statistics.median(reps)
+    log(f"[time] {label} framed 1920x1080: {path_ms:.4f} ms/frame = "
+        f"{WIDTH * HEIGHT / path_ms / 1e3:.2f} Mrays/s (median of {REPEATS} x {FRAMES} "
+        f"frames; reps {[round(r, 4) for r in reps]}) on {card}")
+    crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
+        qn, FRAMED, QUAT, CROP, CROP, FOV, raygen_size=(WIDTH, HEIGHT), row_offset=r0,
+        col_offset=c0, **kw), FRAMES, REPEATS))
+    plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
+        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=crop_pix, **kw), 1, 3))
+    crop_bound = bound(checked["counts"], 1.0, crop_pix.numel() * OUT_BYTES)
+    log(f"[time] {label} framed 256x256 crop: kernel {crop_ms:.4f} ms, plain torch "
+        f"{plain_ms:.2f} ms (median of 3), bound {crop_bound[0]:.4f} ms by "
+        f"{crop_bound[1]} {json.dumps(crop_bound[2])} on {card}")
+    counts = traverse.TraversalCounts()
+    traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=env["bound_pix"],
+                                   counts=counts, **kw)
+    frame_bound = bound(counts, WIDTH * HEIGHT / WAVE_SAMPLES, WIDTH * HEIGHT * OUT_BYTES)
+    log(f"[bound] {label} framed 1080p frame: {frame_bound[0]:.4f} ms by "
+        f"{frame_bound[1]} {json.dumps(frame_bound[2])}")
+    return {"launches": launches, "max_abs_err": checked["stats"]["max_abs_err"],
+            "rays": crop_pix.numel(), "ms": crop_ms, "plain_ms": plain_ms,
+            "bound_ms": crop_bound[0], "bound_by": crop_bound[1],
+            "path_rays": WIDTH * HEIGHT, "path_ms": path_ms,
+            "path_bound_ms": frame_bound[0], "path_bound_by": frame_bound[1]}
+
+
+def capture_waves(env: dict, qn: torch.Tensor) -> tuple[list[dict], dict]:
+    """One 1080p 3-bounce sample of the framed view through the kernels, from
+    SAMPLE_SEED, with the rays, active mask and result of every ray-buffer
+    wave captured → (waves, the sample's statistics)."""
+    from raytracer_tpu_torch import render_pt
+
+    waves = []
+    real_trace_rays = render_pt.trace_rays
+
+    def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
+        out = real_trace_rays(qnodes, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
+                              active=active)
+        waves.append({"any_hit": any_hit, "o": origins, "d": dirs, "active": active,
+                      "out": out})
+        return out
+
+    render_pt.trace_rays = capturing
+    try:
+        _, sample_stats = render_pt.pt_sample_frame(
+            qn, env["tris"], FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=env["dev"]).manual_seed(SAMPLE_SEED), stats=True)
+    finally:
+        render_pt.trace_rays = real_trace_rays
+    log(f"[waves] captured {len(waves)} ray-buffer waves; alive rays per sample "
+        f"{int(sample_stats['alive_rays'])} of {int(sample_stats['lane_rays'])} lanes")
+    return waves, sample_stats
+
+
+def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
+                occlusion: str) -> dict:
+    """The ray kernel against its plain version on 65,536 seeded active rays
+    of every captured wave, with times and bounds → per kernel name
+    (``closest`` for the bounce waves, ``occlusion`` for the shadow waves)
+    the list of its waves' numbers."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    tris, card, dev = env["tris"], env["card"], env["dev"]
+    pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    wave_stats: dict[str, list] = {}
+    for i, w in enumerate(waves):
+        name = occlusion if w["any_hit"] else closest
+        kind = "any hit" if w["any_hit"] else "closest hit"
+        r = w["o"].shape[0]
+        act = w["active"] if w["active"] is not None else torch.ones(r, dtype=torch.bool,
+                                                                      device=dev)
+        live = torch.nonzero(act).squeeze(1)
+        if live.numel() == 0:
+            fail(f"wave {i} ({name}) has no active ray to check")
+        out = w["out"]
+        if not bool((out[0][~act] == 1e30).all() & (out[4][~act] == -1).all()):
+            fail(f"wave {i} ({name}): inactive lanes must return the miss values")
+        pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
+        o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
+        counts = traverse.TraversalCounts()
+        ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
+                                            counts=counts)
+        kout = [p[pick] for p in out]
+        n, n_live = pick.numel(), live.numel()
+        what = f"{name} ({kind}) vs plain, wave {i}, {n} of {n_live} active rays"
+        stats = (check_occlusion(kout, ref, what) if w["any_hit"]
+                 else check_against(kout, ref, tris, o, d, what))
+        plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays_reference(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), 1, 3))
+        ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), FRAMES, 3))
+        path_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"]),
+            3, 3))
+        b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
+        pb_ms, pb_by, p_detail = bound(counts, n_live / n,
+                                       r * OUT_BYTES + n_live * RAY_BYTES + r)
+        wave_stats.setdefault(name, []).append({
+            **stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_detail": detail,
+            "path_ms": path_ms, "path_bound_ms": pb_ms, "path_bound_detail": p_detail,
+            "active": n_live})
+        log(f"[time] wave {i} {name} on its {n} checked rays: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+        log(f"[time] wave {i} {name} whole: {path_ms:.4f} ms for {r} lanes ({n_live} active) "
+            f"= {n_live / path_ms / 1e3:.2f} M active rays/s; bound {pb_ms:.4f} ms by {pb_by} "
+            f"{json.dumps(p_detail)} on {card}")
+    want = {closest: BOUNCES - 1}
+    want[occlusion] = want.get(occlusion, 0) + BOUNCES
+    if {name: len(ws) for name, ws in wave_stats.items()} != want:
+        fail(f"captured waves {[(k, len(v)) for k, v in wave_stats.items()]}, expected {want}")
+    return wave_stats
+
+
+def summed(details: list[dict]) -> tuple[float, str]:
+    """The bound of several launches run one after another: the sum of their
+    bounds, labelled by the larger of its bytes and its operations parts."""
+    by_bytes = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details
+                   if x["bytes_ms"] >= x["ops_ms"])
+    total = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details)
+    return total, ("bytes" if 2 * by_bytes >= total else "operations")
+
+
+def wave_row(ws: list[dict], launches: int) -> dict:
+    """The kernels-line row of a ray kernel from its waves' numbers."""
+    b_ms, b_by = summed([s["bound_detail"] for s in ws])
+    pb_ms, pb_by = summed([s["path_bound_detail"] for s in ws])
+    return {"launches": launches, "max_abs_err": max(s["max_abs_err"] for s in ws),
+            "rays": sum(s["rays"] for s in ws), "ms": sum(s["ms"] for s in ws),
+            "plain_ms": sum(s["plain_ms"] for s in ws), "bound_ms": b_ms, "bound_by": b_by,
+            "path_rays": sum(s["active"] for s in ws),
+            "path_ms": sum(s["path_ms"] for s in ws), "path_bound_ms": pb_ms,
+            "path_bound_by": pb_by, "waves_path_ms": [s["path_ms"] for s in ws]}
+
+
+def check_images(images: dict, dev) -> dict:
+    """rgba8 frames of the full size with alpha 255 → each one's share of
+    pixels that are not the miss colour."""
+    from raytracer_tpu_torch.ops.shade import MISS_COLOR, quantize_rgba8
+
+    miss_u8 = int(quantize_rgba8(torch.full((1, 3), MISS_COLOR))[0, 0])
+    hit_rates = {}
+    for name, img in images.items():
+        if img.shape != (HEIGHT, WIDTH, 4) or img.dtype != torch.uint8 or img.device != dev:
+            fail(f"{name} image is {tuple(img.shape)} {img.dtype} on {img.device}")
+        if not bool((img[..., 3] == 255).all()):
+            fail(f"{name} image alpha is not 255 everywhere")
+        hit_rates[name] = float((img[..., 0] != miss_u8).float().mean())
+    return hit_rates
+
+
+def progressive_samples(pt, want: dict, what: str) -> torch.Tensor:
+    """SAMPLES × render_progressive(bounces=BOUNCES) and present_progressive
+    from the framed view: the launches must be ``want`` and nothing else, the
+    frame count SAMPLES, the buffer a finite non-negative (H, W, 3) image.
+    Then one more sample under torch's sync debug mode."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.shade import MISS_COLOR
+
+    pt.set_camera_position(*FRAMED)
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    for _ in range(SAMPLES):
+        accum = pt.render_progressive(bounces=BOUNCES)
+    shown = pt.present_progressive()
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    log(f"[{what}] launches during {SAMPLES} x render_progressive(bounces={BOUNCES}) + "
+        f"present_progressive: {json.dumps(launches)}")
+    if launches != want:
+        fail(f"{what}: progressive launches {launches}, expected {want}")
+    if pt.frame_count != SAMPLES:
+        fail(f"{what}: frame_count {pt.frame_count} after {SAMPLES} samples")
+    if accum.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(accum).all()
+                                                     & (accum >= 0).all()):
+        fail(f"{what}: the accumulation buffer is not a finite non-negative (H, W, 3) image")
+    if shown.shape != (HEIGHT, WIDTH, 4) or shown.dtype != torch.uint8:
+        fail(f"{what}: present_progressive gave {tuple(shown.shape)} {shown.dtype}")
+    log(f"[{what}] frame_count {pt.frame_count}; mean radiance "
+        f"{float(accum.mean()):.6f}, max {float(accum.max()):.6f}; background share "
+        f"{float((accum[..., 0] == MISS_COLOR).float().mean()):.4f}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt.render_progressive(bounces=BOUNCES)
+    except RuntimeError as exc:
+        fail(f"{what}: render_progressive waited for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[{what}] render_progressive(bounces={BOUNCES}) issued without a host-device "
+        "synchronisation")
+    return accum
 
 
 def main() -> None:
@@ -338,9 +646,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     from raytracer_tpu_torch import PathTracer, Scene, render_pt
-    from raytracer_tpu_torch.ops.camera import primary_dirs, subpixel_hash01
     from raytracer_tpu_torch.ops.cuda import traverse
-    from raytracer_tpu_torch.ops.shade import MISS_COLOR, quantize_rgba8, shade_lambert
+    from raytracer_tpu_torch.ops.shade import quantize_rgba8, shade_lambert
     from raytracer_tpu_torch.utils import procgen
 
     dev = torch.device("cuda:0")
@@ -385,38 +692,35 @@ def main() -> None:
     log(f"[main] launches during render/render_presented: {json.dumps(render_launches)}")
     if render_launches != expected(trace_tiles_k1a=3):
         fail(f"the primary path launched {render_launches}, expected 3 K1a and nothing else")
-    miss_u8 = int(quantize_rgba8(torch.full((1, 3), MISS_COLOR))[0, 0])
-    hit_rates = {}
-    for name, img in (("framed", img_framed), ("sparse", img_sparse), ("presented", presented)):
-        if img.shape != (HEIGHT, WIDTH, 4) or img.dtype != torch.uint8 or img.device != dev:
-            fail(f"{name} image is {tuple(img.shape)} {img.dtype} on {img.device}")
-        if not bool((img[..., 3] == 255).all()):
-            fail(f"{name} image alpha is not 255 everywhere")
-        hit_rates[name] = float((img[..., 0] != miss_u8).float().mean())
+    hit_rates = check_images({"framed": img_framed, "sparse": img_sparse,
+                              "presented": presented}, dev)
     log(f"[main] hit rate (pixels not the miss color): framed {hit_rates['framed']:.4f}, "
         f"sparse {hit_rates['sparse']:.4f}")
     if hit_rates["framed"] < MIN_FRAMED_HIT_RATE:
         fail(f"framed hit rate {hit_rates['framed']:.3f} < {MIN_FRAMED_HIT_RATE}")
 
-    # 4. K1a vs its plain torch version on the framed view's centre crop
-    planes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
-    hit_plane = float((planes[4] >= 0).float().mean())
-    if hit_plane != hit_rates["framed"]:
-        fail(f"image hit rate {hit_rates['framed']} != kernel tri plane {hit_plane}")
+    # the rays every check below shares: the centre crop, the seeded pixels
+    # held against brute force, and the seeded pixels that size the bounds
     r0, c0 = (HEIGHT - CROP) // 2, (WIDTH - CROP) // 2
     rows = torch.arange(r0, r0 + CROP, device=dev)
     cols = torch.arange(c0, c0 + CROP, device=dev)
     crop_pix = (rows[:, None] * WIDTH + cols[None, :]).reshape(-1)
-    crop_counts = {name: traverse.TraversalCounts()
-                   for name in ("trace_tiles_k1a", "trace_tiles_k1b")}
-    ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
-                                         leaf_k=LEAF_K, pixels=crop_pix,
-                                         counts=crop_counts["trace_tiles_k1a"])
-    ker = [p.reshape(-1)[crop_pix] for p in planes]
-    origin = torch.tensor(FRAMED, dtype=torch.float32, device=dev)
-    crop_dirs = primary_dirs(crop_pix % WIDTH, crop_pix // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
-    checks = {"trace_tiles_k1a": check_against(ker, ref, tris, origin, crop_dirs,
-                                               "K1a vs plain, 256x256 crop")}
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    sample = torch.randperm(WIDTH * HEIGHT, generator=gen)[:BRUTE_SAMPLES].to(dev)
+    bound_pix = torch.randperm(WIDTH * HEIGHT, generator=gen)[:WAVE_SAMPLES].to(dev)
+    env = {"qn": qn, "tris": tris, "card": card, "dev": dev, "crop_pix": crop_pix,
+           "crop_dirs": frame_dirs(crop_pix), "r0": r0, "c0": c0, "sample": sample,
+           "bound_pix": bound_pix,
+           "origin": torch.tensor(FRAMED, dtype=torch.float32, device=dev),
+           "images": {"framed": img_framed, "sparse": img_sparse}}
+
+    # 4., 5. K1a vs its plain torch version on the framed view's centre crop
+    # and vs the brute-force tracer on seeded framed-view pixels
+    k1a = check_tiles(env, qn, "K1a", jitter=False)
+    hit_plane = float((k1a["planes"][4] >= 0).float().mean())
+    if hit_plane != hit_rates["framed"]:
+        fail(f"image hit rate {hit_rates['framed']} != kernel tri plane {hit_plane}")
+    ker, ref = k1a["ker"], k1a["ref"]
     ref_rgb = quantize_rgba8(shade_lambert(torch.stack(ref[1:4], -1), ref[4] >= 0))
     img_crop = img_framed.reshape(-1, 4)[crop_pix]
     same = ker[4] == ref[4]
@@ -426,58 +730,13 @@ def main() -> None:
     if rgb_err > 1:
         fail(f"render() differs from the plain version's shading by {rgb_err} LSB")
 
-    # 5. K1a vs the brute-force tracer on seeded framed-view pixels
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    sample = torch.randperm(WIDTH * HEIGHT, generator=gen)[:BRUTE_SAMPLES].to(dev)
-
-    s_dirs = primary_dirs(sample % WIDTH, sample // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
-    check_against([p.reshape(-1)[sample] for p in planes], brute_planes(tris, origin, s_dirs), tris, origin,
-                  s_dirs, f"K1a vs brute force, {BRUTE_SAMPLES} framed pixels")
-
     # 6. K1b (jittered) vs its plain version on the crop and vs brute force
-    def jittered_dirs(pix, seed):
-        px, py = pix % WIDTH, pix // WIDTH
-        return primary_dirs(px, py, WIDTH, HEIGHT, QUAT, FOV, subpixel_hash01(px, py, 2 * seed),
-                            subpixel_hash01(px, py, 2 * seed + 1))
-
-    jplanes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
-                                   jitter=True, jitter_seed=JITTER_SEED)
-    jref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
-                                          pixels=crop_pix, jitter=True,
-                                          jitter_seed=JITTER_SEED,
-                                          counts=crop_counts["trace_tiles_k1b"])
-    checks["trace_tiles_k1b"] = check_against(
-        [p.reshape(-1)[crop_pix] for p in jplanes], jref, tris, origin,
-        jittered_dirs(crop_pix, JITTER_SEED), "K1b vs plain, jittered 256x256 crop")
-    js_dirs = jittered_dirs(sample, JITTER_SEED)
-    check_against([p.reshape(-1)[sample] for p in jplanes], brute_planes(tris, origin, js_dirs), tris, origin,
-                  js_dirs, f"K1b vs brute force, {BRUTE_SAMPLES} jittered framed pixels")
+    k1b = check_tiles(env, qn, "K1b", jitter=True)
 
     # 7. the progressive main path
-    pt.set_camera_position(*FRAMED)
-    torch.cuda.synchronize()
-    traverse.reset_launches()
-    for _ in range(SAMPLES):
-        accum = pt.render_progressive(bounces=BOUNCES)
-    shown = pt.present_progressive()
-    torch.cuda.synchronize()
-    pt_launches = dict(traverse.LAUNCHES)
-    want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
-                    trace_rays_k2b=SAMPLES * BOUNCES)
-    log(f"[progressive] launches during {SAMPLES} x render_progressive(bounces={BOUNCES}) + "
-        f"present_progressive: {json.dumps(pt_launches)}")
-    if pt_launches != want:
-        fail(f"progressive launches {pt_launches}, expected {want}")
-    if pt.frame_count != SAMPLES:
-        fail(f"frame_count {pt.frame_count} after {SAMPLES} samples")
-    if accum.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(accum).all()
-                                                     & (accum >= 0).all()):
-        fail("the accumulation buffer is not a finite non-negative (H, W, 3) image")
-    if shown.shape != (HEIGHT, WIDTH, 4) or shown.dtype != torch.uint8:
-        fail(f"present_progressive gave {tuple(shown.shape)} {shown.dtype}")
-    log(f"[progressive] frame_count {pt.frame_count}; mean radiance "
-        f"{float(accum.mean()):.6f}, max {float(accum.max()):.6f}; background share "
-        f"{float((accum[..., 0] == MISS_COLOR).float().mean()):.4f}")
+    pt_want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
+                       trace_rays_k2b=SAMPLES * BOUNCES)
+    progressive_samples(pt, pt_want, "progressive")
     pt.set_camera_position(*MOVED)
     pt.render_progressive(bounces=BOUNCES)
     if pt.frame_count != 1:
@@ -497,82 +756,18 @@ def main() -> None:
         fail("bounces=0: wrong frame_count or a non-finite/negative buffer")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pt.render_progressive(bounces=BOUNCES)
         pt.render_progressive(bounces=0)
     except RuntimeError as exc:
-        fail(f"render_progressive waited for the card: {exc}")
+        fail(f"render_progressive(bounces=0) waited for the card: {exc}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    log("[progressive] render_progressive(bounces=3) and (bounces=0) issued without a "
-        "host-device synchronisation")
+    log("[progressive] render_progressive(bounces=0) issued without a host-device "
+        "synchronisation")
 
     # 8. K2a/K2b vs their plain versions on every wave of one 1080p sample
-    waves = []
-    real_trace_rays = render_pt.trace_rays
-
-    def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
-        out = real_trace_rays(qnodes, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
-                              active=active)
-        waves.append({"any_hit": any_hit, "o": origins, "d": dirs, "active": active,
-                      "out": out})
-        return out
-
-    render_pt.trace_rays = capturing
-    try:
-        _, sample_stats = render_pt.pt_sample_frame(
-            qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-            leaf_k=LEAF_K, tile_primary=True,
-            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED), stats=True)
-    finally:
-        render_pt.trace_rays = real_trace_rays
+    waves, sample_stats = capture_waves(env, qn)
     alive_rays = int(sample_stats["alive_rays"])
-    log(f"[waves] captured {len(waves)} ray-buffer waves; alive rays per sample {alive_rays} "
-        f"of {int(sample_stats['lane_rays'])} lanes")
-    pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    wave_stats = {"trace_rays_k2a": [], "trace_rays_k2b": []}
-    for i, w in enumerate(waves):
-        name = "trace_rays_k2b" if w["any_hit"] else "trace_rays_k2a"
-        r = w["o"].shape[0]
-        act = w["active"] if w["active"] is not None else torch.ones(r, dtype=torch.bool,
-                                                                      device=dev)
-        live = torch.nonzero(act).squeeze(1)
-        if live.numel() == 0:
-            fail(f"wave {i} ({name}) has no active ray to check")
-        out = w["out"]
-        if not bool((out[0][~act] == 1e30).all() & (out[4][~act] == -1).all()):
-            fail(f"wave {i} ({name}): inactive lanes must return the miss values")
-        pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
-        o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
-        counts = traverse.TraversalCounts()
-        ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
-                                            counts=counts)
-        kout = [p[pick] for p in out]
-        n, n_live = pick.numel(), live.numel()
-        what = f"{name} vs plain, wave {i}, {n} of {n_live} active rays"
-        stats = (check_occlusion(kout, ref, what) if w["any_hit"]
-                 else check_against(kout, ref, tris, o, d, what))
-        plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays_reference(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), 1, 3))
-        ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), FRAMES, 3))
-        path_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
-            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"]),
-            3, 3))
-        b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
-        pb_ms, pb_by, p_detail = bound(counts, n_live / n,
-                                       r * OUT_BYTES + n_live * RAY_BYTES + r)
-        wave_stats[name].append({**stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                 "bound_detail": detail, "path_ms": path_ms,
-                                 "path_bound_ms": pb_ms, "path_bound_detail": p_detail,
-                                 "active": n_live})
-        log(f"[time] wave {i} {name} on its {n} checked rays: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
-        log(f"[time] wave {i} {name} whole: {path_ms:.4f} ms for {r} lanes ({n_live} active) "
-            f"= {n_live / path_ms / 1e3:.2f} M active rays/s; bound {pb_ms:.4f} ms by {pb_by} "
-            f"{json.dumps(p_detail)} on {card}")
-    for name, n_waves in (("trace_rays_k2a", BOUNCES - 1), ("trace_rays_k2b", BOUNCES)):
-        if len(wave_stats[name]) != n_waves:
-            fail(f"captured {len(wave_stats[name])} {name} waves, expected {n_waves}")
+    wave_stats = check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b")
     del waves
 
     # 9. one whole 256x256 sample: kernels vs plain versions
@@ -607,51 +802,19 @@ def main() -> None:
         fail(f"whole sample: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels within {RADIANCE_ATOL}")
 
     # 10. times and bounds
-    timings = {}
-    for name, pos in (("framed", FRAMED), ("sparse", SPARSE)):
-        reps = cuda_ms(lambda pos=pos: traverse.trace_tiles(
-            qn, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K), FRAMES, REPEATS)
-        ms = statistics.median(reps)
-        timings[name] = ms
-        log(f"[time] K1a {name} 1920x1080: {ms:.4f} ms/frame = "
-            f"{WIDTH * HEIGHT / ms / 1e3:.2f} Mrays/s (median of {REPEATS} x {FRAMES} "
-            f"frames; reps {[round(r, 4) for r in reps]}) on {card}")
-    jreps = cuda_ms(lambda: traverse.trace_tiles(
-        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, jitter=True,
-        jitter_seed=JITTER_SEED), FRAMES, REPEATS)
-    timings["jittered"] = statistics.median(jreps)
-    log(f"[time] K1b framed 1920x1080 (the camera wave): {timings['jittered']:.4f} ms/frame "
-        f"(reps {[round(r, 4) for r in jreps]}) on {card}")
-    crop_ms, plain_ms, crop_bounds = {}, {}, {}
-    for name, jitter in (("trace_tiles_k1a", False), ("trace_tiles_k1b", True)):
-        crop_ms[name] = statistics.median(cuda_ms(lambda jitter=jitter: traverse.trace_tiles(
-            qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
-            row_offset=r0, col_offset=c0, jitter=jitter, jitter_seed=JITTER_SEED),
-            FRAMES, REPEATS))
-        plain_ms[name] = statistics.median(cuda_ms(lambda jitter=jitter: (
-            traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
-                                           leaf_k=LEAF_K, pixels=crop_pix, jitter=jitter,
-                                           jitter_seed=JITTER_SEED)), 1, 3))
-        crop_bounds[name] = bound(crop_counts[name], 1.0, crop_pix.numel() * OUT_BYTES)
-        log(f"[time] {name} framed 256x256 crop: kernel {crop_ms[name]:.4f} ms, plain torch "
-            f"{plain_ms[name]:.2f} ms (median of 3), bound {crop_bounds[name][0]:.4f} ms by "
-            f"{crop_bounds[name][1]} {json.dumps(crop_bounds[name][2])} on {card}")
+    rows = {"trace_tiles_k1a": time_tiles(env, qn, "K1a", False, k1a,
+                                          render_launches["trace_tiles_k1a"]),
+            "trace_tiles_k1b": time_tiles(env, qn, "K1b", True, k1b,
+                                          pt_want["trace_tiles_k1b"])}
+    sparse_reps = cuda_ms(lambda: traverse.trace_tiles(
+        qn, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K), FRAMES, REPEATS)
+    log(f"[time] K1a sparse 1920x1080: {statistics.median(sparse_reps):.4f} ms/frame = "
+        f"{WIDTH * HEIGHT / statistics.median(sparse_reps) / 1e3:.2f} Mrays/s "
+        f"(reps {[round(r, 4) for r in sparse_reps]}) on {card}")
     window = traverse.trace_tiles(qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K,
                                   raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0)
     if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
         fail("the kernel's crop window differs from the same pixels of its full frame")
-
-    frame_bounds = {}
-    bound_pix = torch.randperm(WIDTH * HEIGHT, generator=gen)[:WAVE_SAMPLES].to(dev)
-    for name, jitter in (("trace_tiles_k1a", False), ("trace_tiles_k1b", True)):
-        counts = traverse.TraversalCounts()
-        traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
-                                       pixels=bound_pix, jitter=jitter,
-                                       jitter_seed=JITTER_SEED, counts=counts)
-        frame_bounds[name] = bound(counts, WIDTH * HEIGHT / WAVE_SAMPLES,
-                                   WIDTH * HEIGHT * OUT_BYTES)
-        log(f"[bound] {name} framed 1080p frame: {frame_bounds[name][0]:.4f} ms by "
-            f"{frame_bounds[name][1]} {json.dumps(frame_bounds[name][2])}")
 
     sample_reps = {}
     for b in (BOUNCES, 0):
@@ -671,10 +834,13 @@ def main() -> None:
         f"{(time.perf_counter() - t0) * 1e3:.4f} ms host clock on {card}")
     log(f"[mem] peak device memory allocated: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    wave_ms = {name: sum(s["path_ms"] for s in stats) for name, stats in wave_stats.items()}
-    log(f"[time] traversal kernels per 1080p sample: K1b {timings['jittered']:.4f} ms + K2a "
-        f"{wave_ms['trace_rays_k2a']:.4f} ms + K2b {wave_ms['trace_rays_k2b']:.4f} ms = "
-        f"{timings['jittered'] + sum(wave_ms.values()):.4f} ms of "
+    for name in ("trace_rays_k2a", "trace_rays_k2b"):
+        rows[name] = wave_row(wave_stats[name], pt_want[name])
+    k1b_ms = rows["trace_tiles_k1b"]["path_ms"]
+    k2_ms = rows["trace_rays_k2a"]["path_ms"] + rows["trace_rays_k2b"]["path_ms"]
+    log(f"[time] traversal kernels per 1080p sample: K1b {k1b_ms:.4f} ms + K2a "
+        f"{rows['trace_rays_k2a']['path_ms']:.4f} ms + K2b "
+        f"{rows['trace_rays_k2b']['path_ms']:.4f} ms = {k1b_ms + k2_ms:.4f} ms of "
         f"{statistics.median(sample_reps[BOUNCES]):.4f} ms per sample on {card}")
 
     # 11. where the time of a progressive sample goes
@@ -683,43 +849,14 @@ def main() -> None:
                   f"render_progressive(bounces={BOUNCES})", card)
 
     # 12.-14. the frame batch, the dynamic dragon and config 5
-    env = {"qn": qn, "tris": tris, "card": card, "dev": dev, "crop_pix": crop_pix,
-           "crop_dirs": crop_dirs, "r0": r0, "c0": c0, "gen": gen, "sample": sample}
-    rows_k1c = batch_phase(env)
+    rows["trace_tiles_k1c"] = batch_phase(env)
     dynamic_phase(env, pt)
     config5_phase(env)
+    del pt
 
-    def summed(details):
-        """The bound of several waves run one after another: the sum of
-        their bounds, labelled by the larger of its bytes and its
-        operations parts."""
-        by_bytes = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details
-                       if x["bytes_ms"] >= x["ops_ms"])
-        total = sum(max(x["bytes_ms"], x["ops_ms"]) for x in details)
-        return total, ("bytes" if 2 * by_bytes >= total else "operations")
+    # 15.-19. the 8-wide tree and the visits plane
+    rows.update(wide8_phase(env, scene))
 
-    rows = {}
-    for name, launches, frame_ms in (
-            ("trace_tiles_k1a", render_launches["trace_tiles_k1a"], timings["framed"]),
-            ("trace_tiles_k1b", pt_launches["trace_tiles_k1b"], timings["jittered"])):
-        rows[name] = {"launches": launches, "max_abs_err": checks[name]["max_abs_err"],
-                      "rays": crop_pix.numel(), "ms": crop_ms[name], "plain_ms": plain_ms[name],
-                      "bound_ms": crop_bounds[name][0], "bound_by": crop_bounds[name][1],
-                      "path_rays": WIDTH * HEIGHT, "path_ms": frame_ms,
-                      "path_bound_ms": frame_bounds[name][0],
-                      "path_bound_by": frame_bounds[name][1]}
-    for name in ("trace_rays_k2a", "trace_rays_k2b"):
-        ws = wave_stats[name]
-        b_ms, b_by = summed([s["bound_detail"] for s in ws])
-        pb_ms, pb_by = summed([s["path_bound_detail"] for s in ws])
-        rows[name] = {"launches": pt_launches[name],
-                      "max_abs_err": max(s["max_abs_err"] for s in ws),
-                      "rays": sum(s["rays"] for s in ws), "ms": sum(s["ms"] for s in ws),
-                      "plain_ms": sum(s["plain_ms"] for s in ws), "bound_ms": b_ms,
-                      "bound_by": b_by, "path_rays": sum(s["active"] for s in ws),
-                      "path_ms": sum(s["path_ms"] for s in ws), "path_bound_ms": pb_ms,
-                      "path_bound_by": pb_by, "waves_path_ms": [s["path_ms"] for s in ws]}
-    rows["trace_tiles_k1c"] = rows_k1c
     log(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -1117,6 +1254,267 @@ def config5_phase(env: dict) -> None:
         f"{rays / ms / 1e3:.2f} Mrays/s (W*H*cameras / ms; reps {[round(x, 4) for x in reps]}) "
         f"on {card}")
     profile_calls(lambda: frame(10), "config 5 frame", card)
+
+
+def check_visits(env: dict, qn: torch.Tensor, what: str) -> dict:
+    """17. K1f on records of either width: the framed frame with and without
+    ``stats``, and the visits plane against the plain version's on the crop
+    → the check's numbers, the crop's times and bound."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, crop_pix, r0, c0 = env["card"], env["crop_pix"], env["r0"], env["c0"]
+    without = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    planes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                  stats=True)
+    if len(planes) != 6 or planes[5].dtype != torch.float32 or planes[5].shape != (HEIGHT, WIDTH):
+        fail(f"{what}: stats=True must append one (H, W) f32 plane")
+    if not all(torch.equal(a, b) for a, b in zip(planes[:5], without)):
+        fail(f"{what}: stats=True changed one of the five other planes")
+    if not bool((planes[5] >= 1).all()):
+        fail(f"{what}: a pixel counts no visit, not even the root's")
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                         pixels=crop_pix, counts=counts, stats=True)
+    ker = [p.reshape(-1)[crop_pix] for p in planes]
+    same = ker[4] == ref[4]
+    err = (ker[5] - ref[5]).abs()[same]
+    if float(same.float().mean()) < MIN_TRI_MATCH or float(err.max()) != 0.0:
+        fail(f"{what}: the visits plane differs from the plain version's on "
+             f"{int((err != 0).sum())} rays of the same triangle")
+    crop_visits = int(ker[5].sum(dtype=torch.float64))
+    if bool(same.all()) and crop_visits != counts.visits:
+        fail(f"{what}: the plane sums to {crop_visits}, the plain version counted "
+             f"{counts.visits} visits")
+    window = traverse.trace_tiles(qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, stats=True,
+                                  raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0)
+    if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
+        fail(f"{what}: the crop window with stats differs from the same pixels of the frame")
+    ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
+        qn, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, stats=True,
+        raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0), FRAMES, REPEATS))
+    plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
+        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, pixels=crop_pix, stats=True),
+        1, 3))
+    b_ms, b_by, detail = bound(counts, 1.0, crop_pix.numel() * (OUT_BYTES + 4))
+    stats = {"rays": crop_pix.numel(), "tri_equal": float(same.float().mean()),
+             "visits_equal_on": int(same.sum()), "crop_visits": crop_visits,
+             "counted_visits": counts.visits, "max_abs_err": float(err.max())}
+    log(f"[check] {what}: five planes bit-identical with and without stats on the 1080p "
+        f"frame; visits plane vs plain on the crop: {json.dumps(stats)}")
+    log(f"[time] {what} framed 256x256 crop: kernel {ms:.4f} ms, plain torch {plain_ms:.2f} ms "
+        f"(median of 3), bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+    return {**stats, "ms": ms, "plain_ms": plain_ms, "bound_detail": detail}
+
+
+def check_wide_structure(bvh2, b8) -> dict:
+    """18. The structure of a BVH8 (``b8``, from the clustered ``bvh2``)."""
+    from raytracer_tpu_torch.ops.collapse import INVALID, LEAF_FLAG
+    from raytracer_tpu_torch.utils.fp16 import unpack_bounds
+
+    n = b8.num_nodes
+    kids, meta = b8.children[:n], b8.meta[:n]
+    if kids.shape != (n, 8) or not bool((b8.children[n:] == INVALID).all()):
+        fail(f"BVH8 children of shape {tuple(b8.children.shape)}, or padding rows with children")
+    leaf = (meta & LEAF_FLAG) != 0
+    valid = kids != INVALID
+    nkids = valid.sum(dim=1)
+    if bool((nkids[leaf] != 0).any()) or bool(((nkids[~leaf] < 2) | (nkids[~leaf] > 8)).any()):
+        fail("a BVH8 leaf row has children, or an internal row fewer than 2 or more than 8")
+    seen = torch.bincount(kids[valid], minlength=n)
+    if int(seen[0]) != 0 or not bool((seen[1:] == 1).all()):
+        fail("a BVH8 row is not reached exactly once from the root")
+    leaves2 = bvh2.meta[(bvh2.meta & LEAF_FLAG) != 0]
+    if not torch.equal(torch.sort(meta[leaf]).values, torch.sort(leaves2).values):
+        fail("the BVH8's leaves are not the BVH2's cluster leaves, each once")
+    mn, mx = unpack_bounds(b8.bounds_u32[:n])
+    ki = kids.clamp(0, n - 1)
+    inside = ((mn[:, None, :] <= mn[ki] + 2.0 ** -14)
+              & (mx[:, None, :] >= mx[ki] - 2.0 ** -14)).all(dim=-1)
+    if not bool(inside[valid].all()):
+        fail(f"{int((~inside & valid).sum())} BVH8 child boxes reach outside their parent's")
+    return {"rows": n, "internal": int((~leaf).sum()), "leaves": int(leaf.sum()),
+            "mean_children": float(nkids[~leaf].float().mean()),
+            "full_rows": int((nkids == 8).sum())}
+
+
+def abba(fns: dict, frames: int, repeats: int) -> dict:
+    """Median ms per call of each of two functions, timed back to back in the
+    order first, second, second, first."""
+    (a, fa), (b, fb) = fns.items()
+    reps = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        reps[name] += cuda_ms(fn, frames, repeats)
+    return {name: statistics.median(r) for name, r in reps.items()}
+
+
+def ab_phase(env: dict, qn8: torch.Tensor, waves: list[dict]) -> dict:
+    """19. BVH4 against BVH8 at K = 32, back to back in one process → K1f's
+    launches on these frames and its time on them."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    trees = {"BVH4": env["qn"], "BVH8": qn8}
+    rays = WIDTH * HEIGHT
+    log(f"[A/B] BVH4 {tuple(trees['BVH4'].shape)} against BVH8 {tuple(qn8.shape)} records, "
+        f"K = {LEAF_K}, 1920x1080, order 4-8-8-4, on {card}")
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    seen = {}
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        for tree, q in trees.items():
+            planes = traverse.trace_tiles(q, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                          stats=True)
+            seen[view, tree] = {"hits": int((planes[4] >= 0).sum()),
+                                "visits": int(planes[5].sum(dtype=torch.float64)),
+                                "tri": planes[4]}
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    if launches != expected(trace_tiles_k1f=4):
+        fail(f"the A/B's visit frames launched {launches}, expected 4 K1f and nothing else")
+    stats_ms = {}
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        s4, s8 = seen[view, "BVH4"], seen[view, "BVH8"]
+        if s4["hits"] != s8["hits"]:
+            fail(f"A/B {view}: BVH4 hits {s4['hits']} pixels, BVH8 {s8['hits']}")
+        ms = abba({t: (lambda q=q: traverse.trace_tiles(q, pos, QUAT, WIDTH, HEIGHT, FOV,
+                                                        leaf_k=LEAF_K))
+                   for t, q in trees.items()}, FRAMES, REPEATS)
+        stats_ms[view] = abba({t: (lambda q=q: traverse.trace_tiles(
+            q, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, stats=True))
+            for t, q in trees.items()}, FRAMES, 3)
+        for tree, s in (("BVH4", s4), ("BVH8", s8)):
+            log(f"[A/B] {view} {tree}: {ms[tree]:.4f} ms/frame = {rays / ms[tree] / 1e3:.2f} "
+                f"Mrays/s; visits {s['visits']} ({s['visits'] / rays:.3f} a ray); hits "
+                f"{s['hits']}; with the visits plane (K1f) {stats_ms[view][tree]:.4f} ms")
+        log(f"[A/B] {view} BVH8 / BVH4: ms {ms['BVH8'] / ms['BVH4']:.4f}, visits "
+            f"{s8['visits'] / s4['visits']:.4f}, same triangle on "
+            f"{float((s4['tri'] == s8['tri']).float().mean()):.6f} of pixels")
+
+    total = {"BVH4": 0.0, "BVH8": 0.0}
+    for i, w in enumerate(waves):
+        kw = dict(any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"])
+        found = {t: int((traverse.trace_rays(q, w["o"], w["d"], **kw)[4] >= 0).sum())
+                 for t, q in trees.items()}
+        if found["BVH4"] != found["BVH8"]:
+            fail(f"A/B wave {i}: BVH4 finds {found['BVH4']} hits, BVH8 {found['BVH8']}")
+        ms = abba({t: (lambda q=q: traverse.trace_rays(q, w["o"], w["d"], **kw))
+                   for t, q in trees.items()}, 3, 3)
+        for t in total:
+            total[t] += ms[t]
+        log(f"[A/B] wave {i} ({'any hit: K2b / K2c' if w['any_hit'] else 'closest: K2a / K2c'}): "
+            f"BVH4 {ms['BVH4']:.4f} ms, BVH8 {ms['BVH8']:.4f} ms, ratio "
+            f"{ms['BVH8'] / ms['BVH4']:.4f}; hits {found['BVH4']} both")
+    log(f"[A/B] the {len(waves)} ray-buffer waves of one sample: BVH4 {total['BVH4']:.4f} ms, "
+        f"BVH8 {total['BVH8']:.4f} ms, ratio {total['BVH8'] / total['BVH4']:.4f}")
+
+    def sample_of(q):
+        return render_pt.pt_sample_frame(
+            q, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+    ms = abba({t: (lambda q=q: sample_of(q)) for t, q in trees.items()}, SAMPLES, 3)
+    near = float(((sample_of(trees["BVH4"]) - sample_of(qn8)).abs().amax(-1)
+                  <= RADIANCE_ATOL).float().mean())
+    log(f"[A/B] one {BOUNCES}-bounce 1080p sample (pt_sample_frame, same generator state): "
+        f"BVH4 {ms['BVH4']:.4f} ms, BVH8 {ms['BVH8']:.4f} ms, ratio "
+        f"{ms['BVH8'] / ms['BVH4']:.4f}; {near:.6f} of pixels within {RADIANCE_ATOL}")
+    if near < MIN_RADIANCE_MATCH:
+        fail(f"A/B: the two trees' samples agree on {near:.6f} < {MIN_RADIANCE_MATCH} of pixels")
+    return {"launches": launches["trace_tiles_k1f"],
+            "path_ms": stats_ms["framed"]["BVH4"] + stats_ms["framed"]["BVH8"]}
+
+
+def wide8_phase(env: dict, scene) -> dict:
+    """15.–19. The 8-wide tree on the dragon and the visits plane → the
+    kernels-line rows of K1e, K2c and K1f."""
+    from raytracer_tpu_torch import PathTracer
+    from raytracer_tpu_torch.ops.collapse import LBVH2, collapse_lbvh2_to_bvh8
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev, qn4 = env["card"], env["dev"], env["qn"]
+
+    # 15. the main path through widener="collapse8"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pt = PathTracer(WIDTH, HEIGHT, widener="collapse8", builder="sah", leaf_size=LEAF_K,
+                    device=dev)
+    t0 = time.perf_counter()
+    pt.set_scene(scene)
+    qn8 = pt._qnodes
+    log(f"[wide8] set_scene(widener=collapse8) in {time.perf_counter() - t0:.2f} s: "
+        f"{json.dumps(pt.build_stats)}; records {tuple(qn8.shape)} = "
+        f"{qn8.numel() * 4 / 2**20:.1f} MiB (4-wide {qn4.numel() * 4 / 2**20:.1f} MiB); peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if qn8.shape != (qn4.shape[0], traverse.rec_layout(LEAF_K, 8)[2]):
+        fail(f"8-wide records of shape {tuple(qn8.shape)}")
+    if not torch.equal(pt._tris_dev, env["tris"]):
+        fail("the 8-wide tracer holds other triangles than the 4-wide one")
+    pt.set_camera_quaternion(*QUAT)
+    pt.fov_degrees = FOV
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    images = {}
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        pt.set_camera_position(*pos)
+        images[view] = pt.render()
+    torch.cuda.synchronize()
+    render_launches = dict(traverse.LAUNCHES)
+    log(f"[wide8] launches during two render() calls: {json.dumps(render_launches)}")
+    if render_launches != expected(trace_tiles_k1e=2):
+        fail(f"the 8-wide primary path launched {render_launches}, expected 2 K1e")
+    hit_rates = check_images(images, dev)
+    for view, img in images.items():
+        equal = float((img == env["images"][view]).all(dim=-1).float().mean())
+        log(f"[wide8] {view}: hit rate {hit_rates[view]:.4f}; {equal:.6f} of pixels equal to "
+            "the 4-wide tree's image")
+        if equal < MIN_TRI_MATCH:
+            fail(f"the 8-wide {view} image equals the 4-wide one on {equal:.6f} of pixels")
+    pt_want = expected(trace_tiles_k1e=SAMPLES, trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1))
+    progressive_samples(pt, pt_want, "wide8 progressive")
+    sample_reps = cuda_ms(lambda: pt.render_progressive(bounces=BOUNCES), SAMPLES, 3)
+    ms = statistics.median(sample_reps)
+    log(f"[time] 8-wide render_progressive(bounces={BOUNCES}) 1920x1080: {ms:.4f} ms/sample = "
+        f"{WIDTH * HEIGHT * BOUNCES * 2 / ms / 1e3:.2f} Mrays/s (W*H*bounces*2) "
+        f"(reps {[round(r, 4) for r in sample_reps]}) on {card}")
+    profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
+                  f"8-wide render_progressive(bounces={BOUNCES})", card)
+
+    # 16. K1e and K2c against their plain versions and brute force
+    k1e = check_tiles(env, qn8, "K1e", jitter=False)
+    k1e_j = check_tiles(env, qn8, "K1e", jitter=True)
+    waves, _ = capture_waves(env, qn8)
+    wave_stats = check_waves(env, qn8, waves, "trace_rays_k2c", "trace_rays_k2c")
+    rows = {"trace_tiles_k1e": time_tiles(
+        env, qn8, "K1e", False, k1e,
+        render_launches["trace_tiles_k1e"] + pt_want["trace_tiles_k1e"])}
+    rows["trace_tiles_k1e"]["max_abs_err"] = max(k1e["stats"]["max_abs_err"],
+                                                 k1e_j["stats"]["max_abs_err"])
+    rows["trace_rays_k2c"] = wave_row(wave_stats["trace_rays_k2c"], pt_want["trace_rays_k2c"])
+
+    # 17. K1f at both widths
+    visits = [check_visits(env, qn4, "K1f on 4-wide records"),
+              check_visits(env, qn8, "K1f on 8-wide records")]
+
+    # 18. the structure of the full-size BVH8
+    bvh2 = LBVH2(*(a.to(dev) for a in pt._cluster.bvh2))
+    b8, collapse_ms = timed_once(lambda: collapse_lbvh2_to_bvh8(bvh2,
+                                                                 sweeps=pt._bvh2_height + 2))
+    log(f"[wide8] collapse_lbvh2_to_bvh8 of {bvh2.num_nodes} BVH2 nodes ({pt._bvh2_height + 2} "
+        f"sweeps) on the card in {collapse_ms:.2f} ms: "
+        f"{json.dumps(check_wide_structure(bvh2, b8))}")
+    del pt, b8
+
+    # 19. BVH4 against BVH8
+    ab = ab_phase(env, qn8, waves)
+    b_ms, b_by = summed([v["bound_detail"] for v in visits])
+    rows["trace_tiles_k1f"] = {
+        "launches": ab["launches"], "max_abs_err": max(v["max_abs_err"] for v in visits),
+        "rays": sum(v["rays"] for v in visits), "ms": sum(v["ms"] for v in visits),
+        "plain_ms": sum(v["plain_ms"] for v in visits), "bound_ms": b_ms, "bound_by": b_by,
+        "path_rays": 2 * WIDTH * HEIGHT, "path_ms": ab["path_ms"]}
+    return rows
 
 
 if __name__ == "__main__":

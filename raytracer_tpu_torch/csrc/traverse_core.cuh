@@ -1,14 +1,17 @@
 // The per-ray traversal of the supernode records, shared by the primary-ray
-// kernels K1a/K1b (traverse_tiles.cu) and the ray-buffer kernels K2a/K2b
-// (traverse_rays.cu), so the visit order, the culling and the stack-drop rule
-// exist once.
+// kernels K1a/K1b/K1c/K1e/K1f (traverse_tiles.cu) and the ray-buffer kernels
+// K2a/K2b/K2c (traverse_rays.cu), so the visit order, the culling and the
+// stack-drop rule exist once, for records of 4 and of 8 child slots.
 //
 // It is the per-ray form of raytracer_tpu/ops/pallas/traverse.py::_consume
-// on 4-wide records with K triangles per leaf (record layout:
+// (width = 4 or 8) on records with K triangles per leaf (record layout:
 // raytracer_tpu_torch/ops/cuda/traverse.py). Every visit is a dependent fetch
-// of one record header (32 f32 words) through L1 and L2, plus the 12-word
-// triangle records of the leaf slots whose slab test passes: that latency,
-// not arithmetic, is what bounds a traversal on the card.
+// of one record header (8 f32 words per child slot: 128 bytes at 4 slots,
+// 256 at 8) through L1 and L2, plus the 12-word triangle records of the leaf
+// slots whose slab test passes: that latency, not arithmetic, is what bounds
+// a traversal on the card. An 8-wide tree visits fewer records and reads
+// twice the header at each; which of the two weighs more is measured, not
+// assumed (chip_smoke.py prints both trees side by side).
 //
 // Exactness: every expression is evaluated in the operation order of the
 // plain torch version (ops/cuda/traverse.py::_traverse) and of the TPU
@@ -24,27 +27,29 @@
 namespace rt {
 
 constexpr int kStackMax = 64;           // pushes beyond this are dropped
-constexpr int kSlots = 4;               // child slots per record
 constexpr float kInf = 1e30f;
 constexpr float kMtEps = 1e-7f;
 constexpr float kEmptyRef = -268435456.0f;  // -2^28: empty child slot
 
 // A ray's result: t = 1e30, zero normal and tri = -1 on a miss. Any-hit
-// traversal reports t = 0 and the occluder's normal and id.
+// traversal reports t = 0 and the occluder's normal and id. `visits` is
+// counted only by a kVisits traversal (0 otherwise).
 struct Hit {
   float t, nx, ny, nz;
   int tri;
+  int visits;
 };
 
 __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) > 1e-8f ? 1.0f / d : kInf;
 }
 
-// Traverse the records `qn` (rows of `recw` f32 words, K = leaf_k triangles
-// per leaf) from the root with the ray (o, d). Closest hit: the nearest
-// accepted triangle (strict t < best, first in visit order among equal t).
-// kAnyHit: stop at the first accepted triangle in visit order.
-template <bool kAnyHit>
+// Traverse the records `qn` (rows of `recw` f32 words, kSlots child slots,
+// K = leaf_k triangles per leaf) from the root with the ray (o, d). Closest
+// hit: the nearest accepted triangle (strict t < best, first in visit order
+// among equal t). kAnyHit: stop at the first accepted triangle in visit
+// order. kVisits: count the records visited (pops that pass the cull).
+template <int kSlots, bool kAnyHit, bool kVisits>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw,
                                             int leaf_k, float ox, float oy, float oz,
                                             float dx, float dy, float dz) {
@@ -52,7 +57,7 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
   const int vbase = 8 * kSlots;
   const int ibase = vbase + kSlots * 12 * leaf_k;
 
-  Hit r{kInf, 0.0f, 0.0f, 0.0f, -1};
+  Hit r{kInf, 0.0f, 0.0f, 0.0f, -1, 0};
   float best = kInf;
   int stack_n[kStackMax];
   float stack_d[kStackMax];
@@ -65,12 +70,14 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
     const float key = stack_d[sp];
     --sp;
     if (!(key < best)) continue;
+    if (kVisits) ++r.visits;
 
     const float* rec = qn + (size_t)node * (size_t)recw;
-    float h[32];  // [0:24] child boxes, [24:28] refs, [28:32] counts/radii
+    // [0:6w] child boxes, [6w:7w] refs, [7w:8w] counts/radii, w = kSlots
+    float h[8 * kSlots];
     const float4* hdr = reinterpret_cast<const float4*>(rec);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 2 * kSlots; ++i) {
       const float4 q = __ldg(hdr + i);
       h[4 * i] = q.x;
       h[4 * i + 1] = q.y;
@@ -97,9 +104,9 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
     // in slot then triangle order, strict t < best
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      const float ref = h[24 + k];
+      const float ref = h[6 * kSlots + k];
       if (!(hit[k] && ref < 0.0f && ref > kEmptyRef)) continue;
-      const float cnt = h[28 + k];
+      const float cnt = h[7 * kSlots + k];
       const float4* tv = reinterpret_cast<const float4*>(rec + vbase + k * leaf_k * 12);
       for (int j = 0; j < leaf_k && (float)j < cnt; ++j) {
         const float4 a = __ldg(tv + 3 * j);      // v0x v0y v0z e1x
@@ -136,14 +143,16 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
     }
 
     // internal slots that passed: push far→near by the slab entry distance
-    // (a stable descending insertion sort, so equal keys keep slot order)
+    // (a stable descending insertion sort over up to kSlots candidates, so
+    // equal keys keep slot order; the TPU kernel's sorting network orders
+    // by the tile-centre ray instead)
     int cand[kSlots];
     float ckey[kSlots];
     int nc = 0;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      if (hit[k] && h[24 + k] >= 0.0f) {
-        const int cn = (int)h[24 + k];
+      if (hit[k] && h[6 * kSlots + k] >= 0.0f) {
+        const int cn = (int)h[6 * kSlots + k];
         const float ck = tmin[k];
         int i = nc - 1;
         while (i >= 0 && ckey[i] < ck) {

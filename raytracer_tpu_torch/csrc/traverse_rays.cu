@@ -1,10 +1,11 @@
 // K2a / K2b — traversal of an arbitrary ray buffer through the supernode
 // records: K2a closest hit (the bounce waves of path tracing), K2b any hit
 // (the next-event-estimation shadow rays toward the sun).
+// K2c — both on 8-wide records (the BVH8 of collapse_lbvh2_to_bvh8).
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
-// _raybuf_kernel (loop _traverse_streams, per-visit core _consume) on 4-wide
-// records with K triangles per leaf. It computes what
+// _raybuf_kernel (loop _traverse_streams, per-visit core _consume, rec_width
+// 4 or 8) on records with K triangles per leaf. It computes what
 // trace_rays_pallas(qnodes, origins, dirs, any_hit=…, leaf_k=K) computes:
 // five (R,) planes t, nx, ny, nz (f32) and tri (int32), with t = 1e30, a zero
 // normal and tri = -1 on a miss. Any hit stops at the first accepted
@@ -45,7 +46,7 @@
 
 namespace {
 
-template <bool kAnyHit>
+template <int kSlots, bool kAnyHit>
 __global__ void __launch_bounds__(128)
 trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                   const float* __restrict__ orig, const float* __restrict__ dirs,
@@ -55,11 +56,12 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                   int* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1};
+  rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0};
   if (active == nullptr || active[i] != 0) {
     const size_t r = 3 * (size_t)i;
-    hit = rt::traverse_ray<kAnyHit>(qn, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2],
-                                    dirs[r], dirs[r + 1], dirs[r + 2]);
+    hit = rt::traverse_ray<kSlots, kAnyHit, false>(qn, recw, leaf_k, orig[r], orig[r + 1],
+                                                   orig[r + 2], dirs[r], dirs[r + 1],
+                                                   dirs[r + 2]);
   }
   t_out[i] = hit.t;
   nx_out[i] = hit.nx;
@@ -70,25 +72,29 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 
 }  // namespace
 
-// Launch K2a (any_hit = 0) or K2b (any_hit != 0) over n rays on `stream`.
-// qnodes: (M, recw) f32, 16-byte aligned rows; origins, dirs: (n, 3) f32;
+// Launch K2a (any_hit = 0) or K2b (any_hit != 0) over n rays on `stream`;
+// with slots = 8, K2c on 8-wide records. qnodes: (M, recw) f32, 16-byte
+// aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n, 3) f32;
 // active: n bytes (0 = inactive) or null for all rays; outputs: (n,)
-// planes. Returns cudaGetLastError() after the launch (0 on success);
-// synchronises nothing.
-extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, const float* origins,
-                             const float* dirs, const uint8_t* active, int n, int any_hit,
-                             float* t, float* nx, float* ny, float* nz, int* tri,
-                             void* stream) {
+// planes. Returns cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count); synchronises nothing.
+extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, int slots,
+                             const float* origins, const float* dirs, const uint8_t* active,
+                             int n, int any_hit, float* t, float* nx, float* ny, float* nz,
+                             int* tri, void* stream) {
+  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int block = 128;
   const int grid = (n + block - 1) / block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    trace_rays_kernel<true><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, origins, dirs,
-                                                   active, n, t, nx, ny, nz, tri);
+#define RT_LAUNCH_RAYS(SLOTS, ANY)                                                   \
+  trace_rays_kernel<SLOTS, ANY><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, origins, \
+                                                       dirs, active, n, t, nx, ny, nz, tri)
+  if (slots == 8) {
+    if (any_hit) RT_LAUNCH_RAYS(8, true); else RT_LAUNCH_RAYS(8, false);
   } else {
-    trace_rays_kernel<false><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, origins, dirs,
-                                                    active, n, t, nx, ny, nz, tri);
+    if (any_hit) RT_LAUNCH_RAYS(4, true); else RT_LAUNCH_RAYS(4, false);
   }
+#undef RT_LAUNCH_RAYS
   return (int)cudaGetLastError();
 }

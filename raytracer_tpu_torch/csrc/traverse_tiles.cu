@@ -1,10 +1,13 @@
 // K1a / K1b — closest-hit primary-ray traversal of the supernode records, one
 // frame, one ray per pixel; K1b jitters each ray's subpixel position.
 // K1c — the same for a batch of F frames (cameras) in one launch.
+// K1e — all of these on 8-wide records (the BVH8 of collapse_lbvh2_to_bvh8).
+// K1f — any of these with a sixth output plane: the records each pixel's ray
+// visited.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
-// _persistent_kernel (with its per-visit core _consume) on the path of
-// 4-wide records, K triangles per leaf, and no per-tile entry nodes or depth
+// _persistent_kernel (with its per-visit core _consume, rec_width 4 or 8) on
+// the path of K triangles per leaf and no per-tile entry nodes or depth
 // bounds. K1a computes what trace_tiles_pallas(qnodes, pos, quat, W, H, fov,
 // leaf_k=K)[:5] computes; K1b what the same call computes with jitter=True,
 // jitter_seed=seed: the fixed pixel-centre offset 0.5 becomes
@@ -14,14 +17,23 @@
 // row/col offsets), which renders one band or crop with the full frame's
 // rays. K1c computes what trace_tiles_batch_pallas(qnodes, pos (F,3), quat
 // (F,4), W, H, fov, leaf_k=K, jitter=…, jitter_seeds=…)[:5] computes: five
-// (F, H, W) planes, frame f from camera row f.
+// (F, H, W) planes, frame f from camera row f. K1e reads rec_layout(K, 8)
+// records (a 64-word header) where the others read rec_layout(K, 4). K1f
+// computes what stats=True adds there, in this kernel's own terms: the TPU
+// kernel shares one stack among the 1,024 rays of a tile and writes the
+// tile's visit count to every pixel of it; here each ray has its own stack,
+// so the plane holds each pixel's own count of stack pops that passed the
+// cull against its best t (as f32). Without it (kVisits false) nothing is
+// counted and no sixth plane is written.
 //
 // What bounds it on the card: every visit is a dependent fetch of one record
 // (1,792 f32 words = 7,168 bytes at K = 32) through L1 and L2, and the
 // records of the 871,200-triangle main-path scene (54,449 rows, ~390 MB)
 // are far larger than the 50 MB L2, so a visit that misses waits on device
-// memory before the next node is known. K1c does the same fetches F times
-// over; cameras that see the same part of the scene read the same records.
+// memory before the next node is known. At 8 slots a row is 3,456 words
+// (13,824 bytes) and the same scene's records ~753 MB: fewer, larger visits.
+// K1c does the same fetches F times over; cameras that see the same part of
+// the scene read the same records.
 //
 // What the design does about it:
 //  * One thread per pixel with its own 64-entry stack, in 8×8 blocks: the
@@ -80,7 +92,7 @@ enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSee
               kRowOff = 12, kColOff = 13, kCamCols = 16 };
 
 // The primary ray of pixel (gx, gy) of the whole frame, traversed.
-template <bool kJitter>
+template <int kSlots, bool kJitter, bool kVisits>
 __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, int recw,
                                                  int leaf_k, const Camera& cam, int seed,
                                                  int gx, int gy) {
@@ -109,45 +121,50 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
     dy = 2.0f * (cam.qw * uvy + uuvy) + dy;
     dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
   }
-  return rt::traverse_ray<false>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz);
+  return rt::traverse_ray<kSlots, false, kVisits>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx,
+                                                  dy, dz);
 }
 
+template <bool kVisits>
 __device__ __forceinline__ void store_hit(const rt::Hit& hit, size_t p, float* __restrict__ t_out,
                                           float* __restrict__ nx_out,
                                           float* __restrict__ ny_out,
                                           float* __restrict__ nz_out,
-                                          int* __restrict__ tri_out) {
+                                          int* __restrict__ tri_out,
+                                          float* __restrict__ visits_out) {
   t_out[p] = hit.t;
   nx_out[p] = hit.nx;
   ny_out[p] = hit.ny;
   nz_out[p] = hit.nz;
   tri_out[p] = hit.tri;
+  if (kVisits) visits_out[p] = (float)hit.visits;
 }
 
-template <bool kJitter>
+template <int kSlots, bool kJitter, bool kVisits>
 __global__ void __launch_bounds__(64)
 trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera cam,
                    int seed, int width, int height, int row_off, int col_off,
                    float* __restrict__ t_out,
                    float* __restrict__ nx_out, float* __restrict__ ny_out,
-                   float* __restrict__ nz_out, int* __restrict__ tri_out) {
+                   float* __restrict__ nz_out, int* __restrict__ tri_out,
+                   float* __restrict__ visits_out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  const rt::Hit hit =
-      trace_primary<kJitter>(qn, recw, leaf_k, cam, seed, px + col_off, py + row_off);
-  store_hit(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out, nz_out,
-            tri_out);
+  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(qn, recw, leaf_k, cam, seed,
+                                                              px + col_off, py + row_off);
+  store_hit<kVisits>(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out,
+                     nz_out, tri_out, visits_out);
 }
 
-// K1c: frame blockIdx.z, its camera from row blockIdx.z of `cams`.
-template <bool kJitter>
+// The frame batch: frame blockIdx.z, its camera from row blockIdx.z of `cams`.
+template <int kSlots, bool kJitter, bool kVisits>
 __global__ void __launch_bounds__(64)
 trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                          const float* __restrict__ cams, int width, int height,
                          float* __restrict__ t_out, float* __restrict__ nx_out,
                          float* __restrict__ ny_out, float* __restrict__ nz_out,
-                         int* __restrict__ tri_out) {
+                         int* __restrict__ tri_out, float* __restrict__ visits_out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
@@ -155,61 +172,74 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   const Camera cam{row[kOx],     row[kOx + 1],  row[kOx + 2],   row[kQx],
                    row[kQx + 1], row[kQx + 2],  row[kQx + 3],   row[kFocal],
                    row[kAspect], row[kFw],      row[kFh]};
-  const rt::Hit hit =
-      trace_primary<kJitter>(qn, recw, leaf_k, cam, (int)row[kSeed],
-                             px + (int)row[kColOff], py + (int)row[kRowOff]);
+  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(
+      qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff]);
   const size_t p = ((size_t)blockIdx.z * (size_t)height + (size_t)py) * (size_t)width + px;
-  store_hit(hit, p, t_out, nx_out, ny_out, nz_out, tri_out);
+  store_hit<kVisits>(hit, p, t_out, nx_out, ny_out, nz_out, tri_out, visits_out);
 }
 
 }  // namespace
 
+// Launch KERNEL<slots, jitter, visits> with the instantiation that the
+// run-time `slots` (4 or 8), `jitter` and `visits` (a plane was given) name.
+#define RT_LAUNCH_JV(KERNEL, SLOTS, ...)                                      \
+  do {                                                                        \
+    if (jitter) {                                                             \
+      if (visits) KERNEL<SLOTS, true, true><<<grid, block, 0, s>>>(__VA_ARGS__);   \
+      else KERNEL<SLOTS, true, false><<<grid, block, 0, s>>>(__VA_ARGS__);    \
+    } else {                                                                  \
+      if (visits) KERNEL<SLOTS, false, true><<<grid, block, 0, s>>>(__VA_ARGS__);  \
+      else KERNEL<SLOTS, false, false><<<grid, block, 0, s>>>(__VA_ARGS__);   \
+    }                                                                         \
+  } while (0)
+#define RT_LAUNCH(KERNEL, ...)                                  \
+  do {                                                          \
+    if (slots == 8) RT_LAUNCH_JV(KERNEL, 8, __VA_ARGS__);       \
+    else RT_LAUNCH_JV(KERNEL, 4, __VA_ARGS__);                  \
+  } while (0)
+
 // Launch K1a (jitter = 0) or K1b (jitter != 0, subpixel seed `seed`) on
-// `stream`. qnodes: (M, recw) f32, 16-byte aligned rows; outputs: (height,
-// width) planes of the window at (row_off, col_off) of a rg_width × rg_height
-// frame (focal and aspect are the frame's). Returns cudaGetLastError() after
-// the launch (0 on success); synchronises nothing.
-extern "C" int rt_trace_tiles(const float* qnodes, int recw, int leaf_k, float ox,
+// `stream`; with slots = 8 the same on 8-wide records (K1e); with a `visits`
+// plane, K1f. qnodes: (M, recw) f32, 16-byte aligned rows of `slots` (4 or 8)
+// child slots; outputs: (height, width) planes of the window at (row_off,
+// col_off) of a rg_width × rg_height frame (focal and aspect are the
+// frame's); visits: a sixth f32 plane or null. Returns cudaGetLastError()
+// after the launch (0 on success, or cudaErrorInvalidValue for another slot
+// count); synchronises nothing.
+extern "C" int rt_trace_tiles(const float* qnodes, int recw, int leaf_k, int slots, float ox,
                               float oy, float oz, float qx, float qy, float qz, float qw,
                               float focal, float aspect, int rg_width, int rg_height,
                               int row_off, int col_off, int width, int height, int jitter,
                               int seed, float* t, float* nx, float* ny, float* nz, int* tri,
-                              void* stream) {
+                              float* visits, void* stream) {
+  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   const Camera cam{ox, oy, oz, qx, qy, qz, qw, focal, aspect,
                    (float)rg_width, (float)rg_height};
   const dim3 block(8, 8);
   const dim3 grid((width + 7) / 8, (height + 7) / 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (jitter) {
-    trace_tiles_kernel<true><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cam, seed, width,
-                                                    height, row_off, col_off, t, nx, ny, nz,
-                                                    tri);
-  } else {
-    trace_tiles_kernel<false><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cam, seed, width,
-                                                     height, row_off, col_off, t, nx, ny, nz,
-                                                     tri);
-  }
+  RT_LAUNCH(trace_tiles_kernel, qnodes, recw, leaf_k, cam, seed, width, height, row_off,
+            col_off, t, nx, ny, nz, tri, visits);
   return (int)cudaGetLastError();
 }
 
-// Launch K1c on `stream`: `num_frames` frames of width × height pixels, frame
-// f from row f of `cams` ((num_frames, 16) f32 on the device: origin,
+// Launch the frame batch on `stream` (K1c; K1e with slots = 8; K1f with a
+// `visits` plane): `num_frames` frames of width × height pixels, frame f
+// from row f of `cams` ((num_frames, 16) f32 on the device: origin,
 // quaternion xyzw, focal, aspect, raygen W and H, jitter seed, row and column
 // offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
-// Outputs: (num_frames, height, width) planes. Returns cudaGetLastError()
-// after the launch (0 on success); synchronises nothing.
-extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, const float* cams,
-                                    int num_frames, int width, int height, int jitter, float* t,
-                                    float* nx, float* ny, float* nz, int* tri, void* stream) {
+// Outputs: (num_frames, height, width) planes; visits: a sixth f32 plane or
+// null. Returns cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count); synchronises nothing.
+extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, int slots,
+                                    const float* cams, int num_frames, int width, int height,
+                                    int jitter, float* t, float* nx, float* ny, float* nz,
+                                    int* tri, float* visits, void* stream) {
+  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   const dim3 block(8, 8);
   const dim3 grid((width + 7) / 8, (height + 7) / 8, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (jitter) {
-    trace_tiles_batch_kernel<true><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cams, width,
-                                                          height, t, nx, ny, nz, tri);
-  } else {
-    trace_tiles_batch_kernel<false><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, cams, width,
-                                                           height, t, nx, ny, nz, tri);
-  }
+  RT_LAUNCH(trace_tiles_batch_kernel, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz,
+            tri, visits);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@ import torch
 
 from ..native.bvhtool import build_sah_clustered_native
 from ..utils.fp16 import pack_bounds_conservative
-from .collapse import LBVH2, LEAF_FLAG, collapse_lbvh2_to_bvh4
+from .collapse import LBVH2, LEAF_FLAG, collapse_lbvh2_to_bvh4, collapse_lbvh2_to_bvh8
 from .cuda.traverse import make_qnodes
 from .lbvh import _tri_bounds, from_ordered_key, ordered_key
 from .trace import make_wide_bvh
@@ -37,7 +37,9 @@ class ClusteredScene(NamedTuple):
 def state_from_numpy(arrays: dict, device) -> ClusteredScene:
     """The JAX package's clustered-tree arrays (as numpy, under the keys of
     its npz checkpoint: ``triangles``, ``bvh2_{bounds,left,right,meta,
-    parent}``, ``tri_order``, ``leaf_size``) → the port's tensors."""
+    parent}``, ``tri_order``, ``leaf_size``) → the port's tensors. The
+    state is the BVH2 and its cluster order: the same for every widener,
+    which only decides how the records are made from it."""
     def u32(name):
         return torch.from_numpy(np.asarray(arrays[name], np.uint32).astype(np.int64))
 
@@ -149,12 +151,24 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
     return ClusteredScene(bvh._replace(bounds_u32=bounds), tris_sorted, order, k)
 
 
-def records_pipeline(cs: ClusteredScene) -> torch.Tensor:
+def records_pipeline(cs: ClusteredScene, *, height: int | None = None,
+                     width: int = 4) -> torch.Tensor:
     """collapse → widen → supernode records (M, recw) f32 on the device of
-    ``cs.tris_sorted``."""
+    ``cs.tris_sorted``, with ``width`` child slots per record: 4 through the
+    native collapse on the host, 8 through :func:`collapse_lbvh2_to_bvh8` on
+    that device. ``height`` (from :func:`build_sah2_clustered`) caps the
+    8-wide collapse's sweeps at ``height + 2``; without it the static bound
+    of a Karras tree is used."""
     dev = cs.tris_sorted.device
-    bvh4 = collapse_lbvh2_to_bvh4(cs.bvh2)
-    bvh4 = bvh4._replace(bounds_u32=bvh4.bounds_u32.to(dev),
-                         children=bvh4.children.to(dev), meta=bvh4.meta.to(dev))
-    return make_qnodes(make_wide_bvh(bvh4), cs.tris_sorted, tri_ids=cs.tri_order,
+    if width == 4:
+        wide_bvh = collapse_lbvh2_to_bvh4(cs.bvh2)
+        wide_bvh = wide_bvh._replace(bounds_u32=wide_bvh.bounds_u32.to(dev),
+                                     children=wide_bvh.children.to(dev),
+                                     meta=wide_bvh.meta.to(dev))
+    elif width == 8:
+        wide_bvh = collapse_lbvh2_to_bvh8(LBVH2(*(a.to(dev) for a in cs.bvh2)),
+                                          sweeps=None if height is None else height + 2)
+    else:
+        raise ValueError(f"records have 4 or 8 child slots, got width={width}")
+    return make_qnodes(make_wide_bvh(wide_bvh), cs.tris_sorted, tri_ids=cs.tri_order,
                        leaf_size=cs.leaf_size)

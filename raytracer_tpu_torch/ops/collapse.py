@@ -1,13 +1,22 @@
-"""BVH2 → BVH4 collapse: the native greedy re-emission collapse for a
-build, and the collapse plan for a refit.
+"""BVH2 → wide-tree wideners: the native greedy re-emission collapse to 4
+slots for a build, the collapse plan for a refit, the 8-wide collapse on
+the device, and the two index-preserving 4-wide views.
 
 The JAX package collapses on the device (``raytracer_tpu/ops/collapse.py``).
-On the SAH-clustered trees of the main path its result equals the C++
+On the SAH-clustered trees of the main path its 4-wide result equals the C++
 collapse (``raytracer_tpu/native/bvh_convert.cpp::bvh_collapse4``) word for
 word over the emitted rows; the JAX version then pads to the BVH2 row count
-with rows of bounds 0, children INVALID and meta 0. This module calls the
-C++ collapse and pads the same way, so the records built from either are
-byte-equal. The device collapse comes with a later slice.
+with rows of bounds 0, children INVALID and meta 0.
+:func:`collapse_lbvh2_to_bvh4` calls the C++ collapse and pads the same way,
+so the records built from either are byte-equal. The 4-wide device collapse
+comes with a later slice.
+
+:func:`collapse_lbvh2_to_bvh8` is the torch counterpart of the JAX package's
+width-generic device collapse at 8 slots (treelets gathered
+largest-subtree-first, bounds re-merged bottom-up and re-packed with the
+truncating fp16 codec), node for node and bit for bit, on the device of its
+input. :func:`promote_lbvh2_to_bvh4_wide` and :func:`bvh2_as_bvh4` are
+closed-form index expressions over the BVH2's own rows.
 
 For dynamic scenes the topology half of the collapse (treelet gathering,
 reachability, subtree sizes, pre-order indices) is computed once per tree
@@ -27,9 +36,11 @@ import torch
 
 from ..io import artifacts
 from ..native.bvhtool import collapse4_native
-from .lbvh import _static_height_bound
+from ..utils.fp16 import unpack_bounds
+from .lbvh import _static_height_bound, from_ordered_key, ordered_key
 
-__all__ = ["LBVH2", "BVH4", "collapse_lbvh2_to_bvh4", "CollapsePlan", "collapse_plan",
+__all__ = ["LBVH2", "BVH4", "collapse_lbvh2_to_bvh4", "collapse_lbvh2_to_bvh8",
+           "promote_lbvh2_to_bvh4_wide", "bvh2_as_bvh4", "CollapsePlan", "collapse_plan",
            "collapse_apply_refit", "LEAF_FLAG", "INVALID"]
 
 LEAF_FLAG = 0x80000000
@@ -57,11 +68,13 @@ class LBVH2(NamedTuple):
 
 
 class BVH4(NamedTuple):
-    """BVH4 in struct-of-arrays form: packed fp16 bounds, 4 children
-    (INVALID for empty), meta = LEAF_FLAG|cluster for leaves / 0 internal."""
+    """Wide BVH in struct-of-arrays form: packed fp16 bounds, w = 4 or 8
+    children (INVALID for empty), meta = LEAF_FLAG|cluster for leaves / 0
+    internal. The 8-wide tree travels in the same container, as in the JAX
+    package."""
 
     bounds_u32: torch.Tensor  # (M, 3) int64
-    children: torch.Tensor    # (M, 4) int64
+    children: torch.Tensor    # (M, w) int64
     meta: torch.Tensor        # (M,) int64
     num_nodes: int            # emitted rows; the rest are padding
 
@@ -128,15 +141,18 @@ def _gather_kids(left: torch.Tensor, right: torch.Tensor, leaf: torch.Tensor) ->
     return torch.where(leaf[:, None], INVALID, kids)
 
 
-def _fixed_point(body, init: torch.Tensor, max_iters: int) -> torch.Tensor:
-    """Iterate ``body`` until the state stops changing or ``max_iters`` is
-    hit. The test reads the state on the host: for once-per-tree work."""
+def _fixed_point(body, init: torch.Tensor, max_iters: int, same=torch.equal) -> torch.Tensor:
+    """Iterate ``body`` until a step leaves the state unchanged (by
+    ``same``) or ``max_iters`` is hit; returns the last state computed, as
+    the JAX package's loop does. The test reads the state on the host: for
+    once-per-tree work."""
     state = init
     for _ in range(max_iters):
         new = body(state)
-        if torch.equal(new, state):
-            break
+        done = same(new, state)
         state = new
+        if done:
+            break
     return state
 
 
@@ -154,8 +170,69 @@ def _scatter(base: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor,
     return ext[:m]
 
 
+class _Layout(NamedTuple):
+    """Steps 1–3 of the collapse for (M, w) treelets ``kids``: which BVH2
+    nodes survive as wide nodes, and the pre-order row of each."""
+
+    kid_valid: torch.Tensor  # (M, w) bool
+    kids_i: torch.Tensor     # (M, w) int64 — kids clamped to valid rows
+    reached: torch.Tensor    # (M,) bool — the node is emitted
+    idx: torch.Tensor        # (M,) int64 — its pre-order row
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """Scatter target of each node: its row, or the sink when dropped."""
+        return torch.where(self.reached, self.idx, self.idx.shape[0])
+
+    def node_children(self, leaf: torch.Tensor) -> torch.Tensor:
+        """(M, w) children of each node as pre-order rows (INVALID pad)."""
+        return torch.where(leaf[:, None] | ~self.kid_valid, INVALID, self.idx[self.kids_i])
+
+
+def _preorder_layout(kids: torch.Tensor, leaf: torch.Tensor, sweeps: int) -> _Layout:
+    """Reachability top-down, wide-subtree sizes bottom-up, then the
+    pre-order index ``idx(kid_k) = idx(n) + 1 + Σ_{j<k} size(kid_j)`` top-down,
+    each a fixed point of at most ``sweeps`` sweeps, for any slot count."""
+    m, width = kids.shape
+    dev = kids.device
+    kid_valid = kids != INVALID
+    kids_i = kids.clamp(0, m - 1)
+    sink = torch.full_like(kids_i[:, 0], m)
+
+    def reach_body(isw):
+        src = (isw > 0) & ~leaf
+        upd = isw
+        for k in range(width):
+            tgt = torch.where(src & kid_valid[:, k], kids_i[:, k], sink)
+            upd = _scatter(upd, tgt, src.to(torch.int32), "amax")
+        return upd
+
+    isw = torch.zeros(m, dtype=torch.int32, device=dev)
+    isw[0] = 1
+    reached = _fixed_point(reach_body, isw, sweeps) > 0
+
+    def size_body(size):
+        s = 1 + torch.where(kid_valid, size[kids_i], 0).sum(dim=-1)
+        return torch.where(leaf, 1, s)
+
+    size = _fixed_point(size_body, torch.ones(m, dtype=torch.int64, device=dev), sweeps)
+    kid_sizes = torch.where(kid_valid, size[kids_i], 0)
+    elder = kid_sizes.cumsum(dim=-1) - kid_sizes  # exclusive prefix sum
+
+    def idx_body(idx):
+        src = reached & ~leaf
+        upd = idx
+        for k in range(width):
+            tgt = torch.where(src & kid_valid[:, k], kids_i[:, k], sink)
+            upd = _scatter(upd, tgt, idx + 1 + elder[:, k])
+        return upd
+
+    idx = _fixed_point(idx_body, torch.zeros(m, dtype=torch.int64, device=dev), sweeps)
+    return _Layout(kid_valid, kids_i, reached, idx)
+
+
 def collapse_plan(bvh2: LBVH2, sweeps: int | None = None) -> CollapsePlan:
-    """The static (topology) half of the collapse, on the device of
+    """The static (topology) half of the 4-wide collapse, on the device of
     ``bvh2``. ``sweeps`` caps each fixed point (≥ tree height; default the
     static bound of a Karras tree, as in the JAX package)."""
     left, right, meta = bvh2.left, bvh2.right, bvh2.meta
@@ -169,52 +246,162 @@ def collapse_plan(bvh2: LBVH2, sweeps: int | None = None) -> CollapsePlan:
                             meta.clone(), torch.zeros(1, dtype=torch.int64, device=dev),
                             torch.ones(1, dtype=torch.bool, device=dev), 1)
 
-    kids = _gather_kids(left, right, leaf)
-    kid_valid = kids != INVALID
-    kids_i = kids.clamp(0, m - 1)
-    sink = torch.full_like(kids_i[:, 0], m)
-
-    def reach_body(is4):
-        src = (is4 > 0) & ~leaf
-        upd = is4
-        for k in range(4):
-            tgt = torch.where(src & kid_valid[:, k], kids_i[:, k], sink)
-            upd = _scatter(upd, tgt, src.to(torch.int32), "amax")
-        return upd
-
-    is4 = torch.zeros(m, dtype=torch.int32, device=dev)
-    is4[0] = 1
-    is4b = _fixed_point(reach_body, is4, sweeps) > 0
-
-    def size_body(size):
-        s = 1 + torch.where(kid_valid, size[kids_i], 0).sum(dim=-1)
-        return torch.where(leaf, 1, s)
-
-    size = _fixed_point(size_body, torch.ones(m, dtype=torch.int64, device=dev), sweeps)
-    kid_sizes = torch.where(kid_valid, size[kids_i], 0)
-    elder = kid_sizes.cumsum(dim=-1) - kid_sizes  # exclusive prefix sum
-
-    def idx_body(idx):
-        src = is4b & ~leaf
-        upd = idx
-        for k in range(4):
-            tgt = torch.where(src & kid_valid[:, k], kids_i[:, k], sink)
-            upd = _scatter(upd, tgt, idx + 1 + elder[:, k])
-        return upd
-
-    idx = _fixed_point(idx_body, torch.zeros(m, dtype=torch.int64, device=dev), sweeps)
-
-    node_children = torch.where(leaf[:, None] | ~kid_valid, INVALID, idx[kids_i])
-    node_meta = torch.where(leaf, meta, 0)
-    rows = torch.where(is4b, idx, sink)
+    lay = _preorder_layout(_gather_kids(left, right, leaf), leaf, sweeps)
+    rows = lay.rows
     children = _scatter(torch.full((m, 4), INVALID, dtype=torch.int64, device=dev), rows,
-                        node_children)
-    out_meta = _scatter(torch.zeros_like(meta), rows, node_meta)
+                        lay.node_children(leaf))
+    out_meta = _scatter(torch.zeros_like(meta), rows, torch.where(leaf, meta, 0))
     src = _scatter(torch.zeros(m, dtype=torch.int64, device=dev), rows,
                    torch.arange(m, device=dev))
     emitted = _scatter(torch.zeros(m, dtype=torch.bool, device=dev), rows,
                        torch.ones(m, dtype=torch.bool, device=dev))
-    return CollapsePlan(children, out_meta, src, emitted, int(is4b.sum()))
+    return CollapsePlan(children, out_meta, src, emitted, int(lay.reached.sum()))
+
+
+def _subtree_tri_counts(left: torch.Tensor, right: torch.Tensor, leaf: torch.Tensor,
+                        sweeps: int) -> torch.Tensor:
+    """Per-node leaf count of the BVH2 subtree (leaves = 1), bottom-up."""
+    def body(cnt):
+        return torch.where(leaf, 1, cnt[left] + cnt[right])
+
+    return _fixed_point(body, torch.ones_like(left), sweeps)
+
+
+def _gather_kids_wide(left: torch.Tensor, right: torch.Tensor, leaf: torch.Tensor,
+                      width: int, weight: torch.Tensor) -> torch.Tensor:
+    """(M, width) greedy treelet gather: starting from [L, R], ``width − 2``
+    times split the valid internal kid with the largest ``weight`` in place
+    and append its sibling at slot ``nvalid``, until the slots are full or
+    every kid is a leaf. Among equal weights the first slot wins (the JAX
+    package's ``argmax``): the choice is taken on weight·width + (width − 1 −
+    slot), a key that cannot tie, so it is the same on every device. Leaf
+    rows are INVALID."""
+    m = left.shape[0]
+    cols = torch.arange(width, device=left.device)[None, :]
+    kids = torch.full((m, width), INVALID, dtype=torch.int64, device=left.device)
+    kids[:, 0], kids[:, 1] = left, right
+    nvalid = torch.full((m,), 2, dtype=torch.int64, device=left.device)
+    for _ in range(width - 2):
+        ki = kids.clamp(0, m - 1)
+        internal = (kids != INVALID) & ~leaf[ki]
+        w = torch.where(internal, weight[ki], -1)
+        j = (w * width + (width - 1 - cols)).argmax(dim=-1)
+        can = (w.amax(dim=-1) > 0) & (nvalid < width)
+        node = ki.gather(1, j[:, None])[:, 0]
+        kids = torch.where((cols == j[:, None]) & can[:, None], left[node][:, None], kids)
+        kids = torch.where((cols == nvalid[:, None]) & can[:, None], right[node][:, None], kids)
+        nvalid = nvalid + can
+    return torch.where(leaf[:, None], INVALID, kids)
+
+
+def _f32_to_f16_bits_trunc(x: torch.Tensor) -> torch.Tensor:
+    """Truncating f32 → fp16 bit pattern (int64): mantissa bits dropped,
+    exponent ≤ 0 flushed to signed zero, exponent ≥ 31 saturated to ±inf."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    s = (u >> 16) & 0x8000
+    e = ((u >> 23) & 0xFF) - 112
+    val = s | (e << 10) | ((u >> 13) & 0x03FF)
+    return torch.where(e <= 0, s, torch.where(e >= 31, s | 0x7C00, val))
+
+
+def _pack_bounds_trunc(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """AABB (..., 3) min/max f32 → (..., 3) u32 words (int64) with the
+    truncating codec."""
+    def pack2(a, b):
+        return _f32_to_f16_bits_trunc(a) | (_f32_to_f16_bits_trunc(b) << 16)
+
+    return torch.stack([pack2(mn[..., 0], mn[..., 1]), pack2(mn[..., 2], mx[..., 0]),
+                        pack2(mx[..., 1], mx[..., 2])], dim=-1)
+
+
+def _same_f32(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equality of two ordered-key states as the f32 values they stand for
+    (−0 equals +0): the JAX package's change test on its f32 bounds."""
+    return not bool((from_ordered_key(a) != from_ordered_key(b)).any())
+
+
+def collapse_lbvh2_to_bvh8(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
+    """8-wide greedy re-emission collapse → a BVH8 in the :class:`BVH4`
+    container (children (M, 8)), padded to the BVH2's row count, on the
+    device of ``bvh2``. ``sweeps`` caps each fixed point (≥ tree height:
+    pass ``height + 2`` from the SAH build; default the static bound of a
+    Karras tree).
+
+    Steps as in the JAX package: leaf counts bottom-up; treelets gathered
+    largest-subtree-first; reachability, sizes and pre-order rows
+    (:func:`_preorder_layout`); bounds merged bottom-up from the decoded
+    fp16 boxes; internal rows re-packed with the truncating codec, leaf rows
+    verbatim. The unions are taken on integer keys that order −0 below +0,
+    as XLA's min and max do, where torch's would return either zero."""
+    bounds2, left, right, meta = bvh2.bounds_u32, bvh2.left, bvh2.right, bvh2.meta
+    width = 8
+    m = bvh2.num_nodes
+    dev = meta.device
+    if sweeps is None:
+        sweeps = _static_height_bound((m + 1) // 2)
+    leaf = (meta & LEAF_FLAG) != 0
+    if m == 1:
+        return BVH4(bounds2, torch.full((1, width), INVALID, dtype=torch.int64, device=dev),
+                    meta, 1)
+
+    counts = _subtree_tri_counts(left, right, leaf, sweeps)
+    lay = _preorder_layout(_gather_kids_wide(left, right, leaf, width, counts), leaf, sweeps)
+
+    # merged bounds, bottom-up: state (2, M, 3) of ordered keys, [0] = min
+    mn0, mx0 = unpack_bounds(bounds2)
+    key0 = torch.stack([ordered_key(mn0), ordered_key(mx0)])
+    inf = torch.full((1,), torch.inf, dtype=torch.float32, device=dev)
+    key_inf, key_ninf = ordered_key(inf), ordered_key(-inf)
+    valid = lay.kid_valid[..., None]
+
+    def bounds_body(key):
+        kmn = torch.where(valid, key[0][lay.kids_i], key_inf).amin(dim=1)
+        kmx = torch.where(valid, key[1][lay.kids_i], key_ninf).amax(dim=1)
+        return torch.where(leaf[None, :, None], key0, torch.stack([kmn, kmx]))
+
+    key = _fixed_point(bounds_body, key0, sweeps, same=_same_f32)
+    merged = _pack_bounds_trunc(from_ordered_key(key[0]), from_ordered_key(key[1]))
+
+    rows = lay.rows
+    bounds = _scatter(torch.zeros((m, 3), dtype=torch.int64, device=dev), rows,
+                      torch.where(leaf[:, None], bounds2, merged))
+    children = _scatter(torch.full((m, width), INVALID, dtype=torch.int64, device=dev), rows,
+                        lay.node_children(leaf))
+    out_meta = _scatter(torch.zeros_like(meta), rows, torch.where(leaf, meta, 0))
+    return BVH4(bounds, children, out_meta, int(lay.reached.sum()))
+
+
+def promote_lbvh2_to_bvh4_wide(bvh2: LBVH2) -> BVH4:
+    """O(N) index-preserving promotion: the BVH2's own rows and bounds, each
+    internal node's (left, right) replaced by up to 4 grandchildren (a
+    leaf child stays itself), compacted to the front."""
+    left, right, meta = bvh2.left, bvh2.right, bvh2.meta
+    m = bvh2.num_nodes
+    leaf = (meta & LEAF_FLAG) != 0
+    inv = torch.full_like(left, INVALID)
+
+    def g(arr, c):
+        return arr[c.clamp(0, m - 1)]
+
+    lleaf, rleaf = (left >= m) | g(leaf, left), (right >= m) | g(leaf, right)
+    a0 = torch.where(lleaf, left, g(left, left))
+    a1 = torch.where(lleaf, inv, g(right, left))
+    b0 = torch.where(rleaf, right, g(left, right))
+    b1 = torch.where(rleaf, inv, g(right, right))
+    children = torch.stack([a0, torch.where(lleaf, b0, a1), torch.where(lleaf, b1, b0),
+                            torch.where(lleaf, inv, b1)], dim=-1)
+    children = torch.where(leaf[:, None], INVALID, children)
+    return BVH4(bvh2.bounds_u32, children, torch.where(leaf, meta, 0), m)
+
+
+def bvh2_as_bvh4(bvh2: LBVH2) -> BVH4:
+    """The binary tree in the 4-wide node struct (children = [left, right,
+    INVALID, INVALID]), so the same kernels run a pure BVH2 traversal."""
+    leaf = (bvh2.meta & LEAF_FLAG) != 0
+    inv = torch.full_like(bvh2.left, INVALID)
+    children = torch.stack([bvh2.left, bvh2.right, inv, inv], dim=-1)
+    children = torch.where(leaf[:, None], INVALID, children)
+    return BVH4(bvh2.bounds_u32, children, bvh2.meta, bvh2.num_nodes)
 
 
 def _flush_f16_subnormals(b: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,32 @@
-"""Supernode records and their traversal: the CUDA kernels K1a/K1b/K1c
-(``csrc/traverse_tiles.cu``) and K2a/K2b (``csrc/traverse_rays.cu``), their
-wrappers and their plain torch versions.
+"""Supernode records and their traversal: the CUDA kernels K1a/K1b/K1c/K1e/K1f
+(``csrc/traverse_tiles.cu``) and K2a/K2b/K2c (``csrc/traverse_rays.cu``),
+their wrappers and their plain torch versions.
 
-Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on 4-wide records:
-:func:`make_qnodes` builds the same records byte for byte;
+Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on 4-wide and 8-wide
+records: :func:`make_qnodes` builds the same records byte for byte;
 :func:`trace_tiles` computes what ``trace_tiles_pallas(qnodes, pos, quat, W,
 H, fov, leaf_k=K, jitter=…, jitter_seed=…)[:5]`` computes for one frame
 (K1a without jitter, K1b with it); :func:`trace_tiles_batch` what
 ``trace_tiles_batch_pallas(qnodes, pos (F,3), quat (F,4), W, H, fov,
 leaf_k=K, jitter=…, jitter_seeds=…)[:5]`` computes for F frames in one
 launch (K1c); :func:`trace_rays` what ``trace_rays_pallas(qnodes, origins,
-dirs, any_hit=…, leaf_k=K)`` computes (K2a closest hit, K2b any hit). All
-kernels run the one per-ray traversal of ``csrc/traverse_core.cuh``, and all
-plain versions the one :func:`_traverse`.
+dirs, any_hit=…, leaf_k=K)`` computes (K2a closest hit, K2b any hit). The
+wrappers recover the records' width from their row length
+(:func:`infer_rec_width`): on 8-wide records the tile kernels are K1e and
+the ray kernel K2c. ``stats=True`` on the tile entries adds a sixth plane,
+each pixel's count of records visited (K1f, at either width). All kernels
+run the one per-ray traversal of ``csrc/traverse_core.cuh``, and all plain
+versions the one :func:`_traverse`.
 
-Record layout (f32 words, width w = 4 child slots, K triangles per leaf):
+Launch counts (:data:`LAUNCHES`): a launch counts once, under the variant it
+ran. A tile launch with ``stats`` counts as ``trace_tiles_k1f`` whatever its
+width, jitter or frame count; without ``stats`` on 8-wide records as
+``trace_tiles_k1e`` (one frame or a batch, with or without jitter); on
+4-wide records as ``trace_tiles_k1a`` / ``k1b`` / ``k1c``. A ray launch on
+8-wide records counts as ``trace_rays_k2c`` (closest or any hit), on 4-wide
+records as ``trace_rays_k2a`` / ``k2b``.
+
+Record layout (f32 words, width w = 4 or 8 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
   [6w : 7w]   child refs as integer-valued floats: idx ≥ 0 internal node,
               −(first+1) leaf whose triangles start at row ``first``,
@@ -53,7 +65,8 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 # Launches of each kernel since its count was last set to 0; raised only
 # where a wrapper launches that kernel.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
-            "trace_rays_k2a": 0, "trace_rays_k2b": 0}
+            "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
+            "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0}
 
 
 def reset_launches() -> None:
@@ -172,8 +185,8 @@ def make_qnodes(wide: WideBVH, tris: torch.Tensor, tri_ids: torch.Tensor | None 
     return rec
 
 
-def _check_qnodes(qnodes: torch.Tensor, leaf_k: int) -> torch.Tensor:
-    """Validate the records and view them as (M, recw)."""
+def _check_qnodes(qnodes: torch.Tensor, leaf_k: int) -> tuple[torch.Tensor, int]:
+    """Validate the records → (their (M, recw) view, their child-slot count)."""
     if qnodes.dtype != torch.float32:
         raise TypeError(f"qnodes must be float32, got {qnodes.dtype}")
     if not qnodes.is_contiguous():
@@ -181,10 +194,7 @@ def _check_qnodes(qnodes: torch.Tensor, leaf_k: int) -> torch.Tensor:
     if qnodes.dim() < 2:
         raise ValueError(f"qnodes must be (M, recw), got shape {tuple(qnodes.shape)}")
     qn = qnodes.reshape(qnodes.shape[0], -1)
-    width = infer_rec_width(leaf_k, qn.shape[1])
-    if width != 4:
-        raise NotImplementedError("8-wide records (BVH8) are not ported yet")
-    return qn
+    return qn, infer_rec_width(leaf_k, qn.shape[1])
 
 
 def _camera(cam_pos, cam_quat) -> tuple[list[float], list[float]]:
@@ -213,14 +223,14 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
 
 _ARGTYPES = {
     "traverse_tiles.cu": {
-        "rt_trace_tiles": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 3
                            + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p] * 6),
-        "rt_trace_tiles_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6),
+                           + [ctypes.c_void_p] * 7),
+        "rt_trace_tiles_batch": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7),
     },
     "traverse_rays.cu": {
-        "rt_trace_rays": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 3
                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                           + [ctypes.c_void_p] * 6),
     },
@@ -230,8 +240,8 @@ _ARGTYPES = {
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b/K1c) or ``traverse_rays.cu`` (K2a/K2b); returns (library, nvcc
-    log)."""
+    (K1a/K1b/K1c/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
+    (library, nvcc log)."""
     from .build import build_library
 
     lib, log = build_library(source)
@@ -242,12 +252,24 @@ def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
+def _tile_launch_name(width: int, stats: bool, plain: str) -> str:
+    """The launch count a tile launch is added to (module docstring)."""
+    if stats:
+        return "trace_tiles_k1f"
+    return "trace_tiles_k1e" if width == 8 else plain
+
+
 def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int,
                 fov_degrees: float = 70.0, leaf_k: int = 1,
                 raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
-                col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0):
+                col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0,
+                stats: bool = False):
     """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W):
-    t is 1e30 and the normal 0 on a miss, tri (int32) is −1.
+    t is 1e30 and the normal 0 on a miss, tri (int32) is −1. ``stats``
+    appends a sixth plane (f32, integer-valued): the records each pixel's
+    ray visited — stack pops that passed the cull against its best t. The
+    plane is defined by this kernel (one stack per ray; the TPU kernel
+    counts per tile) and leaves the five others unchanged.
 
     ``raygen_size``/``row_offset``/``col_offset`` trace the ``width`` ×
     ``height`` window at that pixel offset of a larger (W, H) frame, with the
@@ -255,16 +277,17 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     ray from the pixel centre to the ``subpixel_hash01`` offsets of
     ``jitter_seed`` (an int in [0, 2^24)).
 
-    Launches K1a (K1b with ``jitter``) for records on a CUDA device; runs
-    the plain version for records on the CPU; raises for any other device."""
-    qn = _check_qnodes(qnodes, leaf_k)
+    For records on a CUDA device launches K1a (K1b with ``jitter``) on
+    4-wide records, K1e on 8-wide records, K1f with ``stats``; runs the plain
+    version for records on the CPU; raises for any other device."""
+    qn, slots = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     if qn.device.type == "cpu":
         pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
                                        leaf_k, pixels=pixels, jitter=jitter,
-                                       jitter_seed=seed)
+                                       jitter_seed=seed, stats=stats)
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
@@ -272,32 +295,35 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     pos, quat = _camera(cam_pos, cam_quat)
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
-              for _ in range(4)]
+              for _ in range(5 if stats else 4)]
     tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_tiles(
-            qn.data_ptr(), qn.shape[1], leaf_k, *pos, *quat, focal, aspect,
+            qn.data_ptr(), qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
             rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
-            *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
-    name = "trace_tiles_k1b" if jitter else "trace_tiles_k1a"
+            *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+            planes[4].data_ptr() if stats else None, stream)
+    name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
-    return (*planes, tri)
+    return (*planes[:4], tri, *planes[4:])
 
 
 def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
                           height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
                           pixels: torch.Tensor | None = None, jitter: bool = False,
-                          jitter_seed: int = 0, counts: "TraversalCounts | None" = None):
-    """The plain torch version of K1a/K1b: the same rays, visit order,
-    culling and stack-drop rule, vectorized over chunks of rays.
+                          jitter_seed: int = 0, counts: "TraversalCounts | None" = None,
+                          stats: bool = False):
+    """The plain torch version of K1a/K1b/K1e (and of K1f with ``stats``):
+    the same rays, visit order, culling and stack-drop rule, vectorized over
+    chunks of rays, at either record width.
 
     ``pixels`` (flat indices py·W + px) traces only those pixels and returns
     (P,) planes; without it, (H, W) planes of the whole image. ``counts``
     adds up the work of the traversal (:class:`TraversalCounts`)."""
-    qn = _check_qnodes(qnodes, leaf_k)
+    qn, _ = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     dev = qn.device
     pix = (torch.arange(width * height, device=dev) if pixels is None
@@ -309,7 +335,7 @@ def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
         jx, jy = subpixel_hash01(px, py, 2 * seed), subpixel_hash01(px, py, 2 * seed + 1)
     d = primary_dirs(px, py, width, height, quat, fov_degrees, jx, jy)
     o = torch.tensor(pos, dtype=torch.float32, device=dev).expand(pix.numel(), 3)
-    planes = _traverse_chunks(qn, o, d, leaf_k, False, counts)
+    planes = _traverse_chunks(qn, o, d, leaf_k, False, counts, stats)
     if pixels is None:
         return tuple(p.reshape(height, width) for p in planes)
     return planes
@@ -350,27 +376,26 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
                       col_offset: int = 0):
     """Trace F frames in one launch, frame f from camera ``cam_pos[f]``
     (F, 3), ``cam_quat[f]`` (F, 4) → (t, nx, ny, nz, tri) planes of (F, H, W),
-    each frame equal to :func:`trace_tiles` for its camera. ``jitter``
+    each frame equal to :func:`trace_tiles` for its camera; ``stats`` appends
+    the visits plane of :func:`trace_tiles`. ``jitter``
     takes frame f's subpixel offsets from ``jitter_seeds[f]`` (integers in
     [0, 2^24)). ``raygen_size``/``row_offset``/``col_offset`` trace the same
     window of every frame, as in :func:`trace_tiles`. The cameras are host
     values (array-likes or CPU tensors): the camera table is built on the
     host and copied to the card without a synchronisation.
 
-    Launches K1c for records on a CUDA device; runs the plain version for
-    records on the CPU; raises for any other device. ``stats=True`` (the
-    visits plane) is not ported yet."""
-    if stats:
-        raise NotImplementedError("the visits plane (stats=True, kernel K1f) is not ported "
-                                  "yet: ROADMAP slice 6")
-    qn = _check_qnodes(qnodes, leaf_k)
+    For records on a CUDA device launches K1c on 4-wide records, K1e on
+    8-wide records, K1f with ``stats``; runs the plain version for records
+    on the CPU; raises for any other device."""
+    qn, slots = _check_qnodes(qnodes, leaf_k)
     pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     f = len(pos)
     if qn.device.type == "cpu":
         pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
-                                             pixels=pixels, jitter=jitter, jitter_seeds=seeds)
+                                             pixels=pixels, jitter=jitter, jitter_seeds=seeds,
+                                             stats=stats)
         return tuple(p.reshape(f, height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
@@ -379,29 +404,34 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                        for p, q, s in zip(pos, quat, seeds)], qn.device)
     planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
-              for _ in range(4)]
+              for _ in range(5 if stats else 4)]
     tri = torch.empty((f, height, width), dtype=torch.int32, device=qn.device)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_tiles_batch(
-            qn.data_ptr(), qn.shape[1], leaf_k, table.data_ptr(), f, width, height,
-            int(bool(jitter)), *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+            qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
+            int(bool(jitter)), *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+            planes[4].data_ptr() if stats else None, stream)
+    name = _tile_launch_name(slots, stats, "trace_tiles_k1c")
     if err != 0:
-        raise RuntimeError(f"trace_tiles_k1c launch failed: cudaError {err}")
-    LAUNCHES["trace_tiles_k1c"] += 1
-    return (*planes, tri)
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return (*planes[:4], tri, *planes[4:])
 
 
 def trace_tiles_batch_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
                                 height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
                                 pixels: torch.Tensor | None = None, jitter: bool = False,
-                                jitter_seeds=None, counts: "TraversalCounts | None" = None):
-    """The plain torch version of K1c: :func:`trace_tiles_reference` of each
-    frame on the same rays, stacked → (F, H, W) planes, or (F, P) with
-    ``pixels``. ``counts`` adds up the work of all frames."""
+                                jitter_seeds=None, counts: "TraversalCounts | None" = None,
+                                stats: bool = False):
+    """The plain torch version of a frame batch (K1c, K1e, K1f):
+    :func:`trace_tiles_reference` of each frame on the same rays, stacked →
+    (F, H, W) planes, or (F, P) with ``pixels``. ``counts`` adds up the work
+    of all frames."""
     pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
     frames = [trace_tiles_reference(qnodes, p, q, width, height, fov_degrees, leaf_k,
-                                    pixels=pixels, jitter=jitter, jitter_seed=s, counts=counts)
+                                    pixels=pixels, jitter=jitter, jitter_seed=s, counts=counts,
+                                    stats=stats)
               for p, q, s in zip(pos, quat, seeds)]
     return tuple(torch.stack(planes) for planes in zip(*frames))
 
@@ -442,9 +472,10 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     mask ``active`` is False are not read (they may hold inf or NaN) and
     return the miss values.
 
-    Launches K2a (K2b with ``any_hit``) for records on a CUDA device; runs
-    the plain version for records on the CPU; raises for any other device."""
-    qn = _check_qnodes(qnodes, leaf_k)
+    For records on a CUDA device launches K2a (K2b with ``any_hit``) on
+    4-wide records and K2c on 8-wide records; runs the plain version for
+    records on the CPU; raises for any other device."""
+    qn, slots = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if qn.device.type == "cpu":
         return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
@@ -458,10 +489,13 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_rays(
-            qn.data_ptr(), qn.shape[1], leaf_k, origins.data_ptr(), dirs.data_ptr(),
+            qn.data_ptr(), qn.shape[1], leaf_k, slots, origins.data_ptr(), dirs.data_ptr(),
             None if active is None else active.data_ptr(), r, int(bool(any_hit)),
             *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
-    name = "trace_rays_k2b" if any_hit else "trace_rays_k2a"
+    if slots == 8:
+        name = "trace_rays_k2c"
+    else:
+        name = "trace_rays_k2b" if any_hit else "trace_rays_k2a"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -472,10 +506,11 @@ def trace_rays_reference(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torc
                          any_hit: bool = False, leaf_k: int,
                          active: torch.Tensor | None = None,
                          counts: "TraversalCounts | None" = None):
-    """The plain torch version of K2a/K2b: the same per-ray traversal,
-    vectorized over chunks of the active rays. ``counts`` adds up the work
-    of the traversal (:class:`TraversalCounts`)."""
-    qn = _check_qnodes(qnodes, leaf_k)
+    """The plain torch version of K2a/K2b/K2c: the same per-ray traversal,
+    vectorized over chunks of the active rays, at either record width.
+    ``counts`` adds up the work of the traversal
+    (:class:`TraversalCounts`)."""
+    qn, _ = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if active is None:
         return _traverse_chunks(qn, origins, dirs, leaf_k, any_hit, counts)
@@ -492,17 +527,26 @@ def trace_rays_reference(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torc
 
 class TraversalCounts:
     """The work a plain-version traversal does, added up over its calls:
-    rays, node visits (one 32-word header read each), Möller–Trumbore tests
-    (one 12-word triangle record each), and the distinct headers and
-    triangle records read (the record bytes a traversal must move at least
-    once)."""
+    rays, node visits (one header of 8·w words each, w the records' child
+    slots), Möller–Trumbore tests (one 12-word triangle record each), and
+    the distinct headers and triangle records read (the record bytes a
+    traversal must move at least once). One object counts records of one
+    width (``width``, set by the first traversal)."""
 
     def __init__(self) -> None:
         self.rays = 0
         self.visits = 0
         self.mt_tests = 0
+        self.width: int | None = None
         self._nodes: list[torch.Tensor] = []
         self._tris: list[torch.Tensor] = []
+
+    def start(self, rays: int, width: int) -> None:
+        """``rays`` more rays through records of ``width`` child slots."""
+        if self.width not in (None, width):
+            raise ValueError(f"counts of {self.width}-wide records cannot take {width}-wide ones")
+        self.width = width
+        self.rays += rays
 
     def add_visits(self, nodes: torch.Tensor) -> None:
         """One visit of each record in ``nodes``."""
@@ -510,55 +554,63 @@ class TraversalCounts:
         self._nodes.append(torch.unique(nodes))
 
     def add_tests(self, tri_slots: torch.Tensor) -> None:
-        """One MT test of each triangle record in ``tri_slots`` (node·4K +
+        """One MT test of each triangle record in ``tri_slots`` (node·wK +
         slot·K + j)."""
         self.mt_tests += tri_slots.numel()
         self._tris.append(torch.unique(tri_slots))
 
     def unique_record_bytes(self) -> int:
-        """Bytes of the distinct headers (128 each) and triangle records (48
+        """Bytes of the distinct headers (32·w each) and triangle records (48
         each) read."""
         def n_unique(parts):
             return torch.unique(torch.cat(parts)).numel() if parts else 0
-        return 128 * n_unique(self._nodes) + 48 * n_unique(self._tris)
+        return 32 * (self.width or 4) * n_unique(self._nodes) + 48 * n_unique(self._tris)
 
 
 def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
-                     any_hit: bool, counts: TraversalCounts | None):
-    """:func:`_traverse` over chunks of rays → (t, nx, ny, nz, tri) (R,)."""
+                     any_hit: bool, counts: TraversalCounts | None, stats: bool = False):
+    """:func:`_traverse` over chunks of rays → (t, nx, ny, nz, tri) (R,),
+    and with ``stats`` the visits (R,) as f32."""
     dev = qn.device
     r = d.shape[0]
     outs = [torch.empty((r,), dtype=torch.float32, device=dev) for _ in range(4)]
     tri = torch.empty((r,), dtype=torch.int32, device=dev)
+    visits = torch.empty((r,), dtype=torch.float32, device=dev)
     for a in range(0, r, _REFERENCE_CHUNK):
         b = min(a + _REFERENCE_CHUNK, r)
-        t_c, n_c, tri_c = _traverse(qn, o[a:b], d[a:b], leaf_k, any_hit, counts)
+        t_c, n_c, tri_c, visits_c = _traverse(qn, o[a:b], d[a:b], leaf_k, any_hit, counts)
         outs[0][a:b] = t_c
         outs[1][a:b], outs[2][a:b], outs[3][a:b] = n_c.unbind(-1)
         tri[a:b] = tri_c
-    return (*outs, tri)
+        visits[a:b] = visits_c
+    return (*outs, tri, visits) if stats else (*outs, tri)
 
 
 def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
               any_hit: bool = False, counts: TraversalCounts | None = None):
-    """Per-ray traversal of the 4-wide records from origins ``o`` and
-    directions ``d`` (R, 3), one stack pop per ray and step → (t (R,),
-    normal (R,3), tri (R,) int32). Closest hit keeps the first minimum in
-    visit order; ``any_hit`` stops a ray at its first accepted triangle in
-    visit order with t = 0."""
+    """Per-ray traversal of the w-wide records (w = 4 or 8, from the row
+    length) from origins ``o`` and directions ``d`` (R, 3), one stack pop per
+    ray and step → (t (R,), normal (R,3), tri (R,) int32, visits (R,)
+    int32: the pops that passed the cull). Closest hit keeps the first
+    minimum in visit order; ``any_hit`` stops a ray at its first accepted
+    triangle in visit order with t = 0. A visit may push up to w entries;
+    pushes beyond the 64-entry stack are dropped."""
     dev = qn.device
     r = d.shape[0]
-    vbase, ibase, _ = rec_layout(leaf_k, 4)
+    w = infer_rec_width(leaf_k, qn.shape[1])
+    wk = w * leaf_k
+    vbase, ibase, _ = rec_layout(leaf_k, w)
     inv = safe_inv_dir(d)
     best = torch.full((r,), INF, dtype=torch.float32, device=dev)
     nrm = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros((r,), dtype=torch.int32, device=dev)
     stack_n = torch.zeros((r, STACK_MAX), dtype=torch.int64, device=dev)
     stack_d = torch.zeros((r, STACK_MAX), dtype=torch.float32, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # the root is entry 0
     lanes = torch.arange(leaf_k, device=dev, dtype=torch.float32)
     if counts is not None:
-        counts.rays += r
+        counts.start(r, w)
 
     while True:
         live = torch.nonzero(sp >= 0).squeeze(1)
@@ -572,18 +624,19 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
         if rays.numel() == 0:
             continue
 
+        visits[rays] += 1
         if counts is not None:
             counts.add_visits(node)
-        hdr = qn[node, 0:32]
+        hdr = qn[node, 0:8 * w]
         best0 = best[rays]
         ro, rd, ri = o[rays], d[rays], inv[rays]
-        boxes = hdr[:, 0:24].reshape(-1, 4, 6)
+        boxes = hdr[:, 0:6 * w].reshape(-1, w, 6)
         t1 = (boxes[..., 0:3] - ro[:, None, :]) * ri[:, None, :]
         t2 = (boxes[..., 3:6] - ro[:, None, :]) * ri[:, None, :]
         tmin = torch.minimum(t1, t2).amax(dim=-1)
         tmax = torch.maximum(t1, t2).amin(dim=-1)
         hit = (tmax >= tmin.clamp_min(0.0)) & (tmin < best0[:, None])
-        refs, cnt = hdr[:, 24:28], hdr[:, 28:32]
+        refs, cnt = hdr[:, 6 * w:7 * w], hdr[:, 7 * w:8 * w]
 
         # leaf slots: every (slot, triangle) candidate at once; the first
         # minimum (closest hit) or the first accepted triangle (any hit) in
@@ -593,13 +646,13 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
         done = None
         if mrow.numel() > 0:
             mnode = node[mrow]
-            recs = qn[mnode, vbase:vbase + 48 * leaf_k].reshape(-1, 4, leaf_k, 12)
+            recs = qn[mnode, vbase:vbase + 12 * wk].reshape(-1, w, leaf_k, 12)
             gate = do_mt[mrow][:, :, None] & (lanes < cnt[mrow][:, :, None])
             tt, ok = moller_trumbore(ro[mrow][:, None, None, :], rd[mrow][:, None, None, :],
                                      recs[..., 0:3], recs[..., 3:6], recs[..., 6:9])
             cur = best0[mrow]
-            ok = (gate & ok & (tt < cur[:, None, None])).reshape(-1, 4 * leaf_k)
-            tt = tt.reshape(-1, 4 * leaf_k)
+            ok = (gate & ok & (tt < cur[:, None, None])).reshape(-1, wk)
+            tt = tt.reshape(-1, wk)
             if any_hit:
                 j = torch.argmax(ok.to(torch.uint8), dim=1)
                 upd = ok.any(dim=1)
@@ -610,17 +663,17 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
                 tbest = tt.gather(1, j[:, None])[:, 0]
                 upd = tbest < cur
             if counts is not None:
-                tested = gate.reshape(-1, 4 * leaf_k)
+                tested = gate.reshape(-1, wk)
                 if any_hit:
                     # the kernel returns at the first accepted triangle and
                     # tests none after it
-                    last = torch.where(upd, j, torch.full_like(j, 4 * leaf_k - 1))
-                    tested = tested & (torch.arange(4 * leaf_k, device=dev) <= last[:, None])
+                    last = torch.where(upd, j, torch.full_like(j, wk - 1))
+                    tested = tested & (torch.arange(wk, device=dev) <= last[:, None])
                 cand = torch.nonzero(tested)
-                counts.add_tests(mnode[cand[:, 0]] * (4 * leaf_k) + cand[:, 1])
+                counts.add_tests(mnode[cand[:, 0]] * wk + cand[:, 1])
             if bool(upd.any()):
                 urow, uj = mrow[upd], j[upd]
-                g = recs.reshape(-1, 4 * leaf_k, 12)[upd, uj, 9:12]
+                g = recs.reshape(-1, wk, 12)[upd, uj, 9:12]
                 g_inv = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]
                                    + g[:, 2] * g[:, 2]).reciprocal()
                 dst = rays[urow]
@@ -638,7 +691,7 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
             push[done] = False
         skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
         _, order = torch.sort(skey, dim=1, descending=True, stable=True)
-        for i in range(4):
+        for i in range(w):
             slot = order[:, i]
             can = push.gather(1, slot[:, None])[:, 0] & (sp[rays] < STACK_MAX - 1)
             if not bool(can.any()):
@@ -650,4 +703,4 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
             stack_d[cr, top] = tmin[can, cs]
         if done is not None:
             sp[rays[done]] = -1
-    return best, nrm, tri
+    return best, nrm, tri, visits

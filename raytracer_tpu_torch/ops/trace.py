@@ -31,11 +31,12 @@ _BRUTE_CHUNK_ELEMS = 1 << 24
 
 
 class WideBVH(NamedTuple):
-    """Traversal-ready BVH: per node, the 4 children's boxes and refs inline."""
+    """Traversal-ready BVH: per node, its w = 4 or 8 children's boxes and
+    refs inline (w is the child count of the tree it was made from)."""
 
-    cmn: torch.Tensor      # (M, 4, 3) f32 — child box minima (+inf for empty)
-    cmx: torch.Tensor      # (M, 4, 3) f32 — child box maxima (−inf for empty)
-    cref: torch.Tensor     # (M, 4) int32 — -1 empty, bit 30 → leaf|cluster, else node
+    cmn: torch.Tensor      # (M, w, 3) f32 — child box minima (+inf for empty)
+    cmx: torch.Tensor      # (M, w, 3) f32 — child box maxima (−inf for empty)
+    cref: torch.Tensor     # (M, w) int32 — -1 empty, bit 30 → leaf|cluster, else node
     root_mn: torch.Tensor  # (3,) f32
     root_mx: torch.Tensor  # (3,) f32
 

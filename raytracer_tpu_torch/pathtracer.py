@@ -3,10 +3,10 @@ path tracing, with the public surface of
 ``raytracer_tpu/pathtracer.py::PathTracer``.
 
 The main path: ``set_scene`` → native SAH build with K-triangle clusters →
-BVH2→BVH4 collapse → wide nodes → supernode records on ``device``.
-``refit_bvh`` moves the triangles of that tree and keeps its topology:
-refit → the collapse plan's gather → wide nodes → records, all on
-``device``. Then:
+the widener (BVH2 → wide tree) → wide nodes → supernode records on
+``device``. ``refit_bvh`` moves the triangles of that tree and keeps its
+topology: refit → the collapse plan's gather → wide nodes → records, all on
+``device`` (the ``"collapse"`` widener; any other rebuilds). Then:
 
 * ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
   ``render_presented``'s tonemap;
@@ -17,13 +17,20 @@ refit → the collapse plan's gather → wide nodes → records, all on
   jittered primary frames (K1b) with the Lambert shade instead;
   ``present_progressive`` tonemaps the mean.
 
+With ``widener="collapse8"`` the records are 8-wide and the same calls run
+K1e (tiles) and K2c (ray buffers): the wrappers find the width from the
+records.
+
 On a CUDA device every traversal is a kernel; on the CPU each runs its plain
 torch version. Scenes of at most 8 triangles trace brute force, as in the
 JAX package.
 
-Ported so far: the SAH builder with clusters of K > 1 triangles, and its
-refit. The other builders (LBVH, PLOC, single-triangle leaves) come with a
-later slice and raise ``NotImplementedError``.
+Ported so far: the SAH builder with clusters of K > 1 triangles, its refit,
+and the four wideners of the JAX package: ``"collapse"`` (greedy 4-wide
+collapse, the default), ``"collapse8"`` (greedy 8-wide collapse, BVH8),
+``"promote"`` (index-preserving 4-wide promotion) and ``"bvh2"`` (the binary
+tree in the 4-wide struct). The other builders (LBVH, PLOC, single-triangle
+leaves) come with a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from .models.scene import Scene
 from .ops.camera import generate_rays, generate_rays_jittered
 from .ops.cluster import (build_sah2_clustered, records_pipeline, refit_lbvh2_clustered,
                           state_from_numpy, tree_height)
-from .ops.collapse import LBVH2, collapse_apply_refit, collapse_plan
+from .ops.collapse import (LBVH2, bvh2_as_bvh4, collapse_apply_refit, collapse_plan,
+                           promote_lbvh2_to_bvh4_wide)
 from .ops.cuda.traverse import make_qnodes, trace_tiles
 from .ops.shade import present_frame, quantize_rgba8, shade_lambert, triangle_normals
 from .ops.trace import make_wide_bvh, trace_rays_brute
@@ -72,8 +80,10 @@ class PathTracer:
     device runs the kernel, ``"cpu"`` the plain torch version. A CUDA device
     without a card raises here; nothing falls back."""
 
-    def __init__(self, width: int = 1920, height: int = 1080, builder: str = "sah",
-                 leaf_size: int = 32, *, device) -> None:
+    def __init__(self, width: int = 1920, height: int = 1080, widener: str = "collapse",
+                 builder: str = "sah", leaf_size: int = 32, *, device) -> None:
+        if widener not in ("collapse", "collapse8", "promote", "bvh2"):
+            raise ValueError(f"unknown widener {widener!r}")
         if builder not in ("lbvh", "ploc", "sah"):
             raise ValueError(f"unknown builder {builder!r}")
         if leaf_size < 1:
@@ -84,6 +94,7 @@ class PathTracer:
                                "is available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.widener = widener
         self.builder = builder
         self.leaf_size = int(leaf_size)
         self.width = int(width)
@@ -117,9 +128,9 @@ class PathTracer:
     # -- BVH build --------------------------------------------------------------
 
     def build_bvh(self, triangles) -> None:
-        """Native SAH cluster build + records, with per-phase timings in
-        ``build_stats`` (host clock; the records phase ends in a device
-        synchronise)."""
+        """Native SAH cluster build + the widener's records, with per-phase
+        timings in ``build_stats`` (host clock; the records phase ends in a
+        device synchronise)."""
         tris = np.asarray(triangles, dtype=np.float32)
         if tris.ndim == 1:
             tris = tris.reshape(-1, 3, 3)
@@ -158,14 +169,16 @@ class PathTracer:
         plan (``collapse_apply_refit``, equal to the full collapse) and the
         records, all on ``device``. The plan is made at the first refit of a
         tree, when the tree's topology is also copied to ``device``. Falls
-        back to ``build_bvh`` for another triangle count, no cluster tree or
-        the brute-force scene. Adds ``plan_ms`` (first refit only) and
+        back to ``build_bvh`` for another triangle count, no cluster tree,
+        the brute-force scene, or any widener but ``"collapse"`` (the plan
+        is the 4-wide collapse's). Adds ``plan_ms`` (first refit only) and
         ``refit_ms`` (host clock, ending in a device synchronise) to
         ``build_stats``."""
         tris = np.asarray(triangles, dtype=np.float32)
         if tris.ndim == 1:
             tris = tris.reshape(-1, 3, 3)
-        if self._cluster is None or len(tris) != len(self.triangles_data):
+        if (self._cluster is None or self.widener != "collapse"
+                or len(tris) != len(self.triangles_data)):
             self.build_bvh(tris)
             return
         stats = {}
@@ -190,8 +203,21 @@ class PathTracer:
         self._tris_dev = tris_dev
         self.build_stats = {**self.build_stats, **stats}
 
+    def _widen(self, bvh2: LBVH2):
+        """The index-preserving wideners, on ``device``."""
+        widen = {"promote": promote_lbvh2_to_bvh4_wide, "bvh2": bvh2_as_bvh4}[self.widener]
+        return widen(LBVH2(*(a.to(self.device) for a in bvh2)))
+
     def _records(self) -> None:
-        self._qnodes = records_pipeline(self._cluster)
+        """The records of the cluster tree through the configured widener
+        (shared by ``build_bvh`` and ``load_checkpoint``)."""
+        cs = self._cluster
+        if self.widener in ("collapse", "collapse8"):
+            self._qnodes = records_pipeline(cs, height=self._bvh2_height,
+                                            width=8 if self.widener == "collapse8" else 4)
+        else:
+            self._qnodes = make_qnodes(make_wide_bvh(self._widen(cs.bvh2)), cs.tris_sorted,
+                                       tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

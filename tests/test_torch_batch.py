@@ -85,6 +85,23 @@ def test_batch_reference_on_pixels(records):
         assert a.shape == (2, 4) and torch.equal(a, b.reshape(2, -1)[:, pix])
 
 
+def test_batch_stats_adds_the_visits_plane(records):
+    """stats=True appends each pixel's visit count (f32, >= 1: the root) and
+    leaves the five other planes as they are without it."""
+    _, qn = records
+    qn = torch.from_numpy(qn)
+    plain = traverse.trace_tiles_batch(qn, POSS, QUATS, 24, 16, FOV, leaf_k=8)
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_batch_reference(qn, POSS, QUATS, 24, 16, FOV, leaf_k=8,
+                                               counts=counts, stats=True)
+    out = traverse.trace_tiles_batch(qn, POSS, QUATS, 24, 16, FOV, leaf_k=8, stats=True)
+    assert len(plain) == 5 and len(out) == len(ref) == 6
+    assert all(torch.equal(a, b) for a, b in zip(out[:5], plain))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert out[5].dtype == torch.float32 and out[5].shape == (3, 16, 24)
+    assert bool((out[5] >= 1).all()) and int(out[5].sum()) == counts.visits
+
+
 def test_batch_rejects_bad_inputs():
     qn = torch.zeros((4, traverse.rec_layout(8, 4)[2]), dtype=torch.float32)
     pos, quat = POSS[:2], QUATS[:2]
@@ -99,8 +116,9 @@ def test_batch_rejects_bad_inputs():
     with pytest.raises(ValueError):
         traverse.trace_tiles_batch(qn, pos, quat, 8, 8, leaf_k=8, raygen_size=(8, 8),
                                    row_offset=1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        traverse.trace_tiles_batch(qn, pos, quat, 8, 8, leaf_k=8, stats=True)
+    with pytest.raises(ValueError, match="matches no supported child count"):
+        traverse.trace_tiles_batch(qn[:, :256].contiguous(), pos, quat, 8, 8, leaf_k=8,
+                                   stats=True)
     with pytest.raises(TypeError):
         traverse.trace_tiles_batch(qn.double(), pos, quat, 8, 8, leaf_k=8)
     with pytest.raises(ValueError):

@@ -1,7 +1,8 @@
 """The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K1c
-``trace_tiles_batch``, K2a/K2b ``trace_rays``), their build, each kernel
-against its plain torch version, and the refit chain on the card against
-the same chain on the CPU.
+``trace_tiles_batch``, K2a/K2b ``trace_rays``; K1e and K2c on 8-wide
+records, K1f with ``stats``), their build, each kernel against its plain
+torch version, and the refit chain on the card against the same chain on
+the CPU.
 
 Needs neither JAX nor the JAX package, so the tests marked ``cuda`` run on
 a machine with a card and only the port:
@@ -11,9 +12,11 @@ a machine with a card and only the port:
 (``--noconftest``: the suite's conftest.py configures JAX). Without a card
 they skip; the wrapper's CPU path and checks are tested everywhere.
 Tolerances: the traversal rule of ``torch_parity`` for closest hit (K1a,
-K1b, K1c, K2a); the occlusion mask equal on every ray for any hit (K2b);
-K1c's frames bit-equal to K1a's (K1b's); the refit chain's records
-byte-equal.
+K1b, K1c, K1e, K2a, K2c); the occlusion mask equal on every ray for any hit
+(K2b, K2c); K1c's frames bit-equal to K1a's (K1b's); K1f's visits plane
+equal to the plain version's on every ray whose triangle agrees, and its
+five other planes bit-equal to the kernel's without ``stats``; the refit
+chain's records byte-equal.
 """
 
 import numpy as np
@@ -40,10 +43,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def room(device, k: int = 8, n: int = 4096):
-    """Records of the room scene on ``device`` and a seeded ray buffer."""
+def room(device, k: int = 8, n: int = 4096, width: int = 4):
+    """Records (of ``width`` child slots) of the room scene on ``device``
+    and a seeded ray buffer."""
     tris = room_scene()
-    qn = records_pipeline(build_sah2_clustered(tris, k, device)[0])
+    cs, height = build_sah2_clustered(tris, k, device)
+    qn = records_pipeline(cs, height=height, width=width)
     o, d = ray_buffer(qn, k, n)
     return tris, qn, torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
@@ -143,7 +148,8 @@ def test_build_hash_covers_included_headers(tmp_path):
 def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hit: bool):
     """One ray walked one stack pop at a time, as the kernels' loop
     (csrc/traverse_core.cuh) walks it → (tri, node visits, MT tests)."""
-    vbase, ibase, _ = traverse.rec_layout(leaf_k, 4)
+    w = traverse.infer_rec_width(leaf_k, qn.shape[1])
+    vbase, ibase, _ = traverse.rec_layout(leaf_k, w)
     inv = torch.where(d.abs() > 1e-8, d.reciprocal(), torch.full_like(d, 1e30))
     best, tri, visits, tests = 1e30, -1, 0, 0
     stack = [(0, 0.0)]
@@ -152,13 +158,13 @@ def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hi
         if not key < best:
             continue
         visits += 1
-        boxes = qn[node, 0:24].reshape(4, 6)
+        boxes = qn[node, 0:6 * w].reshape(w, 6)
         t1, t2 = (boxes[:, 0:3] - o) * inv, (boxes[:, 3:6] - o) * inv
         tmin = torch.minimum(t1, t2).amax(-1)
         tmax = torch.maximum(t1, t2).amin(-1)
         hit = ((tmax >= tmin.clamp_min(0.0)) & (tmin < best)).tolist()
-        refs, cnt = qn[node, 24:28].tolist(), qn[node, 28:32].tolist()
-        for k in range(4):
+        refs, cnt = qn[node, 6 * w:7 * w].tolist(), qn[node, 7 * w:8 * w].tolist()
+        for k in range(w):
             if not (hit[k] and traverse.EMPTY_REF < refs[k] < 0.0):
                 continue
             recs = qn[node, vbase + 12 * leaf_k * k:vbase + 12 * leaf_k * (k + 1)]
@@ -172,7 +178,7 @@ def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hi
                     best, tri = float(tt[j]), int(qn[node, ibase + k * leaf_k + j])
                     if any_hit:
                         return tri, visits, tests
-        order = sorted((k for k in range(4) if hit[k] and refs[k] >= 0.0),
+        order = sorted((k for k in range(w) if hit[k] and refs[k] >= 0.0),
                        key=lambda k: -float(tmin[k]))
         for k in order:
             if len(stack) < traverse.STACK_MAX:
@@ -180,22 +186,32 @@ def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hi
     return tri, visits, tests
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_traversal_counts_match_a_per_ray_walk(any_hit):
-    """The plain version counts the node visits and Möller–Trumbore tests
-    that the kernel's sequential loop does: an any-hit ray stops testing at
-    its first accepted triangle. These counts set the kernels' bounds."""
-    tris, qn, o, d = room("cpu", n=96)
+def check_counts_against_walk(any_hit: bool, width: int) -> None:
+    tris, qn, o, d = room("cpu", n=96, width=width)
     sun = torch.from_numpy(SUN).expand_as(o).contiguous()
     dirs = sun if any_hit else d
     counts = traverse.TraversalCounts()
     ref = traverse.trace_rays_reference(qn, o, dirs, any_hit=any_hit, leaf_k=8, counts=counts)
     walked = [walk(qn, o[i], dirs[i], 8, any_hit) for i in range(o.shape[0])]
-    assert counts.rays == o.shape[0]
+    assert counts.rays == o.shape[0] and counts.width == width
     assert counts.visits == sum(w[1] for w in walked)
     assert counts.mt_tests == sum(w[2] for w in walked)
     assert [w[0] for w in walked] == ref[4].tolist()
     assert 0 < sum(w[0] >= 0 for w in walked) < o.shape[0]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_counts_match_a_per_ray_walk(any_hit):
+    """The plain version counts the node visits and Möller–Trumbore tests
+    that the kernel's sequential loop does: an any-hit ray stops testing at
+    its first accepted triangle. These counts set the kernels' bounds."""
+    check_counts_against_walk(any_hit, 4)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_counts_match_a_per_ray_walk_on_wide8(any_hit):
+    """The same on 8-wide records: up to 8 slab tests and 8 pushes a visit."""
+    check_counts_against_walk(any_hit, 8)
 
 
 def test_trace_tiles_window_matches_full_frame():
@@ -220,9 +236,32 @@ def test_trace_tiles_rejects_bad_records():
         traverse.trace_tiles(qn[:, ::2], CAM_POS, CAM_QUAT, 8, 8, leaf_k=8)
     with pytest.raises(ValueError):
         traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 8, 8, leaf_k=2)
-    with pytest.raises(NotImplementedError):
-        traverse.trace_tiles(torch.zeros((4, traverse.rec_layout(8, 8)[2])),
+    with pytest.raises(ValueError, match="matches no supported child count"):
+        traverse.trace_tiles(torch.zeros((4, traverse.rec_layout(8, 8)[2] + 128)),
                              CAM_POS, CAM_QUAT, 8, 8, leaf_k=8)
+
+
+def test_cpu_records8_run_the_plain_version():
+    """8-wide records on the CPU: the wrappers return the plain versions'
+    planes (with and without stats) and launch nothing."""
+    _, qn, o, d = room("cpu", n=256, width=8)
+    assert qn.shape[1] == traverse.rec_layout(8, 8)[2]
+    before = dict(traverse.LAUNCHES)
+    for stats in (False, True):
+        planes = traverse.trace_tiles(qn, (0.0, 0.1, 2.2), CAM_QUAT, 32, 24, FOV, leaf_k=8,
+                                      stats=stats)
+        ref = traverse.trace_tiles_reference(qn, (0.0, 0.1, 2.2), CAM_QUAT, 32, 24, FOV,
+                                             leaf_k=8, stats=stats)
+        assert len(planes) == (6 if stats else 5)
+        assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+    for any_hit in (False, True):
+        rays = traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=8)
+        ref = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=8)
+        assert all(torch.equal(a, b) for a, b in zip(rays, ref))
+    assert traverse.LAUNCHES == before
+    assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
+                           "trace_tiles_k1e", "trace_tiles_k1f", "trace_rays_k2a",
+                           "trace_rays_k2b", "trace_rays_k2c"}
 
 
 @pytest.mark.cuda
@@ -370,6 +409,113 @@ def test_batch_kernel_matches_reference_on_card(cuda_device):
                                       device="cpu")[1]
         assert_trace_parity(o, r[0], r[4], torch.stack(r[1:4], -1).numpy(), tris,
                             dirs.reshape(-1, 3), BATCH_POS[f])
+
+
+def launched(before: dict) -> dict:
+    """The launches since ``before``, by kernel (those that rose)."""
+    return {n: traverse.LAUNCHES[n] - before[n] for n in before
+            if traverse.LAUNCHES[n] != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_wide8_tile_kernel_matches_reference_on_card(cuda_device, k):
+    """K1e (8-wide records) vs its plain version on the card: one frame with
+    and without jitter, and a jittered batch whose frames are bit-identical
+    to the single-frame launches; each counts as one K1e launch."""
+    tris = seeded_scene(4)
+    w, h, seed = 160, 96, (1 << 22) - 7
+    cs, height = build_sah2_clustered(tris, k, cuda_device)
+    qn = records_pipeline(cs, height=height, width=8)
+    for jitter in (False, True):
+        before = dict(traverse.LAUNCHES)
+        ours = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k, jitter=jitter,
+                                    jitter_seed=seed)
+        torch.cuda.synchronize()
+        assert launched(before) == {"trace_tiles_k1e": 1}
+        ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                             jitter=jitter, jitter_seed=seed)
+        dirs = (generate_rays_jittered(w, h, CAM_POS, CAM_QUAT, seed, FOV, device="cpu")[1]
+                .reshape(-1, 3) if jitter else image_dirs(w, h))
+        ref = [p.cpu() for p in ref]
+        assert_trace_parity([p.cpu() for p in ours], ref[0], ref[4],
+                            torch.stack(ref[1:4], -1).numpy(), tris, dirs)
+    before = dict(traverse.LAUNCHES)
+    batch = traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k,
+                                       jitter=True, jitter_seeds=BATCH_SEEDS)
+    torch.cuda.synchronize()
+    assert launched(before) == {"trace_tiles_k1e": 1}
+    for f in range(len(BATCH_POS)):
+        single = traverse.trace_tiles(qn, BATCH_POS[f], BATCH_QUAT[f], w, h, FOV, leaf_k=k,
+                                      jitter=True, jitter_seed=BATCH_SEEDS[f])
+        assert all(torch.equal(b[f], s) for b, s in zip(batch, single))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_wide8_ray_kernel_matches_reference_on_card(cuda_device, k):
+    """K2c (8-wide records) vs its plain version on the card: closest hit by
+    the traversal rule, the any-hit occlusion mask, and an active mask over
+    NaN rays; every launch counts as K2c."""
+    tris, qn, o, d = room(cuda_device, k, width=8)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(o).contiguous()
+    active = torch.from_numpy(np.random.default_rng(2).random(o.shape[0]) < 0.7).to(cuda_device)
+    o_nan = torch.where(active[:, None], o, torch.full_like(o, float("nan")))
+    before = dict(traverse.LAUNCHES)
+    closest = traverse.trace_rays(qn, o, d, leaf_k=k)
+    masked = traverse.trace_rays(qn, o_nan, d, leaf_k=k, active=active)
+    occluded = traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=k)
+    torch.cuda.synchronize()
+    assert launched(before) == {"trace_rays_k2c": 3}
+    ref = [p.cpu() for p in traverse.trace_rays_reference(qn, o, d, leaf_k=k)]
+    closest = [p.cpu() for p in closest]
+    assert_trace_parity(closest, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                        d.cpu(), o.cpu().numpy())
+    act = active.cpu()
+    for m, f in zip(masked, closest):
+        assert torch.equal(m.cpu()[act], f[act])
+    assert (masked[4].cpu()[~act] == -1).all() and (masked[0].cpu()[~act] == 1e30).all()
+    ref_b = traverse.trace_rays_reference(qn, o, sun, any_hit=True, leaf_k=k)
+    occ = (occluded[4] >= 0).cpu()
+    assert torch.equal(occ, (ref_b[4] >= 0).cpu())
+    assert 0.05 < float(occ.float().mean()) < 0.95
+    assert (occluded[0].cpu()[occ] == 0).all() and (occluded[0].cpu()[~occ] == 1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_visits_kernel_matches_reference_on_card(cuda_device, width):
+    """K1f at either width: the visits plane equal to the plain version's on
+    every ray whose triangle agrees, its sum equal to the counted visits
+    there, the five other planes bit-equal to the kernel's without stats,
+    for one frame and for a jittered batch; each counts as one K1f launch."""
+    tris = seeded_scene(4)
+    w, h, k = 160, 96, 32
+    cs, height = build_sah2_clustered(tris, k, cuda_device)
+    qn = records_pipeline(cs, height=height, width=width)
+    plain_kernel = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k)
+    before = dict(traverse.LAUNCHES)
+    out = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k, stats=True)
+    torch.cuda.synchronize()
+    assert launched(before) == {"trace_tiles_k1f": 1}
+    assert len(out) == 6 and out[5].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(out[:5], plain_kernel))
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                         counts=counts, stats=True)
+    same = out[4] == ref[4]
+    assert float(same.float().mean()) >= 0.999
+    assert torch.equal(out[5][same], ref[5][same])
+    if bool(same.all()):
+        assert int(out[5].sum()) == counts.visits
+    before = dict(traverse.LAUNCHES)
+    batch = traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k,
+                                       jitter=True, jitter_seeds=BATCH_SEEDS, stats=True)
+    torch.cuda.synchronize()
+    assert launched(before) == {"trace_tiles_k1f": 1}
+    single = traverse.trace_tiles(qn, BATCH_POS[2], BATCH_QUAT[2], w, h, FOV, leaf_k=k,
+                                  jitter=True, jitter_seed=BATCH_SEEDS[2], stats=True)
+    assert all(torch.equal(b[2], s) for b, s in zip(batch, single))
 
 
 def refit_chain_records(tris: np.ndarray, device, k: int = 8) -> list[torch.Tensor]:
