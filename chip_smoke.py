@@ -9,10 +9,10 @@ Phases, each printing what it measures; the first failure exits non-zero:
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
-   kernels K1a/K1b/K1c/K1e/K1f (csrc/traverse_tiles.cu) and the ray-buffer
-   kernels K2a/K2b/K2c (csrc/traverse_rays.cu), with their seconds and the
-   ptxas registers, stack frame and spills of every instantiation (child
-   slots × jitter × visits, any hit);
+   kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu) and the
+   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu), with their seconds
+   and the ptxas registers, stack frame and spills of every instantiation
+   (child slots × jitter × visits × bounds, any hit);
 3. the primary-ray main path at full size: the 871,200-triangle dragon
    stand-in at 1920×1080 through Scene.load_glb → PathTracer.set_scene →
    render (framed and sparse view) → render_presented, counting K1a's
@@ -95,6 +95,38 @@ Phases, each printing what it measures; the first failure exits non-zero:
    K2a/K2b and through K2c, and one whole 3-bounce sample from the same
    generator state.
 
+Phases 20–24 drive the bounded and entry-seeded paths (K1d); they run after
+phase 11, while the 4-wide tracer still holds the undeformed dragon:
+
+20. K1d against its plain version on a 256×256 crop whose corner is a
+   multiple of 32 (tile indices are in window coordinates), with the framed
+   frame's own bounds (render._coarse_bounds) and entries
+   (compute_tile_entries), and with halved bounds that cut many hits: the
+   closest-hit tolerances on the rays that hit, t = the tile's bound and a
+   zero normal on those that do not, the crop window equal to the same
+   pixels of the whole frame; all-1e30 bounds and all-0 entries leave the
+   whole frame of K1a, K1b, K1e and K1f bit-identical (0 differing words);
+21. render.trace_tiles_bounded at full size, framed and sparse, default and
+   halved bounds: every plane bit-identical to trace_tiles' (t 1e30 on
+   misses), exactly 1 K1a + 1 K1d + 1 K2a launched, n_repair, the share of
+   tiles with a finite bound, one call under sync debug mode, and 1,024
+   seeded pixels of the result against brute force;
+22. the entries at full size: the share of whole tiles that start below the
+   root and their mean depth; all five planes bit-identical with and without
+   them; PathTracer.render() with use_tile_entries byte-equal to without (1
+   K1d launch), render_stream the box filter of the same frame;
+23. render.trace_tiles_temporal over four successive seeds, each bounded by
+   the previous sample and each bit-identical to K1b for its seed (1 K1d + 1
+   K2a a sample);
+24. the measurement, in the order A-B-B-A with CUDA events: K1a against the
+   bounded trace end to end (framed, sparse) and its passes apart; the repair
+   as one masked launch against a compacting repair that reads the count
+   back; K1a against entries + K1d with compute_tile_entries counted; K1b
+   against the temporal sample. For each: ms, Mrays/s, total visits from K1f
+   with and without the bounds / entries, Möller–Trumbore tests from the plain
+   version's counts on the crop, kernels per call, host issue ms against
+   device busy ms.
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -122,10 +154,13 @@ The kernels line: ``ms``, ``plain_ms`` and ``bound_ms`` are all on the
 same ``rays`` — the 256×256 crop for K1a/K1b (of frames 0 and 7 for K1c),
 the checked subset of each wave for K2a/K2b (summed over the waves of one
 1080p sample; K2c: all five waves of the 8-wide sample), the un-jittered
-crop for K1e (8-wide records), the crop at both widths for K1f — and
+crop for K1e (8-wide records), the crop at both widths for K1f, phase 20's
+crop under the frame's bounds and entries for K1d — and
 ``path_ms``/``path_bound_ms`` on the main path's whole frame, batch or
 waves (``path_rays`` rays, active lanes for K2; for K1f the framed frame
-at both widths). ``launches``: K1e's are those of phase 15's render calls
+at both widths; for K1d the framed frame under its bounds and entries, the
+kernel alone). ``launches``: K1d's are those of phases 21–23's calls, K1e's
+are those of phase 15's render calls
 and samples, K2c's of its samples, K1f's of phase 19's frames.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -148,6 +183,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 WIDTH, HEIGHT, LEAF_K, FOV = 1920, 1080, 32, 70.0
+DRAGON_TRIANGLES = 871_200
 FRAMED, SPARSE, MOVED = (0.0, 0.0, 1.15), (0.0, 0.0, 2.5), (0.05, 0.0, 1.15)
 QUAT = (0.0, 0.0, 0.0, 1.0)
 CROP = 256
@@ -170,6 +206,8 @@ KERNELS = {
     "trace_tiles_k1b": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
     "trace_tiles_k1c": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                        "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_tiles_k1d": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
     "trace_rays_k2a": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
@@ -351,7 +389,8 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     """(kernel<template arguments>, registers, stack frame bytes, spill store
     bytes, spill load bytes) of every entry function in an ``nvcc -Xptxas -v``
     log. The template arguments are <child slots, jitter, visits> for the
-    tile kernels and <child slots, any hit> for the ray kernel."""
+    batch tile kernel, <child slots, jitter, visits, bounds> for the one-frame
+    tile kernel and <child slots, any hit> for the ray kernel."""
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -380,7 +419,7 @@ def build_all() -> None:
 
     with ThreadPoolExecutor(max_workers=3) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
-                "traverse_tiles.cu (K1a, K1b, K1c, K1e, K1f)": pool.submit(
+                "traverse_tiles.cu (K1a, K1b, K1c, K1d, K1e, K1f)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
                     timed, traverse.load_kernel, "traverse_rays.cu")}
@@ -465,6 +504,7 @@ def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: d
     traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=env["bound_pix"],
                                    counts=counts, **kw)
     frame_bound = bound(counts, WIDTH * HEIGHT / WAVE_SAMPLES, WIDTH * HEIGHT * OUT_BYTES)
+    env.setdefault("frame_counts", {})[label] = counts
     log(f"[bound] {label} framed 1080p frame: {frame_bound[0]:.4f} ms by "
         f"{frame_bound[1]} {json.dumps(frame_bound[2])}")
     return {"launches": launches, "max_abs_err": checked["stats"]["max_abs_err"],
@@ -669,6 +709,9 @@ def main() -> None:
     t0 = time.perf_counter()
     scene = Scene().load_glb(glb, normalize=True, mode="cube")
     log(f"[main] ingest {scene.num_triangles} triangles in {time.perf_counter() - t0:.2f} s")
+    if scene.num_triangles != DRAGON_TRIANGLES:
+        fail(f"{glb} holds {scene.num_triangles} triangles, not the {DRAGON_TRIANGLES} of the "
+             "dragon stand-in: delete it, and it is written anew")
     pt = PathTracer(WIDTH, HEIGHT, builder="sah", leaf_size=LEAF_K, device=dev)
     t0 = time.perf_counter()
     pt.set_scene(scene)
@@ -848,6 +891,9 @@ def main() -> None:
     profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
                   f"render_progressive(bounces={BOUNCES})", card)
 
+    # 20.-24. depth bounds and entry nodes (K1d)
+    rows["trace_tiles_k1d"] = bounded_phase(env, pt)
+
     # 12.-14. the frame batch, the dynamic dragon and config 5
     rows["trace_tiles_k1c"] = batch_phase(env)
     dynamic_phase(env, pt)
@@ -864,6 +910,340 @@ def main() -> None:
     } for name, row in rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def host_issue_ms(fn, n: int = 8) -> tuple[float, float]:
+    """(ms the host takes to issue one call of ``fn``, ms until the card has
+    finished it), on the host clock over ``n`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def differing_words(a, b) -> int:
+    """The 32-bit words in which two tuples of planes differ."""
+    return sum(int((x.view(torch.int32) != y.view(torch.int32)).sum()) for x, y in zip(a, b))
+
+
+def check_bounded_against(ker, ref, bpix: torch.Tensor, tris, origin, dirs, what: str) -> dict:
+    """K1d's contract on flat planes against its plain version's, ``bpix``
+    each ray's bound: the same rays hit; on those the closest-hit tolerances;
+    on the others t = the bound exactly, a zero normal and tri = −1."""
+    from raytracer_tpu_torch.ops.camera import INF
+
+    miss = ker[4] < 0
+    if not torch.equal(miss, ref[4] < 0):
+        fail(f"{what}: hit/miss differs on {int((miss != (ref[4] < 0)).sum())} rays")
+    for name, planes in (("the kernel", ker), ("the plain version", ref)):
+        if not torch.equal(planes[0][miss], bpix[miss]):
+            fail(f"{what}: {name} must report t = the tile's bound where it finds no hit")
+
+    def unbounded(planes):
+        return [torch.where(miss, torch.full_like(planes[0], INF), planes[0]), *planes[1:]]
+
+    stats = check_against(unbounded(ker), unbounded(ref), tris, origin, dirs, what)
+    stats["no_hit_under_a_bound"] = int((miss & (bpix < INF)).sum())
+    return stats
+
+
+def node_depths(wide) -> torch.Tensor:
+    """The depth of every internal node of a wide tree below its root (−1
+    for rows that no node refers to)."""
+    cref = wide.cref.long()
+    depth = torch.full((cref.shape[0],), -1, dtype=torch.int64, device=cref.device)
+    frontier = torch.zeros(1, dtype=torch.int64, device=cref.device)
+    level = 0
+    while frontier.numel():
+        depth[frontier] = level
+        kids = cref[frontier].reshape(-1)
+        frontier = kids[(kids >= 0) & ((kids & (1 << 30)) == 0)]
+        level += 1
+    return depth
+
+
+def bounded_phase(env: dict, pt) -> dict:
+    """20.–24. Depth bounds and entry nodes on the dragon at 1920x1080 → the
+    kernels-line row of K1d."""
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.ops.camera import INF, generate_rays, primary_dirs, to_device
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
+    from raytracer_tpu_torch.ops.cuda.traverse import TILE
+
+    qn, tris, card, dev, origin = env["qn"], env["tris"], env["card"], env["dev"], env["origin"]
+    rays = WIDTH * HEIGHT
+    nty, ntx = -(-HEIGHT // TILE), -(-WIDTH // TILE)
+    wide = pt._wide_bvh()
+    slack = {"default": (1.05, 0.02), "halved": (0.5, 0.0)}  # bound = scale * depth + pad
+
+    def tiles(pos=FRAMED, **kw):
+        return traverse.trace_tiles(qn, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, **kw)
+
+    def frame_bounds(pos, scale=1.05, pad=0.02):
+        return render._coarse_bounds(qn, pos, QUAT, WIDTH, HEIGHT, FOV, LEAF_K, 8, scale, pad)
+
+    def frame_entries(pos):
+        return compute_tile_entries(wide, pos, QUAT, WIDTH, HEIGHT, tile=TILE, fov_degrees=FOV)
+
+    def bounded(pos=FRAMED, scale=1.05, pad=0.02, **kw):
+        return render.trace_tiles_bounded(qn, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                          _bound_scale=scale, _bound_pad=pad, **kw)
+
+    # 20. K1d against its plain version on a crop whose corner is a multiple
+    # of the tile, under the frame's own bounds and entries, and halved bounds
+    bounds, entries = frame_bounds(FRAMED), frame_entries(FRAMED)
+    if bounds.shape != (nty, ntx) or entries.shape != (HEIGHT // TILE, WIDTH // TILE):
+        fail(f"bounds {tuple(bounds.shape)} / entries {tuple(entries.shape)} of the 1080p frame")
+    r0, c0, nt = env["r0"] // TILE * TILE, env["c0"] // TILE * TILE, CROP // TILE
+    crop_pix = (torch.arange(r0, r0 + CROP, device=dev)[:, None] * WIDTH
+                + torch.arange(c0, c0 + CROP, device=dev)[None, :]).reshape(-1)
+    crop_dirs = frame_dirs(crop_pix)
+    ty, tx = r0 // TILE, c0 // TILE
+    window_kw = dict(leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0,
+                     entries=entries[ty:ty + nt, tx:tx + nt])
+    ref_kw = dict(leaf_k=LEAF_K, pixels=crop_pix)
+    checked = {}
+    for label, b in (("the frame's bounds", bounds),
+                     ("halved bounds", frame_bounds(FRAMED, *slack["halved"]))):
+        planes = tiles(entries=entries, tbounds=b)
+        counts = traverse.TraversalCounts()
+        ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, counts=counts,
+                                             entries=entries, tbounds=b, **ref_kw)
+        ker = [p.reshape(-1)[crop_pix] for p in planes]
+        bpix = b[crop_pix // WIDTH // TILE, crop_pix % WIDTH // TILE]
+        stats = check_bounded_against(ker, ref, bpix, tris, origin, crop_dirs,
+                                      f"K1d vs plain, 256x256 crop, {label} and the entries")
+        window = traverse.trace_tiles(qn, FRAMED, QUAT, CROP, CROP, FOV,
+                                      tbounds=b[ty:ty + nt, tx:tx + nt], **window_kw)
+        if not all(torch.equal(w.reshape(-1), k) for w, k in zip(window, ker)):
+            fail(f"K1d's crop window ({label}) differs from the same pixels of its full frame")
+        checked[label] = {"stats": stats, "counts": counts}
+    if checked["halved bounds"]["stats"]["no_hit_under_a_bound"] == 0:
+        fail("halved bounds cut no hit on the crop: the check of t = bound is empty")
+    no_bounds = dict(entries=torch.zeros_like(entries), tbounds=torch.full_like(bounds, INF))
+    for what, kw in (("K1a", {}), ("K1b", dict(jitter=True, jitter_seed=JITTER_SEED)),
+                     ("K1f", dict(stats=True))):
+        words = differing_words(tiles(**kw), tiles(**kw, **no_bounds))
+        log(f"[check] {what} against K1d with all-1e30 bounds and all-0 entries, whole frame: "
+            f"{words} differing words")
+        if words:
+            fail(f"all-1e30 bounds and all-0 entries change {what}'s frame in {words} words")
+
+    # 21. the bounded trace at full size
+    k1d_launches = 0
+    n_repair = {}
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        free = tiles(pos)
+        for label, knobs in slack.items():
+            torch.cuda.synchronize()
+            traverse.reset_launches()
+            out = bounded(pos, *knobs)
+            torch.cuda.synchronize()
+            launches = dict(traverse.LAUNCHES)
+            if launches != expected(trace_tiles_k1a=1, trace_tiles_k1d=1, trace_rays_k2a=1):
+                fail(f"the bounded trace launched {launches}, expected 1 K1a + 1 K1d + 1 K2a")
+            k1d_launches += launches["trace_tiles_k1d"]
+            words = differing_words(out[:5], free)
+            finite = float((frame_bounds(pos, *knobs) < INF).float().mean())
+            n_repair[view, label] = int(out[5])
+            log(f"[bounded] {view}, {label} bounds: {words} words differ from trace_tiles; "
+                f"n_repair {n_repair[view, label]} of {rays} pixels; {finite:.4f} of the "
+                f"{nty * ntx} tiles bounded; launches {json.dumps(launches)}")
+            if words:
+                fail(f"the bounded trace ({view}, {label}) differs from trace_tiles in {words} "
+                     "words")
+    if n_repair["framed", "halved"] == 0:
+        fail("halved bounds forced no repair on the framed view")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = bounded(entries=entries)
+    except RuntimeError as exc:
+        fail(f"trace_tiles_bounded waited for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if differing_words(out[:5], tiles()):
+        fail("the bounded trace with entries differs from trace_tiles")
+    log("[bounded] trace_tiles_bounded (with entries) issued without a host-device "
+        "synchronisation, and equals trace_tiles")
+    s_dirs = frame_dirs(env["sample"])
+    check_against([p.reshape(-1)[env["sample"]] for p in out[:5]],
+                  brute_planes(tris, origin, s_dirs), tris, origin, s_dirs,
+                  f"bounded trace vs brute force, {BRUTE_SAMPLES} framed pixels")
+
+    # 22. the entries at full size
+    depth = node_depths(wide)
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        e = frame_entries(pos)
+        below = e != 0
+        mean_depth = float(depth[e[below].long()].float().mean()) if bool(below.any()) else 0.0
+        words = differing_words(tiles(pos, entries=e), tiles(pos))
+        log(f"[entries] {view}: {float(below.float().mean()):.4f} of the {e.numel()} whole tiles "
+            f"start below the root, at mean depth {mean_depth:.3f}; {words} words differ from "
+            "trace_tiles")
+        if words:
+            fail(f"the entries change the {view} frame in {words} words")
+    pt.set_camera_position(*FRAMED)
+    plain_img = pt.render()
+    pt.use_tile_entries = True
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    entry_img = pt.render()
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    if launches != expected(trace_tiles_k1d=1):
+        fail(f"render() with use_tile_entries launched {launches}, expected 1 K1d")
+    k1d_launches += launches["trace_tiles_k1d"]
+    if not torch.equal(entry_img, plain_img):
+        fail("render() with use_tile_entries differs from render() without")
+    small = pt.render_stream(2)
+    box = pt._render_planes()[0].double().reshape(HEIGHT // 2, 2, WIDTH // 2, 2, 3).mean((1, 3))
+    if (small.shape != (HEIGHT // 2, WIDTH // 2, 3) or small.dtype != torch.uint8
+            or int((small.int() - torch.round(box.clamp(0, 1) * 255).int()).abs().max()) > 1):
+        fail("render_stream(2) is not the 2x2 box filter of the frame within 1 LSB")
+    log("[entries] PathTracer.render() with use_tile_entries: 1 K1d launch, byte-equal to "
+        f"without; render_stream(2) {tuple(small.shape)} uint8")
+
+    # 23. the temporal trace over successive seeds
+    def k1b(seed):
+        return tiles(jitter=True, jitter_seed=seed)
+
+    def temporal(prev, seed):
+        return render.trace_tiles_temporal(qn, FRAMED, QUAT, WIDTH, HEIGHT, prev[0], prev[4],
+                                           seed, FOV, leaf_k=LEAF_K)
+
+    prev = k1b(JITTER_SEED)
+    t_repair = []
+    for seed in range(JITTER_SEED + 1, JITTER_SEED + 5):
+        want = k1b(seed)
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        out = temporal(prev, seed)
+        torch.cuda.synchronize()
+        launches = dict(traverse.LAUNCHES)
+        if launches != expected(trace_tiles_k1d=1, trace_rays_k2a=1):
+            fail(f"the temporal trace launched {launches}, expected 1 K1d + 1 K2a")
+        k1d_launches += launches["trace_tiles_k1d"]
+        if differing_words(out[:5], want):
+            fail(f"the temporal trace of seed {seed} differs from K1b's")
+        t_repair.append(int(out[5]))
+        prev = out
+    log(f"[temporal] 4 successive samples each bit-identical to K1b for its seed; n_repair "
+        f"{t_repair}; launches per sample {json.dumps(launches)}")
+
+    # 24. the measurement
+    log(f"[A/B] bounds and entries against the plain kernels, 1920x1080, K = {LEAF_K}, order "
+        f"A-B-B-A, on {card}")
+
+    def compacting(pos):
+        """The bounded trace with another repair: the lanes to repair are read
+        back (one synchronisation a frame) and only their rays are made."""
+        planes = tiles(pos, tbounds=frame_bounds(pos))
+        need = (planes[4] < 0) & (planes[0] < INF)
+        idx = torch.nonzero(need.reshape(-1)).squeeze(1)
+        if idx.numel():
+            d = primary_dirs(idx % WIDTH, idx // WIDTH, WIDTH, HEIGHT, QUAT, FOV)
+            o = to_device(pos, dev).expand(idx.numel(), 3).contiguous()
+            for p, f in zip(planes, traverse.trace_rays(qn, o, d, leaf_k=LEAF_K)):
+                p.reshape(-1)[idx] = f
+        return planes
+
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        if differing_words(compacting(pos), tiles(pos)):
+            fail(f"the compacting repair's {view} frame differs from trace_tiles")
+        b, e = frame_bounds(pos), frame_entries(pos)
+        visits = {name: int(tiles(pos, stats=True, **kw)[5].sum(dtype=torch.float64))
+                  for name, kw in (("none", {}), ("bounds", dict(tbounds=b)),
+                                   ("entries", dict(entries=e)),
+                                   ("both", dict(tbounds=b, entries=e)))}
+        ms = abba({"K1a": lambda: tiles(pos), "bounded": lambda: bounded(pos)}, FRAMES, REPEATS)
+        alt = abba({"masked repair": lambda: bounded(pos),
+                    "compacting repair": lambda: compacting(pos)}, FRAMES, REPEATS)
+        ent = abba({"K1a": lambda: tiles(pos),
+                    "entries + K1d": lambda: tiles(pos, entries=frame_entries(pos))},
+                   FRAMES, REPEATS)
+        parts = {"probe K1a 240x135 + bounds": lambda: frame_bounds(pos),
+                 "K1d, bounds given": lambda: tiles(pos, tbounds=b),
+                 "K1d, entries given": lambda: tiles(pos, entries=e),
+                 "K1d, both given": lambda: tiles(pos, tbounds=b, entries=e),
+                 "compute_tile_entries": lambda: frame_entries(pos),
+                 "generate_rays": lambda: generate_rays(WIDTH, HEIGHT, pos, QUAT, FOV, device=dev)}
+        part_ms = {k: statistics.median(cuda_ms(fn, FRAMES, 3)) for k, fn in parts.items()}
+        log(f"[A/B] {view}: K1a {ms['K1a']:.4f} ms = {rays / ms['K1a'] / 1e3:.2f} Mrays/s; "
+            f"trace_tiles_bounded {ms['bounded']:.4f} ms = {rays / ms['bounded'] / 1e3:.2f} "
+            f"Mrays/s, ratio {ms['bounded'] / ms['K1a']:.4f}; n_repair "
+            f"{n_repair[view, 'default']}")
+        log(f"[A/B] {view}: masked repair {alt['masked repair']:.4f} ms against compacting "
+            f"repair {alt['compacting repair']:.4f} ms a frame")
+        log(f"[A/B] {view}: K1a {ent['K1a']:.4f} ms against compute_tile_entries + K1d "
+            f"{ent['entries + K1d']:.4f} ms, ratio {ent['entries + K1d'] / ent['K1a']:.4f}")
+        log(f"[A/B] {view} passes alone: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in part_ms.items()))
+        log(f"[A/B] {view} visits a frame (K1f): "
+            + ", ".join(f"{k} {v} ({v / visits['none']:.4f})" for k, v in visits.items()))
+        for what, fn in (("trace_tiles (K1a)", lambda: tiles(pos)),
+                         ("trace_tiles_bounded", lambda: bounded(pos)),
+                         ("compute_tile_entries + K1d",
+                          lambda: tiles(pos, entries=frame_entries(pos)))):
+            issue, done = host_issue_ms(fn)
+            log(f"[A/B] {view} {what}: host issues a call in {issue:.4f} ms, done in "
+                f"{done:.4f} ms a call (host clock, 8 calls) on {card}")
+            profile_calls(fn, f"{view} {what}", card)
+        if view == "framed":
+            path_ms = part_ms["K1d, both given"]
+
+    seeds = iter(range(JITTER_SEED + 10, JITTER_SEED + 10_000))
+    state = {"prev": k1b(JITTER_SEED)}
+
+    def temporal_step():
+        state["prev"] = temporal(state["prev"], next(seeds))
+
+    tms = abba({"K1b": lambda: k1b(next(seeds)), "temporal": temporal_step}, FRAMES, REPEATS)
+    log(f"[A/B] framed jittered sample: K1b {tms['K1b']:.4f} ms against trace_tiles_temporal "
+        f"{tms['temporal']:.4f} ms, ratio {tms['temporal'] / tms['K1b']:.4f}")
+    issue, done = host_issue_ms(temporal_step)
+    log(f"[A/B] trace_tiles_temporal: host issues a call in {issue:.4f} ms, done in {done:.4f} "
+        f"ms a call on {card}")
+    profile_calls(temporal_step, "trace_tiles_temporal", card)
+
+    # the work on the crop, as the plain version counts it
+    work = {"bounds + entries": checked["the frame's bounds"]["counts"]}
+    for name, kw in (("none", {}), ("bounds", dict(tbounds=bounds)),
+                     ("entries", dict(entries=entries))):
+        work[name] = traverse.TraversalCounts()
+        traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, counts=work[name],
+                                       **ref_kw, **kw)
+    log("[A/B] framed 256x256 crop, plain version's counts: "
+        + ", ".join(f"{k}: {c.visits} visits, {c.mt_tests} MT tests" for k, c in work.items()))
+
+    # K1d's row: the crop under the frame's bounds and entries; the frame
+    crop_tb = bounds[ty:ty + nt, tx:tx + nt]
+    ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
+        qn, FRAMED, QUAT, CROP, CROP, FOV, tbounds=crop_tb, **window_kw), FRAMES, REPEATS))
+    plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
+        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, entries=entries, tbounds=bounds, **ref_kw), 1, 3))
+    table_bytes = 2 * 4 * nty * ntx
+    crop_bound = bound(work["bounds + entries"], 1.0, crop_pix.numel() * OUT_BYTES + table_bytes)
+    counts = traverse.TraversalCounts()
+    traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                   pixels=env["bound_pix"], counts=counts, entries=entries,
+                                   tbounds=bounds)
+    frame_bound = bound(counts, rays / WAVE_SAMPLES, rays * OUT_BYTES + table_bytes)
+    log(f"[time] K1d framed 256x256 crop: kernel {ms:.4f} ms, plain torch {plain_ms:.2f} ms "
+        f"(median of 3), bound {crop_bound[0]:.4f} ms by {crop_bound[1]} "
+        f"{json.dumps(crop_bound[2])}; framed 1080p frame {path_ms:.4f} ms, bound "
+        f"{frame_bound[0]:.4f} ms by {frame_bound[1]} {json.dumps(frame_bound[2])} on {card}")
+    pt.use_tile_entries = False
+    return {"launches": k1d_launches,
+            "max_abs_err": max(c["stats"]["max_abs_err"] for c in checked.values()),
+            "rays": crop_pix.numel(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": crop_bound[0], "bound_by": crop_bound[1], "path_rays": rays,
+            "path_ms": path_ms, "path_bound_ms": frame_bound[0],
+            "path_bound_by": frame_bound[1]}
 
 
 def batch_cameras(z: float) -> tuple[list, list]:
@@ -1483,6 +1863,14 @@ def wide8_phase(env: dict, scene) -> dict:
 
     # 16. K1e and K2c against their plain versions and brute force
     k1e = check_tiles(env, qn8, "K1e", jitter=False)
+    words = differing_words(k1e["planes"], traverse.trace_tiles(
+        qn8, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+        entries=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+        tbounds=torch.full((1, 1), 1e30, device=dev)))
+    log(f"[check] K1e against K1d with all-1e30 bounds and all-0 entries, whole frame: {words} "
+        "differing words")
+    if words:
+        fail(f"all-1e30 bounds and all-0 entries change K1e's frame in {words} words")
     k1e_j = check_tiles(env, qn8, "K1e", jitter=True)
     waves, _ = capture_waves(env, qn8)
     wave_stats = check_waves(env, qn8, waves, "trace_rays_k2c", "trace_rays_k2c")
@@ -1509,11 +1897,17 @@ def wide8_phase(env: dict, scene) -> dict:
     # 19. BVH4 against BVH8
     ab = ab_phase(env, qn8, waves)
     b_ms, b_by = summed([v["bound_detail"] for v in visits])
+    # the visits plane adds 4 bytes a ray to the frames of K1a and K1e
+    pb_ms, pb_by = summed([bound(env["frame_counts"][label], WIDTH * HEIGHT / WAVE_SAMPLES,
+                                 WIDTH * HEIGHT * (OUT_BYTES + 4))[2]
+                           for label in ("K1a", "K1e")])
+    log(f"[bound] K1f framed 1080p frame at both widths: {pb_ms:.4f} ms by {pb_by}")
     rows["trace_tiles_k1f"] = {
         "launches": ab["launches"], "max_abs_err": max(v["max_abs_err"] for v in visits),
         "rays": sum(v["rays"] for v in visits), "ms": sum(v["ms"] for v in visits),
         "plain_ms": sum(v["plain_ms"] for v in visits), "bound_ms": b_ms, "bound_by": b_by,
-        "path_rays": 2 * WIDTH * HEIGHT, "path_ms": ab["path_ms"]}
+        "path_rays": 2 * WIDTH * HEIGHT, "path_ms": ab["path_ms"],
+        "path_bound_ms": pb_ms, "path_bound_by": pb_by}
     return rows
 
 

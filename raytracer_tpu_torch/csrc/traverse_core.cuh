@@ -1,5 +1,5 @@
 // The per-ray traversal of the supernode records, shared by the primary-ray
-// kernels K1a/K1b/K1c/K1e/K1f (traverse_tiles.cu) and the ray-buffer kernels
+// kernels K1a/K1b/K1c/K1d/K1e/K1f (traverse_tiles.cu) and the ray-buffer kernels
 // K2a/K2b/K2c (traverse_rays.cu), so the visit order, the culling and the
 // stack-drop rule exist once, for records of 4 and of 8 child slots.
 //
@@ -31,7 +31,8 @@ constexpr float kInf = 1e30f;
 constexpr float kMtEps = 1e-7f;
 constexpr float kEmptyRef = -268435456.0f;  // -2^28: empty child slot
 
-// A ray's result: t = 1e30, zero normal and tri = -1 on a miss. Any-hit
+// A ray's result: zero normal and tri = -1 on a miss, with t = the best t the
+// traversal started from (1e30 unless the caller gave a depth bound). Any-hit
 // traversal reports t = 0 and the occluder's normal and id. `visits` is
 // counted only by a kVisits traversal (0 otherwise).
 struct Hit {
@@ -45,24 +46,34 @@ __device__ __forceinline__ float safe_inv(float d) {
 }
 
 // Traverse the records `qn` (rows of `recw` f32 words, kSlots child slots,
-// K = leaf_k triangles per leaf) from the root with the ray (o, d). Closest
-// hit: the nearest accepted triangle (strict t < best, first in visit order
-// among equal t). kAnyHit: stop at the first accepted triangle in visit
-// order. kVisits: count the records visited (pops that pass the cull).
+// K = leaf_k triangles per leaf) with the ray (o, d). Closest hit: the
+// nearest accepted triangle (strict t < best, first in visit order among
+// equal t). kAnyHit: stop at the first accepted triangle in visit order.
+// kVisits: count the records visited (pops that pass the cull).
+//
+// `best_init` and `entry` are where the traversal starts: 1e30 and the root
+// (record 0) everywhere but in K1d. A finite `best_init` is a depth bound:
+// only hits with t < best_init are kept, and every slab and pop cull runs
+// against it from the first visit on, so a hit that is found is still the
+// nearest one (every node entered below the running best is visited); a ray
+// that finds none returns t = best_init. `entry` is pushed with key 0, so it
+// is visited whenever best_init > 0; the caller guarantees that no record
+// outside its subtree can hold the ray's nearest hit.
 template <int kSlots, bool kAnyHit, bool kVisits>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw,
                                             int leaf_k, float ox, float oy, float oz,
-                                            float dx, float dy, float dz) {
+                                            float dx, float dy, float dz,
+                                            float best_init = kInf, int entry = 0) {
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   const int vbase = 8 * kSlots;
   const int ibase = vbase + kSlots * 12 * leaf_k;
 
   Hit r{kInf, 0.0f, 0.0f, 0.0f, -1, 0};
-  float best = kInf;
+  float best = best_init;
   int stack_n[kStackMax];
   float stack_d[kStackMax];
   int sp = 0;
-  stack_n[0] = 0;
+  stack_n[0] = entry;
   stack_d[0] = 0.0f;
 
   while (sp >= 0) {

@@ -1,14 +1,15 @@
 // K1a / K1b — closest-hit primary-ray traversal of the supernode records, one
 // frame, one ray per pixel; K1b jitters each ray's subpixel position.
 // K1c — the same for a batch of F frames (cameras) in one launch.
+// K1d — K1a / K1b with a depth bound and an entry node for every 32×32-pixel
+// tile of the frame.
 // K1e — all of these on 8-wide records (the BVH8 of collapse_lbvh2_to_bvh8).
 // K1f — any of these with a sixth output plane: the records each pixel's ray
 // visited.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
 // _persistent_kernel (with its per-visit core _consume, rec_width 4 or 8) on
-// the path of K triangles per leaf and no per-tile entry nodes or depth
-// bounds. K1a computes what trace_tiles_pallas(qnodes, pos, quat, W, H, fov,
+// the path of K triangles per leaf. K1a computes what trace_tiles_pallas(qnodes, pos, quat, W, H, fov,
 // leaf_k=K)[:5] computes; K1b what the same call computes with jitter=True,
 // jitter_seed=seed: the fixed pixel-centre offset 0.5 becomes
 // subpixel_hash01(px, py, 2·seed) and (…, 2·seed + 1), the hash of
@@ -17,7 +18,16 @@
 // row/col offsets), which renders one band or crop with the full frame's
 // rays. K1c computes what trace_tiles_batch_pallas(qnodes, pos (F,3), quat
 // (F,4), W, H, fov, leaf_k=K, jitter=…, jitter_seeds=…)[:5] computes: five
-// (F, H, W) planes, frame f from camera row f. K1e reads rec_layout(K, 8)
+// (F, H, W) planes, frame f from camera row f. K1d computes what the K1a /
+// K1b call computes with entries=E, tbounds=B ((⌈H/32⌉, ⌈W/32⌉) int32 and f32):
+// pixel (px, py) of the traced window starts with the best t
+// B[py / 32, px / 32] and its stack at record E[py / 32, px / 32], where the
+// others start at 1e30 and the root. The tile index is taken in the window's
+// own pixel coordinates, before the row / column offsets into a larger frame
+// are added; 32 is the TPU kernel's tile and part of the function's meaning.
+// A pixel keeps only hits nearer than its tile's bound and reports t = the
+// bound, tri = −1 and a zero normal when it finds none (the callers in
+// render.py re-trace such pixels unbounded). K1e reads rec_layout(K, 8)
 // records (a 64-word header) where the others read rec_layout(K, 4). K1f
 // computes what stats=True adds there, in this kernel's own terms: the TPU
 // kernel shares one stack among the 1,024 rays of a tile and writes the
@@ -42,6 +52,13 @@
 //  * The traversal itself (traverse_core.cuh, shared with K2) reads only what
 //    a visit needs, orders children near-first by the ray's own slab entry
 //    distance and culls entries at or beyond the best t.
+//  * K1d prunes with the ordinary tests: the bound seeds the best t, so the
+//    slab test (tn < best) and the pop cull (key < best) drop what lies
+//    behind it from the first visit on, and the entry node skips the visits
+//    to the top of the tree that every ray of the tile would make. A block
+//    of 8×8 pixels lies in one tile, so its threads read one bound and one
+//    entry. The kernels without bounds are instantiations of their own
+//    (kBounded false) and compile to what they were.
 //  * K1c is one launch over a grid of (⌈W/8⌉, ⌈H/8⌉, F) blocks. The TPU
 //    kernel's tile queue spans all frames so that no frame's tail idles the
 //    chip; here the block scheduler does that: the slow blocks of one frame
@@ -91,11 +108,13 @@ __device__ __forceinline__ float subpixel_hash01(int px, int py, int seed) {
 enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSeed = 11,
               kRowOff = 12, kColOff = 13, kCamCols = 16 };
 
-// The primary ray of pixel (gx, gy) of the whole frame, traversed.
+// The primary ray of pixel (gx, gy) of the whole frame, traversed from
+// record `entry` with the best t `best_init` (the root and 1e30 but in K1d).
 template <int kSlots, bool kJitter, bool kVisits>
 __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, int recw,
                                                  int leaf_k, const Camera& cam, int seed,
-                                                 int gx, int gy) {
+                                                 int gx, int gy, float best_init = rt::kInf,
+                                                 int entry = 0) {
   float jx = 0.5f, jy = 0.5f;
   if (kJitter) {
     jx = subpixel_hash01(gx, gy, seed * 2);
@@ -122,7 +141,7 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
     dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
   }
   return rt::traverse_ray<kSlots, false, kVisits>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx,
-                                                  dy, dz);
+                                                  dy, dz, best_init, entry);
 }
 
 template <bool kVisits>
@@ -140,19 +159,31 @@ __device__ __forceinline__ void store_hit(const rt::Hit& hit, size_t p, float* _
   if (kVisits) visits_out[p] = (float)hit.visits;
 }
 
-template <int kSlots, bool kJitter, bool kVisits>
+constexpr int kTile = 32;  // pixels a side of the tile that shares a bound and an entry
+
+// kBounded (K1d): `tbounds` and `entries` are (⌈height/32⌉, tiles_x) tables of
+// the window's tiles; an entry outside [0, num_nodes) is clamped into it.
+template <int kSlots, bool kJitter, bool kVisits, bool kBounded>
 __global__ void __launch_bounds__(64)
 trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera cam,
                    int seed, int width, int height, int row_off, int col_off,
-                   float* __restrict__ t_out,
+                   const float* __restrict__ tbounds, const int* __restrict__ entries,
+                   int tiles_x, int num_nodes, float* __restrict__ t_out,
                    float* __restrict__ nx_out, float* __restrict__ ny_out,
                    float* __restrict__ nz_out, int* __restrict__ tri_out,
                    float* __restrict__ visits_out) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(qn, recw, leaf_k, cam, seed,
-                                                              px + col_off, py + row_off);
+  float best_init = rt::kInf;
+  int entry = 0;
+  if (kBounded) {
+    const int tile = (py / kTile) * tiles_x + px / kTile;
+    best_init = __ldg(tbounds + tile);
+    entry = min(max(__ldg(entries + tile), 0), num_nodes - 1);
+  }
+  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(
+      qn, recw, leaf_k, cam, seed, px + col_off, py + row_off, best_init, entry);
   store_hit<kVisits>(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out,
                      nz_out, tri_out, visits_out);
 }
@@ -180,17 +211,21 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 
 }  // namespace
 
-// Launch KERNEL<slots, jitter, visits> with the instantiation that the
-// run-time `slots` (4 or 8), `jitter` and `visits` (a plane was given) name.
-#define RT_LAUNCH_JV(KERNEL, SLOTS, ...)                                      \
-  do {                                                                        \
-    if (jitter) {                                                             \
-      if (visits) KERNEL<SLOTS, true, true><<<grid, block, 0, s>>>(__VA_ARGS__);   \
-      else KERNEL<SLOTS, true, false><<<grid, block, 0, s>>>(__VA_ARGS__);    \
-    } else {                                                                  \
-      if (visits) KERNEL<SLOTS, false, true><<<grid, block, 0, s>>>(__VA_ARGS__);  \
-      else KERNEL<SLOTS, false, false><<<grid, block, 0, s>>>(__VA_ARGS__);   \
-    }                                                                         \
+// Launch KERNEL(slots, jitter, visits) — a macro that names a kernel template's
+// instantiation — with the one that the run-time `slots` (4 or 8), `jitter`
+// and `visits` (a plane was given) name.
+#define RT_TILES(S, J, V) trace_tiles_kernel<S, J, V, false>
+#define RT_TILES_BOUNDED(S, J, V) trace_tiles_kernel<S, J, V, true>
+#define RT_TILES_BATCH(S, J, V) trace_tiles_batch_kernel<S, J, V>
+#define RT_LAUNCH_JV(KERNEL, SLOTS, ...)                                           \
+  do {                                                                             \
+    if (jitter) {                                                                  \
+      if (visits) KERNEL(SLOTS, true, true)<<<grid, block, 0, s>>>(__VA_ARGS__);   \
+      else KERNEL(SLOTS, true, false)<<<grid, block, 0, s>>>(__VA_ARGS__);         \
+    } else {                                                                       \
+      if (visits) KERNEL(SLOTS, false, true)<<<grid, block, 0, s>>>(__VA_ARGS__);  \
+      else KERNEL(SLOTS, false, false)<<<grid, block, 0, s>>>(__VA_ARGS__);        \
+    }                                                                              \
   } while (0)
 #define RT_LAUNCH(KERNEL, ...)                                  \
   do {                                                          \
@@ -200,26 +235,38 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 
 // Launch K1a (jitter = 0) or K1b (jitter != 0, subpixel seed `seed`) on
 // `stream`; with slots = 8 the same on 8-wide records (K1e); with a `visits`
-// plane, K1f. qnodes: (M, recw) f32, 16-byte aligned rows of `slots` (4 or 8)
-// child slots; outputs: (height, width) planes of the window at (row_off,
-// col_off) of a rg_width × rg_height frame (focal and aspect are the
-// frame's); visits: a sixth f32 plane or null. Returns cudaGetLastError()
+// plane, K1f; with `tbounds` and `entries`, K1d: both null, or both device
+// tables of (⌈height/32⌉, ⌈width/32⌉) f32 / int32, the start values of each
+// 32×32-pixel tile of the window. qnodes: (num_nodes, recw) f32, 16-byte
+// aligned rows of `slots` (4 or 8) child slots; outputs: (height, width)
+// planes of the window at (row_off, col_off) of a rg_width × rg_height frame
+// (focal and aspect are the frame's); visits: a sixth f32 plane or null.
+// Returns cudaGetLastError()
 // after the launch (0 on success, or cudaErrorInvalidValue for another slot
-// count); synchronises nothing.
-extern "C" int rt_trace_tiles(const float* qnodes, int recw, int leaf_k, int slots, float ox,
-                              float oy, float oz, float qx, float qy, float qz, float qw,
+// count or only one of the two tables); synchronises nothing.
+extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int leaf_k,
+                              int slots, float ox, float oy, float oz, float qx, float qy,
+                              float qz, float qw,
                               float focal, float aspect, int rg_width, int rg_height,
                               int row_off, int col_off, int width, int height, int jitter,
-                              int seed, float* t, float* nx, float* ny, float* nz, int* tri,
-                              float* visits, void* stream) {
+                              int seed, const float* tbounds, const int* entries, float* t,
+                              float* nx, float* ny, float* nz, int* tri, float* visits,
+                              void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
+  if ((tbounds == nullptr) != (entries == nullptr)) return (int)cudaErrorInvalidValue;
   const Camera cam{ox, oy, oz, qx, qy, qz, qw, focal, aspect,
                    (float)rg_width, (float)rg_height};
   const dim3 block(8, 8);
   const dim3 grid((width + 7) / 8, (height + 7) / 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_LAUNCH(trace_tiles_kernel, qnodes, recw, leaf_k, cam, seed, width, height, row_off,
-            col_off, t, nx, ny, nz, tri, visits);
+  const int tiles_x = (width + kTile - 1) / kTile;
+  if (tbounds) {
+    RT_LAUNCH(RT_TILES_BOUNDED, qnodes, recw, leaf_k, cam, seed, width, height, row_off,
+              col_off, tbounds, entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
+  } else {
+    RT_LAUNCH(RT_TILES, qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off,
+              tbounds, entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -239,7 +286,7 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
   const dim3 block(8, 8);
   const dim3 grid((width + 7) / 8, (height + 7) / 8, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_LAUNCH(trace_tiles_batch_kernel, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz,
+  RT_LAUNCH(RT_TILES_BATCH, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz,
             tri, visits);
   return (int)cudaGetLastError();
 }

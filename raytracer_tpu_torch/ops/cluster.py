@@ -19,10 +19,10 @@ from ..utils.fp16 import pack_bounds_conservative
 from .collapse import LBVH2, LEAF_FLAG, collapse_lbvh2_to_bvh4, collapse_lbvh2_to_bvh8
 from .cuda.traverse import make_qnodes
 from .lbvh import _tri_bounds, from_ordered_key, ordered_key
-from .trace import make_wide_bvh
+from .trace import WideBVH, make_wide_bvh
 
 __all__ = ["ClusteredScene", "build_sah2_clustered", "refit_lbvh2_clustered", "tree_height",
-           "records_pipeline", "state_from_numpy"]
+           "records_pipeline", "wide_pipeline", "state_from_numpy"]
 
 
 class ClusteredScene(NamedTuple):
@@ -151,14 +151,12 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
     return ClusteredScene(bvh._replace(bounds_u32=bounds), tris_sorted, order, k)
 
 
-def records_pipeline(cs: ClusteredScene, *, height: int | None = None,
-                     width: int = 4) -> torch.Tensor:
-    """collapse → widen → supernode records (M, recw) f32 on the device of
-    ``cs.tris_sorted``, with ``width`` child slots per record: 4 through the
-    native collapse on the host, 8 through :func:`collapse_lbvh2_to_bvh8` on
-    that device. ``height`` (from :func:`build_sah2_clustered`) caps the
-    8-wide collapse's sweeps at ``height + 2``; without it the static bound
-    of a Karras tree is used."""
+def wide_pipeline(cs: ClusteredScene, *, height: int | None = None, width: int = 4) -> WideBVH:
+    """collapse → the wide tree with ``width`` child slots per node, on the
+    device of ``cs.tris_sorted``: 4 through the native collapse on the host,
+    8 through :func:`collapse_lbvh2_to_bvh8` on that device. ``height``
+    (from :func:`build_sah2_clustered`) caps the 8-wide collapse's sweeps at
+    ``height + 2``; without it the static bound of a Karras tree is used."""
     dev = cs.tris_sorted.device
     if width == 4:
         wide_bvh = collapse_lbvh2_to_bvh4(cs.bvh2)
@@ -170,5 +168,13 @@ def records_pipeline(cs: ClusteredScene, *, height: int | None = None,
                                           sweeps=None if height is None else height + 2)
     else:
         raise ValueError(f"records have 4 or 8 child slots, got width={width}")
-    return make_qnodes(make_wide_bvh(wide_bvh), cs.tris_sorted, tri_ids=cs.tri_order,
-                       leaf_size=cs.leaf_size)
+    return make_wide_bvh(wide_bvh)
+
+
+def records_pipeline(cs: ClusteredScene, *, height: int | None = None,
+                     width: int = 4) -> torch.Tensor:
+    """collapse → widen (:func:`wide_pipeline`) → supernode records (M, recw)
+    f32 on the device of ``cs.tris_sorted``, with ``width`` child slots per
+    record."""
+    return make_qnodes(wide_pipeline(cs, height=height, width=width), cs.tris_sorted,
+                       tri_ids=cs.tri_order, leaf_size=cs.leaf_size)

@@ -1,12 +1,13 @@
-"""Supernode records and their traversal: the CUDA kernels K1a/K1b/K1c/K1e/K1f
-(``csrc/traverse_tiles.cu``) and K2a/K2b/K2c (``csrc/traverse_rays.cu``),
+"""Supernode records and their traversal: the CUDA kernels
+K1a/K1b/K1c/K1d/K1e/K1f (``csrc/traverse_tiles.cu``) and K2a/K2b/K2c (``csrc/traverse_rays.cu``),
 their wrappers and their plain torch versions.
 
 Counterpart of ``raytracer_tpu/ops/pallas/traverse.py`` on 4-wide and 8-wide
 records: :func:`make_qnodes` builds the same records byte for byte;
 :func:`trace_tiles` computes what ``trace_tiles_pallas(qnodes, pos, quat, W,
 H, fov, leaf_k=K, jitter=…, jitter_seed=…)[:5]`` computes for one frame
-(K1a without jitter, K1b with it); :func:`trace_tiles_batch` what
+(K1a without jitter, K1b with it; K1d with ``entries=`` / ``tbounds=``, the
+per-tile entry nodes and depth bounds); :func:`trace_tiles_batch` what
 ``trace_tiles_batch_pallas(qnodes, pos (F,3), quat (F,4), W, H, fov,
 leaf_k=K, jitter=…, jitter_seeds=…)[:5]`` computes for F frames in one
 launch (K1c); :func:`trace_rays` what ``trace_rays_pallas(qnodes, origins,
@@ -14,14 +15,23 @@ dirs, any_hit=…, leaf_k=K)`` computes (K2a closest hit, K2b any hit). The
 wrappers recover the records' width from their row length
 (:func:`infer_rec_width`): on 8-wide records the tile kernels are K1e and
 the ray kernel K2c. ``stats=True`` on the tile entries adds a sixth plane,
-each pixel's count of records visited (K1f, at either width). All kernels
+each pixel's count of records visited (K1f, at either width).
+
+K1d's tiles are the TPU kernel's: 32×32 pixels (:data:`TILE`), indexed in
+the pixel coordinates of the traced window (before ``row_offset`` /
+``col_offset`` move it into a larger frame). A pixel starts with the best t
+``tbounds[py // 32, px // 32]`` and its stack at record ``entries[py // 32,
+px // 32]``; it keeps only hits nearer than the bound, and when it finds none
+it reports ``tri = −1``, a zero normal and ``t`` = the bound (1e30 where the
+tile has none). All kernels
 run the one per-ray traversal of ``csrc/traverse_core.cuh``, and all plain
 versions the one :func:`_traverse`.
 
 Launch counts (:data:`LAUNCHES`): a launch counts once, under the variant it
 ran. A tile launch with ``stats`` counts as ``trace_tiles_k1f`` whatever its
-width, jitter or frame count; without ``stats`` on 8-wide records as
-``trace_tiles_k1e`` (one frame or a batch, with or without jitter); on
+width, jitter, bounds or frame count; without ``stats``, with ``entries`` or
+``tbounds`` as ``trace_tiles_k1d`` (either width, with or without jitter);
+with neither, on 8-wide records as ``trace_tiles_k1e`` (one frame or a batch, with or without jitter); on
 4-wide records as ``trace_tiles_k1a`` / ``k1b`` / ``k1c``. A ray launch on
 8-wide records counts as ``trace_rays_k2c`` (closest or any hit), on 4-wide
 records as ``trace_rays_k2a`` / ``k2b``.
@@ -51,7 +61,7 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
            "trace_rays", "trace_rays_reference", "load_kernel", "TraversalCounts", "LAUNCHES",
-           "reset_launches", "EMPTY_REF"]
+           "reset_launches", "EMPTY_REF", "TILE"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -59,13 +69,14 @@ _LEAF_BIT = 1 << 30
 # rays traversed together by the plain version: bounds its (R, recw) gathers
 _REFERENCE_CHUNK = 1 << 16
 
+TILE = 32                 # pixels a side of the tile that shares a bound and an entry
 _MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
 _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
 # Launches of each kernel since its count was last set to 0; raised only
 # where a wrapper launches that kernel.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
-            "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
+            "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
             "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0}
 
 
@@ -223,9 +234,9 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
 
 _ARGTYPES = {
     "traverse_tiles.cu": {
-        "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 3
+        "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 4
                            + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p] * 7),
+                           + [ctypes.c_void_p] * 9),
         "rt_trace_tiles_batch": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                                  + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7),
     },
@@ -240,7 +251,7 @@ _ARGTYPES = {
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b/K1c/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
+    (K1a/K1b/K1c/K1d/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
     (library, nvcc log)."""
     from .build import build_library
 
@@ -252,20 +263,49 @@ def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-def _tile_launch_name(width: int, stats: bool, plain: str) -> str:
+def _tile_launch_name(width: int, stats: bool, plain: str, bounded: bool = False) -> str:
     """The launch count a tile launch is added to (module docstring)."""
     if stats:
         return "trace_tiles_k1f"
+    if bounded:
+        return "trace_tiles_k1d"
     return "trace_tiles_k1e" if width == 8 else plain
+
+
+def _tile_tables(entries, tbounds, nty: int, ntx: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (nty, ntx) tables K1d reads: ``entries`` (int32) padded with the
+    root (0) and ``tbounds`` (f32) with 1e30 (no bound), as the JAX package's
+    ``_tiles_call`` pads them; a missing one is all 0 / all 1e30. Both stay
+    on ``device``: nothing is read back."""
+    def table(a, dtype, fill, name):
+        if a is None:
+            return torch.full((nty, ntx), fill, dtype=dtype, device=device)
+        if not isinstance(a, torch.Tensor) or a.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D tensor of per-tile values")
+        if a.device != device:
+            raise ValueError(f"{name} on {a.device}, records on {device}")
+        ay, ax = a.shape
+        if ay > nty or ax > ntx:
+            raise ValueError(f"{name} of shape {(ay, ax)} exceeds the frame's "
+                             f"{nty} x {ntx} tiles of {TILE} pixels")
+        a = a.to(dtype)
+        if (ay, ax) != (nty, ntx):
+            a = torch.nn.functional.pad(a, (0, ntx - ax, 0, nty - ay), value=fill)
+        return a.contiguous()
+
+    return (table(entries, torch.int32, 0, "entries"),
+            table(tbounds, torch.float32, INF, "tbounds"))
 
 
 def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int,
                 fov_degrees: float = 70.0, leaf_k: int = 1,
                 raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
                 col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0,
-                stats: bool = False):
-    """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W):
-    t is 1e30 and the normal 0 on a miss, tri (int32) is −1. ``stats``
+                stats: bool = False, entries: torch.Tensor | None = None,
+                tbounds: torch.Tensor | None = None):
+    """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W): on a
+    miss the normal is 0, tri (int32) is −1 and t is 1e30, or under
+    ``tbounds`` its tile's bound. ``stats``
     appends a sixth plane (f32, integer-valued): the records each pixel's
     ray visited — stack pops that passed the cull against its best t. The
     plane is defined by this kernel (one stack per ray; the TPU kernel
@@ -277,17 +317,35 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     ray from the pixel centre to the ``subpixel_hash01`` offsets of
     ``jitter_seed`` (an int in [0, 2^24)).
 
+    ``entries`` (int32) and ``tbounds`` (f32) are per-tile start values,
+    tensors of up to (⌈H/32⌉, ⌈W/32⌉) on the records' device, smaller ones
+    padded with the root (0) and no bound (1e30); giving either runs K1d.
+    The pixels of tile (ty, tx) of the window start at record ``entries[ty,
+    tx]`` (an index into ``qnodes``; the caller guarantees that no ray of the
+    tile has its nearest hit outside that subtree) and keep only hits with
+    t < ``tbounds[ty, tx]``: a hit that is found is the ray's nearest, and a
+    pixel that finds none returns t = the bound, so a caller that needs the
+    exact image re-traces the pixels with ``tri < 0`` under a finite bound
+    (:func:`raytracer_tpu_torch.render.trace_tiles_bounded`). They are read
+    on the device: no value comes back to the host.
+
     For records on a CUDA device launches K1a (K1b with ``jitter``) on
-    4-wide records, K1e on 8-wide records, K1f with ``stats``; runs the plain
-    version for records on the CPU; raises for any other device."""
+    4-wide records, K1e on 8-wide records, K1d with ``entries`` or
+    ``tbounds``, K1f with ``stats``; runs the plain version for records on
+    the CPU; raises for any other device."""
     qn, slots = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
+    bounded = entries is not None or tbounds is not None
+    if bounded:
+        entries, tbounds = _tile_tables(entries, tbounds, -(-height // TILE),
+                                        -(-width // TILE), qn.device)
     if qn.device.type == "cpu":
         pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
                                        leaf_k, pixels=pixels, jitter=jitter,
-                                       jitter_seed=seed, stats=stats)
+                                       jitter_seed=seed, stats=stats, entries=entries,
+                                       tbounds=tbounds, tile_origin=(row_offset, col_offset))
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
@@ -300,11 +358,13 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_tiles(
-            qn.data_ptr(), qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
+            qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
             rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
+            tbounds.data_ptr() if bounded else None, entries.data_ptr() if bounded else None,
             *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
             planes[4].data_ptr() if stats else None, stream)
-    name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a")
+    name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a",
+                             bounded)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -315,14 +375,19 @@ def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
                           height: int, fov_degrees: float = 70.0, leaf_k: int = 1,
                           pixels: torch.Tensor | None = None, jitter: bool = False,
                           jitter_seed: int = 0, counts: "TraversalCounts | None" = None,
-                          stats: bool = False):
-    """The plain torch version of K1a/K1b/K1e (and of K1f with ``stats``):
-    the same rays, visit order, culling and stack-drop rule, vectorized over
-    chunks of rays, at either record width.
+                          stats: bool = False, entries: torch.Tensor | None = None,
+                          tbounds: torch.Tensor | None = None,
+                          tile_origin: tuple[int, int] = (0, 0)):
+    """The plain torch version of K1a/K1b/K1d/K1e (and of K1f with
+    ``stats``): the same rays, visit order, culling and stack-drop rule,
+    vectorized over chunks of rays, at either record width.
 
     ``pixels`` (flat indices py·W + px) traces only those pixels and returns
     (P,) planes; without it, (H, W) planes of the whole image. ``counts``
-    adds up the work of the traversal (:class:`TraversalCounts`)."""
+    adds up the work of the traversal (:class:`TraversalCounts`).
+    ``entries`` / ``tbounds`` are K1d's per-tile start values
+    (:func:`trace_tiles`); tile (0, 0) begins at pixel ``tile_origin`` (row,
+    column) of the frame, the offset of the window whose tiles they are."""
     qn, _ = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     dev = qn.device
@@ -335,7 +400,15 @@ def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
         jx, jy = subpixel_hash01(px, py, 2 * seed), subpixel_hash01(px, py, 2 * seed + 1)
     d = primary_dirs(px, py, width, height, quat, fov_degrees, jx, jy)
     o = torch.tensor(pos, dtype=torch.float32, device=dev).expand(pix.numel(), 3)
-    planes = _traverse_chunks(qn, o, d, leaf_k, False, counts, stats)
+    best0 = entry = None
+    if entries is not None or tbounds is not None:
+        row0, col0 = tile_origin
+        entries, tbounds = _tile_tables(entries, tbounds, -(-(height - row0) // TILE),
+                                        -(-(width - col0) // TILE), dev)
+        ty, tx = (py - row0) // TILE, (px - col0) // TILE
+        best0 = tbounds[ty, tx]
+        entry = entries[ty, tx].long().clamp(0, qn.shape[0] - 1)
+    planes = _traverse_chunks(qn, o, d, leaf_k, False, counts, stats, best0, entry)
     if pixels is None:
         return tuple(p.reshape(height, width) for p in planes)
     return planes
@@ -568,9 +641,11 @@ class TraversalCounts:
 
 
 def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
-                     any_hit: bool, counts: TraversalCounts | None, stats: bool = False):
+                     any_hit: bool, counts: TraversalCounts | None, stats: bool = False,
+                     best0: torch.Tensor | None = None, entry: torch.Tensor | None = None):
     """:func:`_traverse` over chunks of rays → (t, nx, ny, nz, tri) (R,),
-    and with ``stats`` the visits (R,) as f32."""
+    and with ``stats`` the visits (R,) as f32. ``best0`` / ``entry`` (R,):
+    each ray's start values (K1d)."""
     dev = qn.device
     r = d.shape[0]
     outs = [torch.empty((r,), dtype=torch.float32, device=dev) for _ in range(4)]
@@ -578,7 +653,9 @@ def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k:
     visits = torch.empty((r,), dtype=torch.float32, device=dev)
     for a in range(0, r, _REFERENCE_CHUNK):
         b = min(a + _REFERENCE_CHUNK, r)
-        t_c, n_c, tri_c, visits_c = _traverse(qn, o[a:b], d[a:b], leaf_k, any_hit, counts)
+        t_c, n_c, tri_c, visits_c = _traverse(
+            qn, o[a:b], d[a:b], leaf_k, any_hit, counts,
+            None if best0 is None else best0[a:b], None if entry is None else entry[a:b])
         outs[0][a:b] = t_c
         outs[1][a:b], outs[2][a:b], outs[3][a:b] = n_c.unbind(-1)
         tri[a:b] = tri_c
@@ -587,27 +664,34 @@ def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k:
 
 
 def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
-              any_hit: bool = False, counts: TraversalCounts | None = None):
+              any_hit: bool = False, counts: TraversalCounts | None = None,
+              best0: torch.Tensor | None = None, entry: torch.Tensor | None = None):
     """Per-ray traversal of the w-wide records (w = 4 or 8, from the row
     length) from origins ``o`` and directions ``d`` (R, 3), one stack pop per
     ray and step → (t (R,), normal (R,3), tri (R,) int32, visits (R,)
     int32: the pops that passed the cull). Closest hit keeps the first
     minimum in visit order; ``any_hit`` stops a ray at its first accepted
     triangle in visit order with t = 0. A visit may push up to w entries;
-    pushes beyond the 64-entry stack are dropped."""
+    pushes beyond the 64-entry stack are dropped. A ray starts with the best
+    t ``best0`` (1e30 without it: no bound) and its stack at record ``entry``
+    (the root without it), pushed with key 0; t of a ray that finds no hit
+    is its ``best0``."""
     dev = qn.device
     r = d.shape[0]
     w = infer_rec_width(leaf_k, qn.shape[1])
     wk = w * leaf_k
     vbase, ibase, _ = rec_layout(leaf_k, w)
     inv = safe_inv_dir(d)
-    best = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    best = (torch.full((r,), INF, dtype=torch.float32, device=dev) if best0 is None
+            else best0.to(torch.float32).clone())
     nrm = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     visits = torch.zeros((r,), dtype=torch.int32, device=dev)
     stack_n = torch.zeros((r, STACK_MAX), dtype=torch.int64, device=dev)
     stack_d = torch.zeros((r, STACK_MAX), dtype=torch.float32, device=dev)
-    sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # the root is entry 0
+    if entry is not None:
+        stack_n[:, 0] = entry
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # entry 0: the start record
     lanes = torch.arange(leaf_k, device=dev, dtype=torch.float32)
     if counts is not None:
         counts.start(r, w)

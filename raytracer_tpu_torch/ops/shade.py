@@ -14,8 +14,8 @@ import torch
 
 from .camera import to_device
 
-__all__ = ["triangle_normals", "shade_lambert", "quantize_rgba8", "present_frame",
-           "MISS_COLOR"]
+__all__ = ["triangle_normals", "shade_lambert", "quantize_rgba8", "downscale_rgb8",
+           "present_frame", "MISS_COLOR"]
 
 _LIGHT_DIR = (1.0, 1.5, 1.0)
 _BASE_COLOR = (0.9, 0.7, 0.3)
@@ -47,6 +47,17 @@ def quantize_rgba8(rgb: torch.Tensor) -> torch.Tensor:
     q = torch.round(torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
     alpha = torch.full(q.shape[:-1] + (1,), 255, dtype=torch.uint8, device=q.device)
     return torch.cat([q, alpha], dim=-1)
+
+
+def downscale_rgb8(rgb: torch.Tensor, scale: int) -> torch.Tensor:
+    """(H, W, 3) f32 in [0, 1] → (H // scale, W // scale, 3) uint8 by a box
+    filter, on the image's device, so that a consumer bound by the transfer
+    pulls scale² times fewer pixels. Trailing rows and columns that do not
+    fill a box are dropped."""
+    h, w = rgb.shape[0] - rgb.shape[0] % scale, rgb.shape[1] - rgb.shape[1] % scale
+    a = rgb[:h, :w].reshape(h // scale, scale, w // scale, scale, 3)
+    m = a.mean(dim=(1, 3))
+    return torch.round(torch.clamp(m, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
 def present_frame(ldr_u8: torch.Tensor) -> torch.Tensor:

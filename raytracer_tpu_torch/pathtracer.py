@@ -9,7 +9,10 @@ topology: refit → the collapse plan's gather → wide nodes → records, all o
 ``device`` (the ``"collapse"`` widener; any other rebuilds). Then:
 
 * ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
-  ``render_presented``'s tonemap;
+  ``render_presented``'s tonemap; ``render_stream`` box-filters the same
+  frame down on the device. With ``use_tile_entries`` set (off by default,
+  as in the JAX package) the frame's tiles start at the entry nodes of
+  ``ops.cuda.entry.compute_tile_entries`` through K1d;
 * ``render_progressive(bounces)``: one path-traced sample
   (``render_pt.pt_sample_frame``: the jittered camera wave through K1b,
   bounce waves through K2a, shadow rays through K2b) added to a running
@@ -42,14 +45,17 @@ import torch
 
 from .io import artifacts
 from .models.scene import Scene
-from .ops.camera import generate_rays, generate_rays_jittered
-from .ops.cluster import (build_sah2_clustered, records_pipeline, refit_lbvh2_clustered,
-                          state_from_numpy, tree_height)
+from .ops.camera import generate_rays_jittered
+from .ops.cluster import (build_sah2_clustered, refit_lbvh2_clustered, state_from_numpy,
+                          tree_height, wide_pipeline)
 from .ops.collapse import (LBVH2, bvh2_as_bvh4, collapse_apply_refit, collapse_plan,
                            promote_lbvh2_to_bvh4_wide)
-from .ops.cuda.traverse import make_qnodes, trace_tiles
-from .ops.shade import present_frame, quantize_rgba8, shade_lambert, triangle_normals
+from .ops.cuda.entry import compute_tile_entries
+from .ops.cuda.traverse import TILE, make_qnodes, trace_tiles
+from .ops.shade import (downscale_rgb8, present_frame, quantize_rgba8, shade_lambert,
+                        triangle_normals)
 from .ops.trace import make_wide_bvh, trace_rays_brute
+from .render import render_ldr_brute
 from .render_pt import accumulate, pt_sample_frame
 
 __all__ = ["PathTracer"]
@@ -103,6 +109,8 @@ class PathTracer:
         self.camera_quaternion = [0.0, 0.0, 0.0, 1.0]
         self.fov_degrees = 70.0
         self.frame_count = 0
+        # start each tile of render()'s frame at its entry node (K1d)
+        self.use_tile_entries = False
         self._accum: torch.Tensor | None = None
         self._accum_sig = None
 
@@ -112,6 +120,7 @@ class PathTracer:
         self._bvh2_height: int | None = None
         self._collapse_plan = None
         self._qnodes: torch.Tensor | None = None
+        self._wide = None  # the records' WideBVH, made when tile entries are first asked for
         self.build_stats: dict = {}
 
     # -- lifecycle -------------------------------------------------------------
@@ -136,7 +145,7 @@ class PathTracer:
             tris = tris.reshape(-1, 3, 3)
         self.triangles_data = tris
         self._tris_dev = torch.from_numpy(tris).to(self.device)
-        self._cluster = self._qnodes = self._bvh2_height = None
+        self._cluster = self._qnodes = self._bvh2_height = self._wide = None
         self._collapse_plan = None  # new topology → new plan (refit_bvh)
         n = len(tris)
         if n <= _BRUTE_FORCE_MAX_TRIS:
@@ -199,6 +208,7 @@ class PathTracer:
             torch.cuda.synchronize(self.device)
         stats["refit_ms"] = (time.perf_counter() - t0) * 1e3
         self._cluster = cs
+        self._wide = None
         self.triangles_data = tris
         self._tris_dev = tris_dev
         self.build_stats = {**self.build_stats, **stats}
@@ -208,18 +218,31 @@ class PathTracer:
         widen = {"promote": promote_lbvh2_to_bvh4_wide, "bvh2": bvh2_as_bvh4}[self.widener]
         return widen(LBVH2(*(a.to(self.device) for a in bvh2)))
 
+    def _make_wide(self):
+        """The cluster tree through the configured widener → its WideBVH."""
+        if self.widener in ("collapse", "collapse8"):
+            return wide_pipeline(self._cluster, height=self._bvh2_height,
+                                 width=8 if self.widener == "collapse8" else 4)
+        return make_wide_bvh(self._widen(self._cluster.bvh2))
+
     def _records(self) -> None:
         """The records of the cluster tree through the configured widener
         (shared by ``build_bvh`` and ``load_checkpoint``)."""
         cs = self._cluster
-        if self.widener in ("collapse", "collapse8"):
-            self._qnodes = records_pipeline(cs, height=self._bvh2_height,
-                                            width=8 if self.widener == "collapse8" else 4)
-        else:
-            self._qnodes = make_qnodes(make_wide_bvh(self._widen(cs.bvh2)), cs.tris_sorted,
-                                       tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
+        self._wide = None
+        self._qnodes = make_qnodes(self._make_wide(), cs.tris_sorted, tri_ids=cs.tri_order,
+                                   leaf_size=cs.leaf_size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _wide_bvh(self):
+        """The wide tree of the current records, for the tile entries. The
+        default path keeps only the records, so the tree is made again (and
+        kept until the next build or refit) when entries are first asked
+        for."""
+        if self._wide is None:
+            self._wide = self._make_wide()
+        return self._wide
 
     # -- rendering ---------------------------------------------------------------
 
@@ -236,15 +259,16 @@ class PathTracer:
         w, h = self.width, self.height
         self._require_records()
         if self._brute():
-            o, d = generate_rays(w, h, self.camera_position, self.camera_quaternion,
-                                 self.fov_degrees, device=self.device)
-            t, tri = trace_rays_brute(self._tris_dev, o.reshape(-1, 3), d.reshape(-1, 3))
-            t, tri = t.reshape(h, w), tri.reshape(h, w)
-            rgb = shade_lambert(triangle_normals(self._tris_dev, tri), tri >= 0)
-            return rgb, t, tri
+            return render_ldr_brute(self._tris_dev, self.camera_position,
+                                    self.camera_quaternion, w, h, self.fov_degrees)
+        entries = None
+        if self.use_tile_entries:
+            entries = compute_tile_entries(self._wide_bvh(), self.camera_position,
+                                           self.camera_quaternion, w, h, tile=TILE,
+                                           fov_degrees=self.fov_degrees)
         t, nx, ny, nz, tri = trace_tiles(
             self._qnodes, self.camera_position, self.camera_quaternion, w, h,
-            self.fov_degrees, leaf_k=self.leaf_size)
+            self.fov_degrees, leaf_k=self.leaf_size, entries=entries)
         rgb = shade_lambert(torch.stack([nx, ny, nz], dim=-1), tri >= 0)
         return rgb, t, tri
 
@@ -256,6 +280,13 @@ class PathTracer:
     def render_presented(self) -> torch.Tensor:
         """render() + the tonemap present pass."""
         return present_frame(self.render())
+
+    def render_stream(self, scale: int = 2) -> torch.Tensor:
+        """One frame → (H // scale, W // scale, 3) uint8, box-filtered on
+        ``device``: a viewer that pulls frames over a slow link transfers
+        scale²·4/3 times fewer bytes than the rgba8 frame."""
+        rgb, _, _ = self._render_planes()
+        return downscale_rgb8(rgb, int(scale))
 
     # -- progressive path tracing --------------------------------------------------
 

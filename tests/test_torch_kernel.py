@@ -1,6 +1,6 @@
 """The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K1c
-``trace_tiles_batch``, K2a/K2b ``trace_rays``; K1e and K2c on 8-wide
-records, K1f with ``stats``), their build, each kernel against its plain
+``trace_tiles_batch``, K2a/K2b ``trace_rays``; K1d with ``entries`` /
+``tbounds``, K1e and K2c on 8-wide records, K1f with ``stats``), their build, each kernel against its plain
 torch version, and the refit chain on the card against the same chain on
 the CPU.
 
@@ -15,8 +15,10 @@ Tolerances: the traversal rule of ``torch_parity`` for closest hit (K1a,
 K1b, K1c, K1e, K2a, K2c); the occlusion mask equal on every ray for any hit
 (K2b, K2c); K1c's frames bit-equal to K1a's (K1b's); K1f's visits plane
 equal to the plain version's on every ray whose triangle agrees, and its
-five other planes bit-equal to the kernel's without ``stats``; the refit
-chain's records byte-equal.
+five other planes bit-equal to the kernel's without ``stats``; K1d by the
+closest-hit rule on its hits, with t = its tile's bound exactly where it finds
+none, and the bounded and temporal traces bit-equal to the unbounded kernel;
+the refit chain's records byte-equal.
 """
 
 import numpy as np
@@ -24,14 +26,16 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.ops.camera import generate_rays_jittered
+from raytracer_tpu_torch import render
 from raytracer_tpu_torch.ops.cluster import (build_sah2_clustered, records_pipeline,
-                                             refit_lbvh2_clustered)
+                                             refit_lbvh2_clustered, wide_pipeline)
 from raytracer_tpu_torch.ops.collapse import LBVH2, collapse_apply_refit, collapse_plan
 from raytracer_tpu_torch.ops.cuda import build, traverse
+from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
 from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.ops.trace import moller_trumbore
 from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, ray_buffer,
-                          room_scene, seeded_scene)
+                          room_scene, seeded_scene, tile_bounds)
 
 SUN = (np.float32([1.0, 1.5, 1.0]) / np.linalg.norm([1.0, 1.5, 1.0])).astype(np.float32)
 
@@ -254,13 +258,19 @@ def test_cpu_records8_run_the_plain_version():
                                              leaf_k=8, stats=stats)
         assert len(planes) == (6 if stats else 5)
         assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+    bounded = traverse.trace_tiles(qn, (0.0, 0.1, 2.2), CAM_QUAT, 32, 24, FOV, leaf_k=8,
+                                   tbounds=torch.full((1, 1), 2.0))
+    ref = traverse.trace_tiles_reference(qn, (0.0, 0.1, 2.2), CAM_QUAT, 32, 24, FOV, leaf_k=8,
+                                         tbounds=torch.full((1, 1), 2.0))
+    assert all(torch.equal(a, b) for a, b in zip(bounded, ref))
+    assert bool((bounded[0] <= 2.0).all()) and bool((bounded[0][bounded[4] < 0] == 2.0).all())
     for any_hit in (False, True):
         rays = traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=8)
         ref = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=8)
         assert all(torch.equal(a, b) for a, b in zip(rays, ref))
     assert traverse.LAUNCHES == before
     assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
-                           "trace_tiles_k1e", "trace_tiles_k1f", "trace_rays_k2a",
+                           "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f", "trace_rays_k2a",
                            "trace_rays_k2b", "trace_rays_k2c"}
 
 
@@ -516,6 +526,100 @@ def test_visits_kernel_matches_reference_on_card(cuda_device, width):
     single = traverse.trace_tiles(qn, BATCH_POS[2], BATCH_QUAT[2], w, h, FOV, leaf_k=k,
                                   jitter=True, jitter_seed=BATCH_SEEDS[2], stats=True)
     assert all(torch.equal(b[2], s) for b, s in zip(batch, single))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("jitter", [False, True])
+def test_bounded_kernel_matches_reference_on_card(cuda_device, width, jitter):
+    """K1d against its plain version on the card, under seeded bounds (tiles
+    without a bound, generous ones, underestimates) and the tree's entries, at
+    a size 32 does not divide: the traversal rule on the rays both hit, t =
+    the tile's bound and a zero normal where neither does; one K1d launch and
+    no other; all-1e30 bounds and root entries give K1a's (K1b's) planes."""
+    tris = seeded_scene(4)
+    w, h, k, seed = 200, 150, 8, 77
+    pos = CAM_POS
+    cs, height = build_sah2_clustered(tris, k, cuda_device)
+    qn = records_pipeline(cs, height=height, width=width)
+    kw = dict(leaf_k=k, jitter=jitter, jitter_seed=seed)
+    free = traverse.trace_tiles(qn, pos, CAM_QUAT, w, h, FOV, **kw)
+    bounds, kinds = tile_bounds(free[0].cpu().numpy(), free[4].cpu().numpy())
+    assert set(kinds.reshape(-1).tolist()) == {0, 1, 2}
+    entries = compute_tile_entries(wide_pipeline(cs, height=height, width=width), pos, CAM_QUAT,
+                                   w, h, fov_degrees=FOV)
+    assert entries.device.type == "cuda" and int((entries != 0).sum()) > 0
+    tb = torch.from_numpy(bounds).to(cuda_device)
+    before = dict(traverse.LAUNCHES)
+    ours = traverse.trace_tiles(qn, pos, CAM_QUAT, w, h, FOV, **kw, entries=entries, tbounds=tb)
+    torch.cuda.synchronize()
+    assert launched(before) == {"trace_tiles_k1d": 1}
+    ref = traverse.trace_tiles_reference(qn, pos, CAM_QUAT, w, h, FOV, **kw, entries=entries,
+                                         tbounds=tb)
+    ours, ref = [p.cpu() for p in ours], [p.cpu() for p in ref]
+    assert torch.equal(ours[4] >= 0, ref[4] >= 0)
+    miss = ours[4] < 0
+    bpix = torch.from_numpy(np.repeat(np.repeat(bounds, 32, 0), 32, 1)[:h, :w])
+    assert torch.equal(ours[0][miss], bpix[miss]) and torch.equal(ref[0][miss], bpix[miss])
+    cut = int(((free[4].cpu() >= 0) & miss).sum())
+    assert cut > 0, "setup: an underestimate must cut some hits"
+    # the rule on the hits; on the others t is the bound, checked above
+    for planes in (ours, ref):
+        planes[0] = torch.where(miss, torch.full_like(planes[0], 1e30), planes[0])
+    if jitter:
+        dirs = generate_rays_jittered(w, h, pos, CAM_QUAT, seed, FOV, device="cpu")[1]
+    else:
+        dirs = image_dirs(w, h)
+    assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                        dirs.reshape(-1, 3), origins=pos)
+    same = traverse.trace_tiles(qn, pos, CAM_QUAT, w, h, FOV, **kw,
+                                entries=torch.zeros_like(entries),
+                                tbounds=torch.full_like(tb, 1e30))
+    assert all(torch.equal(a, b) for a, b in zip(same, free))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_bounded_and_temporal_traces_equal_the_kernel_on_card(cuda_device, width):
+    """trace_tiles_bounded (default and halved bounds, with entries) and
+    trace_tiles_temporal over successive seeds on the card: all five planes
+    bit-equal to the unbounded kernel's, which holds only if the repair's rays
+    are the kernel's rays bit for bit; launches 1 probe + 1 K1d + 1 repair;
+    no host-device synchronisation."""
+    tris = seeded_scene(4)
+    w, h, k = 320, 200, 8
+    near = (0.0, 0.0, 1.3)
+    cs, height = build_sah2_clustered(tris, k, cuda_device)
+    qn = records_pipeline(cs, height=height, width=width)
+    entries = compute_tile_entries(wide_pipeline(cs, height=height, width=width), near,
+                                   CAM_QUAT, w, h, fov_degrees=FOV)
+    probe, repair = (("trace_tiles_k1e", "trace_rays_k2c") if width == 8
+                     else ("trace_tiles_k1a", "trace_rays_k2a"))
+    free = traverse.trace_tiles(qn, near, CAM_QUAT, w, h, FOV, leaf_k=k)
+    for knobs in ({}, dict(_bound_scale=0.5, _bound_pad=0.0)):
+        before = dict(traverse.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = render.trace_tiles_bounded(qn, near, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                             entries=entries, **knobs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert launched(before) == {probe: 1, "trace_tiles_k1d": 1, repair: 1}
+        assert all(torch.equal(a, b) for a, b in zip(out[:5], free))
+        assert int(out[5]) > 0 or not knobs, "halved bounds must force repairs"
+    prev = traverse.trace_tiles(qn, near, CAM_QUAT, w, h, FOV, leaf_k=k, jitter=True,
+                                jitter_seed=1)
+    for seed in (2, 3, 4):
+        want = traverse.trace_tiles(qn, near, CAM_QUAT, w, h, FOV, leaf_k=k, jitter=True,
+                                    jitter_seed=seed)
+        before = dict(traverse.LAUNCHES)
+        out = render.trace_tiles_temporal(qn, near, CAM_QUAT, w, h, prev[0], prev[4], seed, FOV,
+                                          leaf_k=k)
+        torch.cuda.synchronize()
+        assert launched(before) == {"trace_tiles_k1d": 1, repair: 1}
+        assert all(torch.equal(a, b) for a, b in zip(out[:5], want)), f"seed {seed}"
+        prev = out
 
 
 def refit_chain_records(tris: np.ndarray, device, k: int = 8) -> list[torch.Tensor]:

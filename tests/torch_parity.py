@@ -11,6 +11,12 @@ camera origin or from per-ray origins:
 * t within rtol 1e-5 on hits, exactly 1e30 on misses;
 * normals unit within 1e-4 on hits and zero on misses, and within atol 1e-5
   of the reference's.
+
+Under per-tile depth bounds (K1d) a ray that finds no hit below its tile's
+bound reports tri = −1, a zero normal and t = the bound:
+:func:`tile_bounds` makes such bounds from a seed and
+:func:`expected_under_bounds` says what an unbounded image becomes under
+them.
 """
 
 import numpy as np
@@ -19,7 +25,7 @@ import torch
 from raytracer_tpu_torch.models.scene import Scene
 from raytracer_tpu_torch.ops.camera import INF, primary_dirs
 from raytracer_tpu_torch.ops.cuda.traverse import trace_rays_reference
-from raytracer_tpu_torch.ops.trace import moller_trumbore
+from raytracer_tpu_torch.ops.trace import WideBVH, moller_trumbore
 from raytracer_tpu_torch.render_pt import _cosine_sample
 from raytracer_tpu_torch.utils import procgen
 
@@ -91,6 +97,67 @@ def ray_buffer(qnodes: torch.Tensor, leaf_k: int, n: int, seed: int = SEED):
     origins = np.concatenate([p[hit], oo]).astype(np.float32)
     dirs = np.concatenate([bd[hit], od]).astype(np.float32)
     return origins, dirs
+
+
+def wide_from_numpy(arrays, device="cpu") -> WideBVH:
+    """The five arrays of a wide tree of the JAX package, as numpy and in its
+    field order (cmn, cmx, cref, root_mn, root_mx) → the port's ``WideBVH`` on
+    ``device``: both packages then compute on one tree."""
+    cmn, cmx, cref, root_mn, root_mx = (np.array(a) for a in arrays)
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return WideBVH(f32(cmn), f32(cmx), torch.from_numpy(cref.astype(np.int32)).to(device),
+                   f32(root_mn), f32(root_mx))
+
+
+TILE = 32
+BOUND_KINDS = ("none", "generous", "under")
+
+
+def tile_bounds(t, tri, seed: int = SEED):
+    """Per-tile depth bounds for an image whose unbounded (H, W) planes are
+    ``t`` and ``tri`` → (bounds (⌈H/32⌉, ⌈W/32⌉) f32, kinds (same shape) as
+    indices into BOUND_KINDS), from ``seed``. A tile gets no bound (1e30), a
+    generous one (1.5 × its farthest hit + 0.1: cuts nothing) or an
+    underestimate (halfway between its nearest and farthest hit: cuts the
+    farther hits). The first three tiles take the three kinds in turn, so
+    every kind occurs; a tile without a hit never gets "under"."""
+    t, tri = np.asarray(t, np.float32), np.asarray(tri)
+    h, w = t.shape
+    nty, ntx = -(-h // TILE), -(-w // TILE)
+    rng = np.random.default_rng(seed)
+    kinds = rng.integers(0, 3, size=(nty, ntx))
+    kinds.reshape(-1)[:3] = (0, 1, 2)
+    bounds = np.full((nty, ntx), INF, np.float32)
+    for ty in range(nty):
+        for tx in range(ntx):
+            blk = (slice(ty * TILE, (ty + 1) * TILE), slice(tx * TILE, (tx + 1) * TILE))
+            hits = t[blk][tri[blk] >= 0]
+            if hits.size == 0:
+                kinds[ty, tx] = min(kinds[ty, tx], 1)
+                hits = np.float32([1.0])
+            if kinds[ty, tx] == 1:
+                bounds[ty, tx] = hits.max() * np.float32(1.5) + np.float32(0.1)
+            elif kinds[ty, tx] == 2:
+                bounds[ty, tx] = np.float32(0.5) * (hits.min() + hits.max())
+    return bounds, kinds
+
+
+def expected_under_bounds(planes, bounds: np.ndarray):
+    """What the unbounded (t, nx, ny, nz, tri) planes (H, W) become under the
+    per-tile ``bounds``: a pixel whose hit is not nearer than its tile's
+    bound reports no hit, a zero normal and t = the bound."""
+    t, nx, ny, nz, tri = (np.asarray(p).copy() for p in planes)
+    h, w = t.shape
+    bpix = np.repeat(np.repeat(bounds, TILE, 0), TILE, 1)[:h, :w]
+    cut = ~((tri >= 0) & (t < bpix))
+    t[cut] = bpix[cut]
+    for n in (nx, ny, nz):
+        n[cut] = 0.0
+    tri[cut] = -1
+    return t, nx, ny, nz, tri
 
 
 def image_dirs(w: int, h: int, quat=CAM_QUAT) -> torch.Tensor:
