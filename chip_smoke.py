@@ -9,14 +9,19 @@ Phases, each printing what it measures; the first failure exits non-zero:
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
-   kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu) and the
-   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu), with their seconds
+   kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu), the
+   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu) and the
+   microbenchmark kernels MB1–MB4 (csrc/microbench.cu), with their seconds
    and the ptxas registers, stack frame and spills of every instantiation
-   (child slots × jitter × visits × bounds, any hit);
+   (child slots × jitter × visits × bounds, any hit; the microbenchmarks'
+   rows × chains × vector rounds and slots × record source);
 3. the primary-ray main path at full size: the 871,200-triangle dragon
-   stand-in at 1920×1080 through Scene.load_glb → PathTracer.set_scene →
-   render (framed and sparse view) → render_presented, counting K1a's
-   launches;
+   stand-in at 1920×1080 through Scene.load_glb → PathTracer.set_scene
+   (SAH, K = 32) → render (framed and sparse view) → render_presented,
+   counting K1a's launches; set_scene's records phase through the device
+   4-wide collapse against the native C++ collapse, which set_scene ran
+   before: both warm, in the order native-device-device-native, the records
+   equal but for the sign of a zero;
 4. K1a against its plain torch version on a 256×256 centre crop of the
    framed view (65,536 pixels), and the shaded image against the plain
    version's;
@@ -55,7 +60,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
    triangles on the card by 1 + 0.1·sin(0.1·i), then refit →
    collapse_apply_refit → make_wide_bvh → make_qnodes → K1c over the 8
    cameras. Checks: (a) the chain's records equal byte for byte the records
-   pipeline's (native full collapse) of the refitted tree; (b) every
+   pipeline's (the device collapse) of the refitted tree, and the native C++
+   collapse's but for the sign of a zero; (b) every
    refitted internal box contains its children's boxes and every leaf box
    its cluster's deformed triangles; (c) PathTracer.refit_bvh then render()
    agree with brute force on 1,024 seeded pixels; (d) 1 K1c launch per
@@ -127,6 +133,30 @@ phase 11, while the 4-wide tracer still holds the undeformed dragon:
    version's counts on the crop, kernels per call, host issue ms against
    device busy ms.
 
+Phases 25–27 drive the JAX package's default build (Morton / Karras LBVH)
+and the microbenchmark kernels; they run last:
+
+25. the LBVH dragon at full size through PathTracer(builder="lbvh") at
+   leaf_size 1 and 8: set_scene's stages, BVH2 rows, record bytes and peak
+   memory; the Morton codes and order and the BVH2 (bounds, left, right,
+   meta, parent) built on the card equal word for word the same functions
+   run on the CPU, and at K = 8 the 4-wide collapse too; render() framed and
+   sparse (one K1a launch each), every pixel's triangle the SAH K = 32
+   frame's but for proven ties, t bit-equal and the image equal where it
+   agrees; K1a at leaf_k = 1 and 8 against its plain version on the crop (0
+   ties, max |d| 0) and against brute force on the 1,024 seeded pixels; at
+   K = 1 one render_progressive(bounces=3) sample (1 K1b, 2 K2a, 3 K2b) and
+   its waves against the plain K2a / K2b;
+26. K = 1, 8 and 32 in this one process, timed in the order 1-8-32-32-8-1:
+   framed and sparse frame ms, visits a frame from K1f (hit counts equal),
+   visits and Möller–Trumbore tests a ray on the crop from the plain
+   version's counts, and one 3-bounce 1080p sample from the same generator
+   state (radiance within 1e-5 of K = 32's on >= 99.9% of pixels);
+27. MB1–MB4: every variant (MB1 over the 64 KB and 8 MiB tables) timed per
+   iteration at n = 100 → 1,000 with its launches counted, MB4's largest
+   block, then every variant at n = 1,000 against its plain version
+   (exactly). The full sweep, with the 1 GiB table, is chip_microbench.py's.
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -149,6 +179,13 @@ checked rays the counts are exact; for a whole frame or wave they are
 counted on a seeded subset and scaled to it (its distinct record bytes are
 then a lower bound). No PyTorch call computes BVH traversal, so there is no
 library yardstick (library_ms is null).
+
+For MB1–MB4 the kernels line sums the variants of each kernel at n =
+1,000 (``variants``): ``ms`` the CUDA-event time of one launch (best of 3),
+``plain_ms`` the plain version's host time, ``bound_ms`` the distinct table
+bytes over 3.35 TB/s or the f32 operations over 67 TFLOP/s, whichever is
+larger (these kernels are bound by latency, which no such bound sees), and
+``launches`` those of phase 27's timed run.
 
 The kernels line: ``ms``, ``plain_ms`` and ``bound_ms`` are all on the
 same ``rays`` — the 256×256 crop for K1a/K1b (of frames 0 and 7 for K1c),
@@ -220,6 +257,14 @@ KERNELS = {
     "trace_tiles_k1f": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
 }
+# the microbenchmark kernels (their launches are counted apart, in
+# ops.cuda.microbench.LAUNCHES) and the TPU kernels they replace
+MB_SOURCE = "raytracer_tpu_torch/csrc/microbench.cu"
+MB_KERNELS = {"mb_walk": (MB_SOURCE, "tools/mb_kernel.py:108"),
+              "mb_scalar": (MB_SOURCE, "tools/mb_kernel.py:86"),
+              "mb_visit": (MB_SOURCE, "tools/mb_kernel2.py:66"),
+              "mb_smem_probe": (MB_SOURCE, "tools/mb_smem_probe.py:29")}
+MB_N_LO, MB_N_HI = 100, 1000  # small n: the full sweep is chip_microbench.py's
 
 
 def expected(**counts: int) -> dict:
@@ -394,9 +439,9 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            k = re.search(r"(trace_\w+?_kernel)I((?:L[ib]\d+E)+)", m.group(1))
-            name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
-                    if k else m.group(1))
+            k = re.search(r"((?:trace|mb)_\w+?_kernel)(I(?:L[ib]\d+E)+)?", m.group(1))
+            name = m.group(1) if not k else k.group(1) if not k.group(2) else (
+                f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>")
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                             r"(\d+) bytes spill loads", line):
             frame = tuple(int(x) for x in m.groups())
@@ -417,8 +462,12 @@ def build_all() -> None:
         out = fn(*args)
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    from raytracer_tpu_torch.ops.cuda import microbench
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
+                "microbench.cu (MB1, MB2, MB3, MB4)": pool.submit(
+                    timed, microbench.load_microbench),
                 "traverse_tiles.cu (K1a, K1b, K1c, K1d, K1e, K1f)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
@@ -450,7 +499,8 @@ def frame_dirs(pix: torch.Tensor, jitter: bool = False) -> torch.Tensor:
                         subpixel_hash01(px, py, 2 * JITTER_SEED + 1))
 
 
-def check_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool) -> dict:
+def check_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool,
+                leaf_k: int = LEAF_K) -> dict:
     """A tile kernel (K1a, K1b, or K1e on 8-wide ``qn``) on the framed 1080p
     view: against its plain version on the centre crop, and against brute
     force on the seeded pixels. Returns the frame's planes, the crop's
@@ -459,7 +509,7 @@ def check_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool) -> dict:
     from raytracer_tpu_torch.ops.cuda import traverse
 
     tris, origin, crop_pix, sample = env["tris"], env["origin"], env["crop_pix"], env["sample"]
-    kw = dict(leaf_k=LEAF_K, jitter=jitter, jitter_seed=JITTER_SEED)
+    kw = dict(leaf_k=leaf_k, jitter=jitter, jitter_seed=JITTER_SEED)
     planes = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, **kw)
     counts = traverse.TraversalCounts()
     ref = traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=crop_pix,
@@ -514,7 +564,7 @@ def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: d
             "path_bound_ms": frame_bound[0], "path_bound_by": frame_bound[1]}
 
 
-def capture_waves(env: dict, qn: torch.Tensor) -> tuple[list[dict], dict]:
+def capture_waves(env: dict, qn: torch.Tensor, leaf_k: int = LEAF_K) -> tuple[list[dict], dict]:
     """One 1080p 3-bounce sample of the framed view through the kernels, from
     SAMPLE_SEED, with the rays, active mask and result of every ray-buffer
     wave captured → (waves, the sample's statistics)."""
@@ -534,7 +584,7 @@ def capture_waves(env: dict, qn: torch.Tensor) -> tuple[list[dict], dict]:
     try:
         _, sample_stats = render_pt.pt_sample_frame(
             qn, env["tris"], FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-            leaf_k=LEAF_K, tile_primary=True,
+            leaf_k=leaf_k, tile_primary=True,
             generator=torch.Generator(device=env["dev"]).manual_seed(SAMPLE_SEED), stats=True)
     finally:
         render_pt.trace_rays = real_trace_rays
@@ -544,7 +594,7 @@ def capture_waves(env: dict, qn: torch.Tensor) -> tuple[list[dict], dict]:
 
 
 def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
-                occlusion: str) -> dict:
+                occlusion: str, leaf_k: int = LEAF_K) -> dict:
     """The ray kernel against its plain version on 65,536 seeded active rays
     of every captured wave, with times and bounds → per kernel name
     (``closest`` for the bounce waves, ``occlusion`` for the shadow waves)
@@ -569,7 +619,7 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
         pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
         o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
         counts = traverse.TraversalCounts()
-        ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K,
+        ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k,
                                             counts=counts)
         kout = [p[pick] for p in out]
         n, n_live = pick.numel(), live.numel()
@@ -577,11 +627,11 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
         stats = (check_occlusion(kout, ref, what) if w["any_hit"]
                  else check_against(kout, ref, tris, o, d, what))
         plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays_reference(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), 1, 3))
+            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k), 1, 3))
         ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=LEAF_K), FRAMES, 3))
+            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k), FRAMES, 3))
         path_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
-            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"]),
+            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"]),
             3, 3))
         b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
         pb_ms, pb_by, p_detail = bound(counts, n_live / n,
@@ -719,6 +769,7 @@ def main() -> None:
     tris = pt._tris_dev
     log(f"[main] set_scene in {time.perf_counter() - t0:.2f} s: {json.dumps(pt.build_stats)}; "
         f"records {tuple(qn.shape)} = {qn.numel() * 4 / 2**20:.1f} MiB")
+    records_phase(pt, card)
 
     pt.set_camera_quaternion(*QUAT)
     pt.fov_degrees = FOV
@@ -903,11 +954,20 @@ def main() -> None:
     # 15.-19. the 8-wide tree and the visits plane
     rows.update(wide8_phase(env, scene))
 
+    # 25.-26. the Morton LBVH trees (K = 1, K = 8) and the leaf-size question
+    trees = lbvh_phase(env, scene)
+    leaf_phase(env, trees)
+    del trees
+
+    # 27. the microbenchmark kernels
+    mb_rows = microbench_phase(env)
+
     log(card)
+    sources = {**KERNELS, **MB_KERNELS}
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1], **row, "library_ms": None,
-    } for name, row in rows.items()]}), flush=True)
+        "name": name, "route": "cuda", "source": sources[name][0],
+        "replaces": sources[name][1], **row, "library_ms": None,
+    } for name, row in {**rows, **mb_rows}.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
@@ -1440,14 +1500,70 @@ def full_collapse_bounds(plan, bvh2) -> torch.Tensor:
     return torch.where(plan.emitted[:, None], words, 0)
 
 
+def records_phase(pt, card: str) -> None:
+    """3. set_scene's records phase as it runs now (the device 4-wide
+    collapse) and as it ran before (the native C++ collapse on the host),
+    both warm, timed in the order native, device, device, native (host
+    clock, each ending in a synchronise); the device's records equal
+    set_scene's, the native's but for the sign of a zero."""
+    from raytracer_tpu_torch.ops.cluster import records_pipeline
+
+    fns = {"native": lambda: native_collapse_records(pt._cluster),
+           "device": lambda: records_pipeline(pt._cluster, height=pt._bvh2_height)}
+    ms, out = {"native": [], "device": []}, {}
+    for name in ("native", "device", "device", "native"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fns[name]()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    qi = pt._qnodes.view(torch.int32)
+    if not torch.equal(out["device"].view(torch.int32), qi):
+        fail("records_pipeline's records differ from set_scene's")
+    words, rows = signed_zero_words(qi, out["native"].view(torch.int32),
+                                    "set_scene's records against the native collapse's")
+    log(f"[main] records phase, warm, order native-device-device-native: native C++ collapse "
+        f"{[round(x, 2) for x in ms['native']]} ms, device collapse "
+        f"{[round(x, 2) for x in ms['device']]} ms (set_scene's first call "
+        f"{pt.build_stats['records_ms']:.2f} ms); records equal but {words} box words (in "
+        f"{rows} rows) of a zero's sign on {card}")
+
+
+def native_collapse_records(cs) -> torch.Tensor:
+    """The records of a cluster tree through the native C++ collapse (the
+    cross-check of the device collapse), on the device of its triangles."""
+    from raytracer_tpu_torch.ops.collapse import collapse4_native_padded
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+
+    dev = cs.tris_sorted.device
+    b4 = collapse4_native_padded(cs.bvh2)
+    b4 = b4._replace(bounds_u32=b4.bounds_u32.to(dev), children=b4.children.to(dev),
+                     meta=b4.meta.to(dev))
+    return traverse.make_qnodes(make_wide_bvh(b4), cs.tris_sorted, tri_ids=cs.tri_order,
+                                leaf_size=cs.leaf_size)
+
+
+def signed_zero_words(a: torch.Tensor, b: torch.Tensor, what: str) -> tuple[int, int]:
+    """Two int32 views of records that may differ only in f32 words that are
+    +0 in one and −0 in the other → (differing words, rows with one)."""
+    diff = a != b
+    signed_zero = ((a | b) == -2**31) & ((a ^ b) == -2**31)
+    if bool((diff & ~signed_zero).any()):
+        fail(f"{what}: records differ beyond the sign of a zero on "
+             f"{int((diff & ~signed_zero).any(dim=1).sum())} rows")
+    return int(diff.sum()), int(diff.any(dim=1).sum())
+
+
 def check_plan_contract(r, q: torch.Tensor, plan, what: str) -> None:
     """(a): the refit chain's records against the full collapse of the
     refitted tree. Byte-equal to the records of the full collapse's bounds
-    in the JAX package's semantics (full_collapse_bounds); against the
-    records pipeline's native collapse, equal except f32 box words that are
-    +0 in one and −0 in the other: the native collapse merges children
-    already flushed to signed zeros with std::fmin/fmax in child order,
-    which keeps the first of two zeros (the boxes are numerically equal)."""
+    in the JAX package's semantics (full_collapse_bounds) and to the records
+    pipeline's (the device collapse); against the native C++ collapse, equal
+    except f32 box words that are +0 in one and −0 in the other: the native
+    collapse merges children already flushed to signed zeros with
+    std::fmin/fmax in child order, which keeps the first of two zeros (the
+    boxes are numerically equal)."""
     from raytracer_tpu_torch.ops.cluster import records_pipeline
     from raytracer_tpu_torch.ops.collapse import BVH4
     from raytracer_tpu_torch.ops.cuda import traverse
@@ -1457,18 +1573,15 @@ def check_plan_contract(r, q: torch.Tensor, plan, what: str) -> None:
     ref = traverse.make_qnodes(make_wide_bvh(full), r.tris_sorted, tri_ids=r.tri_order,
                                leaf_size=r.leaf_size)
     qi = q.view(torch.int32)
-    if not torch.equal(qi, ref.view(torch.int32)):
-        bad = int((qi != ref.view(torch.int32)).any(dim=1).sum())
-        fail(f"{what}: refit-chain records differ from the full collapse's on {bad} rows")
-    native = records_pipeline(r).view(torch.int32)
-    diff = qi != native
-    signed_zero = ((qi | native) == -2**31) & ((qi ^ native) == -2**31)
-    if bool((diff & ~signed_zero).any()):
-        fail(f"{what}: refit-chain records differ from the native collapse's beyond the sign "
-             f"of a zero on {int((diff & ~signed_zero).any(dim=1).sum())} rows")
+    for name, other in (("the full collapse's", ref), ("the device collapse's", records_pipeline(r))):
+        if not torch.equal(qi, other.view(torch.int32)):
+            bad = int((qi != other.view(torch.int32)).any(dim=1).sum())
+            fail(f"{what}: refit-chain records differ from {name} on {bad} rows")
+    words, rows = signed_zero_words(qi, native_collapse_records(r).view(torch.int32),
+                                    f"{what} against the native collapse")
     log(f"[check] {what}: the refit chain's records {tuple(q.shape)} equal the full collapse's "
-        f"byte for byte; the native collapse's on all but {int(diff.sum())} box words "
-        f"(in {int(diff.any(dim=1).sum())} rows) that hold +0 for its -0")
+        f"and the device collapse's byte for byte; the native collapse's on all but {words} "
+        f"box words (in {rows} rows) that hold +0 for its -0")
 
 
 def check_refit_boxes(r) -> None:
@@ -1908,6 +2021,285 @@ def wide8_phase(env: dict, scene) -> dict:
         "plain_ms": sum(v["plain_ms"] for v in visits), "bound_ms": b_ms, "bound_by": b_by,
         "path_rays": 2 * WIDTH * HEIGHT, "path_ms": ab["path_ms"],
         "path_bound_ms": pb_ms, "path_bound_by": pb_by}
+    return rows
+
+
+def lbvh_phase(env: dict, scene) -> dict:
+    """25. The Morton LBVH dragon at full size, single-triangle leaves (K = 1)
+    and Morton clusters of 8 → per K its records and the crop's traversal
+    counts (for phase 26)."""
+    from raytracer_tpu_torch import PathTracer
+    from raytracer_tpu_torch.ops.cluster import build_lbvh2_clustered
+    from raytracer_tpu_torch.ops.collapse import collapse_lbvh2_to_bvh4
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
+    from raytracer_tpu_torch.ops.morton import build_morton_and_sort
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    tris_cpu = tris.cpu()
+    views = (("framed", FRAMED), ("sparse", SPARSE))
+    all_dirs = frame_dirs(torch.arange(WIDTH * HEIGHT, device=dev))
+    k32 = {view: [p.reshape(-1) for p in traverse.trace_tiles(env["qn"], pos, QUAT, WIDTH, HEIGHT,
+                                                               FOV, leaf_k=LEAF_K)]
+           for view, pos in views}
+
+    # the Morton order: the card's against the CPU's
+    codes, order = build_morton_and_sort(tris)
+    t0 = time.perf_counter()
+    c_codes, c_order = build_morton_and_sort(tris_cpu)
+    log(f"[lbvh] Morton codes and order of {tris.shape[0]} triangles: the card's equal the "
+        f"CPU's ({time.perf_counter() - t0:.2f} s on the CPU): "
+        f"{torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)}")
+    if not (torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)):
+        fail("the Morton codes or order on the card differ from the CPU's")
+    del codes, order, c_codes, c_order
+
+    trees = {}
+    for k in (1, 8):
+        what = f"lbvh K={k}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pt = PathTracer(WIDTH, HEIGHT, builder="lbvh", leaf_size=k, device=dev)
+        t0 = time.perf_counter()
+        pt.set_scene(scene)
+        secs = time.perf_counter() - t0
+        qn = pt._qnodes
+        log(f"[{what}] set_scene in {secs:.2f} s: {json.dumps(pt.build_stats)}; BVH2 rows "
+            f"{pt._bvh2.num_nodes}; records {tuple(qn.shape)} of {qn.shape[1] * 4} bytes = "
+            f"{qn.numel() * 4 / 2**20:.1f} MiB; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on {card}")
+        if not torch.equal(pt._tris_dev, tris):
+            fail(f"{what}: the tracer holds other triangles than the SAH one")
+
+        # the BVH2 on the card against the same build on the CPU
+        t0 = time.perf_counter()
+        cpu2 = build_lbvh2(tris_cpu) if k == 1 else build_lbvh2_clustered(tris_cpu, k).bvh2
+        cpu_s = time.perf_counter() - t0
+        for name, a, b in zip(("bounds", "left", "right", "meta", "parent"), pt._bvh2, cpu2):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{what}: BVH2 {name} on the card differs from the CPU build in "
+                     f"{int((a.cpu() != b).sum())} words")
+        log(f"[{what}] BVH2 on the card equals the CPU build word for word (bounds, left, right, "
+            f"meta, parent; {pt._bvh2.num_nodes} rows; {cpu_s:.2f} s on the CPU)")
+        if k == 8:
+            b4, b4_cpu = collapse_lbvh2_to_bvh4(pt._bvh2), collapse_lbvh2_to_bvh4(cpu2)
+            if b4.num_nodes != b4_cpu.num_nodes or not all(
+                    torch.equal(a.cpu(), b) for a, b in zip(b4[:3], b4_cpu[:3])):
+                fail(f"{what}: the 4-wide collapse on the card differs from the CPU's")
+            log(f"[{what}] the 4-wide collapse on the card equals the CPU's ({b4.num_nodes} rows)")
+            del b4, b4_cpu
+        del cpu2
+
+        # render(): one K1a launch a view, the frame the SAH K = 32 tree's but for ties
+        pt.set_camera_quaternion(*QUAT)
+        pt.fov_degrees = FOV
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        images = {}
+        for view, pos in views:
+            pt.set_camera_position(*pos)
+            images[view] = pt.render()
+        torch.cuda.synchronize()
+        launches = dict(traverse.LAUNCHES)
+        log(f"[{what}] launches during two render() calls: {json.dumps(launches)}")
+        if launches != expected(trace_tiles_k1a=2):
+            fail(f"{what}: render() launched {launches}, expected 2 K1a and nothing else")
+        check_images(images, dev)
+        for view, pos in views:
+            planes = [p.reshape(-1) for p in traverse.trace_tiles(qn, pos, QUAT, WIDTH, HEIGHT,
+                                                                  FOV, leaf_k=k)]
+            origin = torch.tensor(pos, dtype=torch.float32, device=dev)
+            check_against(planes, k32[view], tris, origin, all_dirs,
+                          f"{what} {view} 1080p frame vs the SAH K={LEAF_K} frame")
+            same = planes[4] == k32[view][4]
+            t_words = int((planes[0][same].view(torch.int32)
+                           != k32[view][0][same].view(torch.int32)).sum())
+            px_same = bool((images[view].reshape(-1, 4)[same]
+                            == env["images"][view].reshape(-1, 4)[same]).all())
+            log(f"[{what}] {view}: t bit-equal to the K={LEAF_K} frame's where tri agrees "
+                f"({t_words} differing words); image equal there: {px_same}")
+            if t_words or not px_same:
+                fail(f"{what} {view}: t or the image differs from the K={LEAF_K} frame's where "
+                     "the triangle agrees")
+
+        # K1a at leaf_k = k against its plain version (crop) and brute force
+        chk = check_tiles(env, qn, f"K1a at leaf_k={k}", jitter=False, leaf_k=k)
+        if chk["stats"]["ties"] or chk["stats"]["max_abs_err"] != 0.0:
+            fail(f"{what}: K1a differs from its plain version on the crop ({chk['stats']})")
+        trees[k] = {"qn": qn, "counts": chk["counts"]}
+
+        if k == 1:
+            # one progressive sample: its launches, and its waves against K2a / K2b's plain versions
+            pt.set_camera_position(*FRAMED)
+            torch.cuda.synchronize()
+            traverse.reset_launches()
+            accum = pt.render_progressive(bounces=BOUNCES)
+            torch.cuda.synchronize()
+            launches = dict(traverse.LAUNCHES)
+            want = expected(trace_tiles_k1b=1, trace_rays_k2a=BOUNCES - 1,
+                            trace_rays_k2b=BOUNCES)
+            log(f"[{what}] launches during render_progressive(bounces={BOUNCES}): "
+                f"{json.dumps(launches)}")
+            if launches != want or not bool(torch.isfinite(accum).all() & (accum >= 0).all()):
+                fail(f"{what}: a progressive sample launched {launches} (expected {want}) or "
+                     "left a non-finite buffer")
+            waves, _ = capture_waves(env, qn, leaf_k=k)
+            check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b", leaf_k=k)
+            del waves
+        del pt, images
+    return trees
+
+
+def leaf_phase(env: dict, trees: dict) -> None:
+    """26. K = 1, 8 and 32 in one process, timed in the order 1-8-32-32-8-1:
+    frame ms, visits a frame (K1f) and MT tests a ray on the crop, and one
+    3-bounce sample."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card = env["card"]
+    qns = {1: trees[1]["qn"], 8: trees[8]["qn"], LEAF_K: env["qn"]}
+    counts = {1: trees[1]["counts"], 8: trees[8]["counts"], LEAF_K: traverse.TraversalCounts()}
+    traverse.trace_tiles_reference(env["qn"], FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                   pixels=env["crop_pix"], counts=counts[LEAF_K])
+    rays = WIDTH * HEIGHT
+    log(f"[leaf] K = 1 / 8 / {LEAF_K} on the dragon at 1920x1080, order 1-8-{LEAF_K}-{LEAF_K}-8-1, "
+        f"on {card}")
+    for view, pos in (("framed", FRAMED), ("sparse", SPARSE)):
+        reps = {k: [] for k in qns}
+        for k in (1, 8, LEAF_K, LEAF_K, 8, 1):
+            reps[k] += cuda_ms(lambda k=k: traverse.trace_tiles(qns[k], pos, QUAT, WIDTH, HEIGHT,
+                                                                FOV, leaf_k=k), FRAMES, 3)
+        hits = None
+        for k, q in qns.items():
+            planes = traverse.trace_tiles(q, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k, stats=True)
+            h = int((planes[4] >= 0).sum())
+            if hits is not None and h != hits:
+                fail(f"leaf {view}: K={k} hits {h} pixels, K=1 {hits}")
+            hits = h
+            visits = int(planes[5].sum(dtype=torch.float64))
+            ms = statistics.median(reps[k])
+            c = counts[k]
+            crop = (f"; crop: {c.visits / c.rays:.3f} visits and {c.mt_tests / c.rays:.3f} MT "
+                    f"tests a ray" if view == "framed" else "")
+            log(f"[leaf] {view} K={k:2d}: {ms:.4f} ms/frame = {rays / ms / 1e3:.2f} Mrays/s "
+                f"(median of {len(reps[k])} reps of {FRAMES}); records "
+                f"{q.numel() * 4 / 2**20:.1f} MiB; visits {visits} ({visits / rays:.3f} a ray); "
+                f"hits {h}{crop}")
+
+    def sample_of(k):
+        return render_pt.pt_sample_frame(
+            qns[k], env["tris"], FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=k, tile_primary=True,
+            generator=torch.Generator(device=env["dev"]).manual_seed(SAMPLE_SEED))
+
+    reps = {k: [] for k in qns}
+    for k in (1, 8, LEAF_K, LEAF_K, 8, 1):
+        reps[k] += cuda_ms(lambda k=k: sample_of(k), SAMPLES, 3)
+    ref = sample_of(LEAF_K)
+    for k in qns:
+        near = float(((sample_of(k) - ref).abs().amax(-1) <= RADIANCE_ATOL).float().mean())
+        log(f"[leaf] one {BOUNCES}-bounce 1080p sample (pt_sample_frame, same generator state) "
+            f"K={k:2d}: {statistics.median(reps[k]):.4f} ms (median of {len(reps[k])} reps of "
+            f"{SAMPLES}); {near:.6f} of pixels within {RADIANCE_ATOL} of K={LEAF_K}'s on {card}")
+        if near < MIN_RADIANCE_MATCH:
+            fail(f"leaf: the K={k} sample agrees with K={LEAF_K}'s on {near:.6f} of pixels")
+
+
+def walk_bytes(span: int, rows_per: int, chains: int, n: int) -> int:
+    """Bytes of the distinct 512-byte rows a walk of ``n`` iterations reads."""
+    k = torch.arange(n * chains, dtype=torch.int64)
+    rows = (k * 97) % span
+    return int(torch.unique(rows[:, None] + torch.arange(rows_per)[None, :]).numel()) * 512
+
+
+# MB2's work per iteration: (operations, bytes read and written once)
+MB_SCALAR_WORK = {"loop": (1, 0), "smem24": (24, 256), "l1x24": (24, 256), "shfl_bcast": (1, 128),
+                  "smem_bcast": (1, 128), "l1_bcast": (1, 128), "reduce": (2048 + 160, 4096)}
+
+
+def mb_work(v, n: int) -> tuple[int, int]:
+    """(bytes, operations) of ``n`` iterations of microbenchmark variant
+    ``v`` (an ``ops.cuda.microbench.Variant``), outputs included."""
+    p = v.params
+    if v.kernel == "mb_walk":
+        return (walk_bytes(p["span"], p["rows_per"], p["chains"], n) + 16,
+                n * p["chains"] * (1 + (40 * 32 if p["mode"] == 1 else 0)))
+    if v.kernel == "mb_scalar":
+        ops, nbytes = MB_SCALAR_WORK[p["variant"]]
+        return nbytes + 12, n * ops
+    slots, bits = p["slots"], p["parts"]
+    ops = ((SLAB_OPS * slots if bits & 1 else 0) + (MT_OPS if bits & 2 else 0)
+           + (slots if bits & 4 else 0) + (slots if bits & 8 else 0))
+    return 4 * (8 * slots + 12) + 24 + 12, n * ops
+
+
+def microbench_phase(env: dict) -> dict:
+    """27. MB1–MB4 on the card: each variant timed per iteration at small n
+    (the counted run), then each against its plain version; MB4's largest
+    block → the kernels-line rows of the four."""
+    from raytracer_tpu_torch.ops.cuda import microbench as mb
+
+    card, dev = env["card"], env["dev"]
+    variants = list(mb.sweep(dev, levels=("L1", "L2")))
+    probe_in = torch.arange(64 * 1024, dtype=torch.float32, device=dev)
+
+    # the counted run: every variant timed per iteration, and the capacity probe
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    costs = []
+    for v in variants:
+        v.prepare()
+        cost = mb.per_iteration(v.launch, MB_N_HI, MB_N_LO)
+        costs.append(cost)
+        log(f"[MB] {v.kernel} {v.label}: {cost.ns:.3f} ns/iter {cost.cycles:.2f} cycles/iter "
+            f"(n {MB_N_LO} -> {MB_N_HI}) on {card}")
+    cap = mb.smem_capacity(probe_in)
+    torch.cuda.synchronize()
+    launches = dict(mb.LAUNCHES)
+    log(f"[MB] launches during the timed run: {json.dumps(launches)}")
+    if not all(launches.values()):
+        fail(f"a microbenchmark kernel was not launched: {launches}")
+    if not cap["checked"] or cap["max_bytes"] < 48 * 1024:
+        fail(f"mb_smem_probe: {cap}")
+    log(f"[MB4] largest dynamic shared memory of one block: {cap['max_bytes']} bytes = "
+        f"{cap['records_4wide_k32']} 4-wide or {cap['records_8wide_k32']} 8-wide K = 32 records "
+        f"on {card}")
+
+    # each variant against its plain version at n = MB_N_HI (not counted)
+    rows = {k: {"launches": launches[k], "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bytes": 0, "ops": 0, "variants": 0} for k in MB_KERNELS}
+    for v, cost in zip(variants, costs):
+        v.prepare()
+        got = v.run(MB_N_HI)
+        t0 = time.perf_counter()
+        ref = v.plain(MB_N_HI)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if got != ref:
+            fail(f"{v.kernel} {v.label}: kernel {got}, plain {ref}")
+        nbytes, ops = mb_work(v, MB_N_HI)
+        row = rows[v.kernel]
+        row["ms"] += cost.ms_hi
+        row["plain_ms"] += plain_ms
+        row["bytes"] += nbytes
+        row["ops"] += ops
+        row["variants"] += 1
+    out = mb.mb_smem_probe(probe_in, cap["max_bytes"])
+    _, probe_ms = timed_once(lambda: mb.mb_smem_probe(probe_in, cap["max_bytes"]))
+    t0 = time.perf_counter()
+    want = mb.mb_smem_probe_reference(probe_in, cap["max_bytes"] // 4)
+    probe_plain_ms = (time.perf_counter() - t0) * 1e3
+    if out is None or out != want:
+        fail(f"mb_smem_probe at {cap['max_bytes']} bytes: kernel {out}, plain {want}")
+    rows["mb_smem_probe"].update(ms=probe_ms, plain_ms=probe_plain_ms, bytes=cap["max_bytes"] + 4,
+                                 ops=0, variants=1, max_bytes=cap["max_bytes"])
+    for kernel, row in rows.items():
+        b_ms, o_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3, row["ops"] / F32_OPS_PER_S * 1e3
+        row.update(bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
+                   n=MB_N_HI)
+        log(f"[MB] {kernel}: {row['variants']} variants against their plain versions at n = "
+            f"{MB_N_HI}: equal; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms, bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']} on {card}")
     return rows
 
 

@@ -1,5 +1,6 @@
-"""Packed-leaf (K triangles per leaf) trees: the SAH cluster build, its
-refit to deformed triangles, and the records pipeline of the main path.
+"""Packed-leaf (K triangles per leaf) trees: the SAH cluster build, the
+Morton cluster build, their refit to deformed triangles, and the records
+pipeline of the main path.
 
 Torch counterpart of ``raytracer_tpu/ops/cluster.py``: cluster ``c`` owns
 the sorted triangles [cK, min(N, (c+1)K)); the tree's leaves reference
@@ -16,13 +17,17 @@ import torch
 
 from ..native.bvhtool import build_sah_clustered_native
 from ..utils.fp16 import pack_bounds_conservative
-from .collapse import LBVH2, LEAF_FLAG, collapse_lbvh2_to_bvh4, collapse_lbvh2_to_bvh8
+from .collapse import widen
 from .cuda.traverse import make_qnodes
-from .lbvh import _tri_bounds, from_ordered_key, ordered_key
+from .lbvh import (INVALID, LBVH2, LEAF_FLAG, _bounds_fixed_point, _karras_connectivity,
+                   _static_height_bound, _tri_bounds, f16_order, f16_unorder, from_ordered_key,
+                   ordered_key)
+from .morton import build_morton_and_sort
 from .trace import WideBVH, make_wide_bvh
 
-__all__ = ["ClusteredScene", "build_sah2_clustered", "refit_lbvh2_clustered", "tree_height",
-           "records_pipeline", "wide_pipeline", "state_from_numpy"]
+__all__ = ["ClusteredScene", "build_lbvh2_clustered", "build_sah2_clustered",
+           "refit_lbvh2_clustered", "tree_height", "records_pipeline", "wide_pipeline",
+           "state_from_numpy", "bvh2_from_numpy"]
 
 
 class ClusteredScene(NamedTuple):
@@ -34,21 +39,59 @@ class ClusteredScene(NamedTuple):
     leaf_size: int             # K — max triangles per cluster
 
 
+def bvh2_from_numpy(arrays: dict) -> LBVH2:
+    """The BVH2 arrays of the JAX package's npz checkpoint (``bvh2_{bounds,
+    left,right,meta,parent}``, u32) → an :class:`LBVH2` on the host."""
+    return LBVH2(*(torch.from_numpy(np.asarray(arrays[f"bvh2_{k}"], np.uint32).astype(np.int64))
+                   for k in ("bounds", "left", "right", "meta", "parent")))
+
+
 def state_from_numpy(arrays: dict, device) -> ClusteredScene:
     """The JAX package's clustered-tree arrays (as numpy, under the keys of
     its npz checkpoint: ``triangles``, ``bvh2_{bounds,left,right,meta,
     parent}``, ``tri_order``, ``leaf_size``) → the port's tensors. The
     state is the BVH2 and its cluster order: the same for every widener,
     which only decides how the records are made from it."""
-    def u32(name):
-        return torch.from_numpy(np.asarray(arrays[name], np.uint32).astype(np.int64))
-
-    bvh2 = LBVH2(u32("bvh2_bounds"), u32("bvh2_left"), u32("bvh2_right"),
-                 u32("bvh2_meta"), u32("bvh2_parent"))
     tris = torch.from_numpy(np.asarray(arrays["triangles"], np.float32).reshape(-1, 3, 3))
-    order = u32("tri_order")
-    return ClusteredScene(bvh2, tris[order].to(device), order.to(device),
+    order = torch.from_numpy(np.asarray(arrays["tri_order"], np.uint32).astype(np.int64))
+    return ClusteredScene(bvh2_from_numpy(arrays), tris[order].to(device), order.to(device),
                           int(np.asarray(arrays["leaf_size"]).reshape(-1)[0]))
+
+
+def build_lbvh2_clustered(triangles: torch.Tensor, leaf_size: int) -> ClusteredScene:
+    """Packed-leaf LBVH2 over (N, 3, 3) triangles, on their device: clusters
+    are runs of K = ``leaf_size`` triangles in Morton order (cluster c owns
+    sorted triangles [cK, min(N, (c+1)K))), each leaf's box the
+    conservatively packed union of its members', the Karras tree built over
+    each cluster's leading code and its boxes swept up as in
+    :func:`~raytracer_tpu_torch.ops.lbvh.build_lbvh2`. Node for node and bit
+    for bit ``raytracer_tpu/ops/cluster.py::build_lbvh2_clustered``."""
+    n, k = int(triangles.shape[0]), int(leaf_size)
+    if n < 1:
+        raise ValueError("build_lbvh2_clustered requires at least one triangle")
+    if k < 1:
+        raise ValueError("leaf_size must be >= 1")
+    dev = triangles.device
+    c = -(-n // k)
+    num_internal, num_nodes = c - 1, 2 * c - 1
+    codes, order = build_morton_and_sort(triangles)
+    tris_sorted = triangles[order]
+    tmn, tmx = _tri_bounds(tris_sorted)
+    pad = torch.full((c * k - n, 3), torch.inf, dtype=torch.float32, device=dev)
+    cl_mn = from_ordered_key(ordered_key(torch.cat([tmn, pad])).reshape(c, k, 3).amin(dim=1))
+    cl_mx = from_ordered_key(ordered_key(torch.cat([tmx, -pad])).reshape(c, k, 3).amax(dim=1))
+    bounds = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev)
+    bounds[num_internal:] = pack_bounds_conservative(cl_mn, cl_mx)
+    meta = torch.zeros(num_nodes, dtype=torch.int64, device=dev)
+    meta[num_internal:] = LEAF_FLAG | torch.arange(c, device=dev)
+    left = torch.zeros(num_nodes, dtype=torch.int64, device=dev)
+    right = torch.zeros_like(left)
+    parent = torch.full((num_nodes,), INVALID, dtype=torch.int64, device=dev)
+    if c > 1:
+        ileft, iright, parent = _karras_connectivity(codes[::k].contiguous(), c)
+        left[:num_internal], right[:num_internal] = ileft, iright
+        bounds = _bounds_fixed_point(bounds, left, right, num_internal, _static_height_bound(c))
+    return ClusteredScene(LBVH2(bounds, left, right, meta, parent), tris_sorted, order, k)
 
 
 def build_sah2_clustered(triangles: np.ndarray, leaf_size: int, device
@@ -79,15 +122,6 @@ def tree_height(bvh2: LBVH2) -> int:
             return height
         level = np.concatenate([left[level], right[level]]).astype(np.int64)
         height += 1
-
-
-def _f16_order(h: torch.Tensor) -> torch.Tensor:
-    """fp16 bit patterns → keys in [0, 2^16) ordered by value, −0 < +0."""
-    return torch.where((h & 0x8000) != 0, (~h) & 0xFFFF, h ^ 0x8000)
-
-
-def _f16_unorder(k: torch.Tensor) -> torch.Tensor:
-    return torch.where((k & 0x8000) != 0, k ^ 0x8000, (~k) & 0xFFFF)
 
 
 def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
@@ -136,7 +170,7 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
         # keys of (mn.x, mn.y, mn.z) and 0xFFFF − keys of (mx.x, mx.y, mx.z):
         # one min over both children is then the union of their boxes
         h = torch.stack([(bounds[:, i // 2] >> (16 * (i % 2))) & 0xFFFF for i in range(6)], -1)
-        key = _f16_order(h)
+        key = f16_order(h)
         key[:, 3:] = 0xFFFF - key[:, 3:]
         key = key.to(torch.int32)
         left, right = bvh.left, bvh.right
@@ -144,7 +178,7 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
             key = torch.where(leaf[:, None], key, torch.minimum(key[left], key[right]))
         key = key.to(torch.int64)
         key[:, 3:] = 0xFFFF - key[:, 3:]
-        h = _f16_unorder(key)
+        h = f16_unorder(key)
         packed = torch.stack([h[:, 0] | (h[:, 1] << 16), h[:, 2] | (h[:, 3] << 16),
                               h[:, 4] | (h[:, 5] << 16)], -1)
         bounds = torch.where(leaf[:, None], leaf_bounds, packed)
@@ -152,23 +186,14 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
 
 
 def wide_pipeline(cs: ClusteredScene, *, height: int | None = None, width: int = 4) -> WideBVH:
-    """collapse → the wide tree with ``width`` child slots per node, on the
-    device of ``cs.tris_sorted``: 4 through the native collapse on the host,
-    8 through :func:`collapse_lbvh2_to_bvh8` on that device. ``height``
-    (from :func:`build_sah2_clustered`) caps the 8-wide collapse's sweeps at
-    ``height + 2``; without it the static bound of a Karras tree is used."""
-    dev = cs.tris_sorted.device
-    if width == 4:
-        wide_bvh = collapse_lbvh2_to_bvh4(cs.bvh2)
-        wide_bvh = wide_bvh._replace(bounds_u32=wide_bvh.bounds_u32.to(dev),
-                                     children=wide_bvh.children.to(dev),
-                                     meta=wide_bvh.meta.to(dev))
-    elif width == 8:
-        wide_bvh = collapse_lbvh2_to_bvh8(LBVH2(*(a.to(dev) for a in cs.bvh2)),
-                                          sweeps=None if height is None else height + 2)
-    else:
+    """collapse → the wide tree with ``width`` (4 or 8) child slots per node,
+    on the device of ``cs.tris_sorted`` (:func:`~raytracer_tpu_torch.ops.
+    collapse.widen`, ``height`` as there)."""
+    if width not in (4, 8):
         raise ValueError(f"records have 4 or 8 child slots, got width={width}")
-    return make_wide_bvh(wide_bvh)
+    dev = cs.tris_sorted.device
+    return make_wide_bvh(widen(LBVH2(*(a.to(dev) for a in cs.bvh2)),
+                               "collapse" if width == 4 else "collapse8", height))
 
 
 def records_pipeline(cs: ClusteredScene, *, height: int | None = None,

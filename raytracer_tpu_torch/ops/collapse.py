@@ -1,22 +1,19 @@
-"""BVH2 → wide-tree wideners: the native greedy re-emission collapse to 4
-slots for a build, the collapse plan for a refit, the 8-wide collapse on
-the device, and the two index-preserving 4-wide views.
+"""BVH2 → wide-tree wideners: the greedy re-emission collapse to 4 or 8
+slots on the device, the collapse plan for a refit, and the two
+index-preserving 4-wide views.
 
-The JAX package collapses on the device (``raytracer_tpu/ops/collapse.py``).
-On the SAH-clustered trees of the main path its 4-wide result equals the C++
-collapse (``raytracer_tpu/native/bvh_convert.cpp::bvh_collapse4``) word for
-word over the emitted rows; the JAX version then pads to the BVH2 row count
-with rows of bounds 0, children INVALID and meta 0.
-:func:`collapse_lbvh2_to_bvh4` calls the C++ collapse and pads the same way,
-so the records built from either are byte-equal. The 4-wide device collapse
-comes with a later slice.
-
-:func:`collapse_lbvh2_to_bvh8` is the torch counterpart of the JAX package's
-width-generic device collapse at 8 slots (treelets gathered
-largest-subtree-first, bounds re-merged bottom-up and re-packed with the
-truncating fp16 codec), node for node and bit for bit, on the device of its
-input. :func:`promote_lbvh2_to_bvh4_wide` and :func:`bvh2_as_bvh4` are
-closed-form index expressions over the BVH2's own rows.
+:func:`collapse_lbvh2_to_bvh4` and :func:`collapse_lbvh2_to_bvh8` are the
+torch counterparts of the JAX package's device collapse
+(``raytracer_tpu/ops/collapse.py``), node for node and bit for bit, on the
+device of their input: treelets gathered (the first internal kid expanded
+at 4 slots, the largest subtree at 8), bounds re-merged bottom-up and
+re-packed with the truncating fp16 codec, the rows padded to the BVH2 row
+count with bounds 0, children INVALID and meta 0.
+:func:`collapse4_native_padded` runs the C++ collapse of the JAX package's
+native tool (``raytracer_tpu/native/bvh_convert.cpp::bvh_collapse4``) and
+pads the same way: an independent check of the device collapse.
+:func:`promote_lbvh2_to_bvh4_wide` and :func:`bvh2_as_bvh4` are closed-form
+index expressions over the BVH2's own rows.
 
 For dynamic scenes the topology half of the collapse (treelet gathering,
 reachability, subtree sizes, pre-order indices) is computed once per tree
@@ -37,35 +34,12 @@ import torch
 from ..io import artifacts
 from ..native.bvhtool import collapse4_native
 from ..utils.fp16 import unpack_bounds
-from .lbvh import _static_height_bound, from_ordered_key, ordered_key
+from .lbvh import INVALID, LBVH2, LEAF_FLAG, _static_height_bound, from_ordered_key, ordered_key
 
 __all__ = ["LBVH2", "BVH4", "collapse_lbvh2_to_bvh4", "collapse_lbvh2_to_bvh8",
-           "promote_lbvh2_to_bvh4_wide", "bvh2_as_bvh4", "CollapsePlan", "collapse_plan",
-           "collapse_apply_refit", "LEAF_FLAG", "INVALID"]
-
-LEAF_FLAG = 0x80000000
-INVALID = 0xFFFFFFFF
-
-
-class LBVH2(NamedTuple):
-    """BVH2 in struct-of-arrays form, int64 tensors of u32 words (the node
-    layout of ``raytracer_tpu/ops/lbvh.py::LBVH2``): on the host after a
-    build, on the triangles' device after a refit."""
-
-    bounds_u32: torch.Tensor  # (M, 3) packed fp16 AABBs
-    left: torch.Tensor        # (M,) child index (0 for leaves)
-    right: torch.Tensor       # (M,)
-    meta: torch.Tensor        # (M,) LEAF_FLAG|cluster for leaves, 0 internal
-    parent: torch.Tensor      # (M,) INVALID at the root
-
-    @property
-    def num_nodes(self) -> int:
-        return self.bounds_u32.shape[0]
-
-    @property
-    def num_internal(self) -> int:
-        return (self.num_nodes - 1) // 2
-
+           "collapse4_native_padded",
+           "promote_lbvh2_to_bvh4_wide", "bvh2_as_bvh4", "WIDENERS", "widen", "CollapsePlan",
+           "collapse_plan", "collapse_apply_refit", "LEAF_FLAG", "INVALID"]
 
 class BVH4(NamedTuple):
     """Wide BVH in struct-of-arrays form: packed fp16 bounds, w = 4 or 8
@@ -79,8 +53,13 @@ class BVH4(NamedTuple):
     num_nodes: int            # emitted rows; the rest are padding
 
 
-def collapse_lbvh2_to_bvh4(bvh2: LBVH2) -> BVH4:
-    """Greedy re-emission collapse, padded to the BVH2's row count."""
+def collapse4_native_padded(bvh2: LBVH2) -> BVH4:
+    """The native C++ greedy collapse (``bvh_convert.cpp::bvh_collapse4``,
+    on the host), padded to the BVH2's row count as the device collapse
+    pads: rows of bounds 0, children INVALID and meta 0. Equal to
+    :func:`collapse_lbvh2_to_bvh4` on the SAH cluster trees of the main path
+    but in the sign of a zero where the C++ ``std::fmax`` keeps −0; kept as
+    an independent cross-check of the device collapse."""
     buf2 = artifacts.bvh2_to_u32(*(a.cpu().numpy() for a in
                                    (bvh2.bounds_u32, bvh2.left, bvh2.right, bvh2.meta)))
     b4, c4, m4 = artifacts.bvh4_from_u32(collapse4_native(buf2))
@@ -320,21 +299,15 @@ def _same_f32(a: torch.Tensor, b: torch.Tensor) -> bool:
     return not bool((from_ordered_key(a) != from_ordered_key(b)).any())
 
 
-def collapse_lbvh2_to_bvh8(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
-    """8-wide greedy re-emission collapse → a BVH8 in the :class:`BVH4`
-    container (children (M, 8)), padded to the BVH2's row count, on the
-    device of ``bvh2``. ``sweeps`` caps each fixed point (≥ tree height:
-    pass ``height + 2`` from the SAH build; default the static bound of a
-    Karras tree).
-
-    Steps as in the JAX package: leaf counts bottom-up; treelets gathered
-    largest-subtree-first; reachability, sizes and pre-order rows
-    (:func:`_preorder_layout`); bounds merged bottom-up from the decoded
-    fp16 boxes; internal rows re-packed with the truncating codec, leaf rows
-    verbatim. The unions are taken on integer keys that order −0 below +0,
-    as XLA's min and max do, where torch's would return either zero."""
+def _collapse(bvh2: LBVH2, width: int, sweeps: int | None) -> BVH4:
+    """The device collapse at ``width`` slots: the treelets (4: the closed
+    form of the first-internal expansion; 8: largest subtree first), then
+    reachability, sizes and pre-order rows (:func:`_preorder_layout`),
+    bounds merged bottom-up from the decoded fp16 boxes, internal rows
+    re-packed with the truncating codec and leaf rows verbatim. The unions
+    are taken on integer keys that order −0 below +0, as XLA's min and max
+    do, where torch's would return either zero."""
     bounds2, left, right, meta = bvh2.bounds_u32, bvh2.left, bvh2.right, bvh2.meta
-    width = 8
     m = bvh2.num_nodes
     dev = meta.device
     if sweeps is None:
@@ -344,8 +317,12 @@ def collapse_lbvh2_to_bvh8(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
         return BVH4(bounds2, torch.full((1, width), INVALID, dtype=torch.int64, device=dev),
                     meta, 1)
 
-    counts = _subtree_tri_counts(left, right, leaf, sweeps)
-    lay = _preorder_layout(_gather_kids_wide(left, right, leaf, width, counts), leaf, sweeps)
+    if width == 4:
+        kids = _gather_kids(left, right, leaf)
+    else:
+        kids = _gather_kids_wide(left, right, leaf, width,
+                                 _subtree_tri_counts(left, right, leaf, sweeps))
+    lay = _preorder_layout(kids, leaf, sweeps)
 
     # merged bounds, bottom-up: state (2, M, 3) of ordered keys, [0] = min
     mn0, mx0 = unpack_bounds(bounds2)
@@ -369,6 +346,24 @@ def collapse_lbvh2_to_bvh8(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
                         lay.node_children(leaf))
     out_meta = _scatter(torch.zeros_like(meta), rows, torch.where(leaf, meta, 0))
     return BVH4(bounds, children, out_meta, int(lay.reached.sum()))
+
+
+def collapse_lbvh2_to_bvh4(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
+    """4-wide greedy re-emission collapse (each node absorbs up to 4
+    grandchildren, always expanding the first internal kid) → a BVH4
+    padded to the BVH2's row count, on the device of ``bvh2``: the JAX
+    package's device collapse, node for node and bit for bit. ``sweeps``
+    caps each fixed point (≥ tree height; default the static bound of a
+    Karras tree)."""
+    return _collapse(bvh2, 4, sweeps)
+
+
+def collapse_lbvh2_to_bvh8(bvh2: LBVH2, sweeps: int | None = None) -> BVH4:
+    """8-wide greedy re-emission collapse → a BVH8 in the :class:`BVH4`
+    container (children (M, 8)), padded to the BVH2's row count, on the
+    device of ``bvh2``; treelets are gathered largest subtree first, as in
+    the JAX package. ``sweeps`` as for :func:`collapse_lbvh2_to_bvh4`."""
+    return _collapse(bvh2, 8, sweeps)
 
 
 def promote_lbvh2_to_bvh4_wide(bvh2: LBVH2) -> BVH4:
@@ -402,6 +397,24 @@ def bvh2_as_bvh4(bvh2: LBVH2) -> BVH4:
     children = torch.stack([bvh2.left, bvh2.right, inv, inv], dim=-1)
     children = torch.where(leaf[:, None], INVALID, children)
     return BVH4(bvh2.bounds_u32, children, bvh2.meta, bvh2.num_nodes)
+
+
+WIDENERS = ("collapse", "collapse8", "promote", "bvh2")
+
+
+def widen(bvh2: LBVH2, widener: str = "collapse", height: int | None = None) -> BVH4:
+    """The BVH2 through one of the JAX package's wideners (:data:`WIDENERS`)
+    → its wide tree, on the device of ``bvh2``: the 4- or 8-wide device
+    collapse, the promotion, or the BVH2 in the 4-wide struct. ``height``
+    (the tree's, where the builder knows it) caps the collapse's sweeps at
+    ``height + 2``; without it the static bound of a Karras tree does. The
+    sweeps stop where they converge, so the cap changes no result."""
+    if widener not in WIDENERS:
+        raise ValueError(f"unknown widener {widener!r}")
+    if widener in ("collapse", "collapse8"):
+        return _collapse(bvh2, 8 if widener == "collapse8" else 4,
+                         None if height is None else height + 2)
+    return {"promote": promote_lbvh2_to_bvh4_wide, "bvh2": bvh2_as_bvh4}[widener](bvh2)
 
 
 def _flush_f16_subnormals(b: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,16 @@
 path tracing, with the public surface of
 ``raytracer_tpu/pathtracer.py::PathTracer``.
 
-The main path: ``set_scene`` → native SAH build with K-triangle clusters →
-the widener (BVH2 → wide tree) → wide nodes → supernode records on
-``device``. ``refit_bvh`` moves the triangles of that tree and keeps its
-topology: refit → the collapse plan's gather → wide nodes → records, all on
-``device`` (the ``"collapse"`` widener; any other rebuilds). Then:
+``set_scene`` builds the BVH2 with the configured builder: the JAX
+package's default, the Morton / Karras LBVH over single triangles
+(``builder="lbvh", leaf_size=1``), the same over Morton runs of K triangles
+(``leaf_size=K``), or the native SAH build with K-triangle clusters
+(``builder="sah", leaf_size=K``, the main path's K = 32); then the widener
+(BVH2 → wide tree) → wide nodes → supernode records, all on ``device`` but
+the native SAH build. ``refit_bvh`` moves the triangles of a cluster tree
+and keeps its topology: refit → the collapse plan's gather → wide nodes →
+records, all on ``device`` (the ``"collapse"`` widener; any other, and a
+tree of single triangles, rebuilds). Then:
 
 * ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
   ``render_presented``'s tonemap; ``render_stream`` box-filters the same
@@ -28,12 +33,13 @@ On a CUDA device every traversal is a kernel; on the CPU each runs its plain
 torch version. Scenes of at most 8 triangles trace brute force, as in the
 JAX package.
 
-Ported so far: the SAH builder with clusters of K > 1 triangles, its refit,
-and the four wideners of the JAX package: ``"collapse"`` (greedy 4-wide
-collapse, the default), ``"collapse8"`` (greedy 8-wide collapse, BVH8),
-``"promote"`` (index-preserving 4-wide promotion) and ``"bvh2"`` (the binary
-tree in the 4-wide struct). The other builders (LBVH, PLOC, single-triangle
-leaves) come with a later slice and raise ``NotImplementedError``.
+Ported so far: the LBVH builder (single triangles and Morton clusters),
+the SAH builder with clusters of K > 1 triangles, their refit, and the four
+wideners of the JAX package: ``"collapse"`` (greedy 4-wide collapse, the
+default), ``"collapse8"`` (greedy 8-wide collapse, BVH8), ``"promote"``
+(index-preserving 4-wide promotion) and ``"bvh2"`` (the binary tree in the
+4-wide struct). The PLOC builder and the SAH build of single triangles come
+with a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,12 +52,12 @@ import torch
 from .io import artifacts
 from .models.scene import Scene
 from .ops.camera import generate_rays_jittered
-from .ops.cluster import (build_sah2_clustered, refit_lbvh2_clustered, state_from_numpy,
-                          tree_height, wide_pipeline)
-from .ops.collapse import (LBVH2, bvh2_as_bvh4, collapse_apply_refit, collapse_plan,
-                           promote_lbvh2_to_bvh4_wide)
+from .ops.cluster import (build_lbvh2_clustered, build_sah2_clustered, bvh2_from_numpy,
+                          refit_lbvh2_clustered, state_from_numpy, tree_height)
+from .ops.collapse import LBVH2, WIDENERS, collapse_apply_refit, collapse_plan, widen
 from .ops.cuda.entry import compute_tile_entries
 from .ops.cuda.traverse import TILE, make_qnodes, trace_tiles
+from .ops.lbvh import build_lbvh2
 from .ops.shade import (downscale_rgb8, present_frame, quantize_rgba8, shade_lambert,
                         triangle_normals)
 from .ops.trace import make_wide_bvh, trace_rays_brute
@@ -61,9 +67,8 @@ from .render_pt import accumulate, pt_sample_frame
 __all__ = ["PathTracer"]
 
 _BRUTE_FORCE_MAX_TRIS = 8
-_LATER = ("only the SAH builder with K>1 triangle clusters is ported; "
-          "LBVH/PLOC builds and single-triangle leaves come with a later slice "
-          "of the torch build chain (ROADMAP slice 7)")
+_LATER = ("the PLOC builder and the SAH build of single triangles come with a later "
+          "slice of the torch build chain (ROADMAP slice 7b)")
 
 
 def _default_tetrahedron() -> np.ndarray:
@@ -87,13 +92,16 @@ class PathTracer:
     without a card raises here; nothing falls back."""
 
     def __init__(self, width: int = 1920, height: int = 1080, widener: str = "collapse",
-                 builder: str = "sah", leaf_size: int = 32, *, device) -> None:
-        if widener not in ("collapse", "collapse8", "promote", "bvh2"):
+                 builder: str = "lbvh", leaf_size: int = 1, *, device) -> None:
+        if widener not in WIDENERS:
             raise ValueError(f"unknown widener {widener!r}")
         if builder not in ("lbvh", "ploc", "sah"):
             raise ValueError(f"unknown builder {builder!r}")
         if leaf_size < 1:
             raise ValueError("leaf_size must be >= 1")
+        if leaf_size > 1 and builder not in ("lbvh", "sah"):
+            raise ValueError("leaf_size > 1 requires the lbvh builder (Morton-run clusters) "
+                             "or the sah builder (SAH-snapped clusters)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but no CUDA device "
@@ -116,7 +124,8 @@ class PathTracer:
 
         self.triangles_data: np.ndarray = _default_tetrahedron()
         self._tris_dev: torch.Tensor | None = None
-        self._cluster = None
+        self._bvh2: LBVH2 | None = None
+        self._cluster = None  # the ClusteredScene of a K > 1 tree
         self._bvh2_height: int | None = None
         self._collapse_plan = None
         self._qnodes: torch.Tensor | None = None
@@ -137,49 +146,72 @@ class PathTracer:
     # -- BVH build --------------------------------------------------------------
 
     def build_bvh(self, triangles) -> None:
-        """Native SAH cluster build + the widener's records, with per-phase
-        timings in ``build_stats`` (host clock; the records phase ends in a
-        device synchronise)."""
+        """The configured builder's BVH2, then the widener's records, with
+        the JAX package's per-phase timings in ``build_stats`` (host clock,
+        each phase ending in a device synchronise): ``lbvh2_ms`` the BVH2
+        build, ``collapse_ms`` the widener (BVH2 → wide tree), ``widen_ms``
+        the wide nodes and the records, ``total_ms`` their sum;
+        ``records_ms`` is ``collapse_ms + widen_ms``, ``num_nodes4`` the wide
+        tree's rows."""
         tris = np.asarray(triangles, dtype=np.float32)
         if tris.ndim == 1:
             tris = tris.reshape(-1, 3, 3)
         self.triangles_data = tris
         self._tris_dev = torch.from_numpy(tris).to(self.device)
-        self._cluster = self._qnodes = self._bvh2_height = self._wide = None
+        self._bvh2 = self._cluster = self._qnodes = self._bvh2_height = self._wide = None
         self._collapse_plan = None  # new topology → new plan (refit_bvh)
         n = len(tris)
         if n <= _BRUTE_FORCE_MAX_TRIS:
             # traced brute force (_render_planes): no tree needed
             self.build_stats = {"num_triangles": n, "total_ms": 0.0}
             return
-        if self.builder != "sah" or self.leaf_size < 2:
+        if self.builder == "ploc" or self.leaf_size == 1 and self.builder == "sah":
             raise NotImplementedError(_LATER)
 
         t0 = time.perf_counter()
-        self._cluster, self._bvh2_height = build_sah2_clustered(tris, self.leaf_size,
-                                                                self.device)
-        t1 = time.perf_counter()
-        self._records()
-        t2 = time.perf_counter()
+        if self.builder == "sah":
+            self._cluster, self._bvh2_height = build_sah2_clustered(tris, self.leaf_size,
+                                                                    self.device)
+        elif self.leaf_size > 1:
+            self._cluster = build_lbvh2_clustered(self._tris_dev, self.leaf_size)
+        else:
+            self._bvh2 = build_lbvh2(self._tris_dev)
+        if self._cluster is not None:
+            self._bvh2 = self._cluster.bvh2
+        t1 = self._sync()
+        wide_bvh = self._widen()
+        t2 = self._sync()
+        self._qnodes = self._make_qnodes(make_wide_bvh(wide_bvh))
+        t3 = self._sync()
         self.build_stats = {
             "num_triangles": n,
-            "num_nodes2": self._cluster.bvh2.num_nodes,
-            "bvh2_height": self._bvh2_height,
+            "num_nodes2": self._bvh2.num_nodes,
+            "num_nodes4": wide_bvh.num_nodes,
             "lbvh2_ms": (t1 - t0) * 1e3,
-            "records_ms": (t2 - t1) * 1e3,
-            "total_ms": (t2 - t0) * 1e3,
+            "collapse_ms": (t2 - t1) * 1e3,
+            "widen_ms": (t3 - t2) * 1e3,
+            "records_ms": (t3 - t1) * 1e3,
+            "total_ms": (t3 - t0) * 1e3,
         }
+
+    def _sync(self) -> float:
+        """Wait for the card (on a CUDA device); the host clock after it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
 
     def refit_bvh(self, triangles) -> None:
         """Refit the tree to deformed triangles — same count, moved vertices —
         instead of rebuilding: topology, cluster assignment and the
-        BVH2→BVH4 collapse decisions all survive, so a refit is the bounds
+        BVH2→BVH4 collapse decisions all survive, so a refit of a cluster
+        tree (SAH or Morton) is the bounds
         sweep (``refit_lbvh2_clustered``), one gather through the collapse
         plan (``collapse_apply_refit``, equal to the full collapse) and the
         records, all on ``device``. The plan is made at the first refit of a
         tree, when the tree's topology is also copied to ``device``. Falls
-        back to ``build_bvh`` for another triangle count, no cluster tree,
-        the brute-force scene, or any widener but ``"collapse"`` (the plan
+        back to ``build_bvh`` for another triangle count, a tree of single
+        triangles (as the JAX package does), the brute-force scene, or any
+        widener but ``"collapse"`` (the plan
         is the 4-wide collapse's). Adds ``plan_ms`` (first refit only) and
         ``refit_ms`` (host clock, ending in a device synchronise) to
         ``build_stats``."""
@@ -191,49 +223,50 @@ class PathTracer:
             self.build_bvh(tris)
             return
         stats = {}
-        sweeps = self._bvh2_height + 2
         if self._collapse_plan is None:
             t0 = time.perf_counter()
+            if self._bvh2_height is None:
+                # the Morton build knows no height; the refit's sweeps need it
+                self._bvh2_height = tree_height(self._cluster.bvh2)
             bvh2 = LBVH2(*(a.to(self.device) for a in self._cluster.bvh2))
             self._cluster = self._cluster._replace(bvh2=bvh2)
-            self._collapse_plan = collapse_plan(bvh2, sweeps=sweeps)
+            self._collapse_plan = collapse_plan(bvh2, sweeps=self._bvh2_height + 2)
             stats["plan_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
-        cs = refit_lbvh2_clustered(self._cluster, tris_dev, num_sweeps=sweeps)
+        cs = refit_lbvh2_clustered(self._cluster, tris_dev, num_sweeps=self._bvh2_height + 2)
         bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
         self._qnodes = make_qnodes(make_wide_bvh(bvh4), cs.tris_sorted, tri_ids=cs.tri_order,
                                    leaf_size=cs.leaf_size)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        stats["refit_ms"] = (time.perf_counter() - t0) * 1e3
+        stats["refit_ms"] = (self._sync() - t0) * 1e3
         self._cluster = cs
+        self._bvh2 = cs.bvh2
         self._wide = None
         self.triangles_data = tris
         self._tris_dev = tris_dev
         self.build_stats = {**self.build_stats, **stats}
 
-    def _widen(self, bvh2: LBVH2):
-        """The index-preserving wideners, on ``device``."""
-        widen = {"promote": promote_lbvh2_to_bvh4_wide, "bvh2": bvh2_as_bvh4}[self.widener]
-        return widen(LBVH2(*(a.to(self.device) for a in bvh2)))
+    def _widen(self):
+        """The BVH2 through the configured widener → its wide tree
+        (:class:`~raytracer_tpu_torch.ops.collapse.BVH4`), on ``device``."""
+        return widen(LBVH2(*(a.to(self.device) for a in self._bvh2)), self.widener,
+                     self._bvh2_height)
 
-    def _make_wide(self):
-        """The cluster tree through the configured widener → its WideBVH."""
-        if self.widener in ("collapse", "collapse8"):
-            return wide_pipeline(self._cluster, height=self._bvh2_height,
-                                 width=8 if self.widener == "collapse8" else 4)
-        return make_wide_bvh(self._widen(self._cluster.bvh2))
+    def _make_qnodes(self, wide) -> torch.Tensor:
+        """The records of a wide tree: a cluster tree's inline its sorted
+        triangles and their original ids, a tree of single triangles the
+        scene's triangles (its leaves hold their indices)."""
+        cs = self._cluster
+        if cs is None:
+            return make_qnodes(wide, self._tris_dev)
+        return make_qnodes(wide, cs.tris_sorted, tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
 
     def _records(self) -> None:
-        """The records of the cluster tree through the configured widener
-        (shared by ``build_bvh`` and ``load_checkpoint``)."""
-        cs = self._cluster
+        """The records of the current BVH2 through the configured widener
+        (``load_checkpoint``)."""
         self._wide = None
-        self._qnodes = make_qnodes(self._make_wide(), cs.tris_sorted, tri_ids=cs.tri_order,
-                                   leaf_size=cs.leaf_size)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._qnodes = self._make_qnodes(make_wide_bvh(self._widen()))
+        self._sync()
 
     def _wide_bvh(self):
         """The wide tree of the current records, for the tile entries. The
@@ -241,7 +274,7 @@ class PathTracer:
         kept until the next build or refit) when entries are first asked
         for."""
         if self._wide is None:
-            self._wide = self._make_wide()
+            self._wide = make_wide_bvh(self._widen())
         return self._wide
 
     # -- rendering ---------------------------------------------------------------
@@ -365,20 +398,26 @@ class PathTracer:
 
     def load_checkpoint(self, path) -> None:
         """Restore a checkpoint written by ``raytracer_tpu``'s
-        ``PathTracer.save_checkpoint``: triangles + the clustered BVH2 are
-        loaded verbatim (no rebuild); the records are derived on ``device``."""
+        ``PathTracer.save_checkpoint``: triangles + the BVH2 (clustered, or of
+        single triangles, which sets ``leaf_size = 1``) are loaded verbatim
+        (no rebuild); the records are derived on ``device``."""
         data = artifacts.load_scene_npz(path)
         tris = data["triangles"].reshape(-1, 3, 3)
         if "bvh2_bounds" not in data:
             self.build_bvh(tris)
             return
-        if "tri_order" not in data:
-            raise NotImplementedError(_LATER)
         self.triangles_data = tris
         self._tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
-        self._cluster = state_from_numpy(data, self.device)
-        self.leaf_size = self._cluster.leaf_size
-        # the checkpoint does not store the height, which sets the refit's sweeps
-        self._bvh2_height = tree_height(self._cluster.bvh2)
+        if "tri_order" in data:
+            self._cluster = state_from_numpy(data, self.device)
+            self._bvh2 = self._cluster.bvh2
+            self.leaf_size = self._cluster.leaf_size
+        else:
+            # a tree of single triangles: its leaves hold triangle indices
+            self._cluster = None
+            self._bvh2 = bvh2_from_numpy(data)
+            self.leaf_size = 1
+        # the checkpoint does not store the height, which sets a refit's sweeps
+        self._bvh2_height = tree_height(self._bvh2) if self._cluster is not None else None
         self._collapse_plan = None
         self._records()

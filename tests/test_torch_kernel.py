@@ -1,8 +1,10 @@
 """The traversal kernels' wrappers (K1a/K1b ``trace_tiles``, K1c
 ``trace_tiles_batch``, K2a/K2b ``trace_rays``; K1d with ``entries`` /
 ``tbounds``, K1e and K2c on 8-wide records, K1f with ``stats``), their build, each kernel against its plain
-torch version, and the refit chain on the card against the same chain on
-the CPU.
+torch version, on SAH cluster trees and on the Morton LBVH of single
+triangles (``leaf_k = 1``); the LBVH build chain and the refit chain on the
+card against the same chains on the CPU; and the microbenchmark kernels
+MB1–MB4 against their plain versions.
 
 Needs neither JAX nor the JAX package, so the tests marked ``cuda`` run on
 a machine with a card and only the port:
@@ -27,10 +29,13 @@ import torch
 
 from raytracer_tpu_torch.ops.camera import generate_rays_jittered
 from raytracer_tpu_torch import render
-from raytracer_tpu_torch.ops.cluster import (build_sah2_clustered, records_pipeline,
-                                             refit_lbvh2_clustered, wide_pipeline)
-from raytracer_tpu_torch.ops.collapse import LBVH2, collapse_apply_refit, collapse_plan
-from raytracer_tpu_torch.ops.cuda import build, traverse
+from raytracer_tpu_torch.ops.cluster import (build_lbvh2_clustered, build_sah2_clustered,
+                                             records_pipeline, refit_lbvh2_clustered,
+                                             wide_pipeline)
+from raytracer_tpu_torch.ops.collapse import (LBVH2, collapse_apply_refit, collapse_lbvh2_to_bvh4,
+                                              collapse_plan)
+from raytracer_tpu_torch.ops.cuda import build, microbench, traverse
+from raytracer_tpu_torch.ops.lbvh import build_lbvh2
 from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
 from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.ops.trace import moller_trumbore
@@ -649,10 +654,87 @@ def test_refit_chain_on_card_equals_cpu(cuda_device):
 
 def test_refit_chain_runs_on_cpu():
     """The chain the card test runs, on the CPU: the refitted records equal
-    the records pipeline's (native full collapse) of the refitted scene."""
+    the records pipeline's (the full device collapse) of the refitted
+    scene."""
     tris = room_scene()
     qn = refit_chain_records(tris, "cpu")[1]
     cs, height = build_sah2_clustered(tris, 8, "cpu")
     r = refit_lbvh2_clustered(cs, torch.from_numpy(tris) * (1.0 + 0.1 * np.sin(1.9)),
                               num_sweeps=height + 2)
     assert torch.equal(qn.view(torch.int32), records_pipeline(r).view(torch.int32))
+
+
+def lbvh_records(tris: np.ndarray, device) -> torch.Tensor:
+    """K = 1 records of the Morton LBVH of ``tris`` on ``device``, as
+    PathTracer(builder="lbvh", leaf_size=1) makes them."""
+    t = torch.from_numpy(tris).to(device)
+    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(t)))
+    return traverse.make_qnodes(wide, t)
+
+
+@pytest.mark.cuda
+def test_lbvh_chain_on_card_equals_cpu(cuda_device):
+    """Morton LBVH (K = 1 and Morton clusters of 8), the device 4-wide
+    collapse and the K = 1 records: the card's words equal the CPU's."""
+    tris = seeded_scene(4)
+    t_card, t_cpu = torch.from_numpy(tris).to(cuda_device), torch.from_numpy(tris)
+    for a, b in zip(build_lbvh2(t_card), build_lbvh2(t_cpu)):
+        assert torch.equal(a.cpu(), b)
+    cs_card, cs_cpu = build_lbvh2_clustered(t_card, 8), build_lbvh2_clustered(t_cpu, 8)
+    for a, b in zip(cs_card.bvh2, cs_cpu.bvh2):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(cs_card.tri_order.cpu(), cs_cpu.tri_order)
+    for a, b in zip(collapse_lbvh2_to_bvh4(cs_card.bvh2)[:3], collapse_lbvh2_to_bvh4(cs_cpu.bvh2)[:3]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(lbvh_records(tris, cuda_device).cpu().view(torch.int32),
+                       lbvh_records(tris, "cpu").view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_leaf_k1_kernels_match_reference_on_card(cuda_device):
+    """K1a and K2a / K2b on the K = 1 records of the Morton LBVH against
+    their plain versions on the card."""
+    tris = seeded_scene(4)
+    w, h = 192, 128
+    qn = lbvh_records(tris, cuda_device)
+    before = dict(traverse.LAUNCHES)
+    ours = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=1)
+    torch.cuda.synchronize()
+    assert traverse.LAUNCHES["trace_tiles_k1a"] == before["trace_tiles_k1a"] + 1
+    ref = traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=1)
+    ours, ref = [p.cpu() for p in ours], [p.cpu() for p in ref]
+    assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(),
+                        tris, image_dirs(w, h))
+    o, d = ray_buffer(qn, 1, 2048)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    k2a = [p.cpu() for p in traverse.trace_rays(qn, o, d, leaf_k=1)]
+    ref = [p.cpu() for p in traverse.trace_rays_reference(qn, o, d, leaf_k=1)]
+    assert_trace_parity(k2a, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                        d.cpu(), o.cpu().numpy())
+    k2b = traverse.trace_rays(qn, o, d, any_hit=True, leaf_k=1)
+    ref_b = traverse.trace_rays_reference(qn, o, d, any_hit=True, leaf_k=1)
+    assert torch.equal((k2b[4] >= 0).cpu(), (ref_b[4] >= 0).cpu())
+
+
+@pytest.mark.cuda
+def test_microbench_kernels_match_plain_on_card(cuda_device):
+    """MB1–MB4 at small n against their plain versions, exactly; each launch
+    counts once."""
+    mb = microbench
+    before = dict(mb.LAUNCHES)
+    n = 300
+    variants = 0
+    for v in mb.sweep(cuda_device, levels=("L1",)):
+        v.prepare()
+        assert v.run(n) == v.plain(n), (v.kernel, v.label)
+        assert int(v.launch(n)[-1][0]) > 0, (v.kernel, v.label)
+        variants += 1
+    assert variants == len(mb.WALK_VARIANTS) + len(mb.SCALAR_VARIANTS) + 4 * len(mb.VISIT_PARTS)
+    cap = mb.smem_capacity(torch.arange(64 * 1024, dtype=torch.float32, device=cuda_device))
+    assert cap["checked"] and 48 * 1024 < cap["max_bytes"] <= 256 * 1024
+    assert mb.mb_smem_probe(torch.zeros(300 * 256, device=cuda_device), 300 * 1024) is None
+    launched = {k: mb.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"mb_walk": 2 * len(mb.WALK_VARIANTS),
+                        "mb_scalar": 2 * len(mb.SCALAR_VARIANTS),
+                        "mb_visit": 2 * 4 * len(mb.VISIT_PARTS),
+                        "mb_smem_probe": (cap["max_bytes"] - 48 * 1024) // 1024 + 1}

@@ -32,6 +32,8 @@ from raytracer_tpu_torch.utils import procgen
 CAM_POS = (0.15, -0.1, 2.5)
 CAM_QUAT = (0.0, 0.1, 0.0, 0.9949874)
 FOV = 70.0
+NEAR = (0.0, 0.0, 1.2)   # the cube-normalized sphere fills the frame: every ray hits
+UPRIGHT = (0.0, 0.0, 0.0, 1.0)
 T_RTOL, TIE_RTOL, MAX_TIE_SHARE = 1e-5, 1e-6, 1e-3
 UNIT_ATOL, NORMAL_ATOL = 1e-4, 1e-5
 SEED = 7
@@ -97,6 +99,12 @@ def ray_buffer(qnodes: torch.Tensor, leaf_k: int, n: int, seed: int = SEED):
     origins = np.concatenate([p[hit], oo]).astype(np.float32)
     dirs = np.concatenate([bd[hit], od]).astype(np.float32)
     return origins, dirs
+
+
+def flat_records(qn) -> np.ndarray:
+    """The JAX package's (M, recw / 128, 128) records as (M, recw) numpy."""
+    a = np.array(qn)
+    return a.reshape(a.shape[0], -1)
 
 
 def wide_from_numpy(arrays, device="cpu") -> WideBVH:
