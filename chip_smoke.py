@@ -134,7 +134,7 @@ phase 11, while the 4-wide tracer still holds the undeformed dragon:
    device busy ms.
 
 Phases 25–27 drive the JAX package's default build (Morton / Karras LBVH)
-and the microbenchmark kernels; they run last:
+and the microbenchmark kernels; they run last, phase 28 between 26 and 27:
 
 25. the LBVH dragon at full size through PathTracer(builder="lbvh") at
    leaf_size 1 and 8: set_scene's stages, BVH2 rows, record bytes and peak
@@ -156,6 +156,28 @@ and the microbenchmark kernels; they run last:
    iteration at n = 100 → 1,000 with its launches counted, MB4's largest
    block, then every variant at n = 1,000 against its plain version
    (exactly). The full sweep, with the 1 GiB table, is chip_microbench.py's.
+
+Phase 28 holds the redesigned traversal core (csrc/traverse_core.cuh, the
+wrappers' core="hopper", on the render paths) against the frozen baseline
+core (csrc/traverse_core_baseline.cuh, core="baseline"); it runs after
+phase 26, before 27:
+
+28. ptxas registers, stack frame and spills of every redesigned
+   instantiation beside its baseline twin; every plane of every pixel of the
+   full-size frames (K1a framed and sparse at SAH K = 32 and LBVH K = 1, K1b,
+   K1c's 8 frames, K1d under the frame's bounds and entries, K1e framed and
+   sparse, K1f at both widths) and of every ray of the 15 captured waves
+   (SAH K = 32, LBVH K = 1, 8-wide; closest and any hit, each with its own
+   schedule) bit-identical between the two cores (0 differing words), and
+   each wave's share of alive lanes; A-B-B-A CUDA-event times of each of
+   those frames and waves, of one whole 3-bounce sample per tree (radiance
+   equal) and of the dynamic dragon frame; each set of the design elements
+   alone (ELEMENT_CORES on K1a at K = 32 and K = 1 and the first K2a and K2b
+   waves; one thread per ray), K2's two schedules on every 4-wide wave
+   that may choose (any hit over leaves of K > 1 runs one thread per ray);
+   the deepest stack the plain version counts; and the
+   baseline's times beside each kernels-line row's (``baseline_ms`` on the
+   checked rays, ``baseline_path_ms`` on the path).
 
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
@@ -200,12 +222,17 @@ kernel alone). ``launches``: K1d's are those of phases 21–23's calls, K1e's
 are those of phase 15's render calls
 and samples, K2c's of its samples, K1f's of phase 19's frames.
 
+Every traversal row of the kernels line also carries ``baseline_ms`` and
+``baseline_path_ms``: the same calls with the frozen baseline core, timed
+A-B-B-A against the redesigned one in phase 28.
+
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -433,15 +460,17 @@ def profile_calls(fn, what: str, card: str, n: int = 3) -> dict | None:
 def ptxas_rows(nvcc_log: str) -> list[tuple]:
     """(kernel<template arguments>, registers, stack frame bytes, spill store
     bytes, spill load bytes) of every entry function in an ``nvcc -Xptxas -v``
-    log. The template arguments are <child slots, jitter, visits> for the
-    batch tile kernel, <child slots, jitter, visits, bounds> for the one-frame
-    tile kernel and <child slots, any hit> for the ray kernel."""
+    log. The template arguments are <child slots, jitter, visits, core> for
+    the batch tile kernel, <child slots, jitter, visits, bounds, core> for the
+    one-frame tile kernel, <child slots, any hit, core> for the ray kernel and
+    <child slots, any hit> for the persistent ray kernel (core: the feature
+    mask of csrc/traverse_core.cuh, 256 for the frozen baseline)."""
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            k = re.search(r"((?:trace|mb)_\w+?_kernel)(I(?:L[ib]\d+E)+)?", m.group(1))
+            k = re.search(r"((?:trace|mb)_\w+?_kernel)(I(?:L[ibj]\d+E)+)?", m.group(1))
             name = m.group(1) if not k else k.group(1) if not k.group(2) else (
-                f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>")
+                f"{k.group(1)}<{','.join(re.findall(r'L[ibj](\d+)E', k.group(2)))}>")
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                             r"(\d+) bytes spill loads", line):
             frame = tuple(int(x) for x in m.groups())
@@ -544,6 +573,10 @@ def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: d
     crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
         qn, FRAMED, QUAT, CROP, CROP, FOV, raygen_size=(WIDTH, HEIGHT), row_offset=r0,
         col_offset=c0, **kw), FRAMES, REPEATS))
+    register_row(env, f"trace_tiles_{label.lower()}", lambda core: traverse.trace_tiles(
+        qn, FRAMED, QUAT, CROP, CROP, FOV, raygen_size=(WIDTH, HEIGHT), row_offset=r0,
+        col_offset=c0, core=core, **kw), lambda core: traverse.trace_tiles(
+        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, core=core, **kw))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
         qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=crop_pix, **kw), 1, 3))
     crop_bound = bound(checked["counts"], 1.0, crop_pix.numel() * OUT_BYTES)
@@ -573,11 +606,12 @@ def capture_waves(env: dict, qn: torch.Tensor, leaf_k: int = LEAF_K) -> tuple[li
     waves = []
     real_trace_rays = render_pt.trace_rays
 
-    def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
+    def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None,
+                  scattered=False):
         out = real_trace_rays(qnodes, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
-                              active=active)
+                              active=active, scattered=scattered)
         waves.append({"any_hit": any_hit, "o": origins, "d": dirs, "active": active,
-                      "out": out})
+                      "scattered": scattered, "out": out})
         return out
 
     render_pt.trace_rays = capturing
@@ -604,6 +638,7 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
     tris, card, dev = env["tris"], env["card"], env["dev"]
     pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     wave_stats: dict[str, list] = {}
+    picks = []
     for i, w in enumerate(waves):
         name = occlusion if w["any_hit"] else closest
         kind = "any hit" if w["any_hit"] else "closest hit"
@@ -618,6 +653,7 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
             fail(f"wave {i} ({name}): inactive lanes must return the miss values")
         pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
         o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
+        picks.append((o, d))
         counts = traverse.TraversalCounts()
         ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k,
                                             counts=counts)
@@ -631,8 +667,8 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
         ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
             qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k), FRAMES, 3))
         path_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
-            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"]),
-            3, 3))
+            qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"],
+            scattered=w["scattered"]), 3, 3))
         b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
         pb_ms, pb_by, p_detail = bound(counts, n_live / n,
                                        r * OUT_BYTES + n_live * RAY_BYTES + r)
@@ -649,7 +685,23 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
     want[occlusion] = want.get(occlusion, 0) + BOUNCES
     if {name: len(ws) for name, ws in wave_stats.items()} != want:
         fail(f"captured waves {[(k, len(v)) for k, v in wave_stats.items()]}, expected {want}")
+    for name in wave_stats:
+        mine = [(w, p) for w, p in zip(waves, picks) if (occlusion if w["any_hit"] else closest)
+                == name]
+        register_row(env, name, lambda core, mine=mine: [traverse.trace_rays(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k, core=core) for w, (o, d) in mine],
+            lambda core, mine=mine: [traverse.trace_rays(
+                qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"],
+                scattered=w["scattered"], core=core) for w, _ in mine])
     return wave_stats
+
+
+def register_row(env: dict, name: str, checked, path) -> None:
+    """Keep the calls that a kernels-line row times — ``checked(core)`` on its
+    checked rays, ``path(core)`` on its main path — for phase 28, which times
+    both with the baseline core beside the redesigned one. The first
+    registration of a name is its row's."""
+    env.setdefault("row_calls", {}).setdefault(name, (checked, path))
 
 
 def summed(details: list[dict]) -> tuple[float, str]:
@@ -862,7 +914,7 @@ def main() -> None:
     waves, sample_stats = capture_waves(env, qn)
     alive_rays = int(sample_stats["alive_rays"])
     wave_stats = check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b")
-    del waves
+    env["waves"] = {LEAF_K: waves}  # for phase 28
 
     # 9. one whole 256x256 sample: kernels vs plain versions
     def plain_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
@@ -871,7 +923,8 @@ def main() -> None:
                                               fov_degrees, leaf_k, jitter=jitter,
                                               jitter_seed=jitter_seed)
 
-    def plain_rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None):
+    def plain_rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None,
+                   scattered=False):
         return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
                                              leaf_k=leaf_k, active=active)
 
@@ -957,6 +1010,9 @@ def main() -> None:
     # 25.-26. the Morton LBVH trees (K = 1, K = 8) and the leaf-size question
     trees = lbvh_phase(env, scene)
     leaf_phase(env, trees)
+
+    # 28. the redesigned kernels against the frozen baseline core
+    hopper_phase(env, trees, rows)
     del trees
 
     # 27. the microbenchmark kernels
@@ -1284,6 +1340,9 @@ def bounded_phase(env: dict, pt) -> dict:
     crop_tb = bounds[ty:ty + nt, tx:tx + nt]
     ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
         qn, FRAMED, QUAT, CROP, CROP, FOV, tbounds=crop_tb, **window_kw), FRAMES, REPEATS))
+    register_row(env, "trace_tiles_k1d", lambda core: traverse.trace_tiles(
+        qn, FRAMED, QUAT, CROP, CROP, FOV, tbounds=crop_tb, core=core, **window_kw),
+        lambda core: tiles(entries=entries, tbounds=bounds, core=core))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
         qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, entries=entries, tbounds=bounds, **ref_kw), 1, 3))
     table_bytes = 2 * 4 * nty * ntx
@@ -1378,6 +1437,11 @@ def batch_phase(env: dict) -> dict:
     crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch(
         qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP, FOV, leaf_k=LEAF_K,
         raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0), FRAMES, REPEATS))
+    register_row(env, "trace_tiles_k1c", lambda core: traverse.trace_tiles_batch(
+        qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP, FOV, leaf_k=LEAF_K,
+        raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0, core=core),
+        lambda core: traverse.trace_tiles_batch(qn, cams, quats, WIDTH, HEIGHT, FOV,
+                                                leaf_k=LEAF_K, core=core))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch_reference(
         qn, [cams[f] for f in ends], [QUAT, QUAT], WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
         pixels=crop_pix), 1, 3))
@@ -1699,6 +1763,7 @@ def dynamic_phase(env: dict, pt) -> None:
     log(f"[time] one dynamic frame on the host clock: issued in {issue_ms:.4f} ms, done "
         f"{sync_ms:.4f} ms after a synchronise on {card}")
     profile_calls(lambda: frame(8), "dynamic dragon frame", card)
+    env["dynamic_frame"] = frame  # for phase 28
     log(f"[mem] peak device memory allocated in the dynamic phase: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
@@ -1886,7 +1951,8 @@ def ab_phase(env: dict, qn8: torch.Tensor, waves: list[dict]) -> dict:
 
     total = {"BVH4": 0.0, "BVH8": 0.0}
     for i, w in enumerate(waves):
-        kw = dict(any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"])
+        kw = dict(any_hit=w["any_hit"], leaf_k=LEAF_K, active=w["active"],
+                  scattered=w["scattered"])
         found = {t: int((traverse.trace_rays(q, w["o"], w["d"], **kw)[4] >= 0).sum())
                  for t, q in trees.items()}
         if found["BVH4"] != found["BVH8"]:
@@ -1987,6 +2053,7 @@ def wide8_phase(env: dict, scene) -> dict:
     k1e_j = check_tiles(env, qn8, "K1e", jitter=True)
     waves, _ = capture_waves(env, qn8)
     wave_stats = check_waves(env, qn8, waves, "trace_rays_k2c", "trace_rays_k2c")
+    env["qn8"], env["waves"]["8-wide"] = qn8, waves  # for phase 28
     rows = {"trace_tiles_k1e": time_tiles(
         env, qn8, "K1e", False, k1e,
         render_launches["trace_tiles_k1e"] + pt_want["trace_tiles_k1e"])}
@@ -1997,6 +2064,11 @@ def wide8_phase(env: dict, scene) -> dict:
     # 17. K1f at both widths
     visits = [check_visits(env, qn4, "K1f on 4-wide records"),
               check_visits(env, qn8, "K1f on 8-wide records")]
+    register_row(env, "trace_tiles_k1f", lambda core: [traverse.trace_tiles(
+        q, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, stats=True, raygen_size=(WIDTH, HEIGHT),
+        row_offset=env["r0"], col_offset=env["c0"], core=core) for q in (qn4, qn8)],
+        lambda core: [traverse.trace_tiles(q, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                           stats=True, core=core) for q in (qn4, qn8)])
 
     # 18. the structure of the full-size BVH8
     bvh2 = LBVH2(*(a.to(dev) for a in pt._cluster.bvh2))
@@ -2145,7 +2217,7 @@ def lbvh_phase(env: dict, scene) -> dict:
                      "left a non-finite buffer")
             waves, _ = capture_waves(env, qn, leaf_k=k)
             check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b", leaf_k=k)
-            del waves
+            env["waves"][1] = waves  # for phase 28
         del pt, images
     return trees
 
@@ -2204,6 +2276,195 @@ def leaf_phase(env: dict, trees: dict) -> None:
             f"{SAMPLES}); {near:.6f} of pixels within {RADIANCE_ATOL} of K={LEAF_K}'s on {card}")
         if near < MIN_RADIANCE_MATCH:
             fail(f"leaf: the K={k} sample agrees with K={LEAF_K}'s on {near:.6f} of pixels")
+
+
+# the cores timed alone (traverse.core_id names), on K1a, K2a and K2b
+ELEMENT_CORES = ("baseline", "none", "order", "stack", "prefetch", "order+stack",
+                 "order+prefetch", "stack+prefetch", "order+stack+prefetch", "hopper")
+
+
+def series(fns: dict, frames: int, repeats: int) -> dict:
+    """Median ms per call of each function, timed in the order given and
+    then in reverse (A-B-B-A for two)."""
+    names = list(fns)
+    reps = {n: [] for n in names}
+    for n in names + names[::-1]:
+        reps[n] += cuda_ms(fns[n], frames, repeats)
+    return {n: statistics.median(r) for n, r in reps.items()}
+
+
+def flat_planes(out) -> list:
+    """The planes of a traversal call's result, or of a list of results."""
+    if isinstance(out, list):
+        return [p for o in out for p in o]
+    return list(out)
+
+
+def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
+    """28. The redesigned traversal core ("hopper", every render path)
+    against the frozen baseline core ("baseline") in this one process:
+    ptxas of both; every plane of every pixel and ray of the full-size frames
+    and captured waves bit-identical; A-B-B-A times of frames, waves, whole
+    samples, the K1c batch and the dynamic frame; each design element alone;
+    K2's two schedules; and the baseline's times beside each kernels-line
+    row's."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    qn32, qn1, qn8 = env["qn"], trees[1]["qn"], env["qn8"]
+    t_phase = time.perf_counter()
+    cores = ("hopper", "baseline")
+
+    # ptxas: each instantiation of the redesigned core (the render core and
+    # the measured sets of elements) beside its baseline twin
+    for src in ("traverse_tiles.cu", "traverse_rays.cu"):
+        found = {k: (r, f, st, ld) for k, r, f, st, ld in ptxas_rows(traverse.load_kernel(src)[1])}
+        for kernel, (regs, frame, st, ld) in found.items():
+            if kernel.endswith(",256>"):
+                continue
+            twin = (kernel.replace("_persistent", "")[:-1] + ",256>" if "persistent" in kernel
+                    else kernel[:kernel.rindex(",")] + ",256>")
+            b = found.get(twin)
+            log(f"[hopper] ptxas {kernel}: {regs} registers, {frame} bytes stack frame, spills "
+                f"{st}/{ld} bytes; baseline {twin}: " + (
+                    f"{b[0]} registers, {b[1]} bytes stack frame, spills {b[2]}/{b[3]} bytes"
+                    if b else "none"))
+
+    # every plane of the full-size frames and waves, word for word
+    cams, quats = batch_cameras(CAM_Z)
+    frames = {
+        f"K1a framed SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
+            qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
+        f"K1a sparse SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
+            qn32, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
+        "K1a framed LBVH K=1": lambda c: traverse.trace_tiles(
+            qn1, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=1, core=c),
+        "K1a sparse LBVH K=1": lambda c: traverse.trace_tiles(
+            qn1, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=1, core=c),
+        f"K1b framed SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
+            qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, jitter=True,
+            jitter_seed=JITTER_SEED, core=c),
+        f"K1c {N_CAMS} cameras": lambda c: traverse.trace_tiles_batch(
+            qn32, cams, quats, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
+        "K1d framed, the frame's bounds and entries": env["row_calls"]["trace_tiles_k1d"][1],
+        "K1e framed 8-wide": lambda c: traverse.trace_tiles(
+            qn8, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
+        "K1e sparse 8-wide": lambda c: traverse.trace_tiles(
+            qn8, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
+        "K1f framed, 4- and 8-wide": env["row_calls"]["trace_tiles_k1f"][1],
+    }
+    trees_of = {LEAF_K: (qn32, LEAF_K, "SAH K=32"), 1: (qn1, 1, "LBVH K=1"),
+                "8-wide": (qn8, LEAF_K, "8-wide SAH K=32")}
+    waves = {}
+    for key, ws in env["waves"].items():
+        qn, k, label = trees_of[key]
+        for i, w in enumerate(ws):
+            kind = "any hit" if w["any_hit"] else "closest"
+            waves[f"{label} wave {i} ({kind})"] = (
+                lambda c, scattered=None, qn=qn, k=k, w=w: traverse.trace_rays(
+                    qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
+                    scattered=w["scattered"] if scattered is None else scattered, core=c))
+            lanes = w["o"].shape[0]
+            alive = lanes if w["active"] is None else int(w["active"].sum())
+            log(f"[hopper] {label} wave {i} ({kind}): {alive} of {lanes} lanes alive "
+                f"(share {alive / lanes:.4f})")
+    for what, fn in {**frames, **waves}.items():
+        words = differing_words(flat_planes(fn("hopper")), flat_planes(fn("baseline")))
+        if words:
+            fail(f"phase 28: {what}: the redesigned core differs from the baseline in {words} "
+                 "words")
+    log(f"[hopper] every plane bit-identical to the baseline core (0 differing words) on "
+        f"{len(frames)} full-size frames or batches and {len(waves)} captured waves")
+
+    # A-B-B-A: frames, waves, whole samples, the dynamic frame
+    for what, fn in frames.items():
+        ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 2 if "K1c" in what else 8, 2)
+        log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
+            f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
+    for what, fn in waves.items():
+        ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 3, 2)
+        log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
+            f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
+    real = (render_pt.trace_tiles, render_pt.trace_rays, traverse.trace_tiles_batch)
+
+    def with_core(c, fn):
+        def run():
+            render_pt.trace_tiles = functools.partial(real[0], core=c)
+            render_pt.trace_rays = functools.partial(real[1], core=c)
+            traverse.trace_tiles_batch = functools.partial(real[2], core=c)
+            try:
+                return fn()
+            finally:
+                render_pt.trace_tiles, render_pt.trace_rays, traverse.trace_tiles_batch = real
+        return run
+
+    for key in (LEAF_K, 1, "8-wide"):
+        qn, k, label = trees_of[key]
+
+        def sample(qn=qn, k=k):
+            return render_pt.pt_sample_frame(
+                qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+                leaf_k=k, tile_primary=True,
+                generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+        if not torch.equal(with_core("hopper", sample)(), with_core("baseline", sample)()):
+            fail(f"phase 28: the {label} sample differs between the two cores")
+        ms = abba({c: with_core(c, sample) for c in cores}, 4, 3)
+        log(f"[hopper] A-B-B-A one {BOUNCES}-bounce 1080p sample {label} (radiance equal): "
+            f"hopper {ms['hopper']:.4f} ms, baseline {ms['baseline']:.4f} ms, speed-up "
+            f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
+    frame = env["dynamic_frame"]
+    ms = abba({c: with_core(c, lambda: frame(9)) for c in cores}, 4, 3)
+    log(f"[hopper] A-B-B-A dynamic dragon frame ({N_CAMS} cameras, refit every frame): hopper "
+        f"{ms['hopper']:.4f} ms, baseline {ms['baseline']:.4f} ms, speed-up "
+        f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
+
+    # each design element alone (K2 one thread per ray), K2's two schedules
+    # on every wave where the wrapper lets the caller choose
+    firsts = {label: fn for label, fn in waves.items()
+              if ("wave 1 (closest)" in label or "wave 0 (any hit)" in label)
+              and "8-wide" not in label}
+    targets = {f"K1a framed SAH K={LEAF_K}": frames[f"K1a framed SAH K={LEAF_K}"],
+               "K1a framed LBVH K=1": frames["K1a framed LBVH K=1"], **firsts}
+    for what, fn in targets.items():
+        ms = series({c: (lambda c=c: fn(c, False)) if "wave" in what else (lambda c=c: fn(c))
+                     for c in ELEMENT_CORES}, 3 if "wave" in what else 8, 2)
+        log(f"[hopper] cores on {what} (K2: one thread per ray): "
+            + ", ".join(f"{c} {v:.4f} ({ms['baseline'] / v:.4f}x)" for c, v in ms.items())
+            + f" ms on {card}")
+    for what, fn in waves.items():
+        if "8-wide" in what or ("any hit" in what and "K=1 " not in what):
+            continue  # any hit over leaves of K > 1 runs one thread per ray
+        ms = abba({"one thread per ray": lambda fn=fn: fn("hopper", False),
+                   "persistent": lambda fn=fn: fn("hopper", True)}, 3, 2)
+        log(f"[hopper] K2 schedules on {what}: one thread per ray "
+            f"{ms['one thread per ray']:.4f} ms, persistent warps (refill below 16 lanes) "
+            f"{ms['persistent']:.4f} ms on {card}")
+
+    # the deepest stacks, as the plain version counts them (the shared part
+    # of the stack holds kSharedEntries; PERF.md)
+    for key, (qn, k, label) in trees_of.items():
+        crop, first = traverse.TraversalCounts(), traverse.TraversalCounts()
+        traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
+                                       pixels=env["crop_pix"], counts=crop)
+        w = env["waves"][key][1]
+        live = torch.nonzero(w["active"]).squeeze(1)[:WAVE_SAMPLES]
+        traverse.trace_rays_reference(qn, w["o"][live].contiguous(), w["d"][live].contiguous(),
+                                      leaf_k=k, counts=first)
+        log(f"[hopper] deepest stack {label}: crop {crop.max_depth} entries, first closest "
+            f"wave {first.max_depth} ({live.numel()} rays); pushes dropped "
+            f"{crop.dropped + first.dropped}")
+
+    # the kernels line: the baseline's times beside each row's
+    for name, (checked, path) in env["row_calls"].items():
+        c = abba({k: (lambda k=k: checked(k)) for k in cores}, 4, 2)
+        p = abba({k: (lambda k=k: path(k)) for k in cores}, 2, 2)
+        rows[name]["baseline_ms"], rows[name]["baseline_path_ms"] = c["baseline"], p["baseline"]
+        log(f"[hopper] {name} A-B-B-A: checked rays hopper {c['hopper']:.4f} / baseline "
+            f"{c['baseline']:.4f} ms; path hopper {p['hopper']:.4f} / baseline "
+            f"{p['baseline']:.4f} ms on {card}")
+    log(f"[hopper] phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def walk_bytes(span: int, rows_per: int, chains: int, n: int) -> int:

@@ -8,28 +8,115 @@
 // raytracer_tpu_torch/ops/cuda/traverse.py). Every visit is a dependent fetch
 // of one record header (8 f32 words per child slot: 128 bytes at 4 slots,
 // 256 at 8) through L1 and L2, plus the 12-word triangle records of the leaf
-// slots whose slab test passes: that latency, not arithmetic, is what bounds
-// a traversal on the card. An 8-wide tree visits fewer records and reads
-// twice the header at each; which of the two weighs more is measured, not
-// assumed (chip_smoke.py prints both trees side by side).
+// slots whose slab test passes.
+//
+// What was thought to hold the loop back (the microbenchmarks of
+// csrc/microbench.cu: one warp, clock64() cycles on an H100; PERF.md §6):
+//  * the child order. The baseline loop (traverse_core_baseline.cuh) sorts
+//    the passing children by insertion into `int cand[w]; float ckey[w]`
+//    with a data-dependent `while`; the dynamic indexing puts both arrays in
+//    local memory. MB3 prices that sort alone at 987 cycles against 1,609
+//    for a whole 4-slot visit, and at 3,403 against 2,399 at 8 slots.
+//  * the stack. 64 entries of (node, key) in local memory, 512 bytes a thread
+//    (ptxas: a 544-byte frame at 4 slots); MB3 prices the pushes and pops of
+//    one visit at 669 cycles.
+//  * the record fetch. A pop is followed by a dependent load of its header,
+//    though the node is known when it is pushed. MB1 prices one warp's
+//    dependent 512-byte fetch at 82 cycles from L1, 348 from L2 and 803
+//    from device memory; the same walk with the next row's copy in flight
+//    (cp.async) costs 456, 0.57× of the dependent one.
+// Those are one warp's latencies. With 30-odd warps resident on an SM the
+// latencies overlap, and the full kernels are bound by the instructions the
+// warps issue and by how many warps fit: an element pays where it removes
+// instructions or local-memory operations, and loses where it adds them or
+// takes L1 from the records (chip_smoke.py phase 28).
+//
+// The design elements, a feature bit each so that each is timed alone (every
+// set of them is built for K1a, K2a and K2b; kRenderCore is what the render
+// paths run, but for any hit over leaves of more than one triangle: there
+// every set lost to the baseline loop on the card, at 4 and 8 slots, and the
+// wrapper, ops/cuda/traverse.py::trace_rays, launches that loop):
+//  * kOrder — child order in registers, on every render path. Each passing
+//    child k (slab hit, so its key is not NaN, and ref >= 0) goes to its
+//    rank in the stable far-to-near order, pos(k) = #{j passing : key_j >
+//    key_k} + #{j < k passing : key_j == key_k}, counted over all pairs of
+//    slots in a fully unrolled loop (skipped when one child passes), and is
+//    written at stack index sp + 1 + pos(k). That is where the insertion
+//    sort's pushes land, and a push is dropped exactly when its index would
+//    pass 63, as there. No array indexed at run time is left in a visit but
+//    the stack, so the sort's local-memory loads and stores are gone; K = 1
+//    frames and the K2a waves gain most.
+//  * kSharedStack — the stack on chip; built, timed, and off: it gains
+//    nothing over kOrder and takes kSharedEntries · 8 bytes of each thread's
+//    L1 as shared memory. Stack entries 0 .. kSharedEntries − 1 live in
+//    dynamic shared memory as one 8-byte word (node, key bits), laid out
+//    [entry][thread] so that the 32 lanes of a warp touch 32 consecutive
+//    words; entries kSharedEntries .. 63 spill to a local array. The split is
+//    by index, so a ray whose stack stays within kSharedEntries (the deepest
+//    measured: 16 entries, PERF.md §6) never touches local memory; the
+//    64-entry rule is unchanged.
+//  * kPrefetch — the next record in flight during the leaf tests; built,
+//    timed, and off: it adds a stack read and a prefetch to every visit and
+//    gains little even at K = 32. The pushes depend only on the slab tests
+//    against best0, the best t at the start of the visit, so they move
+//    before the Möller–Trumbore loop; then the header of the new stack top
+//    (the next pop, unless the cull drops it) is prefetched into L1
+//    (`prefetch.global.L1`, one per 128-byte line) while the leaf's
+//    triangles are tested.
+// Two things of the form matter as much: the stack's storage is a variable
+// of its own beside the ray's state (in one struct with the dynamically
+// indexed array, the ray's scalars live in local memory too), and an any-hit
+// traversal leaves its loop before it reads its occluder's normal, so that
+// neither that nor the best t is carried around the loop.
+//
+// Tensor cores and TMA do not apply. The slab and Möller–Trumbore tests are
+// per-ray f32 scalar work on data-dependent operands, with no matrix
+// product; TMA moves tensor boxes whose addresses are known ahead of time,
+// where a traversal learns its next record only at a pop. What Hopper
+// offers this loop is its large shared memory, prefetch and asynchronous
+// copies, and the block scheduler (traverse_rays.cu's persistent warps).
 //
 // Exactness: every expression is evaluated in the operation order of the
 // plain torch version (ops/cuda/traverse.py::_traverse) and of the TPU
 // kernel, built with -fmad=false and IEEE division and square root
 // (1.0f / sqrtf, not rsqrtf), so a kernel and its plain version differ only
-// where two triangles tie.
+// where two triangles tie; and every feature mask, like the baseline core,
+// visits the same records in the same order and writes the same words.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse_core_baseline.cuh"
+
 namespace rt {
 
 constexpr int kStackMax = 64;           // pushes beyond this are dropped
+constexpr int kSharedEntries = 16;      // stack entries a thread keeps in shared memory
 constexpr float kInf = 1e30f;
 constexpr float kMtEps = 1e-7f;
 constexpr float kEmptyRef = -268435456.0f;  // -2^28: empty child slot
+
+// The design elements, as bits of a core's feature mask (0: none of them,
+// the baseline loop in this core's form); kBaseline selects the frozen
+// loop of traverse_core_baseline.cuh instead.
+enum : unsigned {
+  kOrder = 1u,        // child order by rank in registers
+  kSharedStack = 2u,  // stack entries 0 .. kSharedEntries − 1 in shared memory
+  kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
+  kBaseline = 256u,
+};
+
+// The core of the render paths: the elements that win on the card
+// (chip_smoke.py phase 28; PERF.md §6). The shared stack and the
+// prefetch lose there, so they stay off and are built only to be timed.
+constexpr unsigned kRenderCore = kOrder;
+
+// Dynamic shared memory a block of `threads` threads needs for core `feat`.
+__host__ __device__ constexpr size_t stack_smem_bytes(unsigned feat, int threads) {
+  return (feat & kSharedStack) ? (size_t)kSharedEntries * sizeof(int2) * (size_t)threads : 0;
+}
 
 // A ray's result: zero normal and tri = -1 on a miss, with t = the best t the
 // traversal started from (1e30 unless the caller gave a depth bound). Any-hit
@@ -45,11 +132,49 @@ __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) > 1e-8f ? 1.0f / d : kInf;
 }
 
-// Traverse the records `qn` (rows of `recw` f32 words, kSlots child slots,
-// K = leaf_k triangles per leaf) with the ray (o, d). Closest hit: the
-// nearest accepted triangle (strict t < best, first in visit order among
-// equal t). kAnyHit: stop at the first accepted triangle in visit order.
-// kVisits: count the records visited (pops that pass the cull).
+// The stack columns of a block's threads: entry i of thread `tid` at
+// stack_smem[i * threads + tid].
+extern __shared__ int2 stack_smem[];
+
+// One thread's stack of (node, key bits) entries: all in local memory, or
+// the first kSharedEntries in the thread's column `col` of the block's
+// shared stack (`cols` columns) and the rest in a local array.
+template <bool kShared>
+struct Stack {
+  int node[kStackMax];  // two 4-byte planes, as the baseline loop keeps them
+  int key[kStackMax];
+  __device__ __forceinline__ int2 get(int i, int, int) const { return make_int2(node[i], key[i]); }
+  __device__ __forceinline__ void put(int i, int2 v, int, int) {
+    node[i] = v.x;
+    key[i] = v.y;
+  }
+};
+
+template <>
+struct Stack<true> {
+  int node[kStackMax - kSharedEntries];
+  int key[kStackMax - kSharedEntries];
+  __device__ __forceinline__ int2 get(int i, int col, int cols) const {
+    if (i < kSharedEntries) return stack_smem[col + i * cols];
+    return make_int2(node[i - kSharedEntries], key[i - kSharedEntries]);
+  }
+  __device__ __forceinline__ void put(int i, int2 v, int col, int cols) {
+    if (i < kSharedEntries) {
+      stack_smem[col + i * cols] = v;
+    } else {
+      node[i - kSharedEntries] = v.x;
+      key[i - kSharedEntries] = v.y;
+    }
+  }
+};
+
+// The traversal of one ray by records `qn` (rows of `recw` f32 words,
+// kSlots child slots, K = leaf_k triangles per leaf), one stack pop per
+// step(), so that a persistent warp can hand an idle lane a new ray between
+// two steps (traverse_rays.cu). Closest hit: the nearest accepted triangle
+// (strict t < best, first in visit order among equal t). kAnyHit: stop at
+// the first accepted triangle in visit order. kVisits: count the records
+// visited (pops that pass the cull).
 //
 // `best_init` and `entry` are where the traversal starts: 1e30 and the root
 // (record 0) everywhere but in K1d. A finite `best_init` is a depth bound:
@@ -59,31 +184,198 @@ __device__ __forceinline__ float safe_inv(float d) {
 // that finds none returns t = best_init. `entry` is pushed with key 0, so it
 // is visited whenever best_init > 0; the caller guarantees that no record
 // outside its subtree can hold the ray's nearest hit.
-template <int kSlots, bool kAnyHit, bool kVisits>
-__device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw,
-                                            int leaf_k, float ox, float oy, float oz,
-                                            float dx, float dy, float dz,
-                                            float best_init = kInf, int entry = 0) {
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const int vbase = 8 * kSlots;
-  const int ibase = vbase + kSlots * 12 * leaf_k;
+template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
+struct Ray {
+  // The stack's storage, a variable of its own beside the ray's state: in
+  // one struct with the dynamically indexed array, the scalars below would
+  // live in local memory too.
+  using StackT = Stack<(kFeat & kSharedStack) != 0>;
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  float best;
+  Hit r;
+  int sp;         // the top of the stack (-1: empty)
+  int col, cols;  // the thread's column of the block's shared stack
 
-  Hit r{kInf, 0.0f, 0.0f, 0.0f, -1, 0};
-  float best = best_init;
-  int stack_n[kStackMax];
-  float stack_d[kStackMax];
-  int sp = 0;
-  stack_n[0] = entry;
-  stack_d[0] = 0.0f;
+  // `tid` / `threads`: the thread's column of the block's shared stack.
+  __device__ __forceinline__ void start(StackT& stack, float ox_, float oy_, float oz_,
+                                        float dx_, float dy_, float dz_, float best_init,
+                                        int entry, int tid, int threads) {
+    ox = ox_;
+    oy = oy_;
+    oz = oz_;
+    dx = dx_;
+    dy = dy_;
+    dz = dz_;
+    ix = safe_inv(dx);
+    iy = safe_inv(dy);
+    iz = safe_inv(dz);
+    r = Hit{kInf, 0.0f, 0.0f, 0.0f, -1, 0};
+    best = best_init;
+    col = tid;
+    cols = threads;
+    sp = 0;
+    stack.put(0, make_int2(entry, __float_as_int(0.0f)), col, cols);
+  }
 
-  while (sp >= 0) {
-    const int node = stack_n[sp];
-    const float key = stack_d[sp];
-    --sp;
-    if (!(key < best)) continue;
+  // Whether an entry is left to pop.
+  __device__ __forceinline__ bool pending() const { return sp >= 0; }
+
+  __device__ __forceinline__ Hit result() const {
+    Hit out = r;
+    out.t = (kAnyHit && r.tri >= 0) ? 0.0f : best;  // an occluded any-hit ray reports 0
+    return out;
+  }
+
+  // Push the children that passed (hit[k] and ref >= 0) far→near by their
+  // slab entry distance, equal keys in slot order; pushes past index 63 are
+  // dropped.
+  __device__ __forceinline__ void push(StackT& stack, const float* h, const float* tmin,
+                                       const bool* hit) {
+    if (kFeat & kOrder) {
+      bool pass[kSlots];
+      int pos[kSlots];
+      int npass = 0;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        pass[k] = hit[k] && h[6 * kSlots + k] >= 0.0f;
+        pos[k] = 0;
+        npass += pass[k] ? 1 : 0;
+      }
+      // pos(k) = #{j : key_j > key_k} + #{j < k : key_j == key_k} over
+      // passing j; passing keys are never NaN, so for j < k "key_j >= key_k"
+      // decides both directions of the pair. One child needs no rank.
+      if (npass > 1) {
+#pragma unroll
+        for (int k = 1; k < kSlots; ++k) {
+#pragma unroll
+          for (int j = 0; j < k; ++j) {
+            const bool ge = tmin[j] >= tmin[k];
+            pos[k] += (pass[j] && ge) ? 1 : 0;
+            pos[j] += (pass[k] && !ge) ? 1 : 0;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int at = sp + 1 + pos[k];
+        if (pass[k] && at < kStackMax) {
+          stack.put(at, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])), col, cols);
+        }
+      }
+      sp = min(sp + npass, kStackMax - 1);
+    } else {
+      // the baseline's insertion sort (a stable descending order)
+      int cand[kSlots];
+      float ckey[kSlots];
+      int nc = 0;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (hit[k] && h[6 * kSlots + k] >= 0.0f) {
+          const int cn = (int)h[6 * kSlots + k];
+          const float ck = tmin[k];
+          int i = nc - 1;
+          while (i >= 0 && ckey[i] < ck) {
+            cand[i + 1] = cand[i];
+            ckey[i + 1] = ckey[i];
+            --i;
+          }
+          cand[i + 1] = cn;
+          ckey[i + 1] = ck;
+          ++nc;
+        }
+      }
+      for (int i = 0; i < nc; ++i) {
+        if (sp < kStackMax - 1) {
+          ++sp;
+          stack.put(sp, make_int2(cand[i], __float_as_int(ckey[i])), col, cols);
+        }
+      }
+    }
+  }
+
+  // Prefetch the header of the next pop, the top of the stack, into L1.
+  __device__ __forceinline__ void prefetch_next(const StackT& stack, const float* __restrict__ qn,
+                                                int recw) const {
+    if (sp < 0) return;
+    const char* next =
+        reinterpret_cast<const char*>(qn + (size_t)stack.get(sp, col, cols).x * (size_t)recw);
+#pragma unroll
+    for (int line = 0; line < kSlots / 4; ++line) {
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(next + 128 * line));
+    }
+  }
+
+  // Möller–Trumbore over the inlined [v0, e1, e2, g] records of the leaf
+  // slots that passed, in slot then triangle order, strict t < best. Closest
+  // hit keeps the nearest in best and r and returns -1; any hit returns the
+  // position k·K + j of the first accepted triangle (or -1) and writes
+  // nothing: the caller leaves the loop and takes the triangle's normal and
+  // id there (occluder), so that neither they nor best are carried around the
+  // loop (best then stays the start value, which the compiler can hold as a
+  // constant: 1e30 in K2b).
+  __device__ __forceinline__ int leaves(const float* __restrict__ rec, int leaf_k,
+                                        const float* h, const bool* hit) {
+    const int vbase = 8 * kSlots;
+    const int ibase = vbase + kSlots * 12 * leaf_k;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const float ref = h[6 * kSlots + k];
+      if (!(hit[k] && ref < 0.0f && ref > kEmptyRef)) continue;
+      const float cnt = h[7 * kSlots + k];
+      const float4* tv = reinterpret_cast<const float4*>(rec + vbase + k * leaf_k * 12);
+      for (int j = 0; j < leaf_k && (float)j < cnt; ++j) {
+        const float4 a = __ldg(tv + 3 * j);      // v0x v0y v0z e1x
+        const float4 b = __ldg(tv + 3 * j + 1);  // e1y e1z e2x e2y
+        const float4 c = __ldg(tv + 3 * j + 2);  // e2z gx  gy  gz
+        const float e1x = a.w, e1y = b.x, e1z = b.y;
+        const float e2x = b.z, e2y = b.w, e2z = c.x;
+        const float pxv = dy * e2z - dz * e2y;
+        const float pyv = dz * e2x - dx * e2z;
+        const float pzv = dx * e2y - dy * e2x;
+        const float det = e1x * pxv + e1y * pyv + e1z * pzv;
+        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+        const float sx = ox - a.x, sy = oy - a.y, sz = oz - a.z;
+        const float uu = inv_det * (sx * pxv + sy * pyv + sz * pzv);
+        const float qcx = sy * e1z - sz * e1y;
+        const float qcy = sz * e1x - sx * e1z;
+        const float qcz = sx * e1y - sy * e1x;
+        const float vv = inv_det * (dx * qcx + dy * qcy + dz * qcz);
+        const float tt = inv_det * (e2x * qcx + e2y * qcy + e2z * qcz);
+        if (fabsf(det) >= kMtEps && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f &&
+            uu + vv <= 1.0f && tt > kMtEps && tt < best) {
+          if (kAnyHit) return k * leaf_k + j;
+          const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
+          best = tt;
+          r.nx = c.y * g_inv;
+          r.ny = c.z * g_inv;
+          r.nz = c.w * g_inv;
+          r.tri = (int)__ldg(rec + ibase + k * leaf_k + j);
+        }
+      }
+    }
+    return -1;
+  }
+
+  // The occluder at position `at` of record `rec` (an any-hit result).
+  __device__ __forceinline__ void occluder(const float* __restrict__ rec, int leaf_k, int at) {
+    const float4 c = __ldg(reinterpret_cast<const float4*>(rec + 8 * kSlots) + 3 * at + 2);
+    const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
+    r.nx = c.y * g_inv;
+    r.ny = c.z * g_inv;
+    r.nz = c.w * g_inv;
+    r.tri = (int)__ldg(rec + 8 * kSlots + kSlots * 12 * leaf_k + at);
+  }
+
+  // Take the top entry of the stack.
+  __device__ __forceinline__ int2 pop(const StackT& stack) { return stack.get(sp--, col, cols); }
+
+  // Visit record e.x, whose entry passed the cull. Returns the position of
+  // the triangle an any-hit traversal accepted (the ray is then done; see
+  // leaves), else -1.
+  __device__ __forceinline__ int visit(StackT& stack, int2 e, const float* __restrict__ qn,
+                                       int recw, int leaf_k) {
     if (kVisits) ++r.visits;
-
-    const float* rec = qn + (size_t)node * (size_t)recw;
+    const float* rec = qn + (size_t)e.x * (size_t)recw;
     // [0:6w] child boxes, [6w:7w] refs, [7w:8w] counts/radii, w = kSlots
     float h[8 * kSlots];
     const float4* hdr = reinterpret_cast<const float4*>(rec);
@@ -111,81 +403,62 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
       tmin[k] = tn;
     }
 
-    // leaf slots: Möller–Trumbore over the inlined [v0, e1, e2, g] records,
-    // in slot then triangle order, strict t < best
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const float ref = h[6 * kSlots + k];
-      if (!(hit[k] && ref < 0.0f && ref > kEmptyRef)) continue;
-      const float cnt = h[7 * kSlots + k];
-      const float4* tv = reinterpret_cast<const float4*>(rec + vbase + k * leaf_k * 12);
-      for (int j = 0; j < leaf_k && (float)j < cnt; ++j) {
-        const float4 a = __ldg(tv + 3 * j);      // v0x v0y v0z e1x
-        const float4 b = __ldg(tv + 3 * j + 1);  // e1y e1z e2x e2y
-        const float4 c = __ldg(tv + 3 * j + 2);  // e2z gx  gy  gz
-        const float e1x = a.w, e1y = b.x, e1z = b.y;
-        const float e2x = b.z, e2y = b.w, e2z = c.x;
-        const float pxv = dy * e2z - dz * e2y;
-        const float pyv = dz * e2x - dx * e2z;
-        const float pzv = dx * e2y - dy * e2x;
-        const float det = e1x * pxv + e1y * pyv + e1z * pzv;
-        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-        const float sx = ox - a.x, sy = oy - a.y, sz = oz - a.z;
-        const float uu = inv_det * (sx * pxv + sy * pyv + sz * pzv);
-        const float qcx = sy * e1z - sz * e1y;
-        const float qcy = sz * e1x - sx * e1z;
-        const float qcz = sx * e1y - sy * e1x;
-        const float vv = inv_det * (dx * qcx + dy * qcy + dz * qcz);
-        const float tt = inv_det * (e2x * qcx + e2y * qcy + e2z * qcz);
-        if (fabsf(det) >= kMtEps && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f &&
-            uu + vv <= 1.0f && tt > kMtEps && tt < best) {
-          const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
-          best = tt;
-          r.nx = c.y * g_inv;
-          r.ny = c.z * g_inv;
-          r.nz = c.w * g_inv;
-          r.tri = (int)__ldg(rec + ibase + k * leaf_k + j);
-          if (kAnyHit) {
-            r.t = 0.0f;
-            return r;
-          }
-        }
-      }
+    if (kFeat & kPrefetch) {
+      push(stack, h, tmin, hit);
+      prefetch_next(stack, qn, recw);
+      return leaves(rec, leaf_k, h, hit);
     }
-
-    // internal slots that passed: push far→near by the slab entry distance
-    // (a stable descending insertion sort over up to kSlots candidates, so
-    // equal keys keep slot order; the TPU kernel's sorting network orders
-    // by the tile-centre ray instead)
-    int cand[kSlots];
-    float ckey[kSlots];
-    int nc = 0;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      if (hit[k] && h[6 * kSlots + k] >= 0.0f) {
-        const int cn = (int)h[6 * kSlots + k];
-        const float ck = tmin[k];
-        int i = nc - 1;
-        while (i >= 0 && ckey[i] < ck) {
-          cand[i + 1] = cand[i];
-          ckey[i + 1] = ckey[i];
-          --i;
-        }
-        cand[i + 1] = cn;
-        ckey[i + 1] = ck;
-        ++nc;
-      }
-    }
-    for (int i = 0; i < nc; ++i) {
-      if (sp < kStackMax - 1) {
-        ++sp;
-        stack_n[sp] = cand[i];
-        stack_d[sp] = ckey[i];
-      }
-    }
+    const int at = leaves(rec, leaf_k, h, hit);
+    if (at < 0) push(stack, h, tmin, hit);
+    return at;
   }
-  r.t = best;
-  return r;
+
+  // One stack pop, visited unless the cull drops it (the persistent warps'
+  // unit of work). Returns whether an entry is left to pop; call only while
+  // one is.
+  __device__ __forceinline__ bool step(StackT& stack, const float* __restrict__ qn, int recw,
+                                       int leaf_k) {
+    const int2 e = pop(stack);
+    if (!(__int_as_float(e.y) < best)) return pending();
+    const int at = visit(stack, e, qn, recw, leaf_k);
+    if (at >= 0) {  // an any-hit ray ends at its first accepted triangle
+      occluder(qn + (size_t)e.x * (size_t)recw, leaf_k, at);
+      sp = -1;
+      return false;
+    }
+    return pending();
+  }
+};
+
+// The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
+// baseline loop). `tid` / `threads` place the thread's shared stack column
+// (the block's dynamic shared memory must hold stack_smem_bytes(kFeat,
+// threads)).
+template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
+__device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw, int leaf_k,
+                                            float ox, float oy, float oz, float dx, float dy,
+                                            float dz, float best_init, int entry, int tid,
+                                            int threads) {
+  if constexpr (kFeat == kBaseline) {
+    const rt_baseline::Hit h = rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits>(
+        qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
+    return Hit{h.t, h.nx, h.ny, h.nz, h.tri, h.visits};
+  } else {
+    using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;
+    R ray;
+    typename R::StackT stack;
+    ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);
+    while (ray.pending()) {
+      const int2 e = ray.pop(stack);
+      if (!(__int_as_float(e.y) < ray.best)) continue;
+      const int at = ray.visit(stack, e, qn, recw, leaf_k);
+      if (at >= 0) {  // an accepted any hit
+        ray.occluder(qn + (size_t)e.x * (size_t)recw, leaf_k, at);
+        break;
+      }
+    }
+    return ray.result();
+  }
 }
 
 }  // namespace rt

@@ -17,27 +17,51 @@
 // own path through the ~390 MB of main-path records, far beyond the 50 MB
 // L2, so neighbouring threads rarely share a record line and most visits
 // wait on device memory. NEE rays share one direction but start from
-// scattered surface points.
+// scattered surface points. With one thread per ray (the baseline), a warp
+// holds its slots until its slowest ray ends while the lanes of missed,
+// dead or finished rays idle: the checked rays ran 104× (K2a) and 91× (K2b)
+// above their bounds, against 44× for K1a.
 //
 // What the design does about it:
-//  * One thread per ray in blocks of 128, with the per-ray traversal of
-//    traverse_core.cuh (own 64-entry stack, near-first order by the ray's
-//    own slab entry distance, culling at the best t, header and triangle
-//    loads through __ldg). The caller keeps the rays in 32×32 tile-block
-//    lane order, so the 32 threads of a warp come from neighbouring pixels:
-//    coherent on the camera and NEE waves, as coherent as the scene allows
-//    on bounce waves.
-//  * An optional per-ray `active` mask: an inactive thread reads nothing of
-//    its ray (which may hold inf or NaN) and writes the miss values. This is
-//    the per-thread form of the TPU kernel's lane parking; the packet
-//    machinery (streams, pad rays, stream-AABB ordering) exists there
-//    because 1,024 lanes share one stack, and has no counterpart here.
+//  * The per-ray traversal of traverse_core.cuh in its render form
+//    rt::kRenderCore (near-first order by the ray's own slab entry
+//    distance, ranked in registers; culling at the best t). Any hit over
+//    leaves of more than one triangle keeps the baseline loop with one
+//    thread per ray, which beat both the new core and the persistent warps
+//    there (the caller, trace_rays, passes core rt::kBaseline).
+//  * Two schedules, chosen by the caller per wave (trace_rays(scattered=)):
+//    - one thread per ray in blocks of 128, where the active rays come in
+//      runs (the camera's NEE wave and the first bounce: its lanes are the
+//      camera's hits). The caller keeps the rays in 32×32 tile-block lane
+//      order, so the 32 threads of a warp hold neighbouring rays and whole
+//      warps of inactive lanes end at once.
+//    - persistent warps with dynamic fetch (Aila & Laine 2009), where the
+//      active rays are a scattered minority (the waves that follow a random
+//      bounce). The grid is the blocks that fit on the card at once (SMs ×
+//      the instantiation's occupancy, queried once), and each
+//      warp takes kChunk = 32 ray indices at a time with one atomicAdd on a
+//      4-byte counter that the launch zeroes on its own stream (each launch
+//      gets its own counter from the caller). A fetched ray whose `active`
+//      byte is 0 gets the miss values at once and no traversal lane: the
+//      warp fetches again (__ballot_sync) until its lanes hold active rays
+//      or the buffer ends, which compacts the wave. When fewer than kRefill
+//      = 16 lanes of a warp still traverse, the idle lanes take new rays
+//      between two visits (16 beat 0 and 8 on the card). Every result is
+//      written at its ray's own index, so lane order and random numbers
+//      outside are untouched. On a dense wave the same warps lose to one
+//      thread per ray (PERF.md §6), hence the two schedules.
 //  * Any hit returns at the first accepted triangle, so an occluded shadow
-//    ray ends its walk early.
+//    ray frees its lane early.
+//
+// The launcher's `core` argument selects the traversal core (-1: the render
+// core; rt::kBaseline, the frozen baseline loop with one thread per ray;
+// other feature masks for timing an element alone), `persistent` the
+// schedule.
 //
 // Exactness: the slab and Möller–Trumbore arithmetic of traverse_core.cuh,
 // built with -fmad=false, in the operation order of the plain torch version
-// (raytracer_tpu_torch/ops/cuda/traverse.py::trace_rays_reference).
+// (raytracer_tpu_torch/ops/cuda/traverse.py::trace_rays_reference); every
+// core and schedule writes the same words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,8 +70,29 @@
 
 namespace {
 
-template <int kSlots, bool kAnyHit>
-__global__ void __launch_bounds__(128)
+constexpr int kRayBlock = 128;  // threads of a block (4 warps)
+constexpr unsigned kFull = 0xffffffffu;
+// Ray indices a persistent warp takes from the counter at a time: one a
+// lane, so that no warp holds back a long run of rays that it then works
+// through alone while the others idle at the end of the wave.
+constexpr unsigned kChunk = 32;
+// A persistent warp's idle lanes take new rays when fewer than this many of
+// its lanes still traverse.
+constexpr int kRefill = 16;
+
+__device__ __forceinline__ void store_ray(const rt::Hit& hit, size_t i, float* __restrict__ t_out,
+                                          float* __restrict__ nx_out, float* __restrict__ ny_out,
+                                          float* __restrict__ nz_out, int* __restrict__ tri_out) {
+  t_out[i] = hit.t;
+  nx_out[i] = hit.nx;
+  ny_out[i] = hit.ny;
+  nz_out[i] = hit.nz;
+  tri_out[i] = hit.tri;
+}
+
+// One thread per ray (the baseline's schedule).
+template <int kSlots, bool kAnyHit, unsigned kCore>
+__global__ void __launch_bounds__(kRayBlock)
 trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                   const float* __restrict__ orig, const float* __restrict__ dirs,
                   const uint8_t* __restrict__ active, int n,
@@ -59,42 +104,172 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0};
   if (active == nullptr || active[i] != 0) {
     const size_t r = 3 * (size_t)i;
-    hit = rt::traverse_ray<kSlots, kAnyHit, false>(qn, recw, leaf_k, orig[r], orig[r + 1],
-                                                   orig[r + 2], dirs[r], dirs[r + 1],
-                                                   dirs[r + 2]);
+    hit = rt::traverse_ray<kSlots, kAnyHit, false, kCore>(
+        qn, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
+        rt::kInf, 0, threadIdx.x, blockDim.x);
   }
-  t_out[i] = hit.t;
-  nx_out[i] = hit.nx;
-  ny_out[i] = hit.ny;
-  nz_out[i] = hit.nz;
-  tri_out[i] = hit.tri;
+  store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
+}
+
+// Persistent warps with dynamic fetch: each warp takes kChunk consecutive
+// ray indices at a time from the counter `next` (zeroed before the launch)
+// and hands them to its idle lanes, skipping inactive rays, whenever fewer
+// than kRefill lanes of the warp traverse. The render core only.
+template <int kSlots, bool kAnyHit>
+__global__ void __launch_bounds__(kRayBlock)
+trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
+                             const float* __restrict__ orig, const float* __restrict__ dirs,
+                             const uint8_t* __restrict__ active, int n,
+                             unsigned* __restrict__ next, float* __restrict__ t_out,
+                             float* __restrict__ nx_out, float* __restrict__ ny_out,
+                             float* __restrict__ nz_out, int* __restrict__ tri_out) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  using R = rt::Ray<kSlots, kAnyHit, false, rt::kRenderCore>;
+  R ray;
+  typename R::StackT stack;
+  int idx = -1;                // this lane's ray; -1 while the lane is idle
+  unsigned qpos = 0, qend = 0;  // the warp's indices taken, [qpos, qend) not handed out
+  bool drained = false;        // every index below n has been taken
+  while (true) {
+    unsigned busy = __ballot_sync(kFull, idx >= 0);
+    if (!drained && (busy == 0u || __popc(busy) < kRefill)) {
+      while (busy != kFull && !drained) {
+        if (qpos >= qend) {
+          unsigned first = 0;
+          if (lane == 0) first = atomicAdd(next, kChunk);
+          qpos = __shfl_sync(kFull, first, 0);
+          qend = qpos + kChunk;
+          if (qpos >= (unsigned)n) {
+            drained = true;
+            break;
+          }
+        }
+        const unsigned idle = ~busy;
+        const unsigned rank = __popc(idle & below);
+        const unsigned take = min((unsigned)__popc(idle), qend - qpos);
+        if (((idle >> lane) & 1u) && rank < take) {
+          const unsigned i = qpos + rank;
+          if (i < (unsigned)n) {
+            if (active == nullptr || active[i] != 0) {
+              const size_t r = 3 * (size_t)i;
+              ray.start(stack, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1],
+                        dirs[r + 2], rt::kInf, 0, threadIdx.x, blockDim.x);
+              idx = (int)i;
+            } else {
+              store_ray(rt::Hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0}, i, t_out, nx_out, ny_out,
+                        nz_out, tri_out);
+            }
+          }
+        }
+        qpos += take;
+        drained = qpos >= (unsigned)n;
+        busy = __ballot_sync(kFull, idx >= 0);
+      }
+    }
+    if (busy == 0u) break;  // drained, and no lane traverses
+    if (idx >= 0 && !ray.step(stack, qn, recw, leaf_k)) {
+      store_ray(ray.result(), (size_t)idx, t_out, nx_out, ny_out, nz_out, tri_out);
+      idx = -1;
+    }
+  }
+}
+
+// the outputs, as the launch helpers take them
+#define RT_RAY_OUTS t, nx, ny, nz, tri
+
+template <int kSlots, bool kAnyHit, unsigned kCore>
+int launch_per_ray(const float* qnodes, int recw, int leaf_k, const float* origins,
+                   const float* dirs, const uint8_t* active, int n, float* t, float* nx,
+                   float* ny, float* nz, int* tri, cudaStream_t s) {
+  const size_t smem = rt::stack_smem_bytes(kCore, kRayBlock);
+  trace_rays_kernel<kSlots, kAnyHit, kCore><<<(n + kRayBlock - 1) / kRayBlock, kRayBlock,
+                                              smem, s>>>(qnodes, recw, leaf_k, origins, dirs,
+                                                         active, n, t, nx, ny, nz, tri);
+  return (int)cudaGetLastError();
+}
+
+template <int kSlots, bool kAnyHit>
+int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* origins,
+                      const float* dirs, const uint8_t* active, int n, unsigned* next, float* t,
+                      float* nx, float* ny, float* nz, int* tri, cudaStream_t s) {
+  const size_t smem = rt::stack_smem_bytes(rt::kRenderCore, kRayBlock);
+  // the instantiation's resident blocks per SM (or minus the CUDA error),
+  // queried at its first launch
+  static const int per_sm = [smem] {
+    int blocks = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, trace_rays_persistent_kernel<kSlots, kAnyHit>, kRayBlock, smem);
+    return e == cudaSuccess ? blocks : -(int)e;
+  }();
+  if (per_sm < 0) return -per_sm;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0) err = (int)cudaMemsetAsync(next, 0, sizeof(unsigned), s);
+  if (err != 0) return err;
+  const int wanted = (n + kRayBlock - 1) / kRayBlock;
+  const int grid = per_sm * sms < wanted ? per_sm * sms : wanted;
+  trace_rays_persistent_kernel<kSlots, kAnyHit><<<grid, kRayBlock, smem, s>>>(
+      qnodes, recw, leaf_k, origins, dirs, active, n, next, t, nx, ny, nz, tri);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The feature masks instantiated for K2a and K2b alone (4-wide records,
+// one thread per ray), to time each design element and each set of them
+// (chip_smoke.py phase 28): X(any_hit, mask) for each.
+#define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 1) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
 
 // Launch K2a (any_hit = 0) or K2b (any_hit != 0) over n rays on `stream`;
 // with slots = 8, K2c on 8-wide records. qnodes: (M, recw) f32, 16-byte
 // aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n, 3) f32;
 // active: n bytes (0 = inactive) or null for all rays; outputs: (n,)
-// planes. Returns cudaGetLastError() after the launch (0 on success, or
-// cudaErrorInvalidValue for another slot count); synchronises nothing.
+// planes. `core`: -1 for the render paths' core rt::kRenderCore,
+// rt::kBaseline (256, the baseline loop with one thread per ray), or on
+// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES (timing
+// an element alone; one thread per ray).
+// `persistent` != 0 runs persistent warps (core -1 only) and needs `next`, 4
+// bytes of device memory that this launch alone uses (zeroed here on
+// `stream`); otherwise one thread per ray. Returns cudaGetLastError() after
+// the launch (0 on success, or cudaErrorInvalidValue for an argument
+// outside these sets); synchronises nothing.
 extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, int slots,
                              const float* origins, const float* dirs, const uint8_t* active,
-                             int n, int any_hit, float* t, float* nx, float* ny, float* nz,
-                             int* tri, void* stream) {
+                             int n, int any_hit, int core, int persistent, unsigned* next,
+                             float* t, float* nx, float* ny, float* nz, int* tri,
+                             void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
+  if (persistent && (core != -1 || next == nullptr)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_LAUNCH_RAYS(SLOTS, ANY)                                                   \
-  trace_rays_kernel<SLOTS, ANY><<<grid, block, 0, s>>>(qnodes, recw, leaf_k, origins, \
-                                                       dirs, active, n, t, nx, ny, nz, tri)
-  if (slots == 8) {
-    if (any_hit) RT_LAUNCH_RAYS(8, true); else RT_LAUNCH_RAYS(8, false);
-  } else {
-    if (any_hit) RT_LAUNCH_RAYS(4, true); else RT_LAUNCH_RAYS(4, false);
+#define RT_RAY_ARGS qnodes, recw, leaf_k, origins, dirs, active, n
+#define RT_PERSISTENT(S)                                                                       \
+  (any_hit ? launch_persistent<S, true>(RT_RAY_ARGS, next, RT_RAY_OUTS, s) \
+           : launch_persistent<S, false>(RT_RAY_ARGS, next, RT_RAY_OUTS, s))
+#define RT_PER_RAY(S, CORE)                                            \
+  (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s) \
+           : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s))
+  if (core == -1) {
+    if (persistent) return slots == 8 ? RT_PERSISTENT(8) : RT_PERSISTENT(4);
+    return slots == 8 ? RT_PER_RAY(8, rt::kRenderCore) : RT_PER_RAY(4, rt::kRenderCore);
   }
-#undef RT_LAUNCH_RAYS
-  return (int)cudaGetLastError();
+  if (core == (int)rt::kBaseline) {
+    return slots == 8 ? RT_PER_RAY(8, rt::kBaseline) : RT_PER_RAY(4, rt::kBaseline);
+  }
+#define RT_CASE(A, M) \
+  case M:             \
+    return launch_per_ray<4, A, (unsigned)M>(RT_RAY_ARGS, RT_RAY_OUTS, s);
+  if (slots == 4 && !any_hit) {
+    switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, false) default: break; }
+  } else if (slots == 4) {
+    switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, true) default: break; }
+  }
+#undef RT_CASE
+#undef RT_PER_RAY
+#undef RT_PERSISTENT
+#undef RT_RAY_ARGS
+  return (int)cudaErrorInvalidValue;
 }

@@ -48,10 +48,14 @@
 // What the design does about it:
 //  * One thread per pixel with its own 64-entry stack, in 8×8 blocks: the
 //    32 rays of a warp are an 8×4 patch of neighbours that walk nearly the
-//    same nodes, so their record loads hit the same L1/L2 lines.
-//  * The traversal itself (traverse_core.cuh, shared with K2) reads only what
-//    a visit needs, orders children near-first by the ray's own slab entry
-//    distance and culls entries at or beyond the best t.
+//    same nodes, so their record loads hit the same L1/L2 lines. 8×16 and
+//    16×16 blocks were no faster on the card (PERF.md §6).
+//  * The traversal itself (traverse_core.cuh's render core, shared with K2)
+//    reads only what a visit needs, orders children near-first by the ray's
+//    own slab entry distance, ranked in registers, and culls entries at or
+//    beyond the best t. The launchers' `core` argument selects it (-1), the
+//    frozen baseline loop (rt::kBaseline) or, for K1a, any set of the
+//    design elements, for measurement.
 //  * K1d prunes with the ordinary tests: the bound seeds the best t, so the
 //    slab test (tn < best) and the pop cull (key < best) drop what lies
 //    behind it from the first visit on, and the entry node skips the visits
@@ -85,6 +89,9 @@
 
 namespace {
 
+constexpr int kBlock = 8;  // threads a side of a block
+constexpr int kBlockThreads = kBlock * kBlock;
+
 struct Camera {
   float ox, oy, oz;
   float qx, qy, qz, qw;
@@ -110,7 +117,7 @@ enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSee
 
 // The primary ray of pixel (gx, gy) of the whole frame, traversed from
 // record `entry` with the best t `best_init` (the root and 1e30 but in K1d).
-template <int kSlots, bool kJitter, bool kVisits>
+template <int kSlots, bool kJitter, bool kVisits, unsigned kCore>
 __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, int recw,
                                                  int leaf_k, const Camera& cam, int seed,
                                                  int gx, int gy, float best_init = rt::kInf,
@@ -140,8 +147,9 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
     dy = 2.0f * (cam.qw * uvy + uuvy) + dy;
     dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
   }
-  return rt::traverse_ray<kSlots, false, kVisits>(qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx,
-                                                  dy, dz, best_init, entry);
+  return rt::traverse_ray<kSlots, false, kVisits, kCore>(
+      qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
+      threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
 }
 
 template <bool kVisits>
@@ -163,8 +171,8 @@ constexpr int kTile = 32;  // pixels a side of the tile that shares a bound and 
 
 // kBounded (K1d): `tbounds` and `entries` are (⌈height/32⌉, tiles_x) tables of
 // the window's tiles; an entry outside [0, num_nodes) is clamped into it.
-template <int kSlots, bool kJitter, bool kVisits, bool kBounded>
-__global__ void __launch_bounds__(64)
+template <int kSlots, bool kJitter, bool kVisits, bool kBounded, unsigned kCore>
+__global__ void __launch_bounds__(kBlockThreads)
 trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera cam,
                    int seed, int width, int height, int row_off, int col_off,
                    const float* __restrict__ tbounds, const int* __restrict__ entries,
@@ -182,15 +190,15 @@ trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera ca
     best_init = __ldg(tbounds + tile);
     entry = min(max(__ldg(entries + tile), 0), num_nodes - 1);
   }
-  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(
+  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
       qn, recw, leaf_k, cam, seed, px + col_off, py + row_off, best_init, entry);
   store_hit<kVisits>(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out,
                      nz_out, tri_out, visits_out);
 }
 
 // The frame batch: frame blockIdx.z, its camera from row blockIdx.z of `cams`.
-template <int kSlots, bool kJitter, bool kVisits>
-__global__ void __launch_bounds__(64)
+template <int kSlots, bool kJitter, bool kVisits, unsigned kCore>
+__global__ void __launch_bounds__(kBlockThreads)
 trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                          const float* __restrict__ cams, int width, int height,
                          float* __restrict__ t_out, float* __restrict__ nx_out,
@@ -203,35 +211,73 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   const Camera cam{row[kOx],     row[kOx + 1],  row[kOx + 2],   row[kQx],
                    row[kQx + 1], row[kQx + 2],  row[kQx + 3],   row[kFocal],
                    row[kAspect], row[kFw],      row[kFh]};
-  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits>(
+  const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
       qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff]);
   const size_t p = ((size_t)blockIdx.z * (size_t)height + (size_t)py) * (size_t)width + px;
   store_hit<kVisits>(hit, p, t_out, nx_out, ny_out, nz_out, tri_out, visits_out);
 }
 
-}  // namespace
+#define RT_TILE_PARAMS                                                                      \
+  dim3 grid, dim3 block, cudaStream_t s, const float *qnodes, int recw, int leaf_k,         \
+      Camera cam, int seed, int width, int height, int row_off, int col_off,                \
+      const float *tbounds, const int *entries, int tiles_x, int num_nodes, float *t,       \
+      float *nx, float *ny, float *nz, int *tri, float *visits
+#define RT_TILE_ARGS                                                                        \
+  grid, block, s, qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, \
+      entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits
+#define RT_BATCH_PARAMS                                                                     \
+  dim3 grid, dim3 block, cudaStream_t s, const float *qnodes, int recw, int leaf_k,         \
+      const float *cams, int width, int height, float *t, float *nx, float *ny, float *nz,  \
+      int *tri, float *visits
+#define RT_BATCH_ARGS \
+  grid, block, s, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits
 
-// Launch KERNEL(slots, jitter, visits) — a macro that names a kernel template's
-// instantiation — with the one that the run-time `slots` (4 or 8), `jitter`
-// and `visits` (a plane was given) name.
-#define RT_TILES(S, J, V) trace_tiles_kernel<S, J, V, false>
-#define RT_TILES_BOUNDED(S, J, V) trace_tiles_kernel<S, J, V, true>
-#define RT_TILES_BATCH(S, J, V) trace_tiles_batch_kernel<S, J, V>
-#define RT_LAUNCH_JV(KERNEL, SLOTS, ...)                                           \
-  do {                                                                             \
-    if (jitter) {                                                                  \
-      if (visits) KERNEL(SLOTS, true, true)<<<grid, block, 0, s>>>(__VA_ARGS__);   \
-      else KERNEL(SLOTS, true, false)<<<grid, block, 0, s>>>(__VA_ARGS__);         \
-    } else {                                                                       \
-      if (visits) KERNEL(SLOTS, false, true)<<<grid, block, 0, s>>>(__VA_ARGS__);  \
-      else KERNEL(SLOTS, false, false)<<<grid, block, 0, s>>>(__VA_ARGS__);        \
-    }                                                                              \
-  } while (0)
-#define RT_LAUNCH(KERNEL, ...)                                  \
-  do {                                                          \
-    if (slots == 8) RT_LAUNCH_JV(KERNEL, 8, __VA_ARGS__);       \
-    else RT_LAUNCH_JV(KERNEL, 4, __VA_ARGS__);                  \
-  } while (0)
+// Launch one instantiation with the dynamic shared memory of its core (the
+// block's stack columns; none but for the measured shared-stack cores).
+template <int S, bool J, bool V, bool B, unsigned C>
+int launch_tiles(RT_TILE_PARAMS) {
+  const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
+  trace_tiles_kernel<S, J, V, B, C><<<grid, block, smem, s>>>(
+      qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, entries,
+      tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
+  return (int)cudaGetLastError();
+}
+
+template <int S, bool J, bool V, unsigned C>
+int launch_batch(RT_BATCH_PARAMS) {
+  const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
+  trace_tiles_batch_kernel<S, J, V, C><<<grid, block, smem, s>>>(
+      qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation that the run-time jitter / visits / bounds name.
+template <int S, unsigned C>
+int dispatch_tiles(bool jitter, bool with_visits, bool bounded, RT_TILE_PARAMS) {
+#define RT_JVB(J, V)                                                             \
+  (bounded ? launch_tiles<S, J, V, true, C>(RT_TILE_ARGS)                        \
+           : launch_tiles<S, J, V, false, C>(RT_TILE_ARGS))
+  if (jitter) return with_visits ? RT_JVB(true, true) : RT_JVB(true, false);
+  return with_visits ? RT_JVB(false, true) : RT_JVB(false, false);
+#undef RT_JVB
+}
+
+template <int S, unsigned C>
+int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
+  if (jitter) {
+    return with_visits ? launch_batch<S, true, true, C>(RT_BATCH_ARGS)
+                       : launch_batch<S, true, false, C>(RT_BATCH_ARGS);
+  }
+  return with_visits ? launch_batch<S, false, true, C>(RT_BATCH_ARGS)
+                     : launch_batch<S, false, false, C>(RT_BATCH_ARGS);
+}
+
+// The feature masks instantiated for K1a alone (4-wide records, no jitter,
+// visits or tables), to time each design element and each set of them
+// (chip_smoke.py phase 28): X(mask) for each.
+#define RT_MEASURED_TILE_CORES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
+
+}  // namespace
 
 // Launch K1a (jitter = 0) or K1b (jitter != 0, subpixel seed `seed`) on
 // `stream`; with slots = 8 the same on 8-wide records (K1e); with a `visits`
@@ -241,33 +287,45 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 // aligned rows of `slots` (4 or 8) child slots; outputs: (height, width)
 // planes of the window at (row_off, col_off) of a rg_width × rg_height frame
 // (focal and aspect are the frame's); visits: a sixth f32 plane or null.
-// Returns cudaGetLastError()
-// after the launch (0 on success, or cudaErrorInvalidValue for another slot
-// count or only one of the two tables); synchronises nothing.
+// `core`: -1 for rt::kRenderCore (every render path), rt::kBaseline (256, the
+// baseline loop), or for K1a (no jitter, visits or tables) one of the
+// feature masks of RT_MEASURED_TILE_CORES (timing an element alone).
+// Returns cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count, only one of the two tables,
+// or a core outside these sets); synchronises nothing.
 extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int leaf_k,
                               int slots, float ox, float oy, float oz, float qx, float qy,
                               float qz, float qw,
                               float focal, float aspect, int rg_width, int rg_height,
                               int row_off, int col_off, int width, int height, int jitter,
-                              int seed, const float* tbounds, const int* entries, float* t,
-                              float* nx, float* ny, float* nz, int* tri, float* visits,
+                              int seed, const float* tbounds, const int* entries, int core,
+                              float* t, float* nx, float* ny, float* nz, int* tri, float* visits,
                               void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   if ((tbounds == nullptr) != (entries == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool bounded = tbounds != nullptr, with_visits = visits != nullptr;
   const Camera cam{ox, oy, oz, qx, qy, qz, qw, focal, aspect,
                    (float)rg_width, (float)rg_height};
-  const dim3 block(8, 8);
-  const dim3 grid((width + 7) / 8, (height + 7) / 8);
+  const dim3 block(kBlock, kBlock);
+  const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (width + kTile - 1) / kTile;
-  if (tbounds) {
-    RT_LAUNCH(RT_TILES_BOUNDED, qnodes, recw, leaf_k, cam, seed, width, height, row_off,
-              col_off, tbounds, entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
-  } else {
-    RT_LAUNCH(RT_TILES, qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off,
-              tbounds, entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
+  const bool j = jitter != 0;
+  if (core == -1) {
+    return slots == 8 ? dispatch_tiles<8, rt::kRenderCore>(j, with_visits, bounded, RT_TILE_ARGS)
+                      : dispatch_tiles<4, rt::kRenderCore>(j, with_visits, bounded, RT_TILE_ARGS);
   }
-  return (int)cudaGetLastError();
+  if (core == (int)rt::kBaseline) {
+    return slots == 8 ? dispatch_tiles<8, rt::kBaseline>(j, with_visits, bounded, RT_TILE_ARGS)
+                      : dispatch_tiles<4, rt::kBaseline>(j, with_visits, bounded, RT_TILE_ARGS);
+  }
+  if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
+#define RT_CASE(M) \
+  case M:          \
+    return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
+  switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
+#undef RT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch the frame batch on `stream` (K1c; K1e with slots = 8; K1f with a
@@ -276,17 +334,24 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 // quaternion xyzw, focal, aspect, raygen W and H, jitter seed, row and column
 // offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
 // Outputs: (num_frames, height, width) planes; visits: a sixth f32 plane or
-// null. Returns cudaGetLastError() after the launch (0 on success, or
-// cudaErrorInvalidValue for another slot count); synchronises nothing.
+// null. `core`: -1 for rt::kRenderCore or rt::kBaseline (256). Returns
+// cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count or core); synchronises
+// nothing.
 extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, int slots,
                                     const float* cams, int num_frames, int width, int height,
-                                    int jitter, float* t, float* nx, float* ny, float* nz,
-                                    int* tri, float* visits, void* stream) {
+                                    int jitter, int core, float* t, float* nx, float* ny,
+                                    float* nz, int* tri, float* visits, void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
-  const dim3 block(8, 8);
-  const dim3 grid((width + 7) / 8, (height + 7) / 8, num_frames);
+  if (core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
+  const dim3 block(kBlock, kBlock);
+  const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_LAUNCH(RT_TILES_BATCH, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz,
-            tri, visits);
-  return (int)cudaGetLastError();
+  const bool j = jitter != 0, with_visits = visits != nullptr;
+  if (core == (int)rt::kBaseline) {
+    return slots == 8 ? dispatch_batch<8, rt::kBaseline>(j, with_visits, RT_BATCH_ARGS)
+                      : dispatch_batch<4, rt::kBaseline>(j, with_visits, RT_BATCH_ARGS);
+  }
+  return slots == 8 ? dispatch_batch<8, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS)
+                    : dispatch_batch<4, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS);
 }

@@ -61,7 +61,8 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
            "trace_rays", "trace_rays_reference", "load_kernel", "TraversalCounts", "LAUNCHES",
-           "reset_launches", "EMPTY_REF", "TILE"]
+           "reset_launches", "EMPTY_REF", "TILE", "CORE_ELEMENTS", "core_id",
+           "MEASURE_LAUNCHES"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -73,17 +74,49 @@ TILE = 32                 # pixels a side of the tile that shares a bound and an
 _MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
 _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
-# Launches of each kernel since its count was last set to 0; raised only
-# where a wrapper launches that kernel.
+# The traversal cores a wrapper's ``core`` takes. "hopper": what every
+# render path runs, the redesigned core of csrc/traverse_core.cuh in the
+# form that wins on the card (rt::kRenderCore), except for any hit over
+# leaves of more than one triangle (see trace_rays); "baseline": the frozen
+# baseline loop (csrc/traverse_core_baseline.cuh, with K2's one thread
+# per ray); or, to time design elements alone, a set of CORE_ELEMENTS joined
+# with "+", or "none" (K1a without jitter, visits or tables, and K2a / K2b,
+# on 4-wide records). Only chip_smoke.py and the card tests pass anything
+# but "hopper".
+CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4}
+_MAIN_CORE, _BASELINE_CORE = -1, 256
+
+# Launches of each kernel with the "hopper" core since its count was last
+# set to 0; raised only where a wrapper launches that kernel. Launches with
+# another core count in MEASURE_LAUNCHES under the same name.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
             "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0}
+MEASURE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MEASURE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def core_id(core: str) -> int:
+    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS)."""
+    if core == "hopper":
+        return _MAIN_CORE
+    if core == "baseline":
+        return _BASELINE_CORE
+    parts = [] if core == "none" else core.split("+")
+    if not all(p in CORE_ELEMENTS for p in parts) or len(set(parts)) != len(parts):
+        raise ValueError(f"core must be 'hopper', 'baseline', 'none' or elements of "
+                         f"{sorted(CORE_ELEMENTS)} joined by '+', got {core!r}")
+    return sum(CORE_ELEMENTS[p] for p in parts)
+
+
+def _count(name: str, core: str) -> None:
+    (LAUNCHES if core == "hopper" else MEASURE_LAUNCHES)[name] += 1
 
 
 def rec_layout(leaf_size: int, width: int = 4) -> tuple[int, int, int]:
@@ -236,14 +269,15 @@ _ARGTYPES = {
     "traverse_tiles.cu": {
         "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 4
                            + [ctypes.c_float] * 9 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p] * 9),
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                           + [ctypes.c_void_p] * 7),
         "rt_trace_tiles_batch": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7),
+                                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7),
     },
     "traverse_rays.cu": {
         "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                          + [ctypes.c_void_p] * 6),
+                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 7),
     },
 }
 
@@ -302,7 +336,7 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
                 raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
                 col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0,
                 stats: bool = False, entries: torch.Tensor | None = None,
-                tbounds: torch.Tensor | None = None):
+                tbounds: torch.Tensor | None = None, core: str = "hopper"):
     """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W): on a
     miss the normal is 0, tri (int32) is −1 and t is 1e30, or under
     ``tbounds`` its tile's bound. ``stats``
@@ -331,8 +365,10 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
 
     For records on a CUDA device launches K1a (K1b with ``jitter``) on
     4-wide records, K1e on 8-wide records, K1d with ``entries`` or
-    ``tbounds``, K1f with ``stats``; runs the plain version for records on
-    the CPU; raises for any other device."""
+    ``tbounds``, K1f with ``stats``, with the traversal core ``core``
+    (:func:`core_id`; measurement only); runs the plain version for records
+    on the CPU; raises for any other device."""
+    cid = core_id(core)
     qn, slots = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
@@ -361,13 +397,13 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
             qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
             rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
             tbounds.data_ptr() if bounded else None, entries.data_ptr() if bounded else None,
-            *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+            cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
             planes[4].data_ptr() if stats else None, stream)
     name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a",
                              bounded)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+    _count(name, core)
     return (*planes[:4], tri, *planes[4:])
 
 
@@ -446,7 +482,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
                       fov_degrees: float = 70.0, leaf_k: int = 1, jitter: bool = False,
                       jitter_seeds=None, stats: bool = False, *,
                       raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
-                      col_offset: int = 0):
+                      col_offset: int = 0, core: str = "hopper"):
     """Trace F frames in one launch, frame f from camera ``cam_pos[f]``
     (F, 3), ``cam_quat[f]`` (F, 4) → (t, nx, ny, nz, tri) planes of (F, H, W),
     each frame equal to :func:`trace_tiles` for its camera; ``stats`` appends
@@ -458,8 +494,10 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     host and copied to the card without a synchronisation.
 
     For records on a CUDA device launches K1c on 4-wide records, K1e on
-    8-wide records, K1f with ``stats``; runs the plain version for records
-    on the CPU; raises for any other device."""
+    8-wide records, K1f with ``stats``, with the traversal core ``core``
+    ("hopper" or "baseline"); runs the plain version for records on the CPU;
+    raises for any other device."""
+    cid = core_id(core)
     qn, slots = _check_qnodes(qnodes, leaf_k)
     pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
@@ -483,12 +521,12 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_tiles_batch(
             qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-            int(bool(jitter)), *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+            int(bool(jitter)), cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
             planes[4].data_ptr() if stats else None, stream)
     name = _tile_launch_name(slots, stats, "trace_tiles_k1c")
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+    _count(name, core)
     return (*planes[:4], tri, *planes[4:])
 
 
@@ -535,7 +573,8 @@ def _check_rays(qn: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
-               any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None):
+               any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None,
+               scattered: bool = False, core: str = "hopper"):
     """Trace a buffer of rays — origins and dirs (R, 3) f32 — → (t, nx, ny,
     nz, tri) planes of (R,): the nearest hit, with t = 1e30, a zero normal
     and tri = −1 on a miss. ``any_hit`` makes it an occlusion query: a ray
@@ -543,11 +582,23 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     triangle's normal and id (``tri >= 0`` is the occlusion mask; which
     occluder is reported depends on the visit order). Rays where the bool
     mask ``active`` is False are not read (they may hold inf or NaN) and
-    return the miss values.
+    return the miss values. ``scattered`` says that the active rays are a
+    scattered minority of the buffer (the waves that follow a random bounce):
+    the launch then runs persistent warps that fetch and compact them;
+    otherwise one thread per ray, which is faster where the active rays come
+    in runs. It changes no output.
+
+    Any hit over leaves of more than one triangle runs the baseline loop with
+    one thread per ray under ``core="hopper"`` too: there the redesigned
+    core and the persistent warps both lost on the card (PERF.md §6).
 
     For records on a CUDA device launches K2a (K2b with ``any_hit``) on
-    4-wide records and K2c on 8-wide records; runs the plain version for
-    records on the CPU; raises for any other device."""
+    4-wide records and K2c on 8-wide records, with the traversal core
+    ``core`` (:func:`core_id`; measurement only); runs the plain version
+    for records on the CPU; raises for any other device."""
+    cid = core_id(core)
+    if core == "hopper" and any_hit and leaf_k > 1:
+        cid, scattered = _BASELINE_CORE, False
     qn, slots = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if qn.device.type == "cpu":
@@ -559,19 +610,24 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     r = origins.shape[0]
     planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
     tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
+    persistent = core == "hopper" and scattered
+    # the persistent warps' ray counter: this launch's own 4 bytes, zeroed by
+    # the launcher on this stream
+    counter = torch.empty((1,), dtype=torch.int32, device=qn.device) if persistent else None
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_rays(
             qn.data_ptr(), qn.shape[1], leaf_k, slots, origins.data_ptr(), dirs.data_ptr(),
-            None if active is None else active.data_ptr(), r, int(bool(any_hit)),
+            None if active is None else active.data_ptr(), r, int(bool(any_hit)), cid,
+            int(persistent), None if counter is None else counter.data_ptr(),
             *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
     if slots == 8:
         name = "trace_rays_k2c"
     else:
         name = "trace_rays_k2b" if any_hit else "trace_rays_k2a"
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+    _count(name, core)
     return (*planes, tri)
 
 
@@ -603,13 +659,17 @@ class TraversalCounts:
     rays, node visits (one header of 8·w words each, w the records' child
     slots), Möller–Trumbore tests (one 12-word triangle record each), and
     the distinct headers and triangle records read (the record bytes a
-    traversal must move at least once). One object counts records of one
-    width (``width``, set by the first traversal)."""
+    traversal must move at least once); the most entries any ray's stack
+    held (``max_depth``) and the pushes dropped at the 64-entry limit
+    (``dropped``), which size the kernels' on-chip stack. One object counts
+    records of one width (``width``, set by the first traversal)."""
 
     def __init__(self) -> None:
         self.rays = 0
         self.visits = 0
         self.mt_tests = 0
+        self.max_depth = 0
+        self.dropped = 0
         self.width: int | None = None
         self._nodes: list[torch.Tensor] = []
         self._tris: list[torch.Tensor] = []
@@ -631,6 +691,13 @@ class TraversalCounts:
         slot·K + j)."""
         self.mt_tests += tri_slots.numel()
         self._tris.append(torch.unique(tri_slots))
+
+    def add_pushes(self, depth: torch.Tensor, dropped: int) -> None:
+        """Stacks of ``depth`` entries after a visit's pushes, ``dropped``
+        pushes refused."""
+        if depth.numel():
+            self.max_depth = max(self.max_depth, int(depth.max()))
+        self.dropped += dropped
 
     def unique_record_bytes(self) -> int:
         """Bytes of the distinct headers (32·w each) and triangle records (48
@@ -775,6 +842,11 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
             push[done] = False
         skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
         _, order = torch.sort(skey, dim=1, descending=True, stable=True)
+        if counts is not None:
+            n_push = push.sum(dim=1)
+            room = (STACK_MAX - 1 - sp[rays]).clamp_min(0)
+            counts.add_pushes(sp[rays] + 1 + torch.minimum(n_push, room),
+                              int((n_push - room).clamp_min(0).sum()))
         for i in range(w):
             slot = order[:, i]
             can = push.gather(1, slot[:, None])[:, 0] & (sp[rays] < STACK_MAX - 1)

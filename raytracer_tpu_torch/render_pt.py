@@ -172,20 +172,25 @@ class _Draws:
         return self._given("u1", (r,), b), self._given("u2", (r,), b)
 
 
-def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active):
-    """One closest-hit wave → (t, tri, ray-facing normals)."""
+def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active, scattered: bool = False):
+    """One closest-hit wave → (t, tri, ray-facing normals). ``scattered``:
+    the active lanes are the hits of random bounce rays (the kernel then
+    compacts them)."""
     if brute:
         t, tri = trace_rays_brute(tris, o, d)
         return t, tri, _normals_for(tris, tri, d)
-    t, nx, ny, nz, tri = trace_rays(qnodes, o, d, leaf_k=leaf_k, active=active)
+    t, nx, ny, nz, tri = trace_rays(qnodes, o, d, leaf_k=leaf_k, active=active,
+                                    scattered=scattered)
     return t, tri, _face(torch.stack([nx, ny, nz], dim=-1), d)
 
 
-def _occluded(qnodes, tris, o, d, brute: bool, leaf_k: int, active) -> torch.Tensor:
+def _occluded(qnodes, tris, o, d, brute: bool, leaf_k: int, active,
+              scattered: bool = False) -> torch.Tensor:
     """The NEE shadow query: True where the ray hits anything."""
     if brute:
         return trace_rays_brute(tris, o, d)[1] >= 0
-    return trace_rays(qnodes, o, d, any_hit=True, leaf_k=leaf_k, active=active)[4] >= 0
+    return trace_rays(qnodes, o, d, any_hit=True, leaf_k=leaf_k, active=active,
+                      scattered=scattered)[4] >= 0
 
 
 def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, cam_quat,
@@ -258,8 +263,9 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
             t, nx, ny, nz, tri = (_img_to_lanes(p, width, height) for p in planes)
             n = _face(torch.stack([nx, ny, nz], dim=-1), d)
         else:
+            # the lanes alive at b >= 2 are hits of random bounce rays
             t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
-                               None if b == 0 else alive)
+                               None if b == 0 else alive, scattered=b >= 2)
         hit = (tri >= 0) & alive
         miss = (tri < 0) & alive
 
@@ -272,7 +278,7 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         ndotl = torch.clamp_min((n * sun).sum(-1), 0.0)
         nee = hit & (ndotl > 0.0)
         alive_rays = alive_rays + nee.sum()
-        occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee)
+        occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee, scattered=b >= 1)
         direct = base * (ndotl * (~occ).to(f32))[:, None]
         radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
 

@@ -20,7 +20,10 @@ equal to the plain version's on every ray whose triangle agrees, and its
 five other planes bit-equal to the kernel's without ``stats``; K1d by the
 closest-hit rule on its hits, with t = its tile's bound exactly where it finds
 none, and the bounded and temporal traces bit-equal to the unbounded kernel;
-the refit chain's records byte-equal.
+the refit chain's records byte-equal; the redesigned core (``core="hopper"``,
+every render path) word for word equal to the frozen baseline core
+(``core="baseline"``) and to every subset of its design elements, in every
+launch shape and K2 schedule.
 """
 
 import numpy as np
@@ -33,14 +36,14 @@ from raytracer_tpu_torch.ops.cluster import (build_lbvh2_clustered, build_sah2_c
                                              records_pipeline, refit_lbvh2_clustered,
                                              wide_pipeline)
 from raytracer_tpu_torch.ops.collapse import (LBVH2, collapse_apply_refit, collapse_lbvh2_to_bvh4,
-                                              collapse_plan)
+                                              collapse_lbvh2_to_bvh8, collapse_plan)
 from raytracer_tpu_torch.ops.cuda import build, microbench, traverse
 from raytracer_tpu_torch.ops.lbvh import build_lbvh2
 from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
 from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.ops.trace import moller_trumbore
-from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, image_dirs, ray_buffer,
-                          room_scene, seeded_scene, tile_bounds)
+from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, deep_records, image_dirs,
+                          ray_buffer, room_scene, seeded_scene, tile_bounds)
 
 SUN = (np.float32([1.0, 1.5, 1.0]) / np.linalg.norm([1.0, 1.5, 1.0])).astype(np.float32)
 
@@ -151,7 +154,8 @@ def test_build_hash_covers_included_headers(tmp_path):
     assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) == before
     hdr.write_text("inline int g() { return 2; }\n")
     assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) != before
-    assert [p.name for p in build.cuda_headers()] == ["traverse_core.cuh"]
+    assert [p.name for p in build.cuda_headers()] == [
+        "traverse_core.cuh", "traverse_core_baseline.cuh"]
 
 
 def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hit: bool):
@@ -738,3 +742,203 @@ def test_microbench_kernels_match_plain_on_card(cuda_device):
                         "mb_scalar": 2 * len(mb.SCALAR_VARIANTS),
                         "mb_visit": 2 * 4 * len(mb.VISIT_PARTS),
                         "mb_smem_probe": (cap["max_bytes"] - 48 * 1024) // 1024 + 1}
+
+
+def records_of(tris: np.ndarray, k: int, width: int, device) -> torch.Tensor:
+    """Records of ``width`` child slots: the Morton LBVH of single triangles
+    at K = 1 (the records of lbvh_records, at either width), SAH clusters of K
+    otherwise."""
+    if k == 1:
+        t = torch.from_numpy(tris).to(device)
+        collapse = collapse_lbvh2_to_bvh4 if width == 4 else collapse_lbvh2_to_bvh8
+        return traverse.make_qnodes(make_wide_bvh(collapse(build_lbvh2(t))), t)
+    cs, height = build_sah2_clustered(tris, k, device)
+    return records_pipeline(cs, height=height, width=width)
+
+
+def words_equal(a, b) -> bool:
+    """Every plane of two kernel results equal word for word."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+def ray_cases(o: torch.Tensor, d: torch.Tensor, seed: int):
+    """(origins, dirs, active) of R = 1, 31, 33, 100,003 and 0 rays, with the
+    active mask all (None), none and 30% (inactive rays hold NaN)."""
+    rng = np.random.default_rng(seed)
+    for r in (1, 31, 33, 100_003, 0):
+        idx = torch.from_numpy(rng.integers(0, o.shape[0], size=r)).to(o.device)
+        ro, rd = o[idx].contiguous(), d[idx].contiguous()
+        for share in (None, 0.0, 0.3):
+            if share is None:
+                yield ro, rd, None
+                continue
+            act = torch.from_numpy(rng.random(r) < share).to(o.device)
+            nan = torch.full_like(ro, float("nan"))
+            yield torch.where(act[:, None], ro, nan).contiguous(), rd, act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_hopper_rays_equal_baseline_and_plain_on_card(cuda_device, k, width):
+    """K2a / K2b / K2c with the redesigned core, one thread per ray and as
+    persistent warps with dynamic fetch (``scattered``), write the baseline
+    core's words on every ray (closest and any hit: the any-hit order is
+    kept, so all planes agree), for every R and active share, and hold the
+    plain version's traversal rule; each launch counts once, under its
+    core."""
+    tris = room_scene()
+    qn = records_of(tris, k, width, cuda_device)
+    o, d = ray_buffer(qn, k, 4096)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
+    for any_hit, dirs in ((False, d), (True, sun)):
+        for ro, rd, act in ray_cases(o, dirs, k + width):
+            kw = dict(any_hit=any_hit, leaf_k=k, active=act)
+            before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
+            base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
+            assert words_equal(traverse.trace_rays(qn, ro, rd, **kw), base)
+            ours = traverse.trace_rays(qn, ro, rd, scattered=True, **kw)
+            assert words_equal(ours, base), (any_hit, ro.shape[0])
+            torch.cuda.synchronize()
+            name = "trace_rays_k2c" if width == 8 else (
+                "trace_rays_k2b" if any_hit else "trace_rays_k2a")
+            assert launched(before[0]) == {name: 2}
+            assert traverse.MEASURE_LAUNCHES[name] == before[1][name] + 1
+            if (act if act is not None else torch.ones_like(ro[:, 0], dtype=torch.bool)
+                    ).sum() < 1000:
+                continue
+            ref = [p.cpu() for p in traverse.trace_rays_reference(qn, ro, rd, **kw)]
+            mask = slice(None) if act is None else act.cpu()
+            if any_hit:
+                assert torch.equal(base[4].cpu() >= 0, ref[4] >= 0)
+            else:
+                assert_trace_parity([p.cpu()[mask] for p in base], ref[0][mask], ref[4][mask],
+                                    torch.stack(ref[1:4], -1)[mask].numpy(), tris,
+                                    rd.cpu()[mask], ro.cpu()[mask].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_hopper_tiles_equal_baseline_on_card(cuda_device, k, width):
+    """K1a, K1b, K1c, K1d, K1e and K1f with the redesigned core write the
+    baseline core's words on every pixel."""
+    tris = seeded_scene(4)
+    qn = records_of(tris, k, width, cuda_device)
+    w, h = 150, 98
+    bounds = torch.full((-(-h // 32), -(-w // 32)), 2.6, device=cuda_device)
+    entries = torch.zeros_like(bounds, dtype=torch.int32)
+    calls = {
+        "k1a": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k, **c),
+        "k1b": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                                jitter=True, jitter_seed=77, **c),
+        "k1d": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                                entries=entries, tbounds=bounds, **c),
+        "k1f": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                                stats=True, **c),
+        "k1c": lambda **c: traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV,
+                                                      leaf_k=k, jitter=True,
+                                                      jitter_seeds=BATCH_SEEDS, **c),
+    }
+    for name, call in calls.items():
+        base = call(core="baseline")
+        assert words_equal(call(), base), name
+        assert words_equal(call(core="baseline"), base), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_hopper_drops_like_baseline_and_plain_on_card(cuda_device, width):
+    """Synthetic records whose stacks pass the shared entries and 64: the
+    redesigned kernels, one thread per ray and persistent, and at 4 slots
+    the cores with the shared stack (its spill to local memory past
+    kSharedEntries runs here), drop the same pushes as the baseline core and
+    the plain version (the same words, and the plain version's
+    triangles)."""
+    qn, o, d = deep_records(width)
+    qn = qn.to(cuda_device)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_rays_reference(qn, o, d, leaf_k=1, counts=counts)
+    assert counts.dropped > 0 and counts.max_depth == 64
+    stack_cores = ("stack", "order+stack", "order+stack+prefetch") if width == 4 else ()
+    for any_hit in (False, True):
+        kw = dict(any_hit=any_hit, leaf_k=1)
+        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
+        assert words_equal(traverse.trace_rays(qn, o, d, **kw), base)
+        assert words_equal(traverse.trace_rays(qn, o, d, scattered=True, **kw), base)
+        for core in stack_cores:
+            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
+    base = traverse.trace_rays(qn, o, d, leaf_k=1, core="baseline")
+    assert torch.equal(base[4], ref[4]) and torch.equal(base[0], ref[0])
+
+
+MEASURED_CORES = ("none", "order", "stack", "prefetch", "order+stack", "order+prefetch",
+                  "stack+prefetch", "order+stack+prefetch")
+
+
+@pytest.mark.cuda
+def test_element_cores_equal_hopper_on_card(cuda_device):
+    """K1a, K2a and K2b with each set of the design elements write the same
+    words as the render paths' core; a set is refused where it is not
+    built."""
+    tris = room_scene()
+    qn = records_of(tris, 8, 4, cuda_device)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 8192))
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
+    full_rays = traverse.trace_rays(qn, o, d, leaf_k=8)
+    full_any = traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8)
+    full_tiles = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8)
+    for core in MEASURED_CORES:
+        assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core=core), full_rays), core
+        assert words_equal(traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8, core=core),
+                           full_any), core
+        assert words_equal(traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8,
+                                                core=core), full_tiles), core
+    qn8 = records_of(tris, 8, 8, cuda_device)
+    with pytest.raises(RuntimeError):
+        traverse.trace_rays(qn8, o, d, leaf_k=8, core="order")
+    with pytest.raises(RuntimeError):
+        traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8, jitter=True,
+                             core="stack")
+
+
+@pytest.mark.cuda
+def test_ray_counter_resets_per_launch_on_card(cuda_device):
+    """Persistent K2 launches back to back on one stream, and on two streams
+    at once, each with its own counter: every result equals its ray
+    buffer's baseline."""
+    tris = room_scene()
+    qn = records_of(tris, 8, 4, cuda_device)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 8192))
+    halves = [(o[:5000].contiguous(), d[:5000].contiguous()),
+              (o[3000:].contiguous(), d[3000:].contiguous())]
+    base = [traverse.trace_rays(qn, a, b, leaf_k=8, core="baseline") for a, b in halves]
+    one = [traverse.trace_rays(qn, a, b, leaf_k=8, scattered=True) for a, b in halves]
+    streams = [torch.cuda.Stream(cuda_device) for _ in halves]
+    torch.cuda.synchronize()
+    two = []
+    for (a, b), s in zip(halves, streams):
+        with torch.cuda.stream(s):
+            two.append(traverse.trace_rays(qn, a, b, leaf_k=8, scattered=True))
+    torch.cuda.synchronize()
+    for x, y, z in zip(base, one, two):
+        assert words_equal(y, x) and words_equal(z, x)
+
+
+def test_core_names_are_checked_on_cpu():
+    """The CPU path takes every core name and schedule (its plain version is
+    the same) and refuses an unknown core."""
+    _, qn, o, d = room("cpu", n=64)
+    ref = traverse.trace_rays(qn, o, d, leaf_k=8)
+    assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core="baseline"), ref)
+    assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, scattered=True), ref)
+    assert traverse.core_id("hopper") == -1 and traverse.core_id("baseline") == 256
+    assert traverse.core_id("prefetch+order") == traverse.core_id("order+prefetch") == 5
+    with pytest.raises(ValueError, match="core must be"):
+        traverse.core_id("order+order")
+    with pytest.raises(ValueError, match="core must be"):
+        traverse.trace_rays(qn, o, d, leaf_k=8, core="fast")
+    with pytest.raises(ValueError, match="core must be"):
+        traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 8, 8, FOV, leaf_k=8, core="fast")

@@ -220,3 +220,73 @@ def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: tor
         hit = same & (tri >= 0)
         np.testing.assert_allclose(n[hit], np.asarray(ref_n).reshape(-1, 3)[hit],
                                    atol=NORMAL_ATOL, rtol=0, err_msg="normals within atol 1e-5")
+
+
+def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED):
+    """Synthetic records (K = 1) whose stacks overflow 64 entries, and ``n``
+    rays through them → (records (M, recw) f32, origins, dirs (n, 3) f32).
+
+    Record i < ``depth`` is a chain node: one slot holds chain node i + 1,
+    the nearest box along the rays, the others dead ends, internal nodes
+    whose first slot is a leaf with one triangle across the rays and whose
+    other slots are empty. A ray pushes the far dead ends and the near chain
+    child at every level (w − 1 entries net), so its stack passes 64 after
+    ≈ 64 / (w − 1) levels and the nearest pushes are dropped; the last chain
+    node holds the nearest triangle, which only a ray whose chain pushes all
+    fit reaches. Boxes are shrunk at random in x and y, so the rays (down
+    −z, origins in [−0.9, 0.9]², small tilts) take many depths; pairs of
+    dead ends share a box and a triangle height, so keys and t tie."""
+    from raytracer_tpu_torch.ops.cuda.traverse import EMPTY_REF, rec_layout
+
+    rng = np.random.default_rng(seed + width)
+    vbase, ibase, recw = rec_layout(1, width)
+    n_dead = depth * (width - 1)
+    rec = np.zeros((depth + 1 + n_dead, recw), np.float32)
+    tri_id = iter(range(1 << 20))
+
+    def empty(row, k):
+        rec[row, 6 * k:6 * k + 3] = np.inf
+        rec[row, 6 * k + 3:6 * k + 6] = -np.inf
+        rec[row, 6 * width + k] = EMPTY_REF
+
+    def leaf(row, k, z):
+        rec[row, 6 * k:6 * k + 6] = [-2, -2, z - 0.001, 2, 2, z + 0.001]
+        rec[row, 6 * width + k] = -1.0
+        rec[row, 7 * width + k] = 1.0
+        v0, e1, e2 = np.float32([-4, -4, z]), np.float32([12, 0, 0]), np.float32([0, 12, 0])
+        rec[row, vbase + 12 * k:vbase + 12 * k + 12] = np.concatenate(
+            [v0, e1, e2, np.cross(e1, e2)])
+        rec[row, ibase + k] = next(tri_id)
+
+    def box(lo_z, hi_z):
+        lo = -1.0 + rng.uniform(0.0, 0.5, size=2)
+        hi = 1.0 - rng.uniform(0.0, 0.5, size=2)
+        return [lo[0], lo[1], lo_z, hi[0], hi[1], hi_z]
+
+    dead = depth + 1
+    for i in range(depth):
+        top = 9.0 - 0.1 * i
+        chain_slot = int(rng.integers(width))
+        shared = None
+        for k in range(width):
+            if k == chain_slot:
+                rec[i, 6 * k:6 * k + 6] = box(-5.0, top)
+                rec[i, 6 * width + k] = i + 1
+                continue
+            if shared is None or rng.random() < 0.5:
+                shared = (box(-5.0, top - 0.05 * (1 + rng.integers(3))),
+                          top - 0.05 * (1 + rng.integers(3)) - 0.01)
+            bx, z = shared
+            rec[i, 6 * k:6 * k + 6] = bx
+            rec[i, 6 * width + k] = dead
+            leaf(dead, 0, z)
+            for kk in range(1, width):
+                empty(dead, kk)
+            dead += 1
+    leaf(depth, 0, 9.5)
+    for k in range(1, width):
+        empty(depth, k)
+    o = np.concatenate([rng.uniform(-0.9, 0.9, size=(n, 2)), np.full((n, 1), 10.0)], 1)
+    d = np.concatenate([rng.normal(0.0, 0.02, size=(n, 2)), -np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(rec), o.astype(np.float32), d.astype(np.float32)
