@@ -179,6 +179,29 @@ phase 26, before 27:
    baseline's times beside each kernels-line row's (``baseline_ms`` on the
    checked rays, ``baseline_path_ms`` on the path).
 
+Phase 29 drives the headless apps and the rest of the build chain; it runs
+after phase 28, before 27:
+
+29. (a) PathTracer(builder="ploc") and PathTracer(builder="sah",
+   leaf_size=1) on the dragon: set_scene's stages, BVH2 rows and height,
+   PLOC's rounds (live clusters at each); the PLOC BVH2 built on the card
+   equal word for word to the same build on the CPU; K1a at leaf_k = 1 on
+   both trees against its plain version on the crop (0 ties, max |d| 0)
+   and brute force on the 1,024 seeded pixels; (b) SAH K = 32, Morton LBVH
+   K = 1, SAH K = 1 and PLOC K = 1 in this one process, render() and K1a
+   alone timed A-B-C-D-D-C-B-A (CUDA events), framed and sparse, with
+   visits a ray (K1f, hit counts equal) and MT tests a ray on the crop, and
+   the tree fast_build_options returns beside the fastest framed render();
+   (c) apps.main on the dragon at 1920x1080 with --builder lbvh, posting
+   BVH2.bin to server.api running in a thread: 30 K1a launches and nothing
+   else, the file byte-equal to bvh2_artifact(), the PNG decoding to a
+   tracer's render() at the app's start camera; then 3,000 frames with
+   --builder lbvh and with the default --builder auto and --orbit, and the
+   FPS of each from the app's FrameStats; (d) save_checkpoint →
+   load_checkpoint into a fresh tracer at SAH K = 32 and Morton K = 1: file
+   sizes, seconds, frames byte-equal; (e) apps.debug at its defaults: the
+   PNG's size and the JSON's node count against bvh2_artifact().
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -1014,6 +1037,9 @@ def main() -> None:
     # 28. the redesigned kernels against the frozen baseline core
     hopper_phase(env, trees, rows)
     del trees
+
+    # 29. the apps and the rest of the build chain
+    apps_phase(env, scene)
 
     # 27. the microbenchmark kernels
     mb_rows = microbench_phase(env)
@@ -2562,6 +2588,267 @@ def microbench_phase(env: dict) -> dict:
             f"{MB_N_HI}: equal; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms, bound "
             f"{row['bound_ms']:.6f} ms by {row['bound_by']} on {card}")
     return rows
+
+
+# 29. the apps and the build chain
+APP_FRAMES, APP_FPS_FRAMES = 30, 3000  # the latter: a few 1 Hz readouts
+APP_CAMERA = (0.0, 0.0, 3.5)  # apps/main.py's start camera (RenderConfig.camera)
+TREES = (("sah K=32", "sah", LEAF_K), ("lbvh K=1", "lbvh", 1), ("sah K=1", "sah", 1),
+         ("ploc K=1", "ploc", 1))
+
+
+def decode_png(data: bytes):
+    """(H, W, C) uint8 numpy array of a PNG as utils.image.encode_png writes
+    it: 8-bit samples, no interlace, filter 0 on every row."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("not a PNG file")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, color_type = ihdr[:4]
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}[color_type]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if depth != 8 or bool((raw[:, 0] != 0).any()):
+        fail(f"PNG of depth {depth} or with row filters other than 0")
+    return raw[:, 1:].reshape(h, w, channels)
+
+
+def apps_phase(env: dict, scene) -> None:
+    """29. The apps and the rest of the build chain on the dragon at 1080p:
+    (a) PLOC and SAH at K = 1 built on the card (PLOC word for word the CPU
+    build), K1a on them against its plain version and brute force, visits and
+    MT tests a ray; (b) SAH K = 32, Morton LBVH K = 1, SAH K = 1 and PLOC
+    K = 1 render() and K1a side by side, A-B-C-D-D-C-B-A, framed and sparse,
+    beside fast_build_options; (c) apps.main with its artifact POST to the
+    API server and its PNG checked, then at --builder auto with --orbit; (d)
+    checkpoint round trips; (e) apps.debug at its defaults."""
+    import argparse
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from raytracer_tpu_torch import PathTracer, fast_build_options
+    from raytracer_tpu_torch.apps import debug as app_debug
+    from raytracer_tpu_torch.apps import main as app_main
+    from raytracer_tpu_torch.ops import ploc
+    from raytracer_tpu_torch.ops.cluster import tree_height
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.server import api
+    from raytracer_tpu_torch.utils import procgen
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    t_phase = time.perf_counter()
+    views = (("framed", FRAMED), ("sparse", SPARSE))
+    rays = WIDTH * HEIGHT
+
+    # (a) the four trees; the PLOC build counts its rounds (live clusters at each)
+    rounds = []
+    real_nearest = ploc._nearest
+
+    def counting_nearest(cmn, cmx, radius):
+        rounds.append(cmn.shape[0])
+        return real_nearest(cmn, cmx, radius)
+
+    trees = {}
+    for name, builder, k in TREES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pt = PathTracer(WIDTH, HEIGHT, builder=builder, leaf_size=k, device=dev)
+        ploc._nearest = counting_nearest
+        try:
+            t0 = time.perf_counter()
+            pt.set_scene(scene)
+            secs = time.perf_counter() - t0
+        finally:
+            ploc._nearest = real_nearest
+        if not torch.equal(pt._tris_dev, tris):
+            fail(f"{name}: the tracer holds other triangles than phase 3's")
+        pt.set_camera_quaternion(*QUAT)
+        pt.fov_degrees = FOV
+        trees[name] = pt
+        height = pt._bvh2_height if pt._bvh2_height is not None else tree_height(pt._bvh2)
+        log(f"[apps] {name}: set_scene in {secs:.2f} s: {json.dumps(pt.build_stats)}; BVH2 rows "
+            f"{pt._bvh2.num_nodes}, height {height}; records {tuple(pt._qnodes.shape)} = "
+            f"{pt._qnodes.numel() * 4 / 2**20:.1f} MiB; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on {card}")
+    log(f"[apps] PLOC on the card: {len(rounds)} rounds, live clusters at the first rounds "
+        f"{rounds[:8]}, at the last {rounds[-4:]}; build {trees['ploc K=1'].build_stats['lbvh2_ms']:.2f} "
+        f"ms on {card}")
+    t0 = time.perf_counter()
+    cpu2 = ploc.build_ploc2(tris.cpu())
+    cpu_s = time.perf_counter() - t0
+    for field, a, b in zip(("bounds", "left", "right", "meta", "parent"), trees["ploc K=1"]._bvh2,
+                           cpu2):
+        if not torch.equal(a.cpu(), b):
+            fail(f"ploc K=1: BVH2 {field} on the card differs from the CPU build in "
+                 f"{int((a.cpu() != b).sum())} words")
+    log(f"[apps] ploc K=1: the BVH2 on the card equals the CPU build word for word (bounds, left, "
+        f"right, meta, parent; {cpu2.num_nodes} rows; {cpu_s:.2f} s on the CPU)")
+    del cpu2
+
+    counts = {}
+    for name in ("sah K=1", "ploc K=1"):
+        chk = check_tiles(env, trees[name]._qnodes, f"K1a at {name}", jitter=False, leaf_k=1)
+        if chk["stats"]["ties"] or chk["stats"]["max_abs_err"] != 0.0:
+            fail(f"{name}: K1a differs from its plain version on the crop ({chk['stats']})")
+        counts[name] = chk["counts"]
+
+    # (b) the four trees side by side: render() and K1a alone, framed and sparse
+    frame_ms = {}
+    for view, pos in views:
+        for pt in trees.values():
+            pt.set_camera_position(*pos)
+        renders = series({name: pt.render for name, pt in trees.items()}, FRAMES, 3)
+        kernels = series({name: (lambda pt=pt, pos=pos: traverse.trace_tiles(
+            pt._qnodes, pos, QUAT, WIDTH, HEIGHT, FOV, leaf_k=pt.leaf_size))
+            for name, pt in trees.items()}, FRAMES, 3)
+        hits = None
+        for name, pt in trees.items():
+            planes = traverse.trace_tiles(pt._qnodes, pos, QUAT, WIDTH, HEIGHT, FOV,
+                                          leaf_k=pt.leaf_size, stats=True)
+            h = int((planes[4] >= 0).sum())
+            if hits is not None and h != hits:
+                fail(f"apps {view}: {name} hits {h} pixels, SAH K={LEAF_K} {hits}")
+            hits = h
+            visits = float(planes[5].sum(dtype=torch.float64)) / rays
+            c = counts.get(name)
+            crop = (f"; crop: {c.visits / c.rays:.3f} visits and {c.mt_tests / c.rays:.3f} MT tests "
+                    f"a ray" if c is not None and view == "framed" else "")
+            log(f"[apps] {view} {name}: render() {renders[name]:.4f} ms = "
+                f"{rays / renders[name] / 1e3:.2f} Mrays/s, K1a {kernels[name]:.4f} ms (medians, "
+                f"order A-B-C-D-D-C-B-A, 3 reps of {FRAMES} each way); {visits:.3f} visits a ray "
+                f"(K1f); hits {h}{crop} on {card}")
+        frame_ms[view] = renders
+    fastest = min(frame_ms["framed"], key=frame_ms["framed"].get)
+    chosen = fast_build_options(dev)
+    chosen_name = next(n for n, b, k in TREES if (b, k) == chosen)
+    log(f"[apps] fastest framed render() in this run: {fastest}; fast_build_options({dev}) returns "
+        f"{chosen} ({chosen_name}, {frame_ms['framed'][chosen_name]:.4f} ms) on {card}")
+
+    # (c) the app, posting BVH2.bin to the API server
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_apps_"))
+    srv = api.make_server(port=0, data_dir=tmp / "api", quiet=True)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    runs = []
+
+    class RecordingStats(app_main.FrameStats):
+        """The app's FrameStats, kept with the total the app reads at the end
+        of its frame loop."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runs.append(self)
+
+        def summary(self):
+            self.run = super().summary()
+            return self.run
+
+    real_stats = app_main.FrameStats
+    app_main.FrameStats = RecordingStats
+    try:
+        size = ["--scene", "dragon", "--width", str(WIDTH), "--height", str(HEIGHT), "--api", url]
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        t0 = time.perf_counter()
+        rc = app_main.main([*size, "--frames", str(APP_FRAMES), "--builder", "lbvh",
+                            "--out", str(tmp / "frame.png")])
+        app_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(traverse.LAUNCHES)
+        if rc != 0 or launches != expected(trace_tiles_k1a=APP_FRAMES):
+            fail(f"apps.main returned {rc} and launched {launches}, expected "
+                 f"{APP_FRAMES} K1a and nothing else")
+        app_tris = app_main._load_scene(argparse.Namespace(glb=None, scene="dragon")).triangles
+        ref = trees["lbvh K=1"]
+        if not np.array_equal(app_tris, scene.triangles):
+            ref = PathTracer(WIDTH, HEIGHT, device=dev)
+            ref.build_bvh(app_tris)
+        dumped = (tmp / "api" / "BVH2.bin").read_bytes()
+        if dumped != ref.bvh2_artifact().tobytes():
+            fail("the BVH2.bin the API server wrote differs from bvh2_artifact()")
+        ref.set_camera_position(*APP_CAMERA)
+        ref.set_camera_quaternion(*QUAT)
+        want = ref.render().cpu().numpy()
+        got = decode_png((tmp / "frame.png").read_bytes())
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail("the app's PNG does not decode to a fresh tracer's render() at its camera")
+        run = runs[-1].run
+        log(f"[apps] apps.main --builder lbvh, {APP_FRAMES} frames at {WIDTH}x{HEIGHT}: {app_s:.2f} s "
+            f"in all; {APP_FRAMES} K1a launches; BVH2.bin ({len(dumped)} bytes) byte-equal to "
+            f"bvh2_artifact(); the PNG decodes to render() at the start camera; FrameStats: "
+            f"{run['fps']:.2f} FPS = {1e3 / run['fps']:.4f} ms a frame, 1 Hz readouts "
+            f"{runs[-1].history} on {card}")
+        for args in (["--builder", "lbvh"], ["--orbit"]):
+            t0 = time.perf_counter()
+            rc = app_main.main([*size, "--frames", str(APP_FPS_FRAMES), *args,
+                                "--out", str(tmp / "fps.png")])
+            app_s = time.perf_counter() - t0
+            run = runs[-1].run
+            if rc != 0 or not runs[-1].history:
+                fail(f"apps.main {args} returned {rc} or gave no 1 Hz readout")
+            log(f"[apps] apps.main {' '.join(args)}, {APP_FPS_FRAMES} frames at {WIDTH}x{HEIGHT}: "
+                f"{app_s:.2f} s in all; FrameStats {run['fps']:.2f} FPS = "
+                f"{1e3 / run['fps']:.4f} ms a frame ({run['mrays_per_s']:.2f} Mrays/s), 1 Hz "
+                f"readouts {[r['fps'] for r in runs[-1].history]} on {card}")
+    finally:
+        app_main.FrameStats = real_stats
+        srv.shutdown()
+        srv.server_close()
+
+    # (d) checkpoints: save, load into a fresh tracer, the same frame
+    for name in ("sah K=32", "lbvh K=1"):
+        src = trees[name]
+        path = tmp / f"{name.replace(' ', '_').replace('=', '')}.npz"
+        t0 = time.perf_counter()
+        src.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        fresh = PathTracer(WIDTH, HEIGHT, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        for pt in (src, fresh):
+            pt.set_camera_position(*FRAMED)
+            pt.set_camera_quaternion(*QUAT)
+            pt.fov_degrees = FOV
+        if fresh.leaf_size != src.leaf_size or not torch.equal(fresh.render(), src.render()):
+            fail(f"{name}: the checkpoint's frame differs from the saved tracer's")
+        log(f"[apps] checkpoint {name}: {path.stat().st_size / 2**20:.1f} MiB, saved in "
+            f"{save_s:.2f} s, loaded in {load_s:.2f} s (records included); frame byte-equal on "
+            f"{card}")
+        del fresh
+    del trees
+
+    # (e) apps.debug at its defaults
+    if app_debug.main(["--out", str(tmp / "debug.png"), "--json", str(tmp / "bvh.json")]) != 0:
+        fail("apps.debug returned non-zero")
+    debug_png = decode_png((tmp / "debug.png").read_bytes())
+    dump = json.loads((tmp / "bvh.json").read_text())
+    ref = PathTracer(960, 540, device=dev)
+    ref.build_bvh(procgen.make_icosphere(3))
+    n2 = int(ref.bvh2_artifact()[0])
+    if debug_png.shape != (540, 960, 4) or dump["numNodes"] != n2 or len(dump["nodes"]) != n2:
+        fail(f"apps.debug: PNG {debug_png.shape}, JSON {dump['numNodes']} nodes, "
+             f"bvh2_artifact() {n2}")
+    log(f"[apps] apps.debug: PNG 960x540, JSON of {n2} nodes = bvh2_artifact()'s; phase 29 in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    shutil.rmtree(tmp)
 
 
 if __name__ == "__main__":

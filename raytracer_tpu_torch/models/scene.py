@@ -1,8 +1,9 @@
 """Scene: GLB → triangle-soup ingest with normalization (host, NumPy).
 
-A copy of the ingest half of ``raytracer_tpu/models/scene.py``. Triangles
-stay a host ``(N, 3, 3) float32`` array; ``PathTracer`` moves them to its
-device. Cube normalization is bit-equal to the JAX package's.
+A copy of ``raytracer_tpu/models/scene.py``. Triangles stay a host
+``(N, 3, 3) float32`` array; ``PathTracer`` moves them to its device. Cube
+normalization, the centroids, the Morton pre-sort and the flat export are
+bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ class Scene:
     * ``normalize_mesh`` — cube: longest AABB dimension scaled to [-1, 1]
       (scale = 2 / maxDim); sphere: scale = 1 / (maxDim / 2), both centered
       on the AABB midpoint.
+    * ``sort_triangles`` — the optional Morton pre-sort (not called by
+      default, as in the reference).
+    * ``get_triangles_float32`` — flat (9N,) float32 v0 v1 v2 layout.
     """
 
     def __init__(self) -> None:
@@ -52,6 +56,12 @@ class Scene:
     def num_triangles(self) -> int:
         return int(self.triangles.shape[0])
 
+    def centroids(self) -> np.ndarray:
+        """Per-triangle centroid (mean of the 3 vertices), shape (N, 3)."""
+        if self.num_triangles == 0:
+            return np.zeros((0, 3), dtype=np.float32)
+        return self.triangles.mean(axis=1, dtype=np.float32)
+
     def normalize_mesh(self) -> None:
         """Center on the AABB midpoint and rescale."""
         if self.num_triangles == 0:
@@ -66,6 +76,35 @@ class Scene:
         else:  # "cube"
             scale = np.float32(2.0) / max_dim
         self.triangles = ((self.triangles - center[None, None, :]) * scale).astype(np.float32)
+
+    def sort_triangles(self) -> None:
+        """Spatially sort triangles by 30-bit Morton code of normalized
+        centroids. Port of the reference's (unused) Scene.sortTriangles
+        (Scene.js:170-225), kept for parity; note the reference app never
+        calls it (Scene.js:41 is commented out).
+        """
+        if self.num_triangles == 0:
+            return
+        c = self.centroids().astype(np.float64)
+        mn = c.min(axis=0)
+        ext = c.max(axis=0) - mn
+        ext = np.where(ext == 0.0, 1.0, ext)
+        q = np.clip((c - mn) / ext * 1024.0, 0.0, 1023.0).astype(np.uint32)
+
+        def expand(v: np.ndarray) -> np.ndarray:
+            v = (v * np.uint32(0x00010001)) & np.uint32(0xFF0000FF)
+            v = (v * np.uint32(0x00000101)) & np.uint32(0x0F00F00F)
+            v = (v * np.uint32(0x00000011)) & np.uint32(0xC30C30C3)
+            v = (v * np.uint32(0x00000005)) & np.uint32(0x49249249)
+            return v
+
+        code = expand(q[:, 0]) | (expand(q[:, 1]) << np.uint32(1)) | (expand(q[:, 2]) << np.uint32(2))
+        order = np.argsort(code, kind="stable")
+        self.triangles = self.triangles[order]
+
+    def get_triangles_float32(self) -> np.ndarray:
+        """Flat (9N,) float32 — v0.xyz v1.xyz v2.xyz per triangle."""
+        return np.ascontiguousarray(self.triangles, dtype=np.float32).reshape(-1)
 
     def get_triangles(self) -> np.ndarray:
         return self.triangles

@@ -1,7 +1,8 @@
 """The LBVH2 builder (Karras 2012 over Morton codes) and its refit, on the
 device of the triangles, and what the refit of a packed-cluster tree shares
 with them: the per-triangle AABB and the static height bound of a Karras
-tree.
+tree. Also :func:`build_sah2`, the native binned-SAH build of single
+triangles in the same layout.
 
 Torch counterpart of ``raytracer_tpu/ops/lbvh.py``, node for node and bit
 for bit: every internal node's range and split come from the same fixed-trip
@@ -25,12 +26,14 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..native.bvhtool import build_sah_native
 from ..utils.fp16 import pack_bounds_conservative
 from .morton import build_morton_and_sort
 
-__all__ = ["LBVH2", "LEAF_FLAG", "INVALID", "build_lbvh2", "refit_lbvh2", "ordered_key",
+__all__ = ["LBVH2", "LEAF_FLAG", "INVALID", "build_lbvh2", "build_sah2", "refit_lbvh2", "ordered_key",
            "from_ordered_key", "f16_order", "f16_unorder", "_tri_bounds",
            "_static_height_bound", "_karras_connectivity", "_bounds_fixed_point"]
 
@@ -201,6 +204,21 @@ def build_lbvh2(triangles: torch.Tensor) -> LBVH2:
     left[:num_internal], right[:num_internal] = ileft, iright
     bounds = _bounds_fixed_point(bounds, left, right, num_internal, _static_height_bound(n))
     return LBVH2(bounds, left, right, meta, parent)
+
+
+def build_sah2(triangles, device) -> tuple[LBVH2, int]:
+    """The native binned-SAH BVH2 of (N, 3, 3) f32 host triangles (N ≥ 1),
+    built on the host and moved to ``device``, and its height: the layout
+    of :func:`build_lbvh2` (2N − 1 rows, root 0, leaf meta LEAF_FLAG |
+    triangle, conservative fp16 bounds) with SAH topology. Word for word
+    ``raytracer_tpu/ops/lbvh.py::build_sah2`` (the same C++ source and
+    flags)."""
+    tris = np.asarray(triangles, dtype=np.float32).reshape(-1, 3, 3)
+    if len(tris) < 1:
+        raise ValueError("build_sah2 requires at least one triangle")
+    arrays, height = build_sah_native(tris)
+    return LBVH2(*(torch.from_numpy(arrays[k].astype(np.int64)).to(device)
+                   for k in ("bounds", "left", "right", "meta", "parent"))), height
 
 
 def refit_lbvh2(bvh: LBVH2, triangles: torch.Tensor, num_sweeps: int | None = None) -> LBVH2:

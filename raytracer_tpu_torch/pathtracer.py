@@ -5,13 +5,14 @@ path tracing, with the public surface of
 ``set_scene`` builds the BVH2 with the configured builder: the JAX
 package's default, the Morton / Karras LBVH over single triangles
 (``builder="lbvh", leaf_size=1``), the same over Morton runs of K triangles
-(``leaf_size=K``), or the native SAH build with K-triangle clusters
-(``builder="sah", leaf_size=K``, the main path's K = 32); then the widener
-(BVH2 → wide tree) → wide nodes → supernode records, all on ``device`` but
-the native SAH build. ``refit_bvh`` moves the triangles of a cluster tree
-and keeps its topology: refit → the collapse plan's gather → wide nodes →
-records, all on ``device`` (the ``"collapse"`` widener; any other, and a
-tree of single triangles, rebuilds). Then:
+(``leaf_size=K``), PLOC over single triangles (``builder="ploc"``), or the
+native SAH build of single triangles (``builder="sah", leaf_size=1``) or of
+K-triangle clusters (``builder="sah", leaf_size=K``, the main path's K =
+32); then the widener (BVH2 → wide tree) → wide nodes → supernode records,
+all on ``device`` but the native SAH builds. ``refit_bvh`` moves the
+triangles of a cluster tree and keeps its topology: refit → the collapse
+plan's gather → wide nodes → records, all on ``device`` (the ``"collapse"``
+widener; any other, and a tree of single triangles, rebuilds). Then:
 
 * ``render``: the traversal kernel K1a → Lambert shade → rgba8 →
   ``render_presented``'s tonemap; ``render_stream`` box-filters the same
@@ -29,17 +30,22 @@ With ``widener="collapse8"`` the records are 8-wide and the same calls run
 K1e (tiles) and K2c (ray buffers): the wrappers find the width from the
 records.
 
-On a CUDA device every traversal is a kernel; on the CPU each runs its plain
-torch version. Scenes of at most 8 triangles trace brute force, as in the
-JAX package.
+The four wideners are the JAX package's: ``"collapse"`` (greedy 4-wide
+collapse, the default), ``"collapse8"`` (greedy 8-wide collapse, BVH8),
+``"promote"`` (index-preserving 4-wide promotion) and ``"bvh2"`` (the binary
+tree in the 4-wide struct).
 
-Ported so far: the LBVH builder (single triangles and Morton clusters),
-the SAH builder with clusters of K > 1 triangles, their refit, and the four
-wideners of the JAX package: ``"collapse"`` (greedy 4-wide collapse, the
-default), ``"collapse8"`` (greedy 8-wide collapse, BVH8), ``"promote"``
-(index-preserving 4-wide promotion) and ``"bvh2"`` (the binary tree in the
-4-wide struct). The PLOC builder and the SAH build of single triangles come
-with a later slice and raise ``NotImplementedError``.
+The artifacts are the JAX package's files, byte for byte: ``bvh2_artifact``
+(``BVH2.bin``), ``bvh4_artifact`` (the wide tree the records were made
+from), ``dump_bvh_json`` and ``save_checkpoint`` / ``load_checkpoint``, which
+read and write the same npz as the JAX package's. ``from_config`` and
+``fast_build_options`` are the apps' entry (``apps/main.py``).
+
+The tracer runs on ``device``, the card (``"cuda"``) unless the caller asks
+for the CPU. On a CUDA device every traversal is a kernel; on the CPU each
+runs its plain torch version. Scenes of at most 8 triangles trace brute
+force, as in the JAX package (they build no tree, so their artifacts are
+empty and their checkpoint holds the triangles alone).
 """
 
 from __future__ import annotations
@@ -54,21 +60,34 @@ from .models.scene import Scene
 from .ops.camera import generate_rays_jittered
 from .ops.cluster import (build_lbvh2_clustered, build_sah2_clustered, bvh2_from_numpy,
                           refit_lbvh2_clustered, state_from_numpy, tree_height)
-from .ops.collapse import LBVH2, WIDENERS, collapse_apply_refit, collapse_plan, widen
+from .ops.collapse import BVH4, LBVH2, WIDENERS, collapse_apply_refit, collapse_plan, widen
 from .ops.cuda.entry import compute_tile_entries
 from .ops.cuda.traverse import TILE, make_qnodes, trace_tiles
-from .ops.lbvh import build_lbvh2
+from .ops.lbvh import build_lbvh2, build_sah2
+from .ops.ploc import build_ploc2
 from .ops.shade import (downscale_rgb8, present_frame, quantize_rgba8, shade_lambert,
                         triangle_normals)
 from .ops.trace import make_wide_bvh, trace_rays_brute
 from .render import render_ldr_brute
 from .render_pt import accumulate, pt_sample_frame
+from .utils.config import DEFAULT_CONFIG, RenderConfig
 
-__all__ = ["PathTracer"]
+__all__ = ["PathTracer", "fast_build_options"]
 
 _BRUTE_FORCE_MAX_TRIS = 8
-_LATER = ("the PLOC builder and the SAH build of single triangles come with a later "
-          "slice of the torch build chain (ROADMAP slice 7b)")
+
+
+def fast_build_options(device="cuda") -> tuple[str, int]:
+    """(builder, leaf_size) of the fastest configuration on ``device``: on
+    the CPU the single-triangle LBVH (the JAX package's rule there); on a
+    CUDA card the tree whose framed 1080p dragon ``render()`` the card
+    renders fastest. Measured by ``chip_smoke.py`` phase 29 on an NVIDIA
+    H100 80GB HBM3 at 700 W, ms a frame (A-B-C-D-D-C-B-A in one process):
+    SAH K = 1 0.7803, PLOC K = 1 0.8348, Morton LBVH K = 1 0.8659, SAH
+    K = 32 1.4048 (K1a alone 0.4848 / 0.5451 / 0.5736 / 1.1131)."""
+    if torch.device(device).type == "cpu":
+        return "lbvh", 1
+    return "sah", 1
 
 
 def _default_tetrahedron() -> np.ndarray:
@@ -87,12 +106,28 @@ def _default_tetrahedron() -> np.ndarray:
 class PathTracer:
     """Scene + camera + BVH state and the per-frame render entry point.
 
-    ``device`` is where the records live and the frame is traced: a CUDA
-    device runs the kernel, ``"cpu"`` the plain torch version. A CUDA device
-    without a card raises here; nothing falls back."""
+    ``device`` is where the records live and the frame is traced: the card
+    by default, where the kernels run; ``"cpu"`` runs their plain torch
+    versions. A CUDA device without a card raises here; nothing falls
+    back."""
+
+    @classmethod
+    def from_config(cls, config: RenderConfig | None = None, *, builder: str | None = None,
+                    leaf_size: int | None = None, device="cuda") -> "PathTracer":
+        """A tracer of ``config``'s size, widener and field of view (the
+        reference's defaults without one). ``builder`` / ``leaf_size``
+        default to :func:`fast_build_options` for ``device``."""
+        cfg = config or DEFAULT_CONFIG
+        auto_builder, auto_leaf = fast_build_options(device)
+        pt = cls(cfg.width, cfg.height, cfg.widener,
+                 builder if builder is not None else auto_builder,
+                 leaf_size if leaf_size is not None else auto_leaf, device=device)
+        pt.fov_degrees = cfg.fov_degrees
+        pt.config = cfg
+        return pt
 
     def __init__(self, width: int = 1920, height: int = 1080, widener: str = "collapse",
-                 builder: str = "lbvh", leaf_size: int = 1, *, device) -> None:
+                 builder: str = "lbvh", leaf_size: int = 1, *, device="cuda") -> None:
         if widener not in WIDENERS:
             raise ValueError(f"unknown widener {widener!r}")
         if builder not in ("lbvh", "ploc", "sah"):
@@ -127,6 +162,7 @@ class PathTracer:
         self._bvh2: LBVH2 | None = None
         self._cluster = None  # the ClusteredScene of a K > 1 tree
         self._bvh2_height: int | None = None
+        self._bvh4: BVH4 | None = None  # the wide tree of the current records
         self._collapse_plan = None
         self._qnodes: torch.Tensor | None = None
         self._wide = None  # the records' WideBVH, made when tile entries are first asked for
@@ -159,34 +195,36 @@ class PathTracer:
         self.triangles_data = tris
         self._tris_dev = torch.from_numpy(tris).to(self.device)
         self._bvh2 = self._cluster = self._qnodes = self._bvh2_height = self._wide = None
-        self._collapse_plan = None  # new topology → new plan (refit_bvh)
+        self._bvh4 = self._collapse_plan = None  # new topology → new plan (refit_bvh)
         n = len(tris)
         if n <= _BRUTE_FORCE_MAX_TRIS:
             # traced brute force (_render_planes): no tree needed
             self.build_stats = {"num_triangles": n, "total_ms": 0.0}
             return
-        if self.builder == "ploc" or self.leaf_size == 1 and self.builder == "sah":
-            raise NotImplementedError(_LATER)
 
         t0 = time.perf_counter()
-        if self.builder == "sah":
+        if self.builder == "sah" and self.leaf_size > 1:
             self._cluster, self._bvh2_height = build_sah2_clustered(tris, self.leaf_size,
                                                                     self.device)
         elif self.leaf_size > 1:
             self._cluster = build_lbvh2_clustered(self._tris_dev, self.leaf_size)
+        elif self.builder == "ploc":
+            self._bvh2 = build_ploc2(self._tris_dev)
+        elif self.builder == "sah":
+            self._bvh2, self._bvh2_height = build_sah2(tris, self.device)
         else:
             self._bvh2 = build_lbvh2(self._tris_dev)
         if self._cluster is not None:
             self._bvh2 = self._cluster.bvh2
         t1 = self._sync()
-        wide_bvh = self._widen()
+        self._bvh4 = self._widen()
         t2 = self._sync()
-        self._qnodes = self._make_qnodes(make_wide_bvh(wide_bvh))
+        self._qnodes = self._make_qnodes(make_wide_bvh(self._bvh4))
         t3 = self._sync()
         self.build_stats = {
             "num_triangles": n,
             "num_nodes2": self._bvh2.num_nodes,
-            "num_nodes4": wide_bvh.num_nodes,
+            "num_nodes4": self._bvh4.num_nodes,
             "lbvh2_ms": (t1 - t0) * 1e3,
             "collapse_ms": (t2 - t1) * 1e3,
             "widen_ms": (t3 - t2) * 1e3,
@@ -235,9 +273,9 @@ class PathTracer:
         t0 = time.perf_counter()
         tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
         cs = refit_lbvh2_clustered(self._cluster, tris_dev, num_sweeps=self._bvh2_height + 2)
-        bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
-        self._qnodes = make_qnodes(make_wide_bvh(bvh4), cs.tris_sorted, tri_ids=cs.tri_order,
-                                   leaf_size=cs.leaf_size)
+        self._bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
+        self._qnodes = make_qnodes(make_wide_bvh(self._bvh4), cs.tris_sorted,
+                                   tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
         stats["refit_ms"] = (self._sync() - t0) * 1e3
         self._cluster = cs
         self._bvh2 = cs.bvh2
@@ -265,16 +303,16 @@ class PathTracer:
         """The records of the current BVH2 through the configured widener
         (``load_checkpoint``)."""
         self._wide = None
-        self._qnodes = self._make_qnodes(make_wide_bvh(self._widen()))
+        self._bvh4 = self._widen()
+        self._qnodes = self._make_qnodes(make_wide_bvh(self._bvh4))
         self._sync()
 
     def _wide_bvh(self):
-        """The wide tree of the current records, for the tile entries. The
-        default path keeps only the records, so the tree is made again (and
-        kept until the next build or refit) when entries are first asked
-        for."""
+        """The wide nodes of the current records, for the tile entries: made
+        from the wide tree when entries are first asked for, and kept until
+        the next build or refit."""
         if self._wide is None:
-            self._wide = make_wide_bvh(self._widen())
+            self._wide = make_wide_bvh(self._bvh4)
         return self._wide
 
     # -- rendering ---------------------------------------------------------------
@@ -394,7 +432,39 @@ class PathTracer:
     def set_camera_quaternion(self, x: float, y: float, z: float, w: float) -> None:
         self.camera_quaternion = [x, y, z, w]
 
-    # -- checkpoints -------------------------------------------------------------
+    # -- artifacts and checkpoints ---------------------------------------------------
+
+    def bvh2_artifact(self) -> np.ndarray:
+        """The BVH2.bin u32 image of the current build ([0] without a tree)."""
+        if self._bvh2 is None:
+            return np.array([0], dtype=np.uint32)
+        return artifacts.bvh2_to_u32(*(a.cpu().numpy() for a in self._bvh2[:4]))
+
+    def bvh4_artifact(self) -> np.ndarray:
+        """The wide tree's u32 image (stride 8: 3 bound words, 4 children,
+        meta) of the emitted rows ([0] without a tree)."""
+        if self._bvh4 is None:
+            return np.array([0], dtype=np.uint32)
+        n4 = self._bvh4.num_nodes
+        return artifacts.bvh4_to_u32(*(a[:n4].cpu().numpy() for a in self._bvh4[:3]))
+
+    def dump_bvh_json(self, path) -> None:
+        """The BVH2 as JSON: every node's f32 box, children and leaf flag."""
+        artifacts.dump_bvh_json(path, self.bvh2_artifact(), stride=6)
+
+    def save_checkpoint(self, path) -> None:
+        """Write the triangles and the BVH2 (and for a cluster tree its
+        ``tri_order`` and ``leaf_size``) as the JAX package's npz, which
+        either package's ``load_checkpoint`` restores without a rebuild."""
+        if self._bvh2 is None:
+            artifacts.save_scene_npz(path, self.triangles_data)
+            return
+        u32 = {k: a.cpu().numpy().astype(np.uint32) for k, a in zip(
+            ("bvh2_bounds", "bvh2_left", "bvh2_right", "bvh2_meta", "bvh2_parent"), self._bvh2)}
+        if self._cluster is not None:
+            u32["tri_order"] = self._cluster.tri_order.cpu().numpy().astype(np.uint32)
+            u32["leaf_size"] = np.asarray([self.leaf_size], np.int32)
+        artifacts.save_scene_npz(path, self.triangles_data, **u32)
 
     def load_checkpoint(self, path) -> None:
         """Restore a checkpoint written by ``raytracer_tpu``'s

@@ -1,8 +1,9 @@
 """FP16 codecs for the packed BVH bounds — NumPy on the host, torch on tensors.
 
 The BVH stores every AABB as IEEE fp16 pairs packed into u32 words
-(``[pack(mn.x,mn.y), pack(mn.z,mx.x), pack(mx.y,mx.z)]``). The NumPy decoders
-are copies of ``raytracer_tpu/utils/fp16.py``; the torch functions are the
+(``[pack(mn.x,mn.y), pack(mn.z,mx.x), pack(mx.y,mx.z)]``). The NumPy codec
+is a copy of ``raytracer_tpu/utils/fp16.py`` (its ``increment_f16`` is
+:func:`increment_f16_np` here); the torch functions are the
 counterparts of ``raytracer_tpu/ops/fp16_jax.py``: the decoder
 :func:`unpack_bounds` and the encoders :func:`pack16x2`, :func:`pack_bounds`,
 :func:`increment_f16` and :func:`pack_bounds_conservative`. All are
@@ -17,9 +18,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["f16_bits_to_f32", "unpack16x2", "unpack_bounds_u32", "unpack_bounds",
+__all__ = ["f32_to_f16_bits_rne", "f32_to_f16_bits_trunc", "f16_bits_to_f32", "pack16x2_rne",
+           "pack16x2_trunc", "unpack16x2", "f16_ordered_from_bits", "f16_bits_from_ordered",
+           "increment_f16_np", "pack_bounds_u32", "unpack_bounds_u32", "unpack_bounds",
            "f32_to_f16_bits", "pack16x2", "increment_f16", "pack_bounds",
            "pack_bounds_conservative"]
+
+
+def f32_to_f16_bits_rne(x) -> np.ndarray:
+    """f32 → f16 bit pattern with IEEE round-to-nearest-even."""
+    x = np.asarray(x, dtype=np.float32)
+    return x.astype(np.float16).view(np.uint16)
+
+
+def f32_to_f16_bits_trunc(x) -> np.ndarray:
+    """f32 → f16 bit pattern, truncating: drop mantissa bits; exp <= 0 →
+    signed zero (subnormals flush); exp >= 31 → signed infinity."""
+    x = np.asarray(x, dtype=np.float32)
+    u = x.view(np.uint32)
+    s = ((u >> np.uint32(16)) & np.uint32(0x8000)).astype(np.uint32)
+    e = ((u >> np.uint32(23)) & np.uint32(0xFF)).astype(np.int32) - 112
+    m = ((u >> np.uint32(13)) & np.uint32(0x03FF)).astype(np.uint32)
+    out = np.where(
+        e <= 0,
+        s,
+        np.where(
+            e >= 31,
+            s | np.uint32(0x7C00),
+            s | (e.astype(np.uint32) << np.uint32(10)) | m,
+        ),
+    )
+    return out.astype(np.uint16)
 
 
 def f16_bits_to_f32(bits) -> np.ndarray:
@@ -28,11 +57,63 @@ def f16_bits_to_f32(bits) -> np.ndarray:
     return bits.view(np.float16).astype(np.float32)
 
 
+def pack16x2_rne(a, b) -> np.ndarray:
+    """Two f32 → one u32 as (lo=a, hi=b) fp16, RNE rounding."""
+    lo = f32_to_f16_bits_rne(a).astype(np.uint32)
+    hi = f32_to_f16_bits_rne(b).astype(np.uint32)
+    return lo | (hi << np.uint32(16))
+
+
+def pack16x2_trunc(a, b) -> np.ndarray:
+    """Two f32 → one u32 through the truncating codec."""
+    lo = f32_to_f16_bits_trunc(a).astype(np.uint32)
+    hi = f32_to_f16_bits_trunc(b).astype(np.uint32)
+    return lo | (hi << np.uint32(16))
+
+
 def unpack16x2(u, idx: int) -> np.ndarray:
     """Extract fp16 lane ``idx`` (0=lo, 1=hi) of a packed u32 → f32."""
     u = np.asarray(u, dtype=np.uint32)
     bits = ((u >> np.uint32(16 * idx)) & np.uint32(0xFFFF)).astype(np.uint16)
     return f16_bits_to_f32(bits)
+
+
+def f16_ordered_from_bits(bits):
+    """fp16 bit patterns → a monotonically ordered u16 space: negative
+    values map to ~bits, positive to bits ^ 0x8000."""
+    bits = np.asarray(bits, dtype=np.uint32) & np.uint32(0xFFFF)
+    sign = (bits & np.uint32(0x8000)) != 0
+    return np.where(sign, (~bits) & np.uint32(0xFFFF), bits ^ np.uint32(0x8000))
+
+
+def f16_bits_from_ordered(ordv):
+    """Inverse of :func:`f16_ordered_from_bits`."""
+    ordv = np.asarray(ordv, dtype=np.uint32) & np.uint32(0xFFFF)
+    ord_sign = (ordv & np.uint32(0x8000)) != 0
+    return np.where(ord_sign, ordv ^ np.uint32(0x8000), (~ordv) & np.uint32(0xFFFF))
+
+
+def increment_f16_np(value, up: bool, iterations: int = 1) -> np.ndarray:
+    """Round f32 to fp16 (RNE), step ±``iterations`` fp16 ULPs in ordered
+    space, back to f32 (NumPy; :func:`increment_f16` is the torch one)."""
+    bits = f32_to_f16_bits_rne(value).astype(np.uint32)
+    ordv = f16_ordered_from_bits(bits)
+    step = np.asarray(iterations, dtype=np.uint32)
+    ordv = (ordv + step) & np.uint32(0xFFFF) if up else (ordv - step) & np.uint32(0xFFFF)
+    bits2 = f16_bits_from_ordered(ordv).astype(np.uint16)
+    return f16_bits_to_f32(bits2)
+
+
+def pack_bounds_u32(mn, mx, *, trunc: bool = False) -> np.ndarray:
+    """AABB (min, max each (..., 3)) → 3 u32 words
+    [pack(mn.x,mn.y), pack(mn.z,mx.x), pack(mx.y,mx.z)], no ULP expansion."""
+    pack = pack16x2_trunc if trunc else pack16x2_rne
+    mn = np.asarray(mn, dtype=np.float32)
+    mx = np.asarray(mx, dtype=np.float32)
+    b0 = pack(mn[..., 0], mn[..., 1])
+    b1 = pack(mn[..., 2], mx[..., 0])
+    b2 = pack(mx[..., 1], mx[..., 2])
+    return np.stack([b0, b1, b2], axis=-1)
 
 
 def unpack_bounds_u32(b) -> tuple[np.ndarray, np.ndarray]:

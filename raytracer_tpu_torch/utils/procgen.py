@@ -4,8 +4,13 @@ A copy of the parts of ``raytracer_tpu/utils/procgen.py`` that make the
 port's test and smoke scenes; each function returns the same triangles as
 its JAX-package twin:
 
-* :func:`make_icosphere` — smooth test mesh, 20·4^s triangles.
-* :func:`make_dragon_stand_in` — the 871,200-triangle benchmark scene.
+* :func:`make_cube`, :func:`make_quad` — a cube and a quad;
+* :func:`make_icosphere` — smooth test mesh, 20·4^s triangles;
+* :func:`make_trefoil` — the displaced torus-knot tube (the earlier
+  871,200-triangle stand-in);
+* :func:`make_dragon_stand_in` — the 871,200-triangle benchmark scene;
+* :func:`make_cornell_box` — the low-poly interior box of the apps' ``--scene
+  cornell``;
 * :func:`write_glb` — emit a valid GLB so ingest runs end to end.
 """
 
@@ -17,12 +22,44 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["make_icosphere", "make_dragon_solid", "make_dragon_stand_in", "write_glb"]
+__all__ = ["make_cube", "make_quad", "make_icosphere", "make_trefoil", "make_cornell_box",
+           "make_dragon_solid", "make_dragon_stand_in", "write_glb"]
 
 
 def _dedupe_to_soup(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
     """(V,3) verts + (F,3) int faces → de-indexed (F,3,3) float32 soup."""
     return verts[faces].astype(np.float32)
+
+
+def make_cube(size: float = 1.0) -> np.ndarray:
+    """Axis-aligned cube centered at origin, 12 triangles, (12,3,3) f32."""
+    s = size / 2.0
+    v = np.array(
+        [[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)],
+        dtype=np.float32,
+    )
+    faces = np.array(
+        [
+            [0, 1, 3], [0, 3, 2],  # -x
+            [4, 6, 7], [4, 7, 5],  # +x
+            [0, 4, 5], [0, 5, 1],  # -y
+            [2, 3, 7], [2, 7, 6],  # +y
+            [0, 2, 6], [0, 6, 4],  # -z
+            [1, 5, 7], [1, 7, 3],  # +z
+        ],
+        dtype=np.int64,
+    )
+    return _dedupe_to_soup(v, faces)
+
+
+def make_quad(size: float = 1.0, y: float = 0.0) -> np.ndarray:
+    """Horizontal quad (2 tris) in the XZ plane at height y."""
+    s = size / 2.0
+    v = np.array(
+        [[-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s]], dtype=np.float32
+    )
+    faces = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.int64)
+    return _dedupe_to_soup(v, faces)
 
 
 def make_icosphere(subdivisions: int = 4, radius: float = 1.0) -> np.ndarray:
@@ -83,6 +120,57 @@ def _grid_faces(nu: int, nv: int, wrap_u: bool = True, wrap_v: bool = True) -> n
     return np.concatenate([t1, t2], axis=0).astype(np.int64)
 
 
+def make_trefoil(
+    nu: int = 660,
+    nv: int = 660,
+    tube_radius: float = 0.34,
+    bump_amp: float = 0.08,
+    bump_freq: tuple[int, int] = (9, 7),
+    p: int = 2,
+    q: int = 3,
+) -> np.ndarray:
+    """Displaced (p,q) torus-knot tube — 2*nu*nv triangles.
+
+    Defaults give 871,200 triangles ≈ the Stanford Dragon's 871,414, with the
+    knot's self-occlusion and the sinusoidal displacement supplying dragon-like
+    surface detail for BVH traversal depth.
+    """
+    u = np.linspace(0.0, 2.0 * np.pi, nu, endpoint=False)
+    v = np.linspace(0.0, 2.0 * np.pi, nv, endpoint=False)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+
+    # torus-knot center curve
+    r = np.cos(q * uu) + 2.0
+    cx = r * np.cos(p * uu)
+    cy = r * np.sin(p * uu)
+    cz = -np.sin(q * uu)
+    center = np.stack([cx, cy, cz], axis=-1)
+
+    # tangent via analytic derivative
+    dr = -q * np.sin(q * uu)
+    tx = dr * np.cos(p * uu) - p * r * np.sin(p * uu)
+    ty = dr * np.sin(p * uu) + p * r * np.cos(p * uu)
+    tz = -q * np.cos(q * uu)
+    tangent = np.stack([tx, ty, tz], axis=-1)
+    tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True)
+
+    # stable frame: project world-up out of the tangent
+    ref = np.broadcast_to(np.array([0.0, 0.0, 1.0]), tangent.shape)
+    n1 = np.cross(tangent, ref)
+    n1 /= np.maximum(np.linalg.norm(n1, axis=-1, keepdims=True), 1e-12)
+    n2 = np.cross(tangent, n1)
+
+    rad = tube_radius * (1.0 + bump_amp * np.sin(bump_freq[0] * uu) * np.cos(bump_freq[1] * vv))
+    pts = (
+        center
+        + n1 * (rad * np.cos(vv))[..., None]
+        + n2 * (rad * np.sin(vv))[..., None]
+    )
+    verts = pts.reshape(-1, 3)
+    faces = _grid_faces(nu, nv, wrap_u=True, wrap_v=True)
+    return _dedupe_to_soup(verts, faces)
+
+
 def make_dragon_solid(nu: int = 660, nv: int = 660) -> np.ndarray:
     """Solid crumpled blob — 2*nu*nv triangles (defaults: 871,200).
 
@@ -115,6 +203,40 @@ def make_dragon_solid(nu: int = 660, nv: int = 660) -> np.ndarray:
 def make_dragon_stand_in() -> np.ndarray:
     """The Dragon-benchmark substitute: 871,200 tris, deterministic."""
     return make_dragon_solid()
+
+
+def make_cornell_box(inner: float = 2.0) -> np.ndarray:
+    """Cornell-box-style low-poly interior: 5 walls + 2 boxes (~34 tris).
+
+    Geometry only (the reference pipeline carries no materials/colors —
+    triangles are 9 floats, PathTracer.js:79-84).
+    """
+    s = inner / 2.0
+    tris = []
+
+    def wall(v0, v1, v2, v3):
+        v = np.array([v0, v1, v2, v3], dtype=np.float32)
+        tris.append(v[[0, 1, 2]])
+        tris.append(v[[0, 2, 3]])
+
+    # floor / ceiling / back / left / right (open front)
+    wall([-s, -s, -s], [s, -s, -s], [s, -s, s], [-s, -s, s])
+    wall([-s, s, -s], [-s, s, s], [s, s, s], [s, s, -s])
+    wall([-s, -s, -s], [-s, s, -s], [s, s, -s], [s, -s, -s])
+    wall([-s, -s, -s], [-s, -s, s], [-s, s, s], [-s, s, -s])
+    wall([s, -s, -s], [s, s, -s], [s, s, s], [s, -s, s])
+
+    def box(cx, cz, w, h, d, yaw):
+        c, sn = np.cos(yaw), np.sin(yaw)
+        rot = np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]], dtype=np.float32)
+        cube = make_cube(1.0) * np.array([w, h, d], dtype=np.float32)
+        cube = cube @ rot.T
+        cube = cube + np.array([cx, -s + h / 2.0, cz], dtype=np.float32)
+        tris.extend(cube)
+
+    box(-0.35 * s, -0.3 * s, 0.55 * s, 1.1 * s, 0.55 * s, 0.3)
+    box(0.45 * s, 0.35 * s, 0.5 * s, 0.5 * s, 0.5 * s, -0.25)
+    return np.stack(tris, axis=0).astype(np.float32)
 
 
 def write_glb(path: str | Path, tris: np.ndarray, *, indexed: bool = True) -> None:

@@ -150,17 +150,48 @@ def test_cuda_device_without_a_card_raises():
         PathTracer(64, 32, device="cuda")
 
 
-def test_unported_builders_raise():
-    """PLOC and the SAH build of single triangles are still to port; the
-    reference's constructor checks hold (leaf_size > 1 needs lbvh or sah)."""
-    tris = seeded_mesh()
-    for builder, k in (("ploc", 1), ("sah", 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP slice 7"):
-            PathTracer(64, 32, builder=builder, leaf_size=k, device="cpu").build_bvh(tris)
+def test_default_device_is_the_card():
+    """PathTracer() and from_config() without a device ask for the card, and
+    raise where there is none: nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PathTracer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PathTracer.from_config()
+
+
+def test_builder_and_leaf_size_checks():
+    """The reference's constructor checks: leaf_size > 1 needs the lbvh or
+    sah builder, a builder must be known, leaf_size >= 1."""
     with pytest.raises(ValueError, match="leaf_size > 1"):
         PathTracer(64, 32, builder="ploc", leaf_size=8, device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown builder"):
         PathTracer(64, 32, builder="bvh9", device="cpu")
+    with pytest.raises(ValueError, match="leaf_size must be >= 1"):
+        PathTracer(64, 32, leaf_size=0, device="cpu")
+
+
+def test_from_config_and_fast_build_options():
+    """from_config takes the config's size, widener and field of view, and
+    fast_build_options' tree for the device: on the CPU the JAX package's
+    rule there (the single-triangle LBVH), on the card the tree it renders
+    fastest (a builder the constructor accepts)."""
+    from raytracer_tpu.utils.config import RenderConfig as JaxRenderConfig
+    from raytracer_tpu_torch import fast_build_options
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    assert fast_build_options("cpu") == ("lbvh", 1)
+    builder, k = fast_build_options("cuda")
+    PathTracer(8, 8, builder=builder, leaf_size=k, device="cpu")
+    kw = dict(width=48, height=40, fov_degrees=55.0, widener="promote")
+    pt = PathTracer.from_config(RenderConfig(**kw), device="cpu")
+    jpt = JaxPathTracer.from_config(JaxRenderConfig(**kw))
+    for attr in ("width", "height", "widener", "builder", "leaf_size", "fov_degrees"):
+        assert getattr(pt, attr) == getattr(jpt, attr), attr
+    assert pt.config.to_dict() == jpt.config.to_dict()
+    pt = PathTracer.from_config(builder="sah", leaf_size=8, device="cpu")
+    assert (pt.width, pt.height, pt.builder, pt.leaf_size) == (1920, 1080, "sah", 8)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
