@@ -202,6 +202,34 @@ after phase 28, before 27:
    sizes, seconds, frames byte-equal; (e) apps.debug at its defaults: the
    PNG's size and the JSON's node count against bvh2_artifact().
 
+Phases 30–32 drive the last modules of the port; they run after phase 29,
+before 27:
+
+30. parallel/mesh.py on the dragon at 1080p (SAH K = 32): (a) a one-rank
+   NCCL group in this process: the tile bands (K1a), spp (K1b), camera
+   batch (K1c) and 3-bounce path-traced shardings bit-equal to the
+   unsharded trace_tiles / K1b / trace_tiles_batch / pt_sample_frame of the
+   same inputs, each call's launches, ms a call and of the collectives;
+   (b) two gloo ranks sharing the card (spawned, each on cuda:0, each
+   building the dragon itself): each band, the gathered frame and the
+   cameras bit-equal to the one-rank run (digests, the records' too), the
+   spp and path-traced means of two seeds within 1e-6 of the unsharded
+   ones, launches checked on each rank, band and collective ms;
+31. tools/mb_viewer_fps.py's protocol through the port's ViewerState on the
+   dragon with fast_build_options, camera (0, 0, 1.3), at 960x540 and
+   1920x1080: 60 active steps at stream scales 2 and 1 (one K1a each), ms a
+   frame split into the host's issue / wait / encode, and render, pull and
+   encode alone; the idle full-resolution publish (5 times, each PNG
+   decoding to render() at the viewer's camera) and the park (no launch);
+   at 960x540 five make_viewer_server round trips on localhost (GET
+   /api/frame.png, POST /api/input);
+32. graft_entry.entry() on the card against its CPU output, the NCCL dry
+   run dryrun_multichip(1), and config 4's interior hall at 512x512 split
+   (meshops.split_large_triangles at extent 0.25) and unsplit through K1a
+   on SAH K = 32 records: the tri planes equal but for ties, shared-edge
+   hits and cracks of the unsplit mesh (at most 0.5% of the pixels), each
+   frame's ms and visits a ray (K1f).
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -1040,6 +1068,11 @@ def main() -> None:
 
     # 29. the apps and the rest of the build chain
     apps_phase(env, scene)
+
+    # 30.-32. the shardings, the live viewer, the driver entry points and meshops
+    sharding_phase(env)
+    viewer_phase(env, scene)
+    graft_phase(env)
 
     # 27. the microbenchmark kernels
     mb_rows = microbench_phase(env)
@@ -2849,6 +2882,482 @@ def apps_phase(env: dict, scene) -> None:
     log(f"[apps] apps.debug: PNG 960x540, JSON of {n2} nodes = bvh2_artifact()'s; phase 29 in "
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
     shutil.rmtree(tmp)
+
+
+
+SHARD_SEEDS = (JITTER_SEED, JITTER_SEED + 1)   # the spp seeds of ranks 0 and 1
+PT_SHARD_SEEDS = (SAMPLE_SEED, SAMPLE_SEED + 1)  # the path-traced sample seeds
+SHARD_TIMEOUT = 600.0  # the gloo group's and the join's; the ranks build the dragon first
+MEAN_ATOL = 1e-6
+
+
+def shard_refs(qn: torch.Tensor, tris: torch.Tensor, seeds, pt_seeds) -> dict:
+    """What the shardings must give, computed unsharded on this rank's card:
+    the shaded framed frame and its (t, tri), the mean of the jittered shaded
+    frames of ``seeds``, the 8-camera batch shaded, and the mean of the
+    3-bounce samples of ``pt_seeds``."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.shade import shade_lambert
+    from raytracer_tpu_torch.render_pt import pt_sample_frame
+
+    def shaded(planes):
+        return shade_lambert(torch.stack(planes[1:4], -1), planes[4] >= 0)
+
+    full = traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    spp = [shaded(traverse.trace_tiles(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
+                                       jitter=True, jitter_seed=s)) for s in seeds]
+    pos, quat = batch_cameras(CAM_Z)
+    cams = traverse.trace_tiles_batch(qn, pos, quat, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    pt = [pt_sample_frame(qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+                          leaf_k=LEAF_K, tile_primary=True,
+                          generator=torch.Generator(device=qn.device).manual_seed(s))
+          for s in pt_seeds]
+    return {"tiles": (shaded(full), full[0], full[4]), "spp": sum(spp) / len(spp),
+            "cams": shaded(cams), "pt": sum(pt) / len(pt)}
+
+
+def run_shardings(mesh, qn: torch.Tensor, tris: torch.Tensor, seeds, pt_seeds) -> dict:
+    """Every sharding once on the dragon's framed view: launches (set to 0
+    just before, read just after) and the outputs."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.parallel import mesh as pm
+
+    pos, quat = batch_cameras(CAM_Z)
+    calls = {
+        "tiles": lambda: pm.render_tiles_sharded(qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, mesh,
+                                                 FOV, leaf_k=LEAF_K),
+        "spp": lambda: pm.render_spp_sharded(qn, tris, FRAMED, QUAT, seeds, WIDTH, HEIGHT, mesh,
+                                             FOV, leaf_k=LEAF_K),
+        "cams": lambda: pm.render_cameras_sharded(qn, tris, pos, quat, WIDTH, HEIGHT, mesh, FOV,
+                                                  leaf_k=LEAF_K),
+        "pt": lambda: pm.render_pt_spp_sharded(qn, tris, FRAMED, QUAT, pt_seeds, WIDTH, HEIGHT,
+                                               mesh, bounces=BOUNCES, fov_degrees=FOV,
+                                               leaf_k=LEAF_K, tile_primary=True),
+    }
+    n = mesh.size
+    want = {"tiles": expected(trace_tiles_k1a=1), "spp": expected(trace_tiles_k1b=1),
+            "cams": expected(trace_tiles_k1c=1),
+            "pt": expected(trace_tiles_k1b=1, trace_rays_k2a=BOUNCES - 1,
+                           trace_rays_k2b=BOUNCES)}
+    out, launches, host_ms = {}, {}, {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = call()
+        torch.cuda.synchronize()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = dict(traverse.LAUNCHES)
+        if launches[name] != want[name]:
+            raise AssertionError(f"rank {mesh.rank} of {n}: {name} launched {launches[name]}, "
+                                 f"expected {want[name]}")
+    return {"out": out, "launches": launches, "host_ms": host_ms}
+
+
+def shard_compare(got: dict, refs: dict, rank: int, n: int) -> dict:
+    """Bands, gathered frames and cameras bit-equal to ``refs``; the spp and
+    path-traced means within MEAN_ATOL → their max |d| and this rank's band
+    check."""
+    band = HEIGHT // n
+    rows = slice(rank * band, (rank + 1) * band)
+    for i, what in enumerate(("rgb", "t", "tri")):
+        a, b = got["tiles"][i], refs["tiles"][i]
+        if not torch.equal(a[rows], b[rows]):
+            raise AssertionError(f"rank {rank} of {n}: its band's {what} differs from the "
+                                 "one-rank frame")
+        if not torch.equal(a, b):
+            raise AssertionError(f"rank {rank} of {n}: the gathered {what} differs")
+    if not torch.equal(got["cams"], refs["cams"]):
+        raise AssertionError(f"rank {rank} of {n}: the camera batch differs")
+    errs = {k: float((got[k] - refs[k]).abs().max()) for k in ("spp", "pt")}
+    for k, e in errs.items():
+        if not e <= MEAN_ATOL:
+            raise AssertionError(f"rank {rank} of {n}: the {k} mean differs by {e} > {MEAN_ATOL}")
+    return errs
+
+
+def launched(calls: dict) -> dict:
+    """Each call's launch counts, the kernels it launched only."""
+    return {call: {k: n for k, n in counts.items() if n} for call, counts in calls.items()}
+
+
+def digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def collective_ms(mesh, like: torch.Tensor, op: str) -> float:
+    """ms of one all_gather (or all_reduce) of a tensor like ``like`` over the
+    mesh, on the host clock between synchronised barriers (median of 5)."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(like) for _ in range(mesh.size)]
+    times = []
+    for _ in range(6):
+        x = like.clone()
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        if op == "all_gather":
+            dist.all_gather(parts, x, group=mesh.group)
+        else:
+            dist.all_reduce(x, group=mesh.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def shard_rank(mesh, glb: str) -> dict:
+    """30 (b). One of the gloo ranks that share the card: the dragon's SAH
+    K = 32 records built on this rank, the unsharded results, every sharding
+    (launches checked on this rank), bit-equality / the mean tolerance, and
+    digests of what the parent compares with its one-rank run."""
+    from raytracer_tpu_torch import PathTracer, Scene
+
+    pt = PathTracer(WIDTH, HEIGHT, builder="sah", leaf_size=LEAF_K, device=mesh.device)
+    pt.set_scene(Scene().load_glb(glb, normalize=True, mode="cube"))
+    qn, tris = pt._qnodes, pt._tris_dev
+    refs = shard_refs(qn, tris, SHARD_SEEDS, PT_SHARD_SEEDS)
+    run = run_shardings(mesh, qn, tris, SHARD_SEEDS, PT_SHARD_SEEDS)
+    errs = shard_compare(run["out"], refs, mesh.rank, mesh.size)
+    band = HEIGHT // mesh.size
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    band_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
+        qn, FRAMED, QUAT, WIDTH, band, FOV, leaf_k=LEAF_K, raygen_size=(WIDTH, HEIGHT),
+        row_offset=mesh.rank * band), 8, 3))
+    rgb = run["out"]["tiles"][0]
+    return {"rank": mesh.rank, "device": str(mesh.device), "launches": run["launches"],
+            "host_ms": run["host_ms"], "mean_err": errs, "band_ms": band_ms,
+            "gather_ms": collective_ms(mesh, rgb[:band], "all_gather"),
+            "reduce_ms": collective_ms(mesh, rgb, "all_reduce"),
+            "records": digest(qn), "tiles": digest(*run["out"]["tiles"]),
+            "cams": digest(run["out"]["cams"])}
+
+
+def sharding_phase(env: dict) -> None:
+    """30. parallel/mesh.py on the card: (a) a one-rank NCCL group in this
+    process, every sharding bit-equal to the unsharded kernels (the means of
+    one sample are the sample) with its launches, per-rank frame ms and
+    collective ms; (b) two gloo ranks sharing this card (spawned processes,
+    each on cuda:0): each band and the gathered frame and cameras bit-equal
+    to the one-rank frame (digests), the spp and path-traced means of two
+    seeds within 1e-6 of the unsharded ones, launches per rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.parallel import mesh as pm
+
+    card, dev, qn, tris = env["card"], env["dev"], env["qn"], env["tris"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = pm.make_mesh(1, dev)
+            refs = shard_refs(qn, tris, SHARD_SEEDS[:1], PT_SHARD_SEEDS[:1])
+            run = run_shardings(mesh, qn, tris, SHARD_SEEDS[:1], PT_SHARD_SEEDS[:1])
+            errs = shard_compare(run["out"], refs, 0, 1)
+            if any(errs.values()):
+                fail(f"sharding: one rank's spp / path-traced mean is not its sample: {errs}")
+            log(f"[shard] one-rank NCCL group on {dev}: bands, spp, cameras and the "
+                f"{BOUNCES}-bounce sample bit-equal to trace_tiles / K1b / trace_tiles_batch / "
+                f"pt_sample_frame; launches {json.dumps(launched(run['launches']))}")
+            ms = {name: statistics.median(cuda_ms(fn, 4, 3)) for name, fn in (
+                ("tiles", lambda: pm.render_tiles_sharded(qn, tris, FRAMED, QUAT, WIDTH, HEIGHT,
+                                                          mesh, FOV, leaf_k=LEAF_K)),
+                ("spp", lambda: pm.render_spp_sharded(qn, tris, FRAMED, QUAT, SHARD_SEEDS[:1],
+                                                      WIDTH, HEIGHT, mesh, FOV, leaf_k=LEAF_K)),
+                ("cams", lambda: pm.render_cameras_sharded(qn, tris, *batch_cameras(CAM_Z), WIDTH,
+                                                           HEIGHT, mesh, FOV, leaf_k=LEAF_K)),
+                ("pt", lambda: pm.render_pt_spp_sharded(
+                    qn, tris, FRAMED, QUAT, PT_SHARD_SEEDS[:1], WIDTH, HEIGHT, mesh,
+                    bounces=BOUNCES, fov_degrees=FOV, leaf_k=LEAF_K, tile_primary=True)))}
+            rgb = run["out"]["tiles"][0]
+            coll = {"all_gather": statistics.median(cuda_ms(
+                        lambda: dist.all_gather([torch.empty_like(rgb)], rgb), 8, 3)),
+                    "all_reduce": statistics.median(cuda_ms(lambda: dist.all_reduce(rgb), 8, 3))}
+            log(f"[shard] one rank, ms a call (CUDA events, median): {json.dumps(ms)}; "
+                f"collectives of the 1080p rgb frame: {json.dumps(coll)} on {card}")
+            one = {"records": digest(qn), "tiles": digest(*run["out"]["tiles"]),
+                   "cams": digest(run["out"]["cams"])}
+            del refs, run
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    glb = str(ROOT / "data" / "dragon_standin.glb")
+    t0 = time.perf_counter()
+    ranks = pm.run_ranks(shard_rank, 2, (glb,), device=dev, backend="gloo",
+                         timeout=SHARD_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        for key in ("records", "tiles", "cams"):
+            if r[key] != one[key]:
+                fail(f"sharding: gloo rank {r['rank']}'s {key} digest {r[key]} differs from the "
+                     f"one-rank run's {one[key]}")
+        log(f"[shard] gloo rank {r['rank']} of 2 on {r['device']}: band and gathered frame, "
+            f"cameras bit-equal to the one-rank run; spp / pt means within {MEAN_ATOL} "
+            f"(max |d| {json.dumps(r['mean_err'])}); launches "
+            f"{json.dumps(launched(r['launches']))}; band "
+            f"{r['band_ms']:.4f} ms (K1a, CUDA events), all_gather of its rgb band "
+            f"{r['gather_ms']:.4f} ms, all_reduce of the rgb frame {r['reduce_ms']:.4f} ms (host "
+            f"clock); calls {json.dumps({k: round(v, 4) for k, v in r['host_ms'].items()})} ms on "
+            f"{card}")
+    log(f"[shard] two gloo ranks in {spawn_s:.1f} s (spawn, builds, checks); phase 30 in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+VIEWER_SIZES = ((960, 540), (1920, 1080))
+VIEWER_CAMERA = (0.0, 0.0, 1.3)  # tools/mb_viewer_fps.py's
+VIEWER_STEPS = 60
+IDLE_REPEATS = 5
+
+
+def viewer_phase(env: dict, scene) -> None:
+    """31. tools/mb_viewer_fps.py's protocol through the port's ViewerState on
+    the dragon with fast_build_options, at 960x540 and 1920x1080: ms a frame
+    while active at stream scales 2 and 1 (60 steps, one K1a each) split into
+    the host's issue / wait / encode and the parts alone (render and pull by
+    CUDA events, encode on the host clock), the idle full-resolution publish
+    (its PNG decodes to render() at the viewer's camera), the park (no launch);
+    then one make_viewer_server round trip on localhost."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from raytracer_tpu_torch import FPSCamera, PathTracer, fast_build_options
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.server.viewer import ViewerState, make_viewer_server
+    from raytracer_tpu_torch.utils.image import encode_png
+
+    card, dev = env["card"], env["dev"]
+    t_phase = time.perf_counter()
+    builder, leaf = fast_build_options(dev)
+    for w, h in VIEWER_SIZES:
+        tracer = PathTracer(w, h, builder=builder, leaf_size=leaf, device=dev)
+        tracer.set_scene(scene)
+        for scale in (2, 1):
+            state = ViewerState(tracer, FPSCamera(position=list(VIEWER_CAMERA)),
+                                stream_scale=scale)
+            state.apply_input({"dx": 1.0})
+            state.step(1 / 30)
+            state._last_input = 0.0
+            state.step(1 / 30)           # warm both paths
+            torch.cuda.synchronize()
+            traverse.reset_launches()
+            parts = []
+            t0 = time.perf_counter()
+            for _ in range(VIEWER_STEPS):
+                state.apply_input({"dx": 2.0, "dy": 1.0})   # keep ACTIVE
+                state.step(1 / 30)
+                parts.append(state.timings)
+            active_ms = (time.perf_counter() - t0) * 1e3 / VIEWER_STEPS
+            torch.cuda.synchronize()
+            launches = dict(traverse.LAUNCHES)
+            if launches != expected(trace_tiles_k1a=VIEWER_STEPS):
+                fail(f"viewer {w}x{h} scale {scale}: {VIEWER_STEPS} active steps launched "
+                     f"{launches}")
+            split = {k: statistics.mean(p[k] for p in parts) for k in parts[0]}
+            render = (lambda s=scale: tracer.render_stream(s)) if scale > 1 else tracer.render
+            render_ms = statistics.median(cuda_ms(render, 8, 3))
+            frame = render()
+            host = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
+            pull_ms = statistics.median(cuda_ms(lambda: host.copy_(frame, non_blocking=True),
+                                                8, 3))
+            img = frame.cpu().numpy()
+            img = img[..., :3] if scale == 1 else img
+            t0 = time.perf_counter()
+            for _ in range(5):
+                png = encode_png(img, level=1)
+            encode_ms = (time.perf_counter() - t0) * 1e3 / 5
+            log(f"[viewer] {w}x{h} active, stream scale {scale}: {active_ms:.4f} ms a frame = "
+                f"{1e3 / active_ms:.2f} FPS over {VIEWER_STEPS} steps ({VIEWER_STEPS} K1a); a step "
+                f"on the host: issue {split['issue_ms']:.4f}, wait {split['wait_ms']:.4f}, encode "
+                f"{split['encode_ms']:.4f} ms; alone: render {render_ms:.4f} ms, pull "
+                f"{pull_ms:.4f} ms (CUDA events, {frame.numel()} bytes), encode {encode_ms:.4f} ms "
+                f"(PNG {len(png) / 1024:.0f} KiB); {builder} K={leaf} on {card}")
+        idle = []
+        for _ in range(IDLE_REPEATS):
+            state.apply_input({"dx": 2.0})
+            state.step(1 / 30)
+            state._last_input = 0.0
+            torch.cuda.synchronize()
+            traverse.reset_launches()
+            t0 = time.perf_counter()
+            if state.step(1 / 30) is not True:
+                fail(f"viewer {w}x{h}: the idle step published nothing")
+            idle.append(((time.perf_counter() - t0) * 1e3, state.timings))
+            idle_launches = dict(traverse.LAUNCHES)
+            shown = decode_png(state.frame_png)
+            want = tracer.render().cpu().numpy()[..., :3]
+            if idle_launches != expected(trace_tiles_k1a=1) or not np.array_equal(shown, want):
+                fail(f"viewer {w}x{h}: the idle publish launched {idle_launches} or its PNG is "
+                     "not render() at the viewer's camera")
+        full_ms = statistics.median(m for m, _ in idle)
+        idle_split = {k: statistics.median(p[k] for _, p in idle) for k in idle[0][1]}
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        t0 = time.perf_counter()
+        parked = state.step(1 / 30)
+        park_ms = (time.perf_counter() - t0) * 1e3
+        if parked is not False or any(traverse.LAUNCHES.values()):
+            fail(f"viewer {w}x{h}: the idle loop did not park")
+        log(f"[viewer] {w}x{h} idle full-resolution publish {full_ms:.4f} ms (median of "
+            f"{IDLE_REPEATS}: {[round(m, 4) for m, _ in idle]}; issue "
+            f"{idle_split['issue_ms']:.4f}, wait {idle_split['wait_ms']:.4f}, encode "
+            f"{idle_split['encode_ms']:.4f} ms; 1 K1a each, "
+            f"PNG {len(state.frame_png) / 1024:.0f} KiB = render() at the camera); parked step "
+            f"{park_ms:.4f} ms, no launch, on {card}")
+        if (w, h) != VIEWER_SIZES[0]:
+            continue
+        srv = make_viewer_server(state, port=0)
+        serving = threading.Thread(target=srv.serve_forever, daemon=True)
+        serving.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        get_ms, post_ms = [], []
+        try:
+            for i in range(IDLE_REPEATS):
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"{url}/api/frame.png", timeout=30) as r:
+                    got = r.read()
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                req = urllib.request.Request(f"{url}/api/input", data=b'{"dx": 3.0}')
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    ok = json.loads(r.read())
+                post_ms.append((time.perf_counter() - t0) * 1e3)
+                if got != state.frame_png or ok != {"ok": True} \
+                        or state._pending_mouse[0] != 3.0 * (i + 1):
+                    fail("viewer server: GET /api/frame.png or POST /api/input did not "
+                         "round-trip")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        log(f"[viewer] server on localhost, {IDLE_REPEATS} round trips: GET /api/frame.png "
+            f"{[round(m, 4) for m in get_ms]} ms ({len(got)} bytes), POST /api/input "
+            f"{[round(m, 4) for m in post_ms]} ms on {card}")
+        del state, tracer
+    log(f"[viewer] phase 31 in {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+HALL_SIZE, HALL_EXTENT, HALL_CAM = 512, 0.25, (0.0, 0.0, 0.8)  # bench_suite.py:310-313
+HALL_TIE_SHARE = 0.005  # the camera sits on the hall's symmetry planes
+
+
+def check_split_frame(unsplit, split, hall: torch.Tensor, what: str) -> dict:
+    """The split hall's (t, …, tri) planes against the unsplit hall's: every
+    pixel whose triangle differs is a tie (both original triangles accept the
+    ray, t within rtol 1e-6), a shared-edge hit (the two triangles share an
+    edge and the frames' t agree within rtol 1e-6: a fragment takes a ray
+    its parent rejects by rounding on that edge) or a crack of the unsplit
+    mesh (its frame and brute force miss); together at most HALL_TIE_SHARE."""
+    from raytracer_tpu_torch.ops.camera import primary_dirs
+    from raytracer_tpu_torch.ops.trace import moller_trumbore, trace_rays_brute
+
+    a, b = unsplit[4].reshape(-1), split[4].reshape(-1)
+    d = torch.nonzero(a != b).squeeze(1)
+    n = a.numel()
+    px, py = d % HALL_SIZE, d // HALL_SIZE
+    dirs = primary_dirs(px, py, HALL_SIZE, HALL_SIZE, QUAT, FOV)
+    o = torch.tensor(HALL_CAM, dtype=torch.float32, device=hall.device).expand(d.numel(), 3)
+    ai, bi = a[d].long(), b[d].long()
+
+    def mt(ids):
+        v = hall[ids.clamp(min=0)]
+        return moller_trumbore(o, dirs, v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+
+    (ta, oka), (tb, okb) = mt(ai), mt(bi)
+    both = (ai >= 0) & (bi >= 0)
+    tie = both & oka & okb & torch.isclose(ta, tb, rtol=TIE_RTOL, atol=0.0)
+    va, vb = hall[ai.clamp(min=0)], hall[bi.clamp(min=0)]
+    shared = (va[:, :, None, :] == vb[:, None, :, :]).all(-1).sum((1, 2)) >= 2
+    t_same = torch.isclose(unsplit[0].reshape(-1)[d], split[0].reshape(-1)[d], rtol=TIE_RTOL,
+                           atol=0.0)
+    edge = both & ~tie & shared & t_same
+    crack = (ai < 0) & (bi >= 0) & (trace_rays_brute(hall, o.contiguous(), dirs)[1] < 0)
+    other = int((~tie & ~edge & ~crack).sum())
+    stats = {"pixels": n, "differ": int(d.numel()), "ties": int(tie.sum()),
+             "shared_edge": int(edge.sum()), "cracks": int(crack.sum()), "other": other}
+    log(f"[graft] {what}: {json.dumps(stats)}")
+    if other or d.numel() > HALL_TIE_SHARE * n:
+        fail(f"{what}: {other} differing pixels are no tie, shared edge or crack, or "
+             f"{d.numel()} > {HALL_TIE_SHARE:.1%} of the pixels differ")
+    return stats
+
+
+def graft_phase(env: dict) -> None:
+    """32. graft_entry.entry() on the card against its CPU output; the NCCL
+    dry run dryrun_multichip(1); the interior hall of config 4 at 512x512,
+    unsplit and split by meshops.split_large_triangles, through K1a on SAH
+    K = 32 records: the tri planes equal but for ties, shared-edge hits and
+    cracks of the unsplit mesh, the frame ms and visits a ray (K1f) of
+    each."""
+    import numpy as np
+
+    from raytracer_tpu_torch import Scene, graft_entry
+    from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, wide_pipeline
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.render import render_ldr
+    from raytracer_tpu_torch.utils import meshops, procgen
+
+    card, dev = env["card"], env["dev"]
+    t_phase = time.perf_counter()
+    fn, args = graft_entry.entry()
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    rgb, rgb_c = fn(*args), fn_c(*args_c)
+    _, _, tri = render_ldr(*args, 64, 64)
+    _, _, tri_c = render_ldr(*args_c, 64, 64)
+    err = float((rgb.cpu() - rgb_c).abs().max())
+    if rgb.device != dev or rgb.shape != (64, 64, 3) or not torch.equal(tri.cpu(), tri_c) \
+            or err > NORMAL_ATOL:
+        fail(f"entry(): the card's frame is not the CPU's (max |d| {err})")
+    log(f"[graft] entry(): 64x64 rgb on {rgb.device} equals the CPU forward (tri equal, max |d| "
+        f"{err})")
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(1)
+    if len(lines) != 1 or not lines[0].endswith("OK"):
+        fail(f"dryrun_multichip(1): {lines}")
+    log(f"[graft] dryrun_multichip(1) (NCCL, one spawned rank) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    scene = Scene().set_triangles(procgen.make_interior_hall())
+    scene.normalize_mesh()
+    hall = scene.triangles
+    frags, ids = meshops.split_large_triangles(hall, HALL_EXTENT)
+    planes = {}
+    for name, tri_in, orig in (("unsplit", hall, None), ("split", frags, ids)):
+        cs, height = build_sah2_clustered(tri_in, LEAF_K, dev)
+        tri_ids = cs.tri_order if orig is None else \
+            torch.from_numpy(orig.astype(np.int64)).to(dev)[cs.tri_order]
+        qn = traverse.make_qnodes(wide_pipeline(cs, height=height), cs.tris_sorted,
+                                  tri_ids=tri_ids, leaf_size=LEAF_K)
+
+        def frame(qn=qn, **kw):
+            return traverse.trace_tiles(qn, HALL_CAM, QUAT, HALL_SIZE, HALL_SIZE, FOV,
+                                        leaf_k=LEAF_K, **kw)
+
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        planes[name] = frame()
+        torch.cuda.synchronize()
+        if dict(traverse.LAUNCHES) != expected(trace_tiles_k1a=1):
+            fail(f"hall {name}: launched {traverse.LAUNCHES}")
+        ms = statistics.median(cuda_ms(frame, FRAMES, 3))
+        visits = float(frame(stats=True)[5].sum(dtype=torch.float64)) / HALL_SIZE ** 2
+        log(f"[graft] hall {name}: {len(tri_in)} triangles (split extent {HALL_EXTENT}), records "
+            f"{tuple(qn.shape)}; K1a {HALL_SIZE}x{HALL_SIZE} {ms:.4f} ms a frame, {visits:.3f} "
+            f"visits a ray (K1f), hit share {float((planes[name][4] >= 0).float().mean()):.6f} "
+            f"on {card}")
+    check_split_frame(planes["unsplit"], planes["split"], torch.from_numpy(hall).to(dev),
+                      f"hall split at {HALL_EXTENT} vs unsplit, {HALL_SIZE}x{HALL_SIZE}")
+    log(f"[graft] phase 32 in {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 if __name__ == "__main__":

@@ -16,12 +16,12 @@ import numpy as np
 import torch
 
 from ..native.bvhtool import build_sah_clustered_native
-from ..utils.fp16 import pack_bounds_conservative
+from ..utils.fp16 import _halfwords, _pack_halfwords, pack_bounds_conservative
 from .collapse import widen
 from .cuda.traverse import make_qnodes
 from .lbvh import (INVALID, LBVH2, LEAF_FLAG, _bounds_fixed_point, _karras_connectivity,
-                   _static_height_bound, _tri_bounds, f16_order, f16_unorder, from_ordered_key,
-                   ordered_key)
+                   _static_height_bound, _tri_bounds, f16_order, f16_union_order,
+                   f16_union_unorder, f16_unorder, from_ordered_key, ordered_key)
 from .morton import build_morton_and_sort
 from .trace import WideBVH, make_wide_bvh
 
@@ -147,7 +147,10 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
 
     Each sweep takes the min/max on fp16 keys ordered by value: a union of
     fp16 values is an fp16 value, so this is the JAX package's unpack →
-    f32 min/max (−0 below +0) → pack, without the conversions."""
+    f32 min/max (−0 below +0, NaN propagated as
+    :func:`~raytracer_tpu_torch.ops.lbvh.f16_union_key` says) → pack,
+    without the conversions: one ``minimum`` of the keys' orders
+    (:func:`~raytracer_tpu_torch.ops.lbvh.f16_union_order`) a sweep."""
     dev = triangles.device
     bvh = LBVH2(*(a.to(dev) for a in cs.bvh2))
     order = cs.tri_order.to(dev)
@@ -167,20 +170,11 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
     leaf_bounds = torch.where(leaf[:, None], pack_bounds_conservative(cl_mn[cidx], cl_mx[cidx]), 0)
     bounds = leaf_bounds
     if bvh.num_internal > 0:
-        # keys of (mn.x, mn.y, mn.z) and 0xFFFF − keys of (mx.x, mx.y, mx.z):
-        # one min over both children is then the union of their boxes
-        h = torch.stack([(bounds[:, i // 2] >> (16 * (i % 2))) & 0xFFFF for i in range(6)], -1)
-        key = f16_order(h)
-        key[:, 3:] = 0xFFFF - key[:, 3:]
-        key = key.to(torch.int32)
+        union = f16_union_order(f16_order(_halfwords(bounds)))
         left, right = bvh.left, bvh.right
         for _ in range(num_sweeps):
-            key = torch.where(leaf[:, None], key, torch.minimum(key[left], key[right]))
-        key = key.to(torch.int64)
-        key[:, 3:] = 0xFFFF - key[:, 3:]
-        h = f16_unorder(key)
-        packed = torch.stack([h[:, 0] | (h[:, 1] << 16), h[:, 2] | (h[:, 3] << 16),
-                              h[:, 4] | (h[:, 5] << 16)], -1)
+            union = torch.where(leaf[:, None], union, torch.minimum(union[left], union[right]))
+        packed = _pack_halfwords(f16_unorder(f16_union_unorder(union)))
         bounds = torch.where(leaf[:, None], leaf_bounds, packed)
     return ClusteredScene(bvh._replace(bounds_u32=bounds), tris_sorted, order, k)
 

@@ -30,11 +30,12 @@ import numpy as np
 import torch
 
 from ..native.bvhtool import build_sah_native
-from ..utils.fp16 import pack_bounds_conservative
+from ..utils.fp16 import _halfwords, _pack_halfwords, pack_bounds_conservative
 from .morton import build_morton_and_sort
 
 __all__ = ["LBVH2", "LEAF_FLAG", "INVALID", "build_lbvh2", "build_sah2", "refit_lbvh2", "ordered_key",
-           "from_ordered_key", "f16_order", "f16_unorder", "_tri_bounds",
+           "from_ordered_key", "f16_order", "f16_unorder", "f16_union_key", "f16_union_order",
+           "f16_union_unorder", "_tri_bounds",
            "_static_height_bound", "_karras_connectivity", "_bounds_fixed_point"]
 
 LEAF_FLAG = 0x80000000
@@ -156,6 +157,65 @@ def _karras_connectivity(codes: torch.Tensor, n: int):
     return left, right, parent
 
 
+_POS_NAN_KEY, _NEG_NAN_KEY = 0xFC00, 0x03FF  # keys of ±inf: keys above / below are NaNs
+
+
+def f16_union_key(kl: torch.Tensor, kr: torch.Tensor, upper: bool) -> torch.Tensor:
+    """The ordered key (:func:`f16_order`) of XLA's f32 ``minimum(l, r)``
+    (``maximum`` with ``upper``) of two fp16 values given by their keys,
+    re-encoded to fp16: the smaller (larger) key, unless a NaN is among them.
+
+    XLA on the CPU lowers min / max as x86 does LLVM's NaN-propagating
+    ``minimum`` / ``maximum``: one NaN operand is the result; of two NaNs,
+    ``minimum`` returns ``l`` when ``l`` is positive and ``maximum`` when it
+    is negative, else ``r`` (read off the JAX package's results). The f32
+    → fp16 encode then sets the quiet bit (0x200) and keeps sign and payload.
+    """
+    key = torch.maximum(kl, kr) if upper else torch.minimum(kl, kr)
+    pos_l = kl > _POS_NAN_KEY
+    nan_l = pos_l | (kl < _NEG_NAN_KEY)
+    nan_r = (kr > _POS_NAN_KEY) | (kr < _NEG_NAN_KEY)
+    take_l = nan_l & (~nan_r | (~pos_l if upper else pos_l))
+    nan = torch.where(take_l, kl, kr)
+    nan = torch.where(nan > _POS_NAN_KEY, nan | 0x200, nan & ~0x200)
+    return torch.where(nan_l | nan_r, nan, key)
+
+
+def f16_union_order(key: torch.Tensor) -> torch.Tensor:
+    """(N, 6) keys of N fp16 boxes (mn then mx) → int64 orders in which one
+    ``minimum`` of two rows' orders is, column by column, the order of their
+    :func:`f16_union_key` — for as many unions as a sweep of a tree takes,
+    when row ``i`` is a leaf of that tree or its keys are numbers, and
+    every leaf of a left subtree has a smaller row than every leaf of the
+    right one (both builders' layouts: leaves after the internal rows in
+    Morton order, or pre-order). :func:`f16_union_unorder` is the inverse.
+
+    A NaN wins over every number, and the NaN of the sign that XLA's op
+    returns first (positive for ``minimum``, negative for ``maximum``) over
+    the other. Two NaNs of one kind give the left or the right one, so
+    they are ranked by their row, which comes with the key up the tree.
+    Every union makes a NaN quiet and nothing else changes it, so the
+    leaves' NaNs are made quiet here, once. An order is class << 48 |
+    rank << 16 | key, a number's (2 << 48) | key, or 0xFFFF − key in the
+    columns that take the max."""
+    upper = torch.arange(6, device=key.device) >= 3  # the columns that take the max
+    pos, neg = key > _POS_NAN_KEY, key < _NEG_NAN_KEY
+    key = torch.where(pos, key | 0x200, torch.where(neg, key & ~0x200, key))
+    row = torch.arange(key.shape[0], dtype=torch.int64, device=key.device)[:, None]
+    first = torch.where(upper, neg, pos)  # the NaNs that win and tie to the left
+    rank = torch.where(first, row, key.shape[0] - row)
+    nan = torch.where(upper, 0xFFFF - key, key) | (2 << 48)
+    return torch.where(pos | neg, ((~first).to(torch.int64) << 48) | (rank << 16) | key, nan)
+
+
+def f16_union_unorder(order: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`f16_union_order`: (N, 6) orders → keys."""
+    low = order & 0xFFFF
+    number = (order >> 48) == 2
+    upper = torch.arange(6, device=order.device) >= 3
+    return torch.where(number & upper, 0xFFFF - low, low)
+
+
 def _bounds_fixed_point(bounds_u32: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
                         num_internal: int, sweeps: int) -> torch.Tensor:
     """Bottom-up propagation of the boxes: ``sweeps`` times, every internal
@@ -165,19 +225,26 @@ def _bounds_fixed_point(bounds_u32: torch.Tensor, left: torch.Tensor, right: tor
     sweeps change nothing, so the result is its bit for bit.
 
     A union of fp16 values is an fp16 value, so each sweep is taken on the
-    halfwords' ordered keys (:func:`f16_order`): the min key less one and
-    the max key plus one, masked to 16 bits, are exactly the JAX package's
-    unpack → f32 min / max (−0 below +0) → ``pack_bounds_conservative``."""
-    h = torch.stack([(bounds_u32[:, c // 2] >> (16 * (c % 2))) & 0xFFFF for c in range(6)], -1)
-    key = f16_order(h)
+    halfwords' ordered keys (:func:`f16_order`): the union key less one and
+    plus one, masked to 16 bits, are exactly the JAX package's unpack → f32
+    min / max (−0 below +0, NaN propagated) → ``pack_bounds_conservative``.
+    A sweep steps a key one ULP at most, so while every key lies ``sweeps``
+    ULPs inside ±inf no NaN meets a union and the union key is the min /
+    max of the keys; else each union takes :func:`f16_union_key`. Telling
+    which reads one flag back from the device."""
+    key = f16_order(_halfwords(bounds_u32))
+    lo, hi = torch.aminmax(key)
+    nan_rule = bool((lo < _NEG_NAN_KEY + sweeps) | (hi > _POS_NAN_KEY - sweeps))
     kmn, kmx = key[:, :3].clone(), key[:, 3:].clone()
     li, ri = left[:num_internal], right[:num_internal]
     for _ in range(sweeps):
-        kmn[:num_internal] = (torch.minimum(kmn[li], kmn[ri]) - 1) & 0xFFFF
-        kmx[:num_internal] = (torch.maximum(kmx[li], kmx[ri]) + 1) & 0xFFFF
-    h = f16_unorder(torch.cat([kmn, kmx], dim=1))
-    return torch.stack([h[:, 0] | (h[:, 1] << 16), h[:, 2] | (h[:, 3] << 16),
-                        h[:, 4] | (h[:, 5] << 16)], -1)
+        if nan_rule:
+            umn, umx = f16_union_key(kmn[li], kmn[ri], False), f16_union_key(kmx[li], kmx[ri], True)
+        else:
+            umn, umx = torch.minimum(kmn[li], kmn[ri]), torch.maximum(kmx[li], kmx[ri])
+        kmn[:num_internal] = (umn - 1) & 0xFFFF
+        kmx[:num_internal] = (umx + 1) & 0xFFFF
+    return _pack_halfwords(f16_unorder(torch.cat([kmn, kmx], dim=1)))
 
 
 def build_lbvh2(triangles: torch.Tensor) -> LBVH2:

@@ -9,6 +9,9 @@ counterparts of ``raytracer_tpu/ops/fp16_jax.py``: the decoder
 :func:`increment_f16` and :func:`pack_bounds_conservative`. All are
 bit-exact: fp16 → f32 is exact, and f32 → fp16 is ``.to(torch.float16)``,
 which rounds to nearest even and keeps subnormals, as XLA's convert does.
+The decoder gives an fp16 NaN XLA's f32 bits on every device: a box
+beyond the fp16 range steps its ±inf to an fp16 NaN, which the sweeps of
+``ops/lbvh.py`` then carry up the tree.
 
 Torch has no full uint32 arithmetic, so tensors carry u32 words as int64.
 """
@@ -21,7 +24,7 @@ import torch
 __all__ = ["f32_to_f16_bits_rne", "f32_to_f16_bits_trunc", "f16_bits_to_f32", "pack16x2_rne",
            "pack16x2_trunc", "unpack16x2", "f16_ordered_from_bits", "f16_bits_from_ordered",
            "increment_f16_np", "pack_bounds_u32", "unpack_bounds_u32", "unpack_bounds",
-           "f32_to_f16_bits", "pack16x2", "increment_f16", "pack_bounds",
+           "f32_to_f16_bits", "pack16x2", "increment_f16_bits", "increment_f16", "pack_bounds",
            "pack_bounds_conservative"]
 
 
@@ -130,30 +133,48 @@ def unpack_bounds_u32(b) -> tuple[np.ndarray, np.ndarray]:
     return mn, mx
 
 
+def _xla_f16_decode_table() -> np.ndarray:
+    """f32 bits of every fp16 pattern as XLA converts them: values exactly,
+    a NaN to the quiet f32 NaN with its sign and its payload moved up
+    (0x7FC00000 | mantissa << 13). Torch's own half → float gives some NaNs
+    other bits, and not the same on every device."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    table = bits.astype(np.uint16).view(np.float16).astype(np.float32).view(np.uint32)
+    nan = ((bits & 0x7C00) == 0x7C00) & ((bits & 0x3FF) != 0)
+    return np.where(nan, ((bits & 0x8000) << 16) | 0x7FC00000 | ((bits & 0x3FF) << 13), table)
+
+
+_DECODE_TABLES: dict[torch.device, torch.Tensor] = {}
+
+
 def _f16_bits_to_f32_t(bits: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of fp16 bit patterns (0..0xFFFF) → f32."""
-    # to int16 without relying on the overflow behaviour of the cast
-    bits = torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16)
-    return bits.view(torch.float16).to(torch.float32)
+    """int64 tensor of fp16 bit patterns (0..0xFFFF) → f32, as XLA converts
+    them (:func:`_xla_f16_decode_table`): one gather from a 256 KiB table
+    kept on each device."""
+    table = _DECODE_TABLES.get(bits.device)
+    if table is None:
+        table = torch.from_numpy(_xla_f16_decode_table().view(np.int32)).to(bits.device)
+        table = _DECODE_TABLES.setdefault(bits.device, table.view(torch.float32))
+    return table[bits]
 
 
-def _unpack16x2_t(u: torch.Tensor, idx: int) -> torch.Tensor:
-    return _f16_bits_to_f32_t((u >> (16 * idx)) & 0xFFFF)
+def _halfwords(b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u32 words (int64) of packed AABBs → (..., 6) fp16 bit
+    patterns [mn.x, mn.y, mn.z, mx.x, mx.y, mx.z]; :func:`_pack_halfwords`
+    is the inverse."""
+    return torch.stack([b, b >> 16], dim=-1).flatten(-2) & 0xFFFF
+
+
+def _pack_halfwords(h: torch.Tensor) -> torch.Tensor:
+    """(..., 6) fp16 bit patterns of an AABB's min and max → (..., 3) u32
+    words (int64): [mn.x | mn.y << 16, mn.z | mx.x << 16, mx.y | mx.z << 16]."""
+    return h[..., 0::2] | (h[..., 1::2] << 16)
 
 
 def unpack_bounds(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., 3) int64 tensor of u32 words → (min, max) f32 (..., 3)."""
-    mn = torch.stack(
-        [_unpack16x2_t(b[..., 0], 0), _unpack16x2_t(b[..., 0], 1),
-         _unpack16x2_t(b[..., 1], 0)],
-        dim=-1,
-    )
-    mx = torch.stack(
-        [_unpack16x2_t(b[..., 1], 1), _unpack16x2_t(b[..., 2], 0),
-         _unpack16x2_t(b[..., 2], 1)],
-        dim=-1,
-    )
-    return mn, mx
+    f = _f16_bits_to_f32_t(_halfwords(b))
+    return f[..., :3], f[..., 3:]
 
 
 def f32_to_f16_bits(x: torch.Tensor) -> torch.Tensor:
@@ -166,26 +187,38 @@ def pack16x2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return f32_to_f16_bits(a) | (f32_to_f16_bits(b) << 16)
 
 
-def increment_f16(value: torch.Tensor, up: bool, iterations: int = 1) -> torch.Tensor:
+def increment_f16_bits(value: torch.Tensor, up: bool, iterations: int = 1) -> torch.Tensor:
     """Round to fp16, step ±``iterations`` ULPs in ordered-u16 space (monotonic
-    across ±0 and signs), back to f32. ``~bits`` of an int64 is negative, so
-    every step is masked to 16 bits, as the JAX package masks its uint32."""
+    across ±0 and signs) → the fp16 bit patterns (int64). ``~bits`` of an
+    int64 is negative, so every step is masked to 16 bits, as the JAX
+    package masks its uint32. A step up from +inf (down from −inf) gives the
+    signalling NaN 0x7C01 (0xFC01)."""
     bits = f32_to_f16_bits(value)
     sign = (bits & 0x8000) != 0
     ordv = torch.where(sign, (~bits) & 0xFFFF, bits ^ 0x8000)
     ordv = (ordv + iterations if up else ordv - iterations) & 0xFFFF
     ord_sign = (ordv & 0x8000) != 0
-    bits2 = torch.where(ord_sign, ordv ^ 0x8000, (~ordv) & 0xFFFF)
-    return _f16_bits_to_f32_t(bits2)
+    return torch.where(ord_sign, ordv ^ 0x8000, (~ordv) & 0xFFFF)
+
+
+def increment_f16(value: torch.Tensor, up: bool, iterations: int = 1) -> torch.Tensor:
+    """:func:`increment_f16_bits`, back to f32."""
+    return _f16_bits_to_f32_t(increment_f16_bits(value, up, iterations))
 
 
 def pack_bounds(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
     """AABB (..., 3) min/max f32 → (..., 3) u32 words (int64):
     [pack(mn.x,mn.y), pack(mn.z,mx.x), pack(mx.y,mx.z)]."""
-    return torch.stack([pack16x2(mn[..., 0], mn[..., 1]), pack16x2(mn[..., 2], mx[..., 0]),
-                        pack16x2(mx[..., 1], mx[..., 2])], dim=-1)
+    return _pack_halfwords(f32_to_f16_bits(torch.cat([mn, mx], dim=-1)))
 
 
 def pack_bounds_conservative(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
-    """Expand min down and max up by exactly one fp16 ULP, then pack."""
-    return pack_bounds(increment_f16(mn, False, 1), increment_f16(mx, True, 1))
+    """Expand min down and max up by exactly one fp16 ULP, then pack — as
+    the JAX package computes it inside ``jit`` (every build and refit is
+    jitted): XLA drops the fp16 → f32 → fp16 round trip between the step
+    and the pack, so the stepped halfwords are packed as they are, and a
+    box beyond the fp16 range keeps the signalling NaN 0x7C01 / 0xFC01
+    (``fp16_jax.pack_bounds_conservative`` called op by op makes it quiet,
+    0x7E01)."""
+    return _pack_halfwords(torch.cat([increment_f16_bits(mn, False),
+                                      increment_f16_bits(mx, True)], dim=-1))

@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["make_cube", "make_quad", "make_icosphere", "make_trefoil", "make_cornell_box",
-           "make_dragon_solid", "make_dragon_stand_in", "write_glb"]
+           "make_interior_hall", "make_dragon_solid", "make_dragon_stand_in", "write_glb"]
 
 
 def _dedupe_to_soup(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -237,6 +237,19 @@ def make_cornell_box(inner: float = 2.0) -> np.ndarray:
     box(-0.35 * s, -0.3 * s, 0.55 * s, 1.1 * s, 0.55 * s, 0.3)
     box(0.45 * s, 0.35 * s, 0.5 * s, 0.5 * s, 0.5 * s, -0.25)
     return np.stack(tris, axis=0).astype(np.float32)
+
+
+def make_interior_hall() -> np.ndarray:
+    """The interior hall of the JAX benchmark's config 4
+    (``bench_suite.py:300-309``), before its cube normalization: the Cornell
+    box of side 4, a colonnade of 8 cubes of side 0.3 and an icosphere(4)
+    of radius 0.7 — 5,250 triangles, with walls that span the scene."""
+    parts = [make_cornell_box(4.0)]
+    for i in range(8):
+        parts.append(make_cube(0.3) + np.array(
+            [(-1.5 + 0.4 * i), -1.6, (-1.2 if i % 2 else 1.2)], np.float32))
+    parts.append(make_icosphere(4, radius=0.7))
+    return np.concatenate(parts).astype(np.float32)
 
 
 def write_glb(path: str | Path, tris: np.ndarray, *, indexed: bool = True) -> None:

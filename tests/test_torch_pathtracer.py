@@ -199,8 +199,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     test interpreter imports JAX at start)."""
     banned = ("jax", "jaxlib", "raytracer_tpu")
     files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py",
-                                              PACKAGE.parent / "chip_microbench.py"]
+                                              PACKAGE.parent / "chip_microbench.py",
+                                              PACKAGE.parent / "tests" / "torch_parity.py"]
     assert len(files) >= 16
+    # the modules whose code spawned ranks and server threads import
+    must = ["parallel/__init__.py", "parallel/mesh.py", "server/viewer.py", "server/static.py",
+            "apps/viewer.py", "graft_entry.py", "utils/meshops.py"]
+    assert all(PACKAGE / m in files for m in must), [m for m in must if PACKAGE / m not in files]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
             if isinstance(node, ast.Import):
