@@ -230,6 +230,32 @@ before 27:
    hits and cracks of the unsplit mesh (at most 0.5% of the pixels), each
    frame's ms and visits a ray (K1f).
 
+Phase 33 drives wavefront compaction and K2 without near-first order; (a)
+runs right after phase 11, the rest after phase 26, before 28:
+
+33. (a) render_progressive(bounces=3) at 1080p with compaction on: 1 K1b,
+   2 K2a and 3 K2b a sample and nothing else, no host-device
+   synchronisation, a finite non-negative buffer, the sort's and gathers'
+   kernels under torch.profiler; (b) K2a / K2b / K2c with ordered=False on
+   every captured wave (SAH K = 32, Morton K = 1, 8-wide): on all 2,073,600
+   lanes the closest-hit planes bit-identical to the ordered kernel's and
+   the occlusion masks equal, and on 65,536 seeded active rays of each
+   every word equal to the plain version's (ordered=False), with visits
+   and Möller–Trumbore tests a ray of both orders, times and bounds; (c) a
+   compacted 256×256 sample, argsort and partition, through the kernels
+   and through the plain versions, under phase 9's limits; (d) one
+   compacted 1080p sample with both orders off on 4-wide and on 8-wide
+   records: 1 K1b, 2 K2a, 3 K2b unordered and 1 K1e, 5 K2c unordered, and
+   nothing else; (e) on the compactions of 1080p samples, the partition's
+   permutation the stable argsort of the 8-bit key, which groups the lanes
+   as the 32-bit key's argsort does; (f) at SAH K = 32 and Morton K = 1,
+   the sample with no compaction (persistent warps on the scattered
+   waves), argsort and partition compaction (one thread per ray), each
+   with ordered and unordered any hit, timed in one series forward and
+   back (4 samples each), with each wave's ms and alive share, the
+   compactions' ms, and one thread per ray against persistent warps on
+   the compacted waves.
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -334,6 +360,12 @@ KERNELS = {
                        "raytracer_tpu/ops/pallas/traverse.py:914"),
     "trace_tiles_k1f": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
+    "trace_rays_k2a_unordered": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                                 "raytracer_tpu/ops/pallas/traverse.py:919"),
+    "trace_rays_k2b_unordered": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                                 "raytracer_tpu/ops/pallas/traverse.py:919"),
+    "trace_rays_k2c_unordered": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                                 "raytracer_tpu/ops/pallas/traverse.py:919"),
 }
 # the microbenchmark kernels (their launches are counted apart, in
 # ops.cuda.microbench.LAUNCHES) and the TPU kernels they replace
@@ -513,9 +545,9 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     bytes, spill load bytes) of every entry function in an ``nvcc -Xptxas -v``
     log. The template arguments are <child slots, jitter, visits, core> for
     the batch tile kernel, <child slots, jitter, visits, bounds, core> for the
-    one-frame tile kernel, <child slots, any hit, core> for the ray kernel and
-    <child slots, any hit> for the persistent ray kernel (core: the feature
-    mask of csrc/traverse_core.cuh, 256 for the frozen baseline)."""
+    one-frame tile kernel, <child slots, any hit, core> for both ray kernels
+    (core: the feature mask of csrc/traverse_core.cuh, 256 for the frozen
+    baseline, | 8 without near-first order)."""
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -648,33 +680,43 @@ def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: d
             "path_bound_ms": frame_bound[0], "path_bound_by": frame_bound[1]}
 
 
-def capture_waves(env: dict, qn: torch.Tensor, leaf_k: int = LEAF_K) -> tuple[list[dict], dict]:
+def capture_waves(env: dict, qn: torch.Tensor, leaf_k: int = LEAF_K,
+                  **sample_kw) -> tuple[list[dict], dict]:
     """One 1080p 3-bounce sample of the framed view through the kernels, from
-    SAMPLE_SEED, with the rays, active mask and result of every ray-buffer
-    wave captured → (waves, the sample's statistics)."""
+    SAMPLE_SEED (``sample_kw``: more arguments of pt_sample_frame), with the
+    rays, active mask and result of every ray-buffer wave captured, and the
+    lanes' origins, directions and liveness at every compaction → (waves,
+    the sample's statistics with ``compactions``)."""
     from raytracer_tpu_torch import render_pt
 
-    waves = []
-    real_trace_rays = render_pt.trace_rays
+    waves, compactions = [], []
+    real_trace_rays, real_perm = render_pt.trace_rays, render_pt._compaction_perm
 
     def capturing(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None,
-                  scattered=False):
+                  scattered=False, ordered=True):
         out = real_trace_rays(qnodes, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
-                              active=active, scattered=scattered)
+                              active=active, scattered=scattered, ordered=ordered)
         waves.append({"any_hit": any_hit, "o": origins, "d": dirs, "active": active,
-                      "scattered": scattered, "out": out})
+                      "scattered": scattered, "ordered": ordered, "out": out})
         return out
 
-    render_pt.trace_rays = capturing
+    def capturing_perm(o, d, alive, impl):
+        compactions.append({"o": o, "d": d, "alive": alive, "impl": impl})
+        return real_perm(o, d, alive, impl)
+
+    render_pt.trace_rays, render_pt._compaction_perm = capturing, capturing_perm
     try:
         _, sample_stats = render_pt.pt_sample_frame(
             qn, env["tris"], FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
             leaf_k=leaf_k, tile_primary=True,
-            generator=torch.Generator(device=env["dev"]).manual_seed(SAMPLE_SEED), stats=True)
+            generator=torch.Generator(device=env["dev"]).manual_seed(SAMPLE_SEED), stats=True,
+            **sample_kw)
     finally:
-        render_pt.trace_rays = real_trace_rays
-    log(f"[waves] captured {len(waves)} ray-buffer waves; alive rays per sample "
-        f"{int(sample_stats['alive_rays'])} of {int(sample_stats['lane_rays'])} lanes")
+        render_pt.trace_rays, render_pt._compaction_perm = real_trace_rays, real_perm
+    log(f"[waves] captured {len(waves)} ray-buffer waves{' ' + json.dumps(sample_kw) if sample_kw else ''}; "
+        f"alive rays per sample {int(sample_stats['alive_rays'])} of "
+        f"{int(sample_stats['lane_rays'])} lanes")
+    sample_stats["compactions"] = compactions
     return waves, sample_stats
 
 
@@ -968,17 +1010,6 @@ def main() -> None:
     env["waves"] = {LEAF_K: waves}  # for phase 28
 
     # 9. one whole 256x256 sample: kernels vs plain versions
-    def plain_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
-                    jitter=False, jitter_seed=0):
-        return traverse.trace_tiles_reference(qnodes, cam_pos, cam_quat, width, height,
-                                              fov_degrees, leaf_k, jitter=jitter,
-                                              jitter_seed=jitter_seed)
-
-    def plain_rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None,
-                   scattered=False):
-        return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
-                                             leaf_k=leaf_k, active=active)
-
     def small_sample():
         return render_pt.pt_sample_frame(
             qn, tris, FRAMED, QUAT, CROP, CROP, bounces=BOUNCES, fov_degrees=FOV,
@@ -986,12 +1017,7 @@ def main() -> None:
             generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
 
     by_kernels = small_sample()
-    real = (render_pt.trace_tiles, render_pt.trace_rays)
-    render_pt.trace_tiles, render_pt.trace_rays = plain_tiles, plain_rays
-    try:
-        by_plain, whole_plain_ms = timed_once(small_sample)
-    finally:
-        render_pt.trace_tiles, render_pt.trace_rays = real
+    by_plain, whole_plain_ms = timed_once(lambda: plain_traversal(small_sample))
     err = (by_kernels - by_plain).abs().amax(-1)
     share = float((err <= RADIANCE_ATOL).float().mean())
     log(f"[check] whole {CROP}x{CROP} sample, kernels vs plain: {share:.6f} of pixels within "
@@ -1046,6 +1072,9 @@ def main() -> None:
     profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
                   f"render_progressive(bounces={BOUNCES})", card)
 
+    # 33 (a). render_progressive with compaction on
+    compacted_progressive_phase(env, pt)
+
     # 20.-24. depth bounds and entry nodes (K1d)
     rows["trace_tiles_k1d"] = bounded_phase(env, pt)
 
@@ -1061,6 +1090,9 @@ def main() -> None:
     # 25.-26. the Morton LBVH trees (K = 1, K = 8) and the leaf-size question
     trees = lbvh_phase(env, scene)
     leaf_phase(env, trees)
+
+    # 33. compaction and K2 without near-first order
+    compaction_phase(env, trees, rows)
 
     # 28. the redesigned kernels against the frozen baseline core
     hopper_phase(env, trees, rows)
@@ -2380,10 +2412,11 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
     for src in ("traverse_tiles.cu", "traverse_rays.cu"):
         found = {k: (r, f, st, ld) for k, r, f, st, ld in ptxas_rows(traverse.load_kernel(src)[1])}
         for kernel, (regs, frame, st, ld) in found.items():
-            if kernel.endswith(",256>"):
+            head, core = kernel[:kernel.rindex(",")], int(kernel[kernel.rindex(",") + 1:-1])
+            if core & 256:
                 continue
-            twin = (kernel.replace("_persistent", "")[:-1] + ",256>" if "persistent" in kernel
-                    else kernel[:kernel.rindex(",")] + ",256>")
+            # the baseline twin: the same template with core 256 (| 8, unordered)
+            twin = f"{head.replace('_persistent', '')},{256 | (core & 8)}>"
             b = found.get(twin)
             log(f"[hopper] ptxas {kernel}: {regs} registers, {frame} bytes stack frame, spills "
                 f"{st}/{ld} bytes; baseline {twin}: " + (
@@ -2524,6 +2557,274 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             f"{c['baseline']:.4f} ms; path hopper {p['hopper']:.4f} / baseline "
             f"{p['baseline']:.4f} ms on {card}")
     log(f"[hopper] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# 33. wavefront compaction and K2 without near-first order: the sample's
+# forms timed against each other (pt_sample_frame keyword arguments)
+SAMPLE_FORMS = {
+    "off + persistent": dict(compact=False),
+    "argsort + dense": dict(compact=True, compact_impl="argsort"),
+    "partition + dense": dict(compact=True, compact_impl="partition"),
+}
+
+
+def compacted_progressive_phase(env: dict, pt) -> None:
+    """33 (a). render_progressive(bounces=3) at 1080p with compaction on:
+    its launches (1 K1b, 2 K2a, 3 K2b a sample and nothing else), the sort's
+    and gathers' kernels under torch.profiler, no host-device
+    synchronisation, a finite non-negative buffer."""
+    from raytracer_tpu_torch import pathtracer
+
+    saved = pathtracer.COMPACT_WAVES
+    pathtracer.COMPACT_WAVES = True
+    try:
+        want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
+                        trace_rays_k2b=SAMPLES * BOUNCES)
+        pt.set_camera_position(*MOVED)
+        pt.render_progressive(bounces=BOUNCES)  # so that the framed view starts a buffer
+        progressive_samples(pt, want, "compaction")
+        profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
+                      f"compacted render_progressive(bounces={BOUNCES})", env["card"])
+    finally:
+        pathtracer.COMPACT_WAVES = saved
+
+
+def plain_traversal(fn):
+    """``fn`` run with render_pt's kernels replaced by their plain versions."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    def tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
+              jitter=False, jitter_seed=0):
+        return traverse.trace_tiles_reference(qnodes, cam_pos, cam_quat, width, height,
+                                              fov_degrees, leaf_k, jitter=jitter,
+                                              jitter_seed=jitter_seed)
+
+    def rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None, scattered=False,
+             ordered=True):
+        return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
+                                             leaf_k=leaf_k, active=active, ordered=ordered)
+
+    real = (render_pt.trace_tiles, render_pt.trace_rays)
+    render_pt.trace_tiles, render_pt.trace_rays = tiles, rays
+    try:
+        return fn()
+    finally:
+        render_pt.trace_tiles, render_pt.trace_rays = real
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |difference| over the float planes of two traversals."""
+    return max(float((x - y).abs().max()) if x.numel() else 0.0 for x, y in zip(a[:4], b[:4]))
+
+
+def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
+    """33 (b)-(f). K2a / K2b / K2c with ordered=False on every captured wave
+    (SAH K = 32, Morton K = 1, 8-wide): on every lane against the ordered
+    kernel (closest-hit planes bit-identical, occlusion masks equal) and on
+    65,536 seeded active rays against the plain version (bit for bit), with
+    visits and bounds; the kernels-line rows. A compacted 256x256 sample,
+    kernels against plain versions, per impl; the partition's grouping
+    against the argsort's on the captured 1080p compactions. The launches of
+    the unordered path. The sample's forms timed in one series
+    (SAMPLE_FORMS x ordered / unordered any hit, 4 samples each) at SAH
+    K = 32 and Morton K = 1: sample ms, each wave's ms and alive share, the
+    compaction's ms; one thread per ray against persistent warps on the
+    compacted waves."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.partition import bucket_partition_perm
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    t_phase = time.perf_counter()
+    qn32, qn1, qn8 = env["qn"], trees[1]["qn"], env["qn8"]
+    trees_of = {LEAF_K: (qn32, LEAF_K, f"SAH K={LEAF_K}"), 1: (qn1, 1, "Morton K=1"),
+                "8-wide": (qn8, LEAF_K, f"8-wide SAH K={LEAF_K}")}
+
+    # (b) every lane against the ordered kernel; checked rays against the plain version
+    pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    row_waves: dict[str, list] = {}
+    for key, (qn, k, label) in trees_of.items():
+        for i, w in enumerate(env["waves"][key]):
+            kw = dict(any_hit=w["any_hit"], leaf_k=k)
+            kind = "any hit" if w["any_hit"] else "closest hit"
+            r = w["o"].shape[0]
+            full = traverse.trace_rays(qn, w["o"], w["d"], active=w["active"], ordered=False,
+                                       scattered=w["scattered"], **kw)
+            if w["any_hit"]:
+                if not torch.equal(full[4] >= 0, w["out"][4] >= 0):
+                    fail(f"phase 33: {label} wave {i}: unordered occlusion mask differs on "
+                         f"{int(((full[4] >= 0) != (w['out'][4] >= 0)).sum())} of {r} lanes")
+            elif differing_words(full, w["out"]):
+                fail(f"phase 33: {label} wave {i}: unordered closest-hit planes differ from "
+                     f"the ordered kernel's in {differing_words(full, w['out'])} words")
+            act = w["active"] if w["active"] is not None else torch.ones(
+                r, dtype=torch.bool, device=dev)
+            live = torch.nonzero(act).squeeze(1)
+            pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
+            o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
+            counts, ordered_counts = traverse.TraversalCounts(), traverse.TraversalCounts()
+            plain = traverse.trace_rays_reference(qn, o, d, ordered=False, counts=counts, **kw)
+            traverse.trace_rays_reference(qn, o, d, counts=ordered_counts, **kw)
+            ker = [p[pick] for p in full]
+            words = differing_words(ker, plain)
+            if words:
+                fail(f"phase 33: {label} wave {i}: the unordered kernel differs from its plain "
+                     f"version in {words} words on {pick.numel()} checked rays")
+            _, plain_ms = timed_once(lambda: traverse.trace_rays_reference(
+                qn, o, d, ordered=False, **kw))
+            ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+                qn, o, d, ordered=False, **kw), FRAMES, 3))
+            ordered_ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+                qn, o, d, **kw), FRAMES, 3))
+            path = abba({o_: (lambda o_=o_: traverse.trace_rays(
+                qn, w["o"], w["d"], active=w["active"], scattered=w["scattered"],
+                ordered=o_ == "ordered", **kw)) for o_ in ("ordered", "unordered")}, 3, 2)
+            n, n_live = pick.numel(), live.numel()
+            b_ms, b_by, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
+            pb_ms, pb_by, p_detail = bound(counts, n_live / n,
+                                           r * OUT_BYTES + n_live * RAY_BYTES + r)
+            log(f"[unordered] {label} wave {i} ({kind}): all {r} lanes "
+                f"{'masks equal' if w['any_hit'] else 'planes bit-identical'} to the ordered "
+                f"kernel; {n} of {n_live} active rays bit-identical to the plain version; "
+                f"visits a ray {counts.visits / n:.3f} unordered against "
+                f"{ordered_counts.visits / n:.3f} ordered, MT tests {counts.mt_tests / n:.3f} "
+                f"against {ordered_counts.mt_tests / n:.3f}; checked rays unordered {ms:.4f} ms, "
+                f"ordered {ordered_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}; whole wave (A-B-B-A) unordered {path['unordered']:.4f} ms, ordered "
+                f"{path['ordered']:.4f} ms, bound {pb_ms:.4f} ms by {pb_by} on {card}")
+            if key == 1:
+                continue
+            name = ("trace_rays_k2c_unordered" if key == "8-wide" else
+                    "trace_rays_k2b_unordered" if w["any_hit"] else "trace_rays_k2a_unordered")
+            row_waves.setdefault(name, []).append({
+                "w": w, "pick": (o, d), "qn": qn, "k": k, "rays": n,
+                "max_abs_err": max_abs_diff(ker, plain), "ms": ms, "plain_ms": plain_ms,
+                "bound_detail": detail, "active": n_live, "path_ms": path["unordered"],
+                "path_bound_detail": p_detail})
+    for name, ws in row_waves.items():
+        register_row(env, name, lambda core, ws=ws: [traverse.trace_rays(
+            x["qn"], *x["pick"], any_hit=x["w"]["any_hit"], leaf_k=x["k"], ordered=False,
+            core=core) for x in ws], lambda core, ws=ws: [traverse.trace_rays(
+                x["qn"], x["w"]["o"], x["w"]["d"], any_hit=x["w"]["any_hit"], leaf_k=x["k"],
+                active=x["w"]["active"], scattered=x["w"]["scattered"], ordered=False,
+                core=core) for x in ws])
+
+    # (c) a compacted 256x256 sample through the kernels and the plain versions
+    for impl in ("argsort", "partition"):
+        def small(impl=impl):
+            return render_pt.pt_sample_frame(
+                qn32, tris, FRAMED, QUAT, CROP, CROP, bounces=BOUNCES, fov_degrees=FOV,
+                leaf_k=LEAF_K, tile_primary=True, compact=True, compact_impl=impl,
+                generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+        by_kernels = small()
+        by_plain = plain_traversal(small)
+        err = (by_kernels - by_plain).abs().amax(-1)
+        share = float((err <= RADIANCE_ATOL).float().mean())
+        log(f"[compaction] whole {CROP}x{CROP} sample compacted by {impl}, kernels vs plain: "
+            f"{share:.6f} of pixels within {RADIANCE_ATOL} (max |d| {float(err.max()):.3g})")
+        if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(by_kernels).all()):
+            fail(f"phase 33: compacted ({impl}) sample: {share:.6f} < {MIN_RADIANCE_MATCH} "
+                 f"of pixels within {RADIANCE_ATOL}")
+
+    # (d) the launches of the unordered path: compacted samples with both
+    # orders off, 4-wide and 8-wide records
+    unordered = dict(compact=True, ordered_ch=False, ordered_ah=False)
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    for qn in (qn32, qn8):
+        render_pt.pt_sample_frame(qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES,
+                                  fov_degrees=FOV, leaf_k=LEAF_K, tile_primary=True,
+                                  generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED),
+                                  **unordered)
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    want = expected(trace_tiles_k1b=1, trace_tiles_k1e=1,
+                    trace_rays_k2a_unordered=BOUNCES - 1, trace_rays_k2b_unordered=BOUNCES,
+                    trace_rays_k2c_unordered=2 * BOUNCES - 1)
+    log(f"[unordered] launches of one compacted unordered 1080p sample on 4-wide and one on "
+        f"8-wide records: {json.dumps({k: v for k, v in launches.items() if v})}")
+    if launches != want:
+        fail(f"phase 33: the unordered samples launched {launches}, expected {want}")
+    for name, ws in row_waves.items():
+        rows[name] = wave_row(ws, launches[name])
+
+    # (e) the partition's grouping against the argsort's, on the captured
+    # compactions of 1080p samples (tests/test_partition.py's contract)
+    for key in (LEAF_K, 1):
+        qn, k, label = trees_of[key]
+        _, stats = capture_waves(env, qn, k, compact=True)
+        for j, c in enumerate(stats["compactions"]):
+            small = render_pt.compaction_key(c["o"], c["d"], c["alive"], "partition")
+            full = render_pt.compaction_key(c["o"], c["d"], c["alive"], "argsort")
+            by_part = bucket_partition_perm(small, 256)
+            by_sort = render_pt._compaction_perm(c["o"], c["d"], c["alive"], "argsort")
+            if not (torch.equal(full >> 24, small)
+                    and torch.equal(by_part, torch.argsort(small, stable=True))
+                    and torch.equal(small[by_sort], small[by_part])
+                    and bool((full[by_sort].diff() >= 0).all())):
+                fail(f"phase 33: {label} compaction {j}: the partition does not group the "
+                     "lanes as the argsort does")
+            alive = int(c["alive"].sum())
+            log(f"[compaction] {label} compaction {j}: {alive} of {c['alive'].numel()} lanes "
+                f"alive; partition and argsort group alike, {int(torch.unique(small).numel())} "
+                f"buckets in use")
+
+    # (f) the forms of the sample, timed in one series
+    for key in (LEAF_K, 1):
+        qn, k, label = trees_of[key]
+        forms = {f"{name}, {'ordered' if ah else 'unordered'} any hit": dict(kw, ordered_ah=ah)
+                 for name, kw in SAMPLE_FORMS.items() for ah in (True, False)}
+
+        def sample(kw, qn=qn, k=k):
+            return render_pt.pt_sample_frame(
+                qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+                leaf_k=k, tile_primary=True,
+                generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED), **kw)
+
+        ms = series({f: (lambda kw=kw: sample(kw)) for f, kw in forms.items()}, SAMPLES, 1)
+        for f, kw in forms.items():
+            waves, stats = capture_waves(env, qn, k, **kw)
+            wave_ms = []
+            for w in waves:
+                call = (lambda w=w: traverse.trace_rays(
+                    qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
+                    scattered=w["scattered"], ordered=w["ordered"]))
+                alive = w["o"].shape[0] if w["active"] is None else int(w["active"].sum())
+                wave_ms.append(f"{'K2b' if w['any_hit'] else 'K2a'} "
+                               f"{statistics.median(cuda_ms(call, 3, 2)):.4f} ms "
+                               f"(alive {alive / w['o'].shape[0]:.4f})")
+            comp_ms = []
+            for c in stats["compactions"]:
+                state = [c["o"], c["d"], torch.rand_like(c["o"]), torch.rand_like(c["o"]),
+                         c["alive"], torch.arange(c["o"].shape[0], device=dev)]
+
+                def compact(c=c, state=state):
+                    perm = render_pt._compaction_perm(c["o"], c["d"], c["alive"], c["impl"])
+                    return [x[perm] for x in state]
+
+                comp_ms.append(statistics.median(cuda_ms(compact, 3, 2)))
+                if key == LEAF_K and kw["ordered_ah"] and len(comp_ms) == 1:
+                    profile_calls(compact, f"one compaction ({c['impl']}) of the {label} "
+                                  "sample with its 6 gathers", card)
+            log(f"[A/B] {label} {BOUNCES}-bounce 1080p sample, {f}: {ms[f]:.4f} ms a sample "
+                f"(series of {SAMPLES} samples, forward and back); waves in order: "
+                + "; ".join(wave_ms)
+                + (f"; compactions {', '.join(f'{x:.4f}' for x in comp_ms)} ms" if comp_ms
+                   else "") + f" on {card}")
+            if kw.get("compact") and kw["compact_impl"] == "argsort" and kw["ordered_ah"]:
+                for i, w in enumerate(waves):
+                    if w["active"] is None or (w["any_hit"] and k > 1):
+                        continue  # dense camera wave; any hit at K > 1 runs one schedule
+                    sched = abba({s: (lambda s=s, w=w: traverse.trace_rays(
+                        qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
+                        scattered=s == "persistent")) for s in ("dense", "persistent")}, 3, 2)
+                    log(f"[A/B] {label} compacted wave {i} "
+                        f"({'any hit' if w['any_hit'] else 'closest'}): one thread per ray "
+                        f"{sched['dense']:.4f} ms, persistent warps {sched['persistent']:.4f} ms "
+                        f"on {card}")
+    log(f"[compaction] phase 33 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def walk_bytes(span: int, rows_per: int, chains: int, n: int) -> int:

@@ -105,6 +105,7 @@ enum : unsigned {
   kOrder = 1u,        // child order by rank in registers
   kSharedStack = 2u,  // stack entries 0 .. kSharedEntries − 1 in shared memory
   kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
+  kUnordered = 8u,    // no near-first order: children pushed in slot order
   kBaseline = 256u,
 };
 
@@ -228,10 +229,20 @@ struct Ray {
 
   // Push the children that passed (hit[k] and ref >= 0) far→near by their
   // slab entry distance, equal keys in slot order; pushes past index 63 are
-  // dropped.
+  // dropped. kUnordered: in slot order instead (the last passing slot is
+  // popped first), each with its slab entry distance, which the pop-time
+  // cull reads; pushes past index 63 are dropped, the later slots first.
   __device__ __forceinline__ void push(StackT& stack, const float* h, const float* tmin,
                                        const bool* hit) {
-    if (kFeat & kOrder) {
+    if (kFeat & kUnordered) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (hit[k] && h[6 * kSlots + k] >= 0.0f && sp < kStackMax - 1) {
+          ++sp;
+          stack.put(sp, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])), col, cols);
+        }
+      }
+    } else if (kFeat & kOrder) {
       bool pass[kSlots];
       int pos[kSlots];
       int npass = 0;
@@ -431,17 +442,18 @@ struct Ray {
 };
 
 // The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
-// baseline loop). `tid` / `threads` place the thread's shared stack column
-// (the block's dynamic shared memory must hold stack_smem_bytes(kFeat,
-// threads)).
+// baseline loop; kBaseline | kUnordered: that loop with slot-order pushes).
+// `tid` / `threads` place the thread's shared stack column (the block's
+// dynamic shared memory must hold stack_smem_bytes(kFeat, threads)).
 template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw, int leaf_k,
                                             float ox, float oy, float oz, float dx, float dy,
                                             float dz, float best_init, int entry, int tid,
                                             int threads) {
-  if constexpr (kFeat == kBaseline) {
-    const rt_baseline::Hit h = rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits>(
-        qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
+  if constexpr ((kFeat & kBaseline) != 0) {
+    const rt_baseline::Hit h =
+        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0>(
+            qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
     return Hit{h.t, h.nx, h.ny, h.nz, h.tri, h.visits};
   } else {
     using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;

@@ -10,7 +10,9 @@
 // render path; the one place it runs there is trace_rays' any hit over
 // leaves of more than one triangle, where every element of the redesigned
 // core lost to it on the card. Do not edit the loop: a change here is no
-// longer the baseline.
+// longer the baseline. The one addition is the kOrdered = false form of
+// that any hit (trace_rays(ordered=False)): the same loop with the children
+// pushed in slot order; kOrdered = true compiles to the frozen loop.
 //
 // The per-ray traversal of the supernode records, shared by the primary-ray
 // kernels K1a/K1b/K1c/K1d/K1e/K1f (traverse_tiles.cu) and the ray-buffer kernels
@@ -64,6 +66,7 @@ __device__ __forceinline__ float safe_inv(float d) {
 // nearest accepted triangle (strict t < best, first in visit order among
 // equal t). kAnyHit: stop at the first accepted triangle in visit order.
 // kVisits: count the records visited (pops that pass the cull).
+// !kOrdered: push the passing children in slot order, with no sort.
 //
 // `best_init` and `entry` are where the traversal starts: 1e30 and the root
 // (record 0) everywhere but in K1d. A finite `best_init` is a depth bound:
@@ -73,7 +76,7 @@ __device__ __forceinline__ float safe_inv(float d) {
 // that finds none returns t = best_init. `entry` is pushed with key 0, so it
 // is visited whenever best_init > 0; the caller guarantees that no record
 // outside its subtree can hold the ray's nearest hit.
-template <int kSlots, bool kAnyHit, bool kVisits>
+template <int kSlots, bool kAnyHit, bool kVisits, bool kOrdered = true>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw,
                                             int leaf_k, float ox, float oy, float oz,
                                             float dx, float dy, float dz,
@@ -165,6 +168,18 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
           }
         }
       }
+    }
+
+    if (!kOrdered) {  // slot order, the later slots dropped at the limit
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (hit[k] && h[6 * kSlots + k] >= 0.0f && sp < kStackMax - 1) {
+          ++sp;
+          stack_n[sp] = (int)h[6 * kSlots + k];
+          stack_d[sp] = tmin[k];
+        }
+      }
+      continue;
     }
 
     // internal slots that passed: push far→near by the slab entry distance

@@ -2,6 +2,7 @@
 // records: K2a closest hit (the bounce waves of path tracing), K2b any hit
 // (the next-event-estimation shadow rays toward the sun).
 // K2c — both on 8-wide records (the BVH8 of collapse_lbvh2_to_bvh8).
+// Each also without near-first order (ordered = 0: K2a/K2b/K2c unordered).
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
 // _raybuf_kernel (loop _traverse_streams, per-visit core _consume, rec_width
@@ -52,6 +53,14 @@
 //      thread per ray (PERF.md §6), hence the two schedules.
 //  * Any hit returns at the first accepted triangle, so an occluded shadow
 //    ray frees its lane early.
+//  * ordered = 0 (the TPU kernel's static flag `ordered`, traverse.py:919)
+//    instantiates every core and schedule above with rt::kUnordered: a
+//    visit pushes its passing children in slot order with their slab entry
+//    distances, with no ranking and no sort, and the pop-time cull stays.
+//    The nearest hit does not depend on the order, so closest-hit planes
+//    are those of the ordered kernel; an any-hit ray may stop at another
+//    occluder. It trades more visits for cheaper ones, which any hit, with
+//    no use for the order, may win.
 //
 // The launcher's `core` argument selects the traversal core (-1: the render
 // core; rt::kBaseline, the frozen baseline loop with one thread per ray;
@@ -114,8 +123,9 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 // Persistent warps with dynamic fetch: each warp takes kChunk consecutive
 // ray indices at a time from the counter `next` (zeroed before the launch)
 // and hands them to its idle lanes, skipping inactive rays, whenever fewer
-// than kRefill lanes of the warp traverse. The render core only.
-template <int kSlots, bool kAnyHit>
+// than kRefill lanes of the warp traverse. The render core only, with or
+// without near-first order (kCore = rt::kRenderCore [| rt::kUnordered]).
+template <int kSlots, bool kAnyHit, unsigned kCore>
 __global__ void __launch_bounds__(kRayBlock)
 trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                              const float* __restrict__ orig, const float* __restrict__ dirs,
@@ -125,7 +135,7 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                              float* __restrict__ nz_out, int* __restrict__ tri_out) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
-  using R = rt::Ray<kSlots, kAnyHit, false, rt::kRenderCore>;
+  using R = rt::Ray<kSlots, kAnyHit, false, kCore>;
   R ray;
   typename R::StackT stack;
   int idx = -1;                // this lane's ray; -1 while the lane is idle
@@ -189,17 +199,17 @@ int launch_per_ray(const float* qnodes, int recw, int leaf_k, const float* origi
   return (int)cudaGetLastError();
 }
 
-template <int kSlots, bool kAnyHit>
+template <int kSlots, bool kAnyHit, unsigned kCore>
 int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* origins,
                       const float* dirs, const uint8_t* active, int n, unsigned* next, float* t,
                       float* nx, float* ny, float* nz, int* tri, cudaStream_t s) {
-  const size_t smem = rt::stack_smem_bytes(rt::kRenderCore, kRayBlock);
+  const size_t smem = rt::stack_smem_bytes(kCore, kRayBlock);
   // the instantiation's resident blocks per SM (or minus the CUDA error),
   // queried at its first launch
   static const int per_sm = [smem] {
     int blocks = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, trace_rays_persistent_kernel<kSlots, kAnyHit>, kRayBlock, smem);
+        &blocks, trace_rays_persistent_kernel<kSlots, kAnyHit, kCore>, kRayBlock, smem);
     return e == cudaSuccess ? blocks : -(int)e;
   }();
   if (per_sm < 0) return -per_sm;
@@ -211,7 +221,7 @@ int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* or
   if (err != 0) return err;
   const int wanted = (n + kRayBlock - 1) / kRayBlock;
   const int grid = per_sm * sms < wanted ? per_sm * sms : wanted;
-  trace_rays_persistent_kernel<kSlots, kAnyHit><<<grid, kRayBlock, smem, s>>>(
+  trace_rays_persistent_kernel<kSlots, kAnyHit, kCore><<<grid, kRayBlock, smem, s>>>(
       qnodes, recw, leaf_k, origins, dirs, active, n, next, t, nx, ny, nz, tri);
   return (int)cudaGetLastError();
 }
@@ -230,7 +240,9 @@ int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* or
 // planes. `core`: -1 for the render paths' core rt::kRenderCore,
 // rt::kBaseline (256, the baseline loop with one thread per ray), or on
 // 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES (timing
-// an element alone; one thread per ray).
+// an element alone; one thread per ray). `ordered` == 0 drops the
+// near-first order (rt::kUnordered: children pushed in slot order) from the
+// render core or the baseline loop (core -1 or rt::kBaseline only).
 // `persistent` != 0 runs persistent warps (core -1 only) and needs `next`, 4
 // bytes of device memory that this launch alone uses (zeroed here on
 // `stream`); otherwise one thread per ray. Returns cudaGetLastError() after
@@ -238,25 +250,34 @@ int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* or
 // outside these sets); synchronises nothing.
 extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, int slots,
                              const float* origins, const float* dirs, const uint8_t* active,
-                             int n, int any_hit, int core, int persistent, unsigned* next,
-                             float* t, float* nx, float* ny, float* nz, int* tri,
+                             int n, int any_hit, int core, int ordered, int persistent,
+                             unsigned* next, float* t, float* nx, float* ny, float* nz, int* tri,
                              void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   if (persistent && (core != -1 || next == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!ordered && core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_RAY_ARGS qnodes, recw, leaf_k, origins, dirs, active, n
-#define RT_PERSISTENT(S)                                                                       \
-  (any_hit ? launch_persistent<S, true>(RT_RAY_ARGS, next, RT_RAY_OUTS, s) \
-           : launch_persistent<S, false>(RT_RAY_ARGS, next, RT_RAY_OUTS, s))
+#define RT_PERSISTENT(S, CORE)                                                   \
+  (any_hit ? launch_persistent<S, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, s) \
+           : launch_persistent<S, false, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, s))
 #define RT_PER_RAY(S, CORE)                                            \
   (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s) \
            : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s))
-  if (core == -1) {
-    if (persistent) return slots == 8 ? RT_PERSISTENT(8) : RT_PERSISTENT(4);
+  constexpr unsigned kFree = rt::kRenderCore | rt::kUnordered;
+  constexpr unsigned kFreeBaseline = rt::kBaseline | rt::kUnordered;
+  if (core == -1 && ordered) {
+    if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore)
+                                      : RT_PERSISTENT(4, rt::kRenderCore);
     return slots == 8 ? RT_PER_RAY(8, rt::kRenderCore) : RT_PER_RAY(4, rt::kRenderCore);
   }
+  if (core == -1) {
+    if (persistent) return slots == 8 ? RT_PERSISTENT(8, kFree) : RT_PERSISTENT(4, kFree);
+    return slots == 8 ? RT_PER_RAY(8, kFree) : RT_PER_RAY(4, kFree);
+  }
   if (core == (int)rt::kBaseline) {
+    if (!ordered) return slots == 8 ? RT_PER_RAY(8, kFreeBaseline) : RT_PER_RAY(4, kFreeBaseline);
     return slots == 8 ? RT_PER_RAY(8, rt::kBaseline) : RT_PER_RAY(4, rt::kBaseline);
   }
 #define RT_CASE(A, M) \

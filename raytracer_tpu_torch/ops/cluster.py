@@ -21,7 +21,7 @@ from .collapse import widen
 from .cuda.traverse import make_qnodes
 from .lbvh import (INVALID, LBVH2, LEAF_FLAG, _bounds_fixed_point, _karras_connectivity,
                    _static_height_bound, _tri_bounds, f16_order, f16_union_order,
-                   f16_union_unorder, f16_unorder, from_ordered_key, ordered_key)
+                   f16_union_unorder, f16_unorder, xla_reduce)
 from .morton import build_morton_and_sort
 from .trace import WideBVH, make_wide_bvh
 
@@ -58,6 +58,46 @@ def state_from_numpy(arrays: dict, device) -> ClusteredScene:
                           int(np.asarray(arrays["leaf_size"]).reshape(-1)[0]))
 
 
+def _cluster_reduce(x: torch.Tensor, upper: bool) -> torch.Tensor:
+    """XLA's ``jnp.min(x, axis=1)`` (``jnp.max`` with ``upper``) of the (C, K,
+    3) member boxes of C clusters, in the form XLA on the CPU compiles the
+    JAX package's unpadded cluster union (C·K = N) to, bit for bit.
+
+    Every form propagates NaN and gives the same numbers; they differ in
+    which NaN's payload is returned, the choice of each pairwise min / max
+    (:func:`~raytracer_tpu_torch.ops.lbvh.xla_reduce`). For K = 8 and 16 ≤ K
+    ≤ 32 the union of a cluster is vectorized: its first 8·⌊K/8⌋ members
+    fold into 2 vectors of 4 lanes (member j into lane j mod 4 of vector
+    ⌊j/4⌋ mod 2), the two vectors are combined lane by lane, the 4 lanes
+    are folded in order, and the members left fold in after them. For every
+    other K, and wherever the triangles were padded to C·K, the members
+    fold in order. Read off the JAX package (``tests/test_torch_nan_bounds.py``)."""
+    c, k = x.shape[0], x.shape[1]
+    if not (k == 8 or 16 <= k <= 32):
+        return xla_reduce(x, 1, upper)
+    main = 8 * (k // 8)
+    lanes = xla_reduce(x[:, :main].reshape(c, main // 8, 2, 4, 3), 1, upper)
+    acc = xla_reduce(xla_reduce(lanes, 1, upper), 1, upper)
+    if main == k:
+        return acc
+    return xla_reduce(torch.cat([acc[:, None], x[:, main:]], dim=1), 1, upper)
+
+
+def _cluster_bounds(tris_sorted: torch.Tensor, c: int, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 boxes (C, 3) min / max of the C clusters of K triangles of
+    the cluster-ordered (N, 3, 3) triangles: the JAX package's per-triangle
+    reductions, a pad to C·K with ±inf, and the cluster unions."""
+    tmn, tmx = _tri_bounds(tris_sorted)
+    n = tris_sorted.shape[0]
+    if c * k == n:
+        return (_cluster_reduce(tmn.reshape(c, k, 3), False),
+                _cluster_reduce(tmx.reshape(c, k, 3), True))
+    pad = torch.full((c * k - n, 3), torch.inf, dtype=torch.float32, device=tris_sorted.device)
+    return (xla_reduce(torch.cat([tmn, pad]).reshape(c, k, 3), 1, False),
+            xla_reduce(torch.cat([tmx, -pad]).reshape(c, k, 3), 1, True))
+
+
 def build_lbvh2_clustered(triangles: torch.Tensor, leaf_size: int) -> ClusteredScene:
     """Packed-leaf LBVH2 over (N, 3, 3) triangles, on their device: clusters
     are runs of K = ``leaf_size`` triangles in Morton order (cluster c owns
@@ -76,10 +116,7 @@ def build_lbvh2_clustered(triangles: torch.Tensor, leaf_size: int) -> ClusteredS
     num_internal, num_nodes = c - 1, 2 * c - 1
     codes, order = build_morton_and_sort(triangles)
     tris_sorted = triangles[order]
-    tmn, tmx = _tri_bounds(tris_sorted)
-    pad = torch.full((c * k - n, 3), torch.inf, dtype=torch.float32, device=dev)
-    cl_mn = from_ordered_key(ordered_key(torch.cat([tmn, pad])).reshape(c, k, 3).amin(dim=1))
-    cl_mx = from_ordered_key(ordered_key(torch.cat([tmx, -pad])).reshape(c, k, 3).amax(dim=1))
+    cl_mn, cl_mx = _cluster_bounds(tris_sorted, c, k)
     bounds = torch.zeros((num_nodes, 3), dtype=torch.int64, device=dev)
     bounds[num_internal:] = pack_bounds_conservative(cl_mn, cl_mx)
     meta = torch.zeros(num_nodes, dtype=torch.int64, device=dev)
@@ -154,16 +191,12 @@ def refit_lbvh2_clustered(cs: ClusteredScene, triangles: torch.Tensor,
     dev = triangles.device
     bvh = LBVH2(*(a.to(dev) for a in cs.bvh2))
     order = cs.tri_order.to(dev)
-    k, n = cs.leaf_size, triangles.shape[0]
-    c = bvh.num_internal + 1
+    k, c = cs.leaf_size, bvh.num_internal + 1
     if num_sweeps is None:
         num_sweeps = tree_height(bvh)
 
     tris_sorted = triangles[order]
-    tmn, tmx = _tri_bounds(tris_sorted)
-    pad = torch.full((c * k - n, 3), torch.inf, dtype=torch.float32, device=dev)
-    cl_mn = from_ordered_key(ordered_key(torch.cat([tmn, pad])).reshape(c, k, 3).amin(dim=1))
-    cl_mx = from_ordered_key(ordered_key(torch.cat([tmx, -pad])).reshape(c, k, 3).amax(dim=1))
+    cl_mn, cl_mx = _cluster_bounds(tris_sorted, c, k)
 
     leaf = (bvh.meta & LEAF_FLAG) != 0
     cidx = torch.where(leaf, bvh.meta & 0x7FFFFFFF, 0)

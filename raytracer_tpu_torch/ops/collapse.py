@@ -34,7 +34,7 @@ import torch
 from ..io import artifacts
 from ..native.bvhtool import collapse4_native
 from ..utils.fp16 import unpack_bounds
-from .lbvh import INVALID, LBVH2, LEAF_FLAG, _static_height_bound, from_ordered_key, ordered_key
+from .lbvh import INVALID, LBVH2, LEAF_FLAG, _static_height_bound, xla_reduce
 
 __all__ = ["LBVH2", "BVH4", "collapse_lbvh2_to_bvh4", "collapse_lbvh2_to_bvh8",
            "collapse4_native_padded",
@@ -294,9 +294,9 @@ def _pack_bounds_trunc(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
 
 
 def _same_f32(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equality of two ordered-key states as the f32 values they stand for
-    (−0 equals +0): the JAX package's change test on its f32 bounds."""
-    return not bool((from_ordered_key(a) != from_ordered_key(b)).any())
+    """The JAX package's change test on its f32 bounds: equal values (−0
+    equals +0; a NaN never equals anything)."""
+    return not bool((a != b).any())
 
 
 def _collapse(bvh2: LBVH2, width: int, sweeps: int | None) -> BVH4:
@@ -305,8 +305,9 @@ def _collapse(bvh2: LBVH2, width: int, sweeps: int | None) -> BVH4:
     reachability, sizes and pre-order rows (:func:`_preorder_layout`),
     bounds merged bottom-up from the decoded fp16 boxes, internal rows
     re-packed with the truncating codec and leaf rows verbatim. The unions
-    are taken on integer keys that order −0 below +0, as XLA's min and max
-    do, where torch's would return either zero."""
+    are XLA's reductions (:func:`~raytracer_tpu_torch.ops.lbvh.xla_reduce`:
+    −0 below +0, NaN propagated with XLA's payload), where torch's would
+    return either zero and drop or keep NaNs by its own rule."""
     bounds2, left, right, meta = bvh2.bounds_u32, bvh2.left, bvh2.right, bvh2.meta
     m = bvh2.num_nodes
     dev = meta.device
@@ -324,20 +325,17 @@ def _collapse(bvh2: LBVH2, width: int, sweeps: int | None) -> BVH4:
                                  _subtree_tri_counts(left, right, leaf, sweeps))
     lay = _preorder_layout(kids, leaf, sweeps)
 
-    # merged bounds, bottom-up: state (2, M, 3) of ordered keys, [0] = min
-    mn0, mx0 = unpack_bounds(bounds2)
-    key0 = torch.stack([ordered_key(mn0), ordered_key(mx0)])
-    inf = torch.full((1,), torch.inf, dtype=torch.float32, device=dev)
-    key_inf, key_ninf = ordered_key(inf), ordered_key(-inf)
+    # merged bounds, bottom-up: state (2, M, 3) of f32 boxes, [0] = min
+    box0 = torch.stack(unpack_bounds(bounds2))
     valid = lay.kid_valid[..., None]
 
-    def bounds_body(key):
-        kmn = torch.where(valid, key[0][lay.kids_i], key_inf).amin(dim=1)
-        kmx = torch.where(valid, key[1][lay.kids_i], key_ninf).amax(dim=1)
-        return torch.where(leaf[None, :, None], key0, torch.stack([kmn, kmx]))
+    def bounds_body(box):
+        umn = xla_reduce(torch.where(valid, box[0][lay.kids_i], torch.inf), 1, False)
+        umx = xla_reduce(torch.where(valid, box[1][lay.kids_i], -torch.inf), 1, True)
+        return torch.where(leaf[None, :, None], box0, torch.stack([umn, umx]))
 
-    key = _fixed_point(bounds_body, key0, sweeps, same=_same_f32)
-    merged = _pack_bounds_trunc(from_ordered_key(key[0]), from_ordered_key(key[1]))
+    box = _fixed_point(bounds_body, box0, sweeps, same=_same_f32)
+    merged = _pack_bounds_trunc(box[0], box[1])
 
     rows = lay.rows
     bounds = _scatter(torch.zeros((m, 3), dtype=torch.int64, device=dev), rows,

@@ -34,7 +34,8 @@ width, jitter, bounds or frame count; without ``stats``, with ``entries`` or
 with neither, on 8-wide records as ``trace_tiles_k1e`` (one frame or a batch, with or without jitter); on
 4-wide records as ``trace_tiles_k1a`` / ``k1b`` / ``k1c``. A ray launch on
 8-wide records counts as ``trace_rays_k2c`` (closest or any hit), on 4-wide
-records as ``trace_rays_k2a`` / ``k2b``.
+records as ``trace_rays_k2a`` / ``k2b``; with ``ordered=False`` as
+``trace_rays_k2a_unordered`` / ``k2b_unordered`` / ``k2c_unordered``.
 
 Record layout (f32 words, width w = 4 or 8 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
@@ -91,7 +92,9 @@ _MAIN_CORE, _BASELINE_CORE = -1, 256
 # another core count in MEASURE_LAUNCHES under the same name.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
-            "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0}
+            "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0,
+            "trace_rays_k2a_unordered": 0, "trace_rays_k2b_unordered": 0,
+            "trace_rays_k2c_unordered": 0}
 MEASURE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -163,6 +166,19 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+def _first_nan(value: torch.Tensor, operands: torch.Tensor) -> torch.Tensor:
+    """``value``, an f32 result of ``operands`` (stacked on a last axis),
+    where none of them is NaN; else the first NaN operand, made quiet. That
+    is the NaN that XLA on the CPU returns from the records' differences and
+    contracted cross products (read off the JAX package:
+    ``tests/test_torch_nan_bounds.py``), while torch's negation flips a NaN's
+    sign and CUDA returns one canonical NaN."""
+    nan = torch.isnan(operands)
+    first = operands.gather(-1, nan.to(torch.uint8).argmax(dim=-1, keepdim=True))[..., 0]
+    quiet = (first.view(torch.int32) | 0x400000).view(torch.float32)
+    return torch.where(nan.any(dim=-1), quiet, value)
+
+
 def make_qnodes(wide: WideBVH, tris: torch.Tensor, tri_ids: torch.Tensor | None = None,
                 leaf_size: int = 1) -> torch.Tensor:
     """WideBVH + (T,3,3) triangles → supernode records (M, recw) f32.
@@ -206,16 +222,16 @@ def make_qnodes(wide: WideBVH, tris: torch.Tensor, tri_ids: torch.Tensor | None 
     radius = torch.where(torch.isfinite(radius), radius, torch.zeros_like(radius))
     rec[:, 7 * wd:8 * wd] = torch.where(is_leaf, count, radius)
 
-    flat = tris.reshape(n_tris, 9)
-    v0, v1, v2 = flat[:, 0:3], flat[:, 3:6], flat[:, 6:9]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    g = torch.stack([
-        _fma_f32(e1[:, 1], e2[:, 2], -(e1[:, 2] * e2[:, 1])),
-        _fma_f32(e1[:, 2], e2[:, 0], -(e1[:, 0] * e2[:, 2])),
-        _fma_f32(e1[:, 0], e2[:, 1], -(e1[:, 1] * e2[:, 0])),
-    ], dim=-1)
-    tri_rec = torch.cat([v0, e1, e2, g], dim=-1)  # (T, 12)
+    v = tris.reshape(n_tris, 3, 3)
+    v0, v12 = v[:, 0:1].expand(n_tris, 2, 3), v[:, 1:3]
+    e = _first_nan(v12 - v0, torch.stack([v12, v0], dim=-1))       # (T, 2, 3): e1, e2
+    # g = e1 × e2, component i = a·b − c·d with a = e1[(i + 1) % 3], b =
+    # e2[(i + 2) % 3], c = e1[(i + 2) % 3], d = e2[(i + 1) % 3] (rolls: an
+    # index list would be copied from the host)
+    e1, e2 = e[:, 0], e[:, 1]
+    a, b, c, d = e1.roll(-1, 1), e2.roll(1, 1), e1.roll(1, 1), e2.roll(-1, 1)
+    g = _first_nan(_fma_f32(a, b, -(c * d)), torch.stack([a, b, c, d], dim=-1))
+    tri_rec = torch.cat([v[:, 0], e.reshape(n_tris, 6), g], dim=-1)  # (T, 12)
     lanes = torch.arange(k_sz, device=dev)
     for k in range(wd):
         idx = first[:, k, None] + lanes                         # (M, K)
@@ -276,7 +292,7 @@ _ARGTYPES = {
     },
     "traverse_rays.cu": {
         "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                           + [ctypes.c_void_p] * 7),
     },
 }
@@ -574,7 +590,7 @@ def _check_rays(qn: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
 
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
                any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None,
-               scattered: bool = False, core: str = "hopper"):
+               scattered: bool = False, ordered: bool = True, core: str = "hopper"):
     """Trace a buffer of rays — origins and dirs (R, 3) f32 — → (t, nx, ny,
     nz, tri) planes of (R,): the nearest hit, with t = 1e30, a zero normal
     and tri = −1 on a miss. ``any_hit`` makes it an occlusion query: a ray
@@ -588,6 +604,15 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     otherwise one thread per ray, which is faster where the active rays come
     in runs. It changes no output.
 
+    ``ordered=False`` drops the near-first order (the TPU kernel's
+    ``ordered=False``): a visit pushes the children that pass in slot order,
+    each with its slab entry distance, which the pop-time cull still reads,
+    and no ranking or sort is done. Closest-hit planes are the same as with
+    the order (the nearest hit does not depend on the visit order, but for
+    exact ties of t and drops at the 64-entry stack); any-hit masks are the
+    same, the occluder reported may differ. The core must then be "hopper"
+    or "baseline".
+
     Any hit over leaves of more than one triangle runs the baseline loop with
     one thread per ray under ``core="hopper"`` too: there the redesigned
     core and the persistent warps both lost on the card (PERF.md §6).
@@ -597,13 +622,15 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     ``core`` (:func:`core_id`; measurement only); runs the plain version
     for records on the CPU; raises for any other device."""
     cid = core_id(core)
+    if not ordered and cid not in (_MAIN_CORE, _BASELINE_CORE):
+        raise ValueError(f"ordered=False runs the 'hopper' or 'baseline' core, not {core!r}")
     if core == "hopper" and any_hit and leaf_k > 1:
         cid, scattered = _BASELINE_CORE, False
     qn, slots = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if qn.device.type == "cpu":
         return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
-                                    active=active)
+                                    active=active, ordered=ordered)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_rays runs on cuda or cpu tensors, got {qn.device}")
     lib, _ = load_kernel("traverse_rays.cu")
@@ -619,12 +646,11 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
         err = lib.rt_trace_rays(
             qn.data_ptr(), qn.shape[1], leaf_k, slots, origins.data_ptr(), dirs.data_ptr(),
             None if active is None else active.data_ptr(), r, int(bool(any_hit)), cid,
-            int(persistent), None if counter is None else counter.data_ptr(),
+            int(bool(ordered)), int(persistent), None if counter is None else counter.data_ptr(),
             *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
-    if slots == 8:
-        name = "trace_rays_k2c"
-    else:
-        name = "trace_rays_k2b" if any_hit else "trace_rays_k2a"
+    name = "trace_rays_k2c" if slots == 8 else ("trace_rays_k2b" if any_hit else "trace_rays_k2a")
+    if not ordered:
+        name += "_unordered"
     if err != 0:
         raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
     _count(name, core)
@@ -634,21 +660,23 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
 def trace_rays_reference(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
                          any_hit: bool = False, leaf_k: int,
                          active: torch.Tensor | None = None,
-                         counts: "TraversalCounts | None" = None):
+                         counts: "TraversalCounts | None" = None, ordered: bool = True):
     """The plain torch version of K2a/K2b/K2c: the same per-ray traversal,
-    vectorized over chunks of the active rays, at either record width.
+    vectorized over chunks of the active rays, at either record width, with
+    or without near-first order (``ordered``, as in :func:`trace_rays`).
     ``counts`` adds up the work of the traversal
     (:class:`TraversalCounts`)."""
     qn, _ = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if active is None:
-        return _traverse_chunks(qn, origins, dirs, leaf_k, any_hit, counts)
+        return _traverse_chunks(qn, origins, dirs, leaf_k, any_hit, counts, ordered=ordered)
     r = origins.shape[0]
     t = torch.full((r,), INF, dtype=torch.float32, device=qn.device)
     nrm = [torch.zeros((r,), dtype=torch.float32, device=qn.device) for _ in range(3)]
     tri = torch.full((r,), -1, dtype=torch.int32, device=qn.device)
     idx = torch.nonzero(active).squeeze(1)
-    outs = _traverse_chunks(qn, origins[idx], dirs[idx], leaf_k, any_hit, counts)
+    outs = _traverse_chunks(qn, origins[idx], dirs[idx], leaf_k, any_hit, counts,
+                            ordered=ordered)
     for full, part in zip((t, *nrm, tri), outs):
         full[idx] = part
     return (t, *nrm, tri)
@@ -709,7 +737,8 @@ class TraversalCounts:
 
 def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
                      any_hit: bool, counts: TraversalCounts | None, stats: bool = False,
-                     best0: torch.Tensor | None = None, entry: torch.Tensor | None = None):
+                     best0: torch.Tensor | None = None, entry: torch.Tensor | None = None,
+                     ordered: bool = True):
     """:func:`_traverse` over chunks of rays → (t, nx, ny, nz, tri) (R,),
     and with ``stats`` the visits (R,) as f32. ``best0`` / ``entry`` (R,):
     each ray's start values (K1d)."""
@@ -722,7 +751,8 @@ def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k:
         b = min(a + _REFERENCE_CHUNK, r)
         t_c, n_c, tri_c, visits_c = _traverse(
             qn, o[a:b], d[a:b], leaf_k, any_hit, counts,
-            None if best0 is None else best0[a:b], None if entry is None else entry[a:b])
+            None if best0 is None else best0[a:b], None if entry is None else entry[a:b],
+            ordered)
         outs[0][a:b] = t_c
         outs[1][a:b], outs[2][a:b], outs[3][a:b] = n_c.unbind(-1)
         tri[a:b] = tri_c
@@ -732,7 +762,8 @@ def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k:
 
 def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
               any_hit: bool = False, counts: TraversalCounts | None = None,
-              best0: torch.Tensor | None = None, entry: torch.Tensor | None = None):
+              best0: torch.Tensor | None = None, entry: torch.Tensor | None = None,
+              ordered: bool = True):
     """Per-ray traversal of the w-wide records (w = 4 or 8, from the row
     length) from origins ``o`` and directions ``d`` (R, 3), one stack pop per
     ray and step → (t (R,), normal (R,3), tri (R,) int32, visits (R,)
@@ -742,7 +773,8 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
     pushes beyond the 64-entry stack are dropped. A ray starts with the best
     t ``best0`` (1e30 without it: no bound) and its stack at record ``entry``
     (the root without it), pushed with key 0; t of a ray that finds no hit
-    is its ``best0``."""
+    is its ``best0``. ``ordered=False`` pushes the passing children in slot
+    order instead of far→near (K2's ``ordered=False``)."""
     dev = qn.device
     r = d.shape[0]
     w = infer_rec_width(leaf_k, qn.shape[1])
@@ -835,13 +867,17 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
                     done = urow
 
         # internal slots that passed: push far→near by slab entry distance;
-        # a stable descending sort keeps slot order among equal keys. A ray
-        # that any-hit ends here: it pushes nothing and its stack empties.
+        # a stable descending sort keeps slot order among equal keys
+        # (unordered: slot order). A ray that any-hit ends here: it pushes
+        # nothing and its stack empties.
         push = hit & (refs >= 0.0)
         if done is not None:
             push[done] = False
-        skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
-        _, order = torch.sort(skey, dim=1, descending=True, stable=True)
+        if ordered:
+            skey = torch.where(push, tmin, torch.full_like(tmin, -torch.inf))
+            _, order = torch.sort(skey, dim=1, descending=True, stable=True)
+        else:
+            order = torch.arange(w, device=dev).expand(push.shape[0], w)
         if counts is not None:
             n_push = push.sum(dim=1)
             room = (STACK_MAX - 1 - sp[rays]).clamp_min(0)

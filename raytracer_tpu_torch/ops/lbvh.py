@@ -17,8 +17,9 @@ x (exact in f64; ``frexp`` gives 0 for 0, so clz(0) = 32).
 XLA's min and max order −0 below +0, where ``torch.minimum`` /
 ``torch.amin`` return either zero; the conservative fp16 packing then steps
 the two zeros to different halfwords. So min and max here run on an integer
-key that orders every non-NaN f32 by value with −0 < +0, and give the JAX
-package's bits on any device.
+key that orders every non-NaN f32 by value with −0 < +0, and a NaN takes
+XLA's rule and payload (:func:`xla_reduce`): the JAX package's bits on any
+device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .morton import build_morton_and_sort
 
 __all__ = ["LBVH2", "LEAF_FLAG", "INVALID", "build_lbvh2", "build_sah2", "refit_lbvh2", "ordered_key",
            "from_ordered_key", "f16_order", "f16_unorder", "f16_union_key", "f16_union_order",
-           "f16_union_unorder", "_tri_bounds",
+           "f16_union_unorder", "xla_reduce", "_tri_bounds",
            "_static_height_bound", "_karras_connectivity", "_bounds_fixed_point"]
 
 LEAF_FLAG = 0x80000000
@@ -83,10 +84,39 @@ def f16_unorder(k: torch.Tensor) -> torch.Tensor:
     return torch.where((k & 0x8000) != 0, k ^ 0x8000, (~k) & 0xFFFF)
 
 
+def xla_reduce(x: torch.Tensor, dim: int, upper: bool) -> torch.Tensor:
+    """XLA's f32 ``jnp.min(x, axis=dim)`` (``jnp.max`` with ``upper``), bit
+    for bit: −0 below +0, and NaN propagated with its payload.
+
+    XLA on the CPU folds the reduced axis from its first element to its last
+    with the NaN-propagating pairwise min / max of :func:`f16_union_key`
+    (one NaN operand is the result; of two, ``minimum`` keeps a positive
+    left one and ``maximum`` a negative left one, else the right one), and
+    leaves a NaN's payload as it is, signalling or quiet. So the result is,
+    for min, the first positive NaN along the axis, else the last negative
+    one, else the least number; for max the first negative NaN, else the
+    last positive one, else the greatest number (read off the JAX package:
+    ``tests/test_torch_nan_bounds.py``). Each element gets an int64 order in
+    which that element is the least; one ``argmin`` and one gather of the
+    words take it, with no read-back."""
+    n = x.shape[dim]
+    bits = x.view(torch.int32)
+    key = ordered_key(x).to(torch.int64) + (1 << 31)  # numbers by value, in [0, 2^32)
+    nan = torch.isnan(x)
+    first = nan & ((bits < 0) if upper else (bits >= 0))  # the NaNs of which the first wins
+    shape = [1] * x.dim()
+    shape[dim] = n
+    i = torch.arange(n, device=x.device).reshape(shape)
+    order = torch.where(first, i, torch.where(
+        nan, (1 << 32) + n - i, (1 << 33) + ((0xFFFFFFFF - key) if upper else key)))
+    at = order.argmin(dim=dim, keepdim=True)
+    return bits.gather(dim, at).squeeze(dim).view(torch.float32)
+
+
 def _tri_bounds(triangles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(N,3,3) → per-triangle AABB min/max (N,3)."""
-    k = ordered_key(triangles)
-    return from_ordered_key(k.amin(dim=1)), from_ordered_key(k.amax(dim=1))
+    """(N,3,3) → per-triangle AABB min/max (N,3): XLA's reductions
+    (:func:`xla_reduce`)."""
+    return xla_reduce(triangles, 1, False), xla_reduce(triangles, 1, True)
 
 
 def _static_height_bound(n: int) -> int:

@@ -72,9 +72,18 @@ from .render import render_ldr_brute
 from .render_pt import accumulate, pt_sample_frame
 from .utils.config import DEFAULT_CONFIG, RenderConfig
 
-__all__ = ["PathTracer", "fast_build_options"]
+__all__ = ["PathTracer", "fast_build_options", "COMPACT_WAVES"]
 
 _BRUTE_FORCE_MAX_TRIS = 8
+
+# Whether render_progressive compacts the lanes between waves at bounces >= 2
+# (pt_sample_frame(compact=True)), as the JAX package's does on its records
+# path. Off: the waves gain less than the two compactions cost (0.79 ms
+# each). A 3-bounce 1080p sample of the framed dragon on an NVIDIA H100 at
+# 700 W (chip_smoke.py phase 33, two calls), compacted against not: SAH
+# K = 32 17.0439 / 17.2946 against 16.5896 / 16.4999 ms, Morton K = 1
+# 12.1525 / 11.3402 against 10.2471 / 9.6775 ms.
+COMPACT_WAVES = False
 
 
 def fast_build_options(device="cuda") -> tuple[str, int]:
@@ -371,8 +380,9 @@ class PathTracer:
         bounces. Its random numbers come from a ``torch.Generator`` on
         ``device`` seeded with ``frame_count``: they differ from the JAX
         package's ``jax.random`` stream, so the two converge to the same
-        image by different samples. Unlike the JAX package, no wave is
-        compacted."""
+        image by different samples. The JAX package compacts the lanes
+        between waves at bounces >= 2 on its records path; here
+        :data:`COMPACT_WAVES` decides, off by the card's measurement."""
         if bounces < 0:
             raise ValueError("bounces must be >= 0")
         self._require_records()
@@ -393,7 +403,8 @@ class PathTracer:
                 None if brute else self._qnodes, self._tris_dev, self.camera_position,
                 self.camera_quaternion, self.width, self.height, bounces=bounces,
                 fov_degrees=self.fov_degrees, leaf_k=self.leaf_size, brute=brute,
-                tile_primary=not brute, generator=gen)
+                tile_primary=not brute, generator=gen,
+                compact=COMPACT_WAVES and not brute and bounces >= 2)
         self._accum = accumulate(self._accum, sample, self.frame_count)
         self.frame_count += 1
         return self._accum

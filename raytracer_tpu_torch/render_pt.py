@@ -1,7 +1,7 @@
 """Progressive path tracing: one 1-spp sample per call, and the running mean.
 
-Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame`` on
-its ``compact=False`` path, ``accumulate``), with the same light model:
+Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame``,
+``accumulate``), with the same light model:
 
 * Lambert BRDF ρ/π with ρ = (0.9, 0.7, 0.3); a directional sun along
   normalize(1, 1.5, 1) scaled so that direct light = ρ·max(n·l, 0); an
@@ -17,10 +17,14 @@ its ``compact=False`` path, ``accumulate``), with the same light model:
   the any-hit kernel K2b with ``active`` = hit and n·l > 0. Inactive lanes
   are not read and their results are never used, so the mask changes no
   pixel. ``brute`` traces every wave by brute force instead.
-* Lanes stay in 32×32 tile-block order (:func:`_lane_of_pixel`) from the
-  camera wave to the end: it keeps a warp's rays neighbours, and it is the
-  lane order of the JAX package, so its random numbers line up lane for
-  lane. No wave is compacted.
+* Lanes start in 32×32 tile-block order (:func:`_lane_of_pixel`): it keeps
+  a warp's rays neighbours, and it is the lane order of the JAX package, so
+  its random numbers line up lane for lane. Without compaction they stay in
+  it to the end. With ``compact=True`` every wave but the last is followed
+  by the JAX package's wavefront compaction: the lanes are re-sorted, live
+  paths first, grouped by direction octant and then by the Morton code of
+  the origin (:func:`_compaction_perm`), and a lane → pixel index that
+  travels with them scatters the radiance to its pixels at the end.
 
 Random numbers come from an explicit ``torch.Generator`` or, for tests that
 hold the port against the JAX package, from a ``uniforms`` mapping that
@@ -36,10 +40,12 @@ import torch
 
 from .ops.camera import generate_rays_jittered, primary_dirs, to_device
 from .ops.cuda.traverse import trace_rays, trace_tiles
+from .ops.morton import expand_bits10
+from .ops.partition import bucket_partition_perm
 from .ops.shade import MISS_COLOR
 from .ops.trace import trace_rays_brute
 
-__all__ = ["pt_sample_frame", "accumulate", "TILE"]
+__all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE"]
 
 TILE = 32
 _BASE = (0.9, 0.7, 0.3)
@@ -172,25 +178,77 @@ class _Draws:
         return self._given("u1", (r,), b), self._given("u2", (r,), b)
 
 
-def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active, scattered: bool = False):
+def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active, scattered: bool = False,
+           ordered: bool = True):
     """One closest-hit wave → (t, tri, ray-facing normals). ``scattered``:
     the active lanes are the hits of random bounce rays (the kernel then
-    compacts them)."""
+    compacts them); ``ordered``: near-first traversal order."""
     if brute:
         t, tri = trace_rays_brute(tris, o, d)
         return t, tri, _normals_for(tris, tri, d)
     t, nx, ny, nz, tri = trace_rays(qnodes, o, d, leaf_k=leaf_k, active=active,
-                                    scattered=scattered)
+                                    scattered=scattered, ordered=ordered)
     return t, tri, _face(torch.stack([nx, ny, nz], dim=-1), d)
 
 
 def _occluded(qnodes, tris, o, d, brute: bool, leaf_k: int, active,
-              scattered: bool = False) -> torch.Tensor:
+              scattered: bool = False, ordered: bool = True) -> torch.Tensor:
     """The NEE shadow query: True where the ray hits anything."""
     if brute:
         return trace_rays_brute(tris, o, d)[1] >= 0
     return trace_rays(qnodes, o, d, any_hit=True, leaf_k=leaf_k, active=active,
-                      scattered=scattered)[4] >= 0
+                      scattered=scattered, ordered=ordered)[4] >= 0
+
+
+COMPACT_IMPLS = ("argsort", "partition")
+
+
+_SPREAD = {}  # device → (the spread 10-bit values, the weights (4, 2, 1))
+
+
+def _spread10(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ops.morton.expand_bits10`` of 0 … 1023 on ``device``, made there
+    once (one gather a lane spreads its three quantised coordinates), and the
+    weights (4, 2, 1) of the three axes' bits."""
+    key = str(device)
+    if key not in _SPREAD:
+        _SPREAD[key] = (expand_bits10(torch.arange(1024, device=device)),
+                        to_device((4, 2, 1), device, torch.int64))
+    return _SPREAD[key]
+
+
+def compaction_key(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+                   impl: str = "argsort") -> torch.Tensor:
+    """The JAX package's compaction key of each lane (int64): dead lanes
+    last, then the direction octant (x < 0 → 4, y < 0 → 2, z < 0 → 1), then
+    the 30-bit Morton code m of the origin quantised as ``clip((o + 2) ·
+    (1023 / 4), 0, 1023)`` (a multiply by that f32 constant, truncated).
+    "argsort": the 32-bit key ``dead << 31 | octant << 28 | m >> 2``;
+    "partition": the 8-bit key ``dead << 7 | octant << 4 | m >> 26`` over
+    256 buckets. The three spread coordinates, and the three sign bits, sum
+    without carries, so each field is one gather or compare and one sum."""
+    dev = o.device
+    q = torch.clamp((o + 2.0) * (1023.0 / 4.0), 0.0, 1023.0).to(torch.int64)
+    spread, weights = _spread10(dev)
+    m = (spread[q] * weights).sum(dim=1)
+    octant = ((d < 0).to(torch.int64) * weights).sum(dim=1)
+    dead = (~alive).to(torch.int64)
+    if impl == "argsort":
+        return (dead << 31) | (octant << 28) | (m >> 2)
+    return (dead << 7) | (octant << 4) | (m >> 26)
+
+
+def _compaction_perm(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+                     impl: str) -> torch.Tensor:
+    """The stable permutation that sorts the lanes by :func:`compaction_key`.
+    The 32-bit key is sorted as int32 after flipping its top bit, which keeps
+    the unsigned order: torch sorts no uint32, and an int64 key would double
+    the radix passes. A stable sort gives the JAX package's ``argsort``
+    permutation."""
+    key = compaction_key(o, d, alive, impl)
+    if impl == "argsort":
+        return torch.argsort((key - (1 << 31)).to(torch.int32), stable=True)
+    return bucket_partition_perm(key, 256)
 
 
 def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, cam_quat,
@@ -198,7 +256,8 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
                     fov_degrees: float = 70.0, leaf_k: int = 1, brute: bool = False,
                     tile_primary: bool = False, generator: torch.Generator | None = None,
                     uniforms: Mapping | None = None, stats: bool = False,
-                    compact: bool = False):
+                    compact: bool = False, compact_impl: str = "argsort",
+                    ordered_ch: bool = True, ordered_ah: bool = True):
     """One progressive sample: jittered camera rays plus ``bounces`` path-
     traced waves, each with its NEE shadow wave → linear radiance (H, W, 3)
     f32 on the device of ``tris``; with ``stats``, also {"alive_rays",
@@ -219,11 +278,21 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     generator anew for each sample, as ``render_progressive`` does.
     ``uniforms`` may inject any of them under those keys (``u1``/``u2`` as
     sequences over the bounces): the JAX package's draws make the two
-    sample streams the same. ``compact=True`` (between-wave compaction) is not ported: the
-    JAX package's own bench measured it as a loss and turned it off."""
-    if compact:
-        raise NotImplementedError("between-wave compaction is not ported: it measured as "
-                                  "a loss in the JAX package's bench and is off there")
+    sample streams the same.
+
+    ``compact=True`` compacts the lanes after every wave but the last (the
+    JAX package's ``compact``; module docstring): by a stable argsort of the
+    32-bit key (``compact_impl="argsort"``) or a stable partition by the
+    8-bit key (``"partition"``, :mod:`~raytracer_tpu_torch.ops.partition`;
+    the JAX package's ``RT_COMPACT``). The draws ``u1[b]``/``u2[b]`` then
+    belong to the lanes in their compacted order, as in the JAX package.
+    ``ordered_ch`` / ``ordered_ah`` (the JAX package's
+    ``RT_WAVE_ORDERED_CH`` / ``_AH``) keep the near-first traversal order of
+    the bounce waves after the camera wave and of every shadow wave; False
+    traces them with ``trace_rays(ordered=False)``. Nothing here waits on the
+    device."""
+    if compact_impl not in COMPACT_IMPLS:
+        raise ValueError(f"compact_impl must be one of {COMPACT_IMPLS}, got {compact_impl!r}")
     if qnodes is None and not brute:
         raise ValueError("pt_sample_frame needs the records (qnodes) or brute=True")
     dev = tris.device
@@ -254,6 +323,9 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     alive_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    # the pixel (row-major index) of each lane, permuted with the lanes
+    pix = _img_to_lanes(torch.arange(r, device=dev).reshape(height, width), width,
+                        height) if compact else None
 
     for b in range(bounces):
         alive_rays = alive_rays + alive.sum()
@@ -263,9 +335,11 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
             t, nx, ny, nz, tri = (_img_to_lanes(p, width, height) for p in planes)
             n = _face(torch.stack([nx, ny, nz], dim=-1), d)
         else:
-            # the lanes alive at b >= 2 are hits of random bounce rays
+            # the lanes alive at b >= 2 are hits of random bounce rays;
+            # compacted, they lead the buffer in a run
             t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
-                               None if b == 0 else alive, scattered=b >= 2)
+                               None if b == 0 else alive, scattered=b >= 2 and not compact,
+                               ordered=ordered_ch or b == 0)
         hit = (tri >= 0) & alive
         miss = (tri < 0) & alive
 
@@ -278,7 +352,8 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         ndotl = torch.clamp_min((n * sun).sum(-1), 0.0)
         nee = hit & (ndotl > 0.0)
         alive_rays = alive_rays + nee.sum()
-        occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee, scattered=b >= 1)
+        occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee,
+                        scattered=b >= 1 and not compact, ordered=ordered_ah)
         direct = base * (ndotl * (~occ).to(f32))[:, None]
         radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
 
@@ -290,9 +365,17 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         d = torch.where(hit[:, None], new_d, d)
         alive = hit
 
+        if compact and b < bounces - 1:
+            perm = _compaction_perm(o, d, alive, compact_impl)
+            o, d, radiance, throughput = o[perm], d[perm], radiance[perm], throughput[perm]
+            alive, pix = alive[perm], pix[perm]
+
     # paths still alive after the last bounce collect the sky
     radiance = radiance + torch.where(alive[:, None], throughput * _SKY, 0.0)
-    img = _lanes_to_img(radiance, width, height)
+    if compact:
+        img = torch.empty_like(radiance).index_copy_(0, pix, radiance).reshape(height, width, 3)
+    else:
+        img = _lanes_to_img(radiance, width, height)
     if stats:
         return img, {"alive_rays": alive_rays,
                      "lane_rays": torch.full((), 2 * r * bounces, device=dev)}

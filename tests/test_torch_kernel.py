@@ -280,7 +280,8 @@ def test_cpu_records8_run_the_plain_version():
     assert traverse.LAUNCHES == before
     assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
                            "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f", "trace_rays_k2a",
-                           "trace_rays_k2b", "trace_rays_k2c"}
+                           "trace_rays_k2b", "trace_rays_k2c", "trace_rays_k2a_unordered",
+                           "trace_rays_k2b_unordered", "trace_rays_k2c_unordered"}
 
 
 @pytest.mark.cuda
@@ -872,6 +873,52 @@ def test_hopper_drops_like_baseline_and_plain_on_card(cuda_device, width):
             assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
     base = traverse.trace_rays(qn, o, d, leaf_k=1, core="baseline")
     assert torch.equal(base[4], ref[4]) and torch.equal(base[0], ref[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_unordered_rays_match_plain_on_card(cuda_device, k, width):
+    """K2a / K2b / K2c with ``ordered=False`` (one thread per ray, the
+    persistent warps, and any hit over leaves of K > 1 through the baseline
+    loop) write the plain version's words (ordered=False there too, run on
+    the card) on every ray; their closest-hit planes are the ordered
+    kernel's and their occlusion masks its masks; each launch counts once,
+    under its ``_unordered`` name. On records whose stacks pass 64 entries
+    in slot order, the same pushes are dropped as by the plain version."""
+    tris = room_scene()
+    qn = records_of(tris, k, width, cuda_device)
+    o, d = ray_buffer(qn, k, 4096)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
+    for any_hit, dirs in ((False, d), (True, sun)):
+        for ro, rd, act in ray_cases(o, dirs, k + width):
+            kw = dict(any_hit=any_hit, leaf_k=k, active=act)
+            before = dict(traverse.LAUNCHES)
+            ours = traverse.trace_rays(qn, ro, rd, ordered=False, **kw)
+            persistent = traverse.trace_rays(qn, ro, rd, ordered=False, scattered=True, **kw)
+            plain = traverse.trace_rays_reference(qn, ro, rd, ordered=False, **kw)
+            ordered = traverse.trace_rays(qn, ro, rd, **kw)
+            torch.cuda.synchronize()
+            name = ("trace_rays_k2c" if width == 8 else
+                    "trace_rays_k2b" if any_hit else "trace_rays_k2a")
+            assert launched(before) == {name + "_unordered": 2, name: 1}
+            assert words_equal(ours, plain) and words_equal(persistent, plain), (any_hit, k)
+            if any_hit:
+                assert torch.equal(ours[4] >= 0, ordered[4] >= 0)
+            else:
+                assert words_equal(ours, ordered)
+    qn, o, d = deep_records(width, chain_slot=width - 1)
+    qn = qn.to(cuda_device)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    counts = traverse.TraversalCounts()
+    for any_hit in (False, True):
+        plain = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=1,
+                                              ordered=False, counts=counts)
+        for core in ("hopper", "baseline"):
+            assert words_equal(traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=1,
+                                                   ordered=False, core=core), plain), core
+    assert counts.dropped > 0
 
 
 MEASURED_CORES = ("none", "order", "stack", "prefetch", "order+stack", "order+prefetch",

@@ -278,9 +278,9 @@ def test_gi_adds_bounded_energy_in_cornell_box():
 def test_sample_refuses_compaction_and_missing_inputs():
     tris = torch.from_numpy(jax_procgen.make_cube(0.3))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="compact_impl"):
         pt_sample_frame(None, tris, (0, 0, 3), CAM_QUAT, 8, 8, brute=True, generator=gen,
-                        compact=True)
+                        compact=True, compact_impl="bitonic")
     with pytest.raises(ValueError):
         pt_sample_frame(None, tris, (0, 0, 3), CAM_QUAT, 8, 8, generator=gen)
     with pytest.raises(ValueError):

@@ -225,7 +225,8 @@ def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: tor
                                    atol=NORMAL_ATOL, rtol=0, err_msg="normals within atol 1e-5")
 
 
-def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED):
+def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED,
+                 chain_slot: int | None = None):
     """Synthetic records (K = 1) whose stacks overflow 64 entries, and ``n``
     rays through them → (records (M, recw) f32, origins, dirs (n, 3) f32).
 
@@ -238,7 +239,10 @@ def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED):
     node holds the nearest triangle, which only a ray whose chain pushes all
     fit reaches. Boxes are shrunk at random in x and y, so the rays (down
     −z, origins in [−0.9, 0.9]², small tilts) take many depths; pairs of
-    dead ends share a box and a triangle height, so keys and t tie."""
+    dead ends share a box and a triangle height, so keys and t tie.
+    ``chain_slot`` puts the chain child in that slot at every level (the
+    last slot: a traversal in slot order pushes it last, on top of the dead
+    ends, so its stacks overflow too); by default a seeded slot a level."""
     from raytracer_tpu_torch.ops.cuda.traverse import EMPTY_REF, rec_layout
 
     rng = np.random.default_rng(seed + width)
@@ -269,10 +273,10 @@ def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED):
     dead = depth + 1
     for i in range(depth):
         top = 9.0 - 0.1 * i
-        chain_slot = int(rng.integers(width))
+        chain = int(rng.integers(width)) if chain_slot is None else chain_slot
         shared = None
         for k in range(width):
-            if k == chain_slot:
+            if k == chain:
                 rec[i, 6 * k:6 * k + 6] = box(-5.0, top)
                 rec[i, 6 * width + k] = i + 1
                 continue
