@@ -72,7 +72,12 @@ Phases, each printing what it measures; the first failure exits non-zero:
    time under torch.profiler, and peak device memory;
 14. BASELINE config 5 as bench_suite.py defines it: icosphere(4) (5,120
    triangles), SAH K = 32, 8 cameras at (x, 0, 3.0) at 256×256, the same
-   frame chain: times, per-camera hit counts and launches;
+   frame chain: times, per-camera hit counts and launches; then the frame
+   chain with K1c's raw tile layout (trace_tiles_batch(raw=True)), hits
+   counted from its plane 4 as bench_suite.py:497 counts them: 1 K1c raw
+   a frame and nothing else, per-camera counts equal to the image
+   layout's, every word of one frame's raw array (written over NaN) equal
+   to tiles_layout of its image planes, and raw against image A-B-B-A;
 15. the 8-wide main path at full size: PathTracer(widener="collapse8") on
    the dragon: set_scene (build seconds, BVH8 rows, record bytes, peak
    memory), render framed and sparse (1 K1e each, images equal to the
@@ -256,6 +261,31 @@ runs right after phase 11, the rest after phase 26, before 28:
    compactions' ms, and one thread per ray against persistent warps on
    the compacted waves.
 
+Phases 34 and 35 drive the two options of the TPU kernels; they run after
+phase 14:
+
+34. BASELINE config 1 as bench_suite.py:64-110 runs it on the TPU: the Cornell
+   box (34 triangles) through the Morton LBVH of single triangles
+   (bvh2_as_bvh4(build_lbvh2(...)), K = 1), 256 frames from (1e-3·i, 0,
+   2.2) at 256×256 in one K1c raw launch (exactly 1 and nothing else), the
+   hits of each frame from plane 4; every word of the raw array (written
+   over NaN) equal to tiles_layout of the image planes of the same
+   cameras, the hit counts equal; frames 0 and 255 against the plain
+   version; raw against image layout A-B-B-A, ms, Mrays/s and bounds;
+35. K2's record placements (trace_rays(tree_space=...)) on the waves of
+   tools_torch/mb_tree_space.py at 512×512 — nee (any hit toward the sun),
+   bounce1 (cosine-sampled closest hit), incoherent (the same, permuted) —
+   on config 4's hall (SAH K = 32) and config 1's Cornell box (its LBVH at
+   K = 1, and SAH K = 32): every wave under "vmem", and under "smem" where
+   the tree fits a block, with the launches counted (_vmem / _smem names,
+   nothing else); every lane bit-identical to "hbm", one thread per ray and
+   persistent, and on deep_records (stacks past 64) at both widths and
+   orders; "smem" refused on the hall and the dragon, "vmem" on the
+   dragon (ValueError, nothing launched); no access-policy window and the
+   persisting carve-out as before after the "vmem" calls; each placement
+   against "hbm" A-B-B-A, smem_block 128 / 256 / 512, and the rows of the
+   kernels line against the plain version on 65,536 seeded rays a wave.
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -291,17 +321,24 @@ same ``rays`` — the 256×256 crop for K1a/K1b (of frames 0 and 7 for K1c),
 the checked subset of each wave for K2a/K2b (summed over the waves of one
 1080p sample; K2c: all five waves of the 8-wide sample), the un-jittered
 crop for K1e (8-wide records), the crop at both widths for K1f, phase 20's
-crop under the frame's bounds and entries for K1d — and
+crop under the frame's bounds and entries for K1d, frames 0 and 255 of
+config 1 for K1c raw, the checked rays of the hall's waves for K2a/K2b
+vmem and of config 1's tree's for K2a/K2b smem — and
 ``path_ms``/``path_bound_ms`` on the main path's whole frame, batch or
 waves (``path_rays`` rays, active lanes for K2; for K1f the framed frame
 at both widths; for K1d the framed frame under its bounds and entries, the
 kernel alone). ``launches``: K1d's are those of phases 21–23's calls, K1e's
 are those of phase 15's render calls
-and samples, K2c's of its samples, K1f's of phase 19's frames.
+and samples, K2c's of its samples, K1f's of phase 19's frames, K1c raw's of
+phases 14 and 34, the placements' of phase 35's path. A raw row's bytes
+count six f32 planes a pixel; a placement row's ``ms`` includes what the
+placement does around its launch ("vmem": the carve-out, the wait for the
+launch and the reset).
 
-Every traversal row of the kernels line also carries ``baseline_ms`` and
-``baseline_path_ms``: the same calls with the frozen baseline core, timed
-A-B-B-A against the redesigned one in phase 28.
+Every traversal row of the kernels line but the options' also carries
+``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
+baseline core, timed A-B-B-A against the redesigned one in phase 28 (the
+raw layout and "smem" run the redesigned core only).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -366,6 +403,15 @@ KERNELS = {
                                  "raytracer_tpu/ops/pallas/traverse.py:919"),
     "trace_rays_k2c_unordered": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
                                  "raytracer_tpu/ops/pallas/traverse.py:919"),
+    # the raw tile layout (trace_tiles_batch_pallas(raw=True)) and the record
+    # placements (trace_rays_pallas(tree_space=...))
+    **{f"trace_tiles_{k}_raw": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
+                                "raytracer_tpu/ops/pallas/traverse.py:1135")
+       for k in ("k1c", "k1e", "k1f")},
+    **{f"trace_rays_{k}{order}_{space}": ("raytracer_tpu_torch/csrc/traverse_rays.cu",
+                                          "raytracer_tpu/ops/pallas/traverse.py:1197")
+       for space in ("vmem", "smem") for order in ("", "_unordered")
+       for k in ("k2a", "k2b", "k2c")},
 }
 # the microbenchmark kernels (their launches are counted apart, in
 # ops.cuda.microbench.LAUNCHES) and the TPU kernels they replace
@@ -543,11 +589,12 @@ def profile_calls(fn, what: str, card: str, n: int = 3) -> dict | None:
 def ptxas_rows(nvcc_log: str) -> list[tuple]:
     """(kernel<template arguments>, registers, stack frame bytes, spill store
     bytes, spill load bytes) of every entry function in an ``nvcc -Xptxas -v``
-    log. The template arguments are <child slots, jitter, visits, core> for
-    the batch tile kernel, <child slots, jitter, visits, bounds, core> for the
-    one-frame tile kernel, <child slots, any hit, core> for both ray kernels
-    (core: the feature mask of csrc/traverse_core.cuh, 256 for the frozen
-    baseline, | 8 without near-first order)."""
+    log. The template arguments are <child slots, jitter, visits, raw, core>
+    for the batch tile kernel, <child slots, jitter, visits, bounds, core> for
+    the one-frame tile kernel, <child slots, any hit, core> for both ray
+    kernels (core: the feature mask of csrc/traverse_core.cuh, 256 for the
+    frozen baseline, | 8 without near-first order, | 16 with the records in
+    shared memory)."""
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -1081,8 +1128,12 @@ def main() -> None:
     # 12.-14. the frame batch, the dynamic dragon and config 5
     rows["trace_tiles_k1c"] = batch_phase(env)
     dynamic_phase(env, pt)
-    config5_phase(env)
+    config5_launches = config5_phase(env)
     del pt
+
+    # 34. config 1 through the raw tile layout; 35. K2's record placements
+    rows["trace_tiles_k1c_raw"] = config1_phase(env, config5_launches)
+    rows.update(tree_space_phase(env))
 
     # 15.-19. the 8-wide tree and the visits plane
     rows.update(wide8_phase(env, scene))
@@ -1877,7 +1928,8 @@ def config5_phase(env: dict) -> None:
     plan = collapse_plan(cs.bvh2, sweeps=height + 2)
     cams, quats = batch_cameras(CONFIG5_Z)
     size = CONFIG5_SIZE
-    _, _, _, frame = refit_chain(cs, plan, height + 2, tris0, cams, quats, (size, size))
+    refit, records, trace, frame = refit_chain(cs, plan, height + 2, tris0, cams, quats,
+                                               (size, size))
     frame(0)
     torch.cuda.synchronize()
     traverse.reset_launches()
@@ -1903,6 +1955,342 @@ def config5_phase(env: dict) -> None:
         f"{rays / ms / 1e3:.2f} Mrays/s (W*H*cameras / ms; reps {[round(x, 4) for x in reps]}) "
         f"on {card}")
     profile_calls(lambda: frame(10), "config 5 frame", card)
+
+    # the raw tile layout, as bench_suite.py:497 counts config 5's hits
+    def trace_raw(q):
+        return traverse.trace_tiles_batch(q, cams, quats, size, size, FOV, leaf_k=LEAF_K,
+                                          raw=True)
+
+    def frame_raw(i):
+        return trace_raw(records(refit(i)))
+
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    raw_hits = torch.zeros(N_CAMS, dtype=torch.int64, device=dev)
+    for i in range(1, 1 + DYN_FRAMES):
+        raw_hits += (frame_raw(i)[:, :, 4] >= 0).sum(dim=(1, 2, 3))
+    torch.cuda.synchronize()
+    raw_launches = dict(traverse.LAUNCHES)
+    if raw_launches != expected(trace_tiles_k1c_raw=DYN_FRAMES):
+        fail(f"config 5 raw launched {raw_launches} in {DYN_FRAMES} frames, expected one K1c "
+             "raw each")
+    if not torch.equal(raw_hits, hits):
+        fail(f"config 5: hit counts of the raw layout {raw_hits.tolist()} differ from the image "
+             f"layout's {hits.tolist()}")
+    q = records(refit(3))
+    raw, image = checked_raw(trace_raw, q, N_CAMS, size), trace(q)
+    words = differing_words(raw, traverse.tiles_layout(image))
+    if words:
+        fail(f"config 5: the raw layout differs from the image planes' in {words} words")
+    k1c = abba({"image": lambda: trace(q), "raw": lambda: trace_raw(q)}, FRAMES, REPEATS)
+    whole = abba({"image": lambda: frame(9), "raw": lambda: frame_raw(9)}, FRAMES, REPEATS)
+    log(f"[config5] raw layout: {DYN_FRAMES} frames, 1 K1c raw each and nothing else; "
+        f"per-camera hits equal to the image layout's; every word of frame 3's "
+        f"({N_CAMS}, {size * size // 1024}, 6, 8, 128) raw array equal to the layout of its "
+        "image planes (written over NaN)")
+    log(f"[A/B] config 5 A-B-B-A: K1c image {k1c['image']:.4f} ms, raw {k1c['raw']:.4f} ms; "
+        f"whole frame image {whole['image']:.4f} ms, raw {whole['raw']:.4f} ms "
+        f"({rays / whole['raw'] / 1e3:.2f} Mrays/s) on {card}")
+    return raw_launches["trace_tiles_k1c_raw"]
+
+
+def checked_raw(call, qn: torch.Tensor, frames: int, size: int) -> torch.Tensor:
+    """``call(qn)``, a raw trace of ``frames`` frames of size × size, into a
+    block that held NaN (the block of a NaN tensor of its shape, just
+    freed): fails unless the raw array took that block and no NaN is left,
+    so that every word was written."""
+    shape = (frames, (size // 32) ** 2, 6, 8, 128)
+    probe = torch.full(shape, float("nan"), device=qn.device)
+    ptr = probe.data_ptr()
+    del probe
+    raw = call(qn)
+    if raw.shape != shape or raw.data_ptr() != ptr:
+        fail(f"raw array {tuple(raw.shape)} did not take the NaN block of {shape}")
+    if bool(torch.isnan(raw).any()):
+        fail(f"{int(torch.isnan(raw).sum())} words of the raw array were not written")
+    return raw
+
+
+C1_FRAMES, C1_SIZE, C1_Z = 256, 256, 2.2  # bench_suite.py:79-110: n_batch = max(frames, 256)
+RAW_OUT_BYTES = 24  # six f32 planes a pixel
+
+
+def tile_order_pixels(frames: int, size: int, dev) -> torch.Tensor:
+    """The flat pixel index (py·size + px) of every word of a raw plane, in
+    the raw layout's order, for ``frames`` frames → (frames·size²,)."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    idx = torch.arange(size * size, device=dev, dtype=torch.float32).reshape(1, size, size)
+    planes = [idx.expand(frames, size, size)] * 5
+    return traverse.tiles_layout(planes)[:, :, 0].reshape(-1).long()
+
+
+def config1_phase(env: dict, config5_launches: int) -> dict:
+    """34. BASELINE config 1 as bench_suite.py defines it on the TPU: the
+    Cornell box (34 triangles, cube-normalized) through the Morton LBVH of
+    single triangles (bvh2_as_bvh4(build_lbvh2(...)), K = 1), 256 frames
+    from (1e-3·i, 0, 2.2) at 256x256 in one K1c raw launch, hits counted per
+    frame from plane 4. The raw array against the image planes word for
+    word, against the plain version on frames 0 and 255, raw against image
+    layout A-B-B-A → the kernels-line row of K1c raw (its launches those of
+    this phase and of config 5)."""
+    from raytracer_tpu_torch import Scene
+    from raytracer_tpu_torch.ops.camera import primary_dirs
+    from raytracer_tpu_torch.ops.collapse import bvh2_as_bvh4
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
+    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+    from raytracer_tpu_torch.utils import procgen
+
+    card, dev = env["card"], env["dev"]
+    t_phase = time.perf_counter()
+    scene = Scene().set_triangles(procgen.make_cornell_box())
+    scene._normalize_enabled, scene._normalize_mode = True, "cube"
+    scene.normalize_mesh()
+    tris = torch.from_numpy(scene.triangles).to(dev)
+    qn = traverse.make_qnodes(make_wide_bvh(bvh2_as_bvh4(build_lbvh2(tris))), tris)
+    n, size = C1_FRAMES, C1_SIZE
+    poss = [(1e-3 * i, 0.0, C1_Z) for i in range(n)]
+    quats = [QUAT] * n
+
+    def raw_call(q=qn, p=poss, qs=quats):
+        return traverse.trace_tiles_batch(q, p, qs, size, size, FOV, leaf_k=1, raw=True)
+
+    def image_call(p=poss, qs=quats):
+        return traverse.trace_tiles_batch(qn, p, qs, size, size, FOV, leaf_k=1)
+
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    raw = checked_raw(raw_call, qn, n, size)
+    hits = (raw[:, :, 4] >= 0).sum(dim=(1, 2, 3))
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    if launches != expected(trace_tiles_k1c_raw=1):
+        fail(f"config 1 launched {launches}, expected 1 K1c raw and nothing else")
+    image = image_call()
+    words = differing_words(raw, traverse.tiles_layout(image))
+    if words:
+        fail(f"config 1: the raw layout differs from the image planes' in {words} words")
+    if not torch.equal(hits, (image[4] >= 0).sum(dim=(1, 2))) or int(hits.min()) <= 0:
+        fail("config 1: per-frame hit counts of the raw layout differ from the image layout's")
+    log(f"[config1] Cornell box {tris.shape[0]} triangles, LBVH K=1 records {tuple(qn.shape)} = "
+        f"{qn.numel() * 4} bytes; {n} frames x {size}x{size} in 1 K1c raw launch "
+        f"{tuple(raw.shape)}; every word of the raw array equal to the layout of the image "
+        f"planes (written over NaN); hits a frame {int(hits.min())}..{int(hits.max())} of "
+        f"{size * size}, equal to the image layout's")
+
+    # frames 0 and n - 1 against the plain version, in the raw layout's order
+    ends = [0, n - 1]
+    counts = traverse.TraversalCounts()
+    ref = traverse.trace_tiles_batch_reference(qn, [poss[f] for f in ends], [QUAT, QUAT], size,
+                                               size, FOV, leaf_k=1, counts=counts)
+    ker_raw = raw_call(p=[poss[f] for f in ends], qs=[QUAT, QUAT])
+    ref_raw = traverse.tiles_layout(ref)
+
+    def planes_of(a):
+        return [a[:, :, p].reshape(-1) for p in range(4)] + [a[:, :, 4].reshape(-1).int()]
+
+    pix = tile_order_pixels(len(ends), size, dev)
+    dirs = primary_dirs(pix % size, pix // size, size, size, QUAT, FOV)
+    origins = torch.tensor([poss[f] for f in ends], dtype=torch.float32, device=dev)
+    origins = origins.repeat_interleave(size * size, dim=0)
+    stats = check_against(planes_of(ker_raw), planes_of(ref_raw), tris, origins, dirs,
+                          f"K1c raw vs plain, frames 0 and {n - 1} of config 1")
+    ms = statistics.median(cuda_ms(lambda: raw_call(p=[poss[f] for f in ends],
+                                                    qs=[QUAT, QUAT]), FRAMES, REPEATS))
+    _, plain_ms = timed_once(lambda: traverse.tiles_layout(traverse.trace_tiles_batch_reference(
+        qn, [poss[f] for f in ends], [QUAT, QUAT], size, size, FOV, leaf_k=1)))
+    rays = len(ends) * size * size
+    b_ms, b_by, detail = bound(counts, 1.0, rays * RAW_OUT_BYTES + len(ends) * 64)
+
+    path = abba({"image": image_call, "raw": raw_call}, 3, REPEATS)
+    path_counts = traverse.TraversalCounts()
+    pick = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    sampled = (0, n // 3, 2 * n // 3, n - 1)
+    for f in sampled:
+        px = torch.randperm(size * size, generator=pick)[:WAVE_SAMPLES // 4].to(dev)
+        traverse.trace_tiles_reference(qn, poss[f], QUAT, size, size, FOV, leaf_k=1, pixels=px,
+                                       counts=path_counts)
+    path_rays = n * size * size
+    pb_ms, pb_by, p_detail = bound(path_counts, path_rays / path_counts.rays,
+                                   path_rays * RAW_OUT_BYTES + n * 64)
+    log(f"[time] config 1 K1c raw on frames 0 and {n - 1}: kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by} {json.dumps(detail)} on {card}")
+    log(f"[A/B] config 1, {n} frames of {size}x{size} in one launch, A-B-B-A: image layout "
+        f"{path['image']:.4f} ms, raw {path['raw']:.4f} ms = "
+        f"{path['raw'] / n * 1e3:.3f} us a frame, {path_rays / path['raw'] / 1e3:.2f} Mrays/s; "
+        f"bound {pb_ms:.4f} ms by {pb_by} {json.dumps(p_detail)} on {card}")
+    log(f"[config1] phase 34 in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"launches": launches["trace_tiles_k1c_raw"] + config5_launches,
+            "max_abs_err": stats["max_abs_err"], "rays": rays, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "path_rays": path_rays, "path_ms": path["raw"],
+            "path_bound_ms": pb_ms, "path_bound_by": pb_by, "image_path_ms": path["image"]}
+
+
+# chain levels of deep_records whose records fit one block's shared memory at
+# 8 slots (197,632 bytes; 32 levels take 263,168) and still overflow 64-entry
+# stacks
+DEEP_SMEM_DEPTH = 24
+
+
+def tree_space_phase(env: dict) -> dict:
+    """35. K2's record placements (trace_rays(tree_space=...)) on the waves
+    of tools_torch/mb_tree_space.py (the JAX tool's, 512x512): config 4's
+    hall (SAH K = 32) and config 1's Cornell box (its Morton LBVH at K = 1,
+    and SAH K = 32, where any hit runs the baseline loop). The path: every
+    wave under "vmem", and under "smem" where the tree fits, with their
+    launches counted; every lane bit-identical to "hbm" in both schedules
+    and on deep_records (stacks past 64, both widths and orders); the
+    refusals where a tree does not fit; no access-policy window or carve-out
+    left behind; each placement against "hbm" A-B-B-A and "smem"'s block
+    sizes; the kernels-line rows (vmem: the hall's waves; smem: config 1's
+    tree) against the plain version on 65,536 seeded rays a wave."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parity import deep_records
+
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.utils import procgen
+    from tools_torch import mb_tree_space
+
+    card, dev = env["card"], env["dev"]
+    t_phase = time.perf_counter()
+    limits = traverse.tree_space_limits(dev)
+    window0 = traverse.l2_window(dev)
+    scenes = mb_tree_space.trees(dev)
+    waves = {label: mb_tree_space.waves(qn, k) for label, (qn, k) in scenes.items()}
+    fits = {label: qn.numel() * 4 <= limits["smem_optin"] for label, (qn, k) in scenes.items()}
+    log(f"[tree_space] limits of {card}: {json.dumps(limits)}; L2 state before: "
+        f"{json.dumps(window0)}; trees " + ", ".join(
+            f"{label} {tuple(qn.shape)} = {qn.numel() * 4} bytes" for label, (qn, _) in
+            scenes.items()))
+
+    def run(label, space, name, **kw):
+        qn, k = scenes[label]
+        o, d, ah = waves[label][name]
+        return traverse.trace_rays(qn, o, d, any_hit=ah, leaf_k=k, tree_space=space, **kw)
+
+    spaces = {label: ("vmem", "smem") if fits[label] else ("vmem",) for label in scenes}
+    torch.cuda.synchronize()
+    traverse.reset_launches()
+    outs = {(label, space, name): run(label, space, name)
+            for label in scenes for space in spaces[label] for name in waves[label]}
+    torch.cuda.synchronize()
+    launches = dict(traverse.LAUNCHES)
+    want = {}
+    for label in scenes:
+        for space in spaces[label]:
+            for name, (_, _, ah) in waves[label].items():
+                key = f"trace_rays_{'k2b' if ah else 'k2a'}_{space}"
+                want[key] = want.get(key, 0) + 1
+    log(f"[tree_space] launches of the placements' path: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if launches != expected(**want):
+        fail(f"phase 35: the placements launched {launches}, expected {want}")
+
+    # every lane against "hbm", both schedules; deep stacks; refusals
+    checked = 0
+    for label in scenes:
+        for name in waves[label]:
+            base = run(label, "hbm", name)
+            for space in spaces[label]:
+                for out in (outs[(label, space, name)], run(label, space, name, scattered=True)):
+                    words = differing_words(out, base)
+                    if words:
+                        fail(f"phase 35: {label} {name} under {space} differs from hbm in "
+                             f"{words} words")
+                    checked += base[0].numel()
+    for width in (4, 8):
+        qd, od, dd = deep_records(width, depth=DEEP_SMEM_DEPTH)
+        qd = qd.to(dev)
+        od, dd = torch.from_numpy(od).to(dev), torch.from_numpy(dd).to(dev)
+        for any_hit in (False, True):
+            for ordered in (True, False):
+                kw = dict(any_hit=any_hit, leaf_k=1, ordered=ordered)
+                base = traverse.trace_rays(qd, od, dd, **kw)
+                for space in ("vmem", "smem"):
+                    words = differing_words(traverse.trace_rays(qd, od, dd, tree_space=space,
+                                                                **kw), base)
+                    if words:
+                        fail(f"phase 35: deep_records({width}) under {space} differs from hbm "
+                             f"in {words} words")
+                    checked += base[0].numel()
+    log(f"[tree_space] {checked} lanes bit-identical to hbm (every wave, one thread per ray "
+        f"and persistent, and deep_records at 4 and 8 slots in both orders)")
+    o1, d1, _ = waves["hall SAH K=32"]["bounce1"]
+    o1, d1 = o1[:1024].contiguous(), d1[:1024].contiguous()
+    refusals = [("hall SAH K=32", scenes["hall SAH K=32"][0], 32, "smem"),
+                ("dragon SAH K=32", env["qn"], LEAF_K, "smem"),
+                ("dragon SAH K=32", env["qn"], LEAF_K, "vmem")]
+    before = dict(traverse.LAUNCHES)
+    for label, qn, k, space in refusals:
+        try:
+            traverse.trace_rays(qn, o1, d1, leaf_k=k, tree_space=space)
+        except ValueError as exc:
+            log(f"[tree_space] {label} under {space}: ValueError as expected: {exc}")
+        else:
+            fail(f"phase 35: {label} ({qn.numel() * 4} bytes) did not raise under {space}")
+    if dict(traverse.LAUNCHES) != before:
+        fail("phase 35: a refused placement launched a kernel")
+    after = traverse.l2_window(dev)
+    if after["num_bytes"] or after["base"] or after["persisting_l2"] != window0["persisting_l2"]:
+        fail(f"phase 35: vmem left L2 state behind: {after} (before {window0})")
+    log(f"[tree_space] after the vmem calls: stream window {after['num_bytes']} bytes at "
+        f"{after['base']}, persisting carve-out {after['persisting_l2']} bytes (as before)")
+
+    # each placement against hbm, A-B-B-A; smem's block sizes
+    rays = waves["hall SAH K=32"]["nee"][0].shape[0]
+    for label in scenes:
+        for space in spaces[label]:
+            for name in waves[label]:
+                ms = abba({"hbm": lambda label=label, name=name: run(label, "hbm", name),
+                           space: lambda label=label, space=space, name=name:
+                           run(label, space, name)}, 4, 2)
+                log(f"[A/B] {label} {name}: hbm {ms['hbm']:.4f} ms, {space} {ms[space]:.4f} ms "
+                    f"({rays / ms['hbm'] / 1e3:.1f} / {rays / ms[space] / 1e3:.1f} Mrays/s) "
+                    f"on {card}")
+        if fits[label]:
+            for name in waves[label]:
+                ms = series({b: (lambda label=label, name=name, b=b: run(
+                    label, "smem", name, smem_block=b)) for b in mb_tree_space.BLOCKS}, 4, 2)
+                log(f"[A/B] {label} {name} smem_block " + ", ".join(
+                    f"{b}: {v:.4f} ms" for b, v in ms.items()) + f" on {card}")
+
+    # the kernels-line rows: vmem on the hall, smem on config 1's tree
+    tris_of = {"hall SAH K=32": mb_tree_space.normalized(procgen.make_interior_hall()).to(dev),
+               "Cornell LBVH K=1": mb_tree_space.normalized(procgen.make_cornell_box()).to(dev)}
+    rows = {}
+    pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    for space, label in (("vmem", "hall SAH K=32"), ("smem", "Cornell LBVH K=1")):
+        qn, k = scenes[label]
+        per_name: dict[str, list] = {}
+        for name, (o, d, ah) in waves[label].items():
+            r = o.shape[0]
+            pick = torch.randperm(r, generator=pick_gen)[:WAVE_SAMPLES].to(dev)
+            po, pd = o[pick].contiguous(), d[pick].contiguous()
+            counts = traverse.TraversalCounts()
+            plain = traverse.trace_rays_reference(qn, po, pd, any_hit=ah, leaf_k=k, counts=counts)
+            _, plain_ms = timed_once(lambda: traverse.trace_rays_reference(
+                qn, po, pd, any_hit=ah, leaf_k=k))
+            ker = traverse.trace_rays(qn, po, pd, any_hit=ah, leaf_k=k, tree_space=space)
+            what = f"K2{'b' if ah else 'a'} {space} vs plain, {label} {name}"
+            stats = (check_occlusion(ker, plain, what) if ah else
+                     check_against(ker, plain, tris_of[label], po, pd, what))
+            ms = statistics.median(cuda_ms(lambda: traverse.trace_rays(
+                qn, po, pd, any_hit=ah, leaf_k=k, tree_space=space), FRAMES, 3))
+            path_ms = statistics.median(cuda_ms(lambda: run(label, space, name), FRAMES, 3))
+            n = pick.numel()
+            _, _, detail = bound(counts, 1.0, n * (OUT_BYTES + RAY_BYTES))
+            _, _, p_detail = bound(counts, r / n, r * (OUT_BYTES + RAY_BYTES))
+            key = f"trace_rays_{'k2b' if ah else 'k2a'}_{space}"
+            per_name.setdefault(key, []).append({
+                "rays": n, "max_abs_err": stats["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                "bound_detail": detail, "active": r, "path_ms": path_ms,
+                "path_bound_detail": p_detail})
+        for key, ws in per_name.items():
+            rows[key] = wave_row(ws, launches[key])
+            log(f"[tree_space] {key}: {json.dumps(rows[key])} on {card}")
+    log(f"[tree_space] phase 35 in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return rows
 
 
 def check_visits(env: dict, qn: torch.Tensor, what: str) -> dict:

@@ -63,6 +63,15 @@
 //    (the next pop, unless the cull drops it) is prefetched into L1
 //    (`prefetch.global.L1`, one per 128-byte line) while the leaf's
 //    triangles are tested.
+//  * kSharedTree — not an element of the loop but a placement of the
+//    records (trace_rays(tree_space="smem"), the TPU kernel's records in
+//    scalar memory): the block copies the whole record array into its
+//    dynamic shared memory when it starts (stage_tree) and every record
+//    word is then a shared-memory load, where the other cores read the
+//    records with __ldg (ld.global.nc, through L1 and L2). The loads go
+//    through ld_rec / ld_rec4, which are __ldg without the bit, so a core
+//    without it compiles to what it was. It takes the dynamic shared memory
+//    that kSharedStack would use: the two are never combined.
 // Two things of the form matter as much: the stack's storage is a variable
 // of its own beside the ray's state (in one struct with the dynamically
 // indexed array, the ray's scalars live in local memory too), and an any-hit
@@ -106,6 +115,7 @@ enum : unsigned {
   kSharedStack = 2u,  // stack entries 0 .. kSharedEntries − 1 in shared memory
   kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
   kUnordered = 8u,    // no near-first order: children pushed in slot order
+  kSharedTree = 16u,  // the records in the block's dynamic shared memory
   kBaseline = 256u,
 };
 
@@ -114,9 +124,51 @@ enum : unsigned {
 // prefetch lose there, so they stay off and are built only to be timed.
 constexpr unsigned kRenderCore = kOrder;
 
-// Dynamic shared memory a block of `threads` threads needs for core `feat`.
+// Dynamic shared memory a block of `threads` threads needs for core `feat`'s
+// stack (a kSharedTree core takes the records' bytes instead).
 __host__ __device__ constexpr size_t stack_smem_bytes(unsigned feat, int threads) {
   return (feat & kSharedStack) ? (size_t)kSharedEntries * sizeof(int2) * (size_t)threads : 0;
+}
+
+// The records of a kSharedTree block: the whole (M, recw) array, copied in
+// by stage_tree. It is the same dynamic shared memory as stack_smem.
+extern __shared__ float4 tree_smem[];
+
+// A record word / four record words: __ldg from global memory, or a plain
+// load from the block's shared copy under kSharedTree (ld.global.nc on a
+// shared-memory address is undefined).
+template <unsigned kFeat>
+__device__ __forceinline__ float4 ld_rec4(const float4* p) {
+  if constexpr ((kFeat & kSharedTree) != 0) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <unsigned kFeat>
+__device__ __forceinline__ float ld_rec(const float* p) {
+  if constexpr ((kFeat & kSharedTree) != 0) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// The records a block traverses: `qn` itself, or under kSharedTree the
+// block's shared copy of its first `tree_f4` float4s (the whole array),
+// made by all threads of the block with 16-byte loads before any of them
+// traverses. Call from every thread of the block, before any thread leaves.
+template <unsigned kFeat>
+__device__ __forceinline__ const float* stage_tree(const float* __restrict__ qn, int tree_f4) {
+  if constexpr ((kFeat & kSharedTree) != 0) {
+    const float4* src = reinterpret_cast<const float4*>(qn);
+    for (int i = threadIdx.x; i < tree_f4; i += blockDim.x) tree_smem[i] = __ldg(src + i);
+    __syncthreads();
+    return reinterpret_cast<const float*>(tree_smem);
+  } else {
+    return qn;
+  }
 }
 
 // A ray's result: zero normal and tri = -1 on a miss, with t = the best t the
@@ -335,9 +387,9 @@ struct Ray {
       const float cnt = h[7 * kSlots + k];
       const float4* tv = reinterpret_cast<const float4*>(rec + vbase + k * leaf_k * 12);
       for (int j = 0; j < leaf_k && (float)j < cnt; ++j) {
-        const float4 a = __ldg(tv + 3 * j);      // v0x v0y v0z e1x
-        const float4 b = __ldg(tv + 3 * j + 1);  // e1y e1z e2x e2y
-        const float4 c = __ldg(tv + 3 * j + 2);  // e2z gx  gy  gz
+        const float4 a = ld_rec4<kFeat>(tv + 3 * j);      // v0x v0y v0z e1x
+        const float4 b = ld_rec4<kFeat>(tv + 3 * j + 1);  // e1y e1z e2x e2y
+        const float4 c = ld_rec4<kFeat>(tv + 3 * j + 2);  // e2z gx  gy  gz
         const float e1x = a.w, e1y = b.x, e1z = b.y;
         const float e2x = b.z, e2y = b.w, e2z = c.x;
         const float pxv = dy * e2z - dz * e2y;
@@ -360,7 +412,7 @@ struct Ray {
           r.nx = c.y * g_inv;
           r.ny = c.z * g_inv;
           r.nz = c.w * g_inv;
-          r.tri = (int)__ldg(rec + ibase + k * leaf_k + j);
+          r.tri = (int)ld_rec<kFeat>(rec + ibase + k * leaf_k + j);
         }
       }
     }
@@ -369,12 +421,13 @@ struct Ray {
 
   // The occluder at position `at` of record `rec` (an any-hit result).
   __device__ __forceinline__ void occluder(const float* __restrict__ rec, int leaf_k, int at) {
-    const float4 c = __ldg(reinterpret_cast<const float4*>(rec + 8 * kSlots) + 3 * at + 2);
+    const float4 c =
+        ld_rec4<kFeat>(reinterpret_cast<const float4*>(rec + 8 * kSlots) + 3 * at + 2);
     const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
     r.nx = c.y * g_inv;
     r.ny = c.z * g_inv;
     r.nz = c.w * g_inv;
-    r.tri = (int)__ldg(rec + 8 * kSlots + kSlots * 12 * leaf_k + at);
+    r.tri = (int)ld_rec<kFeat>(rec + 8 * kSlots + kSlots * 12 * leaf_k + at);
   }
 
   // Take the top entry of the stack.
@@ -392,7 +445,7 @@ struct Ray {
     const float4* hdr = reinterpret_cast<const float4*>(rec);
 #pragma unroll
     for (int i = 0; i < 2 * kSlots; ++i) {
-      const float4 q = __ldg(hdr + i);
+      const float4 q = ld_rec4<kFeat>(hdr + i);
       h[4 * i] = q.x;
       h[4 * i + 1] = q.y;
       h[4 * i + 2] = q.z;
@@ -442,7 +495,8 @@ struct Ray {
 };
 
 // The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
-// baseline loop; kBaseline | kUnordered: that loop with slot-order pushes).
+// baseline loop; kBaseline | kUnordered: that loop with slot-order pushes;
+// | kSharedTree: `qn` is the block's shared copy of the records).
 // `tid` / `threads` place the thread's shared stack column (the block's
 // dynamic shared memory must hold stack_smem_bytes(kFeat, threads)).
 template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
@@ -452,7 +506,8 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
                                             int threads) {
   if constexpr ((kFeat & kBaseline) != 0) {
     const rt_baseline::Hit h =
-        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0>(
+        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0,
+                                  (kFeat & kSharedTree) != 0>(
             qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
     return Hit{h.t, h.nx, h.ny, h.nz, h.tri, h.visits};
   } else {

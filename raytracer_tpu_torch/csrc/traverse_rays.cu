@@ -61,11 +61,30 @@
 //    are those of the ordered kernel; an any-hit ray may stop at another
 //    occluder. It trades more visits for cheaper ones, which any hit, with
 //    no use for the order, may win.
+//  * tree_space (the TPU kernel's placement of the records,
+//    trace_rays_pallas(tree_space=…), traverse.py:1197): where the records
+//    are read during the traversal. kHbm, the default: in device memory,
+//    read through L1 and L2 (every form above). kVmem: the same kernels,
+//    with the records pinned in L2 for the call — the persisting carve-out
+//    set to their bytes, and the launch given an access-policy window over
+//    them (hit ratio 1, persisting; misses streaming) as an attribute of
+//    that launch alone, so no stream keeps it — then, after the launch has
+//    ended (the launcher waits for it: the carve-out is device-wide and the
+//    reset of persisting lines is not stream-ordered), the persisting lines
+//    reset and the carve-out put back as it was. kSmem: each block first copies the whole
+//    record array into its dynamic shared memory with 16-byte loads
+//    (rt::stage_tree) and then traverses from there (rt::kSharedTree), both
+//    schedules and the baseline loop of any hit over leaves of K > 1, in
+//    blocks of `block` threads (at most kSmemBlockMax). A block copies the
+//    whole tree, so the per-ray schedule copies it once per `block` rays
+//    and the persistent warps once per resident block. The tree must fit
+//    one block (232,448 bytes on an H100), as on the TPU it had to fit
+//    scalar memory; the caller checks the fit.
 //
 // The launcher's `core` argument selects the traversal core (-1: the render
 // core; rt::kBaseline, the frozen baseline loop with one thread per ray;
 // other feature masks for timing an element alone), `persistent` the
-// schedule.
+// schedule, `tree_space` the placement.
 //
 // Exactness: the slab and Möller–Trumbore arithmetic of traverse_core.cuh,
 // built with -fmad=false, in the operation order of the plain torch version
@@ -80,6 +99,16 @@
 namespace {
 
 constexpr int kRayBlock = 128;  // threads of a block (4 warps)
+// The most threads of a block that copies the records into shared memory
+// (a per-ray block of 1,024 would cap the 8-wide core at 64 registers).
+constexpr int kSmemBlockMax = 512;
+enum TreeSpace { kHbm = 0, kVmem = 1, kSmem = 2 };
+
+// The launch bound of an instantiation: kRayBlock, or kSmemBlockMax for the
+// shared-tree cores, whose launcher picks the block size.
+__host__ __device__ constexpr int max_block(unsigned core) {
+  return (core & rt::kSharedTree) ? kSmemBlockMax : kRayBlock;
+}
 constexpr unsigned kFull = 0xffffffffu;
 // Ray indices a persistent warp takes from the counter at a time: one a
 // lane, so that no warp holds back a long run of rays that it then works
@@ -99,22 +128,24 @@ __device__ __forceinline__ void store_ray(const rt::Hit& hit, size_t i, float* _
   tri_out[i] = hit.tri;
 }
 
-// One thread per ray (the baseline's schedule).
+// One thread per ray (the baseline's schedule). `tree_f4`: the records'
+// size in float4s, read only by a kSharedTree core.
 template <int kSlots, bool kAnyHit, unsigned kCore>
-__global__ void __launch_bounds__(kRayBlock)
+__global__ void __launch_bounds__(max_block(kCore))
 trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                   const float* __restrict__ orig, const float* __restrict__ dirs,
                   const uint8_t* __restrict__ active, int n,
                   float* __restrict__ t_out, float* __restrict__ nx_out,
                   float* __restrict__ ny_out, float* __restrict__ nz_out,
-                  int* __restrict__ tri_out) {
+                  int* __restrict__ tri_out, int tree_f4) {
+  const float* tree = rt::stage_tree<kCore>(qn, tree_f4);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0};
   if (active == nullptr || active[i] != 0) {
     const size_t r = 3 * (size_t)i;
     hit = rt::traverse_ray<kSlots, kAnyHit, false, kCore>(
-        qn, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
+        tree, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
         rt::kInf, 0, threadIdx.x, blockDim.x);
   }
   store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
@@ -124,15 +155,18 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 // ray indices at a time from the counter `next` (zeroed before the launch)
 // and hands them to its idle lanes, skipping inactive rays, whenever fewer
 // than kRefill lanes of the warp traverse. The render core only, with or
-// without near-first order (kCore = rt::kRenderCore [| rt::kUnordered]).
+// without near-first order (kCore = rt::kRenderCore [| rt::kUnordered]
+// [| rt::kSharedTree]).
 template <int kSlots, bool kAnyHit, unsigned kCore>
-__global__ void __launch_bounds__(kRayBlock)
+__global__ void __launch_bounds__(max_block(kCore))
 trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                              const float* __restrict__ orig, const float* __restrict__ dirs,
                              const uint8_t* __restrict__ active, int n,
                              unsigned* __restrict__ next, float* __restrict__ t_out,
                              float* __restrict__ nx_out, float* __restrict__ ny_out,
-                             float* __restrict__ nz_out, int* __restrict__ tri_out) {
+                             float* __restrict__ nz_out, int* __restrict__ tri_out,
+                             int tree_f4) {
+  const float* tree = rt::stage_tree<kCore>(qn, tree_f4);
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
   using R = rt::Ray<kSlots, kAnyHit, false, kCore>;
@@ -178,7 +212,7 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
       }
     }
     if (busy == 0u) break;  // drained, and no lane traverses
-    if (idx >= 0 && !ray.step(stack, qn, recw, leaf_k)) {
+    if (idx >= 0 && !ray.step(stack, tree, recw, leaf_k)) {
       store_ray(ray.result(), (size_t)idx, t_out, nx_out, ny_out, nz_out, tri_out);
       idx = -1;
     }
@@ -188,85 +222,176 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 // the outputs, as the launch helpers take them
 #define RT_RAY_OUTS t, nx, ny, nz, tri
 
+// The records' size in float4s and bytes, as the shared-tree kernels take
+// them (the size fits an int: the caller checks it against one block's
+// shared memory).
+struct Tree {
+  int f4;
+  size_t bytes;
+};
+
+// Launch `kernel` on `s`: with <<<>>>, or, given an access-policy window
+// (kVmem), with cudaLaunchKernelEx and the window as the launch's own
+// attribute. Returns the launch's error.
+template <typename... P, typename... A>
+int launch_on(void (*kernel)(P...), int grid, int threads, size_t smem, cudaStream_t s,
+              const cudaAccessPolicyWindow* win, A... args) {
+  if (win == nullptr) {
+    kernel<<<grid, threads, smem, s>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+  attr[0].val.accessPolicyWindow = *win;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// A shared-tree instantiation's dynamic shared memory: allow it the
+// records' bytes (beyond the default 48 KB; the launch fails if the card
+// has less).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
 template <int kSlots, bool kAnyHit, unsigned kCore>
 int launch_per_ray(const float* qnodes, int recw, int leaf_k, const float* origins,
                    const float* dirs, const uint8_t* active, int n, float* t, float* nx,
-                   float* ny, float* nz, int* tri, cudaStream_t s) {
-  const size_t smem = rt::stack_smem_bytes(kCore, kRayBlock);
-  trace_rays_kernel<kSlots, kAnyHit, kCore><<<(n + kRayBlock - 1) / kRayBlock, kRayBlock,
-                                              smem, s>>>(qnodes, recw, leaf_k, origins, dirs,
-                                                         active, n, t, nx, ny, nz, tri);
-  return (int)cudaGetLastError();
+                   float* ny, float* nz, int* tri, cudaStream_t s, Tree tree, int block,
+                   const cudaAccessPolicyWindow* win) {
+  constexpr bool kShared = (kCore & rt::kSharedTree) != 0;
+  const auto kernel = trace_rays_kernel<kSlots, kAnyHit, kCore>;
+  const int threads = kShared ? block : kRayBlock;
+  const size_t smem = kShared ? tree.bytes : rt::stack_smem_bytes(kCore, kRayBlock);
+  if (kShared) {
+    const int err = allow_smem(kernel, smem);
+    if (err != 0) return err;
+  }
+  return launch_on(kernel, (n + threads - 1) / threads, threads, smem, s, win, qnodes, recw,
+                   leaf_k, origins, dirs, active, n, t, nx, ny, nz, tri, tree.f4);
 }
 
 template <int kSlots, bool kAnyHit, unsigned kCore>
 int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* origins,
                       const float* dirs, const uint8_t* active, int n, unsigned* next, float* t,
-                      float* nx, float* ny, float* nz, int* tri, cudaStream_t s) {
-  const size_t smem = rt::stack_smem_bytes(kCore, kRayBlock);
-  // the instantiation's resident blocks per SM (or minus the CUDA error),
-  // queried at its first launch
-  static const int per_sm = [smem] {
-    int blocks = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, trace_rays_persistent_kernel<kSlots, kAnyHit, kCore>, kRayBlock, smem);
-    return e == cudaSuccess ? blocks : -(int)e;
-  }();
-  if (per_sm < 0) return -per_sm;
+                      float* nx, float* ny, float* nz, int* tri, cudaStream_t s, Tree tree,
+                      int block, const cudaAccessPolicyWindow* win) {
+  constexpr bool kShared = (kCore & rt::kSharedTree) != 0;
+  const auto kernel = trace_rays_persistent_kernel<kSlots, kAnyHit, kCore>;
+  const int threads = kShared ? block : kRayBlock;
+  const size_t smem = kShared ? tree.bytes : rt::stack_smem_bytes(kCore, kRayBlock);
+  // the instantiation's resident blocks per SM: queried at its first launch,
+  // or at every launch of a shared-tree core, whose blocks depend on the
+  // tree and the block size
+  int per_sm = 0;
+  if (kShared) {
+    int err = allow_smem(kernel, smem);
+    if (err == 0) {
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    }
+    if (err != 0) return err;
+  } else {
+    // the count, or minus the CUDA error
+    static const int fixed = [smem, kernel] {
+      int blocks = 0;
+      const cudaError_t e =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kRayBlock, smem);
+      return e == cudaSuccess ? blocks : -(int)e;
+    }();
+    if (fixed < 0) return -fixed;
+    per_sm = fixed;
+  }
   if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   int dev = 0, sms = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == 0) err = (int)cudaMemsetAsync(next, 0, sizeof(unsigned), s);
   if (err != 0) return err;
-  const int wanted = (n + kRayBlock - 1) / kRayBlock;
+  const int wanted = (n + threads - 1) / threads;
   const int grid = per_sm * sms < wanted ? per_sm * sms : wanted;
-  trace_rays_persistent_kernel<kSlots, kAnyHit, kCore><<<grid, kRayBlock, smem, s>>>(
-      qnodes, recw, leaf_k, origins, dirs, active, n, next, t, nx, ny, nz, tri);
-  return (int)cudaGetLastError();
+  return launch_on(kernel, grid, threads, smem, s, win, qnodes, recw, leaf_k, origins, dirs,
+                   active, n, next, t, nx, ny, nz, tri, tree.f4);
 }
 
-}  // namespace
+// The records pinned in L2 for one launch (tree_space kVmem): the
+// persisting carve-out set to their `bytes`, `launch(&window)` with an
+// access-policy window over them; then, after the launch has ended, the
+// persisting lines reset and the carve-out as it was. Returns the first
+// error (a failed launch's too), having put back the carve-out whatever
+// failed.
+template <typename Launch>
+int launch_pinned(const float* qnodes, size_t bytes, cudaStream_t s, Launch launch) {
+  size_t limit = 0;
+  int err = (int)cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  if (err != 0) return err;
+  cudaAccessPolicyWindow win = {};
+  win.base_ptr = const_cast<float*>(qnodes);
+  win.num_bytes = bytes;
+  win.hitRatio = 1.0f;
+  win.hitProp = cudaAccessPropertyPersisting;
+  win.missProp = cudaAccessPropertyStreaming;
+  err = (int)cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, bytes);
+  if (err == 0) err = launch(&win);
+  const int restored[] = {(int)cudaStreamSynchronize(s), (int)cudaCtxResetPersistingL2Cache(),
+                          (int)cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, limit)};
+  for (const int e : restored) {
+    if (err == 0) err = e;
+  }
+  return err;
+}
 
 // The feature masks instantiated for K2a and K2b alone (4-wide records,
 // one thread per ray), to time each design element and each set of them
 // (chip_smoke.py phase 28): X(any_hit, mask) for each.
 #define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 1) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
 
-// Launch K2a (any_hit = 0) or K2b (any_hit != 0) over n rays on `stream`;
-// with slots = 8, K2c on 8-wide records. qnodes: (M, recw) f32, 16-byte
-// aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n, 3) f32;
-// active: n bytes (0 = inactive) or null for all rays; outputs: (n,)
-// planes. `core`: -1 for the render paths' core rt::kRenderCore,
-// rt::kBaseline (256, the baseline loop with one thread per ray), or on
-// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES (timing
-// an element alone; one thread per ray). `ordered` == 0 drops the
-// near-first order (rt::kUnordered: children pushed in slot order) from the
-// render core or the baseline loop (core -1 or rt::kBaseline only).
-// `persistent` != 0 runs persistent warps (core -1 only) and needs `next`, 4
-// bytes of device memory that this launch alone uses (zeroed here on
-// `stream`); otherwise one thread per ray. Returns cudaGetLastError() after
-// the launch (0 on success, or cudaErrorInvalidValue for an argument
-// outside these sets); synchronises nothing.
-extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, int slots,
-                             const float* origins, const float* dirs, const uint8_t* active,
-                             int n, int any_hit, int core, int ordered, int persistent,
-                             unsigned* next, float* t, float* nx, float* ny, float* nz, int* tri,
-                             void* stream) {
-  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
-  if (persistent && (core != -1 || next == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!ordered && core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The launch of everything but the placement: the arguments of
+// rt_trace_rays, with core | rt::kSharedTree chosen under kSmem.
+int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* origins,
+             const float* dirs, const uint8_t* active, int n, int any_hit, int core, int ordered,
+             int persistent, bool shared, Tree tree, int block,
+             const cudaAccessPolicyWindow* win, unsigned* next, float* t, float* nx, float* ny,
+             float* nz, int* tri, cudaStream_t s) {
 #define RT_RAY_ARGS qnodes, recw, leaf_k, origins, dirs, active, n
-#define RT_PERSISTENT(S, CORE)                                                   \
-  (any_hit ? launch_persistent<S, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, s) \
-           : launch_persistent<S, false, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, s))
-#define RT_PER_RAY(S, CORE)                                            \
-  (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s) \
-           : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, s))
+#define RT_LAUNCH_TAIL s, tree, block, win
+#define RT_PERSISTENT(S, CORE)                                                             \
+  (any_hit ? launch_persistent<S, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, RT_LAUNCH_TAIL) \
+           : launch_persistent<S, false, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, RT_LAUNCH_TAIL))
+#define RT_PER_RAY(S, CORE)                                                             \
+  (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)     \
+           : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL))
+#define RT_ANY_PER_RAY(S, CORE) launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)
   constexpr unsigned kFree = rt::kRenderCore | rt::kUnordered;
   constexpr unsigned kFreeBaseline = rt::kBaseline | rt::kUnordered;
+  constexpr unsigned kSt = rt::kSharedTree;
+  if (shared) {
+    // the render core in both orders and schedules, and the baseline loop
+    // of any hit (over leaves of K > 1) with one thread per ray
+    if (core == -1 && ordered) {
+      if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore | kSt)
+                                        : RT_PERSISTENT(4, rt::kRenderCore | kSt);
+      return slots == 8 ? RT_PER_RAY(8, rt::kRenderCore | kSt) : RT_PER_RAY(4, rt::kRenderCore | kSt);
+    }
+    if (core == -1) {
+      if (persistent) return slots == 8 ? RT_PERSISTENT(8, kFree | kSt) : RT_PERSISTENT(4, kFree | kSt);
+      return slots == 8 ? RT_PER_RAY(8, kFree | kSt) : RT_PER_RAY(4, kFree | kSt);
+    }
+    if (core == (int)rt::kBaseline && any_hit && !persistent) {
+      if (!ordered) return slots == 8 ? RT_ANY_PER_RAY(8, kFreeBaseline | kSt)
+                                      : RT_ANY_PER_RAY(4, kFreeBaseline | kSt);
+      return slots == 8 ? RT_ANY_PER_RAY(8, rt::kBaseline | kSt)
+                        : RT_ANY_PER_RAY(4, rt::kBaseline | kSt);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (core == -1 && ordered) {
     if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore)
                                       : RT_PERSISTENT(4, rt::kRenderCore);
@@ -282,15 +407,102 @@ extern "C" int rt_trace_rays(const float* qnodes, int recw, int leaf_k, int slot
   }
 #define RT_CASE(A, M) \
   case M:             \
-    return launch_per_ray<4, A, (unsigned)M>(RT_RAY_ARGS, RT_RAY_OUTS, s);
+    return launch_per_ray<4, A, (unsigned)M>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL);
   if (slots == 4 && !any_hit) {
     switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, false) default: break; }
   } else if (slots == 4) {
     switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, true) default: break; }
   }
 #undef RT_CASE
+#undef RT_ANY_PER_RAY
 #undef RT_PER_RAY
 #undef RT_PERSISTENT
+#undef RT_LAUNCH_TAIL
 #undef RT_RAY_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Launch K2a (any_hit = 0) or K2b (any_hit != 0) over n rays on `stream`;
+// with slots = 8, K2c on 8-wide records. qnodes: (num_nodes, recw) f32,
+// 16-byte aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n,
+// 3) f32; active: n bytes (0 = inactive) or null for all rays; outputs:
+// (n,) planes. `core`: -1 for the render paths' core rt::kRenderCore,
+// rt::kBaseline (256, the baseline loop with one thread per ray), or on
+// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES (timing
+// an element alone; one thread per ray). `ordered` == 0 drops the
+// near-first order (rt::kUnordered: children pushed in slot order) from the
+// render core or the baseline loop (core -1 or rt::kBaseline only).
+// `persistent` != 0 runs persistent warps (core -1 only) and needs `next`, 4
+// bytes of device memory that this launch alone uses (zeroed here on
+// `stream`); otherwise one thread per ray. `tree_space`: kHbm (0), kVmem
+// (1: any core; records of at most the card's persisting L2 and window
+// size) or kSmem (2: core -1, or rt::kBaseline for any hit with one thread
+// per ray; records of at most one block's shared memory, in blocks of
+// `block` threads, a multiple of 32 up to kSmemBlockMax). Returns the first
+// CUDA error (0 on success, or cudaErrorInvalidValue for an argument
+// outside these sets); synchronises nothing but under kVmem, which waits
+// for its launch to end.
+extern "C" int rt_trace_rays(const float* qnodes, int num_nodes, int recw, int leaf_k, int slots,
+                             const float* origins, const float* dirs, const uint8_t* active,
+                             int n, int any_hit, int core, int ordered, int persistent,
+                             int tree_space, int block, unsigned* next, float* t, float* nx,
+                             float* ny, float* nz, int* tri, void* stream) {
+  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
+  if (persistent && (core != -1 || next == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!ordered && core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
+  if (tree_space != kHbm && tree_space != kVmem && tree_space != kSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool shared = tree_space == kSmem;
+  if (shared && (block < 32 || block > kSmemBlockMax || block % 32 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = (size_t)num_nodes * (size_t)recw * sizeof(float);
+  if (num_nodes <= 0 || (shared && bytes > (size_t)INT32_MAX)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tree tree{(int)(shared ? bytes / sizeof(float4) : 0), bytes};
+  auto launch = [&](const cudaAccessPolicyWindow* win) {
+    return dispatch(qnodes, recw, leaf_k, slots, origins, dirs, active, n, any_hit, core, ordered,
+                    persistent, shared, tree, block, win, next, RT_RAY_OUTS, s);
+  };
+  if (tree_space == kVmem) return launch_pinned(qnodes, bytes, s, launch);
+  return launch(nullptr);
+}
+
+// The device limits that decide whether records fit a placement, read from
+// the current device: out[0] the shared memory one block may opt in to
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), out[1] the largest persisting
+// L2 carve-out (cudaDevAttrMaxPersistingL2CacheSize), out[2] the largest
+// access-policy window (cudaDevAttrMaxAccessPolicyWindowSize), in bytes.
+// Returns the first CUDA error.
+extern "C" int rt_tree_space_limits(long long* out) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[] = {cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  cudaDevAttrMaxPersistingL2CacheSize,
+                                  cudaDevAttrMaxAccessPolicyWindowSize};
+  for (int i = 0; i < 3 && err == 0; ++i) {
+    int v = 0;
+    err = (int)cudaDeviceGetAttribute(&v, attrs[i], dev);
+    out[i] = v;
+  }
+  return err;
+}
+
+// What a placement leaves behind, read back: out[0] the base address and
+// out[1] the bytes of `stream`'s access-policy window (0 when it has none),
+// out[2] the device's persisting L2 carve-out. Returns the first CUDA error.
+extern "C" int rt_l2_window(void* stream, long long* out) {
+  cudaStreamAttrValue win = {};
+  size_t limit = 0;
+  int err = (int)cudaStreamGetAttribute(static_cast<cudaStream_t>(stream),
+                                        cudaStreamAttributeAccessPolicyWindow, &win);
+  if (err == 0) err = (int)cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  out[0] = (long long)(uintptr_t)win.accessPolicyWindow.base_ptr;
+  out[1] = (long long)win.accessPolicyWindow.num_bytes;
+  out[2] = (long long)limit;
+  return err;
 }

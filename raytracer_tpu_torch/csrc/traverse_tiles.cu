@@ -6,6 +6,8 @@
 // K1e — all of these on 8-wide records (the BVH8 of collapse_lbvh2_to_bvh8).
 // K1f — any of these with a sixth output plane: the records each pixel's ray
 // visited.
+// K1c raw — K1c (or K1e / K1f batches) writing the TPU kernel's own tile
+// layout instead of image planes.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/traverse.py::
 // _persistent_kernel (with its per-visit core _consume, rec_width 4 or 8) on
@@ -35,6 +37,21 @@
 // so the plane holds each pixel's own count of stack pops that passed the
 // cull against its best t (as f32). Without it (kVisits false) nothing is
 // counted and no sixth plane is written.
+//
+// K1c raw computes what trace_tiles_batch_pallas(…, raw=True) computes
+// (traverse.py:1135): one (F, tiles, 6, 8, 128) f32 array, the layout in
+// which the TPU kernel writes its tiles (finish_tile, traverse.py:831-835),
+// for frames whose width and height are multiples of 32. Tiles of 32×32
+// pixels are row-major over the frame, a tile's pixels row-major in its
+// 1,024 words: pixel (px, py) of frame f is word (py % 32)·32 + px % 32 of
+// tile (py / 32)·(W / 32) + px / 32. Planes 0–3 are t, nx, ny, nz, plane 4
+// tri as f32 (exact: ids stay below 2^24; −1 on a miss). Plane 5 is this
+// kernel's own: the TPU kernel writes its tile's packet visit count there,
+// over the whole tile; here it is K1f's per-pixel visits with kVisits and
+// 0 without. The TPU kernel's raw form saved the transpose of F·6 tile
+// planes into images; K1c writes image rows directly, so raw only changes
+// where each thread stores its six words (kRaw, the same instantiation
+// otherwise): no transpose and no second pass.
 //
 // What bounds it on the card: every visit is a dependent fetch of one record
 // (1,792 f32 words = 7,168 bytes at K = 32) through L1 and L2, and the
@@ -196,8 +213,13 @@ trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera ca
                      nz_out, tri_out, visits_out);
 }
 
+constexpr int kTileWords = kTile * kTile;  // a tile plane of the raw layout
+constexpr int kRawPlanes = 6;
+
 // The frame batch: frame blockIdx.z, its camera from row blockIdx.z of `cams`.
-template <int kSlots, bool kJitter, bool kVisits, unsigned kCore>
+// kRaw: `t_out` is the (F, tiles, 6, 1024) raw layout (width and height
+// multiples of 32) and the other outputs are unused.
+template <int kSlots, bool kJitter, bool kVisits, bool kRaw, unsigned kCore>
 __global__ void __launch_bounds__(kBlockThreads)
 trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                          const float* __restrict__ cams, int width, int height,
@@ -213,6 +235,20 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                    row[kAspect], row[kFw],      row[kFh]};
   const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
       qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff]);
+  if (kRaw) {
+    const int tiles_x = width / kTile;
+    const size_t tile =
+        (size_t)blockIdx.z * (size_t)(tiles_x * (height / kTile)) + (py / kTile) * tiles_x +
+        px / kTile;
+    float* w = t_out + tile * (kRawPlanes * kTileWords) + (py % kTile) * kTile + px % kTile;
+    w[0] = hit.t;
+    w[kTileWords] = hit.nx;
+    w[2 * kTileWords] = hit.ny;
+    w[3 * kTileWords] = hit.nz;
+    w[4 * kTileWords] = (float)hit.tri;
+    w[5 * kTileWords] = kVisits ? (float)hit.visits : 0.0f;
+    return;
+  }
   const size_t p = ((size_t)blockIdx.z * (size_t)height + (size_t)py) * (size_t)width + px;
   store_hit<kVisits>(hit, p, t_out, nx_out, ny_out, nz_out, tri_out, visits_out);
 }
@@ -243,10 +279,10 @@ int launch_tiles(RT_TILE_PARAMS) {
   return (int)cudaGetLastError();
 }
 
-template <int S, bool J, bool V, unsigned C>
+template <int S, bool J, bool V, unsigned C, bool R = false>
 int launch_batch(RT_BATCH_PARAMS) {
   const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
-  trace_tiles_batch_kernel<S, J, V, C><<<grid, block, smem, s>>>(
+  trace_tiles_batch_kernel<S, J, V, R, C><<<grid, block, smem, s>>>(
       qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits);
   return (int)cudaGetLastError();
 }
@@ -262,14 +298,14 @@ int dispatch_tiles(bool jitter, bool with_visits, bool bounded, RT_TILE_PARAMS) 
 #undef RT_JVB
 }
 
-template <int S, unsigned C>
+template <int S, unsigned C, bool R = false>
 int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
   if (jitter) {
-    return with_visits ? launch_batch<S, true, true, C>(RT_BATCH_ARGS)
-                       : launch_batch<S, true, false, C>(RT_BATCH_ARGS);
+    return with_visits ? launch_batch<S, true, true, C, R>(RT_BATCH_ARGS)
+                       : launch_batch<S, true, false, C, R>(RT_BATCH_ARGS);
   }
-  return with_visits ? launch_batch<S, false, true, C>(RT_BATCH_ARGS)
-                     : launch_batch<S, false, false, C>(RT_BATCH_ARGS);
+  return with_visits ? launch_batch<S, false, true, C, R>(RT_BATCH_ARGS)
+                     : launch_batch<S, false, false, C, R>(RT_BATCH_ARGS);
 }
 
 // The feature masks instantiated for K1a alone (4-wide records, no jitter,
@@ -354,4 +390,30 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
   }
   return slots == 8 ? dispatch_batch<8, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS)
                     : dispatch_batch<4, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS);
+}
+
+// Launch the frame batch in the raw tile layout on `stream` (K1c raw; K1e
+// raw with slots = 8; K1f raw with `stats` != 0, whose plane 5 holds the
+// visits): `num_frames` frames of width × height pixels, both multiples of
+// 32, cameras as for rt_trace_tiles_batch (each frame whole: offsets 0),
+// the render core. out: (num_frames, width/32 · height/32, 6, 1024) f32,
+// every word written. Returns cudaGetLastError() after the launch (0 on
+// success, or cudaErrorInvalidValue for another slot count or a size that
+// is not a multiple of 32); synchronises nothing.
+extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_k, int slots,
+                                        const float* cams, int num_frames, int width, int height,
+                                        int jitter, int stats, float* out, void* stream) {
+  if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
+  if (width <= 0 || height <= 0 || width % kTile != 0 || height % kTile != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kBlock, kBlock);
+  const dim3 grid(width / kBlock, height / kBlock, num_frames);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool j = jitter != 0, with_visits = stats != 0;
+  float* t = out;
+  float *nx = nullptr, *ny = nullptr, *nz = nullptr, *visits = nullptr;
+  int* tri = nullptr;
+  return slots == 8 ? dispatch_batch<8, rt::kRenderCore, true>(j, with_visits, RT_BATCH_ARGS)
+                    : dispatch_batch<4, rt::kRenderCore, true>(j, with_visits, RT_BATCH_ARGS);
 }

@@ -17,6 +17,13 @@ wrappers recover the records' width from their row length
 the ray kernel K2c. ``stats=True`` on the tile entries adds a sixth plane,
 each pixel's count of records visited (K1f, at either width).
 
+The two options of the TPU kernels: ``trace_tiles_batch(..., raw=True)``
+returns the TPU kernel's own tile layout (F, tiles, 6, 8, 128), what
+``trace_tiles_batch_pallas(..., raw=True)`` returns (:func:`tiles_layout`
+is its plain version); ``trace_rays(..., tree_space="hbm"|"vmem"|"smem")``
+places the records as ``trace_rays_pallas(..., tree_space=…)`` names it,
+in this card's terms (:data:`TREE_SPACES`), with the same planes.
+
 K1d's tiles are the TPU kernel's: 32×32 pixels (:data:`TILE`), indexed in
 the pixel coordinates of the traced window (before ``row_offset`` /
 ``col_offset`` move it into a larger frame). A pixel starts with the best t
@@ -35,7 +42,11 @@ with neither, on 8-wide records as ``trace_tiles_k1e`` (one frame or a batch, wi
 4-wide records as ``trace_tiles_k1a`` / ``k1b`` / ``k1c``. A ray launch on
 8-wide records counts as ``trace_rays_k2c`` (closest or any hit), on 4-wide
 records as ``trace_rays_k2a`` / ``k2b``; with ``ordered=False`` as
-``trace_rays_k2a_unordered`` / ``k2b_unordered`` / ``k2c_unordered``.
+``trace_rays_k2a_unordered`` / ``k2b_unordered`` / ``k2c_unordered``. A
+batch with ``raw=True`` counts under its name with ``_raw`` added
+(``trace_tiles_k1c_raw``, ``k1e_raw``, ``k1f_raw``), a ray launch with
+``tree_space`` "vmem" or "smem" under its name with ``_vmem`` / ``_smem``
+added (``trace_rays_k2a_vmem``, ``trace_rays_k2b_unordered_smem``, …).
 
 Record layout (f32 words, width w = 4 or 8 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
@@ -63,7 +74,8 @@ __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
            "trace_rays", "trace_rays_reference", "load_kernel", "TraversalCounts", "LAUNCHES",
            "reset_launches", "EMPTY_REF", "TILE", "CORE_ELEMENTS", "core_id",
-           "MEASURE_LAUNCHES"]
+           "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES", "SMEM_BLOCK",
+           "check_tree_space", "tree_space_limits", "l2_window"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -72,6 +84,7 @@ _LEAF_BIT = 1 << 30
 _REFERENCE_CHUNK = 1 << 16
 
 TILE = 32                 # pixels a side of the tile that shares a bound and an entry
+_SUB = TILE * TILE // 128  # rows of 128 words in a tile plane of the raw layout
 _MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
 _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
@@ -87,14 +100,24 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4}
 _MAIN_CORE, _BASELINE_CORE = -1, 256
 
+# Where trace_rays' records live during a traversal, under the TPU kernel's
+# names (trace_rays_pallas(tree_space=…)); trace_rays says what each is on
+# this card. A name's index is the launcher's tree_space.
+TREE_SPACES = ("hbm", "vmem", "smem")
+# Threads of a block under tree_space="smem" (both schedules): each block
+# copies the whole tree, so larger blocks copy it fewer times (PERF.md §6);
+# at most 512, a multiple of 32.
+SMEM_BLOCK = 512
+_SMEM_BLOCK_MAX = 512
+
 # Launches of each kernel with the "hopper" core since its count was last
 # set to 0; raised only where a wrapper launches that kernel. Launches with
 # another core count in MEASURE_LAUNCHES under the same name.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
-            "trace_rays_k2a": 0, "trace_rays_k2b": 0, "trace_rays_k2c": 0,
-            "trace_rays_k2a_unordered": 0, "trace_rays_k2b_unordered": 0,
-            "trace_rays_k2c_unordered": 0}
+            "trace_tiles_k1c_raw": 0, "trace_tiles_k1e_raw": 0, "trace_tiles_k1f_raw": 0,
+            **{f"trace_rays_{k}{order}{space}": 0 for space in ("", "_vmem", "_smem")
+               for order in ("", "_unordered") for k in ("k2a", "k2b", "k2c")}}
 MEASURE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -289,11 +312,15 @@ _ARGTYPES = {
                            + [ctypes.c_void_p] * 7),
         "rt_trace_tiles_batch": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7),
+        "rt_trace_tiles_batch_raw": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2),
     },
     "traverse_rays.cu": {
-        "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p] * 7),
+        "rt_tree_space_limits": [ctypes.c_void_p],
+        "rt_l2_window": [ctypes.c_void_p] * 2,
     },
 }
 
@@ -498,7 +525,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
                       fov_degrees: float = 70.0, leaf_k: int = 1, jitter: bool = False,
                       jitter_seeds=None, stats: bool = False, *,
                       raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
-                      col_offset: int = 0, core: str = "hopper"):
+                      col_offset: int = 0, core: str = "hopper", raw: bool = False):
     """Trace F frames in one launch, frame f from camera ``cam_pos[f]``
     (F, 3), ``cam_quat[f]`` (F, 4) → (t, nx, ny, nz, tri) planes of (F, H, W),
     each frame equal to :func:`trace_tiles` for its camera; ``stats`` appends
@@ -509,6 +536,17 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     values (array-likes or CPU tensors): the camera table is built on the
     host and copied to the card without a synchronisation.
 
+    ``raw=True`` returns instead one (F, ⌈H/32⌉·⌈W/32⌉, 6, 8, 128) f32
+    tensor, the TPU kernel's own tile layout (what
+    ``trace_tiles_batch_pallas(..., raw=True)`` returns; :func:`tiles_layout`
+    of the planes): 32×32-pixel tiles row-major over the frame, each tile's
+    pixels row-major in its 1,024 words, planes t, nx, ny, nz, tri as f32
+    (−1.0 on a miss) and a sixth plane that is each pixel's visits with
+    ``stats`` and 0 without (the TPU kernel writes its tile's visit count
+    there). It needs width and height that are multiples of 32, the whole
+    frame (no ``raygen_size`` or offsets) and the "hopper" core; the image
+    planes are not made at all.
+
     For records on a CUDA device launches K1c on 4-wide records, K1e on
     8-wide records, K1f with ``stats``, with the traversal core ``core``
     ("hopper" or "baseline"); runs the plain version for records on the CPU;
@@ -518,18 +556,34 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     f = len(pos)
+    if raw:
+        _check_raw(width, height, raygen_size, row_offset, col_offset, core)
     if qn.device.type == "cpu":
         pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
                                              pixels=pixels, jitter=jitter, jitter_seeds=seeds,
                                              stats=stats)
-        return tuple(p.reshape(f, height, width) for p in planes)
+        planes = tuple(p.reshape(f, height, width) for p in planes)
+        return tiles_layout(planes) if raw else planes
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
     lib, _ = load_kernel("traverse_tiles.cu")
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                        for p, q, s in zip(pos, quat, seeds)], qn.device)
+    if raw:
+        out = torch.empty((f, (height // TILE) * (width // TILE), 6, _SUB, 128),
+                          dtype=torch.float32, device=qn.device)
+        with torch.cuda.device(qn.device):
+            stream = torch.cuda.current_stream(qn.device).cuda_stream
+            err = lib.rt_trace_tiles_batch_raw(
+                qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
+                int(bool(jitter)), int(bool(stats)), out.data_ptr(), stream)
+        name = _tile_launch_name(slots, stats, "trace_tiles_k1c") + "_raw"
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        _count(name, core)
+        return out
     planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
               for _ in range(5 if stats else 4)]
     tri = torch.empty((f, height, width), dtype=torch.int32, device=qn.device)
@@ -544,6 +598,34 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
     _count(name, core)
     return (*planes[:4], tri, *planes[4:])
+
+
+def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int,
+               core: str) -> None:
+    """Refuse what the raw tile layout does not take (trace_tiles_batch)."""
+    if width % TILE or height % TILE:
+        raise ValueError(f"raw=True needs a width and height that are multiples of {TILE}, "
+                         f"got {width}x{height}")
+    if raygen_size not in (None, (width, height)) or row_offset or col_offset:
+        raise ValueError("raw=True traces whole frames: no raygen_size or offsets")
+    if core != "hopper":
+        raise ValueError(f"raw=True runs the 'hopper' core, not {core!r}")
+
+
+def tiles_layout(planes) -> torch.Tensor:
+    """(F, H, W) planes (t, nx, ny, nz, tri[, visits]) of frames whose sides
+    are multiples of 32 → the raw tile layout (F, (H/32)·(W/32), 6, 8, 128)
+    f32 of :func:`trace_tiles_batch` (``raw=True``): tri as f32, and the
+    visits, or zeros without them, as the sixth plane. The plain version of
+    K1c's raw stores."""
+    t = planes[0]
+    f, h, w = t.shape
+    if h % TILE or w % TILE:
+        raise ValueError(f"the raw layout needs sides that are multiples of {TILE}, got {w}x{h}")
+    sixth = planes[5] if len(planes) > 5 else torch.zeros_like(t)
+    stack = torch.stack([*planes[:4], planes[4].to(torch.float32), sixth], dim=1)
+    tiles = stack.reshape(f, 6, h // TILE, TILE, w // TILE, TILE).permute(0, 2, 4, 1, 3, 5)
+    return tiles.reshape(f, (h // TILE) * (w // TILE), 6, _SUB, 128).contiguous()
 
 
 def trace_tiles_batch_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
@@ -588,9 +670,71 @@ def _check_rays(qn: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
             raise ValueError(f"active on {active.device}, records on {qn.device}")
 
 
+def check_tree_space(nbytes: int, tree_space: str, limits: dict) -> None:
+    """Raise ``ValueError`` unless records of ``nbytes`` bytes fit the
+    placement ``tree_space`` on a card with these ``limits``
+    (:func:`tree_space_limits`: "smem_optin", "persisting_l2",
+    "access_window", in bytes). "hbm" takes any size; "vmem" needs the
+    records within the largest persisting L2 carve-out and the largest
+    access-policy window; "smem" within the shared memory one block may opt
+    in to (the counterpart of the TPU kernel's compile error where the tree
+    does not fit its memory)."""
+    if tree_space not in TREE_SPACES:
+        raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
+    if tree_space == "vmem":
+        room = min(limits["persisting_l2"], limits["access_window"])
+        if nbytes > room:
+            raise ValueError(
+                f"tree_space='vmem': records of {nbytes} bytes exceed the card's persisting L2 "
+                f"carve-out ({limits['persisting_l2']} bytes) or access-policy window "
+                f"({limits['access_window']} bytes)")
+    elif tree_space == "smem" and nbytes > limits["smem_optin"]:
+        raise ValueError(f"tree_space='smem': records of {nbytes} bytes exceed one block's "
+                         f"shared memory ({limits['smem_optin']} bytes)")
+
+
+@functools.cache
+def _limits(index: int) -> tuple[int, int, int]:
+    lib, _ = load_kernel("traverse_rays.cu")
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(index):
+        err = lib.rt_tree_space_limits(out)
+    if err != 0:
+        raise RuntimeError(f"reading the card's limits failed: cudaError {err}")
+    return tuple(out)
+
+
+def tree_space_limits(device) -> dict:
+    """The limits of a CUDA device that decide what fits a placement
+    (:func:`check_tree_space`), in bytes, read once a device."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"tree_space_limits reads a CUDA device, got {dev}")
+    smem, persisting, window = _limits(dev.index if dev.index is not None
+                                       else torch.cuda.current_device())
+    return {"smem_optin": smem, "persisting_l2": persisting, "access_window": window}
+
+
+def l2_window(device, stream: torch.cuda.Stream | None = None) -> dict:
+    """What an L2 placement could leave behind, read back from the card:
+    the access-policy window of ``stream`` (PyTorch's current stream by
+    default) — its "base" address and "num_bytes", 0 when it has none — and
+    the device's "persisting_l2" carve-out in bytes."""
+    dev = torch.device(device)
+    lib, _ = load_kernel("traverse_rays.cu")
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(dev):
+        s = stream if stream is not None else torch.cuda.current_stream(dev)
+        err = lib.rt_l2_window(s.cuda_stream, out)
+    if err != 0:
+        raise RuntimeError(f"reading the stream's access-policy window failed: cudaError {err}")
+    return {"base": out[0], "num_bytes": out[1], "persisting_l2": out[2]}
+
+
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
                any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None,
-               scattered: bool = False, ordered: bool = True, core: str = "hopper"):
+               scattered: bool = False, ordered: bool = True, core: str = "hopper",
+               tree_space: str = "hbm", smem_block: int | None = None):
     """Trace a buffer of rays — origins and dirs (R, 3) f32 — → (t, nx, ny,
     nz, tri) planes of (R,): the nearest hit, with t = 1e30, a zero normal
     and tri = −1 on a miss. ``any_hit`` makes it an occlusion query: a ray
@@ -617,6 +761,20 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     one thread per ray under ``core="hopper"`` too: there the redesigned
     core and the persistent warps both lost on the card (PERF.md §6).
 
+    ``tree_space`` places the records during the traversal, under the TPU
+    kernel's names (:data:`TREE_SPACES`): "hbm" (default) reads them from
+    device memory through L1 and L2; "vmem" pins them in L2 for this call —
+    a persisting carve-out of their size and an access-policy window over
+    them given to this launch alone, the carve-out put back and the
+    persisting lines reset after it, for which the call waits for its
+    launch to end — with any core; "smem" copies them into each block's
+    shared memory when the block starts and traverses from there, in blocks
+    of ``smem_block`` threads (default :data:`SMEM_BLOCK`; measurement), with
+    the "hopper" core only. Every placement writes the same words. Records
+    that do not fit a placement raise ``ValueError`` (:func:`check_tree_space`
+    with the card's :func:`tree_space_limits`); on the CPU every placement
+    runs the plain version, the name checked as on the card.
+
     For records on a CUDA device launches K2a (K2b with ``any_hit``) on
     4-wide records and K2c on 8-wide records, with the traversal core
     ``core`` (:func:`core_id`; measurement only); runs the plain version
@@ -624,6 +782,17 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     cid = core_id(core)
     if not ordered and cid not in (_MAIN_CORE, _BASELINE_CORE):
         raise ValueError(f"ordered=False runs the 'hopper' or 'baseline' core, not {core!r}")
+    if tree_space not in TREE_SPACES:
+        raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
+    block = SMEM_BLOCK if smem_block is None else int(smem_block)
+    if tree_space == "smem" and core != "hopper":
+        raise ValueError(f"tree_space='smem' runs the 'hopper' core, not {core!r}: the "
+                         "others are built for device memory (the shared stack takes the "
+                         "dynamic shared memory that holds the records)")
+    if smem_block is not None and (tree_space != "smem" or not 32 <= block <= _SMEM_BLOCK_MAX
+                                   or block % 32):
+        raise ValueError(f"smem_block is a multiple of 32 up to {_SMEM_BLOCK_MAX} and goes "
+                         f"with tree_space='smem', got {smem_block} with {tree_space!r}")
     if core == "hopper" and any_hit and leaf_k > 1:
         cid, scattered = _BASELINE_CORE, False
     qn, slots = _check_qnodes(qnodes, leaf_k)
@@ -634,6 +803,8 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     if qn.device.type != "cuda":
         raise ValueError(f"trace_rays runs on cuda or cpu tensors, got {qn.device}")
     lib, _ = load_kernel("traverse_rays.cu")
+    if tree_space != "hbm":
+        check_tree_space(qn.numel() * 4, tree_space, tree_space_limits(qn.device))
     r = origins.shape[0]
     planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
     tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
@@ -644,13 +815,16 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream(qn.device).cuda_stream
         err = lib.rt_trace_rays(
-            qn.data_ptr(), qn.shape[1], leaf_k, slots, origins.data_ptr(), dirs.data_ptr(),
-            None if active is None else active.data_ptr(), r, int(bool(any_hit)), cid,
-            int(bool(ordered)), int(persistent), None if counter is None else counter.data_ptr(),
+            qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, origins.data_ptr(),
+            dirs.data_ptr(), None if active is None else active.data_ptr(), r,
+            int(bool(any_hit)), cid, int(bool(ordered)), int(persistent),
+            TREE_SPACES.index(tree_space), block, None if counter is None else counter.data_ptr(),
             *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
     name = "trace_rays_k2c" if slots == 8 else ("trace_rays_k2b" if any_hit else "trace_rays_k2a")
     if not ordered:
         name += "_unordered"
+    if tree_space != "hbm":
+        name += "_" + tree_space
     if err != 0:
         raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
     _count(name, core)

@@ -23,7 +23,11 @@ none, and the bounded and temporal traces bit-equal to the unbounded kernel;
 the refit chain's records byte-equal; the redesigned core (``core="hopper"``,
 every render path) word for word equal to the frozen baseline core
 (``core="baseline"``) and to every subset of its design elements, in every
-launch shape and K2 schedule.
+launch shape and K2 schedule; the raw tile layout of a batch
+(``raw=True``) bit-equal to the layout of its image planes on every word,
+and each record placement of K2 (``tree_space`` "vmem", "smem") word for
+word equal to "hbm", leaving no access-policy window or L2 carve-out
+behind.
 """
 
 import numpy as np
@@ -278,10 +282,13 @@ def test_cpu_records8_run_the_plain_version():
         ref = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=8)
         assert all(torch.equal(a, b) for a, b in zip(rays, ref))
     assert traverse.LAUNCHES == before
+    rays = {f"trace_rays_{k}{order}{space}" for k in ("k2a", "k2b", "k2c")
+            for order in ("", "_unordered") for space in ("", "_vmem", "_smem")}
     assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
-                           "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f", "trace_rays_k2a",
-                           "trace_rays_k2b", "trace_rays_k2c", "trace_rays_k2a_unordered",
-                           "trace_rays_k2b_unordered", "trace_rays_k2c_unordered"}
+                           "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f",
+                           "trace_tiles_k1c_raw", "trace_tiles_k1e_raw", "trace_tiles_k1f_raw",
+                           *rays}
+    assert len(rays) == 18 and "trace_rays_k2b_unordered_smem" in rays
 
 
 @pytest.mark.cuda
@@ -989,3 +996,128 @@ def test_core_names_are_checked_on_cpu():
         traverse.trace_rays(qn, o, d, leaf_k=8, core="fast")
     with pytest.raises(ValueError, match="core must be"):
         traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 8, 8, FOV, leaf_k=8, core="fast")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_raw_layout_equals_image_planes_on_card(cuda_device, width):
+    """K1c raw (K1e raw on 8-wide records, K1f raw with ``stats``) writes
+    every word of the (F, tiles, 6, 8, 128) layout — its output lands in a
+    block that held NaN — and that word equals tiles_layout of the image
+    planes of the same batch; each launch counts once, under its _raw
+    name."""
+    tris = seeded_scene(2)
+    qn = records_of(tris, 8, width, cuda_device)
+    poss = np.float32([CAM_POS, [0.3, 0.1, 2.4], [-0.2, 0.0, 2.0]])
+    quats = np.float32([CAM_QUAT, [0.0, 0.0, 0.0, 1.0], [0.05, -0.1, 0.02, 0.9934]])
+    w, h = 96, 64
+    for jitter, stats in ((False, False), (True, False), (False, True)):
+        kw = dict(leaf_k=8, jitter=jitter, jitter_seeds=[3, 17, 99] if jitter else None,
+                  stats=stats)
+        image = traverse.trace_tiles_batch(qn, poss, quats, w, h, FOV, **kw)
+        probe = torch.full((3, (w // 32) * (h // 32), 6, 8, 128), float("nan"),
+                           device=cuda_device)
+        ptr = probe.data_ptr()
+        del probe
+        before = dict(traverse.LAUNCHES)
+        raw = traverse.trace_tiles_batch(qn, poss, quats, w, h, FOV, raw=True, **kw)
+        torch.cuda.synchronize()
+        name = ("trace_tiles_k1f" if stats else "trace_tiles_k1e" if width == 8
+                else "trace_tiles_k1c") + "_raw"
+        assert launched(before) == {name: 1}
+        assert raw.data_ptr() == ptr, "the NaN block was not reused: the probe proves nothing"
+        assert torch.equal(raw, traverse.tiles_layout(image)), (jitter, stats)
+        hits = (raw[:, :, 4] >= 0).sum(dim=(1, 2, 3))
+        assert torch.equal(hits, (image[4] >= 0).sum(dim=(1, 2)))
+    with pytest.raises(ValueError, match="multiples of 32"):
+        traverse.trace_tiles_batch(qn, poss, quats, 80, 64, FOV, leaf_k=8, raw=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
+    """K2a / K2b / K2c with the records pinned in L2 ("vmem") and in each
+    block's shared memory ("smem", at 128 and 512 threads a block) write
+    the words of "hbm" on every ray, with and without near-first order,
+    one thread per ray and persistent (and any hit over leaves of K > 1
+    through the baseline loop), with and without an active mask; each
+    launch counts once, under its _vmem / _smem name. Records larger than a
+    block's shared memory (the room's at K = 1 and 4 slots) raise for
+    "smem" instead, and launch nothing."""
+    tris = room_scene()
+    qn = records_of(tris, k, width, cuda_device)
+    fits = qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
+    blocks = (128, 512) if fits else ()
+    o, d = ray_buffer(qn, k, 4096)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
+    base_name = "trace_rays_k2c" if width == 8 else None
+    for any_hit, dirs in ((False, d), (True, sun)):
+        for ro, rd, act in list(ray_cases(o, dirs, k + width))[6:12]:
+            for ordered in (True, False):
+                kw = dict(any_hit=any_hit, leaf_k=k, active=act, ordered=ordered)
+                ref = traverse.trace_rays(qn, ro, rd, **kw)
+                name = (base_name or ("trace_rays_k2b" if any_hit else "trace_rays_k2a")) + (
+                    "" if ordered else "_unordered")
+                for scattered in (False, True):
+                    before = dict(traverse.LAUNCHES)
+                    vmem = traverse.trace_rays(qn, ro, rd, scattered=scattered,
+                                               tree_space="vmem", **kw)
+                    smem = [traverse.trace_rays(qn, ro, rd, scattered=scattered,
+                                                tree_space="smem", smem_block=b, **kw)
+                            for b in blocks]
+                    if not fits:
+                        with pytest.raises(ValueError, match="shared memory"):
+                            traverse.trace_rays(qn, ro, rd, tree_space="smem", **kw)
+                    torch.cuda.synchronize()
+                    want = {name + "_vmem": 1, name + "_smem": len(blocks)}
+                    assert launched(before) == {n: c for n, c in want.items() if c}
+                    assert words_equal(vmem, ref), ("vmem", any_hit, ordered, scattered)
+                    for b, out in zip(blocks, smem):
+                        assert words_equal(out, ref), ("smem", b, any_hit, ordered, scattered)
+    if k == 1:
+        deep, do, dd = deep_records(width, depth=24)  # fits a block at 8 slots
+        deep = deep.to(cuda_device)
+        do, dd = torch.from_numpy(do).to(cuda_device), torch.from_numpy(dd).to(cuda_device)
+        for any_hit in (False, True):
+            ref = traverse.trace_rays(deep, do, dd, any_hit=any_hit, leaf_k=1)
+            for space in ("vmem", "smem"):
+                assert words_equal(traverse.trace_rays(deep, do, dd, any_hit=any_hit, leaf_k=1,
+                                                       tree_space=space), ref), space
+
+
+@pytest.mark.cuda
+def test_vmem_leaves_no_window_or_carveout_on_card(cuda_device):
+    """After "vmem" calls on PyTorch's stream and on a side stream neither
+    stream holds an access-policy window and the persisting L2 carve-out is
+    what it was; records beyond a placement's limit raise ValueError before
+    anything is launched, and "smem" refuses the measured cores."""
+    tris = room_scene()
+    qn = records_of(tris, 8, 4, cuda_device)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 4096))
+    before = traverse.l2_window(cuda_device)
+    traverse.trace_rays(qn, o, d, leaf_k=8, tree_space="vmem")
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        traverse.trace_rays(qn, o, d, leaf_k=8, tree_space="vmem", scattered=True)
+    torch.cuda.synchronize()
+    for stream in (None, side):
+        after = traverse.l2_window(cuda_device, stream)
+        assert after["num_bytes"] == 0 and after["base"] == 0, after
+        assert after["persisting_l2"] == before["persisting_l2"]
+    limits = traverse.tree_space_limits(cuda_device)
+    assert limits["smem_optin"] >= 48 * 1024 and limits["persisting_l2"] > 0
+    recw = qn.shape[1]
+    big = torch.zeros((limits["smem_optin"] // (4 * recw) + 1, recw), device=cuda_device)
+    counts = dict(traverse.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        traverse.trace_rays(big, o, d, leaf_k=8, tree_space="smem")
+    room_bytes = min(limits["persisting_l2"], limits["access_window"])
+    huge = torch.zeros((room_bytes // (4 * recw) + 1, recw), device=cuda_device)
+    with pytest.raises(ValueError, match="persisting L2"):
+        traverse.trace_rays(huge, o, d, leaf_k=8, tree_space="vmem")
+    with pytest.raises(ValueError, match="'hopper' core"):
+        traverse.trace_rays(qn, o, d, leaf_k=8, tree_space="smem", core="stack")
+    assert traverse.LAUNCHES == counts
+

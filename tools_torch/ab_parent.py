@@ -1,0 +1,149 @@
+"""A-B of this checkout's traversal kernels against another checkout's (a
+parent commit unpacked with ``git archive``), on one CUDA card, in one
+process.
+
+1. The machine code: both checkouts build ``csrc/traverse_rays.cu`` and
+   ``csrc/traverse_tiles.cu``; ``cuobjdump -sass`` of each library is split
+   into kernels, and every kernel that both build — matched by its name and
+   template arguments, a batch tile kernel of this checkout by its
+   arguments without its raw flag when that flag is off — is compared
+   instruction by instruction (addresses and encodings dropped). It prints
+   how many are identical and names the others.
+2. The times: K2 with the records in device memory (``trace_rays`` with
+   its defaults, which is "hbm" here) through the other checkout's wrapper
+   and library and through this one's, A-B-B-A with CUDA events (other,
+   this, this, other), on the waves of ``tools_torch/mb_tree_space.py``:
+   config 4's hall and config 1's Cornell box at 512x512, and the dragon
+   stand-in (SAH K = 32) at 1024x1024 from (0, 0, 1.15); closest-hit waves
+   also with persistent warps (``scattered=True``).
+
+Run from the repository root on a machine with a CUDA card:
+
+    git archive <commit> | tar -x -C archive/parent
+    python3 tools_torch/ab_parent.py archive/parent
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline  # noqa: E402
+from raytracer_tpu_torch.ops.cuda import traverse  # noqa: E402
+from raytracer_tpu_torch.utils import procgen  # noqa: E402
+from tools_torch import mb_tree_space  # noqa: E402
+
+DRAGON_SIZE, DRAGON_CAM = 1024, (0.0, 0.0, 1.15)
+
+
+def load_package(root: Path, alias: str):
+    """The ``raytracer_tpu_torch`` package of checkout ``root``, imported
+    under the name ``alias`` (its modules import each other relatively)."""
+    init = root / "raytracer_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(alias, init,
+                                                  submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = pkg
+    spec.loader.exec_module(pkg)
+    return pkg
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    return found or "/usr/local/cuda/bin/cuobjdump"
+
+
+def sass_kernels(lib_path: str) -> dict:
+    """Kernel key → its SASS instructions (text, without addresses and
+    encodings), from ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump(), "-sass", lib_path], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            kernels[name] = []
+        elif name and (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)):
+            kernels[name].append(m.group(1))
+    return kernels
+
+
+def kernel_key(mangled: str) -> tuple | None:
+    """(kernel, template arguments) of a traversal kernel's mangled name; a
+    batch tile kernel's raw flag (its fourth argument) is dropped when off,
+    so that it matches a checkout without the flag."""
+    m = re.search(r"((?:trace|mb)_\w+?_kernel)I((?:L[ibj]\d+E)+)E", mangled)
+    if not m:
+        return None
+    args = re.findall(r"L([ibj]\d+)E", m.group(2))
+    if m.group(1) == "trace_tiles_batch_kernel" and len(args) == 5 and args[3] == "b0":
+        args = args[:3] + args[4:]
+    return m.group(1), tuple(args)
+
+
+def compare_sass(mine, theirs, source: str) -> None:
+    a = {kernel_key(k): v for k, v in sass_kernels(mine._name).items() if kernel_key(k)}
+    b = {kernel_key(k): v for k, v in sass_kernels(theirs._name).items() if kernel_key(k)}
+    both = sorted(set(a) & set(b))
+    differ = [k for k in both if a[k] != b[k]]
+    print(f"[sass] {source}: {len(both)} kernels in both builds, {len(both) - len(differ)} "
+          f"identical instruction for instruction; {len(set(a) - set(b))} only in this "
+          f"checkout, {len(set(b) - set(a))} only in the other", flush=True)
+    for k in differ:
+        print(f"[sass]   differs: {k[0]}<{','.join(k[1])}> ({len(a[k])} / {len(b[k])} "
+              "instructions)", flush=True)
+
+
+def main() -> None:
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_parent needs a CUDA card")
+    other_root = Path(sys.argv[1]).resolve()
+    other = load_package(other_root, "other_rtt")
+    other_traverse = importlib.import_module("other_rtt.ops.cuda.traverse")
+    dev = torch.device("cuda:0")
+    card = mb_tree_space.card_line()
+    print(f"[ab] this checkout against {other_root} ({other.__name__}) on {card}", flush=True)
+    for source in ("traverse_rays.cu", "traverse_tiles.cu"):
+        compare_sass(traverse.load_kernel(source)[0], other_traverse.load_kernel(source)[0],
+                     source)
+
+    trees = {label: (qn, k, mb_tree_space.waves(qn, k))
+             for label, (qn, k) in mb_tree_space.trees(dev).items()}
+    tris = mb_tree_space.normalized(procgen.make_dragon_stand_in())
+    cs, height = build_sah2_clustered(tris.numpy(), 32, dev)
+    qn = records_pipeline(cs, height=height)
+    trees["dragon SAH K=32"] = (qn, 32, mb_tree_space.waves(qn, 32, DRAGON_SIZE,
+                                                            cam=DRAGON_CAM))
+    for label, (qn, k, ws) in trees.items():
+        for name, (o, d, ah) in ws.items():
+            for scattered in ((False,) if ah else (False, True)):
+                kw = dict(any_hit=ah, leaf_k=k, scattered=scattered)
+                mine = traverse.trace_rays(qn, o, d, **kw)
+                theirs = other_traverse.trace_rays(qn, o, d, **kw)
+                words = mb_tree_space.differing_words(mine, theirs)
+                if words:
+                    raise SystemExit(f"{label} {name}: the two checkouts differ in {words} words")
+                ms = {"other": [], "this": []}
+                for who in ("other", "this", "this", "other"):
+                    fn = other_traverse.trace_rays if who == "other" else traverse.trace_rays
+                    ms[who].append(mb_tree_space.wave_ms(lambda fn=fn: fn(qn, o, d, **kw)))
+                a, b = (sum(v) / 2 for v in (ms["other"], ms["this"]))
+                print(f"[ab] {label} {name}{' persistent' if scattered else ''}: other {a:.4f} ms "
+                      f"({', '.join(f'{x:.4f}' for x in ms['other'])}), this {b:.4f} ms "
+                      f"({', '.join(f'{x:.4f}' for x in ms['this'])}), this / other "
+                      f"{b / a:.4f}; planes equal on {o.shape[0]} rays, on {card}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
