@@ -286,6 +286,20 @@ phase 14:
    against "hbm" A-B-B-A, smem_block 128 / 256 / 512, and the rows of the
    kernels line against the plain version on 65,536 seeded rays a wave.
 
+Phase 36 drives the paths that only the benchmark runs; it runs after phase
+32, before 27:
+
+36. BASELINE configs 2 and 4 through bench_suite_torch.py's records and
+   frame functions at full size: config 2, make_icosphere(6) (81,920
+   triangles) at 512x512 from (0, 0, 2.8), 4 samples of 1 bounce + NEE, and
+   config 4, the interior hall (5,250 triangles) at 512x512 from (0, 0, 0.8),
+   1 sample of 4 bounces + NEE, both on SAH K = 32 records. One frame of each
+   with the launches counted (config 2: 4 K1b and 4 K2b; config 4: 1 K1b, 3
+   K2a and 4 K2b; nothing else) and its alive share; one 256x256 sample of
+   each scene and camera (65,536 lanes) through the kernels and through the
+   plain versions, radiance within 1e-5 on >= 99.9% of the pixels; and each
+   configuration's JSON line, timed on a stream of one frame.
+
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
 K1e, K2a, K2c), tri equal on >= 99.99% of the rays and every other ray a tie (both
 triangles are accepted hits of that ray with t within rtol 1e-6), t within
@@ -334,6 +348,9 @@ phases 14 and 34, the placements' of phase 35's path. A raw row's bytes
 count six f32 planes a pixel; a placement row's ``ms`` includes what the
 placement does around its launch ("vmem": the carve-out, the wait for the
 launch and the reset).
+
+The K1b, K2a and K2b rows also carry ``bench_launches``: phase 36's launches
+of one frame of config 2 and of config 4.
 
 Every traversal row of the kernels line but the options' also carries
 ``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
@@ -1156,6 +1173,9 @@ def main() -> None:
     sharding_phase(env)
     viewer_phase(env, scene)
     graft_phase(env)
+
+    # 36. the bench's new paths: configs 2 and 4
+    bench_phase(env, rows)
 
     # 27. the microbenchmark kernels
     mb_rows = microbench_phase(env)
@@ -4047,6 +4067,73 @@ def graft_phase(env: dict) -> None:
     check_split_frame(planes["unsplit"], planes["split"], torch.from_numpy(hall).to(dev),
                       f"hall split at {HALL_EXTENT} vs unsplit, {HALL_SIZE}x{HALL_SIZE}")
     log(f"[graft] phase 32 in {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# 36. what each configuration's one frame launches, and its samples and bounces
+BENCH_LAUNCHES = {
+    2: {"trace_tiles_k1b": 4, "trace_rays_k2b": 4},
+    4: {"trace_tiles_k1b": 1, "trace_rays_k2a": 3, "trace_rays_k2b": 4},
+}
+
+
+def bench_phase(env: dict, rows: dict) -> None:
+    """36. BASELINE configs 2 and 4 through bench_suite_torch.py's records,
+    sample and frame functions at full size: one frame of each with its
+    launches counted (exactly BENCH_LAUNCHES) and its alive share, one
+    256x256 sample (65,536 lanes) of the same scene and camera through the
+    kernels and the plain versions, and the configuration's JSON line from a
+    one-frame stream. The launches join the kernels line as each row's
+    ``bench_launches``."""
+    import bench_suite_torch as suite
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev = env["card"], env["dev"]
+    t_phase = time.perf_counter()
+    configs = {2: (suite.config2_records, suite.config2_measure, suite.C2_POS, suite.C2_SIZE,
+                   suite.C2_SPP, suite.C2_BOUNCES),
+               4: (suite.config4_records, suite.config4_measure, suite.C4_POS, suite.C4_SIZE,
+                   1, suite.C4_BOUNCES)}
+    for n, (records, measure, pos, size, spp, bounces) in configs.items():
+        t0 = time.perf_counter()
+        rec = records(dev)
+        torch.cuda.synchronize()
+        log(f"[bench] config {n}: {rec.tris.shape[0]} triangles, records {tuple(rec.qnodes.shape)} "
+            f"{json.dumps(rec.detail)} in {time.perf_counter() - t0:.2f} s")
+        frame = suite.sample_frames(rec, pos, size, 1, spp, bounces)
+        frame()
+        torch.cuda.synchronize()
+        traverse.reset_launches()
+        total, alive = frame()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in traverse.LAUNCHES.items() if v}
+        if launches != BENCH_LAUNCHES[n]:
+            fail(f"config {n}: one frame launched {launches}, expected {BENCH_LAUNCHES[n]}")
+        for name, count in launches.items():
+            rows[name].setdefault("bench_launches", {})[f"config{n}"] = count
+        lanes = 2 * size * size * spp * bounces
+        if not math.isfinite(float(total)) or float(total) <= 0:
+            fail(f"config {n}: the frame's summed radiance is {float(total)}")
+        log(f"[bench] config {n}, one frame at {size}x{size}: launches {json.dumps(launches)}; "
+            f"alive {int(alive)} of {lanes} lanes (share {int(alive) / lanes:.4f}); mean "
+            f"radiance {float(total) / (size * size * spp):.6f}")
+
+        def small_sample(rec=rec, pos=pos, bounces=bounces):
+            return suite.config_sample(rec, pos, CROP, bounces, generator=torch.Generator(
+                device=dev).manual_seed(SAMPLE_SEED))[0]
+
+        by_kernels = small_sample()
+        by_plain, plain_ms = timed_once(lambda: plain_traversal(small_sample))
+        err = (by_kernels - by_plain).abs().amax(-1)
+        share = float((err <= RADIANCE_ATOL).float().mean())
+        log(f"[check] config {n}, one {CROP}x{CROP} sample, kernels vs plain: {share:.6f} of "
+            f"pixels within {RADIANCE_ATOL} (max |d| {float(err.max()):.3g}); plain sample "
+            f"{plain_ms:.1f} ms")
+        if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(by_kernels).all()):
+            fail(f"config {n}: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels within "
+                 f"{RADIANCE_ATOL}")
+        log(f"[bench] config {n} line, a stream of one frame on {card}:")
+        measure(rec, 1, dev)
+    log(f"[bench] phase 36 in {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 if __name__ == "__main__":
