@@ -85,7 +85,7 @@ def _time_frames(render_n, frames: int, dev: torch.device) -> dict:
     frames, with its launches and its traced run's profile."""
     timed = time_stream(render_n, frames, dev)
     timed["launches"] = launches_of(render_n, dev)
-    timed["profile"] = profile_stream(render_n, frames, dev)
+    timed["profile"] = profile_stream(render_n, frames, dev, timed["ms"])
     return timed
 
 
@@ -99,7 +99,8 @@ def _emit(name: str, mrays: float, timed: dict, dev: torch.device, extra: dict |
         "unit": "Mrays/s",
         "vs_baseline": round(mrays / BASELINE_MRAYS, 3),
         "detail": {"ms_per_frame": timed["ms"], "device_ms_per_frame": timed["device_ms"],
-                   "host_reps": timed["host_reps"], **device_detail(dev), **(extra or {}),
+                   "host_reps": timed["host_reps"], "thread_cpu_reps": timed["thread_cpu_reps"],
+                   **device_detail(dev), **(extra or {}),
                    "launches_per_stream": timed["launches"], "profile": timed["profile"]},
     }
     print(json.dumps(rec), flush=True)
@@ -111,15 +112,14 @@ def _emit(name: str, mrays: float, timed: dict, dev: torch.device, extra: dict |
 
 def config1_records(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The Cornell box, cube-normalized, on ``dev`` and its records: the
-    Morton LBVH of single triangles as a 4-wide struct (``bvh2_as_bvh4``)."""
-    from raytracer_tpu_torch.ops.collapse import bvh2_as_bvh4
-    from raytracer_tpu_torch.ops.cuda.traverse import make_qnodes
-    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
-    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+    Morton LBVH of single triangles as a 4-wide struct (``PathTracer(
+    widener="bvh2")``, ``bvh2_as_bvh4``)."""
+    from raytracer_tpu_torch import PathTracer
     from raytracer_tpu_torch.utils import procgen
 
-    tris = torch.from_numpy(normalized(procgen.make_cornell_box()).triangles).to(dev)
-    return tris, make_qnodes(make_wide_bvh(bvh2_as_bvh4(build_lbvh2(tris))), tris)
+    pt = PathTracer(widener="bvh2", builder="lbvh", leaf_size=1, device=dev)
+    pt.build_bvh(normalized(procgen.make_cornell_box()).triangles)
+    return pt._tris_dev, pt._qnodes
 
 
 def config1_frames(qn: torch.Tensor, size: int, frames: int):
@@ -165,17 +165,15 @@ def cluster_records(tris_np: np.ndarray, dev: torch.device, *, leaf: int = 32,
     """The records of ``bench_suite.py::_cluster_qnodes``: SAH-snapped
     clusters of K = ``leaf`` triangles (native build) → the device collapse
     to ``wide`` (4 or 8) child slots, capped at the tree's height + 2
-    sweeps → ``make_wide_bvh`` → ``make_qnodes``. ``split`` bisects every
-    triangle wider than that extent first (``split_large_triangles``; the
-    fragments report their original ids). ``leaf=1`` takes the records of
-    the configuration's own tree instead: ``widen(build_lbvh2(tris),
-    own_widener)`` over single triangles (4-wide; no split)."""
+    sweeps → ``make_wide_bvh`` → ``make_qnodes`` (``records_pipeline``).
+    ``split`` bisects every triangle wider than that extent first
+    (``split_large_triangles``; the fragments report their original ids).
+    ``leaf=1`` takes the records of the configuration's own tree instead:
+    ``PathTracer(widener=own_widener, builder="lbvh").build_bvh``, the
+    Morton LBVH of single triangles (4-wide; no split)."""
+    from raytracer_tpu_torch import PathTracer
     from raytracer_tpu_torch.native import bvhtool
-    from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, wide_pipeline
-    from raytracer_tpu_torch.ops.collapse import widen
-    from raytracer_tpu_torch.ops.cuda.traverse import make_qnodes
-    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
-    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+    from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
     from raytracer_tpu_torch.utils.meshops import split_large_triangles
 
     if leaf < 1:
@@ -184,26 +182,28 @@ def cluster_records(tris_np: np.ndarray, dev: torch.device, *, leaf: int = 32,
         raise ValueError(f"--wide takes 4 or 8 child slots, got {wide}")
     if split is not None and not (math.isfinite(split) and split > 0):
         raise ValueError(f"--split takes a finite extent > 0, got {split}")
-    tris = torch.from_numpy(tris_np).to(dev)
     if leaf == 1:
         if split is not None or wide != 4:
             raise ValueError("--leaf 1 takes the configuration's own 4-wide tree: no --split "
                              "or --wide 8")
-        qn = make_qnodes(make_wide_bvh(widen(build_lbvh2(tris), own_widener)), tris)
-        return Records(tris, qn, 1, {"leaf_size": 1, "records": f"lbvh {own_widener}"})
+        pt = PathTracer(widener=own_widener, builder="lbvh", leaf_size=1, device=dev)
+        pt.build_bvh(tris_np)
+        return Records(pt._tris_dev, pt._qnodes, 1,
+                       {"leaf_size": 1, "records": f"lbvh {own_widener}"})
     bvhtool.ensure_built()  # raises if the native SAH library does not build
     tri_in, orig_ids = tris_np, None
     if split is not None:
         tri_in, orig_ids = split_large_triangles(tris_np, split)
         log(f"[suite] split {len(tris_np)} tris -> {len(tri_in)} fragments (extent > {split})")
     cs, height = build_sah2_clustered(tri_in, leaf, dev)
-    tri_ids = cs.tri_order
     if orig_ids is not None:
-        tri_ids = torch.from_numpy(orig_ids.astype(np.int64)).to(dev)[cs.tri_order]
-    qn = make_qnodes(wide_pipeline(cs, height=height, width=wide), cs.tris_sorted,
-                     tri_ids=tri_ids, leaf_size=leaf)
-    return Records(tris, qn, leaf, {"leaf_size": leaf, "records": f"sah {wide}-wide",
-                                    "split": split, "fragments": len(tri_in)})
+        # the records name each fragment's original triangle
+        cs = cs._replace(tri_order=torch.from_numpy(orig_ids.astype(np.int64)).to(dev)[
+            cs.tri_order])
+    qn = records_pipeline(cs, height=height, width=wide)
+    return Records(torch.from_numpy(tris_np).to(dev), qn, leaf,
+                   {"leaf_size": leaf, "records": f"sah {wide}-wide", "split": split,
+                    "fragments": len(tri_in)})
 
 
 def config_sample(rec: Records, pos, size: int, bounces: int, *, generator=None,

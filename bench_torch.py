@@ -107,32 +107,38 @@ def time_stream(run, frames: int, dev: torch.device, reps: int = REPS) -> dict:
     ``reps`` calls, each ended by one pull of its results to the host. →
     ``ms`` (median host ms a frame), ``device_ms`` (median ms a frame
     between CUDA events recorded before and after the stream; None on the
-    CPU), ``host_reps`` and ``out`` (the last call's results on the
-    host)."""
+    CPU), ``host_reps``, ``thread_cpu_reps`` (the issuing thread's CPU ms a
+    frame in each call: near ``host_reps`` where the host's issue is the
+    frame) and ``out`` (the last call's results on the host)."""
     to_host(run())
-    host, device = [], []
+    host, cpu, device = [], [], []
     cuda = dev.type == "cuda"
     for _ in range(reps):
         if cuda:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         res = run()
         if cuda:
             end.record()
         out = to_host(res)
         host.append((time.perf_counter() - t0) / frames * 1e3)
+        cpu.append((time.thread_time() - c0) / frames * 1e3)
         if cuda:
             device.append(start.elapsed_time(end) / frames)
-    return {"ms": statistics.median(host), "host_reps": host,
+    return {"ms": statistics.median(host), "host_reps": host, "thread_cpu_reps": cpu,
             "device_ms": statistics.median(device) if device else None, "out": out}
 
 
-def profile_stream(run, frames: int, dev: torch.device) -> dict | None:
+def profile_stream(run, frames: int, dev: torch.device, ms_per_frame: float) -> dict | None:
     """One stream under torch.profiler (a traced run apart from the timed
-    ones): kernels a frame, device-busy ms a frame (the kernels' own
-    times) and the device's idle share of the stream's wall time. None on
-    the CPU, or where the profiler records no device time."""
+    ones): kernels a frame and device-busy ms a frame (the kernels' own
+    times). The device's idle share is 1 − busy / ``ms_per_frame``, the
+    timed streams' host ms a frame: the profiler slows the host's issue of
+    the traced stream (about twice where the host issues hundreds of
+    kernels a frame), so its own wall (``traced_wall_ms_per_frame``) would
+    inflate the share. None on the CPU, or where the profiler records no
+    device time."""
     if dev.type != "cuda":
         return None
     from torch.autograd import DeviceType
@@ -141,15 +147,15 @@ def profile_stream(run, frames: int, dev: torch.device) -> dict | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         to_host(run())
-        wall = (time.perf_counter() - t0) * 1e3
+        traced = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     if busy == 0:
         log("[profile] the profiler recorded no device time: idle share not measured")
         return None
     return {"kernels_per_frame": sum(e.count for e in kernels) / frames,
-            "busy_ms_per_frame": busy / frames, "wall_ms_per_frame": wall / frames,
-            "idle_share": 1.0 - busy / wall}
+            "busy_ms_per_frame": busy, "traced_wall_ms_per_frame": traced / frames,
+            "idle_share": 1.0 - busy / ms_per_frame}
 
 
 def launches_of(run, dev: torch.device) -> dict | None:
@@ -198,39 +204,19 @@ def load_dragon(path: Path = DRAGON_GLB):
     return scene
 
 
-def build_records(tris_np: np.ndarray, tris: torch.Tensor, builder: str, leaf_k: int):
-    """``bench.py``'s full build → (records, seconds of the host / native
-    phase): SAH clusters (K > 1, ``builder="sah"``), Morton clusters (K >
-    1, ``"lbvh"``), the native SAH tree of single triangles (K = 1,
-    ``"sah"``) or the Morton LBVH (K = 1, ``"lbvh"``); then the 4-wide
-    device collapse (capped at the tree's height + 2 sweeps where the
-    builder knows it), ``make_wide_bvh`` and ``make_qnodes``
-    (``records_pipeline`` for clusters), on the device of ``tris``."""
-    from raytracer_tpu_torch.ops.cluster import (build_lbvh2_clustered, build_sah2_clustered,
-                                                 records_pipeline)
-    from raytracer_tpu_torch.ops.collapse import collapse_lbvh2_to_bvh4
-    from raytracer_tpu_torch.ops.cuda.traverse import make_qnodes
-    from raytracer_tpu_torch.ops.lbvh import build_lbvh2, build_sah2
-    from raytracer_tpu_torch.ops.trace import make_wide_bvh
+def build_tracer(tris_np: np.ndarray, builder: str, leaf_k: int, dev: torch.device):
+    """``bench.py``'s full build, as a user runs it: ``PathTracer(widener=
+    "collapse", builder=, leaf_size=).build_bvh`` — SAH clusters (K > 1,
+    ``"sah"``), Morton clusters (K > 1, ``"lbvh"``), the native SAH tree of
+    single triangles (K = 1, ``"sah"``) or the Morton LBVH (K = 1,
+    ``"lbvh"``), then the 4-wide device collapse and the records. The
+    tracer's ``build_stats`` time the phases (``lbvh2_ms`` the host /
+    native build, ``records_ms`` the collapse and records, ``total_ms``)."""
+    from raytracer_tpu_torch import PathTracer
 
-    dev = tris.device
-    t0 = time.perf_counter()
-    if leaf_k > 1:
-        if builder == "sah":
-            cs, height = build_sah2_clustered(tris_np, leaf_k, dev)
-        else:
-            cs, height = build_lbvh2_clustered(tris, leaf_k), None
-        sync(dev)
-        host_s = time.perf_counter() - t0
-        return records_pipeline(cs, height=height), host_s
-    if builder == "sah":
-        bvh2, height = build_sah2(tris_np, dev)
-        sweeps = height + 2
-    else:
-        bvh2, sweeps = build_lbvh2(tris), None
-    sync(dev)
-    host_s = time.perf_counter() - t0
-    return make_qnodes(make_wide_bvh(collapse_lbvh2_to_bvh4(bvh2, sweeps=sweeps)), tris), host_s
+    pt = PathTracer(widener="collapse", builder=builder, leaf_size=leaf_k, device=dev)
+    pt.build_bvh(tris_np)
+    return pt
 
 
 def make_stream(qn: torch.Tensor, pos0, width: int, height: int, leaf_k: int, frames: int,
@@ -292,18 +278,15 @@ def main(argv=None) -> int:
     else:
         scene = load_dragon()
         width, height, leaf_k = args.width or 1920, args.height or 1080, args.leaf
-    tris = torch.from_numpy(scene.triangles).to(dev)
     log(f"[bench] scene: {scene.num_triangles} tris, {width}x{height}, {args.builder} K={leaf_k}")
 
     # build: the first run, then a steady rebuild
-    t0 = time.perf_counter()
-    qn, host_build_s = build_records(scene.triangles, tris, args.builder, leaf_k)
-    sync(dev)
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qn, _ = build_records(scene.triangles, tris, args.builder, leaf_k)
-    sync(dev)
-    build_steady_s = time.perf_counter() - t0
+    pt = build_tracer(scene.triangles, args.builder, leaf_k, dev)
+    first = pt.build_stats
+    build_s, host_build_s = first["total_ms"] / 1e3, first["lbvh2_ms"] / 1e3
+    pt.build_bvh(scene.triangles)
+    build_steady_s = pt.build_stats["total_ms"] / 1e3
+    qn = pt._qnodes
     log(f"[bench] BVH build + records: first run {build_s:.2f}s (host/native phase "
         f"{host_build_s:.2f}s), steady {build_steady_s:.3f}s; records {tuple(qn.shape)}")
 
@@ -360,13 +343,14 @@ def main(argv=None) -> int:
             "sparse_mrays_per_s": mrays, "sparse_ms_per_frame": sparse["ms"],
             "sparse_device_ms_per_frame": sparse["device_ms"],
             "build_split": {"host_sah_upload_s": host_build_s,
-                            "records_s": build_s - host_build_s,
+                            "records_s": first["records_ms"] / 1e3,
                             "steady_run_s": build_steady_s}})
         if args.bounded:
             detail["framed_repairs_per_frame"] = framed["out"][1].tolist()
     headline_run = sparse_run if args.quick else framed_run
     detail["launches_per_stream"] = launches_of(headline_run, dev)
-    detail["profile"] = profile_stream(headline_run, args.frames, dev)
+    detail["profile"] = profile_stream(headline_run, args.frames, dev,
+                                       sparse["ms"] if args.quick else framed["ms"])
     result["detail"] = detail
     print(json.dumps(result), flush=True)
     return 0

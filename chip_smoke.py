@@ -295,9 +295,10 @@ Phase 36 drives the paths that only the benchmark runs; it runs after phase
    config 4, the interior hall (5,250 triangles) at 512x512 from (0, 0, 0.8),
    1 sample of 4 bounces + NEE, both on SAH K = 32 records. One frame of each
    with the launches counted (config 2: 4 K1b and 4 K2b; config 4: 1 K1b, 3
-   K2a and 4 K2b; nothing else) and its alive share; one 256x256 sample of
-   each scene and camera (65,536 lanes) through the kernels and through the
-   plain versions, radiance within 1e-5 on >= 99.9% of the pixels; and each
+   K2a and 4 K2b; nothing else) and its alive share; one sample of each
+   scene and camera at the frame's size (512x512, 262,144 lanes a wave) and
+   one at 256x256 (65,536 lanes) through the kernels and through the plain
+   versions, radiance within 1e-5 on >= 99.9% of the pixels; and each
    configuration's JSON line, timed on a stream of one frame.
 
 Tolerances (what the kernels must meet): for closest hit (K1a, K1b, K1c,
@@ -4080,9 +4081,10 @@ def bench_phase(env: dict, rows: dict) -> None:
     """36. BASELINE configs 2 and 4 through bench_suite_torch.py's records,
     sample and frame functions at full size: one frame of each with its
     launches counted (exactly BENCH_LAUNCHES) and its alive share, one
-    256x256 sample (65,536 lanes) of the same scene and camera through the
-    kernels and the plain versions, and the configuration's JSON line from a
-    one-frame stream. The launches join the kernels line as each row's
+    sample of the same scene and camera at the frame's size (512x512,
+    262,144 lanes a wave) and one at 256x256 (65,536 lanes) through the
+    kernels and through the plain versions, and the configuration's JSON
+    line from a one-frame stream. The launches join the kernels line as each row's
     ``bench_launches``."""
     import bench_suite_torch as suite
     from raytracer_tpu_torch.ops.cuda import traverse
@@ -4117,20 +4119,22 @@ def bench_phase(env: dict, rows: dict) -> None:
             f"alive {int(alive)} of {lanes} lanes (share {int(alive) / lanes:.4f}); mean "
             f"radiance {float(total) / (size * size * spp):.6f}")
 
-        def small_sample(rec=rec, pos=pos, bounces=bounces):
-            return suite.config_sample(rec, pos, CROP, bounces, generator=torch.Generator(
+        def sample(side, rec=rec, pos=pos, bounces=bounces):
+            return suite.config_sample(rec, pos, side, bounces, generator=torch.Generator(
                 device=dev).manual_seed(SAMPLE_SEED))[0]
 
-        by_kernels = small_sample()
-        by_plain, plain_ms = timed_once(lambda: plain_traversal(small_sample))
-        err = (by_kernels - by_plain).abs().amax(-1)
-        share = float((err <= RADIANCE_ATOL).float().mean())
-        log(f"[check] config {n}, one {CROP}x{CROP} sample, kernels vs plain: {share:.6f} of "
-            f"pixels within {RADIANCE_ATOL} (max |d| {float(err.max()):.3g}); plain sample "
-            f"{plain_ms:.1f} ms")
-        if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(by_kernels).all()):
-            fail(f"config {n}: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels within "
-                 f"{RADIANCE_ATOL}")
+        # the frame's own size (its lanes a wave), then the checked crop of phases 11 and 33
+        for side in (size, CROP):
+            by_kernels = sample(side)
+            by_plain, plain_ms = timed_once(lambda: plain_traversal(lambda: sample(side)))
+            err = (by_kernels - by_plain).abs().amax(-1)
+            share = float((err <= RADIANCE_ATOL).float().mean())
+            log(f"[check] config {n}, one {side}x{side} sample ({side * side} lanes a wave), "
+                f"kernels vs plain: {share:.6f} of pixels within {RADIANCE_ATOL} (max |d| "
+                f"{float(err.max()):.3g}); plain sample {plain_ms:.1f} ms")
+            if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(by_kernels).all()):
+                fail(f"config {n}, {side}x{side}: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels "
+                     f"within {RADIANCE_ATOL}")
         log(f"[bench] config {n} line, a stream of one frame on {card}:")
         measure(rec, 1, dev)
     log(f"[bench] phase 36 in {time.perf_counter() - t_phase:.1f} s on {card}")

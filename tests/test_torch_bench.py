@@ -61,6 +61,17 @@ sys.path.insert(0, str(ROOT / "tools_torch"))
 import make_suite_snapshot  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the tier-1 run's workers share the host's
+    cores, and the plain traversals' many small ops slow down a
+    hundredfold when each worker's threads oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def hits(tri) -> int:
     return int((np.asarray(tri) >= 0).sum())
 
@@ -246,3 +257,8 @@ def test_snapshot_keeps_the_median_of_three_config1_processes():
     recs = [{"metric": "cornell_256_bvh2", "value": v, "detail": {}} for v in (7.0, 5.0, 6.0)]
     med = make_suite_snapshot.median_record(recs)
     assert med["value"] == 6.0 and med["detail"]["fresh_process_values"] == [5.0, 6.0, 7.0]
+    assert med["detail"]["unresolved"]  # 7 / 5 spreads more than 10%
+    recs = [{"metric": "interior_nee_4bounce", "value": v, "detail": {}} for v in (101, 100, 110)]
+    med = make_suite_snapshot.median_record(recs)
+    assert med["value"] == 101 and not med["detail"]["unresolved"]
+    assert set(make_suite_snapshot.FRESH_PROCESSES) == set(suite.CONFIGS)
