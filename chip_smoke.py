@@ -179,10 +179,20 @@ phase 26, before 27:
    equal) and of the dynamic dragon frame; each set of the design elements
    alone (ELEMENT_CORES on K1a at K = 32 and K = 1 and the first K2a and K2b
    waves; one thread per ray), K2's two schedules on every 4-wide wave
-   that may choose (any hit over leaves of K > 1 runs one thread per ray);
-   the deepest stack the plain version counts; and the
-   baseline's times beside each kernels-line row's (``baseline_ms`` on the
-   checked rays, ``baseline_path_ms`` on the path).
+   of the render core that may choose; the deepest stack the plain version
+   counts; and the baseline's times beside each kernels-line row's
+   (``baseline_ms`` on the checked rays, ``baseline_path_ms`` on the path).
+   The Morton LBVH K = 8 sample's waves are captured here too. K2b (any
+   hit over leaves of K > 1): on every any-hit wave of SAH K = 32, LBVH
+   K = 8 and the 8-wide tree, in both orders, the frozen loop, the warp's
+   leaf tests (traverse.ANY_HIT_CORE) with one thread per ray and with
+   persistent warps, every plane bit-identical, timed forward and back,
+   with what traverse.launch_plan runs there; ANY_HIT_CORES (the warp's
+   elements alone and the per-lane cores) on the first any-hit wave of
+   both 4-wide trees; and one whole 3-bounce sample at SAH K = 32 and LBVH
+   K = 8, both orders of the shadow rays, with only the any-hit waves
+   swapped between the plan's core and the frozen loop (radiance equal),
+   A-B-B-A.
 
 Phase 29 drives the headless apps and the rest of the build chain; it runs
 after phase 28, before 27:
@@ -2815,6 +2825,9 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
     qn32, qn1, qn8 = env["qn"], trees[1]["qn"], env["qn8"]
     t_phase = time.perf_counter()
     cores = ("hopper", "baseline")
+    # the Morton K = 8 sample's waves: its three any-hit waves run K2b over
+    # leaves of 8 triangles
+    env["waves"][8], _ = capture_waves(env, trees[8]["qn"], leaf_k=8)
 
     # ptxas: each instantiation of the redesigned core (the render core and
     # the measured sets of elements) beside its baseline twin
@@ -2856,7 +2869,7 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
         "K1f framed, 4- and 8-wide": env["row_calls"]["trace_tiles_k1f"][1],
     }
     trees_of = {LEAF_K: (qn32, LEAF_K, "SAH K=32"), 1: (qn1, 1, "LBVH K=1"),
-                "8-wide": (qn8, LEAF_K, "8-wide SAH K=32")}
+                8: (trees[8]["qn"], 8, "LBVH K=8"), "8-wide": (qn8, LEAF_K, "8-wide SAH K=32")}
     waves = {}
     for key, ws in env["waves"].items():
         qn, k, label = trees_of[key]
@@ -2884,6 +2897,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
         log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
             f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
     for what, fn in waves.items():
+        if "any hit" in what and "K=1 " not in what:
+            continue  # any hit over leaves of K > 1: k2b_phase times it
         ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 3, 2)
         log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
             f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
@@ -2900,7 +2915,7 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
                 render_pt.trace_tiles, render_pt.trace_rays, traverse.trace_tiles_batch = real
         return run
 
-    for key in (LEAF_K, 1, "8-wide"):
+    for key in (LEAF_K, 1, 8, "8-wide"):
         qn, k, label = trees_of[key]
 
         def sample(qn=qn, k=k):
@@ -2936,7 +2951,7 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             + f" ms on {card}")
     for what, fn in waves.items():
         if "8-wide" in what or ("any hit" in what and "K=1 " not in what):
-            continue  # any hit over leaves of K > 1 runs one thread per ray
+            continue  # any hit over leaves of K > 1: k2b_phase times its schedules
         ms = abba({"one thread per ray": lambda fn=fn: fn("hopper", False),
                    "persistent": lambda fn=fn: fn("hopper", True)}, 3, 2)
         log(f"[hopper] K2 schedules on {what}: one thread per ray "
@@ -2945,7 +2960,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
 
     # the deepest stacks, as the plain version counts them (the shared part
     # of the stack holds kSharedEntries; PERF.md)
-    for key, (qn, k, label) in trees_of.items():
+    for key in (LEAF_K, 1, "8-wide"):
+        qn, k, label = trees_of[key]
         crop, first = traverse.TraversalCounts(), traverse.TraversalCounts()
         traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
                                        pixels=env["crop_pix"], counts=crop)
@@ -2957,6 +2973,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             f"wave {first.max_depth} ({live.numel()} rays); pushes dropped "
             f"{crop.dropped + first.dropped}")
 
+    k2b_phase(env, trees_of)
+
     # the kernels line: the baseline's times beside each row's
     for name, (checked, path) in env["row_calls"].items():
         c = abba({k: (lambda k=k: checked(k)) for k in cores}, 4, 2)
@@ -2966,6 +2984,118 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             f"{c['baseline']:.4f} ms; path hopper {p['hopper']:.4f} / baseline "
             f"{p['baseline']:.4f} ms on {card}")
     log(f"[hopper] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# the cores of any hit over leaves of K > 1 timed on its first wave of each
+# 4-wide tree (one thread per ray): the frozen loop, the per-lane cores,
+# the warp's leaf tests without the order, without packed slots, and all
+ANY_HIT_CORES = ("baseline", "none", "order", "warp", "order+warp", "warp+pack",
+                 "order+warp+pack")
+
+
+def k2b_phase(env: dict, trees_of: dict) -> None:
+    """28 (K2b). Any hit over leaves of K > 1 with the leaf tests spread over
+    the warp (traverse.ANY_HIT_CORE) against the frozen loop (core="baseline")
+    on every captured any-hit wave of SAH K = 32, LBVH K = 8 and the 8-wide
+    tree, in both orders: the frozen loop, the new core with one thread per
+    ray and with persistent warps, every plane bit-identical, timed in one
+    series forward and back, with what the launch plan picks; each set of
+    its elements on the first any-hit wave of the 4-wide trees; and one whole
+    3-bounce sample with only the any-hit waves swapped, in both orders."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    t_phase = time.perf_counter()
+    new = traverse.ANY_HIT_CORE
+    for key in (LEAF_K, 8, "8-wide"):
+        qn, k, label = trees_of[key]
+        slots = traverse.infer_rec_width(k, qn.shape[1])
+        for ordered in (True, False):
+            total = {"frozen": 0.0, "new": 0.0, "plan": 0.0}
+            for i, w in enumerate(env["waves"][key]):
+                if not w["any_hit"]:
+                    continue
+
+                def call(core, scattered, w=w, qn=qn, k=k, ordered=ordered):
+                    return lambda: traverse.trace_rays(
+                        qn, w["o"], w["d"], any_hit=True, leaf_k=k, active=w["active"],
+                        ordered=ordered, scattered=scattered, core=core)
+
+                fns = {"frozen": call("baseline", False), "one thread a ray": call(new, False),
+                       "persistent": call(new, True)}
+                outs = {n: fn() for n, fn in fns.items()}
+                for n, out in outs.items():
+                    words = differing_words(out, outs["frozen"])
+                    if words:
+                        fail(f"phase 28: {label} wave {i} (any hit, ordered={ordered}): {n} "
+                             f"differs from the frozen loop in {words} words")
+                ms = series(fns, 3, 2)
+                _, persistent = traverse.launch_plan(
+                    "hopper", any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
+                    scattered=w["scattered"])
+                mine = ms["persistent" if w["scattered"] else "one thread a ray"]
+                picked = ms["persistent" if persistent else "one thread a ray"]
+                total["frozen"] += ms["frozen"]
+                total["new"] += mine
+                total["plan"] += picked
+                alive = w["o"].shape[0] if w["active"] is None else int(w["active"].sum())
+                log(f"[k2b] {label} wave {i} (any hit, {'ordered' if ordered else 'unordered'}, "
+                    f"{'scattered' if w['scattered'] else 'dense'}, alive {alive}): frozen "
+                    f"{ms['frozen']:.4f}, new core one thread a ray {ms['one thread a ray']:.4f}, "
+                    f"persistent {ms['persistent']:.4f} ms (frozen / new "
+                    f"{ms['frozen'] / mine:.4f}); the plan runs {new}"
+                    f"{', persistent' if persistent else ''}; planes bit-identical on {card}")
+            log(f"[k2b] {label} {'ordered' if ordered else 'unordered'}, the sample's any-hit "
+                f"waves: frozen {total['frozen']:.4f} ms, new core (schedule by scattered) "
+                f"{total['new']:.4f} ms, what the plan runs {total['plan']:.4f} "
+                f"ms on {card}")
+
+    # each set of the elements on the first any-hit wave (one thread a ray)
+    for key in (LEAF_K, 8):
+        qn, k, label = trees_of[key]
+        w = next(w for w in env["waves"][key] if w["any_hit"])
+        ms = series({c: (lambda c=c, w=w, qn=qn, k=k: traverse.trace_rays(
+            qn, w["o"], w["d"], any_hit=True, leaf_k=k, active=w["active"], core=c))
+            for c in ANY_HIT_CORES}, 3, 2)
+        log(f"[k2b] cores on {label}'s first any-hit wave (one thread a ray): "
+            + ", ".join(f"{c} {v:.4f} ({ms['baseline'] / v:.4f}x)" for c, v in ms.items())
+            + f" ms on {card}")
+
+    # the whole sample, only the any-hit waves swapped
+    real = render_pt.trace_rays
+
+    def any_hit_core(core, fn):
+        def traced(*args, any_hit=False, **kw):
+            return real(*args, any_hit=any_hit, **kw, **({"core": core} if any_hit else {}))
+
+        def run():
+            render_pt.trace_rays = traced
+            try:
+                return fn()
+            finally:
+                render_pt.trace_rays = real
+        return run
+
+    for key in (LEAF_K, 8):
+        qn, k, label = trees_of[key]
+        for ordered in (True, False):
+            def sample(qn=qn, k=k, ordered=ordered):
+                return render_pt.pt_sample_frame(
+                    qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+                    leaf_k=k, tile_primary=True, ordered_ah=ordered,
+                    generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+            fns = {c: any_hit_core(c, sample) for c in ("hopper", "baseline")}
+            if not torch.equal(fns["hopper"](), fns["baseline"]()):
+                fail(f"phase 28: the {label} sample (ordered_ah={ordered}) differs between the "
+                     "frozen loop and the launch plan's any-hit core")
+            ms = abba(fns, 4, 3)
+            log(f"[k2b] A-B-B-A one {BOUNCES}-bounce 1080p sample {label}, ordered_ah={ordered} "
+                f"(radiance equal), only the any-hit waves swapped: the plan's core "
+                f"{ms['hopper']:.4f} ms, frozen loop {ms['baseline']:.4f} ms, speed-up "
+                f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
+    log(f"[k2b] K2b's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # 33. wavefront compaction and K2 without near-first order: the sample's
@@ -3225,7 +3355,7 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
             if kw.get("compact") and kw["compact_impl"] == "argsort" and kw["ordered_ah"]:
                 for i, w in enumerate(waves):
                     if w["active"] is None or (w["any_hit"] and k > 1):
-                        continue  # dense camera wave; any hit at K > 1 runs one schedule
+                        continue  # dense camera wave; k2b_phase times any hit at K > 1
                     sched = abba({s: (lambda s=s, w=w: traverse.trace_rays(
                         qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
                         scattered=s == "persistent")) for s in ("dense", "persistent")}, 3, 2)

@@ -32,10 +32,10 @@
 // takes L1 from the records (chip_smoke.py phase 28).
 //
 // The design elements, a feature bit each so that each is timed alone (every
-// set of them is built for K1a, K2a and K2b; kRenderCore is what the render
-// paths run, but for any hit over leaves of more than one triangle: there
-// every set lost to the baseline loop on the card, at 4 and 8 slots, and the
-// wrapper, ops/cuda/traverse.py::trace_rays, launches that loop):
+// set of the first three is built for K1a, K2a and K2b; kRenderCore is what
+// the render paths run, but for any hit over leaves of more than one
+// triangle, where every per-lane set lost to the baseline loop on the card
+// and kAnyHitCore runs instead, with the last two elements):
 //  * kOrder — child order in registers, on every render path. Each passing
 //    child k (slab hit, so its key is not NaN, and ref >= 0) goes to its
 //    rank in the stable far-to-near order, pos(k) = #{j passing : key_j >
@@ -72,6 +72,28 @@
 //    through ld_rec / ld_rec4, which are __ldg without the bit, so a core
 //    without it compiles to what it was. It takes the dynamic shared memory
 //    that kSharedStack would use: the two are never combined.
+//  * kWarpLeaves — any hit over leaves of K > 1: the leaf tests spread over
+//    the warp (Ray::warp_step, warp_leaves). With one lane a ray, a lane
+//    tests a whole leaf slot alone, K Möller–Trumbore tests one after
+//    another, each three 16-byte loads at a 48-byte stride in its own
+//    record, so a warp-wide load touches up to 32 lines and the warp waits
+//    for its longest leaf. Here every lane of the warp calls warp_step
+//    together: each lane pops and visits its own record (slab tests, the
+//    internal children pushed in its core's order) and posts the leaf slots
+//    that pass; then the warp serves the posted records one lane after
+//    another, the ray broadcast with __shfl_sync, lane j testing triangle j
+//    (one K = 32 slot is 12 contiguous 128-byte lines, read by three
+//    coalesced loads), and __ballot_sync gives the lowest accepted position:
+//    the triangle the sequential loop stops at, so every mask writes the
+//    words of the frozen loop. Slots of more than 32 triangles are served in
+//    runs of 32, in order, up to the first run with a hit. A lane with no
+//    ray left only helps test, so the kernels keep every lane of a warp in
+//    the loop (traverse_ray_warp; the persistent warps refill as before).
+//  * kPackSlots — with kWarpLeaves: a visit's posted slots as one run of
+//    positions k·K + j end to end (their triangles are contiguous in the
+//    record), so at K = 8 a 4-slot visit is one run of 32 lanes where one
+//    slot at a time fills 8. It pays below K = 32 only, so kAnyHitCore's
+//    launcher drops it from K = 32 on (traverse_rays.cu's dispatch).
 // Two things of the form matter as much: the stack's storage is a variable
 // of its own beside the ray's state (in one struct with the dynamically
 // indexed array, the ray's scalars live in local memory too), and an any-hit
@@ -116,6 +138,8 @@ enum : unsigned {
   kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
   kUnordered = 8u,    // no near-first order: children pushed in slot order
   kSharedTree = 16u,  // the records in the block's dynamic shared memory
+  kWarpLeaves = 32u,  // any hit: the warp tests one ray's leaf slots at a time, a triangle a lane
+  kPackSlots = 64u,   // with kWarpLeaves: a visit's leaf slots as one run of triangles
   kBaseline = 256u,
 };
 
@@ -123,6 +147,14 @@ enum : unsigned {
 // (chip_smoke.py phase 28; PERF.md §6). The shared stack and the
 // prefetch lose there, so they stay off and are built only to be timed.
 constexpr unsigned kRenderCore = kOrder;
+
+// The core of any hit over leaves of more than one triangle, where the
+// wrapper's launch plan picks it (ops/cuda/traverse.py::launch_plan): the
+// render core's order between leaves, the leaf tests spread over the warp,
+// the slots packed below K = 32 (the launcher drops kPackSlots from there).
+constexpr unsigned kAnyHitCore = kOrder | kWarpLeaves | kPackSlots;
+
+constexpr unsigned kWarpMask = 0xffffffffu;
 
 // Dynamic shared memory a block of `threads` threads needs for core `feat`'s
 // stack (a kSharedTree core takes the records' bytes instead).
@@ -183,6 +215,87 @@ struct Hit {
 
 __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) > 1e-8f ? 1.0f / d : kInf;
+}
+
+// Möller–Trumbore of the ray (o, d) against one inlined triangle record
+// [v0, e1, e2, g] (a, b, c: its three float4s): whether it is accepted, at
+// a distance tt with kMtEps < tt < best. The expression of Ray::leaves and
+// of the frozen loop, in the same operation order, for the warp's leaf
+// tests; Ray::leaves keeps its own copy, so that the other kernels compile
+// to the machine code they had. The three copies must stay in step.
+__device__ __forceinline__ bool mt_hit(const float4 a, const float4 b, const float4 c, float ox,
+                                       float oy, float oz, float dx, float dy, float dz,
+                                       float best, float& tt) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;  // a: v0x v0y v0z e1x
+  const float e2x = b.z, e2y = b.w, e2z = c.x;  // b: e1y e1z e2x e2y; c: e2z gx gy gz
+  const float pxv = dy * e2z - dz * e2y;
+  const float pyv = dz * e2x - dx * e2z;
+  const float pzv = dx * e2y - dy * e2x;
+  const float det = e1x * pxv + e1y * pyv + e1z * pzv;
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  const float sx = ox - a.x, sy = oy - a.y, sz = oz - a.z;
+  const float uu = inv_det * (sx * pxv + sy * pyv + sz * pzv);
+  const float qcx = sy * e1z - sz * e1y;
+  const float qcy = sz * e1x - sx * e1z;
+  const float qcz = sx * e1y - sy * e1x;
+  const float vv = inv_det * (dx * qcx + dy * qcy + dz * qcz);
+  tt = inv_det * (e2x * qcx + e2y * qcy + e2z * qcz);
+  return fabsf(det) >= kMtEps && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+         tt > kMtEps && tt < best;
+}
+
+// The leaf tests of one ray against the leaf slots `posted` (bit k: slot k)
+// of record `rec`, by the whole warp: every lane calls it with the same
+// arguments, and each lane tests one triangle position p = k·K + j (slot k,
+// triangle j < K, j < the slot's count) of a run of 32 at a time, the runs
+// in position order; a ballot gives the lowest accepted position of the
+// first run that has one. That is the triangle the sequential loop of
+// Ray::leaves stops at (slot then triangle order), so every lane returns
+// it, or -1. Each posted slot is its own runs of up to 32 triangles; with
+// kPackSlots the runs go over the posted slots' positions end to end
+// instead (at K = 8 a 4-slot visit is one run). Both are right at any K;
+// the launcher takes kPackSlots below K = 32 only (traverse_rays.cu).
+template <int kSlots, unsigned kFeat>
+__device__ __forceinline__ int warp_leaves(const float* __restrict__ rec, unsigned posted,
+                                           int leaf_k, float ox, float oy, float oz, float dx,
+                                           float dy, float dz, float best) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const float4* tv = reinterpret_cast<const float4*>(rec + 8 * kSlots);
+  const float* cnt = rec + 7 * kSlots;
+  float tt;
+  if constexpr ((kFeat & kPackSlots) != 0) {
+    const int end = (32 - __clz(posted)) * leaf_k;  // past the last posted slot
+    for (int run = (__ffs(posted) - 1) * leaf_k; run < end; run += 32) {
+      const int p = run + lane;
+      int k = 0;  // p's slot: p / K with kSlots - 1 compares
+#pragma unroll
+      for (int s = 1; s < kSlots; ++s) k += p >= s * leaf_k ? 1 : 0;
+      const bool ok = p < end && ((posted >> k) & 1u) != 0u &&
+                      (float)(p - k * leaf_k) < ld_rec<kFeat>(cnt + k) &&
+                      mt_hit(ld_rec4<kFeat>(tv + 3 * p), ld_rec4<kFeat>(tv + 3 * p + 1),
+                             ld_rec4<kFeat>(tv + 3 * p + 2), ox, oy, oz, dx, dy, dz, best, tt);
+      const unsigned hits = __ballot_sync(kWarpMask, ok);
+      if (hits != 0u) return run + __ffs(hits) - 1;
+    }
+    return -1;
+  }
+  // unrolled over the slots: a loop over the posted bits spilled less in
+  // the 8-slot kernels but took 1.06-1.08x the time of the 4-slot waves on
+  // the card (PERF.md §6)
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    if (((posted >> k) & 1u) == 0u) continue;
+    const float n = ld_rec<kFeat>(cnt + k);
+    for (int run = 0; run < leaf_k && (float)run < n; run += 32) {
+      const int j = run + lane, p = k * leaf_k + j;
+      const bool ok = j < leaf_k && (float)j < n &&
+                      mt_hit(ld_rec4<kFeat>(tv + 3 * p), ld_rec4<kFeat>(tv + 3 * p + 1),
+                             ld_rec4<kFeat>(tv + 3 * p + 2), ox, oy, oz, dx, dy, dz, best, tt);
+      const unsigned hits = __ballot_sync(kWarpMask, ok);
+      if (hits != 0u) return k * leaf_k + run + __ffs(hits) - 1;
+    }
+  }
+  return -1;
 }
 
 // The stack columns of a block's threads: entry i of thread `tid` at
@@ -369,7 +482,9 @@ struct Ray {
   }
 
   // Möller–Trumbore over the inlined [v0, e1, e2, g] records of the leaf
-  // slots that passed, in slot then triangle order, strict t < best. Closest
+  // slots that passed, in slot then triangle order, strict t < best. The
+  // test's expression has twins that must stay in step with it: mt_hit (the
+  // warp's leaf tests) and the frozen loop's (traverse_core_baseline.cuh). Closest
   // hit keeps the nearest in best and r and returns -1; any hit returns the
   // position k·K + j of the first accepted triangle (or -1) and writes
   // nothing: the caller leaves the loop and takes the triangle's normal and
@@ -433,6 +548,36 @@ struct Ray {
   // Take the top entry of the stack.
   __device__ __forceinline__ int2 pop(const StackT& stack) { return stack.get(sp--, col, cols); }
 
+  // The header of record `rec` into h ([0:6w] child boxes, [6w:7w] refs,
+  // [7w:8w] counts/radii, w = kSlots), and the slab tests of all its slots
+  // against the best t at the start of the visit: hit[k], and tmin[k] the
+  // slab entry distance. The warp's visit (warp_step); visit() keeps its own
+  // copy of these lines, so that the other kernels compile to the machine
+  // code they had (the shared function changed it: tools_torch/ab_parent.py).
+  __device__ __forceinline__ void slabs(const float* __restrict__ rec, float* h, float* tmin,
+                                        bool* hit) const {
+    const float4* hdr = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+    for (int i = 0; i < 2 * kSlots; ++i) {
+      const float4 q = ld_rec4<kFeat>(hdr + i);
+      h[4 * i] = q.x;
+      h[4 * i + 1] = q.y;
+      h[4 * i + 2] = q.z;
+      h[4 * i + 3] = q.w;
+    }
+    const float best0 = best;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const float t1x = (h[6 * k + 0] - ox) * ix, t2x = (h[6 * k + 3] - ox) * ix;
+      const float t1y = (h[6 * k + 1] - oy) * iy, t2y = (h[6 * k + 4] - oy) * iy;
+      const float t1z = (h[6 * k + 2] - oz) * iz, t2z = (h[6 * k + 5] - oz) * iz;
+      const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+      const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+      hit[k] = (tf >= fmaxf(tn, 0.0f)) && (tn < best0);
+      tmin[k] = tn;
+    }
+  }
+
   // Visit record e.x, whose entry passed the cull. Returns the position of
   // the triangle an any-hit traversal accepted (the ray is then done; see
   // leaves), else -1.
@@ -453,6 +598,8 @@ struct Ray {
     }
 
     // slab tests of all slots against the best t at the start of the visit
+    // (the header load and these tests have a twin in slabs(), and one in
+    // the frozen loop: keep them in step)
     const float best0 = best;
     float tmin[kSlots];
     bool hit[kSlots];
@@ -492,11 +639,60 @@ struct Ray {
     }
     return pending();
   }
+
+  // kWarpLeaves (any hit): one visit of this lane's ray, then the warp's
+  // leaf tests; every lane of the warp calls it together (a lane with no ray
+  // left to traverse only helps test). The lane pops until an entry passes
+  // the cull, tests the record's slabs and pushes the internal children that
+  // pass (before the leaf tests: a ray that then hits drops its stack); the
+  // leaf slots that pass are posted, and the warp tests the posted records
+  // one lane after another (warp_leaves, with that lane's ray broadcast). A
+  // ray with an accepted triangle takes its occluder and is done: the same
+  // records visited in the same order, and the same triangle, as step().
+  __device__ __forceinline__ void warp_step(StackT& stack, const float* __restrict__ qn,
+                                            int recw, int leaf_k) {
+    unsigned posted = 0u;
+    int node = 0;
+    while (pending()) {
+      const int2 e = pop(stack);
+      if (!(__int_as_float(e.y) < best)) continue;
+      if (kVisits) ++r.visits;
+      node = e.x;
+      float h[8 * kSlots];
+      float tmin[kSlots];
+      bool hit[kSlots];
+      slabs(qn + (size_t)node * (size_t)recw, h, tmin, hit);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const float ref = h[6 * kSlots + k];
+        posted |= (hit[k] && ref < 0.0f && ref > kEmptyRef) ? 1u << k : 0u;
+      }
+      push(stack, h, tmin, hit);
+      break;
+    }
+    int at = -1;
+    for (unsigned lanes = __ballot_sync(kWarpMask, posted != 0u); lanes != 0u;
+         lanes &= lanes - 1u) {
+      const int src = __ffs(lanes) - 1;
+      const int n = __shfl_sync(kWarpMask, node, src);
+      const int found = warp_leaves<kSlots, kFeat>(
+          qn + (size_t)n * (size_t)recw, __shfl_sync(kWarpMask, posted, src), leaf_k,
+          __shfl_sync(kWarpMask, ox, src), __shfl_sync(kWarpMask, oy, src),
+          __shfl_sync(kWarpMask, oz, src), __shfl_sync(kWarpMask, dx, src),
+          __shfl_sync(kWarpMask, dy, src), __shfl_sync(kWarpMask, dz, src),
+          __shfl_sync(kWarpMask, best, src));
+      if ((int)(threadIdx.x & 31u) == src) at = found;
+    }
+    if (at >= 0) {
+      occluder(qn + (size_t)node * (size_t)recw, leaf_k, at);
+      sp = -1;
+    }
+  }
 };
 
 // The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
 // baseline loop; kBaseline | kUnordered: that loop with slot-order pushes;
-// | kSharedTree: `qn` is the block's shared copy of the records).
+// kSharedTree: `qn` is the block's shared copy of the records).
 // `tid` / `threads` place the thread's shared stack column (the block's
 // dynamic shared memory must hold stack_smem_bytes(kFeat, threads)).
 template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
@@ -506,8 +702,7 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
                                             int threads) {
   if constexpr ((kFeat & kBaseline) != 0) {
     const rt_baseline::Hit h =
-        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0,
-                                  (kFeat & kSharedTree) != 0>(
+        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0>(
             qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
     return Hit{h.t, h.nx, h.ny, h.nz, h.tri, h.visits};
   } else {
@@ -526,6 +721,27 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
     }
     return ray.result();
   }
+}
+
+// The whole any-hit traversal of one ray a lane with core `kFeat` (which
+// holds kWarpLeaves): every lane of the warp calls it and stays until no
+// lane's ray is left, so that the warp tests the leaves together; `mine`:
+// whether this lane has a ray (o and d are read only then). A lane without
+// one returns the miss values.
+template <int kSlots, unsigned kFeat>
+__device__ __forceinline__ Hit traverse_ray_warp(const float* __restrict__ qn, int recw,
+                                                 int leaf_k, bool mine, float ox, float oy,
+                                                 float oz, float dx, float dy, float dz,
+                                                 float best_init, int entry, int tid,
+                                                 int threads) {
+  static_assert((kFeat & kWarpLeaves) != 0 && (kFeat & kBaseline) == 0, "a warp-leaves core");
+  using R = Ray<kSlots, true, false, kFeat>;
+  R ray;
+  typename R::StackT stack;
+  ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);
+  if (!mine) ray.sp = -1;
+  while (__any_sync(kWarpMask, ray.pending())) ray.warp_step(stack, qn, recw, leaf_k);
+  return ray.result();
 }
 
 }  // namespace rt

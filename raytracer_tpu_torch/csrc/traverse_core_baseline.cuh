@@ -6,16 +6,18 @@
 // (rt::kBaseline = 256 selects it), so
 // that one process can time the two against each other and check that they
 // write the same words; the wrappers expose it as core="baseline", which
-// only chip_smoke.py and the card tests pass. No caller selects it for a
-// render path; the one place it runs there is trace_rays' any hit over
-// leaves of more than one triangle, where every element of the redesigned
-// core lost to it on the card. Do not edit the loop: a change here is no
-// longer the baseline. The additions are the kOrdered = false form of
-// that any hit (trace_rays(ordered=False)): the same loop with the children
-// pushed in slot order; and kSharedTree (trace_rays(tree_space="smem")):
-// the same loop reading the records from the block's shared copy with plain
-// loads where the frozen loop uses __ldg. kOrdered = true with kSharedTree
-// = false compiles to the frozen loop.
+// only chip_smoke.py and the card tests pass. No render path runs it: any
+// hit over leaves of more than one triangle, where every per-lane form of
+// the redesigned core lost to it on the card, now runs rt::kAnyHitCore (the
+// leaf tests spread over the warp), which beat it at 4 and 8 slots, in both
+// orders, at K = 8 and 32 (ops/cuda/traverse.py::launch_plan). Do not edit
+// the loop: a change here is no longer the baseline. Its slab tests and its
+// Möller–Trumbore test have twins in traverse_core.cuh (Ray::visit and
+// Ray::slabs; Ray::leaves and mt_hit) that must stay in step with it. The
+// one addition is the kOrdered = false form of that any hit
+// (trace_rays(ordered=False)): the same loop with the children pushed in
+// slot order; kOrdered = true compiles to the frozen loop. It reads the
+// records from device memory only (tree_space "hbm" or "vmem").
 //
 // The per-ray traversal of the supernode records, shared by the primary-ray
 // kernels K1a/K1b/K1c/K1d/K1e/K1f (traverse_tiles.cu) and the ray-buffer kernels
@@ -64,23 +66,12 @@ __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) > 1e-8f ? 1.0f / d : kInf;
 }
 
-// __ldg, or a plain load from shared memory under kSharedTree.
-template <bool kSharedTree, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (kSharedTree) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
-
 // Traverse the records `qn` (rows of `recw` f32 words, kSlots child slots,
 // K = leaf_k triangles per leaf) with the ray (o, d). Closest hit: the
 // nearest accepted triangle (strict t < best, first in visit order among
 // equal t). kAnyHit: stop at the first accepted triangle in visit order.
 // kVisits: count the records visited (pops that pass the cull).
 // !kOrdered: push the passing children in slot order, with no sort.
-// kSharedTree: `qn` points into shared memory.
 //
 // `best_init` and `entry` are where the traversal starts: 1e30 and the root
 // (record 0) everywhere but in K1d. A finite `best_init` is a depth bound:
@@ -90,8 +81,7 @@ __device__ __forceinline__ T ld(const T* p) {
 // that finds none returns t = best_init. `entry` is pushed with key 0, so it
 // is visited whenever best_init > 0; the caller guarantees that no record
 // outside its subtree can hold the ray's nearest hit.
-template <int kSlots, bool kAnyHit, bool kVisits, bool kOrdered = true,
-          bool kSharedTree = false>
+template <int kSlots, bool kAnyHit, bool kVisits, bool kOrdered = true>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw,
                                             int leaf_k, float ox, float oy, float oz,
                                             float dx, float dy, float dz,
@@ -121,7 +111,7 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
     const float4* hdr = reinterpret_cast<const float4*>(rec);
 #pragma unroll
     for (int i = 0; i < 2 * kSlots; ++i) {
-      const float4 q = ld<kSharedTree>(hdr + i);
+      const float4 q = __ldg(hdr + i);
       h[4 * i] = q.x;
       h[4 * i + 1] = q.y;
       h[4 * i + 2] = q.z;
@@ -152,9 +142,9 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
       const float cnt = h[7 * kSlots + k];
       const float4* tv = reinterpret_cast<const float4*>(rec + vbase + k * leaf_k * 12);
       for (int j = 0; j < leaf_k && (float)j < cnt; ++j) {
-        const float4 a = ld<kSharedTree>(tv + 3 * j);      // v0x v0y v0z e1x
-        const float4 b = ld<kSharedTree>(tv + 3 * j + 1);  // e1y e1z e2x e2y
-        const float4 c = ld<kSharedTree>(tv + 3 * j + 2);  // e2z gx  gy  gz
+        const float4 a = __ldg(tv + 3 * j);      // v0x v0y v0z e1x
+        const float4 b = __ldg(tv + 3 * j + 1);  // e1y e1z e2x e2y
+        const float4 c = __ldg(tv + 3 * j + 2);  // e2z gx  gy  gz
         const float e1x = a.w, e1y = b.x, e1z = b.y;
         const float e2x = b.z, e2y = b.w, e2z = c.x;
         const float pxv = dy * e2z - dz * e2y;
@@ -176,7 +166,7 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
           r.nx = c.y * g_inv;
           r.ny = c.z * g_inv;
           r.nz = c.w * g_inv;
-          r.tri = (int)ld<kSharedTree>(rec + ibase + k * leaf_k + j);
+          r.tri = (int)__ldg(rec + ibase + k * leaf_k + j);
           if (kAnyHit) {
             r.t = 0.0f;
             return r;

@@ -27,9 +27,16 @@
 //  * The per-ray traversal of traverse_core.cuh in its render form
 //    rt::kRenderCore (near-first order by the ray's own slab entry
 //    distance, ranked in registers; culling at the best t). Any hit over
-//    leaves of more than one triangle keeps the baseline loop with one
-//    thread per ray, which beat both the new core and the persistent warps
-//    there (the caller, trace_rays, passes core rt::kBaseline).
+//    leaves of more than one triangle (the shadow rays of every render
+//    path at SAH K = 32 and Morton K = 8) runs rt::kAnyHitCore instead:
+//    each lane visits its own ray's records in that order, and the warp
+//    tests the leaf slots they reach together, a triangle a lane
+//    (kWarpLeaves): one lane testing a whole leaf of 32 triangles alone,
+//    on loads that touch a line a lane, was what the per-lane cores and the
+//    frozen loop spent that wave on. The caller's launch plan
+//    (ops/cuda/traverse.py::launch_plan) picks it and its schedule; it beat
+//    the frozen loop of traverse_core_baseline.cuh on every wave measured,
+//    so that loop runs only as core rt::kBaseline, the yardstick.
 //  * Two schedules, chosen by the caller per wave (trace_rays(scattered=)):
 //    - one thread per ray in blocks of 128, where the active rays come in
 //      runs (the camera's NEE wave and the first bounce: its lanes are the
@@ -74,7 +81,7 @@
 //    reset and the carve-out put back as it was. kSmem: each block first copies the whole
 //    record array into its dynamic shared memory with 16-byte loads
 //    (rt::stage_tree) and then traverses from there (rt::kSharedTree), both
-//    schedules and the baseline loop of any hit over leaves of K > 1, in
+//    schedules of the render core and of rt::kAnyHitCore, in
 //    blocks of `block` threads (at most kSmemBlockMax). A block copies the
 //    whole tree, so the per-ray schedule copies it once per `block` rays
 //    and the persistent warps once per resident block. The tree must fit
@@ -82,9 +89,10 @@
 //    scalar memory; the caller checks the fit.
 //
 // The launcher's `core` argument selects the traversal core (-1: the render
-// core; rt::kBaseline, the frozen baseline loop with one thread per ray;
-// other feature masks for timing an element alone), `persistent` the
-// schedule, `tree_space` the placement.
+// core; rt::kAnyHitCore, any hit with the warp's leaf tests; rt::kBaseline,
+// the frozen baseline loop with one thread per ray; other feature masks for
+// timing an element alone), `persistent` the schedule, `tree_space` the
+// placement.
 //
 // Exactness: the slab and Möller–Trumbore arithmetic of traverse_core.cuh,
 // built with -fmad=false, in the operation order of the plain torch version
@@ -140,23 +148,44 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                   int* __restrict__ tri_out, int tree_f4) {
   const float* tree = rt::stage_tree<kCore>(qn, tree_f4);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0};
-  if (active == nullptr || active[i] != 0) {
-    const size_t r = 3 * (size_t)i;
-    hit = rt::traverse_ray<kSlots, kAnyHit, false, kCore>(
-        tree, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
-        rt::kInf, 0, threadIdx.x, blockDim.x);
+  if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+    // the warp tests its rays' leaves together: no lane leaves early (the
+    // block holds whole warps)
+    static_assert(kAnyHit, "the warp-leaves cores are any hit");
+    const bool mine = i < n && (active == nullptr || active[i] != 0);
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+    if (mine) {
+      for (int c = 0; c < 3; ++c) {
+        o[c] = orig[3 * (size_t)i + c];
+        d[c] = dirs[3 * (size_t)i + c];
+      }
+    }
+    const rt::Hit hit = rt::traverse_ray_warp<kSlots, kCore>(
+        tree, recw, leaf_k, mine, o[0], o[1], o[2], d[0], d[1], d[2], rt::kInf, 0, threadIdx.x,
+        blockDim.x);
+    if (i < n) store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
+  } else {
+    if (i >= n) return;
+    rt::Hit hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0};
+    if (active == nullptr || active[i] != 0) {
+      const size_t r = 3 * (size_t)i;
+      hit = rt::traverse_ray<kSlots, kAnyHit, false, kCore>(
+          tree, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1],
+          dirs[r + 2], rt::kInf, 0, threadIdx.x, blockDim.x);
+    }
+    store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
   }
-  store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
 }
 
 // Persistent warps with dynamic fetch: each warp takes kChunk consecutive
 // ray indices at a time from the counter `next` (zeroed before the launch)
 // and hands them to its idle lanes, skipping inactive rays, whenever fewer
-// than kRefill lanes of the warp traverse. The render core only, with or
-// without near-first order (kCore = rt::kRenderCore [| rt::kUnordered]
-// [| rt::kSharedTree]).
+// than kRefill lanes of the warp traverse. The render core, with or without
+// near-first order (kCore = rt::kRenderCore [| rt::kUnordered]
+// [| rt::kSharedTree]), and the any-hit core rt::kAnyHitCore (with or
+// without rt::kPackSlots, in the same forms), whose leaf tests take the
+// whole warp: there every lane calls warp_step each round, an idle lane
+// with an empty stack, and only the lanes that hold a ray store a result.
 template <int kSlots, bool kAnyHit, unsigned kCore>
 __global__ void __launch_bounds__(max_block(kCore))
 trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
@@ -175,6 +204,10 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   int idx = -1;                // this lane's ray; -1 while the lane is idle
   unsigned qpos = 0, qend = 0;  // the warp's indices taken, [qpos, qend) not handed out
   bool drained = false;        // every index below n has been taken
+  if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+    static_assert(kAnyHit, "the warp-leaves cores are any hit");
+    ray.sp = -1;  // an idle lane only helps the warp test leaves
+  }
   while (true) {
     unsigned busy = __ballot_sync(kFull, idx >= 0);
     if (!drained && (busy == 0u || __popc(busy) < kRefill)) {
@@ -212,7 +245,13 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
       }
     }
     if (busy == 0u) break;  // drained, and no lane traverses
-    if (idx >= 0 && !ray.step(stack, tree, recw, leaf_k)) {
+    if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+      ray.warp_step(stack, tree, recw, leaf_k);  // every lane: the warp tests the leaves
+      if (idx >= 0 && !ray.pending()) {
+        store_ray(ray.result(), (size_t)idx, t_out, nx_out, ny_out, nz_out, tri_out);
+        idx = -1;
+      }
+    } else if (idx >= 0 && !ray.step(stack, tree, recw, leaf_k)) {
       store_ray(ray.result(), (size_t)idx, t_out, nx_out, ny_out, nz_out, tri_out);
       idx = -1;
     }
@@ -352,6 +391,10 @@ int launch_pinned(const float* qnodes, size_t bytes, cudaStream_t s, Launch laun
 // one thread per ray), to time each design element and each set of them
 // (chip_smoke.py phase 28): X(any_hit, mask) for each.
 #define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 1) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
+// and for K2b the leaf tests spread over the warp without the order or
+// without the packed slots (kWarpLeaves = 32, kOrder = 1, kPackSlots = 64;
+// the set of all three is rt::kAnyHitCore)
+#define RT_MEASURED_WARP_CORES(X, A) X(A, 32) X(A, 33) X(A, 96)
 
 // The launch of everything but the placement: the arguments of
 // rt_trace_rays, with core | rt::kSharedTree chosen under kSmem.
@@ -369,12 +412,32 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
   (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)     \
            : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL))
 #define RT_ANY_PER_RAY(S, CORE) launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)
+#define RT_ANY_HIT_CORE(CORE)                                                               \
+  (persistent                                                                               \
+       ? (slots == 8 ? launch_persistent<8, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS,     \
+                                                        RT_LAUNCH_TAIL)                     \
+                     : launch_persistent<4, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS,     \
+                                                        RT_LAUNCH_TAIL))                    \
+       : (slots == 8 ? RT_ANY_PER_RAY(8, CORE) : RT_ANY_PER_RAY(4, CORE)))
+#define RT_WARP_CORE(CORE)                                                        \
+  (shared ? (ordered ? RT_ANY_HIT_CORE((CORE) | kSt)                             \
+                     : RT_ANY_HIT_CORE((CORE) | rt::kUnordered | kSt))           \
+          : (ordered ? RT_ANY_HIT_CORE(CORE) : RT_ANY_HIT_CORE((CORE) | rt::kUnordered)))
   constexpr unsigned kFree = rt::kRenderCore | rt::kUnordered;
   constexpr unsigned kFreeBaseline = rt::kBaseline | rt::kUnordered;
   constexpr unsigned kSt = rt::kSharedTree;
+  if (core == (int)rt::kAnyHitCore) {
+    // any hit with the warp's leaf tests, in both orders and schedules and
+    // with the records in device memory or in shared memory; the slots
+    // packed into one run only below K = 32 (from there on a run holds one
+    // slot either way, and the packed loop's slot arithmetic cost 7% at
+    // K = 32 on the card; in the kernel beside the per-slot loop it spilled)
+    if (!any_hit) return (int)cudaErrorInvalidValue;
+    return leaf_k < 32 ? RT_WARP_CORE(rt::kAnyHitCore)
+                       : RT_WARP_CORE(rt::kAnyHitCore & ~rt::kPackSlots);
+  }
   if (shared) {
-    // the render core in both orders and schedules, and the baseline loop
-    // of any hit (over leaves of K > 1) with one thread per ray
+    // the render core in both orders and schedules
     if (core == -1 && ordered) {
       if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore | kSt)
                                         : RT_PERSISTENT(4, rt::kRenderCore | kSt);
@@ -383,12 +446,6 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
     if (core == -1) {
       if (persistent) return slots == 8 ? RT_PERSISTENT(8, kFree | kSt) : RT_PERSISTENT(4, kFree | kSt);
       return slots == 8 ? RT_PER_RAY(8, kFree | kSt) : RT_PER_RAY(4, kFree | kSt);
-    }
-    if (core == (int)rt::kBaseline && any_hit && !persistent) {
-      if (!ordered) return slots == 8 ? RT_ANY_PER_RAY(8, kFreeBaseline | kSt)
-                                      : RT_ANY_PER_RAY(4, kFreeBaseline | kSt);
-      return slots == 8 ? RT_ANY_PER_RAY(8, rt::kBaseline | kSt)
-                        : RT_ANY_PER_RAY(4, rt::kBaseline | kSt);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -411,9 +468,15 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
   if (slots == 4 && !any_hit) {
     switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, false) default: break; }
   } else if (slots == 4) {
-    switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, true) default: break; }
+    switch (core) {
+      RT_MEASURED_RAY_CORES(RT_CASE, true)
+      RT_MEASURED_WARP_CORES(RT_CASE, true)
+      default: break;
+    }
   }
 #undef RT_CASE
+#undef RT_WARP_CORE
+#undef RT_ANY_HIT_CORE
 #undef RT_ANY_PER_RAY
 #undef RT_PER_RAY
 #undef RT_PERSISTENT
@@ -429,29 +492,30 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
 // 16-byte aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n,
 // 3) f32; active: n bytes (0 = inactive) or null for all rays; outputs:
 // (n,) planes. `core`: -1 for the render paths' core rt::kRenderCore,
-// rt::kBaseline (256, the baseline loop with one thread per ray), or on
-// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES (timing
+// rt::kAnyHitCore (97, any hit only), rt::kBaseline (256, the baseline loop
+// with one thread per ray), or on 4-wide records one of the feature masks
+// of RT_MEASURED_RAY_CORES and, for any hit, RT_MEASURED_WARP_CORES (timing
 // an element alone; one thread per ray). `ordered` == 0 drops the
 // near-first order (rt::kUnordered: children pushed in slot order) from the
-// render core or the baseline loop (core -1 or rt::kBaseline only).
-// `persistent` != 0 runs persistent warps (core -1 only) and needs `next`, 4
-// bytes of device memory that this launch alone uses (zeroed here on
-// `stream`); otherwise one thread per ray. `tree_space`: kHbm (0), kVmem
-// (1: any core; records of at most the card's persisting L2 and window
-// size) or kSmem (2: core -1, or rt::kBaseline for any hit with one thread
-// per ray; records of at most one block's shared memory, in blocks of
-// `block` threads, a multiple of 32 up to kSmemBlockMax). Returns the first
-// CUDA error (0 on success, or cudaErrorInvalidValue for an argument
-// outside these sets); synchronises nothing but under kVmem, which waits
-// for its launch to end.
+// render core, rt::kAnyHitCore or the baseline loop (those only).
+// `persistent` != 0 runs persistent warps (core -1 or rt::kAnyHitCore) and
+// needs `next`, 4 bytes of device memory that this launch alone uses
+// (zeroed here on `stream`); otherwise one thread per ray. `tree_space`:
+// kHbm (0), kVmem (1: any core; records of at most the card's persisting L2
+// and window size) or kSmem (2: core -1 or rt::kAnyHitCore; records of at
+// most one block's shared memory, in blocks of `block` threads, a multiple
+// of 32 up to kSmemBlockMax). Returns the first CUDA error (0 on success, or
+// cudaErrorInvalidValue for an argument outside these sets); synchronises
+// nothing but under kVmem, which waits for its launch to end.
 extern "C" int rt_trace_rays(const float* qnodes, int num_nodes, int recw, int leaf_k, int slots,
                              const float* origins, const float* dirs, const uint8_t* active,
                              int n, int any_hit, int core, int ordered, int persistent,
                              int tree_space, int block, unsigned* next, float* t, float* nx,
                              float* ny, float* nz, int* tri, void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
-  if (persistent && (core != -1 || next == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!ordered && core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
+  const bool free_core = core == -1 || core == (int)rt::kAnyHitCore;  // any order, any schedule
+  if (persistent && (!free_core || next == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!ordered && !free_core && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
   if (tree_space != kHbm && tree_space != kVmem && tree_space != kSmem) {
     return (int)cudaErrorInvalidValue;
   }

@@ -72,10 +72,10 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
-           "trace_rays", "trace_rays_reference", "load_kernel", "TraversalCounts", "LAUNCHES",
-           "reset_launches", "EMPTY_REF", "TILE", "CORE_ELEMENTS", "core_id",
-           "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES", "SMEM_BLOCK",
-           "check_tree_space", "tree_space_limits", "l2_window"]
+           "trace_rays", "trace_rays_reference", "launch_plan", "ANY_HIT_CORE", "load_kernel",
+           "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
+           "CORE_ELEMENTS", "core_id", "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES",
+           "SMEM_BLOCK", "check_tree_space", "tree_space_limits", "l2_window"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -90,15 +90,27 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
 # The traversal cores a wrapper's ``core`` takes. "hopper": what every
 # render path runs, the redesigned core of csrc/traverse_core.cuh in the
-# form that wins on the card (rt::kRenderCore), except for any hit over
-# leaves of more than one triangle (see trace_rays); "baseline": the frozen
+# form that wins on the card (rt::kRenderCore), and for any hit over leaves
+# of more than one triangle what launch_plan picks; "baseline": the frozen
 # baseline loop (csrc/traverse_core_baseline.cuh, with K2's one thread
 # per ray); or, to time design elements alone, a set of CORE_ELEMENTS joined
 # with "+", or "none" (K1a without jitter, visits or tables, and K2a / K2b,
-# on 4-wide records). Only chip_smoke.py and the card tests pass anything
-# but "hopper".
-CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4}
+# on 4-wide records; "warp" and "pack" K2b alone). ANY_HIT_CORE, the set
+# that launch_plan picks for any hit over leaves of K > 1, is built for
+# every width, order, schedule and placement. Only chip_smoke.py and the
+# card tests pass anything but "hopper".
+CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64}
+ANY_HIT_CORE = "order+warp+pack"  # rt::kAnyHitCore
 _MAIN_CORE, _BASELINE_CORE = -1, 256
+_ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
+
+# Any hit over leaves of more than one triangle under core="hopper"
+# (launch_plan) runs ANY_HIT_CORE, which beat the frozen loop at 4 and 8
+# slots in both orders, SAH K = 32 and Morton K = 8 (chip_smoke.py phase 28;
+# PERF.md §6), with persistent warps on the waves that ask for them
+# (scattered=True) only at K below _ANY_HIT_PERSISTENT_K (they won at K = 8
+# and lost at K = 32 on the card).
+_ANY_HIT_PERSISTENT_K = 32
 
 # Where trace_rays' records live during a traversal, under the TPU kernel's
 # names (trace_rays_pallas(tree_space=…)); trace_rays says what each is on
@@ -731,6 +743,40 @@ def l2_window(device, stream: torch.cuda.Stream | None = None) -> dict:
     return {"base": out[0], "num_bytes": out[1], "persisting_l2": out[2]}
 
 
+def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: bool = True,
+                scattered: bool = False, tree_space: str = "hbm") -> tuple[int, bool]:
+    """What :func:`trace_rays` launches for these arguments (``slots``: the
+    records' child slots): (the launcher's core id, whether it runs
+    persistent warps). A pure function: no device is touched.
+
+    "hopper" is the render core with persistent warps where ``scattered``,
+    but for any hit over leaves of more than one triangle, which runs
+    :data:`ANY_HIT_CORE` (persistent where ``scattered`` and K <
+    ``_ANY_HIT_PERSISTENT_K``; its launcher packs a visit's leaf slots into
+    one run of triangles below K = 32 only). Any other core
+    runs as named: persistent where ``scattered`` for ANY_HIT_CORE, one
+    thread per ray otherwise. Raises ``ValueError`` for what is not built:
+    ``ordered=False`` but with "hopper", "baseline" or ANY_HIT_CORE; the
+    "warp" element but for any hit; ``tree_space="smem"`` but with "hopper"
+    or ANY_HIT_CORE."""
+    cid = core_id(core)
+    if tree_space not in TREE_SPACES:
+        raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
+    free = (_MAIN_CORE, _ANY_HIT_CORE)  # built in both orders and schedules
+    if not ordered and cid not in (*free, _BASELINE_CORE):
+        raise ValueError(f"ordered=False runs the 'hopper', 'baseline' or {ANY_HIT_CORE!r} core, "
+                         f"not {core!r}")
+    if cid >= 0 and cid & CORE_ELEMENTS["warp"] and not any_hit:
+        raise ValueError(f"the {core!r} core tests leaves with the warp for any hit only")
+    if tree_space == "smem" and cid not in free:
+        raise ValueError(f"tree_space='smem' runs the 'hopper' core or {ANY_HIT_CORE!r}, not "
+                         f"{core!r}: the others are built for device memory (the shared stack "
+                         "takes the dynamic shared memory that holds the records)")
+    if core == "hopper" and any_hit and leaf_k > 1:
+        return _ANY_HIT_CORE, scattered and leaf_k < _ANY_HIT_PERSISTENT_K
+    return cid, scattered and cid in free
+
+
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
                any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None,
                scattered: bool = False, ordered: bool = True, core: str = "hopper",
@@ -757,9 +803,13 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     same, the occluder reported may differ. The core must then be "hopper"
     or "baseline".
 
-    Any hit over leaves of more than one triangle runs the baseline loop with
-    one thread per ray under ``core="hopper"`` too: there the redesigned
-    core and the persistent warps both lost on the card (PERF.md §6).
+    Any hit over leaves of more than one triangle runs, under
+    ``core="hopper"``, the leaf tests spread over the warp
+    (:data:`ANY_HIT_CORE`: each leaf slot that a lane's ray reaches is
+    tested by the whole warp, a triangle a lane), which beat the frozen loop
+    on every wave measured (PERF.md §6); :func:`launch_plan` picks its
+    schedule. It writes the frozen loop's words, which ``core="baseline"``
+    still runs as the yardstick.
 
     ``tree_space`` places the records during the traversal, under the TPU
     kernel's names (:data:`TREE_SPACES`): "hbm" (default) reads them from
@@ -770,7 +820,7 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     launch to end — with any core; "smem" copies them into each block's
     shared memory when the block starts and traverses from there, in blocks
     of ``smem_block`` threads (default :data:`SMEM_BLOCK`; measurement), with
-    the "hopper" core only. Every placement writes the same words. Records
+    the "hopper" core or ANY_HIT_CORE only. Every placement writes the same words. Records
     that do not fit a placement raise ``ValueError`` (:func:`check_tree_space`
     with the card's :func:`tree_space_limits`); on the CPU every placement
     runs the plain version, the name checked as on the card.
@@ -779,23 +829,14 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     4-wide records and K2c on 8-wide records, with the traversal core
     ``core`` (:func:`core_id`; measurement only); runs the plain version
     for records on the CPU; raises for any other device."""
-    cid = core_id(core)
-    if not ordered and cid not in (_MAIN_CORE, _BASELINE_CORE):
-        raise ValueError(f"ordered=False runs the 'hopper' or 'baseline' core, not {core!r}")
-    if tree_space not in TREE_SPACES:
-        raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
+    qn, slots = _check_qnodes(qnodes, leaf_k)
+    cid, persistent = launch_plan(core, any_hit=any_hit, leaf_k=leaf_k, slots=slots,
+                                  ordered=ordered, scattered=scattered, tree_space=tree_space)
     block = SMEM_BLOCK if smem_block is None else int(smem_block)
-    if tree_space == "smem" and core != "hopper":
-        raise ValueError(f"tree_space='smem' runs the 'hopper' core, not {core!r}: the "
-                         "others are built for device memory (the shared stack takes the "
-                         "dynamic shared memory that holds the records)")
     if smem_block is not None and (tree_space != "smem" or not 32 <= block <= _SMEM_BLOCK_MAX
                                    or block % 32):
         raise ValueError(f"smem_block is a multiple of 32 up to {_SMEM_BLOCK_MAX} and goes "
                          f"with tree_space='smem', got {smem_block} with {tree_space!r}")
-    if core == "hopper" and any_hit and leaf_k > 1:
-        cid, scattered = _BASELINE_CORE, False
-    qn, slots = _check_qnodes(qnodes, leaf_k)
     _check_rays(qn, origins, dirs, active)
     if qn.device.type == "cpu":
         return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
@@ -808,7 +849,6 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     r = origins.shape[0]
     planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
     tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
-    persistent = core == "hopper" and scattered
     # the persistent warps' ray counter: this launch's own 4 bytes, zeroed by
     # the launcher on this stream
     counter = torch.empty((1,), dtype=torch.int32, device=qn.device) if persistent else None

@@ -52,6 +52,7 @@ from raytracer_tpu_torch.native import bvhtool
 from raytracer_tpu_torch.render import render_ldr_brute
 from raytracer_tpu_torch.utils import procgen
 from test_torch_progressive import jax_uniforms
+from torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -59,17 +60,6 @@ MIN_RAY_MATCH = 0.9999
 QUAT = np.asarray(suite.QUAT, np.float32)
 sys.path.insert(0, str(ROOT / "tools_torch"))
 import make_suite_snapshot  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the tier-1 run's workers share the host's
-    cores, and the plain traversals' many small ops slow down a
-    hundredfold when each worker's threads oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def hits(tri) -> int:

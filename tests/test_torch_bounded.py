@@ -3,6 +3,7 @@
 the port's unbounded trace, bit for bit) on the port's K = 8 SAH tree at 4 slots.
 """
 
+from torch_parity import one_torch_thread  # noqa: F401
 from torch_bounded_cases import (records_fixture,
                                  test_bounded_equals_unbounded,
                                  test_bounded_equals_unbounded_with_background,

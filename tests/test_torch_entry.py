@@ -28,7 +28,8 @@ from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeli
 from raytracer_tpu_torch.ops.cuda import traverse
 from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
 from raytracer_tpu_torch.ops.shade import downscale_rgb8
-from torch_parity import CAM_QUAT, FOV, T_RTOL, seeded_scene, wide_from_numpy
+from torch_parity import (CAM_QUAT, FOV, T_RTOL, one_torch_thread,  # noqa: F401
+                          seeded_scene, wide_from_numpy)
 
 SIZE = 128  # 4 × 4 tiles
 FAR = (0.3, -0.2, 6.0)  # from afar most tiles see one child of the root: entries descend

@@ -23,11 +23,14 @@ none, and the bounded and temporal traces bit-equal to the unbounded kernel;
 the refit chain's records byte-equal; the redesigned core (``core="hopper"``,
 every render path) word for word equal to the frozen baseline core
 (``core="baseline"``) and to every subset of its design elements, in every
-launch shape and K2 schedule; the raw tile layout of a batch
-(``raw=True``) bit-equal to the layout of its image planes on every word,
-and each record placement of K2 (``tree_space`` "vmem", "smem") word for
-word equal to "hbm", leaving no access-policy window or L2 carve-out
-behind.
+launch shape and K2 schedule; any hit over leaves of K > 1 with the leaf
+tests spread over the warp (``traverse.ANY_HIT_CORE``) word for word equal
+to the frozen loop and the plain version at K = 2 to 64, both orders and
+schedules, on stacks past 64 entries and under every placement; the raw
+tile layout of a batch (``raw=True``) bit-equal to the layout of its image
+planes on every word, and each record placement of K2 (``tree_space``
+"vmem", "smem") word for word equal to "hbm", leaving no access-policy
+window or L2 carve-out behind.
 """
 
 import numpy as np
@@ -928,8 +931,114 @@ def test_unordered_rays_match_plain_on_card(cuda_device, k, width):
     assert counts.dropped > 0
 
 
+def edge_rays(tris: np.ndarray, n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(origins, dirs) (n, 3) f32 of rays that graze the scene's edges: from
+    seeded points on a sphere of radius 3 toward the midpoints of seeded
+    triangles' edges, which the neighbouring triangle shares (their t tie,
+    or nearly)."""
+    rng = np.random.default_rng(seed)
+    pick, e = rng.integers(0, tris.shape[0], size=n), rng.integers(0, 3, size=n)
+    target = (tris[pick, e] + tris[pick, (e + 1) % 3]) * np.float32(0.5)
+    o = rng.normal(size=(n, 3))
+    o = (o / np.linalg.norm(o, axis=1, keepdims=True) * 3.0).astype(np.float32)
+    d = target - o
+    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [2, 8, 32, 33, 64])
+def test_any_hit_core_equals_baseline_and_plain_on_card(cuda_device, k, width):
+    """Any hit over leaves of K > 1 with the leaf tests spread over the warp
+    (``traverse.ANY_HIT_CORE``), one thread per ray and as persistent warps,
+    in both orders, writes the frozen loop's words (``core="baseline"``, the
+    same order) and the plain version's (run on the card) on every ray: for
+    every R and active share, on rays toward the sun and on rays that graze
+    shared edges, at K up to 64 (slots served in runs of 32). Under
+    ``core="hopper"`` each call launches once, counted under the kernel's
+    name."""
+    tris = room_scene()
+    qn = records_of(tris, k, width, cuda_device)
+    o, d = ray_buffer(qn, k, 4096)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
+    eo, ed = (torch.from_numpy(a).to(cuda_device) for a in edge_rays(tris, 4096, k + width))
+    name = "trace_rays_k2c" if width == 8 else "trace_rays_k2b"
+    for origins, dirs in ((o, sun), (eo, ed)):
+        for ro, rd, act in ray_cases(origins, dirs, k + width):
+            for ordered in (True, False):
+                kw = dict(any_hit=True, leaf_k=k, active=act, ordered=ordered)
+                base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
+                for scattered in (False, True):
+                    ours = traverse.trace_rays(qn, ro, rd, core=traverse.ANY_HIT_CORE,
+                                               scattered=scattered, **kw)
+                    assert words_equal(ours, base), (ordered, scattered, ro.shape[0])
+                    before = dict(traverse.LAUNCHES)
+                    hopper = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
+                    torch.cuda.synchronize()
+                    assert launched(before) == {name + ("" if ordered else "_unordered"): 1}
+                    assert words_equal(hopper, base), (ordered, scattered, ro.shape[0])
+                plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
+                assert words_equal(plain, base), (ordered, ro.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_any_hit_core_drops_like_baseline_on_card(cuda_device, width):
+    """On records whose stacks pass 64 entries (``deep_records``, K = 1,
+    the chain child in a seeded slot, and in the last slot, where the
+    stacks of slot order overflow too), any hit with the leaf tests spread
+    over the warp, both orders and schedules, and at 4 slots each measured
+    set of its elements, drops the frozen loop's pushes: the same words as
+    ``core="baseline"`` and the plain version."""
+    for chain_slot, ordered in ((None, True), (width - 1, True), (width - 1, False)):
+        qn, o, d = deep_records(width, chain_slot=chain_slot)
+        qn = qn.to(cuda_device)
+        o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+        kw = dict(any_hit=True, leaf_k=1, ordered=ordered)
+        counts = traverse.TraversalCounts()
+        plain = traverse.trace_rays_reference(qn, o, d, counts=counts, **kw)
+        assert counts.dropped > 0
+        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
+        assert words_equal(plain, base)
+        for scattered in (False, True):
+            assert words_equal(traverse.trace_rays(qn, o, d, core=traverse.ANY_HIT_CORE,
+                                                   scattered=scattered, **kw), base)
+        for core in (WARP_CORES if width == 4 and ordered else ()):
+            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [8, 32])
+def test_any_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
+    """Any hit with the leaf tests spread over the warp writes the words of
+    "hbm" with the records pinned in L2 ("vmem") and in each block's shared
+    memory ("smem", 128 and 512 threads a block; the records of the room's
+    walls and part of its ball fit at both widths), in both orders and
+    schedules, with and without an active mask."""
+    tris = room_scene()[:120]
+    qn = records_of(tris, k, width, cuda_device)
+    assert qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
+    o, d = ray_buffer(qn, k, 4096)
+    o = torch.from_numpy(o).to(cuda_device)
+    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(o).contiguous()
+    for ro, rd, act in list(ray_cases(o, sun, k + width))[6:12]:
+        for ordered in (True, False):
+            for scattered in (False, True):
+                kw = dict(any_hit=True, leaf_k=k, active=act, ordered=ordered,
+                          scattered=scattered, core=traverse.ANY_HIT_CORE)
+                ref = traverse.trace_rays(qn, ro, rd, **kw)
+                assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="vmem", **kw), ref)
+                for b in (128, 512):
+                    assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="smem",
+                                                           smem_block=b, **kw), ref), b
+
+
 MEASURED_CORES = ("none", "order", "stack", "prefetch", "order+stack", "order+prefetch",
                   "stack+prefetch", "order+stack+prefetch")
+# the measured sets of the warp's leaf tests (any hit, 4 slots, one thread a ray)
+WARP_CORES = ("warp", "order+warp", "warp+pack")
 
 
 @pytest.mark.cuda
@@ -950,6 +1059,11 @@ def test_element_cores_equal_hopper_on_card(cuda_device):
                            full_any), core
         assert words_equal(traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8,
                                                 core=core), full_tiles), core
+    for core in WARP_CORES:
+        assert words_equal(traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8, core=core),
+                           full_any), core
+    with pytest.raises(ValueError, match="any hit only"):
+        traverse.trace_rays(qn, o, d, leaf_k=8, core="order+warp")
     qn8 = records_of(tris, 8, 8, cuda_device)
     with pytest.raises(RuntimeError):
         traverse.trace_rays(qn8, o, d, leaf_k=8, core="order")
@@ -1040,8 +1154,9 @@ def test_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
     """K2a / K2b / K2c with the records pinned in L2 ("vmem") and in each
     block's shared memory ("smem", at 128 and 512 threads a block) write
     the words of "hbm" on every ray, with and without near-first order,
-    one thread per ray and persistent (and any hit over leaves of K > 1
-    through the baseline loop), with and without an active mask; each
+    one thread per ray and persistent (any hit over leaves of K > 1 through
+    the core that ``traverse.launch_plan`` picks), with and without an
+    active mask; each
     launch counts once, under its _vmem / _smem name. Records larger than a
     block's shared memory (the room's at K = 1 and 4 slots) raise for
     "smem" instead, and launch nothing."""

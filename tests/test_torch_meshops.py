@@ -23,7 +23,7 @@ from raytracer_tpu_torch.ops.camera import primary_dirs
 from raytracer_tpu_torch.ops.lbvh import build_lbvh2
 from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.utils import meshops, procgen
-from torch_parity import FOV, assert_hits_parity
+from torch_parity import FOV, assert_hits_parity, one_torch_thread  # noqa: F401
 
 EXTENTS = (0.5, 0.2)
 HALL_CAM, HALL_QUAT = (0.0, 0.0, 0.8), (0.0, 0.0, 0.0, 1.0)  # bench_suite.py:312-313

@@ -20,6 +20,7 @@ them.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from raytracer_tpu_torch.models.scene import Scene
@@ -37,6 +38,18 @@ UPRIGHT = (0.0, 0.0, 0.0, 1.0)
 T_RTOL, TIE_RTOL, MAX_TIE_SHARE = 1e-5, 1e-6, 1e-3
 UNIT_ATOL, NORMAL_ATOL = 1e-4, 1e-5
 SEED = 7
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test, where a test file imports this fixture: the
+    tier-1 run's workers share the host's cores, and the plain versions'
+    many small ops, each split over the threads of every worker, slow down
+    tens to hundreds of times when those threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def seeded_scene(subdivisions: int) -> np.ndarray:
