@@ -192,7 +192,17 @@ phase 26, before 27:
    both 4-wide trees; and one whole 3-bounce sample at SAH K = 32 and LBVH
    K = 8, both orders of the shadow rays, with only the any-hit waves
    swapped between the plan's core and the frozen loop (radiance equal),
-   A-B-B-A.
+   A-B-B-A. K2a (closest hit over leaves of K > 1): on every closest-hit
+   wave of SAH K = 32, LBVH K = 8 and the 8-wide tree, in both orders, the
+   render core (core="order") and the warp's leaf tests
+   (traverse.CLOSEST_HIT_CORE), each one thread per ray and persistent,
+   every plane bit-identical to each other and to the frozen loop, timed
+   in one series forward and back, with what traverse.launch_plan runs
+   there; CLOSEST_HIT_CORES (the warp's elements alone) on the first
+   closest-hit wave of both 4-wide trees; and one whole 3-bounce sample at
+   SAH K = 32 and LBVH K = 8, both orders of the bounce rays, with only the
+   closest-hit waves swapped between the plan's core and the render core
+   (radiance equal), A-B-B-A.
 
 Phase 29 drives the headless apps and the rest of the build chain; it runs
 after phase 28, before 27:
@@ -366,7 +376,11 @@ of one frame of config 2 and of config 4.
 Every traversal row of the kernels line but the options' also carries
 ``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
 baseline core, timed A-B-B-A against the redesigned one in phase 28 (the
-raw layout and "smem" run the redesigned core only).
+raw layout and "smem" run the redesigned core only). The rows of closest
+hit over leaves of K > 1 (K2a, K2c, ordered and not) carry the render
+core's there instead (core="order" on their closest-hit waves, the plan's
+core on the any-hit waves), and the frozen loop's as ``frozen_ms`` and
+``frozen_path_ms``.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -857,10 +871,10 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
         mine = [(w, p) for w, p in zip(waves, picks) if (occlusion if w["any_hit"] else closest)
                 == name]
         register_row(env, name, lambda core, mine=mine: [traverse.trace_rays(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k, core=core) for w, (o, d) in mine],
-            lambda core, mine=mine: [traverse.trace_rays(
+            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k, core=core_for(core, w["any_hit"]))
+            for w, (o, d) in mine], lambda core, mine=mine: [traverse.trace_rays(
                 qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"],
-                scattered=w["scattered"], core=core) for w, _ in mine])
+                scattered=w["scattered"], core=core_for(core, w["any_hit"])) for w, _ in mine])
     return wave_stats
 
 
@@ -870,6 +884,12 @@ def register_row(env: dict, name: str, checked, path) -> None:
     both with the baseline core beside the redesigned one. The first
     registration of a name is its row's."""
     env.setdefault("row_calls", {}).setdefault(name, (checked, path))
+
+
+def core_for(core, any_hit: bool) -> str:
+    """A K2 row's core for one wave: ``core`` (a name) on every wave, or
+    ``core[any_hit]`` of a pair (the closest-hit core, the any-hit core)."""
+    return core if isinstance(core, str) else core[any_hit]
 
 
 def summed(details: list[dict]) -> tuple[float, str]:
@@ -2897,8 +2917,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
         log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
             f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
     for what, fn in waves.items():
-        if "any hit" in what and "K=1 " not in what:
-            continue  # any hit over leaves of K > 1: k2b_phase times it
+        if "K=1 " not in what:
+            continue  # K2 over leaves of K > 1: k2a_phase and k2b_phase time it
         ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 3, 2)
         log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
             f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
@@ -2950,8 +2970,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             + ", ".join(f"{c} {v:.4f} ({ms['baseline'] / v:.4f}x)" for c, v in ms.items())
             + f" ms on {card}")
     for what, fn in waves.items():
-        if "8-wide" in what or ("any hit" in what and "K=1 " not in what):
-            continue  # any hit over leaves of K > 1: k2b_phase times its schedules
+        if "K=1 " not in what:
+            continue  # K2 over leaves of K > 1: k2a_phase and k2b_phase time its schedules
         ms = abba({"one thread per ray": lambda fn=fn: fn("hopper", False),
                    "persistent": lambda fn=fn: fn("hopper", True)}, 3, 2)
         log(f"[hopper] K2 schedules on {what}: one thread per ray "
@@ -2974,15 +2994,25 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
             f"{crop.dropped + first.dropped}")
 
     k2b_phase(env, trees_of)
+    k2a_phase(env, trees_of)
 
-    # the kernels line: the baseline's times beside each row's
+    # the kernels line: the baseline's times beside each row's; beside the
+    # rows of closest hit over leaves of K > 1, the render core's (only
+    # their closest-hit waves swapped) and the frozen loop's
     for name, (checked, path) in env["row_calls"].items():
-        c = abba({k: (lambda k=k: checked(k)) for k in cores}, 4, 2)
-        p = abba({k: (lambda k=k: path(k)) for k in cores}, 2, 2)
+        others = ({"baseline": ("order", "hopper"), "frozen": "baseline"}
+                  if name in CLOSEST_ROWS else {"baseline": "baseline"})
+        c = series({"hopper": lambda: checked("hopper"),
+                    **{k: (lambda v=v: checked(v)) for k, v in others.items()}}, 4, 2)
+        p = series({"hopper": lambda: path("hopper"),
+                    **{k: (lambda v=v: path(v)) for k, v in others.items()}}, 2, 2)
         rows[name]["baseline_ms"], rows[name]["baseline_path_ms"] = c["baseline"], p["baseline"]
-        log(f"[hopper] {name} A-B-B-A: checked rays hopper {c['hopper']:.4f} / baseline "
-            f"{c['baseline']:.4f} ms; path hopper {p['hopper']:.4f} / baseline "
-            f"{p['baseline']:.4f} ms on {card}")
+        if "frozen" in others:
+            rows[name]["frozen_ms"], rows[name]["frozen_path_ms"] = c["frozen"], p["frozen"]
+        log(f"[hopper] {name} in one series forward and back: checked rays "
+            + ", ".join(f"{k} {v:.4f}" for k, v in c.items()) + " ms; path "
+            + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+            + f" ms (baseline: {others['baseline']}) on {card}")
     log(f"[hopper] phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3096,6 +3126,126 @@ def k2b_phase(env: dict, trees_of: dict) -> None:
                 f"{ms['hopper']:.4f} ms, frozen loop {ms['baseline']:.4f} ms, speed-up "
                 f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
     log(f"[k2b] K2b's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# the kernels-line rows of closest hit over leaves of K > 1, timed beside the
+# render core (phase 28)
+CLOSEST_ROWS = ("trace_rays_k2a", "trace_rays_k2c", "trace_rays_k2a_unordered",
+                "trace_rays_k2c_unordered")
+# the cores of closest hit over leaves of K > 1 timed on the first
+# closest-hit wave of each 4-wide tree (one thread per ray): the render
+# core, the warp's leaf tests without the order, without packed slots, and
+# all
+CLOSEST_HIT_CORES = ("order", "warp", "order+warp", "warp+pack", "order+warp+pack")
+
+
+def k2a_phase(env: dict, trees_of: dict) -> None:
+    """28 (K2a). Closest hit over leaves of K > 1 with the leaf tests spread
+    over the warp (traverse.CLOSEST_HIT_CORE) against the render core
+    (core="order") on every captured closest-hit wave of SAH K = 32, LBVH
+    K = 8 and the 8-wide tree, in both orders: both cores one thread per ray
+    and persistent, every plane bit-identical to each other and to the
+    frozen loop, timed in one series forward and back with the frozen loop,
+    with what the launch plan picks; each set of the warp's elements on the
+    first closest-hit wave of the 4-wide trees; and one whole 3-bounce
+    sample with only the closest-hit waves swapped, in both orders."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    card, dev, tris = env["card"], env["dev"], env["tris"]
+    t_phase = time.perf_counter()
+    new = traverse.CLOSEST_HIT_CORE
+    for key in (LEAF_K, 8, "8-wide"):
+        qn, k, label = trees_of[key]
+        slots = traverse.infer_rec_width(k, qn.shape[1])
+        for ordered in (True, False):
+            total = {"render": 0.0, "new": 0.0, "plan": 0.0}
+            for i, w in enumerate(env["waves"][key]):
+                if w["any_hit"]:
+                    continue
+
+                def call(core, scattered, w=w, qn=qn, k=k, ordered=ordered):
+                    return lambda: traverse.trace_rays(
+                        qn, w["o"], w["d"], leaf_k=k, active=w["active"], ordered=ordered,
+                        scattered=scattered, core=core)
+
+                fns = {"render": call("order", False), "render persistent": call("order", True),
+                       "new": call(new, False), "new persistent": call(new, True),
+                       "frozen": call("baseline", False)}
+                outs = {n: fn() for n, fn in fns.items()}
+                for n, out in outs.items():
+                    for other in ("render", "frozen"):
+                        words = differing_words(out, outs[other])
+                        if words:
+                            fail(f"phase 28: {label} wave {i} (closest hit, ordered={ordered}): "
+                                 f"{n} differs from {other} in {words} words")
+                ms = series(fns, 3, 2)
+                cid, persistent = traverse.launch_plan(
+                    "hopper", any_hit=False, leaf_k=k, slots=slots, ordered=ordered,
+                    scattered=w["scattered"])
+                sched = " persistent" if w["scattered"] else ""
+                picked = ("new" if cid == traverse.core_id(new) else "render") + (
+                    " persistent" if persistent else "")
+                total["render"] += ms["render" + sched]
+                total["new"] += ms["new" + sched]
+                total["plan"] += ms[picked]
+                alive = w["o"].shape[0] if w["active"] is None else int(w["active"].sum())
+                log(f"[k2a] {label} wave {i} (closest hit, "
+                    f"{'ordered' if ordered else 'unordered'}, "
+                    f"{'scattered' if w['scattered'] else 'dense'}, alive {alive}): "
+                    + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+                    + f" ms (render / new, schedule by scattered, "
+                    f"{ms['render' + sched] / ms['new' + sched]:.4f}); the plan runs {picked}; "
+                    f"planes bit-identical on {card}")
+            log(f"[k2a] {label} {'ordered' if ordered else 'unordered'}, the sample's closest-hit "
+                f"waves: render core {total['render']:.4f} ms, new core {total['new']:.4f} ms "
+                f"(schedule by scattered), what the plan runs {total['plan']:.4f} ms on {card}")
+
+    # each set of the elements on the first closest-hit wave (one thread a ray)
+    for key in (LEAF_K, 8):
+        qn, k, label = trees_of[key]
+        w = next(w for w in env["waves"][key] if not w["any_hit"])
+        ms = series({c: (lambda c=c, w=w, qn=qn, k=k: traverse.trace_rays(
+            qn, w["o"], w["d"], leaf_k=k, active=w["active"], core=c))
+            for c in CLOSEST_HIT_CORES}, 3, 2)
+        log(f"[k2a] cores on {label}'s first closest-hit wave (one thread a ray): "
+            + ", ".join(f"{c} {v:.4f} ({ms['order'] / v:.4f}x)" for c, v in ms.items())
+            + f" ms on {card}")
+
+    # the whole sample, only the closest-hit waves swapped
+    real = render_pt.trace_rays
+
+    def closest_hit_core(core, fn):
+        def traced(*args, any_hit=False, **kw):
+            return real(*args, any_hit=any_hit, **kw, **({} if any_hit else {"core": core}))
+
+        def run():
+            render_pt.trace_rays = traced
+            try:
+                return fn()
+            finally:
+                render_pt.trace_rays = real
+        return run
+
+    for key in (LEAF_K, 8):
+        qn, k, label = trees_of[key]
+        for ordered in (True, False):
+            def sample(qn=qn, k=k, ordered=ordered):
+                return render_pt.pt_sample_frame(
+                    qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+                    leaf_k=k, tile_primary=True, ordered_ch=ordered,
+                    generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+            fns = {c: closest_hit_core(c, sample) for c in ("hopper", "order")}
+            if not torch.equal(fns["hopper"](), fns["order"]()):
+                fail(f"phase 28: the {label} sample (ordered_ch={ordered}) differs between the "
+                     "render core and the launch plan's closest-hit core")
+            ms = abba(fns, 4, 3)
+            log(f"[k2a] A-B-B-A one {BOUNCES}-bounce 1080p sample {label}, ordered_ch={ordered} "
+                f"(radiance equal), only the closest-hit waves swapped: the plan's core "
+                f"{ms['hopper']:.4f} ms, render core {ms['order']:.4f} ms, speed-up "
+                f"{ms['order'] / ms['hopper']:.4f} on {card}")
+    log(f"[k2a] K2a's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # 33. wavefront compaction and K2 without near-first order: the sample's
@@ -3244,10 +3394,11 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
     for name, ws in row_waves.items():
         register_row(env, name, lambda core, ws=ws: [traverse.trace_rays(
             x["qn"], *x["pick"], any_hit=x["w"]["any_hit"], leaf_k=x["k"], ordered=False,
-            core=core) for x in ws], lambda core, ws=ws: [traverse.trace_rays(
-                x["qn"], x["w"]["o"], x["w"]["d"], any_hit=x["w"]["any_hit"], leaf_k=x["k"],
-                active=x["w"]["active"], scattered=x["w"]["scattered"], ordered=False,
-                core=core) for x in ws])
+            core=core_for(core, x["w"]["any_hit"])) for x in ws], lambda core, ws=ws: [
+                traverse.trace_rays(
+                    x["qn"], x["w"]["o"], x["w"]["d"], any_hit=x["w"]["any_hit"], leaf_k=x["k"],
+                    active=x["w"]["active"], scattered=x["w"]["scattered"], ordered=False,
+                    core=core_for(core, x["w"]["any_hit"])) for x in ws])
 
     # (c) a compacted 256x256 sample through the kernels and the plain versions
     for impl in ("argsort", "partition"):

@@ -33,9 +33,11 @@
 //
 // The design elements, a feature bit each so that each is timed alone (every
 // set of the first three is built for K1a, K2a and K2b; kRenderCore is what
-// the render paths run, but for any hit over leaves of more than one
-// triangle, where every per-lane set lost to the baseline loop on the card
-// and kAnyHitCore runs instead, with the last two elements):
+// the render paths run, but for K2 over leaves of more than one triangle,
+// where ops/cuda/traverse.py::launch_plan picks kAnyHitCore, the last two
+// elements with the order: for any hit, where every per-lane set lost to
+// the baseline loop on the card, and for closest hit where the card
+// measured it ahead of kRenderCore):
 //  * kOrder — child order in registers, on every render path. Each passing
 //    child k (slab hit, so its key is not NaN, and ref >= 0) goes to its
 //    rank in the stable far-to-near order, pos(k) = #{j passing : key_j >
@@ -89,6 +91,11 @@
 //    runs of 32, in order, up to the first run with a hit. A lane with no
 //    ray left only helps test, so the kernels keep every lane of a warp in
 //    the loop (traverse_ray_warp; the persistent warps refill as before).
+//    Closest hit (warp_nearest) cannot stop at a hit: it serves every run
+//    of every posted slot, each against the served ray's running best t,
+//    and keeps a run's nearest accepted triangle, lowest position among
+//    equal t (__reduce_min_sync over the t bits, then a ballot): the
+//    sequential loop's strict t < best, in slot then triangle order.
 //  * kPackSlots — with kWarpLeaves: a visit's posted slots as one run of
 //    positions k·K + j end to end (their triangles are contiguous in the
 //    record), so at K = 8 a 4-slot visit is one run of 32 lanes where one
@@ -138,7 +145,7 @@ enum : unsigned {
   kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
   kUnordered = 8u,    // no near-first order: children pushed in slot order
   kSharedTree = 16u,  // the records in the block's dynamic shared memory
-  kWarpLeaves = 32u,  // any hit: the warp tests one ray's leaf slots at a time, a triangle a lane
+  kWarpLeaves = 32u,  // the warp tests one ray's leaf slots at a time, a triangle a lane
   kPackSlots = 64u,   // with kWarpLeaves: a visit's leaf slots as one run of triangles
   kBaseline = 256u,
 };
@@ -148,10 +155,11 @@ enum : unsigned {
 // prefetch lose there, so they stay off and are built only to be timed.
 constexpr unsigned kRenderCore = kOrder;
 
-// The core of any hit over leaves of more than one triangle, where the
-// wrapper's launch plan picks it (ops/cuda/traverse.py::launch_plan): the
-// render core's order between leaves, the leaf tests spread over the warp,
-// the slots packed below K = 32 (the launcher drops kPackSlots from there).
+// The core of K2 over leaves of more than one triangle, where the wrapper's
+// launch plan picks it (ops/cuda/traverse.py::launch_plan; any hit, and
+// closest hit in its kAnyHit = false form): the render core's order between
+// leaves, the leaf tests spread over the warp, the slots packed below
+// K = 32 (the launcher drops kPackSlots from there).
 constexpr unsigned kAnyHitCore = kOrder | kWarpLeaves | kPackSlots;
 
 constexpr unsigned kWarpMask = 0xffffffffu;
@@ -219,10 +227,9 @@ __device__ __forceinline__ float safe_inv(float d) {
 
 // Möller–Trumbore of the ray (o, d) against one inlined triangle record
 // [v0, e1, e2, g] (a, b, c: its three float4s): whether it is accepted, at
-// a distance tt with kMtEps < tt < best. The expression of Ray::leaves and
-// of the frozen loop, in the same operation order, for the warp's leaf
-// tests; Ray::leaves keeps its own copy, so that the other kernels compile
-// to the machine code they had. The three copies must stay in step.
+// a distance tt with kMtEps < tt < best. The test of Ray::leaves and of the
+// warp's leaf tests; the frozen loop keeps its own copy, in the same
+// operation order, which must stay in step with it.
 __device__ __forceinline__ bool mt_hit(const float4 a, const float4 b, const float4 c, float ox,
                                        float oy, float oz, float dx, float dy, float dz,
                                        float best, float& tt) {
@@ -296,6 +303,68 @@ __device__ __forceinline__ int warp_leaves(const float* __restrict__ rec, unsign
     }
   }
   return -1;
+}
+
+// A run's nearest for warp_nearest: each lane's candidate (ok: accepted, at
+// tt < best) → the least t over the warp (accepted t lie in (kMtEps, best),
+// positive and finite, so their bits order as unsigned), at the lowest lane
+// among equal t. Where a lane accepted one, best becomes that t and `at`
+// its position run + lane; else both stay. Warp-uniform in and out.
+__device__ __forceinline__ void keep_nearest(bool ok, float tt, int run, float& best, int& at) {
+  const unsigned m = __reduce_min_sync(kWarpMask, ok ? __float_as_uint(tt) : 0xffffffffu);
+  if (m != 0xffffffffu) {
+    best = __uint_as_float(m);
+    at = run + __ffs(__ballot_sync(kWarpMask, ok && __float_as_uint(tt) == m)) - 1;
+  }
+}
+
+// The closest-hit leaf tests of one ray against the leaf slots `posted` of
+// record `rec`, by the whole warp (every lane calls it with the same
+// arguments): the runs of 32 triangle positions of warp_leaves, every one
+// of them tested (no early exit), each against the running `best`, which
+// it lowers to each accepted run's nearest t. Returns the position k·K + j
+// of the nearest accepted triangle, first in position order among equal t
+// (-1: none below the best t it was given). That is the triangle and t that
+// the sequential loop of Ray::leaves keeps: the nearest t below the start
+// value, its first position among ties, since a later run keeps its nearest
+// only where it lies strictly below the running best.
+template <int kSlots, unsigned kFeat>
+__device__ __forceinline__ int warp_nearest(const float* __restrict__ rec, unsigned posted,
+                                            int leaf_k, float ox, float oy, float oz, float dx,
+                                            float dy, float dz, float& best) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const float4* tv = reinterpret_cast<const float4*>(rec + 8 * kSlots);
+  const float* cnt = rec + 7 * kSlots;
+  int at = -1;
+  float tt = 0.0f;
+  if constexpr ((kFeat & kPackSlots) != 0) {
+    const int end = (32 - __clz(posted)) * leaf_k;  // past the last posted slot
+    for (int run = (__ffs(posted) - 1) * leaf_k; run < end; run += 32) {
+      const int p = run + lane;
+      int k = 0;  // p's slot: p / K with kSlots - 1 compares
+#pragma unroll
+      for (int s = 1; s < kSlots; ++s) k += p >= s * leaf_k ? 1 : 0;
+      const bool ok = p < end && ((posted >> k) & 1u) != 0u &&
+                      (float)(p - k * leaf_k) < ld_rec<kFeat>(cnt + k) &&
+                      mt_hit(ld_rec4<kFeat>(tv + 3 * p), ld_rec4<kFeat>(tv + 3 * p + 1),
+                             ld_rec4<kFeat>(tv + 3 * p + 2), ox, oy, oz, dx, dy, dz, best, tt);
+      keep_nearest(ok, tt, run, best, at);
+    }
+    return at;
+  }
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    if (((posted >> k) & 1u) == 0u) continue;
+    const float n = ld_rec<kFeat>(cnt + k);
+    for (int run = 0; run < leaf_k && (float)run < n; run += 32) {
+      const int j = run + lane, p = k * leaf_k + j;
+      const bool ok = j < leaf_k && (float)j < n &&
+                      mt_hit(ld_rec4<kFeat>(tv + 3 * p), ld_rec4<kFeat>(tv + 3 * p + 1),
+                             ld_rec4<kFeat>(tv + 3 * p + 2), ox, oy, oz, dx, dy, dz, best, tt);
+      keep_nearest(ok, tt, k * leaf_k + run, best, at);
+    }
+  }
+  return at;
 }
 
 // The stack columns of a block's threads: entry i of thread `tid` at
@@ -481,16 +550,14 @@ struct Ray {
     }
   }
 
-  // Möller–Trumbore over the inlined [v0, e1, e2, g] records of the leaf
-  // slots that passed, in slot then triangle order, strict t < best. The
-  // test's expression has twins that must stay in step with it: mt_hit (the
-  // warp's leaf tests) and the frozen loop's (traverse_core_baseline.cuh). Closest
-  // hit keeps the nearest in best and r and returns -1; any hit returns the
-  // position k·K + j of the first accepted triangle (or -1) and writes
-  // nothing: the caller leaves the loop and takes the triangle's normal and
-  // id there (occluder), so that neither they nor best are carried around the
-  // loop (best then stays the start value, which the compiler can hold as a
-  // constant: 1e30 in K2b).
+  // Möller–Trumbore (mt_hit) over the inlined [v0, e1, e2, g] records of the
+  // leaf slots that passed, in slot then triangle order, strict t < best.
+  // Closest hit keeps the nearest in best and r and returns -1; any hit
+  // returns the position k·K + j of the first accepted triangle (or -1) and
+  // writes nothing: the caller leaves the loop and takes the triangle's
+  // normal and id there (occluder), so that neither they nor best are
+  // carried around the loop (best then stays the start value, which the
+  // compiler can hold as a constant: 1e30 in K2b).
   __device__ __forceinline__ int leaves(const float* __restrict__ rec, int leaf_k,
                                         const float* h, const bool* hit) {
     const int vbase = 8 * kSlots;
@@ -505,22 +572,8 @@ struct Ray {
         const float4 a = ld_rec4<kFeat>(tv + 3 * j);      // v0x v0y v0z e1x
         const float4 b = ld_rec4<kFeat>(tv + 3 * j + 1);  // e1y e1z e2x e2y
         const float4 c = ld_rec4<kFeat>(tv + 3 * j + 2);  // e2z gx  gy  gz
-        const float e1x = a.w, e1y = b.x, e1z = b.y;
-        const float e2x = b.z, e2y = b.w, e2z = c.x;
-        const float pxv = dy * e2z - dz * e2y;
-        const float pyv = dz * e2x - dx * e2z;
-        const float pzv = dx * e2y - dy * e2x;
-        const float det = e1x * pxv + e1y * pyv + e1z * pzv;
-        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-        const float sx = ox - a.x, sy = oy - a.y, sz = oz - a.z;
-        const float uu = inv_det * (sx * pxv + sy * pyv + sz * pzv);
-        const float qcx = sy * e1z - sz * e1y;
-        const float qcy = sz * e1x - sx * e1z;
-        const float qcz = sx * e1y - sy * e1x;
-        const float vv = inv_det * (dx * qcx + dy * qcy + dz * qcz);
-        const float tt = inv_det * (e2x * qcx + e2y * qcy + e2z * qcz);
-        if (fabsf(det) >= kMtEps && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f &&
-            uu + vv <= 1.0f && tt > kMtEps && tt < best) {
+        float tt;
+        if (mt_hit(a, b, c, ox, oy, oz, dx, dy, dz, best, tt)) {
           if (kAnyHit) return k * leaf_k + j;
           const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
           best = tt;
@@ -534,7 +587,9 @@ struct Ray {
     return -1;
   }
 
-  // The occluder at position `at` of record `rec` (an any-hit result).
+  // The triangle at position `at` of record `rec` into r: its normal from g,
+  // in leaves()' expression, and its id (an any-hit occluder, or a closest
+  // hit's new nearest from the warp's leaf tests).
   __device__ __forceinline__ void occluder(const float* __restrict__ rec, int leaf_k, int at) {
     const float4 c =
         ld_rec4<kFeat>(reinterpret_cast<const float4*>(rec + 8 * kSlots) + 3 * at + 2);
@@ -551,9 +606,8 @@ struct Ray {
   // The header of record `rec` into h ([0:6w] child boxes, [6w:7w] refs,
   // [7w:8w] counts/radii, w = kSlots), and the slab tests of all its slots
   // against the best t at the start of the visit: hit[k], and tmin[k] the
-  // slab entry distance. The warp's visit (warp_step); visit() keeps its own
-  // copy of these lines, so that the other kernels compile to the machine
-  // code they had (the shared function changed it: tools_torch/ab_parent.py).
+  // slab entry distance, for visit() and warp_step (the frozen loop keeps
+  // its own copy of these lines, which must stay in step with them).
   __device__ __forceinline__ void slabs(const float* __restrict__ rec, float* h, float* tmin,
                                         bool* hit) const {
     const float4* hdr = reinterpret_cast<const float4*>(rec);
@@ -585,34 +639,10 @@ struct Ray {
                                        int recw, int leaf_k) {
     if (kVisits) ++r.visits;
     const float* rec = qn + (size_t)e.x * (size_t)recw;
-    // [0:6w] child boxes, [6w:7w] refs, [7w:8w] counts/radii, w = kSlots
     float h[8 * kSlots];
-    const float4* hdr = reinterpret_cast<const float4*>(rec);
-#pragma unroll
-    for (int i = 0; i < 2 * kSlots; ++i) {
-      const float4 q = ld_rec4<kFeat>(hdr + i);
-      h[4 * i] = q.x;
-      h[4 * i + 1] = q.y;
-      h[4 * i + 2] = q.z;
-      h[4 * i + 3] = q.w;
-    }
-
-    // slab tests of all slots against the best t at the start of the visit
-    // (the header load and these tests have a twin in slabs(), and one in
-    // the frozen loop: keep them in step)
-    const float best0 = best;
     float tmin[kSlots];
     bool hit[kSlots];
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const float t1x = (h[6 * k + 0] - ox) * ix, t2x = (h[6 * k + 3] - ox) * ix;
-      const float t1y = (h[6 * k + 1] - oy) * iy, t2y = (h[6 * k + 4] - oy) * iy;
-      const float t1z = (h[6 * k + 2] - oz) * iz, t2z = (h[6 * k + 5] - oz) * iz;
-      const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      hit[k] = (tf >= fmaxf(tn, 0.0f)) && (tn < best0);
-      tmin[k] = tn;
-    }
+    slabs(rec, h, tmin, hit);
 
     if (kFeat & kPrefetch) {
       push(stack, h, tmin, hit);
@@ -640,15 +670,19 @@ struct Ray {
     return pending();
   }
 
-  // kWarpLeaves (any hit): one visit of this lane's ray, then the warp's
-  // leaf tests; every lane of the warp calls it together (a lane with no ray
-  // left to traverse only helps test). The lane pops until an entry passes
-  // the cull, tests the record's slabs and pushes the internal children that
-  // pass (before the leaf tests: a ray that then hits drops its stack); the
-  // leaf slots that pass are posted, and the warp tests the posted records
-  // one lane after another (warp_leaves, with that lane's ray broadcast). A
-  // ray with an accepted triangle takes its occluder and is done: the same
-  // records visited in the same order, and the same triangle, as step().
+  // kWarpLeaves: one visit of this lane's ray, then the warp's leaf tests;
+  // every lane of the warp calls it together (a lane with no ray left to
+  // traverse only helps test). The lane pops until an entry passes the cull,
+  // tests the record's slabs and pushes the internal children that pass
+  // (before the leaf tests: an any-hit ray that then hits drops its stack;
+  // step() pushes a closest-hit ray's after them, but by the slab tests
+  // against best0, so the stack is the same); the leaf slots that pass are
+  // posted, and the warp tests the posted records one lane after another,
+  // with that lane's ray and best t broadcast. Any hit (warp_leaves): a ray
+  // with an accepted triangle takes its occluder and is done. Closest hit
+  // (warp_nearest): the ray takes the nearest accepted triangle's t, normal
+  // and id, and goes on. The same records visited in the same order, and
+  // the same words, as step().
   __device__ __forceinline__ void warp_step(StackT& stack, const float* __restrict__ qn,
                                             int recw, int leaf_k) {
     unsigned posted = 0u;
@@ -675,17 +709,30 @@ struct Ray {
          lanes &= lanes - 1u) {
       const int src = __ffs(lanes) - 1;
       const int n = __shfl_sync(kWarpMask, node, src);
-      const int found = warp_leaves<kSlots, kFeat>(
-          qn + (size_t)n * (size_t)recw, __shfl_sync(kWarpMask, posted, src), leaf_k,
-          __shfl_sync(kWarpMask, ox, src), __shfl_sync(kWarpMask, oy, src),
-          __shfl_sync(kWarpMask, oz, src), __shfl_sync(kWarpMask, dx, src),
-          __shfl_sync(kWarpMask, dy, src), __shfl_sync(kWarpMask, dz, src),
-          __shfl_sync(kWarpMask, best, src));
-      if ((int)(threadIdx.x & 31u) == src) at = found;
+      if constexpr (kAnyHit) {
+        const int found = warp_leaves<kSlots, kFeat>(
+            qn + (size_t)n * (size_t)recw, __shfl_sync(kWarpMask, posted, src), leaf_k,
+            __shfl_sync(kWarpMask, ox, src), __shfl_sync(kWarpMask, oy, src),
+            __shfl_sync(kWarpMask, oz, src), __shfl_sync(kWarpMask, dx, src),
+            __shfl_sync(kWarpMask, dy, src), __shfl_sync(kWarpMask, dz, src),
+            __shfl_sync(kWarpMask, best, src));
+        if ((int)(threadIdx.x & 31u) == src) at = found;
+      } else {
+        float b = __shfl_sync(kWarpMask, best, src);
+        const int found = warp_nearest<kSlots, kFeat>(
+            qn + (size_t)n * (size_t)recw, __shfl_sync(kWarpMask, posted, src), leaf_k,
+            __shfl_sync(kWarpMask, ox, src), __shfl_sync(kWarpMask, oy, src),
+            __shfl_sync(kWarpMask, oz, src), __shfl_sync(kWarpMask, dx, src),
+            __shfl_sync(kWarpMask, dy, src), __shfl_sync(kWarpMask, dz, src), b);
+        if ((int)(threadIdx.x & 31u) == src) {
+          at = found;
+          best = b;
+        }
+      }
     }
     if (at >= 0) {
       occluder(qn + (size_t)node * (size_t)recw, leaf_k, at);
-      sp = -1;
+      if (kAnyHit) sp = -1;
     }
   }
 };
@@ -723,19 +770,19 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
   }
 }
 
-// The whole any-hit traversal of one ray a lane with core `kFeat` (which
-// holds kWarpLeaves): every lane of the warp calls it and stays until no
-// lane's ray is left, so that the warp tests the leaves together; `mine`:
-// whether this lane has a ray (o and d are read only then). A lane without
-// one returns the miss values.
-template <int kSlots, unsigned kFeat>
+// The whole traversal of one ray a lane with core `kFeat` (which holds
+// kWarpLeaves), any hit or closest hit: every lane of the warp calls it and
+// stays until no lane's ray is left, so that the warp tests the leaves
+// together; `mine`: whether this lane has a ray (o and d are read only
+// then). A lane without one returns the miss values.
+template <int kSlots, bool kAnyHit, unsigned kFeat>
 __device__ __forceinline__ Hit traverse_ray_warp(const float* __restrict__ qn, int recw,
                                                  int leaf_k, bool mine, float ox, float oy,
                                                  float oz, float dx, float dy, float dz,
                                                  float best_init, int entry, int tid,
                                                  int threads) {
   static_assert((kFeat & kWarpLeaves) != 0 && (kFeat & kBaseline) == 0, "a warp-leaves core");
-  using R = Ray<kSlots, true, false, kFeat>;
+  using R = Ray<kSlots, kAnyHit, false, kFeat>;
   R ray;
   typename R::StackT stack;
   ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);

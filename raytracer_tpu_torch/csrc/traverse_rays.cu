@@ -151,7 +151,6 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   if constexpr ((kCore & rt::kWarpLeaves) != 0) {
     // the warp tests its rays' leaves together: no lane leaves early (the
     // block holds whole warps)
-    static_assert(kAnyHit, "the warp-leaves cores are any hit");
     const bool mine = i < n && (active == nullptr || active[i] != 0);
     float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
     if (mine) {
@@ -160,7 +159,7 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
         d[c] = dirs[3 * (size_t)i + c];
       }
     }
-    const rt::Hit hit = rt::traverse_ray_warp<kSlots, kCore>(
+    const rt::Hit hit = rt::traverse_ray_warp<kSlots, kAnyHit, kCore>(
         tree, recw, leaf_k, mine, o[0], o[1], o[2], d[0], d[1], d[2], rt::kInf, 0, threadIdx.x,
         blockDim.x);
     if (i < n) store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
@@ -182,8 +181,8 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 // and hands them to its idle lanes, skipping inactive rays, whenever fewer
 // than kRefill lanes of the warp traverse. The render core, with or without
 // near-first order (kCore = rt::kRenderCore [| rt::kUnordered]
-// [| rt::kSharedTree]), and the any-hit core rt::kAnyHitCore (with or
-// without rt::kPackSlots, in the same forms), whose leaf tests take the
+// [| rt::kSharedTree]), and rt::kAnyHitCore for any or closest hit (with
+// or without rt::kPackSlots, in the same forms), whose leaf tests take the
 // whole warp: there every lane calls warp_step each round, an idle lane
 // with an empty stack, and only the lanes that hold a ray store a result.
 template <int kSlots, bool kAnyHit, unsigned kCore>
@@ -205,7 +204,6 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   unsigned qpos = 0, qend = 0;  // the warp's indices taken, [qpos, qend) not handed out
   bool drained = false;        // every index below n has been taken
   if constexpr ((kCore & rt::kWarpLeaves) != 0) {
-    static_assert(kAnyHit, "the warp-leaves cores are any hit");
     ray.sp = -1;  // an idle lane only helps the warp test leaves
   }
   while (true) {
@@ -389,11 +387,12 @@ int launch_pinned(const float* qnodes, size_t bytes, cudaStream_t s, Launch laun
 
 // The feature masks instantiated for K2a and K2b alone (4-wide records,
 // one thread per ray), to time each design element and each set of them
-// (chip_smoke.py phase 28): X(any_hit, mask) for each.
-#define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 1) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
-// and for K2b the leaf tests spread over the warp without the order or
-// without the packed slots (kWarpLeaves = 32, kOrder = 1, kPackSlots = 64;
-// the set of all three is rt::kAnyHitCore)
+// (chip_smoke.py phase 28): X(any_hit, mask) for each (mask 1, kOrder, is
+// the render core, which rt_trace_rays launches as core -1).
+#define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
+// and the leaf tests spread over the warp without the order or without the
+// packed slots (kWarpLeaves = 32, kOrder = 1, kPackSlots = 64; the set of
+// all three is rt::kAnyHitCore), for K2a and K2b
 #define RT_MEASURED_WARP_CORES(X, A) X(A, 32) X(A, 33) X(A, 96)
 
 // The launch of everything but the placement: the arguments of
@@ -411,53 +410,25 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
 #define RT_PER_RAY(S, CORE)                                                             \
   (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)     \
            : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL))
-#define RT_ANY_PER_RAY(S, CORE) launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)
-#define RT_ANY_HIT_CORE(CORE)                                                               \
-  (persistent                                                                               \
-       ? (slots == 8 ? launch_persistent<8, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS,     \
-                                                        RT_LAUNCH_TAIL)                     \
-                     : launch_persistent<4, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS,     \
-                                                        RT_LAUNCH_TAIL))                    \
-       : (slots == 8 ? RT_ANY_PER_RAY(8, CORE) : RT_ANY_PER_RAY(4, CORE)))
-#define RT_WARP_CORE(CORE)                                                        \
-  (shared ? (ordered ? RT_ANY_HIT_CORE((CORE) | kSt)                             \
-                     : RT_ANY_HIT_CORE((CORE) | rt::kUnordered | kSt))           \
-          : (ordered ? RT_ANY_HIT_CORE(CORE) : RT_ANY_HIT_CORE((CORE) | rt::kUnordered)))
-  constexpr unsigned kFree = rt::kRenderCore | rt::kUnordered;
+// a core built for both widths and schedules
+#define RT_BOTH(CORE)                                                           \
+  (persistent ? (slots == 8 ? RT_PERSISTENT(8, CORE) : RT_PERSISTENT(4, CORE)) \
+              : (slots == 8 ? RT_PER_RAY(8, CORE) : RT_PER_RAY(4, CORE)))
+// ... and for both orders and placements
+#define RT_FREE(CORE)                                                                        \
+  (shared ? (ordered ? RT_BOTH((CORE) | kSt) : RT_BOTH((CORE) | rt::kUnordered | kSt))      \
+          : (ordered ? RT_BOTH(CORE) : RT_BOTH((CORE) | rt::kUnordered)))
   constexpr unsigned kFreeBaseline = rt::kBaseline | rt::kUnordered;
   constexpr unsigned kSt = rt::kSharedTree;
+  if (core == -1) return RT_FREE(rt::kRenderCore);
   if (core == (int)rt::kAnyHitCore) {
-    // any hit with the warp's leaf tests, in both orders and schedules and
-    // with the records in device memory or in shared memory; the slots
-    // packed into one run only below K = 32 (from there on a run holds one
-    // slot either way, and the packed loop's slot arithmetic cost 7% at
-    // K = 32 on the card; in the kernel beside the per-slot loop it spilled)
-    if (!any_hit) return (int)cudaErrorInvalidValue;
-    return leaf_k < 32 ? RT_WARP_CORE(rt::kAnyHitCore)
-                       : RT_WARP_CORE(rt::kAnyHitCore & ~rt::kPackSlots);
+    // the warp's leaf tests, any hit or closest hit, the slots packed into
+    // one run only below K = 32 (from there on a run holds one slot either
+    // way, and the packed loop's slot arithmetic cost 7% at K = 32 on the
+    // card; in the kernel beside the per-slot loop it spilled)
+    return leaf_k < 32 ? RT_FREE(rt::kAnyHitCore) : RT_FREE(rt::kAnyHitCore & ~rt::kPackSlots);
   }
-  if (shared) {
-    // the render core in both orders and schedules
-    if (core == -1 && ordered) {
-      if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore | kSt)
-                                        : RT_PERSISTENT(4, rt::kRenderCore | kSt);
-      return slots == 8 ? RT_PER_RAY(8, rt::kRenderCore | kSt) : RT_PER_RAY(4, rt::kRenderCore | kSt);
-    }
-    if (core == -1) {
-      if (persistent) return slots == 8 ? RT_PERSISTENT(8, kFree | kSt) : RT_PERSISTENT(4, kFree | kSt);
-      return slots == 8 ? RT_PER_RAY(8, kFree | kSt) : RT_PER_RAY(4, kFree | kSt);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (core == -1 && ordered) {
-    if (persistent) return slots == 8 ? RT_PERSISTENT(8, rt::kRenderCore)
-                                      : RT_PERSISTENT(4, rt::kRenderCore);
-    return slots == 8 ? RT_PER_RAY(8, rt::kRenderCore) : RT_PER_RAY(4, rt::kRenderCore);
-  }
-  if (core == -1) {
-    if (persistent) return slots == 8 ? RT_PERSISTENT(8, kFree) : RT_PERSISTENT(4, kFree);
-    return slots == 8 ? RT_PER_RAY(8, kFree) : RT_PER_RAY(4, kFree);
-  }
+  if (shared) return (int)cudaErrorInvalidValue;
   if (core == (int)rt::kBaseline) {
     if (!ordered) return slots == 8 ? RT_PER_RAY(8, kFreeBaseline) : RT_PER_RAY(4, kFreeBaseline);
     return slots == 8 ? RT_PER_RAY(8, rt::kBaseline) : RT_PER_RAY(4, rt::kBaseline);
@@ -465,19 +436,24 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
 #define RT_CASE(A, M) \
   case M:             \
     return launch_per_ray<4, A, (unsigned)M>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL);
-  if (slots == 4 && !any_hit) {
-    switch (core) { RT_MEASURED_RAY_CORES(RT_CASE, false) default: break; }
-  } else if (slots == 4) {
-    switch (core) {
-      RT_MEASURED_RAY_CORES(RT_CASE, true)
-      RT_MEASURED_WARP_CORES(RT_CASE, true)
-      default: break;
+  if (slots == 4) {
+    if (any_hit) {
+      switch (core) {
+        RT_MEASURED_RAY_CORES(RT_CASE, true)
+        RT_MEASURED_WARP_CORES(RT_CASE, true)
+        default: break;
+      }
+    } else {
+      switch (core) {
+        RT_MEASURED_RAY_CORES(RT_CASE, false)
+        RT_MEASURED_WARP_CORES(RT_CASE, false)
+        default: break;
+      }
     }
   }
 #undef RT_CASE
-#undef RT_WARP_CORE
-#undef RT_ANY_HIT_CORE
-#undef RT_ANY_PER_RAY
+#undef RT_FREE
+#undef RT_BOTH
 #undef RT_PER_RAY
 #undef RT_PERSISTENT
 #undef RT_LAUNCH_TAIL
@@ -491,18 +467,19 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
 // with slots = 8, K2c on 8-wide records. qnodes: (num_nodes, recw) f32,
 // 16-byte aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n,
 // 3) f32; active: n bytes (0 = inactive) or null for all rays; outputs:
-// (n,) planes. `core`: -1 for the render paths' core rt::kRenderCore,
-// rt::kAnyHitCore (97, any hit only), rt::kBaseline (256, the baseline loop
-// with one thread per ray), or on 4-wide records one of the feature masks
-// of RT_MEASURED_RAY_CORES and, for any hit, RT_MEASURED_WARP_CORES (timing
-// an element alone; one thread per ray). `ordered` == 0 drops the
-// near-first order (rt::kUnordered: children pushed in slot order) from the
-// render core, rt::kAnyHitCore or the baseline loop (those only).
-// `persistent` != 0 runs persistent warps (core -1 or rt::kAnyHitCore) and
+// (n,) planes. `core`: -1 or rt::kRenderCore (1) for the render core,
+// rt::kAnyHitCore (97, the warp's leaf tests, any or closest hit),
+// rt::kBaseline (256, the baseline loop with one thread per ray), or on
+// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES and
+// RT_MEASURED_WARP_CORES (timing an element alone; one thread per ray).
+// `ordered` == 0 drops the near-first order (rt::kUnordered: children
+// pushed in slot order) from the render core, rt::kAnyHitCore or the
+// baseline loop (those only).
+// `persistent` != 0 runs persistent warps (the render core or rt::kAnyHitCore) and
 // needs `next`, 4 bytes of device memory that this launch alone uses
 // (zeroed here on `stream`); otherwise one thread per ray. `tree_space`:
 // kHbm (0), kVmem (1: any core; records of at most the card's persisting L2
-// and window size) or kSmem (2: core -1 or rt::kAnyHitCore; records of at
+// and window size) or kSmem (2: the render core or rt::kAnyHitCore; records of at
 // most one block's shared memory, in blocks of `block` threads, a multiple
 // of 32 up to kSmemBlockMax). Returns the first CUDA error (0 on success, or
 // cudaErrorInvalidValue for an argument outside these sets); synchronises
@@ -513,6 +490,7 @@ extern "C" int rt_trace_rays(const float* qnodes, int num_nodes, int recw, int l
                              int tree_space, int block, unsigned* next, float* t, float* nx,
                              float* ny, float* nz, int* tri, void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
+  if (core == (int)rt::kRenderCore) core = -1;
   const bool free_core = core == -1 || core == (int)rt::kAnyHitCore;  // any order, any schedule
   if (persistent && (!free_core || next == nullptr)) return (int)cudaErrorInvalidValue;
   if (!ordered && !free_core && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;

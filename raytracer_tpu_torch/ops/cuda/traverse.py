@@ -72,7 +72,8 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
-           "trace_rays", "trace_rays_reference", "launch_plan", "ANY_HIT_CORE", "load_kernel",
+           "trace_rays", "trace_rays_reference", "launch_plan", "ANY_HIT_CORE",
+           "CLOSEST_HIT_CORE", "load_kernel",
            "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
            "CORE_ELEMENTS", "core_id", "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES",
            "SMEM_BLOCK", "check_tree_space", "tree_space_limits", "l2_window"]
@@ -90,19 +91,25 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
 # The traversal cores a wrapper's ``core`` takes. "hopper": what every
 # render path runs, the redesigned core of csrc/traverse_core.cuh in the
-# form that wins on the card (rt::kRenderCore), and for any hit over leaves
-# of more than one triangle what launch_plan picks; "baseline": the frozen
+# form that wins on the card (rt::kRenderCore), and for K2 over leaves of
+# more than one triangle what launch_plan picks; "baseline": the frozen
 # baseline loop (csrc/traverse_core_baseline.cuh, with K2's one thread
 # per ray); or, to time design elements alone, a set of CORE_ELEMENTS joined
 # with "+", or "none" (K1a without jitter, visits or tables, and K2a / K2b,
-# on 4-wide records; "warp" and "pack" K2b alone). ANY_HIT_CORE, the set
-# that launch_plan picks for any hit over leaves of K > 1, is built for
-# every width, order, schedule and placement. Only chip_smoke.py and the
-# card tests pass anything but "hopper".
+# on 4-wide records; "warp" and "pack" K2a / K2b alone). "order" is the
+# render core itself, and K2 builds it, like ANY_HIT_CORE (= CLOSEST_HIT_CORE,
+# the set that launch_plan picks for K2 over leaves of K > 1), for every
+# width, order, schedule and placement. Only chip_smoke.py and the card
+# tests pass anything but "hopper".
 CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64}
 ANY_HIT_CORE = "order+warp+pack"  # rt::kAnyHitCore
+# closest hit with the warp's leaf tests: rt::kAnyHitCore's mask, launched
+# with any_hit=False (the kernels' kAnyHit = false form, warp_nearest)
+CLOSEST_HIT_CORE = ANY_HIT_CORE
 _MAIN_CORE, _BASELINE_CORE = -1, 256
+_RENDER_CORE = CORE_ELEMENTS["order"]  # rt::kRenderCore, named
 _ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
+_CLOSEST_HIT_CORE = _ANY_HIT_CORE
 
 # Any hit over leaves of more than one triangle under core="hopper"
 # (launch_plan) runs ANY_HIT_CORE, which beat the frozen loop at 4 and 8
@@ -111,6 +118,10 @@ _ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
 # (scattered=True) only at K below _ANY_HIT_PERSISTENT_K (they won at K = 8
 # and lost at K = 32 on the card).
 _ANY_HIT_PERSISTENT_K = 32
+
+# Closest hit over leaves of more than one triangle under core="hopper"
+# (launch_plan) runs CLOSEST_HIT_CORE, with persistent warps on the waves
+# that ask for them (scattered=True).
 
 # Where trace_rays' records live during a traversal, under the TPU kernel's
 # names (trace_rays_pallas(tree_space=…)); trace_rays says what each is on
@@ -750,30 +761,31 @@ def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: b
     persistent warps). A pure function: no device is touched.
 
     "hopper" is the render core with persistent warps where ``scattered``,
-    but for any hit over leaves of more than one triangle, which runs
+    but over leaves of more than one triangle: any hit runs
     :data:`ANY_HIT_CORE` (persistent where ``scattered`` and K <
-    ``_ANY_HIT_PERSISTENT_K``; its launcher packs a visit's leaf slots into
-    one run of triangles below K = 32 only). Any other core
-    runs as named: persistent where ``scattered`` for ANY_HIT_CORE, one
-    thread per ray otherwise. Raises ``ValueError`` for what is not built:
-    ``ordered=False`` but with "hopper", "baseline" or ANY_HIT_CORE; the
-    "warp" element but for any hit; ``tree_space="smem"`` but with "hopper"
-    or ANY_HIT_CORE."""
+    ``_ANY_HIT_PERSISTENT_K``), closest hit :data:`CLOSEST_HIT_CORE`
+    (persistent where ``scattered``); their launcher packs a visit's leaf
+    slots into one run of triangles below K = 32 only. Any other core runs
+    as named: persistent where ``scattered`` for "order" (the render core)
+    and ANY_HIT_CORE, one thread per ray otherwise. Raises ``ValueError``
+    for what is not built: ``ordered=False`` but with "hopper", "order",
+    "baseline" or ANY_HIT_CORE; ``tree_space="smem"`` but with "hopper",
+    "order" or ANY_HIT_CORE."""
     cid = core_id(core)
     if tree_space not in TREE_SPACES:
         raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
-    free = (_MAIN_CORE, _ANY_HIT_CORE)  # built in both orders and schedules
+    free = (_MAIN_CORE, _RENDER_CORE, _ANY_HIT_CORE)  # built in both orders and schedules
     if not ordered and cid not in (*free, _BASELINE_CORE):
-        raise ValueError(f"ordered=False runs the 'hopper', 'baseline' or {ANY_HIT_CORE!r} core, "
-                         f"not {core!r}")
-    if cid >= 0 and cid & CORE_ELEMENTS["warp"] and not any_hit:
-        raise ValueError(f"the {core!r} core tests leaves with the warp for any hit only")
+        raise ValueError(f"ordered=False runs the 'hopper', 'order', 'baseline' or "
+                         f"{ANY_HIT_CORE!r} core, not {core!r}")
     if tree_space == "smem" and cid not in free:
-        raise ValueError(f"tree_space='smem' runs the 'hopper' core or {ANY_HIT_CORE!r}, not "
-                         f"{core!r}: the others are built for device memory (the shared stack "
-                         "takes the dynamic shared memory that holds the records)")
-    if core == "hopper" and any_hit and leaf_k > 1:
-        return _ANY_HIT_CORE, scattered and leaf_k < _ANY_HIT_PERSISTENT_K
+        raise ValueError(f"tree_space='smem' runs the 'hopper' core, 'order' or {ANY_HIT_CORE!r}, "
+                         f"not {core!r}: the others are built for device memory (the shared "
+                         "stack takes the dynamic shared memory that holds the records)")
+    if core == "hopper" and leaf_k > 1:
+        if any_hit:
+            return _ANY_HIT_CORE, scattered and leaf_k < _ANY_HIT_PERSISTENT_K
+        return _CLOSEST_HIT_CORE, scattered
     return cid, scattered and cid in free
 
 
@@ -800,16 +812,18 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     and no ranking or sort is done. Closest-hit planes are the same as with
     the order (the nearest hit does not depend on the visit order, but for
     exact ties of t and drops at the 64-entry stack); any-hit masks are the
-    same, the occluder reported may differ. The core must then be "hopper"
-    or "baseline".
+    same, the occluder reported may differ. The core must then be "hopper",
+    "order", "baseline" or ANY_HIT_CORE.
 
-    Any hit over leaves of more than one triangle runs, under
-    ``core="hopper"``, the leaf tests spread over the warp
-    (:data:`ANY_HIT_CORE`: each leaf slot that a lane's ray reaches is
-    tested by the whole warp, a triangle a lane), which beat the frozen loop
-    on every wave measured (PERF.md §6); :func:`launch_plan` picks its
-    schedule. It writes the frozen loop's words, which ``core="baseline"``
-    still runs as the yardstick.
+    Over leaves of more than one triangle, ``core="hopper"`` runs the leaf
+    tests spread over the warp (each leaf slot that a lane's ray reaches is
+    tested by the whole warp, a triangle a lane): any hit
+    :data:`ANY_HIT_CORE`, which beat the frozen loop on every wave measured,
+    and closest hit :data:`CLOSEST_HIT_CORE`, which serves every run of a
+    slot and keeps the nearest (PERF.md §6); :func:`launch_plan` picks the
+    core and its schedule. Both write the words of the frozen loop, which
+    ``core="baseline"`` still runs as the yardstick, and closest hit those
+    of the render core, ``core="order"``.
 
     ``tree_space`` places the records during the traversal, under the TPU
     kernel's names (:data:`TREE_SPACES`): "hbm" (default) reads them from
@@ -820,7 +834,7 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     launch to end — with any core; "smem" copies them into each block's
     shared memory when the block starts and traverses from there, in blocks
     of ``smem_block`` threads (default :data:`SMEM_BLOCK`; measurement), with
-    the "hopper" core or ANY_HIT_CORE only. Every placement writes the same words. Records
+    the "hopper" core, "order" or ANY_HIT_CORE only. Every placement writes the same words. Records
     that do not fit a placement raise ``ValueError`` (:func:`check_tree_space`
     with the card's :func:`tree_space_limits`); on the CPU every placement
     runs the plain version, the name checked as on the card.

@@ -64,9 +64,10 @@ def test_core_ids_are_the_kernels_masks():
 def test_launch_plan_picks_the_core_and_schedule(slots, ordered, scattered):
     """Under "hopper", any hit over leaves of K > 1 runs ANY_HIT_CORE at
     every width and in both orders (persistent where the wave is scattered
-    and K < 32, where that schedule won); K = 1 and closest hit run the
-    render core, persistent where scattered. Named cores run as named; only
-    the render core and ANY_HIT_CORE run persistent warps."""
+    and K < 32, where that schedule won); closest hit there runs
+    CLOSEST_HIT_CORE (test_torch_closesthit.py), and K = 1 the render core,
+    persistent where scattered. Named cores run as named; only the render
+    core ("order") and ANY_HIT_CORE run persistent warps."""
     plan = traverse.launch_plan
     any_hit = traverse.core_id(traverse.ANY_HIT_CORE)
     for k in (2, 8, 32, 33, 64):
@@ -74,7 +75,8 @@ def test_launch_plan_picks_the_core_and_schedule(slots, ordered, scattered):
                    scattered=scattered)
         assert got == (any_hit, scattered and k < traverse._ANY_HIT_PERSISTENT_K)
         assert plan("hopper", any_hit=False, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=scattered) == (-1, scattered)
+                    scattered=scattered) == (traverse.core_id(traverse.CLOSEST_HIT_CORE),
+                                             scattered)
         assert plan(traverse.ANY_HIT_CORE, any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
                     scattered=scattered) == (any_hit, scattered)
         assert plan("baseline", any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
@@ -82,9 +84,11 @@ def test_launch_plan_picks_the_core_and_schedule(slots, ordered, scattered):
     assert plan("hopper", any_hit=True, leaf_k=1, slots=slots, ordered=ordered,
                 scattered=scattered) == (-1, scattered)
     if ordered:
-        for core in ("warp", "order+warp", "warp+pack", "order", "none"):
+        for core in ("warp", "order+warp", "warp+pack", "none"):
             assert plan(core, any_hit=True, leaf_k=32, slots=slots,
                         scattered=scattered) == (traverse.core_id(core), False)
+        assert plan("order", any_hit=True, leaf_k=32, slots=slots,
+                    scattered=scattered) == (1, scattered)
 
 
 def test_launch_plan_bounds_the_persistent_schedule_by_k():
@@ -107,17 +111,16 @@ def test_launch_plan_bounds_the_persistent_schedule_by_k():
 
 
 def test_launch_plan_refuses_what_is_not_built():
-    """ordered=False, "smem" and the warp's leaf tests take only the cores
-    built for them; a bad core or placement name raises."""
+    """ordered=False and "smem" take only the cores built for them; the
+    warp's leaf tests are built for closest hit too; a bad core or
+    placement name raises."""
     plan = traverse.launch_plan
     kw = dict(leaf_k=32, slots=4)
     with pytest.raises(ValueError, match="ordered=False"):
         plan("order+warp", any_hit=True, ordered=False, **kw)
-    with pytest.raises(ValueError, match="any hit only"):
-        plan(traverse.ANY_HIT_CORE, any_hit=False, **kw)
-    with pytest.raises(ValueError, match="any hit only"):
-        plan("warp", any_hit=False, **kw)
-    for core in ("baseline", "order", "warp"):
+    assert plan(traverse.ANY_HIT_CORE, any_hit=False, **kw) == (97, False)
+    assert plan("warp", any_hit=False, **kw) == (32, False)
+    for core in ("baseline", "order+stack", "warp"):
         with pytest.raises(ValueError, match="'hopper' core"):
             plan(core, any_hit=True, tree_space="smem", **kw)
     assert plan(traverse.ANY_HIT_CORE, any_hit=True, tree_space="smem", ordered=False,
@@ -130,16 +133,17 @@ def test_launch_plan_refuses_what_is_not_built():
 
 def test_named_any_hit_cores_run_the_plain_version_on_cpu():
     """On CPU records every any-hit core name runs the plain version (the
-    same words as "hopper") and counts no launch; closest hit refuses the
-    warp's leaf tests before anything runs."""
+    same words as "hopper") and counts no launch; so does closest hit with
+    the warp's leaf tests."""
     tris, qn, o, d = one_record_cases(4, 8, 256, seed=3)
     before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
     ref = traverse.trace_rays(qn, o, d, any_hit=True, leaf_k=8)
     for core in (traverse.ANY_HIT_CORE, "warp", "order+warp", "warp+pack"):
         out = traverse.trace_rays(qn, o, d, any_hit=True, leaf_k=8, core=core)
         assert all(torch.equal(a, b) for a, b in zip(out, ref)), core
-    with pytest.raises(ValueError, match="any hit only"):
-        traverse.trace_rays(qn, o, d, leaf_k=8, core="warp")
+    closest = traverse.trace_rays(qn, o, d, leaf_k=8)
+    assert all(torch.equal(a, b) for a, b in
+               zip(traverse.trace_rays(qn, o, d, leaf_k=8, core="warp"), closest))
     assert (dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)) == before
 
 

@@ -26,7 +26,10 @@ every render path) word for word equal to the frozen baseline core
 launch shape and K2 schedule; any hit over leaves of K > 1 with the leaf
 tests spread over the warp (``traverse.ANY_HIT_CORE``) word for word equal
 to the frozen loop and the plain version at K = 2 to 64, both orders and
-schedules, on stacks past 64 entries and under every placement; the raw
+schedules, on stacks past 64 entries and under every placement; closest
+hit with the warp's leaf tests (``traverse.CLOSEST_HIT_CORE``) word for
+word equal to the render core (``core="order"``), the frozen loop and the
+plain version in the same cases, and on duplicate triangles at equal t; the raw
 tile layout of a batch (``raw=True``) bit-equal to the layout of its image
 planes on every word, and each record placement of K2 (``tree_space``
 "vmem", "smem") word for word equal to "hbm", leaving no access-policy
@@ -1035,9 +1038,113 @@ def test_any_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
                                                            smem_block=b, **kw), ref), b
 
 
+def dup_scene() -> np.ndarray:
+    """The room with every fifth triangle twice: exact copies, accepted at
+    the same t, in the same leaf or in another one (the first in visit
+    order must win)."""
+    tris = room_scene()
+    return np.concatenate([tris, tris[::5]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [2, 8, 32, 33, 64])
+def test_closest_hit_core_equals_render_core_and_baseline_on_card(cuda_device, k, width):
+    """Closest hit over leaves of K > 1 with the leaf tests spread over the
+    warp (``traverse.CLOSEST_HIT_CORE``: every run of 32 served, the least t
+    and its lowest lane), one thread per ray and as persistent warps, in
+    both orders, writes the render core's words (``core="order"``), the
+    frozen loop's (``core="baseline"``) and the plain version's (run on the
+    card) on every ray: for every R and active share, on bounce-like rays,
+    on rays that graze shared edges, on a scene of duplicate triangles at
+    equal t, at K up to 64 (slots served in runs of 32). Under
+    ``core="hopper"`` each call launches once, counted under the kernel's
+    name."""
+    name = "trace_rays_k2c" if width == 8 else "trace_rays_k2a"
+    for tris, edges in ((room_scene(), True), (dup_scene(), False)):
+        qn = records_of(tris, k, width, cuda_device)
+        o, d = ray_buffer(qn, k, 4096)
+        rays = [(torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device))]
+        if edges:
+            rays.append(tuple(torch.from_numpy(a).to(cuda_device)
+                              for a in edge_rays(tris, 4096, k + width)))
+        for origins, dirs in rays:
+            for ro, rd, act in ray_cases(origins, dirs, k + width):
+                for ordered in (True, False):
+                    kw = dict(leaf_k=k, active=act, ordered=ordered)
+                    base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
+                    for scattered in (False, True):
+                        render_core = traverse.trace_rays(qn, ro, rd, core="order",
+                                                          scattered=scattered, **kw)
+                        assert words_equal(render_core, base), (ordered, scattered)
+                        ours = traverse.trace_rays(qn, ro, rd, core=traverse.CLOSEST_HIT_CORE,
+                                                   scattered=scattered, **kw)
+                        assert words_equal(ours, base), (ordered, scattered, ro.shape[0])
+                        before = dict(traverse.LAUNCHES)
+                        hopper = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
+                        torch.cuda.synchronize()
+                        assert launched(before) == {name + ("" if ordered else "_unordered"): 1}
+                        assert words_equal(hopper, base), (ordered, scattered, ro.shape[0])
+                    plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
+                    assert words_equal(plain, base), (ordered, ro.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_closest_hit_core_drops_like_baseline_on_card(cuda_device, width):
+    """On records whose stacks pass 64 entries (``deep_records``, K = 1,
+    the chain child in a seeded slot and in the last slot), closest hit with
+    the warp's leaf tests, both orders and schedules, and at 4 slots each
+    measured set of its elements, drops the pushes of the render core and
+    of the frozen loop: the same words as ``core="order"``,
+    ``core="baseline"`` and the plain version."""
+    for chain_slot, ordered in ((None, True), (width - 1, True), (width - 1, False)):
+        qn, o, d = deep_records(width, chain_slot=chain_slot)
+        qn = qn.to(cuda_device)
+        o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+        kw = dict(leaf_k=1, ordered=ordered)
+        counts = traverse.TraversalCounts()
+        plain = traverse.trace_rays_reference(qn, o, d, counts=counts, **kw)
+        assert counts.dropped > 0
+        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
+        assert words_equal(plain, base)
+        for scattered in (False, True):
+            for core in ("order", traverse.CLOSEST_HIT_CORE):
+                assert words_equal(traverse.trace_rays(qn, o, d, core=core,
+                                                       scattered=scattered, **kw), base), core
+        for core in (WARP_CORES if width == 4 and ordered else ()):
+            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k", [8, 32])
+def test_closest_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
+    """Closest hit with the warp's leaf tests writes the render core's
+    "hbm" words with the records pinned in L2 ("vmem") and in each block's
+    shared memory ("smem", 128 and 512 threads a block), in both orders and
+    schedules, with and without an active mask; "order" under "smem" too."""
+    tris = room_scene()[:120]
+    qn = records_of(tris, k, width, cuda_device)
+    assert qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, k, 4096))
+    for ro, rd, act in list(ray_cases(o, d, k + width))[6:12]:
+        for ordered in (True, False):
+            for scattered in (False, True):
+                kw = dict(leaf_k=k, active=act, ordered=ordered, scattered=scattered)
+                ref = traverse.trace_rays(qn, ro, rd, core="order", **kw)
+                for core in (traverse.CLOSEST_HIT_CORE, "order"):
+                    assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="vmem",
+                                                           core=core, **kw), ref), core
+                    for b in (128, 512):
+                        assert words_equal(traverse.trace_rays(
+                            qn, ro, rd, tree_space="smem", smem_block=b, core=core, **kw),
+                            ref), (core, b)
+
+
 MEASURED_CORES = ("none", "order", "stack", "prefetch", "order+stack", "order+prefetch",
                   "stack+prefetch", "order+stack+prefetch")
-# the measured sets of the warp's leaf tests (any hit, 4 slots, one thread a ray)
+# the measured sets of the warp's leaf tests (4 slots, one thread a ray)
 WARP_CORES = ("warp", "order+warp", "warp+pack")
 
 
@@ -1062,11 +1169,10 @@ def test_element_cores_equal_hopper_on_card(cuda_device):
     for core in WARP_CORES:
         assert words_equal(traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8, core=core),
                            full_any), core
-    with pytest.raises(ValueError, match="any hit only"):
-        traverse.trace_rays(qn, o, d, leaf_k=8, core="order+warp")
+        assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core=core), full_rays), core
     qn8 = records_of(tris, 8, 8, cuda_device)
     with pytest.raises(RuntimeError):
-        traverse.trace_rays(qn8, o, d, leaf_k=8, core="order")
+        traverse.trace_rays(qn8, o, d, leaf_k=8, core="order+stack")
     with pytest.raises(RuntimeError):
         traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8, jitter=True,
                              core="stack")
