@@ -227,9 +227,12 @@ __device__ __forceinline__ float safe_inv(float d) {
 
 // Möller–Trumbore of the ray (o, d) against one inlined triangle record
 // [v0, e1, e2, g] (a, b, c: its three float4s): whether it is accepted, at
-// a distance tt with kMtEps < tt < best. The test of Ray::leaves and of the
-// warp's leaf tests; the frozen loop keeps its own copy, in the same
-// operation order, which must stay in step with it.
+// a distance tt with kMtEps < tt < best. The test of the warp's leaf tests.
+// Ray::leaves and the frozen loop keep their own copies, in the same
+// operation order, and the three must stay in step: with Ray::leaves
+// calling this function, 85 of the 151 kernels that do not run the warp's
+// leaf tests compiled to other instructions and K1a's framed frame took
+// 1.014-1.025x the time on the card (PERF.md §6).
 __device__ __forceinline__ bool mt_hit(const float4 a, const float4 b, const float4 c, float ox,
                                        float oy, float oz, float dx, float dy, float dz,
                                        float best, float& tt) {
@@ -550,9 +553,11 @@ struct Ray {
     }
   }
 
-  // Möller–Trumbore (mt_hit) over the inlined [v0, e1, e2, g] records of the
-  // leaf slots that passed, in slot then triangle order, strict t < best.
-  // Closest hit keeps the nearest in best and r and returns -1; any hit
+  // Möller–Trumbore over the inlined [v0, e1, e2, g] records of the leaf
+  // slots that passed, in slot then triangle order, strict t < best (the
+  // test's expression has twins that must stay in step with it: mt_hit and
+  // the frozen loop's; see mt_hit for why it is not called here). Closest
+  // hit keeps the nearest in best and r and returns -1; any hit
   // returns the position k·K + j of the first accepted triangle (or -1) and
   // writes nothing: the caller leaves the loop and takes the triangle's
   // normal and id there (occluder), so that neither they nor best are
@@ -572,8 +577,22 @@ struct Ray {
         const float4 a = ld_rec4<kFeat>(tv + 3 * j);      // v0x v0y v0z e1x
         const float4 b = ld_rec4<kFeat>(tv + 3 * j + 1);  // e1y e1z e2x e2y
         const float4 c = ld_rec4<kFeat>(tv + 3 * j + 2);  // e2z gx  gy  gz
-        float tt;
-        if (mt_hit(a, b, c, ox, oy, oz, dx, dy, dz, best, tt)) {
+        const float e1x = a.w, e1y = b.x, e1z = b.y;
+        const float e2x = b.z, e2y = b.w, e2z = c.x;
+        const float pxv = dy * e2z - dz * e2y;
+        const float pyv = dz * e2x - dx * e2z;
+        const float pzv = dx * e2y - dy * e2x;
+        const float det = e1x * pxv + e1y * pyv + e1z * pzv;
+        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+        const float sx = ox - a.x, sy = oy - a.y, sz = oz - a.z;
+        const float uu = inv_det * (sx * pxv + sy * pyv + sz * pzv);
+        const float qcx = sy * e1z - sz * e1y;
+        const float qcy = sz * e1x - sx * e1z;
+        const float qcz = sx * e1y - sy * e1x;
+        const float vv = inv_det * (dx * qcx + dy * qcy + dz * qcz);
+        const float tt = inv_det * (e2x * qcx + e2y * qcy + e2z * qcz);
+        if (fabsf(det) >= kMtEps && uu >= 0.0f && uu <= 1.0f && vv >= 0.0f &&
+            uu + vv <= 1.0f && tt > kMtEps && tt < best) {
           if (kAnyHit) return k * leaf_k + j;
           const float g_inv = 1.0f / sqrtf(c.y * c.y + c.z * c.z + c.w * c.w);
           best = tt;

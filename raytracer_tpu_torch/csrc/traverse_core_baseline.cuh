@@ -12,8 +12,8 @@
 // leaf tests spread over the warp), which beat it at 4 and 8 slots, in both
 // orders, at K = 8 and 32 (ops/cuda/traverse.py::launch_plan). Do not edit
 // the loop: a change here is no longer the baseline. Its slab tests and its
-// Möller–Trumbore test have twins in traverse_core.cuh (Ray::slabs and
-// mt_hit) that must stay in step with it. The
+// Möller–Trumbore test have twins in traverse_core.cuh (Ray::slabs;
+// Ray::leaves and mt_hit) that must stay in step with it. The
 // one addition is the kOrdered = false form of that any hit
 // (trace_rays(ordered=False)): the same loop with the children pushed in
 // slot order; kOrdered = true compiles to the frozen loop. It reads the

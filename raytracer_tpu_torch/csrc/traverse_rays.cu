@@ -21,22 +21,26 @@
 // scattered surface points. With one thread per ray (the baseline), a warp
 // holds its slots until its slowest ray ends while the lanes of missed,
 // dead or finished rays idle: the checked rays ran 104× (K2a) and 91× (K2b)
-// above their bounds, against 44× for K1a.
+// above their bounds, against 44× for K1a, and at K = 32 most of that was
+// one lane testing a whole leaf alone.
 //
 // What the design does about it:
 //  * The per-ray traversal of traverse_core.cuh in its render form
 //    rt::kRenderCore (near-first order by the ray's own slab entry
-//    distance, ranked in registers; culling at the best t). Any hit over
-//    leaves of more than one triangle (the shadow rays of every render
-//    path at SAH K = 32 and Morton K = 8) runs rt::kAnyHitCore instead:
-//    each lane visits its own ray's records in that order, and the warp
-//    tests the leaf slots they reach together, a triangle a lane
-//    (kWarpLeaves): one lane testing a whole leaf of 32 triangles alone,
-//    on loads that touch a line a lane, was what the per-lane cores and the
-//    frozen loop spent that wave on. The caller's launch plan
+//    distance, ranked in registers; culling at the best t). Over leaves of
+//    more than one triangle (every wave of the render paths at SAH K = 32
+//    and Morton K = 8) both kinds run rt::kAnyHitCore instead, any hit (the
+//    shadow rays) and closest hit (the bounce rays): each lane visits its
+//    own ray's records in that order, and the warp tests the leaf slots
+//    they reach together, a triangle a lane (kWarpLeaves; any hit stops at
+//    the first accepted run, closest hit serves every run and keeps the
+//    nearest): one lane testing a whole leaf of 32 triangles alone, on
+//    loads that touch a line a lane, was what the per-lane cores and the
+//    frozen loop spent those waves on. The caller's launch plan
 //    (ops/cuda/traverse.py::launch_plan) picks it and its schedule; it beat
-//    the frozen loop of traverse_core_baseline.cuh on every wave measured,
-//    so that loop runs only as core rt::kBaseline, the yardstick.
+//    the frozen loop of traverse_core_baseline.cuh and the render core on
+//    every such wave measured, so that loop runs only as core rt::kBaseline,
+//    the yardstick, and the render core only at K = 1.
 //  * Two schedules, chosen by the caller per wave (trace_rays(scattered=)):
 //    - one thread per ray in blocks of 128, where the active rays come in
 //      runs (the camera's NEE wave and the first bounce: its lanes are the
@@ -88,11 +92,11 @@
 //    one block (232,448 bytes on an H100), as on the TPU it had to fit
 //    scalar memory; the caller checks the fit.
 //
-// The launcher's `core` argument selects the traversal core (-1: the render
-// core; rt::kAnyHitCore, any hit with the warp's leaf tests; rt::kBaseline,
-// the frozen baseline loop with one thread per ray; other feature masks for
-// timing an element alone), `persistent` the schedule, `tree_space` the
-// placement.
+// The launcher's `core` argument selects the traversal core (-1 or
+// rt::kRenderCore: the render core; rt::kAnyHitCore, the warp's leaf tests,
+// any or closest hit; rt::kBaseline, the frozen baseline loop with one
+// thread per ray; other feature masks for timing an element alone),
+// `persistent` the schedule, `tree_space` the placement.
 //
 // Exactness: the slab and Möller–Trumbore arithmetic of traverse_core.cuh,
 // built with -fmad=false, in the operation order of the plain torch version

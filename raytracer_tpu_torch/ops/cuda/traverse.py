@@ -120,8 +120,11 @@ _CLOSEST_HIT_CORE = _ANY_HIT_CORE
 _ANY_HIT_PERSISTENT_K = 32
 
 # Closest hit over leaves of more than one triangle under core="hopper"
-# (launch_plan) runs CLOSEST_HIT_CORE, with persistent warps on the waves
-# that ask for them (scattered=True).
+# (launch_plan) runs CLOSEST_HIT_CORE, which beat the render core on every
+# closest-hit wave measured (SAH K = 32, Morton K = 8 and the 8-wide tree,
+# both orders: 1.69-6.04x; chip_smoke.py phase 28, PERF.md §6), with
+# persistent warps on the waves that ask for them (scattered=True), which
+# tied or won there at K = 8 and 32 and lost on every dense wave.
 
 # Where trace_rays' records live during a traversal, under the TPU kernel's
 # names (trace_rays_pallas(tree_space=…)); trace_rays says what each is on

@@ -15,7 +15,8 @@ process.
    this, this, other), on the waves of ``tools_torch/mb_tree_space.py``:
    config 4's hall and config 1's Cornell box at 512x512, and the dragon
    stand-in (SAH K = 32) at 1024x1024 from (0, 0, 1.15); closest-hit waves
-   also with persistent warps (``scattered=True``).
+   also with persistent warps (``scattered=True``). Then K1a on the
+   dragon's framed 1920x1080 frame (``trace_tiles``), the same way.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -43,6 +44,7 @@ from raytracer_tpu_torch.utils import procgen  # noqa: E402
 from tools_torch import mb_tree_space  # noqa: E402
 
 DRAGON_SIZE, DRAGON_CAM = 1024, (0.0, 0.0, 1.15)
+FRAME_W, FRAME_H, QUAT, FOV = 1920, 1080, (0.0, 0.0, 0.0, 1.0), 70.0
 
 
 def load_package(root: Path, alias: str):
@@ -103,6 +105,21 @@ def compare_sass(mine, theirs, source: str) -> None:
               "instructions)", flush=True)
 
 
+def ab(label: str, mine, theirs, card: str, rays: int) -> None:
+    """``mine()`` and ``theirs()`` equal word for word, then timed other,
+    this, this, other with CUDA events; prints both and their ratio."""
+    words = mb_tree_space.differing_words(mine(), theirs())
+    if words:
+        raise SystemExit(f"{label}: the two checkouts differ in {words} words")
+    ms = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        ms[who].append(mb_tree_space.wave_ms(theirs if who == "other" else mine))
+    a, b = (sum(v) / 2 for v in (ms["other"], ms["this"]))
+    print(f"[ab] {label}: other {a:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['other'])}), "
+          f"this {b:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['this'])}), this / other "
+          f"{b / a:.4f}; planes equal on {rays} rays, on {card}", flush=True)
+
+
 def main() -> None:
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
@@ -129,20 +146,16 @@ def main() -> None:
         for name, (o, d, ah) in ws.items():
             for scattered in ((False,) if ah else (False, True)):
                 kw = dict(any_hit=ah, leaf_k=k, scattered=scattered)
-                mine = traverse.trace_rays(qn, o, d, **kw)
-                theirs = other_traverse.trace_rays(qn, o, d, **kw)
-                words = mb_tree_space.differing_words(mine, theirs)
-                if words:
-                    raise SystemExit(f"{label} {name}: the two checkouts differ in {words} words")
-                ms = {"other": [], "this": []}
-                for who in ("other", "this", "this", "other"):
-                    fn = other_traverse.trace_rays if who == "other" else traverse.trace_rays
-                    ms[who].append(mb_tree_space.wave_ms(lambda fn=fn: fn(qn, o, d, **kw)))
-                a, b = (sum(v) / 2 for v in (ms["other"], ms["this"]))
-                print(f"[ab] {label} {name}{' persistent' if scattered else ''}: other {a:.4f} ms "
-                      f"({', '.join(f'{x:.4f}' for x in ms['other'])}), this {b:.4f} ms "
-                      f"({', '.join(f'{x:.4f}' for x in ms['this'])}), this / other "
-                      f"{b / a:.4f}; planes equal on {o.shape[0]} rays, on {card}", flush=True)
+                ab(f"{label} {name}{' persistent' if scattered else ''}",
+                   lambda kw=kw, qn=qn, o=o, d=d: traverse.trace_rays(qn, o, d, **kw),
+                   lambda kw=kw, qn=qn, o=o, d=d: other_traverse.trace_rays(qn, o, d, **kw),
+                   card, o.shape[0])
+    qn = trees["dragon SAH K=32"][0]
+    frame = dict(leaf_k=32)
+    ab(f"dragon SAH K=32 K1a framed {FRAME_W}x{FRAME_H}",
+       lambda: traverse.trace_tiles(qn, DRAGON_CAM, QUAT, FRAME_W, FRAME_H, FOV, **frame),
+       lambda: other_traverse.trace_tiles(qn, DRAGON_CAM, QUAT, FRAME_W, FRAME_H, FOV, **frame),
+       card, FRAME_W * FRAME_H)
 
 
 if __name__ == "__main__":
