@@ -1911,6 +1911,7 @@ def dynamic_phase(env: dict, pt) -> None:
     # (a) the plan's contract at full size, (b) containment
     check_plan_contract(r, q, plan, "dynamic frame 2")
     check_refit_boxes(r)
+    env["dynamic_qn"] = q  # frame 2's records, for the K1 phase
     log("[check] dynamic frame 2: every internal box contains its children's, every leaf box "
         "its cluster's deformed triangles")
 
@@ -2029,6 +2030,7 @@ def config5_phase(env: dict) -> None:
         fail(f"config 5: hit counts of the raw layout {raw_hits.tolist()} differ from the image "
              f"layout's {hits.tolist()}")
     q = records(refit(3))
+    env["config5"] = (q, cams, quats)  # for the K1 phase
     raw, image = checked_raw(trace_raw, q, N_CAMS, size), trace(q)
     words = differing_words(raw, traverse.tiles_layout(image))
     if words:
@@ -2104,8 +2106,9 @@ def config1_phase(env: dict, config5_launches: int) -> dict:
     poss = [(1e-3 * i, 0.0, C1_Z) for i in range(n)]
     quats = [QUAT] * n
 
-    def raw_call(q=qn, p=poss, qs=quats):
-        return traverse.trace_tiles_batch(q, p, qs, size, size, FOV, leaf_k=1, raw=True)
+    def raw_call(q=qn, p=poss, qs=quats, core="hopper"):
+        return traverse.trace_tiles_batch(q, p, qs, size, size, FOV, leaf_k=1, raw=True,
+                                          core=core)
 
     def image_call(p=poss, qs=quats):
         return traverse.trace_tiles_batch(qn, p, qs, size, size, FOV, leaf_k=1)
@@ -2155,6 +2158,8 @@ def config1_phase(env: dict, config5_launches: int) -> dict:
     b_ms, b_by, detail = bound(counts, 1.0, rays * RAW_OUT_BYTES + len(ends) * 64)
 
     path = abba({"image": image_call, "raw": raw_call}, 3, REPEATS)
+    register_row(env, "trace_tiles_k1c_raw", lambda core: raw_call(
+        p=[poss[f] for f in ends], qs=[QUAT, QUAT], core=core), lambda core: raw_call(core=core))
     path_counts = traverse.TraversalCounts()
     pick = torch.Generator(device="cpu").manual_seed(SEED + 4)
     sampled = (0, n // 3, 2 * n // 3, n - 1)
@@ -2208,6 +2213,7 @@ def tree_space_phase(env: dict) -> dict:
     limits = traverse.tree_space_limits(dev)
     window0 = traverse.l2_window(dev)
     scenes = mb_tree_space.trees(dev)
+    env["cornell32"] = scenes["Cornell SAH K=32"][0]  # for the K1 phase
     waves = {label: mb_tree_space.waves(qn, k) for label, (qn, k) in scenes.items()}
     fits = {label: qn.numel() * 4 <= limits["smem_optin"] for label, (qn, k) in scenes.items()}
     log(f"[tree_space] limits of {card}: {json.dumps(limits)}; L2 state before: "
@@ -2913,6 +2919,8 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
 
     # A-B-B-A: frames, waves, whole samples, the dynamic frame
     for what, fn in frames.items():
+        if "K=1" not in what:
+            continue  # K1 over leaves of K > 1: k1_phase times it beside the frozen loop
         ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 2 if "K1c" in what else 8, 2)
         log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
             f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
@@ -2995,13 +3003,21 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
 
     k2b_phase(env, trees_of)
     k2a_phase(env, trees_of)
+    k1_phase(env, trees_of)
 
     # the kernels line: the baseline's times beside each row's; beside the
     # rows of closest hit over leaves of K > 1, the render core's (only
-    # their closest-hit waves swapped) and the frozen loop's
+    # their closest-hit waves swapped) and the frozen loop's; beside the K1
+    # rows, the render core's and the frozen loop's (the raw layout: the
+    # render core's)
     for name, (checked, path) in env["row_calls"].items():
-        others = ({"baseline": ("order", "hopper"), "frozen": "baseline"}
-                  if name in CLOSEST_ROWS else {"baseline": "baseline"})
+        if name in CLOSEST_ROWS:
+            others = {"baseline": ("order", "hopper"), "frozen": "baseline"}
+        elif name.startswith("trace_tiles_"):
+            others = {"baseline": "order", **({} if name.endswith("_raw") else
+                                              {"frozen": "baseline"})}
+        else:
+            others = {"baseline": "baseline"}
         c = series({"hopper": lambda: checked("hopper"),
                     **{k: (lambda v=v: checked(v)) for k, v in others.items()}}, 4, 2)
         p = series({"hopper": lambda: path("hopper"),
@@ -3246,6 +3262,229 @@ def k2a_phase(env: dict, trees_of: dict) -> None:
                 f"{ms['hopper']:.4f} ms, render core {ms['order']:.4f} ms, speed-up "
                 f"{ms['order'] / ms['hopper']:.4f} on {card}")
     log(f"[k2a] K2a's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# 28 (K1). The cores of K1 timed against each other (traverse.core_id
+# names): the render core (K1 at K = 1, and at K > 1 before the per-step
+# leaf stage), the warp's leaf tests at every step (rt::warp_nearest in the
+# tile kernel, traverse.ANY_HIT_CORE's closest hit), the per-step choice
+# between the two (traverse.TILE_CORE) and the frozen loop
+K1_CORES = {"render": "order", "warp": "order+warp+pack", "tile": "order+warp+pack+tile",
+            "frozen": "baseline"}
+CORNELL_CAM = (0.0, 0.0, 2.2)  # config 1's camera (bench_suite.py:64-140) at i = 0
+
+
+def k1_census(qn: torch.Tensor, leaf_k: int, cams: list, pixels: torch.Tensor, width: int,
+              height: int, jitter: bool = False) -> dict:
+    """TraversalCounts.warp_census of the tile kernels' warps over ``pixels``
+    (whole warps: flat indices of a width × height frame) of each camera,
+    from the plain version: what each warp step posts, priced for both leaf
+    stages."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    counts = traverse.TraversalCounts(leaf_log=True)
+    ids = traverse.tile_warp_ids(pixels % width, pixels // width, width)
+    span = int(ids.max()) + 1
+    visits, warps = [], []
+    for f, cam in enumerate(cams):
+        planes = traverse.trace_tiles_reference(
+            qn, cam, QUAT, width, height, FOV, leaf_k=leaf_k, pixels=pixels, jitter=jitter,
+            jitter_seed=JITTER_SEED, counts=counts, stats=True)
+        visits.append(planes[5])
+        warps.append(ids + f * span)
+    return counts.warp_census(torch.cat(warps), torch.cat(visits), leaf_k)
+
+
+def k1_build_report(traverse) -> None:
+    """ptxas of every tile-kernel instantiation of a warp-leaves core, and
+    the render core's instructions (every K1 and K2 launch at K = 1) against
+    the parent's digests in tools_torch/render_core_sass.json."""
+    from tools_torch.ab_parent import nvcc_version, render_core_digests
+
+    for kernel, regs, frame, st, ld in ptxas_rows(traverse.load_kernel("traverse_tiles.cu")[1]):
+        core = int(kernel[kernel.rindex(",") + 1:-1])
+        if core & 32:
+            log(f"[k1] ptxas {kernel} (core {core & 4095}, cost field {core >> 12}): {regs} "
+                f"registers, {frame} bytes stack frame, spills {st}/{ld} bytes")
+    ref = json.loads((ROOT / "tools_torch" / "render_core_sass.json").read_text())
+    nvcc = nvcc_version()
+    for source, want in ref["kernels"].items():
+        got = render_core_digests(traverse.load_kernel(source)[0])
+        same = [k for k in want if got.get(k) == want[k]]
+        log(f"[k1] SASS {source}: {len(same)} of {len(want)} render-core kernels identical, "
+            f"instruction for instruction, to the parent's ({ref['from']}; nvcc here "
+            f"'{nvcc}', there '{ref['nvcc']}')")
+        if len(same) != len(want) or set(got) != set(want):
+            differ = sorted(set(want) ^ set(got) | {k for k in want if got.get(k) != want[k]})
+            if nvcc == ref["nvcc"]:
+                fail(f"the render core's machine code changed in {source}: {differ}")
+            log(f"[k1] SASS {source}: another nvcc, not comparable: {differ}")
+
+
+def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
+    """28 (K1). K1 over leaves of K > 1 under its cores (K1_CORES): ptxas of
+    the new instantiations and the render core's machine code against the
+    parent's; on each case every plane bit-identical across the cores; the
+    warp census of each case (k1_census); each case's cores timed in one
+    series forward and back, with what traverse.tile_plan runs. Step 1: the
+    render core, the warp's tests at every step and the frozen loop, on K1a
+    framed and sparse, K1b's camera wave, one 8-camera K1c batch of the
+    dynamic dragon, config 5's K1c raw and the Cornell box at SAH K = 32.
+    Step 2 adds the per-step choice (TILE_CORE) and its cost sweep
+    (TILE_COSTS), Morton K = 8, the 8-wide tree (K1e), K1d and K1f, and the
+    whole paths with only K1 swapped between the plan and the render core:
+    the headline frame (render()'s device work: K1a, shade, quantize), one
+    3-bounce sample and the dynamic dragon frame, A-B-B-A."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.shade import quantize_rgba8, shade_lambert
+
+    if (K1_CORES["warp"], K1_CORES["tile"]) != (traverse.ANY_HIT_CORE, traverse.TILE_CORE):
+        fail("K1_CORES no longer names traverse.ANY_HIT_CORE and traverse.TILE_CORE")
+    card, dev, tris, crop = env["card"], env["dev"], env["tris"], env["crop_pix"]
+    t_phase = time.perf_counter()
+    k1_build_report(traverse)
+    qn32 = env["qn"]
+    cams, quats = batch_cameras(CAM_Z)
+    whole = torch.arange(CONFIG5_SIZE * CONFIG5_SIZE, device=dev)
+
+    def tiles(qn, cam, k, **kw):
+        return lambda core: traverse.trace_tiles(qn, cam, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
+                                                 core=core, **kw)
+
+    # label → (call(core), its census, whether the warp core is built there,
+    # whether its cost sweep is, frames a timed run, what tile_plan is told)
+    cases = {
+        f"K1a framed SAH K={LEAF_K}": (tiles(qn32, FRAMED, LEAF_K), lambda: k1_census(
+            qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT), True, True, 8, {}),
+        f"K1a sparse SAH K={LEAF_K}": (tiles(qn32, SPARSE, LEAF_K), lambda: k1_census(
+            qn32, LEAF_K, [SPARSE], crop, WIDTH, HEIGHT), True, True, 8, {}),
+        f"K1b framed SAH K={LEAF_K} (the sample's camera wave)": (
+            tiles(qn32, FRAMED, LEAF_K, jitter=True, jitter_seed=JITTER_SEED),
+            lambda: k1_census(qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT, jitter=True), True,
+            False, 8, {"jitter": True}),
+    }
+    if "dynamic_qn" in env:
+        dq = env["dynamic_qn"]
+        cases[f"K1c {N_CAMS} cameras, the dynamic dragon's refitted records"] = (
+            lambda core: traverse.trace_tiles_batch(dq, cams, quats, WIDTH, HEIGHT, FOV,
+                                                    leaf_k=LEAF_K, core=core),
+            lambda: k1_census(dq, LEAF_K, cams, crop, WIDTH, HEIGHT), True, False, 2,
+            {"batch": True})
+    if "config5" in env:
+        c5, c5cams, c5quats = env["config5"]
+        cases[f"K1c raw, config 5 ({N_CAMS} x {CONFIG5_SIZE}x{CONFIG5_SIZE})"] = (
+            lambda core: traverse.trace_tiles_batch(c5, c5cams, c5quats, CONFIG5_SIZE,
+                                                    CONFIG5_SIZE, FOV, leaf_k=LEAF_K, raw=True,
+                                                    core=core),
+            lambda: k1_census(c5, LEAF_K, c5cams, whole, CONFIG5_SIZE, CONFIG5_SIZE), True,
+            False, FRAMES, {"batch": True, "raw": True})
+    if "cornell32" in env:
+        box = env["cornell32"]
+        cases[f"K1a Cornell box SAH K={LEAF_K} (3 records)"] = (
+            tiles(box, CORNELL_CAM, LEAF_K), lambda: k1_census(
+                box, LEAF_K, [CORNELL_CAM], crop, WIDTH, HEIGHT), True, True, 8, {})
+    if step >= 2:
+        if 8 in trees_of:
+            q8, _, _ = trees_of[8]
+            cases["K1a framed Morton K=8"] = (tiles(q8, FRAMED, 8), lambda: k1_census(
+                q8, 8, [FRAMED], crop, WIDTH, HEIGHT), True, True, 8, {})
+        if "8-wide" in trees_of:
+            qw, _, _ = trees_of["8-wide"]
+            cases[f"K1e framed 8-wide SAH K={LEAF_K}"] = (tiles(qw, FRAMED, LEAF_K), lambda: (
+                k1_census(qw, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT)), False, False, 8, {})
+        if "trace_tiles_k1d" in env.get("row_calls", {}):
+            cases["K1d framed, the frame's bounds and entries"] = (
+                env["row_calls"]["trace_tiles_k1d"][1], None, False, False, 8,
+                {"bounded": True})
+        cases[f"K1f framed SAH K={LEAF_K}"] = (tiles(qn32, FRAMED, LEAF_K, stats=True), None,
+                                               False, False, 8, {"stats": True})
+
+    totals = {}
+    for what, (fn, census, warp_built, sweep, frames, plan_kw) in cases.items():
+        names = ["render"] + ([] if plan_kw.get("raw") else ["frozen"]) + (
+            ["warp"] if warp_built else []) + (["tile"] if step >= 2 else [])
+        outs = {n: flat_planes(fn(K1_CORES[n])) for n in names}
+        for n in names:
+            words = differing_words(outs[n], outs["render"])
+            if words:
+                fail(f"K1 phase: {what}: the {n} core differs from the render core in {words} "
+                     "words")
+        del outs
+        if census is not None:
+            log(f"[k1] census {what} (plain version, whole warps of "
+                f"{'the crop' if 'config 5' not in what else 'every frame'}): "
+                f"{json.dumps(census())}")
+        ms = series({n: (lambda n=n: fn(K1_CORES[n])) for n in names}, frames, 2)
+        line = ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+        plan = ""
+        if step >= 2:
+            k = 8 if "Morton" in what else LEAF_K
+            slots = 8 if "8-wide" in what else 4
+            cid = traverse.tile_plan("hopper", leaf_k=k, slots=slots, **plan_kw)
+            picked = "tile" if cid == traverse.core_id(K1_CORES["tile"]) else "render"
+            plan = (f"; render / tile {ms['render'] / ms['tile']:.4f}; the plan runs "
+                    f"{picked} ({ms[picked]:.4f} ms)")
+            totals[what] = ms
+        log(f"[k1] {what}: {line} ms{plan}; every plane bit-identical to the render core "
+            f"on {card}")
+        if sweep and step >= 2:
+            costs = {**{f"c={c:g}": f"{K1_CORES['tile']}@{c:g}" for c in traverse.TILE_COSTS},
+                     "c=0 (warp)": K1_CORES["warp"], "render": "order",
+                     "tile (its c)": K1_CORES["tile"]}
+            ms = series({n: (lambda c=c: fn(c)) for n, c in costs.items()}, frames, 2)
+            log(f"[k1] cost sweep {what}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+                + f" ms on {card}")
+    env["k1_times"] = totals
+    if step < 2:
+        log(f"[k1] K1's part of phase 28 (step 1) took {time.perf_counter() - t_phase:.1f} s")
+        return
+
+    # the whole paths, only K1 swapped between the plan ("hopper") and the
+    # render core
+    def headline(core):
+        t, nx, ny, nz, tri = traverse.trace_tiles(qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
+                                                  leaf_k=LEAF_K, core=core)
+        return quantize_rgba8(shade_lambert(torch.stack([nx, ny, nz], dim=-1), tri >= 0))
+
+    if not torch.equal(headline("hopper"), headline("order")):
+        fail("K1 phase: the headline frame differs between the plan's core and the render core")
+    ms = abba({c: (lambda c=c: headline(c)) for c in ("hopper", "order")}, 8, 3)
+    log(f"[k1] A-B-B-A the headline frame (config 3: render()'s K1a, shade and quantize, "
+        f"framed 1080p, SAH K={LEAF_K}): the plan's core {ms['hopper']:.4f} ms, render core "
+        f"{ms['order']:.4f} ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
+    real = (render_pt.trace_tiles, traverse.trace_tiles_batch)
+
+    def k1_core(c, fn):
+        def run():
+            render_pt.trace_tiles = functools.partial(real[0], core=c)
+            traverse.trace_tiles_batch = functools.partial(real[1], core=c)
+            try:
+                return fn()
+            finally:
+                render_pt.trace_tiles, traverse.trace_tiles_batch = real
+        return run
+
+    def sample():
+        return render_pt.pt_sample_frame(
+            qn32, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
+            leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+
+    fns = {c: k1_core(c, sample) for c in ("hopper", "order")}
+    if not torch.equal(fns["hopper"](), fns["order"]()):
+        fail("K1 phase: the sample differs between the plan's K1b core and the render core")
+    ms = abba(fns, 4, 3)
+    log(f"[k1] A-B-B-A one {BOUNCES}-bounce 1080p sample SAH K={LEAF_K} (radiance equal), only "
+        f"K1b swapped: the plan's core {ms['hopper']:.4f} ms, render core {ms['order']:.4f} "
+        f"ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
+    if "dynamic_frame" in env:
+        frame = env["dynamic_frame"]
+        ms = abba({c: k1_core(c, lambda: frame(9)) for c in ("hopper", "order")}, 4, 3)
+        log(f"[k1] A-B-B-A dynamic dragon frame ({N_CAMS} cameras, refit every frame), only "
+            f"K1c swapped: the plan's core {ms['hopper']:.4f} ms, render core "
+            f"{ms['order']:.4f} ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
+    log(f"[k1] K1's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # 33. wavefront compaction and K2 without near-first order: the sample's

@@ -33,11 +33,12 @@
 //
 // The design elements, a feature bit each so that each is timed alone (every
 // set of the first three is built for K1a, K2a and K2b; kRenderCore is what
-// the render paths run, but for K2 over leaves of more than one triangle,
-// where ops/cuda/traverse.py::launch_plan picks kAnyHitCore, the last two
-// elements with the order: for any hit, where every per-lane set lost to
-// the baseline loop on the card, and for closest hit where the card
-// measured it ahead of kRenderCore):
+// the render paths run, but over leaves of more than one triangle: there
+// K2, where ops/cuda/traverse.py::launch_plan picks kAnyHitCore, runs the
+// warp-leaves elements with the order, for any hit, where every per-lane
+// set lost to the baseline loop on the card, and for closest hit where the
+// card measured it ahead of kRenderCore; and K1 runs kTileCore where
+// ops/cuda/traverse.py::tile_plan picks it):
 //  * kOrder — child order in registers, on every render path. Each passing
 //    child k (slab hit, so its key is not NaN, and ref >= 0) goes to its
 //    rank in the stable far-to-near order, pos(k) = #{j passing : key_j >
@@ -101,6 +102,22 @@
 //    record), so at K = 8 a 4-slot visit is one run of 32 lanes where one
 //    slot at a time fills 8. It pays below K = 32 only, so kAnyHitCore's
 //    launcher drops it from K = 32 on (traverse_rays.cu's dispatch).
+//  * kTileLeaves — with kWarpLeaves, closest hit (the primary rays of K1):
+//    a per-step, warp-uniform choice between the warp's leaf tests and each
+//    lane's own loop (Ray::tile_step). A warp of K1 is an 8×4 patch of
+//    neighbouring pixels whose lanes often post the same leaf at the same
+//    step. The lane loop then costs the warp m = Σ over slots k of the max
+//    over lanes of slot k's triangle count (the lanes of slot k's loop run
+//    in step; when they read the same leaf, each load is one broadcast),
+//    while the warp's leaf tests cost w runs of 32, one per posted slot and
+//    posting lane (per served lane 9 shuffles, per run a __reduce_min_sync
+//    and a ballot): 32 runs where all 32 lanes post one leaf of 32, against
+//    32 iterations. Where few lanes post, w is small and m is still a whole
+//    leaf. So the warp prices both from its lanes' posted counts and takes
+//    the warp's tests where c·w < m (c: the cost of a run in loop
+//    iterations, kTileLeafCost, measured on the card; PERF.md §6) and the
+//    lanes' own loops otherwise. Both keep the sequential loop's triangle
+//    and t, so the choice changes no output bit.
 // Two things of the form matter as much: the stack's storage is a variable
 // of its own beside the ray's state (in one struct with the dynamically
 // indexed array, the ray's scalars live in local memory too), and an any-hit
@@ -147,6 +164,7 @@ enum : unsigned {
   kSharedTree = 16u,  // the records in the block's dynamic shared memory
   kWarpLeaves = 32u,  // the warp tests one ray's leaf slots at a time, a triangle a lane
   kPackSlots = 64u,   // with kWarpLeaves: a visit's leaf slots as one run of triangles
+  kTileLeaves = 128u,  // with kWarpLeaves: each step picks the warp's or the lanes' leaf tests
   kBaseline = 256u,
 };
 
@@ -161,6 +179,24 @@ constexpr unsigned kRenderCore = kOrder;
 // leaves, the leaf tests spread over the warp, the slots packed below
 // K = 32 (the launcher drops kPackSlots from there).
 constexpr unsigned kAnyHitCore = kOrder | kWarpLeaves | kPackSlots;
+
+// The core of K1 over leaves of more than one triangle, where the wrapper's
+// tile plan picks it (ops/cuda/traverse.py::tile_plan): kAnyHitCore's
+// closest hit with the per-step choice of leaf stage (the launcher drops
+// kPackSlots from K = 32 on, as for kAnyHitCore).
+constexpr unsigned kTileCore = kAnyHitCore | kTileLeaves;
+
+// c of kTileLeaves' rule c·w < m: what one run of the warp's leaf tests
+// costs in iterations of a lane's loop (chip_smoke.py's K1 phase; PERF.md
+// §6). A core mask may carry another c for measurement, in quarters plus
+// one, in bits kTileCostShift and up (0: this one); tile_cost reads it.
+constexpr float kTileLeafCost = 1.5f;
+constexpr int kTileCostShift = 12;
+
+__host__ __device__ constexpr float tile_cost(unsigned feat) {
+  return (feat >> kTileCostShift) != 0u ? 0.25f * (float)((feat >> kTileCostShift) - 1u)
+                                        : kTileLeafCost;
+}
 
 constexpr unsigned kWarpMask = 0xffffffffu;
 
@@ -754,6 +790,116 @@ struct Ray {
       if (kAnyHit) sp = -1;
     }
   }
+
+  // kTileLeaves: the closest-hit leaf tests of this lane's ray alone
+  // against the leaf slots `posted` of record `rec`, in slot then triangle
+  // order, strict t < best: Ray::leaves' loop (mt_hit is its expression),
+  // lowering best and returning the position k·K + j of the nearest
+  // accepted triangle (-1: none), whose normal and id the caller takes.
+  __device__ __forceinline__ int lane_nearest(const float* __restrict__ rec, unsigned posted,
+                                              int leaf_k) {
+    const float4* tv = reinterpret_cast<const float4*>(rec + 8 * kSlots);
+    int at = -1;
+    float tt = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (((posted >> k) & 1u) == 0u) continue;
+      const float n = ld_rec<kFeat>(rec + 7 * kSlots + k);
+      for (int j = 0; j < leaf_k && (float)j < n; ++j) {
+        const int p = k * leaf_k + j;
+        if (mt_hit(ld_rec4<kFeat>(tv + 3 * p), ld_rec4<kFeat>(tv + 3 * p + 1),
+                   ld_rec4<kFeat>(tv + 3 * p + 2), ox, oy, oz, dx, dy, dz, best, tt)) {
+          best = tt;
+          at = p;
+        }
+      }
+    }
+    return at;
+  }
+
+  // kTileLeaves (closest hit): warp_step's visit, then a warp-uniform choice
+  // of leaf stage; every lane of the warp calls it together. Each lane pops
+  // until an entry passes the cull, tests the record's slabs, pushes the
+  // internal children that pass and posts the leaf slots that pass, as in
+  // warp_step. Then the warp prices the two leaf stages from the posted
+  // slots' triangle counts n (min(count, K)): the lanes' own loops run
+  // m = Σ_k max over lanes of n_k iterations (the lanes of one slot's loop
+  // run in step), the warp's tests w = Σ over lanes of their runs of 32
+  // (per slot ⌈n_k/32⌉; packed, the posted slots' span in runs). Where
+  // cost·w < m the warp serves the posting lanes one after another with
+  // warp_nearest, else each posting lane runs lane_nearest on its own
+  // record. Either way the lane keeps its nearest accepted triangle, first
+  // in position among equal t, below its best t: the sequential loop's
+  // words, whichever stage ran.
+  //
+  // What bounds the step (MB1, MB3 on the card; PERF.md §6): the
+  // instructions the warp issues, and the dependent fetch of the next
+  // record after a pop. The choice goes at the first: the lane loop issues
+  // m iterations with loads that are one broadcast where the lanes share a
+  // leaf, the warp form w runs of coalesced loads (12 lines a run) plus
+  // their reductions, and the warp takes the fewer. It leaves the second as
+  // it is: the pricing (kSlots + 1 warp reductions a step) adds nothing to
+  // a pop's fetch, and the next pop waits on its record either way.
+  __device__ __forceinline__ void tile_step(StackT& stack, const float* __restrict__ qn,
+                                            int recw, int leaf_k) {
+    static_assert(!kAnyHit && (kFeat & kWarpLeaves) != 0, "closest hit on a warp-leaves core");
+    unsigned posted = 0u;
+    int node = 0;
+    int n[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) n[k] = 0;
+    while (pending()) {
+      const int2 e = pop(stack);
+      if (!(__int_as_float(e.y) < best)) continue;
+      if (kVisits) ++r.visits;
+      node = e.x;
+      float h[8 * kSlots];
+      float tmin[kSlots];
+      bool hit[kSlots];
+      slabs(qn + (size_t)node * (size_t)recw, h, tmin, hit);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const float ref = h[6 * kSlots + k];
+        if (hit[k] && ref < 0.0f && ref > kEmptyRef) {
+          posted |= 1u << k;
+          n[k] = (int)fminf(fmaxf(h[7 * kSlots + k], 0.0f), (float)leaf_k);
+        }
+      }
+      push(stack, h, tmin, hit);
+      break;
+    }
+    int m = 0, runs = 0;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      m += (int)__reduce_max_sync(kWarpMask, (unsigned)n[k]);
+      if constexpr ((kFeat & kPackSlots) == 0) runs += (n[k] + 31) >> 5;
+    }
+    if constexpr ((kFeat & kPackSlots) != 0) {
+      runs = posted != 0u ? ((33 - __clz(posted) - __ffs(posted)) * leaf_k + 31) >> 5 : 0;
+    }
+    if (m == 0) return;  // warp-uniform: no posted slot holds a triangle
+    int at = -1;
+    if (tile_cost(kFeat) * (float)__reduce_add_sync(kWarpMask, (unsigned)runs) < (float)m) {
+      for (unsigned lanes = __ballot_sync(kWarpMask, posted != 0u); lanes != 0u;
+           lanes &= lanes - 1u) {
+        const int src = __ffs(lanes) - 1;
+        const int nd = __shfl_sync(kWarpMask, node, src);
+        float b = __shfl_sync(kWarpMask, best, src);
+        const int found = warp_nearest<kSlots, kFeat>(
+            qn + (size_t)nd * (size_t)recw, __shfl_sync(kWarpMask, posted, src), leaf_k,
+            __shfl_sync(kWarpMask, ox, src), __shfl_sync(kWarpMask, oy, src),
+            __shfl_sync(kWarpMask, oz, src), __shfl_sync(kWarpMask, dx, src),
+            __shfl_sync(kWarpMask, dy, src), __shfl_sync(kWarpMask, dz, src), b);
+        if ((int)(threadIdx.x & 31u) == src) {
+          at = found;
+          best = b;
+        }
+      }
+    } else if (posted != 0u) {
+      at = lane_nearest(qn + (size_t)node * (size_t)recw, posted, leaf_k);
+    }
+    if (at >= 0) occluder(qn + (size_t)node * (size_t)recw, leaf_k, at);
+  }
 };
 
 // The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
@@ -793,20 +939,28 @@ __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int re
 // kWarpLeaves), any hit or closest hit: every lane of the warp calls it and
 // stays until no lane's ray is left, so that the warp tests the leaves
 // together; `mine`: whether this lane has a ray (o and d are read only
-// then). A lane without one returns the miss values.
-template <int kSlots, bool kAnyHit, unsigned kFeat>
+// then). A lane without one returns the miss values. kVisits: count the
+// records visited, as traverse_ray does (K1f). kTileLeaves steps with
+// tile_step, the others with warp_step.
+template <int kSlots, bool kAnyHit, unsigned kFeat, bool kVisits = false>
 __device__ __forceinline__ Hit traverse_ray_warp(const float* __restrict__ qn, int recw,
                                                  int leaf_k, bool mine, float ox, float oy,
                                                  float oz, float dx, float dy, float dz,
                                                  float best_init, int entry, int tid,
                                                  int threads) {
   static_assert((kFeat & kWarpLeaves) != 0 && (kFeat & kBaseline) == 0, "a warp-leaves core");
-  using R = Ray<kSlots, kAnyHit, false, kFeat>;
+  using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;
   R ray;
   typename R::StackT stack;
   ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);
   if (!mine) ray.sp = -1;
-  while (__any_sync(kWarpMask, ray.pending())) ray.warp_step(stack, qn, recw, leaf_k);
+  while (__any_sync(kWarpMask, ray.pending())) {
+    if constexpr ((kFeat & kTileLeaves) != 0) {
+      ray.tile_step(stack, qn, recw, leaf_k);
+    } else {
+      ray.warp_step(stack, qn, recw, leaf_k);
+    }
+  }
   return ray.result();
 }
 

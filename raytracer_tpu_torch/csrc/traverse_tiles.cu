@@ -73,6 +73,19 @@
 //    beyond the best t. The launchers' `core` argument selects it (-1), the
 //    frozen baseline loop (rt::kBaseline) or, for K1a, any set of the
 //    design elements, for measurement.
+//  * Over leaves of more than one triangle the leaf tests, not the visits,
+//    were half of K1's time (K1a framed 0.4897 ms at SAH K = 1, 1.1131 at
+//    K = 32; PERF.md §6): one lane testing a leaf of 32 triangles alone.
+//    There the wrapper's tile plan (ops/cuda/traverse.py::tile_plan) runs
+//    rt::kTileCore: each lane visits its own ray's records in the render
+//    core's order, and at each step the warp picks how the leaf slots its
+//    lanes posted are tested (rt::Ray::tile_step): by the whole warp, a
+//    triangle a lane, each posting lane in turn (rt::warp_nearest), where
+//    few lanes post; by each lane's own loop where many lanes post one leaf
+//    (8×4 neighbours often do), so that each load is one broadcast. A
+//    warp-leaves core runs the 8×8 block as one dimension of 64 threads
+//    (thread_pixel); lanes outside the window stay in the loop and store
+//    nothing.
 //  * K1d prunes with the ordinary tests: the bound seeds the best t, so the
 //    slab test (tn < best) and the pop cull (key < best) drop what lies
 //    behind it from the first visit on, and the entry node skips the visits
@@ -134,11 +147,14 @@ enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSee
 
 // The primary ray of pixel (gx, gy) of the whole frame, traversed from
 // record `entry` with the best t `best_init` (the root and 1e30 but in K1d).
+// A warp-leaves core (rt::kWarpLeaves) traverses with the whole warp, every
+// lane together: `mine` says whether the lane's pixel lies in the window
+// (a lane outside only helps test leaves, and returns the miss values).
 template <int kSlots, bool kJitter, bool kVisits, unsigned kCore>
 __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, int recw,
                                                  int leaf_k, const Camera& cam, int seed,
                                                  int gx, int gy, float best_init = rt::kInf,
-                                                 int entry = 0) {
+                                                 int entry = 0, bool mine = true) {
   float jx = 0.5f, jy = 0.5f;
   if (kJitter) {
     jx = subpixel_hash01(gx, gy, seed * 2);
@@ -164,9 +180,49 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
     dy = 2.0f * (cam.qw * uvy + uuvy) + dy;
     dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
   }
-  return rt::traverse_ray<kSlots, false, kVisits, kCore>(
-      qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
-      threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
+  if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+    return rt::traverse_ray_warp<kSlots, false, kCore, kVisits>(
+        qn, recw, leaf_k, mine, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
+        threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
+  } else {
+    return rt::traverse_ray<kSlots, false, kVisits, kCore>(
+        qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
+        threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
+  }
+}
+
+// The pixel (in the window, or in its frame of a batch) of this thread: a
+// render core runs blocks of kBlock × kBlock threads; a warp-leaves core
+// runs the same 8×8 patch as one dimension of kBlockThreads threads, row
+// after row, because its leaf tests take a lane's index in the warp as
+// threadIdx.x & 31 (rt::warp_nearest, the steps' serving lane). A warp is
+// the same 8×4 pixels either way.
+template <unsigned kCore>
+__device__ __forceinline__ int2 thread_pixel() {
+  if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+    return make_int2(blockIdx.x * kBlock + (int)(threadIdx.x % kBlock),
+                     blockIdx.y * kBlock + (int)(threadIdx.x / kBlock));
+  } else {
+    return make_int2(blockIdx.x * blockDim.x + threadIdx.x, blockIdx.y * blockDim.y + threadIdx.y);
+  }
+}
+
+// The block a launch of core C runs (thread_pixel).
+template <unsigned C>
+dim3 block_of() {
+  return (C & rt::kWarpLeaves) != 0 ? dim3(kBlockThreads) : dim3(kBlock, kBlock);
+}
+
+// Whether the kernel's thread for pixel (px, py) goes on: a pixel in the
+// window, or under a warp-leaves core any lane of a warp that has one (the
+// warp traverses together; only the window's lanes store).
+template <unsigned kCore>
+__device__ __forceinline__ bool takes_part(bool mine) {
+  if constexpr ((kCore & rt::kWarpLeaves) != 0) {
+    return __any_sync(rt::kWarpMask, mine);
+  } else {
+    return mine;
+  }
 }
 
 template <bool kVisits>
@@ -197,20 +253,24 @@ trace_tiles_kernel(const float* __restrict__ qn, int recw, int leaf_k, Camera ca
                    float* __restrict__ nx_out, float* __restrict__ ny_out,
                    float* __restrict__ nz_out, int* __restrict__ tri_out,
                    float* __restrict__ visits_out) {
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
+  const int2 pix = thread_pixel<kCore>();
+  const int px = pix.x, py = pix.y;
+  const bool mine = px < width && py < height;
+  if (!takes_part<kCore>(mine)) return;
+  constexpr bool kAll = (kCore & rt::kWarpLeaves) == 0;  // every thread left is in the window
   float best_init = rt::kInf;
   int entry = 0;
-  if (kBounded) {
+  if (kBounded && (kAll || mine)) {
     const int tile = (py / kTile) * tiles_x + px / kTile;
     best_init = __ldg(tbounds + tile);
     entry = min(max(__ldg(entries + tile), 0), num_nodes - 1);
   }
   const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
-      qn, recw, leaf_k, cam, seed, px + col_off, py + row_off, best_init, entry);
-  store_hit<kVisits>(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out,
-                     nz_out, tri_out, visits_out);
+      qn, recw, leaf_k, cam, seed, px + col_off, py + row_off, best_init, entry, mine);
+  if (kAll || mine) {
+    store_hit<kVisits>(hit, (size_t)py * (size_t)width + (size_t)px, t_out, nx_out, ny_out,
+                       nz_out, tri_out, visits_out);
+  }
 }
 
 constexpr int kTileWords = kTile * kTile;  // a tile plane of the raw layout
@@ -226,15 +286,18 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
                          float* __restrict__ t_out, float* __restrict__ nx_out,
                          float* __restrict__ ny_out, float* __restrict__ nz_out,
                          int* __restrict__ tri_out, float* __restrict__ visits_out) {
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
+  const int2 pix = thread_pixel<kCore>();
+  const int px = pix.x, py = pix.y;
+  const bool mine = px < width && py < height;
+  if (!takes_part<kCore>(mine)) return;
   const float* row = cams + (size_t)blockIdx.z * kCamCols;
   const Camera cam{row[kOx],     row[kOx + 1],  row[kOx + 2],   row[kQx],
                    row[kQx + 1], row[kQx + 2],  row[kQx + 3],   row[kFocal],
                    row[kAspect], row[kFw],      row[kFh]};
   const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
-      qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff]);
+      qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff],
+      rt::kInf, 0, mine);
+  if ((kCore & rt::kWarpLeaves) != 0 && !mine) return;  // a helper lane stores nothing
   if (kRaw) {
     const int tiles_x = width / kTile;
     const size_t tile =
@@ -254,25 +317,26 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 }
 
 #define RT_TILE_PARAMS                                                                      \
-  dim3 grid, dim3 block, cudaStream_t s, const float *qnodes, int recw, int leaf_k,         \
-      Camera cam, int seed, int width, int height, int row_off, int col_off,                \
+  dim3 grid, cudaStream_t s, const float *qnodes, int recw, int leaf_k, Camera cam,        \
+      int seed, int width, int height, int row_off, int col_off,                \
       const float *tbounds, const int *entries, int tiles_x, int num_nodes, float *t,       \
       float *nx, float *ny, float *nz, int *tri, float *visits
 #define RT_TILE_ARGS                                                                        \
-  grid, block, s, qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, \
+  grid, s, qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, \
       entries, tiles_x, num_nodes, t, nx, ny, nz, tri, visits
 #define RT_BATCH_PARAMS                                                                     \
-  dim3 grid, dim3 block, cudaStream_t s, const float *qnodes, int recw, int leaf_k,         \
-      const float *cams, int width, int height, float *t, float *nx, float *ny, float *nz,  \
+  dim3 grid, cudaStream_t s, const float *qnodes, int recw, int leaf_k, const float *cams, \
+      int width, int height, float *t, float *nx, float *ny, float *nz,  \
       int *tri, float *visits
 #define RT_BATCH_ARGS \
-  grid, block, s, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits
+  grid, s, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits
 
 // Launch one instantiation with the dynamic shared memory of its core (the
 // block's stack columns; none but for the measured shared-stack cores).
 template <int S, bool J, bool V, bool B, unsigned C>
 int launch_tiles(RT_TILE_PARAMS) {
   const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
+  const dim3 block = block_of<C>();
   trace_tiles_kernel<S, J, V, B, C><<<grid, block, smem, s>>>(
       qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, entries,
       tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
@@ -282,6 +346,7 @@ int launch_tiles(RT_TILE_PARAMS) {
 template <int S, bool J, bool V, unsigned C, bool R = false>
 int launch_batch(RT_BATCH_PARAMS) {
   const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
+  const dim3 block = block_of<C>();
   trace_tiles_batch_kernel<S, J, V, R, C><<<grid, block, smem, s>>>(
       qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits);
   return (int)cudaGetLastError();
@@ -313,6 +378,19 @@ int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
 // (chip_smoke.py phase 28): X(mask) for each.
 #define RT_MEASURED_TILE_CORES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
+// rt::kTileCore with another cost c of its rule (rt::tile_cost: the field
+// 4c + 1 from bit rt::kTileCostShift), instantiated for K1a alone in both
+// packing forms, to find c on the card (chip_smoke.py's K1 phase): X(4c + 1)
+// for each c = 1, 1.25, 2, 3 (c = 0 is the warp's tests at every step, which
+// rt::kAnyHitCore's closest hit times without the pricing).
+#define RT_TILE_COSTS(X) X(5) X(6) X(9) X(13)
+
+// A warp-leaves core's mask for leaves of `leaf_k`: kPackSlots dropped from
+// K = 32 on, where the slots' own runs won (traverse_rays.cu's rule).
+constexpr unsigned packed(unsigned core, int leaf_k) {
+  return leaf_k < 32 ? core : core & ~rt::kPackSlots;
+}
+
 }  // namespace
 
 // Launch K1a (jitter = 0) or K1b (jitter != 0, subpixel seed `seed`) on
@@ -323,9 +401,15 @@ int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
 // aligned rows of `slots` (4 or 8) child slots; outputs: (height, width)
 // planes of the window at (row_off, col_off) of a rg_width × rg_height frame
 // (focal and aspect are the frame's); visits: a sixth f32 plane or null.
-// `core`: -1 for rt::kRenderCore (every render path), rt::kBaseline (256, the
-// baseline loop), or for K1a (no jitter, visits or tables) one of the
-// feature masks of RT_MEASURED_TILE_CORES (timing an element alone).
+// `core`: -1 or rt::kRenderCore (1) for the render core (every render path
+// at K = 1), rt::kTileCore (225) for closest hit over leaves of K > 1 with the
+// per-step choice of leaf stage, rt::kBaseline (256, the baseline loop), for
+// all of these; rt::kAnyHitCore (97: the warp's leaf tests at every step,
+// warp_nearest) for 4-wide records without visits or tables; or for K1a (no
+// jitter, visits or tables) one of the feature masks of
+// RT_MEASURED_TILE_CORES, or rt::kTileCore with a cost field of
+// RT_TILE_COSTS (timing an element or a cost alone). The warp-leaves cores
+// drop kPackSlots from leaf_k = 32 on.
 // Returns cudaGetLastError() after the launch (0 on success, or
 // cudaErrorInvalidValue for another slot count, only one of the two tables,
 // or a core outside these sets); synchronises nothing.
@@ -342,25 +426,43 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
   const bool bounded = tbounds != nullptr, with_visits = visits != nullptr;
   const Camera cam{ox, oy, oz, qx, qy, qz, qw, focal, aspect,
                    (float)rg_width, (float)rg_height};
-  const dim3 block(kBlock, kBlock);
   const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (width + kTile - 1) / kTile;
   const bool j = jitter != 0;
-  if (core == -1) {
-    return slots == 8 ? dispatch_tiles<8, rt::kRenderCore>(j, with_visits, bounded, RT_TILE_ARGS)
-                      : dispatch_tiles<4, rt::kRenderCore>(j, with_visits, bounded, RT_TILE_ARGS);
+  const bool pack = leaf_k < 32;
+#define RT_ALL(C)                                                                   \
+  (slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS)        \
+              : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS))
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+  if (core == (int)rt::kTileCore) {
+    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
   }
-  if (core == (int)rt::kBaseline) {
-    return slots == 8 ? dispatch_tiles<8, rt::kBaseline>(j, with_visits, bounded, RT_TILE_ARGS)
-                      : dispatch_tiles<4, rt::kBaseline>(j, with_visits, bounded, RT_TILE_ARGS);
+#undef RT_ALL
+  if (slots != 4 || with_visits || bounded) return (int)cudaErrorInvalidValue;
+  if (core == (int)rt::kAnyHitCore) {
+#define RT_J(C) (j ? launch_tiles<4, true, false, false, C>(RT_TILE_ARGS) \
+                   : launch_tiles<4, false, false, false, C>(RT_TILE_ARGS))
+    return pack ? RT_J(packed(rt::kAnyHitCore, 1)) : RT_J(packed(rt::kAnyHitCore, 32));
+#undef RT_J
   }
-  if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
+  if (j) return (int)cudaErrorInvalidValue;
 #define RT_CASE(M) \
   case M:          \
     return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
   switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
 #undef RT_CASE
+#define RT_COST(V)                                                                           \
+  case (int)(rt::kTileCore | (V##u << rt::kTileCostShift)):                                  \
+    return pack ? launch_tiles<4, false, false, false,                                       \
+                               packed(rt::kTileCore, 1) | (V##u << rt::kTileCostShift)>(     \
+                      RT_TILE_ARGS)                                                          \
+                : launch_tiles<4, false, false, false,                                       \
+                               packed(rt::kTileCore, 32) | (V##u << rt::kTileCostShift)>(    \
+                      RT_TILE_ARGS);
+  switch (core) { RT_TILE_COSTS(RT_COST) default: break; }
+#undef RT_COST
   return (int)cudaErrorInvalidValue;
 }
 
@@ -370,50 +472,73 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 // quaternion xyzw, focal, aspect, raygen W and H, jitter seed, row and column
 // offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
 // Outputs: (num_frames, height, width) planes; visits: a sixth f32 plane or
-// null. `core`: -1 for rt::kRenderCore or rt::kBaseline (256). Returns
-// cudaGetLastError() after the launch (0 on success, or
-// cudaErrorInvalidValue for another slot count or core); synchronises
-// nothing.
+// null. `core`: -1 or rt::kRenderCore (1), rt::kTileCore (225) or
+// rt::kBaseline (256); or rt::kAnyHitCore (97) on 4-wide records without
+// jitter or visits. Returns cudaGetLastError() after the launch (0 on
+// success, or cudaErrorInvalidValue for another slot count or core);
+// synchronises nothing.
 extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, int slots,
                                     const float* cams, int num_frames, int width, int height,
                                     int jitter, int core, float* t, float* nx, float* ny,
                                     float* nz, int* tri, float* visits, void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
-  if (core != -1 && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
-  const dim3 block(kBlock, kBlock);
   const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool j = jitter != 0, with_visits = visits != nullptr;
-  if (core == (int)rt::kBaseline) {
-    return slots == 8 ? dispatch_batch<8, rt::kBaseline>(j, with_visits, RT_BATCH_ARGS)
-                      : dispatch_batch<4, rt::kBaseline>(j, with_visits, RT_BATCH_ARGS);
+  const bool pack = leaf_k < 32;
+#define RT_ALL(C)                                                            \
+  (slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS)         \
+              : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS))
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+  if (core == (int)rt::kTileCore) {
+    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
   }
-  return slots == 8 ? dispatch_batch<8, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS)
-                    : dispatch_batch<4, rt::kRenderCore>(j, with_visits, RT_BATCH_ARGS);
+#undef RT_ALL
+  if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
+    return pack ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1)>(RT_BATCH_ARGS)
+                : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32)>(RT_BATCH_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch the frame batch in the raw tile layout on `stream` (K1c raw; K1e
 // raw with slots = 8; K1f raw with `stats` != 0, whose plane 5 holds the
 // visits): `num_frames` frames of width × height pixels, both multiples of
-// 32, cameras as for rt_trace_tiles_batch (each frame whole: offsets 0),
-// the render core. out: (num_frames, width/32 · height/32, 6, 1024) f32,
-// every word written. Returns cudaGetLastError() after the launch (0 on
-// success, or cudaErrorInvalidValue for another slot count or a size that
-// is not a multiple of 32); synchronises nothing.
+// 32, cameras as for rt_trace_tiles_batch (each frame whole: offsets 0).
+// `core`: -1 or rt::kRenderCore (1), rt::kTileCore (225); or
+// rt::kAnyHitCore (97) on 4-wide records without jitter or stats.
+// out: (num_frames, width/32 · height/32, 6, 1024) f32, every word written.
+// Returns cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count, core, or a size that is not
+// a multiple of 32); synchronises nothing.
 extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_k, int slots,
                                         const float* cams, int num_frames, int width, int height,
-                                        int jitter, int stats, float* out, void* stream) {
+                                        int jitter, int stats, int core, float* out,
+                                        void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
   if (width <= 0 || height <= 0 || width % kTile != 0 || height % kTile != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kBlock, kBlock);
   const dim3 grid(width / kBlock, height / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool j = jitter != 0, with_visits = stats != 0;
+  const bool pack = leaf_k < 32;
   float* t = out;
   float *nx = nullptr, *ny = nullptr, *nz = nullptr, *visits = nullptr;
   int* tri = nullptr;
-  return slots == 8 ? dispatch_batch<8, rt::kRenderCore, true>(j, with_visits, RT_BATCH_ARGS)
-                    : dispatch_batch<4, rt::kRenderCore, true>(j, with_visits, RT_BATCH_ARGS);
+#define RT_ALL(C)                                                                  \
+  (slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS)         \
+              : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS))
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kTileCore) {
+    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
+  }
+#undef RT_ALL
+  if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
+    return pack
+               ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1), true>(RT_BATCH_ARGS)
+               : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32), true>(RT_BATCH_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 }

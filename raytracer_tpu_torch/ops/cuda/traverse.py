@@ -72,8 +72,8 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
-           "trace_rays", "trace_rays_reference", "launch_plan", "ANY_HIT_CORE",
-           "CLOSEST_HIT_CORE", "load_kernel",
+           "trace_rays", "trace_rays_reference", "launch_plan", "tile_plan", "ANY_HIT_CORE",
+           "CLOSEST_HIT_CORE", "TILE_CORE", "TILE_COSTS", "load_kernel", "tile_warp_ids",
            "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
            "CORE_ELEMENTS", "core_id", "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES",
            "SMEM_BLOCK", "check_tree_space", "tree_space_limits", "l2_window"]
@@ -91,25 +91,38 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
 # The traversal cores a wrapper's ``core`` takes. "hopper": what every
 # render path runs, the redesigned core of csrc/traverse_core.cuh in the
-# form that wins on the card (rt::kRenderCore), and for K2 over leaves of
-# more than one triangle what launch_plan picks; "baseline": the frozen
-# baseline loop (csrc/traverse_core_baseline.cuh, with K2's one thread
-# per ray); or, to time design elements alone, a set of CORE_ELEMENTS joined
-# with "+", or "none" (K1a without jitter, visits or tables, and K2a / K2b,
-# on 4-wide records; "warp" and "pack" K2a / K2b alone). "order" is the
-# render core itself, and K2 builds it, like ANY_HIT_CORE (= CLOSEST_HIT_CORE,
-# the set that launch_plan picks for K2 over leaves of K > 1), for every
-# width, order, schedule and placement. Only chip_smoke.py and the card
-# tests pass anything but "hopper".
-CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64}
+# form that wins on the card (rt::kRenderCore), and over leaves of more
+# than one triangle what launch_plan (K2) and tile_plan (K1) pick;
+# "baseline": the frozen baseline loop (csrc/traverse_core_baseline.cuh,
+# with K2's one thread per ray); or, to time design elements alone, a set of
+# CORE_ELEMENTS joined with "+", or "none" (K1a without jitter, visits or
+# tables, and K2a / K2b, on 4-wide records; "warp" and "pack" K2a / K2b
+# alone). "order" is the render core itself, and K1 and K2 build it, like
+# ANY_HIT_CORE (= CLOSEST_HIT_CORE, the set that launch_plan picks for K2
+# over leaves of K > 1), for every width, order, schedule and placement;
+# TILE_CORE is built for every K1 variant, ANY_HIT_CORE for K1a, K1b and K1c
+# (raw or not) on 4-wide records without visits, tables or a jittered
+# batch. TILE_CORE with "@c" appended (c in TILE_COSTS) is its rule with
+# another cost c, built for K1a. Only chip_smoke.py, tools_torch/ and the
+# card tests pass anything but "hopper".
+CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64, "tile": 128}
 ANY_HIT_CORE = "order+warp+pack"  # rt::kAnyHitCore
 # closest hit with the warp's leaf tests: rt::kAnyHitCore's mask, launched
 # with any_hit=False (the kernels' kAnyHit = false form, warp_nearest)
 CLOSEST_HIT_CORE = ANY_HIT_CORE
+# K1's closest hit over leaves of K > 1 with a per-step, warp-uniform choice
+# between the warp's leaf tests and each lane's own loop (rt::kTileCore)
+TILE_CORE = "order+warp+pack+tile"
+# the costs c of TILE_CORE's rule built beside its own (traverse_tiles.cu's
+# RT_TILE_COSTS), and the field that carries one in a core id
+TILE_COSTS = (1.0, 1.25, 2.0, 3.0)
+_TILE_COST_SHIFT = 12
 _MAIN_CORE, _BASELINE_CORE = -1, 256
 _RENDER_CORE = CORE_ELEMENTS["order"]  # rt::kRenderCore, named
 _ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
 _CLOSEST_HIT_CORE = _ANY_HIT_CORE
+_TILE_CORE = sum(CORE_ELEMENTS[e] for e in TILE_CORE.split("+"))
+_MEASURED_TILE_CORES = range(8)  # traverse_tiles.cu's RT_MEASURED_TILE_CORES
 
 # Any hit over leaves of more than one triangle under core="hopper"
 # (launch_plan) runs ANY_HIT_CORE, which beat the frozen loop at 4 and 8
@@ -155,16 +168,26 @@ def reset_launches() -> None:
 
 
 def core_id(core: str) -> int:
-    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS)."""
+    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS):
+    TILE_CORE + "@c" carries the cost c of its rule in quarters plus one
+    from bit 12 (rt::tile_cost)."""
     if core == "hopper":
         return _MAIN_CORE
     if core == "baseline":
         return _BASELINE_CORE
-    parts = [] if core == "none" else core.split("+")
+    name, at, cost = core.partition("@")
+    parts = [] if name == "none" else name.split("+")
     if not all(p in CORE_ELEMENTS for p in parts) or len(set(parts)) != len(parts):
         raise ValueError(f"core must be 'hopper', 'baseline', 'none' or elements of "
                          f"{sorted(CORE_ELEMENTS)} joined by '+', got {core!r}")
-    return sum(CORE_ELEMENTS[p] for p in parts)
+    cid = sum(CORE_ELEMENTS[p] for p in parts)
+    if at:
+        quarters = float(cost) * 4 if cost.replace(".", "", 1).isdigit() else -1.0
+        if cid != _TILE_CORE or quarters != int(quarters) or not 0 <= quarters < 63:
+            raise ValueError(f"only {TILE_CORE!r} takes a cost '@c' (c a multiple of 0.25 "
+                             f"below 15.75), got {core!r}")
+        cid |= (int(quarters) + 1) << _TILE_COST_SHIFT
+    return cid
 
 
 def _count(name: str, core: str) -> None:
@@ -339,7 +362,7 @@ _ARGTYPES = {
         "rt_trace_tiles_batch": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7),
         "rt_trace_tiles_batch_raw": ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2),
+                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2),
     },
     "traverse_rays.cu": {
         "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -434,14 +457,17 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
 
     For records on a CUDA device launches K1a (K1b with ``jitter``) on
     4-wide records, K1e on 8-wide records, K1d with ``entries`` or
-    ``tbounds``, K1f with ``stats``, with the traversal core ``core``
-    (:func:`core_id`; measurement only); runs the plain version for records
-    on the CPU; raises for any other device."""
-    cid = core_id(core)
+    ``tbounds``, K1f with ``stats``, with the traversal core that
+    :func:`tile_plan` gives for ``core`` (over leaves of K > 1 under
+    "hopper", the per-step choice between the warp's leaf tests and each
+    lane's loop, TILE_CORE; the words of every core are the same); runs the
+    plain version for records on the CPU; raises for any other device."""
     qn, slots = _check_qnodes(qnodes, leaf_k)
     seed = _check_seed(jitter_seed)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     bounded = entries is not None or tbounds is not None
+    cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats,
+                    bounded=bounded)
     if bounded:
         entries, tbounds = _tile_tables(entries, tbounds, -(-height // TILE),
                                         -(-width // TILE), qn.device)
@@ -569,21 +595,22 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     pixels row-major in its 1,024 words, planes t, nx, ny, nz, tri as f32
     (−1.0 on a miss) and a sixth plane that is each pixel's visits with
     ``stats`` and 0 without (the TPU kernel writes its tile's visit count
-    there). It needs width and height that are multiples of 32, the whole
-    frame (no ``raygen_size`` or offsets) and the "hopper" core; the image
-    planes are not made at all.
+    there). It needs width and height that are multiples of 32 and the whole
+    frame (no ``raygen_size`` or offsets), and runs every core but
+    "baseline"; the image planes are not made at all.
 
     For records on a CUDA device launches K1c on 4-wide records, K1e on
-    8-wide records, K1f with ``stats``, with the traversal core ``core``
-    ("hopper" or "baseline"); runs the plain version for records on the CPU;
-    raises for any other device."""
-    cid = core_id(core)
+    8-wide records, K1f with ``stats``, with the traversal core that
+    :func:`tile_plan` gives for ``core``; runs the plain version for records
+    on the CPU; raises for any other device."""
     qn, slots = _check_qnodes(qnodes, leaf_k)
     pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
     rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
     f = len(pos)
     if raw:
-        _check_raw(width, height, raygen_size, row_offset, col_offset, core)
+        _check_raw(width, height, raygen_size, row_offset, col_offset)
+    cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats, batch=True,
+                    raw=raw)
     if qn.device.type == "cpu":
         pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
         planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
@@ -604,10 +631,10 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
             stream = torch.cuda.current_stream(qn.device).cuda_stream
             err = lib.rt_trace_tiles_batch_raw(
                 qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-                int(bool(jitter)), int(bool(stats)), out.data_ptr(), stream)
+                int(bool(jitter)), int(bool(stats)), cid, out.data_ptr(), stream)
         name = _tile_launch_name(slots, stats, "trace_tiles_k1c") + "_raw"
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
         _count(name, core)
         return out
     planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
@@ -626,16 +653,14 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     return (*planes[:4], tri, *planes[4:])
 
 
-def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int,
-               core: str) -> None:
-    """Refuse what the raw tile layout does not take (trace_tiles_batch)."""
+def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int) -> None:
+    """Refuse the frames the raw tile layout does not take (trace_tiles_batch;
+    its cores: tile_plan)."""
     if width % TILE or height % TILE:
         raise ValueError(f"raw=True needs a width and height that are multiples of {TILE}, "
                          f"got {width}x{height}")
     if raygen_size not in (None, (width, height)) or row_offset or col_offset:
         raise ValueError("raw=True traces whole frames: no raygen_size or offsets")
-    if core != "hopper":
-        raise ValueError(f"raw=True runs the 'hopper' core, not {core!r}")
 
 
 def tiles_layout(planes) -> torch.Tensor:
@@ -771,9 +796,9 @@ def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: b
     slots into one run of triangles below K = 32 only. Any other core runs
     as named: persistent where ``scattered`` for "order" (the render core)
     and ANY_HIT_CORE, one thread per ray otherwise. Raises ``ValueError``
-    for what is not built: ``ordered=False`` but with "hopper", "order",
-    "baseline" or ANY_HIT_CORE; ``tree_space="smem"`` but with "hopper",
-    "order" or ANY_HIT_CORE."""
+    for what is not built: ``ordered=False`` with any core but "hopper",
+    "order", "baseline" and ANY_HIT_CORE; ``tree_space="smem"`` with any
+    core but "hopper", "order" and ANY_HIT_CORE."""
     cid = core_id(core)
     if tree_space not in TREE_SPACES:
         raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
@@ -790,6 +815,46 @@ def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: b
             return _ANY_HIT_CORE, scattered and leaf_k < _ANY_HIT_PERSISTENT_K
         return _CLOSEST_HIT_CORE, scattered
     return cid, scattered and cid in free
+
+
+# K1 over leaves of more than one triangle under core="hopper" (tile_plan)
+# runs TILE_CORE where the card measured it ahead of the render core
+# (chip_smoke.py's K1 phase; PERF.md §6).
+
+
+def tile_plan(core: str, *, leaf_k: int, slots: int, jitter: bool = False,
+              stats: bool = False, bounded: bool = False, batch: bool = False,
+              raw: bool = False) -> int:
+    """What :func:`trace_tiles` (``batch=False``) or :func:`trace_tiles_batch`
+    (``batch=True``, ``raw``) launch for these arguments (``slots``: the
+    records' child slots; ``stats``: K1f, ``bounded``: K1d): the launcher's
+    core id. A pure function: no device is touched.
+
+    "hopper" is the render core at K = 1 and TILE_CORE over leaves of more
+    than one triangle. "order" (the render core by name) and TILE_CORE run
+    as named in every variant, "baseline" in every variant but ``raw``.
+    Raises ``ValueError`` for what is not built: ANY_HIT_CORE (closest hit
+    with the warp's tests at every step) but on 4-wide records without
+    ``stats``, ``bounded`` or a jittered batch; a set of the design
+    elements, or TILE_CORE with a cost ``@c``, but for K1a (4-wide, one
+    frame, no jitter, ``stats`` or ``bounded``); "baseline" with ``raw``."""
+    cid = core_id(core)
+    if core == "hopper":
+        return _TILE_CORE if leaf_k > 1 else _MAIN_CORE
+    if cid in (_RENDER_CORE, _TILE_CORE) or (cid == _BASELINE_CORE and not raw):
+        return cid
+    if raw and cid == _BASELINE_CORE:
+        raise ValueError(f"raw=True runs the 'hopper' core, 'order', {TILE_CORE!r} or "
+                         f"{ANY_HIT_CORE!r}, not {core!r}")
+    k1a = slots == 4 and not (jitter or stats or bounded or batch)
+    if cid == _ANY_HIT_CORE and slots == 4 and not (stats or bounded or (batch and jitter)):
+        return cid
+    if k1a and (cid in _MEASURED_TILE_CORES
+                or cid in {core_id(f"{TILE_CORE}@{c}") for c in TILE_COSTS}):
+        return cid
+    raise ValueError(f"core {core!r} is not built for this tile launch (slots {slots}, "
+                     f"jitter {jitter}, stats {stats}, bounded {bounded}, batch {batch}, "
+                     f"raw {raw}): see tile_plan")
 
 
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
@@ -921,9 +986,15 @@ class TraversalCounts:
     traversal must move at least once); the most entries any ray's stack
     held (``max_depth``) and the pushes dropped at the 64-entry limit
     (``dropped``), which size the kernels' on-chip stack. One object counts
-    records of one width (``width``, set by the first traversal)."""
+    records of one width (``width``, set by the first traversal).
 
-    def __init__(self) -> None:
+    ``leaf_log=True`` also keeps every visit that posts a leaf slot (ray
+    index over all rays counted, the visit's ordinal, its record, the
+    posted slots and their triangle counts), from which
+    :meth:`warp_census` prices K1's leaf stages warp step by warp step."""
+
+    def __init__(self, leaf_log: bool = False) -> None:
+        self.leaf_log: list | None = [] if leaf_log else None
         self.rays = 0
         self.visits = 0
         self.mt_tests = 0
@@ -958,12 +1029,77 @@ class TraversalCounts:
             self.max_depth = max(self.max_depth, int(depth.max()))
         self.dropped += dropped
 
+    def add_posts(self, rays: torch.Tensor, ordinal: torch.Tensor, nodes: torch.Tensor,
+                  posted: torch.Tensor, n: torch.Tensor) -> None:
+        """Visits that post leaf slots (with ``leaf_log``): ray indices,
+        visit ordinals (0: the ray's first visit), records, (P, w) posted
+        slots and their triangle counts min(count, K)."""
+        if self.leaf_log is not None:
+            self.leaf_log.append((rays, ordinal, nodes, posted, n))
+
+    def warp_census(self, warps: torch.Tensor, visits: torch.Tensor, leaf_k: int,
+                    costs=(1.0, 2.0, 3.0, 4.0)) -> dict:
+        """K1's leaf stages priced warp step by warp step (needs
+        ``leaf_log``): ``warps`` (R,) the warp of each ray counted
+        (:func:`tile_warp_ids`), ``visits`` (R,) its visits. A warp steps
+        until its last lane is done (``steps``: the sum over warps of their
+        lanes' most visits), and at step s every lane makes its s-th visit;
+        at each step where a lane posts (``posting_steps``) the census
+        counts the posting lanes and the distinct records they post, the
+        lane loops' iterations m = Σ_k max over lanes of n_k and the warp's
+        runs of 32, w (packed below K = 32, as the launchers run them). For
+        each cost c: the share of posting steps whose rule c·w < m takes the
+        warp's tests, and the steps' cost in lane-loop iterations, Σ min(m,
+        c·w) by that rule (rt::Ray::tile_step)."""
+        if self.leaf_log is None:
+            raise ValueError("warp_census needs TraversalCounts(leaf_log=True)")
+        dev = visits.device
+        steps = torch.zeros(int(warps.max()) + 1 if warps.numel() else 0, dtype=torch.int64,
+                            device=dev).scatter_reduce(0, warps.long(), visits.long(), "amax")
+        out = {"warp_steps": int(steps.sum()), "posting_steps": 0}
+        if not self.leaf_log:
+            return out
+        rays, ordinal, nodes, posted, n = (torch.cat(c) for c in zip(*self.leaf_log))
+        key = warps.long()[rays] * (int(ordinal.max()) + 1) + ordinal
+        groups, inv = torch.unique(key, return_inverse=True)
+        g = groups.numel()
+        lanes = torch.bincount(inv, minlength=g)
+        pairs = torch.unique(inv * (int(nodes.max()) + 1) + nodes)
+        distinct = torch.bincount(pairs // (int(nodes.max()) + 1), minlength=g)
+        w_slots = posted.shape[1]
+        most = torch.zeros((g, w_slots), dtype=torch.int64, device=dev).scatter_reduce(
+            0, inv[:, None].expand(-1, w_slots), n.long(), "amax")
+        m = most.sum(dim=1)
+        if leaf_k < 32:
+            slot = torch.arange(w_slots, device=dev)
+            first = torch.where(posted, slot, w_slots).amin(dim=1)
+            last = torch.where(posted, slot, -1).amax(dim=1)
+            runs = ((last - first + 1) * leaf_k + 31) // 32
+        else:
+            runs = ((n.long() + 31) // 32).sum(dim=1)
+        w = torch.bincount(inv, weights=runs.double(), minlength=g).long()
+        out.update({"posting_steps": g, "lanes_posting": float(lanes.double().mean()),
+                    "distinct_records": float(distinct.double().mean()),
+                    "lane_iterations": int(m.sum()), "warp_runs": int(w.sum())})
+        for c in costs:
+            warp = c * w < m
+            out[f"c={c:g}"] = {"warp_share": float(warp.double().mean()),
+                               "cost": float(torch.where(warp, c * w, m).double().sum())}
+        return out
+
     def unique_record_bytes(self) -> int:
         """Bytes of the distinct headers (32·w each) and triangle records (48
         each) read."""
         def n_unique(parts):
             return torch.unique(torch.cat(parts)).numel() if parts else 0
         return 32 * (self.width or 4) * n_unique(self._nodes) + 48 * n_unique(self._tris)
+
+
+def tile_warp_ids(px: torch.Tensor, py: torch.Tensor, width: int) -> torch.Tensor:
+    """The warp of the tile kernels that traces pixel (px, py) of a window of
+    ``width`` columns: its blocks are 8×8 pixels and a warp is 4 rows of 8
+    (the rows py // 4 of the column block px // 8)."""
+    return (py // 4) * ((width + 7) // 8) + px // 8
 
 
 def _traverse_chunks(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
@@ -1023,7 +1159,9 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
         stack_n[:, 0] = entry
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)  # entry 0: the start record
     lanes = torch.arange(leaf_k, device=dev, dtype=torch.float32)
+    base = 0
     if counts is not None:
+        base = counts.rays  # this call's rays follow those counted before
         counts.start(r, w)
 
     while True:
@@ -1057,6 +1195,10 @@ def _traverse(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int,
         # (slot, triangle) order is what the kernel's sequential loop keeps
         do_mt = hit & (refs < 0.0) & (refs > EMPTY_REF)
         mrow = torch.nonzero(do_mt.any(dim=1)).squeeze(1)
+        if counts is not None and counts.leaf_log is not None and mrow.numel():
+            n = torch.where(do_mt[mrow], torch.nan_to_num(cnt[mrow]).clamp(0, leaf_k), 0.0)
+            counts.add_posts(base + rays[mrow], visits[rays[mrow]].long() - 1, node[mrow],
+                             do_mt[mrow], n.long())
         done = None
         if mrow.numel() > 0:
             mnode = node[mrow]

@@ -49,7 +49,7 @@ def test_core_ids_are_the_kernels_masks():
     bits = core_masks()
     assert traverse.CORE_ELEMENTS == {"order": bits["kOrder"], "stack": bits["kSharedStack"],
                                       "prefetch": bits["kPrefetch"], "warp": bits["kWarpLeaves"],
-                                      "pack": bits["kPackSlots"]}
+                                      "pack": bits["kPackSlots"], "tile": bits["kTileLeaves"]}
     assert traverse.core_id(traverse.ANY_HIT_CORE) == bits["kAnyHitCore"]
     assert traverse.core_id("baseline") == bits["kBaseline"]
     rays = (build.CSRC / "traverse_rays.cu").read_text()

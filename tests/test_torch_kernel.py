@@ -52,6 +52,8 @@ from raytracer_tpu_torch.ops.lbvh import build_lbvh2
 from raytracer_tpu_torch.ops.cuda.entry import compute_tile_entries
 from raytracer_tpu_torch.ops.trace import make_wide_bvh
 from raytracer_tpu_torch.ops.trace import moller_trumbore
+from raytracer_tpu_torch.models.scene import Scene
+from raytracer_tpu_torch.utils import procgen
 from torch_parity import (CAM_POS, CAM_QUAT, FOV, assert_trace_parity, deep_records, image_dirs,
                           ray_buffer, room_scene, seeded_scene, tile_bounds)
 
@@ -1173,7 +1175,7 @@ def test_element_cores_equal_hopper_on_card(cuda_device):
     qn8 = records_of(tris, 8, 8, cuda_device)
     with pytest.raises(RuntimeError):
         traverse.trace_rays(qn8, o, d, leaf_k=8, core="order+stack")
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError, match="not built"):  # tile_plan refuses it unlaunched
         traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8, jitter=True,
                              core="stack")
 
@@ -1199,6 +1201,127 @@ def test_ray_counter_resets_per_launch_on_card(cuda_device):
     torch.cuda.synchronize()
     for x, y, z in zip(base, one, two):
         assert words_equal(y, x) and words_equal(z, x)
+
+
+def tile_records(tris: np.ndarray, k: int, width: int, builder: str, device) -> torch.Tensor:
+    """Records of ``width`` slots over leaves of K: SAH clusters, or the
+    Morton runs of K (the JAX package's default build at K = 8)."""
+    if builder == "sah":
+        return records_of(tris, k, width, device)
+    cs = build_lbvh2_clustered(torch.from_numpy(tris).to(device), k)
+    return records_pipeline(cs, width=width)
+
+
+def tile_variants(qn: torch.Tensor, k: int, w: int = 150, h: int = 98, **window) -> dict:
+    """Every K1 variant as a call of its core: K1a, K1b, K1d (bounds and
+    entries), K1f (visits), K1c (a jittered batch) and K1c raw (whole
+    frames of 96x64); on 8-wide records the first five are K1e's forms."""
+    dev = qn.device
+    bounds = torch.full((-(-h // 32), -(-w // 32)), 2.6, device=dev)
+    entries = torch.zeros_like(bounds, dtype=torch.int32)
+
+    def tiles(**kw):
+        return lambda core: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                                 core=core, **window, **kw)
+
+    return {
+        "k1a": tiles(), "k1b": tiles(jitter=True, jitter_seed=77),
+        "k1d": tiles(entries=entries, tbounds=bounds), "k1f": tiles(stats=True),
+        "k1c": lambda core: traverse.trace_tiles_batch(
+            qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k, jitter=True,
+            jitter_seeds=BATCH_SEEDS, core=core, **window),
+        "k1c_raw": lambda core: traverse.trace_tiles_batch(
+            qn, BATCH_POS, BATCH_QUAT, 96, 64, FOV, leaf_k=k, raw=True, core=core),
+    }
+
+
+def assert_tile_cores_agree(qn: torch.Tensor, k: int, calls: dict, slots: int) -> None:
+    """Each call under TILE_CORE, each of its measured costs (K1a) and, where
+    built, the warp's tests at every step (ANY_HIT_CORE) writes the render
+    core's (``core="order"``) and the frozen loop's words; under "hopper"
+    it launches once, counted under the variant's name."""
+    for name, call in calls.items():
+        ref = call("order")
+        if name != "k1c_raw":
+            assert words_equal(call("baseline"), ref), name
+        cores = [traverse.TILE_CORE]
+        if slots == 4 and name in ("k1a", "k1b", "k1c_raw"):
+            cores.append(traverse.ANY_HIT_CORE)
+        if slots == 4 and name == "k1a":
+            cores += [f"{traverse.TILE_CORE}@{c:g}" for c in traverse.TILE_COSTS]
+        for core in cores:
+            assert words_equal(call(core), ref), (name, core)
+        before = dict(traverse.LAUNCHES)
+        out = call("hopper")
+        torch.cuda.synchronize()
+        assert len(launched(before)) == 1 and sum(launched(before).values()) == 1, name
+        assert words_equal(out, ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("k,builder", [(32, "sah"), (8, "lbvh"), (2, "sah"), (64, "sah")])
+def test_tile_core_equals_render_core_and_baseline_on_card(cuda_device, k, builder, width):
+    """K1 over leaves of K > 1 with the per-step choice of leaf stage
+    (``traverse.TILE_CORE``: the warp's tests where c·w < m, each lane's
+    loop otherwise) writes the words of the render core and of the frozen
+    loop in every K1 variant (K1a, K1b, K1c and its raw layout, K1d, K1e at
+    8 slots, K1f), on SAH clusters of K = 2, 32, 64 and Morton runs of
+    K = 8 (packed runs below K = 32), on a scene and on the same scene with
+    every fifth triangle twice (duplicates at equal t); and K1a holds the
+    plain version's traversal rule."""
+    scene = seeded_scene(4)
+    for tris in (scene, np.concatenate([scene, scene[::5]])):
+        qn = tile_records(tris, k, width, builder, cuda_device)
+        calls = tile_variants(qn, k)
+        assert_tile_cores_agree(qn, k, calls, width)
+        ours = [p.cpu() for p in calls["k1a"](traverse.TILE_CORE)]
+        ref = [p.cpu() for p in traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, 150, 98,
+                                                                FOV, leaf_k=k)]
+        assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
+                            image_dirs(150, 98))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_tile_core_window_off_the_block_grid_on_card(cuda_device, width):
+    """A 1,000 x 600 window at (37, 53) of a 1920 x 1080 frame: its sides
+    and offsets are no multiples of 8, so warps of the tile kernels hold
+    lanes outside the window, which help the warp test leaves and store
+    nothing. Every variant under TILE_CORE writes the render core's words,
+    the one-frame window the same pixels as the whole frame."""
+    tris = seeded_scene(4)
+    qn = tile_records(tris, 32, width, "sah", cuda_device)
+    window = dict(raygen_size=(1920, 1080), row_offset=37, col_offset=53)
+    calls = tile_variants(qn, 32, 1000, 600, **window)
+    del calls["k1c_raw"]  # whole frames only
+    assert_tile_cores_agree(qn, 32, calls, width)
+    full = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 1920, 1080, FOV, leaf_k=32,
+                                core=traverse.TILE_CORE)
+    part = calls["k1a"](traverse.TILE_CORE)
+    assert all(torch.equal(a, b[37:637, 53:1053]) for a, b in zip(part, full))
+
+
+@pytest.mark.cuda
+def test_tile_core_on_the_cornell_box_on_card(cuda_device):
+    """The Cornell box at SAH K = 32 (a tree of 3 records, where every lane
+    of a warp posts the same leaf): TILE_CORE and the warp's tests at every
+    step write the render core's and the frozen loop's words at 1920 x 1080
+    and in a jittered batch."""
+    scene = Scene().set_triangles(procgen.make_cornell_box())
+    scene._normalize_enabled, scene._normalize_mode = True, "cube"
+    scene.normalize_mesh()
+    qn = records_of(scene.triangles, 32, 4, cuda_device)
+    cam = (0.0, 0.0, 2.2)
+    calls = {
+        "k1a": lambda core: traverse.trace_tiles(qn, cam, (0, 0, 0, 1.0), 1920, 1080, FOV,
+                                                 leaf_k=32, core=core),
+        "k1c": lambda core: traverse.trace_tiles_batch(
+            qn, BATCH_POS, BATCH_QUAT, 320, 200, FOV, leaf_k=32, jitter=True,
+            jitter_seeds=BATCH_SEEDS, core=core),
+    }
+    assert_tile_cores_agree(qn, 32, calls, 4)
+    assert int((calls["k1a"]("hopper")[4] >= 0).sum()) > 1920 * 1080 // 4
 
 
 def test_core_names_are_checked_on_cpu():

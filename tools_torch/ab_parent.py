@@ -21,12 +21,21 @@ process.
 Run from the repository root on a machine with a CUDA card:
 
     git archive <commit> | tar -x -C archive/parent
-    python3 tools_torch/ab_parent.py archive/parent
+    python3 tools_torch/ab_parent.py archive/parent [--digests FILE]
+
+``--digests FILE`` also writes, as JSON, the nvcc version and a SHA-256 of
+the instructions of each render-core kernel that the other checkout builds
+(:func:`render_core_digests`): ``chip_smoke.py``'s K1 phase holds this
+checkout's render-core kernels, which every trace at K = 1 runs, against
+``tools_torch/render_core_sass.json``, made so from the parent of the
+change that added the per-step leaf stage of K1.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
+import json
 import re
 import shutil
 import subprocess
@@ -92,6 +101,32 @@ def kernel_key(mangled: str) -> tuple | None:
     return m.group(1), tuple(args)
 
 
+# the render core's masks (csrc/traverse_core.cuh: rt::kRenderCore, with
+# rt::kUnordered and rt::kSharedTree): what K1 and K2 launch at K = 1
+RENDER_CORE_MASKS = (1, 9, 17, 25)
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version``: the compiler a digest holds for."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return out.strip().splitlines()[-1]
+
+
+def render_core_digests(lib) -> dict:
+    """"kernel<template arguments>" → SHA-256 of its SASS instructions, for
+    every kernel of the loaded library ``lib`` whose core (its last
+    template argument) is a form of the render core."""
+    out = {}
+    for mangled, sass in sass_kernels(lib._name).items():
+        key = kernel_key(mangled)
+        if key and int(key[1][-1][1:]) in RENDER_CORE_MASKS:
+            name = f"{key[0]}<{','.join(key[1])}>"
+            out[name] = hashlib.sha256("\n".join(sass).encode()).hexdigest()
+    return out
+
+
 def compare_sass(mine, theirs, source: str) -> None:
     a = {kernel_key(k): v for k, v in sass_kernels(mine._name).items() if kernel_key(k)}
     b = {kernel_key(k): v for k, v in sass_kernels(theirs._name).items() if kernel_key(k)}
@@ -121,7 +156,7 @@ def ab(label: str, mine, theirs, card: str, rays: int) -> None:
 
 
 def main() -> None:
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 4) or (len(sys.argv) == 4 and sys.argv[2] != "--digests"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("ab_parent needs a CUDA card")
@@ -134,6 +169,14 @@ def main() -> None:
     for source in ("traverse_rays.cu", "traverse_tiles.cu"):
         compare_sass(traverse.load_kernel(source)[0], other_traverse.load_kernel(source)[0],
                      source)
+    if len(sys.argv) == 4:
+        digests = {source: render_core_digests(other_traverse.load_kernel(source)[0])
+                   for source in ("traverse_rays.cu", "traverse_tiles.cu")}
+        Path(sys.argv[3]).write_text(json.dumps(
+            {"nvcc": nvcc_version(), "from": str(other_root.name), "kernels": digests},
+            indent=1, sort_keys=True) + "\n")
+        print(f"[sass] wrote {sum(map(len, digests.values()))} render-core digests of the "
+              f"other checkout to {sys.argv[3]}", flush=True)
 
     trees = {label: (qn, k, mb_tree_space.waves(qn, k))
              for label, (qn, k) in mb_tree_space.trees(dev).items()}
