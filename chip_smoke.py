@@ -9,7 +9,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
 1. the device: a CUDA card is required (there is no CPU path), and its name
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
-   kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu), the
+   kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu, in two builds:
+   the render core and the frozen loop, and the warp-leaves cores), the
    ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu) and the
    microbenchmark kernels MB1–MB4 (csrc/microbench.cu), with their seconds
    and the ptxas registers, stack frame and spills of every instantiation
@@ -202,7 +203,23 @@ phase 26, before 27:
    closest-hit wave of both 4-wide trees; and one whole 3-bounce sample at
    SAH K = 32 and LBVH K = 8, both orders of the bounce rays, with only the
    closest-hit waves swapped between the plan's core and the render core
-   (radiance equal), A-B-B-A.
+   (radiance equal), A-B-B-A. K1 (over leaves of K > 1; k1_phase, also
+   alone: tools_torch/ab_tiles.py): ptxas of every instantiation of the
+   warp-leaves tile cores, and the render core's machine code (what every
+   launch at K = 1 runs) held instruction for instruction against the
+   parent's (tools_torch/render_core_sass.json); then on K1a framed and
+   sparse, K1b's camera wave, one 8-camera K1c batch of the dynamic
+   dragon's refitted records, config 5's K1c raw, the Cornell box at SAH
+   K = 32, Morton K = 8, the 8-wide tree (K1e), K1d and K1f: every plane
+   bit-identical between the render core (core="order"), the frozen loop,
+   the warp's leaf tests at every step (traverse.ANY_HIT_CORE's closest hit,
+   where built) and the per-step choice (traverse.TILE_CORE), the warp
+   census of each case (what each warp step posts, priced for both leaf
+   stages, from the plain version), the cores timed in one series forward
+   and back with what traverse.tile_plan runs, the cost sweep of TILE_CORE's
+   rule (TILE_COSTS) on the K1a cases, and A-B-B-A with only K1 swapped
+   between the plan's core and the render core: the headline frame (K1a,
+   shade, quantize), one 3-bounce sample and the dynamic dragon frame.
 
 Phase 29 drives the headless apps and the rest of the build chain; it runs
 after phase 28, before 27:
@@ -373,14 +390,16 @@ launch and the reset).
 The K1b, K2a and K2b rows also carry ``bench_launches``: phase 36's launches
 of one frame of config 2 and of config 4.
 
-Every traversal row of the kernels line but the options' also carries
+Every traversal row of the kernels line but the placements' also carries
 ``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
-baseline core, timed A-B-B-A against the redesigned one in phase 28 (the
-raw layout and "smem" run the redesigned core only). The rows of closest
-hit over leaves of K > 1 (K2a, K2c, ordered and not) carry the render
-core's there instead (core="order" on their closest-hit waves, the plan's
-core on the any-hit waves), and the frozen loop's as ``frozen_ms`` and
-``frozen_path_ms``.
+baseline core, timed A-B-B-A against the redesigned one in phase 28 ("vmem"
+and "smem" run the redesigned core only). The rows of closest hit over
+leaves of K > 1 (K2a, K2c, ordered and not) carry the render core's there
+instead (core="order" on their closest-hit waves, the plan's core on the
+any-hit waves), and the frozen loop's as ``frozen_ms`` and
+``frozen_path_ms``; so do the K1 rows (K1a … K1f: the render core,
+core="order", as ``baseline_ms``; K1c raw, which no frozen loop writes,
+the render core's alone).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
@@ -665,12 +684,14 @@ def build_all() -> None:
 
     from raytracer_tpu_torch.ops.cuda import microbench
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
                 "microbench.cu (MB1, MB2, MB3, MB4)": pool.submit(
                     timed, microbench.load_microbench),
                 "traverse_tiles.cu (K1a, K1b, K1c, K1d, K1e, K1f)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu"),
+                "traverse_tiles.cu:warp (K1 over leaves of K > 1)": pool.submit(
+                    timed, traverse.load_kernel, "traverse_tiles.cu:warp"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
                     timed, traverse.load_kernel, "traverse_rays.cu")}
         results = {name: job.result() for name, job in jobs.items()}
@@ -986,8 +1007,11 @@ def main() -> None:
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| python {sys.version.split()[0]}")
 
-    # 2. the builds
+    # 2. the builds; the render core's machine code read back in the
+    # background (phase 28 holds it against the parent's)
     build_all()
+    background = ThreadPoolExecutor(max_workers=1)
+    sass = background.submit(render_core_sass)
 
     # 3. the primary-ray main path
     glb = ROOT / "data" / "dragon_standin.glb"
@@ -1046,7 +1070,7 @@ def main() -> None:
            "crop_dirs": frame_dirs(crop_pix), "r0": r0, "c0": c0, "sample": sample,
            "bound_pix": bound_pix,
            "origin": torch.tensor(FRAMED, dtype=torch.float32, device=dev),
-           "images": {"framed": img_framed, "sparse": img_sparse}}
+           "images": {"framed": img_framed, "sparse": img_sparse}, "render_core_sass": sass}
 
     # 4., 5. K1a vs its plain torch version on the framed view's centre crop
     # and vs the brute-force tracer on seeded framed-view pixels
@@ -2651,16 +2675,19 @@ def lbvh_phase(env: dict, scene) -> dict:
                                                                FOV, leaf_k=LEAF_K)]
            for view, pos in views}
 
-    # the Morton order: the card's against the CPU's
+    # the same builds on the CPU, in the background while the card builds
+    # and checks its trees; held against the card's at the end of the phase
+    def cpu_builds():
+        t0 = time.perf_counter()
+        morton = build_morton_and_sort(tris_cpu)
+        bvh2 = {1: build_lbvh2(tris_cpu), 8: build_lbvh2_clustered(tris_cpu, 8).bvh2}
+        b4 = collapse_lbvh2_to_bvh4(bvh2[8])
+        return morton, bvh2, b4, time.perf_counter() - t0
+
+    cpu_pool = ThreadPoolExecutor(max_workers=1)
+    cpu = cpu_pool.submit(cpu_builds)
     codes, order = build_morton_and_sort(tris)
-    t0 = time.perf_counter()
-    c_codes, c_order = build_morton_and_sort(tris_cpu)
-    log(f"[lbvh] Morton codes and order of {tris.shape[0]} triangles: the card's equal the "
-        f"CPU's ({time.perf_counter() - t0:.2f} s on the CPU): "
-        f"{torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)}")
-    if not (torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)):
-        fail("the Morton codes or order on the card differ from the CPU's")
-    del codes, order, c_codes, c_order
+    card_bvh2 = {}
 
     trees = {}
     for k in (1, 8):
@@ -2679,24 +2706,7 @@ def lbvh_phase(env: dict, scene) -> dict:
         if not torch.equal(pt._tris_dev, tris):
             fail(f"{what}: the tracer holds other triangles than the SAH one")
 
-        # the BVH2 on the card against the same build on the CPU
-        t0 = time.perf_counter()
-        cpu2 = build_lbvh2(tris_cpu) if k == 1 else build_lbvh2_clustered(tris_cpu, k).bvh2
-        cpu_s = time.perf_counter() - t0
-        for name, a, b in zip(("bounds", "left", "right", "meta", "parent"), pt._bvh2, cpu2):
-            if not torch.equal(a.cpu(), b):
-                fail(f"{what}: BVH2 {name} on the card differs from the CPU build in "
-                     f"{int((a.cpu() != b).sum())} words")
-        log(f"[{what}] BVH2 on the card equals the CPU build word for word (bounds, left, right, "
-            f"meta, parent; {pt._bvh2.num_nodes} rows; {cpu_s:.2f} s on the CPU)")
-        if k == 8:
-            b4, b4_cpu = collapse_lbvh2_to_bvh4(pt._bvh2), collapse_lbvh2_to_bvh4(cpu2)
-            if b4.num_nodes != b4_cpu.num_nodes or not all(
-                    torch.equal(a.cpu(), b) for a, b in zip(b4[:3], b4_cpu[:3])):
-                fail(f"{what}: the 4-wide collapse on the card differs from the CPU's")
-            log(f"[{what}] the 4-wide collapse on the card equals the CPU's ({b4.num_nodes} rows)")
-            del b4, b4_cpu
-        del cpu2
+        card_bvh2[k] = pt._bvh2  # held against the CPU build after the loop
 
         # render(): one K1a launch a view, the frame the SAH K = 32 tree's but for ties
         pt.set_camera_quaternion(*QUAT)
@@ -2755,6 +2765,28 @@ def lbvh_phase(env: dict, scene) -> dict:
             check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b", leaf_k=k)
             env["waves"][1] = waves  # for phase 28
         del pt, images
+
+    # the Morton order, the BVH2s and K = 8's 4-wide collapse on the card
+    # against the CPU's
+    (c_codes, c_order), cpu2, b4_cpu, cpu_s = cpu.result()
+    cpu_pool.shutdown()
+    if not (torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)):
+        fail("the Morton codes or order on the card differ from the CPU's")
+    log(f"[lbvh] Morton codes and order of {tris.shape[0]} triangles: the card's equal the "
+        f"CPU's ({cpu_s:.2f} s for the CPU's builds, run beside the card's)")
+    for k, bvh2 in card_bvh2.items():
+        what = f"lbvh K={k}"
+        for name, a, b in zip(("bounds", "left", "right", "meta", "parent"), bvh2, cpu2[k]):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{what}: BVH2 {name} on the card differs from the CPU build in "
+                     f"{int((a.cpu() != b).sum())} words")
+        log(f"[{what}] BVH2 on the card equals the CPU build word for word (bounds, left, right, "
+            f"meta, parent; {bvh2.num_nodes} rows)")
+    b4 = collapse_lbvh2_to_bvh4(card_bvh2[8])
+    if b4.num_nodes != b4_cpu.num_nodes or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(b4[:3], b4_cpu[:3])):
+        fail("lbvh K=8: the 4-wide collapse on the card differs from the CPU's")
+    log(f"[lbvh K=8] the 4-wide collapse on the card equals the CPU's ({b4.num_nodes} rows)")
     return trees
 
 
@@ -3295,21 +3327,34 @@ def k1_census(qn: torch.Tensor, leaf_k: int, cams: list, pixels: torch.Tensor, w
     return counts.warp_census(torch.cat(warps), torch.cat(visits), leaf_k)
 
 
-def k1_build_report(traverse) -> None:
-    """ptxas of every tile-kernel instantiation of a warp-leaves core, and
-    the render core's instructions (every K1 and K2 launch at K = 1) against
-    the parent's digests in tools_torch/render_core_sass.json."""
+def render_core_sass() -> tuple[dict, dict, str]:
+    """(the parent's digests of tools_torch/render_core_sass.json, this
+    build's digests of the same sources, this nvcc): cuobjdump takes seconds
+    a library, so main() starts this in the background after the builds."""
+    from raytracer_tpu_torch.ops.cuda import traverse
     from tools_torch.ab_parent import nvcc_version, render_core_digests
 
-    for kernel, regs, frame, st, ld in ptxas_rows(traverse.load_kernel("traverse_tiles.cu")[1]):
+    ref = json.loads((ROOT / "tools_torch" / "render_core_sass.json").read_text())
+    with ThreadPoolExecutor(max_workers=len(ref["kernels"])) as pool:
+        got = dict(zip(ref["kernels"], pool.map(
+            lambda src: render_core_digests(traverse.load_kernel(src)[0]), ref["kernels"])))
+    return ref, got, nvcc_version()
+
+
+def k1_build_report(traverse, sass) -> None:
+    """ptxas of every tile-kernel instantiation of a warp-leaves core, and
+    the render core's instructions (every K1 and K2 launch at K = 1) against
+    the parent's digests (``sass``: render_core_sass()'s result, or its
+    future)."""
+    warp_log = traverse.load_kernel("traverse_tiles.cu:warp")[1]
+    for kernel, regs, frame, st, ld in ptxas_rows(warp_log):
         core = int(kernel[kernel.rindex(",") + 1:-1])
         if core & 32:
             log(f"[k1] ptxas {kernel} (core {core & 4095}, cost field {core >> 12}): {regs} "
                 f"registers, {frame} bytes stack frame, spills {st}/{ld} bytes")
-    ref = json.loads((ROOT / "tools_torch" / "render_core_sass.json").read_text())
-    nvcc = nvcc_version()
+    ref, digests, nvcc = sass.result() if hasattr(sass, "result") else sass
     for source, want in ref["kernels"].items():
-        got = render_core_digests(traverse.load_kernel(source)[0])
+        got = digests[source]
         same = [k for k in want if got.get(k) == want[k]]
         log(f"[k1] SASS {source}: {len(same)} of {len(want)} render-core kernels identical, "
             f"instruction for instruction, to the parent's ({ref['from']}; nvcc here "
@@ -3343,7 +3388,8 @@ def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
         fail("K1_CORES no longer names traverse.ANY_HIT_CORE and traverse.TILE_CORE")
     card, dev, tris, crop = env["card"], env["dev"], env["tris"], env["crop_pix"]
     t_phase = time.perf_counter()
-    k1_build_report(traverse)
+    k1_build_report(traverse, env["render_core_sass"] if "render_core_sass" in env
+                    else render_core_sass())
     qn32 = env["qn"]
     cams, quats = batch_cameras(CAM_Z)
     whole = torch.arange(CONFIG5_SIZE * CONFIG5_SIZE, device=dev)
@@ -3401,7 +3447,9 @@ def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
                                                False, False, 8, {"stats": True})
 
     totals = {}
+    log(f"[k1] set-up {time.perf_counter() - t_phase:.1f} s")
     for what, (fn, census, warp_built, sweep, frames, plan_kw) in cases.items():
+        t_case = time.perf_counter()
         names = ["render"] + ([] if plan_kw.get("raw") else ["frozen"]) + (
             ["warp"] if warp_built else []) + (["tile"] if step >= 2 else [])
         outs = {n: flat_planes(fn(K1_CORES[n])) for n in names}
@@ -3427,7 +3475,7 @@ def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
                     f"{picked} ({ms[picked]:.4f} ms)")
             totals[what] = ms
         log(f"[k1] {what}: {line} ms{plan}; every plane bit-identical to the render core "
-            f"on {card}")
+            f"on {card} ({time.perf_counter() - t_case:.1f} s)")
         if sweep and step >= 2:
             costs = {**{f"c={c:g}": f"{K1_CORES['tile']}@{c:g}" for c in traverse.TILE_COSTS},
                      "c=0 (warp)": K1_CORES["warp"], "render": "order",

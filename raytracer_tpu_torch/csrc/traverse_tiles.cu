@@ -117,6 +117,15 @@
 
 #include "traverse_core.cuh"
 
+// The source builds as two libraries (ops/cuda/traverse.py::TILE_SOURCES),
+// their nvcc runs started together: with RT_TILES_WARP the launchers take
+// the warp-leaves cores (rt::kTileCore, rt::kAnyHitCore, the cost sweep),
+// without it the render core, the frozen loop and the element sets. Each
+// refuses the other's cores (cudaErrorInvalidValue).
+#ifndef RT_TILES_WARP
+#define RT_TILES_WARP 0
+#endif
+
 namespace {
 
 constexpr int kBlock = 8;  // threads a side of a block
@@ -430,16 +439,14 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (width + kTile - 1) / kTile;
   const bool j = jitter != 0;
-  const bool pack = leaf_k < 32;
 #define RT_ALL(C)                                                                   \
   (slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS)        \
               : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+#if RT_TILES_WARP
+  const bool pack = leaf_k < 32;
   if (core == (int)rt::kTileCore) {
     return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
   }
-#undef RT_ALL
   if (slots != 4 || with_visits || bounded) return (int)cudaErrorInvalidValue;
   if (core == (int)rt::kAnyHitCore) {
 #define RT_J(C) (j ? launch_tiles<4, true, false, false, C>(RT_TILE_ARGS) \
@@ -448,11 +455,6 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 #undef RT_J
   }
   if (j) return (int)cudaErrorInvalidValue;
-#define RT_CASE(M) \
-  case M:          \
-    return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
-  switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
-#undef RT_CASE
 #define RT_COST(V)                                                                           \
   case (int)(rt::kTileCore | (V##u << rt::kTileCostShift)):                                  \
     return pack ? launch_tiles<4, false, false, false,                                       \
@@ -463,6 +465,17 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
                       RT_TILE_ARGS);
   switch (core) { RT_TILE_COSTS(RT_COST) default: break; }
 #undef RT_COST
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+  if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
+#define RT_CASE(M) \
+  case M:          \
+    return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
+  switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
+#undef RT_CASE
+#endif
+#undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
 
@@ -485,20 +498,23 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
   const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool j = jitter != 0, with_visits = visits != nullptr;
-  const bool pack = leaf_k < 32;
 #define RT_ALL(C)                                                            \
   (slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+#if RT_TILES_WARP
+  const bool pack = leaf_k < 32;
   if (core == (int)rt::kTileCore) {
     return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
   }
-#undef RT_ALL
   if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
     return pack ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1)>(RT_BATCH_ARGS)
                 : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32)>(RT_BATCH_ARGS);
   }
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+#endif
+#undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
 
@@ -523,22 +539,25 @@ extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_
   const dim3 grid(width / kBlock, height / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool j = jitter != 0, with_visits = stats != 0;
-  const bool pack = leaf_k < 32;
   float* t = out;
   float *nx = nullptr, *ny = nullptr, *nz = nullptr, *visits = nullptr;
   int* tri = nullptr;
 #define RT_ALL(C)                                                                  \
   (slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#if RT_TILES_WARP
+  const bool pack = leaf_k < 32;
   if (core == (int)rt::kTileCore) {
     return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
   }
-#undef RT_ALL
   if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
     return pack
                ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1), true>(RT_BATCH_ARGS)
                : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32), true>(RT_BATCH_ARGS);
   }
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#endif
+#undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }

@@ -353,6 +353,12 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
     return rg_w, rg_h
 
 
+# traverse_tiles.cu builds as two libraries, started together: the render
+# core, the frozen loop and the measured element sets ("traverse_tiles.cu"),
+# and the warp-leaves cores ("traverse_tiles.cu:warp", with RT_TILES_WARP),
+# so that neither nvcc takes much longer than traverse_rays.cu's.
+TILE_SOURCES = ("traverse_tiles.cu", "traverse_tiles.cu:warp")
+
 _ARGTYPES = {
     "traverse_tiles.cu": {
         "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -377,16 +383,23 @@ _ARGTYPES = {
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b/K1c/K1d/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
+    (K1a/K1b/K1c/K1d/K1e/K1f; its warp-leaves cores ``traverse_tiles.cu:warp``,
+    :data:`TILE_SOURCES`) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
     (library, nvcc log)."""
     from .build import build_library
 
-    lib, log = build_library(source)
-    for name, argtypes in _ARGTYPES[source].items():
+    src, _, part = source.partition(":")
+    lib, log = build_library(src, f"RT_TILES_{part.upper()}" if part else "")
+    for name, argtypes in _ARGTYPES[src].items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib, log
+
+
+def _tile_source(cid: int) -> str:
+    """The build of traverse_tiles.cu that holds core ``cid`` (TILE_SOURCES)."""
+    return TILE_SOURCES[cid >= 0 and bool(cid & CORE_ELEMENTS["warp"])]
 
 
 def _tile_launch_name(width: int, stats: bool, plain: str, bounded: bool = False) -> str:
@@ -480,7 +493,7 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel("traverse_tiles.cu")
+    lib, _ = load_kernel(_tile_source(cid))
     pos, quat = _camera(cam_pos, cam_quat)
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
@@ -620,7 +633,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         return tiles_layout(planes) if raw else planes
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel("traverse_tiles.cu")
+    lib, _ = load_kernel(_tile_source(cid))
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                        for p, q, s in zip(pos, quat, seeds)], qn.device)
@@ -818,8 +831,16 @@ def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: b
 
 
 # K1 over leaves of more than one triangle under core="hopper" (tile_plan)
-# runs TILE_CORE where the card measured it ahead of the render core
-# (chip_smoke.py's K1 phase; PERF.md §6).
+# runs TILE_CORE in every variant, at either width: on the card it beat the
+# render core (render / tile, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's
+# K1 phase and tools_torch/ab_tiles.py, PERF.md §6) on K1a framed 1.57×,
+# sparse 2.67×, K1b 1.68×, K1c (8 cameras of the dynamic dragon) 1.38×,
+# config 5's K1c raw 1.35×, Morton K = 8 1.10×, K1e 1.34×, K1d 1.60×, K1f
+# 1.55×, and stayed within 5% of the warp's tests at every step, which lose
+# 1.31× at Morton K = 8 and 1.62× on the Cornell box. That box at SAH K = 32
+# (3 records, all 32 lanes post one leaf every step) is the one tree where
+# the render core stays ahead, by 2%; config 5's tree, also in cache, wins,
+# so the plan does not read the tree's size.
 
 
 def tile_plan(core: str, *, leaf_k: int, slots: int, jitter: bool = False,
