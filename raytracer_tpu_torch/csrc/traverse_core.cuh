@@ -725,13 +725,23 @@ struct Ray {
     return pending();
   }
 
-  // The visit of a warp step: pop until an entry passes the cull, test the
-  // record's slabs, push the internal children that pass (before the leaf
-  // tests: see warp_step), and return the leaf slots that pass (bit k: slot
-  // k; 0 when no entry was left), with the record visited in `node`.
-  __device__ __forceinline__ unsigned post(StackT& stack, const float* __restrict__ qn, int recw,
-                                           int& node) {
+  // kWarpLeaves: one visit of this lane's ray, then the warp's leaf tests;
+  // every lane of the warp calls it together (a lane with no ray left to
+  // traverse only helps test). The lane pops until an entry passes the cull,
+  // tests the record's slabs and pushes the internal children that pass
+  // (before the leaf tests: an any-hit ray that then hits drops its stack;
+  // step() pushes a closest-hit ray's after them, but by the slab tests
+  // against best0, so the stack is the same); the leaf slots that pass are
+  // posted, and the warp tests the posted records one lane after another,
+  // with that lane's ray and best t broadcast. Any hit (warp_leaves): a ray
+  // with an accepted triangle takes its occluder and is done. Closest hit
+  // (warp_nearest): the ray takes the nearest accepted triangle's t, normal
+  // and id, and goes on. The same records visited in the same order, and
+  // the same words, as step().
+  __device__ __forceinline__ void warp_step(StackT& stack, const float* __restrict__ qn,
+                                            int recw, int leaf_k) {
     unsigned posted = 0u;
+    int node = 0;
     while (pending()) {
       const int2 e = pop(stack);
       if (!(__int_as_float(e.y) < best)) continue;
@@ -749,26 +759,6 @@ struct Ray {
       push(stack, h, tmin, hit);
       break;
     }
-    return posted;
-  }
-
-  // kWarpLeaves: one visit of this lane's ray, then the warp's leaf tests;
-  // every lane of the warp calls it together (a lane with no ray left to
-  // traverse only helps test). The lane pops until an entry passes the cull,
-  // tests the record's slabs and pushes the internal children that pass
-  // (before the leaf tests: an any-hit ray that then hits drops its stack;
-  // step() pushes a closest-hit ray's after them, but by the slab tests
-  // against best0, so the stack is the same); the leaf slots that pass are
-  // posted, and the warp tests the posted records one lane after another,
-  // with that lane's ray and best t broadcast. Any hit (warp_leaves): a ray
-  // with an accepted triangle takes its occluder and is done. Closest hit
-  // (warp_nearest): the ray takes the nearest accepted triangle's t, normal
-  // and id, and goes on. The same records visited in the same order, and
-  // the same words, as step().
-  __device__ __forceinline__ void warp_step(StackT& stack, const float* __restrict__ qn,
-                                            int recw, int leaf_k) {
-    int node = 0;
-    const unsigned posted = post(stack, qn, recw, node);
     int at = -1;
     for (unsigned lanes = __ballot_sync(kWarpMask, posted != 0u); lanes != 0u;
          lanes &= lanes - 1u) {
@@ -853,18 +843,40 @@ struct Ray {
   __device__ __forceinline__ void tile_step(StackT& stack, const float* __restrict__ qn,
                                             int recw, int leaf_k) {
     static_assert(!kAnyHit && (kFeat & kWarpLeaves) != 0, "closest hit on a warp-leaves core");
+    // warp_step's visit, with the posted slots' counts taken from the
+    // header while it is in registers: sharing warp_step's visit and reading
+    // the counts back from L1 after it lowered render / tile by 2–4% on the
+    // card (PERF.md §6)
+    unsigned posted = 0u;
     int node = 0;
-    const unsigned posted = post(stack, qn, recw, node);
-    const float* rec = qn + (size_t)node * (size_t)recw;
+    int n[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) n[k] = 0;
+    while (pending()) {
+      const int2 e = pop(stack);
+      if (!(__int_as_float(e.y) < best)) continue;
+      if (kVisits) ++r.visits;
+      node = e.x;
+      float h[8 * kSlots];
+      float tmin[kSlots];
+      bool hit[kSlots];
+      slabs(qn + (size_t)node * (size_t)recw, h, tmin, hit);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const float ref = h[6 * kSlots + k];
+        if (hit[k] && ref < 0.0f && ref > kEmptyRef) {
+          posted |= 1u << k;
+          n[k] = (int)fminf(fmaxf(h[7 * kSlots + k], 0.0f), (float)leaf_k);
+        }
+      }
+      push(stack, h, tmin, hit);
+      break;
+    }
     int m = 0, runs = 0;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      // the header's count, read again (its line is in L1 from the visit)
-      const int n = ((posted >> k) & 1u) != 0u
-                        ? (int)fminf(fmaxf(ld_rec<kFeat>(rec + 7 * kSlots + k), 0.0f), (float)leaf_k)
-                        : 0;
-      m += (int)__reduce_max_sync(kWarpMask, (unsigned)n);
-      if constexpr ((kFeat & kPackSlots) == 0) runs += (n + 31) >> 5;
+      m += (int)__reduce_max_sync(kWarpMask, (unsigned)n[k]);
+      if constexpr ((kFeat & kPackSlots) == 0) runs += (n[k] + 31) >> 5;
     }
     if constexpr ((kFeat & kPackSlots) != 0) {
       runs = posted != 0u ? ((33 - __clz(posted) - __ffs(posted)) * leaf_k + 31) >> 5 : 0;
@@ -888,9 +900,9 @@ struct Ray {
         }
       }
     } else if (posted != 0u) {
-      at = lane_nearest(rec, posted, leaf_k);
+      at = lane_nearest(qn + (size_t)node * (size_t)recw, posted, leaf_k);
     }
-    if (at >= 0) occluder(rec, leaf_k, at);
+    if (at >= 0) occluder(qn + (size_t)node * (size_t)recw, leaf_k, at);
   }
 };
 
