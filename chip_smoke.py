@@ -146,7 +146,8 @@ and the microbenchmark kernels; they run last, phase 28 between 26 and 27:
    leaf_size 1 and 8: set_scene's stages, BVH2 rows, record bytes and peak
    memory; the Morton codes and order and the BVH2 (bounds, left, right,
    meta, parent) built on the card equal word for word the same functions
-   run on the CPU, and at K = 8 the 4-wide collapse too; render() framed and
+   run on the CPU, and at K = 8 the 4-wide collapse too (the CPU builds run
+   after every timed phase: lbvh_cpu_check); render() framed and
    sparse (one K1a launch each), every pixel's triangle the SAH K = 32
    frame's but for proven ties, t bit-equal and the image equal where it
    agrees; K1a at leaf_k = 1 and 8 against its plain version on the crop (0
@@ -205,21 +206,22 @@ phase 26, before 27:
    closest-hit waves swapped between the plan's core and the render core
    (radiance equal), A-B-B-A. K1 (over leaves of K > 1; k1_phase, also
    alone: tools_torch/ab_tiles.py): ptxas of every instantiation of the
-   warp-leaves tile cores, and the render core's machine code (what every
-   launch at K = 1 runs) held instruction for instruction against the
-   parent's (tools_torch/render_core_sass.json); then on K1a framed and
-   sparse, K1b's camera wave, one 8-camera K1c batch of the dynamic
-   dragon's refitted records, config 5's K1c raw, the Cornell box at SAH
-   K = 32, Morton K = 8, the 8-wide tree (K1e), K1d and K1f: every plane
-   bit-identical between the render core (core="order"), the frozen loop,
-   the warp's leaf tests at every step (traverse.ANY_HIT_CORE's closest hit,
-   where built) and the per-step choice (traverse.TILE_CORE), the warp
-   census of each case (what each warp step posts, priced for both leaf
-   stages, from the plain version), the cores timed in one series forward
-   and back with what traverse.tile_plan runs, the cost sweep of TILE_CORE's
-   rule (TILE_COSTS) on the K1a cases, and A-B-B-A with only K1 swapped
-   between the plan's core and the render core: the headline frame (K1a,
-   shade, quantize), one 3-bounce sample and the dynamic dragon frame.
+   per-step tile core (traverse.TILE_CORE); then on K1a framed and sparse,
+   K1b's camera wave, one 8-camera K1c batch of the dynamic dragon's
+   refitted records, config 5's K1c raw, the Cornell box at SAH K = 32,
+   Morton K = 8, the 8-wide tree (K1e), K1d and K1f: every plane
+   bit-identical between the render core (core="order"), the frozen loop
+   and TILE_CORE, the warp census of each case (what each warp step posts,
+   priced for both leaf stages, from the plain version), the cores timed in
+   one series forward and back with what traverse.tile_plan runs, and
+   A-B-B-A with only K1 swapped between the plan's core and the render
+   core: the headline frame (K1a, shade, quantize), one 3-bounce sample and
+   the dynamic dragon frame. After every timed phase (untimed_checks), the
+   render core's machine code (what every launch at K = 1 runs) is held
+   instruction for instruction against the parent's
+   (tools_torch/render_core_sass.json, regenerated from the parent by
+   tools_torch/ab_parent.py in every change to csrc/traverse_core.cuh's
+   render core), beside phase 25's CPU builds.
 
 Phase 29 drives the headless apps and the rest of the build chain; it runs
 after phase 28, before 27:
@@ -690,8 +692,6 @@ def build_all() -> None:
                     timed, microbench.load_microbench),
                 "traverse_tiles.cu (K1a, K1b, K1c, K1d, K1e, K1f)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu"),
-                "traverse_tiles.cu:warp (K1 over leaves of K > 1)": pool.submit(
-                    timed, traverse.load_kernel, "traverse_tiles.cu:warp"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
                     timed, traverse.load_kernel, "traverse_rays.cu")}
         results = {name: job.result() for name, job in jobs.items()}
@@ -1007,11 +1007,8 @@ def main() -> None:
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| python {sys.version.split()[0]}")
 
-    # 2. the builds; the render core's machine code read back in the
-    # background (phase 28 holds it against the parent's)
+    # 2. the builds
     build_all()
-    background = ThreadPoolExecutor(max_workers=1)
-    sass = background.submit(render_core_sass)
 
     # 3. the primary-ray main path
     glb = ROOT / "data" / "dragon_standin.glb"
@@ -1070,7 +1067,7 @@ def main() -> None:
            "crop_dirs": frame_dirs(crop_pix), "r0": r0, "c0": c0, "sample": sample,
            "bound_pix": bound_pix,
            "origin": torch.tensor(FRAMED, dtype=torch.float32, device=dev),
-           "images": {"framed": img_framed, "sparse": img_sparse}, "render_core_sass": sass}
+           "images": {"framed": img_framed, "sparse": img_sparse}}
 
     # 4., 5. K1a vs its plain torch version on the framed view's centre crop
     # and vs the brute-force tracer on seeded framed-view pixels
@@ -1234,6 +1231,10 @@ def main() -> None:
 
     # 27. the microbenchmark kernels
     mb_rows = microbench_phase(env)
+
+    # after every timed phase: the checks that only the host's CPU runs
+    # (phase 25's reference builds, the render core's machine code)
+    untimed_checks(env)
 
     log(card)
     sources = {**KERNELS, **MB_KERNELS}
@@ -2661,31 +2662,17 @@ def lbvh_phase(env: dict, scene) -> dict:
     and Morton clusters of 8 → per K its records and the crop's traversal
     counts (for phase 26)."""
     from raytracer_tpu_torch import PathTracer
-    from raytracer_tpu_torch.ops.cluster import build_lbvh2_clustered
     from raytracer_tpu_torch.ops.collapse import collapse_lbvh2_to_bvh4
     from raytracer_tpu_torch.ops.cuda import traverse
-    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
     from raytracer_tpu_torch.ops.morton import build_morton_and_sort
 
     card, dev, tris = env["card"], env["dev"], env["tris"]
-    tris_cpu = tris.cpu()
     views = (("framed", FRAMED), ("sparse", SPARSE))
     all_dirs = frame_dirs(torch.arange(WIDTH * HEIGHT, device=dev))
     k32 = {view: [p.reshape(-1) for p in traverse.trace_tiles(env["qn"], pos, QUAT, WIDTH, HEIGHT,
                                                                FOV, leaf_k=LEAF_K)]
            for view, pos in views}
 
-    # the same builds on the CPU, in the background while the card builds
-    # and checks its trees; held against the card's at the end of the phase
-    def cpu_builds():
-        t0 = time.perf_counter()
-        morton = build_morton_and_sort(tris_cpu)
-        bvh2 = {1: build_lbvh2(tris_cpu), 8: build_lbvh2_clustered(tris_cpu, 8).bvh2}
-        b4 = collapse_lbvh2_to_bvh4(bvh2[8])
-        return morton, bvh2, b4, time.perf_counter() - t0
-
-    cpu_pool = ThreadPoolExecutor(max_workers=1)
-    cpu = cpu_pool.submit(cpu_builds)
     codes, order = build_morton_and_sort(tris)
     card_bvh2 = {}
 
@@ -2706,7 +2693,7 @@ def lbvh_phase(env: dict, scene) -> dict:
         if not torch.equal(pt._tris_dev, tris):
             fail(f"{what}: the tracer holds other triangles than the SAH one")
 
-        card_bvh2[k] = pt._bvh2  # held against the CPU build after the loop
+        card_bvh2[k] = pt._bvh2  # held against the CPU build after every timed phase
 
         # render(): one K1a launch a view, the frame the SAH K = 32 tree's but for ties
         pt.set_camera_quaternion(*QUAT)
@@ -2766,28 +2753,46 @@ def lbvh_phase(env: dict, scene) -> dict:
             env["waves"][1] = waves  # for phase 28
         del pt, images
 
-    # the Morton order, the BVH2s and K = 8's 4-wide collapse on the card
-    # against the CPU's
-    (c_codes, c_order), cpu2, b4_cpu, cpu_s = cpu.result()
-    cpu_pool.shutdown()
-    if not (torch.equal(codes.cpu(), c_codes) and torch.equal(order.cpu(), c_order)):
+    # the Morton order, the BVH2s and K = 8's 4-wide collapse on the card,
+    # held against the same builds on the CPU after every timed phase
+    # (lbvh_cpu_check)
+    b4 = collapse_lbvh2_to_bvh4(card_bvh2[8])
+    env["lbvh_card"] = ((codes.cpu(), order.cpu()),
+                        {k: [a.cpu() for a in bvh2] for k, bvh2 in card_bvh2.items()},
+                        (b4.num_nodes, [a.cpu() for a in b4[:3]]))
+    return trees
+
+
+def lbvh_cpu_check(env: dict) -> None:
+    """25 (end). The CPU's Morton order, BVH2s (K = 1, 8) and K = 8's 4-wide
+    collapse of the dragon equal the card's of lbvh_phase word for word."""
+    from raytracer_tpu_torch.ops.cluster import build_lbvh2_clustered
+    from raytracer_tpu_torch.ops.collapse import collapse_lbvh2_to_bvh4
+    from raytracer_tpu_torch.ops.lbvh import build_lbvh2
+    from raytracer_tpu_torch.ops.morton import build_morton_and_sort
+
+    (codes, order), card_bvh2, (n4, b4) = env["lbvh_card"]
+    tris = env["tris"].cpu()
+    t0 = time.perf_counter()
+    c_codes, c_order = build_morton_and_sort(tris)
+    cpu2 = {1: build_lbvh2(tris), 8: build_lbvh2_clustered(tris, 8).bvh2}
+    b4_cpu = collapse_lbvh2_to_bvh4(cpu2[8])
+    cpu_s = time.perf_counter() - t0
+    if not (torch.equal(codes, c_codes) and torch.equal(order, c_order)):
         fail("the Morton codes or order on the card differ from the CPU's")
     log(f"[lbvh] Morton codes and order of {tris.shape[0]} triangles: the card's equal the "
-        f"CPU's ({cpu_s:.2f} s for the CPU's builds, run beside the card's)")
+        f"CPU's ({cpu_s:.2f} s for the CPU's builds)")
     for k, bvh2 in card_bvh2.items():
         what = f"lbvh K={k}"
         for name, a, b in zip(("bounds", "left", "right", "meta", "parent"), bvh2, cpu2[k]):
-            if not torch.equal(a.cpu(), b):
+            if not torch.equal(a, b):
                 fail(f"{what}: BVH2 {name} on the card differs from the CPU build in "
-                     f"{int((a.cpu() != b).sum())} words")
+                     f"{int((a != b).sum())} words")
         log(f"[{what}] BVH2 on the card equals the CPU build word for word (bounds, left, right, "
-            f"meta, parent; {bvh2.num_nodes} rows)")
-    b4 = collapse_lbvh2_to_bvh4(card_bvh2[8])
-    if b4.num_nodes != b4_cpu.num_nodes or not all(
-            torch.equal(a.cpu(), b) for a, b in zip(b4[:3], b4_cpu[:3])):
+            f"meta, parent; {cpu2[k].num_nodes} rows)")
+    if n4 != b4_cpu.num_nodes or not all(torch.equal(a, b) for a, b in zip(b4, b4_cpu[:3])):
         fail("lbvh K=8: the 4-wide collapse on the card differs from the CPU's")
-    log(f"[lbvh K=8] the 4-wide collapse on the card equals the CPU's ({b4.num_nodes} rows)")
-    return trees
+    log(f"[lbvh K=8] the 4-wide collapse on the card equals the CPU's ({n4} rows)")
 
 
 def leaf_phase(env: dict, trees: dict) -> None:
@@ -2888,12 +2893,13 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
     env["waves"][8], _ = capture_waves(env, trees[8]["qn"], leaf_k=8)
 
     # ptxas: each instantiation of the redesigned core (the render core and
-    # the measured sets of elements) beside its baseline twin
+    # the measured sets of elements) beside its baseline twin (the tile
+    # kernels' warp-leaves cores: the K1 phase's report)
     for src in ("traverse_tiles.cu", "traverse_rays.cu"):
         found = {k: (r, f, st, ld) for k, r, f, st, ld in ptxas_rows(traverse.load_kernel(src)[1])}
         for kernel, (regs, frame, st, ld) in found.items():
             head, core = kernel[:kernel.rindex(",")], int(kernel[kernel.rindex(",") + 1:-1])
-            if core & 256:
+            if core & 256 or (src == "traverse_tiles.cu" and core & 32):
                 continue
             # the baseline twin: the same template with core 256 (| 8, unordered)
             twin = f"{head.replace('_persistent', '')},{256 | (core & 8)}>"
@@ -3298,11 +3304,9 @@ def k2a_phase(env: dict, trees_of: dict) -> None:
 
 # 28 (K1). The cores of K1 timed against each other (traverse.core_id
 # names): the render core (K1 at K = 1, and at K > 1 before the per-step
-# leaf stage), the warp's leaf tests at every step (rt::warp_nearest in the
-# tile kernel, traverse.ANY_HIT_CORE's closest hit), the per-step choice
-# between the two (traverse.TILE_CORE) and the frozen loop
-K1_CORES = {"render": "order", "warp": "order+warp+pack", "tile": "order+warp+pack+tile",
-            "frozen": "baseline"}
+# leaf stage), the per-step choice between the warp's leaf tests and the
+# lanes' own loops (traverse.TILE_CORE) and the frozen loop
+K1_CORES = {"render": "order", "tile": "order+warp+pack+tile", "frozen": "baseline"}
 CORNELL_CAM = (0.0, 0.0, 2.2)  # config 1's camera (bench_suite.py:64-140) at i = 0
 
 
@@ -3328,9 +3332,9 @@ def k1_census(qn: torch.Tensor, leaf_k: int, cams: list, pixels: torch.Tensor, w
 
 
 def render_core_sass() -> tuple[dict, dict, str]:
-    """(the parent's digests of tools_torch/render_core_sass.json, this
-    build's digests of the same sources, this nvcc): cuobjdump takes seconds
-    a library, so main() starts this in the background after the builds."""
+    """(the digests of tools_torch/render_core_sass.json, this build's
+    digests of the same sources, this nvcc): cuobjdump takes seconds a
+    library, so untimed_checks() runs this beside phase 25's CPU builds."""
     from raytracer_tpu_torch.ops.cuda import traverse
     from tools_torch.ab_parent import nvcc_version, render_core_digests
 
@@ -3341,18 +3345,24 @@ def render_core_sass() -> tuple[dict, dict, str]:
     return ref, got, nvcc_version()
 
 
-def k1_build_report(traverse, sass) -> None:
-    """ptxas of every tile-kernel instantiation of a warp-leaves core, and
-    the render core's instructions (every K1 and K2 launch at K = 1) against
-    the parent's digests (``sass``: render_core_sass()'s result, or its
-    future)."""
-    warp_log = traverse.load_kernel("traverse_tiles.cu:warp")[1]
-    for kernel, regs, frame, st, ld in ptxas_rows(warp_log):
+def k1_ptxas_report() -> None:
+    """ptxas of every tile-kernel instantiation of a warp-leaves core
+    (rt::kTileCore, in both packing forms)."""
+    from raytracer_tpu_torch.ops.cuda import traverse
+
+    for kernel, regs, frame, st, ld in ptxas_rows(traverse.load_kernel("traverse_tiles.cu")[1]):
         core = int(kernel[kernel.rindex(",") + 1:-1])
-        if core & 32:
-            log(f"[k1] ptxas {kernel} (core {core & 4095}, cost field {core >> 12}): {regs} "
-                f"registers, {frame} bytes stack frame, spills {st}/{ld} bytes")
-    ref, digests, nvcc = sass.result() if hasattr(sass, "result") else sass
+        if core & traverse.CORE_ELEMENTS["warp"]:
+            log(f"[k1] ptxas {kernel} (core {core}): {regs} registers, {frame} bytes stack "
+                f"frame, spills {st}/{ld} bytes")
+
+
+def check_render_core_sass(sass) -> None:
+    """The render core's instructions (every K1 and K2 launch at K = 1)
+    against the digests of tools_torch/render_core_sass.json, which
+    tools_torch/ab_parent.py writes from the parent commit (``sass``:
+    render_core_sass()'s result). A difference fails under the same nvcc."""
+    ref, digests, nvcc = sass
     for source, want in ref["kernels"].items():
         got = digests[source]
         same = [k for k in want if got.get(k) == want[k]]
@@ -3366,30 +3376,40 @@ def k1_build_report(traverse, sass) -> None:
             log(f"[k1] SASS {source}: another nvcc, not comparable: {differ}")
 
 
-def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
+def untimed_checks(env: dict) -> None:
+    """After every timed phase, the checks that only the host's CPU runs,
+    side by side: phase 25's CPU builds against the card's trees
+    (lbvh_cpu_check) and the render core's machine code against the
+    parent's (check_render_core_sass)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        sass = pool.submit(render_core_sass)
+        lbvh_cpu_check(env)
+        check_render_core_sass(sass.result())
+    log(f"[untimed] phase 25's CPU builds and the SASS read-back took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def k1_phase(env: dict, trees_of: dict) -> None:
     """28 (K1). K1 over leaves of K > 1 under its cores (K1_CORES): ptxas of
-    the new instantiations and the render core's machine code against the
-    parent's; on each case every plane bit-identical across the cores; the
-    warp census of each case (k1_census); each case's cores timed in one
-    series forward and back, with what traverse.tile_plan runs. Step 1: the
-    render core, the warp's tests at every step and the frozen loop, on K1a
-    framed and sparse, K1b's camera wave, one 8-camera K1c batch of the
-    dynamic dragon, config 5's K1c raw and the Cornell box at SAH K = 32.
-    Step 2 adds the per-step choice (TILE_CORE) and its cost sweep
-    (TILE_COSTS), Morton K = 8, the 8-wide tree (K1e), K1d and K1f, and the
-    whole paths with only K1 swapped between the plan and the render core:
-    the headline frame (render()'s device work: K1a, shade, quantize), one
-    3-bounce sample and the dynamic dragon frame, A-B-B-A."""
+    the new instantiations; on each case every plane bit-identical across
+    the cores; the warp census of each case (k1_census); each case's cores
+    timed in one series forward and back, with what traverse.tile_plan runs:
+    K1a framed and sparse, K1b's camera wave, one 8-camera K1c batch of the
+    dynamic dragon, config 5's K1c raw and the Cornell box at SAH K = 32,
+    Morton K = 8, the 8-wide tree (K1e), K1d and K1f; and the whole paths
+    with only K1 swapped between the plan and the render core: the headline
+    frame (render()'s device work: K1a, shade, quantize), one 3-bounce
+    sample and the dynamic dragon frame, A-B-B-A."""
     from raytracer_tpu_torch import render_pt
     from raytracer_tpu_torch.ops.cuda import traverse
     from raytracer_tpu_torch.ops.shade import quantize_rgba8, shade_lambert
 
-    if (K1_CORES["warp"], K1_CORES["tile"]) != (traverse.ANY_HIT_CORE, traverse.TILE_CORE):
-        fail("K1_CORES no longer names traverse.ANY_HIT_CORE and traverse.TILE_CORE")
+    if K1_CORES["tile"] != traverse.TILE_CORE:
+        fail("K1_CORES no longer names traverse.TILE_CORE")
     card, dev, tris, crop = env["card"], env["dev"], env["tris"], env["crop_pix"]
     t_phase = time.perf_counter()
-    k1_build_report(traverse, env["render_core_sass"] if "render_core_sass" in env
-                    else render_core_sass())
+    k1_ptxas_report()
     qn32 = env["qn"]
     cams, quats = batch_cameras(CAM_Z)
     whole = torch.arange(CONFIG5_SIZE * CONFIG5_SIZE, device=dev)
@@ -3398,60 +3418,54 @@ def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
         return lambda core: traverse.trace_tiles(qn, cam, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
                                                  core=core, **kw)
 
-    # label → (call(core), its census, whether the warp core is built there,
-    # whether its cost sweep is, frames a timed run, what tile_plan is told)
+    # label → (call(core), its census, frames a timed run, what tile_plan is told)
     cases = {
         f"K1a framed SAH K={LEAF_K}": (tiles(qn32, FRAMED, LEAF_K), lambda: k1_census(
-            qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT), True, True, 8, {}),
+            qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT), 8, {}),
         f"K1a sparse SAH K={LEAF_K}": (tiles(qn32, SPARSE, LEAF_K), lambda: k1_census(
-            qn32, LEAF_K, [SPARSE], crop, WIDTH, HEIGHT), True, True, 8, {}),
+            qn32, LEAF_K, [SPARSE], crop, WIDTH, HEIGHT), 8, {}),
         f"K1b framed SAH K={LEAF_K} (the sample's camera wave)": (
             tiles(qn32, FRAMED, LEAF_K, jitter=True, jitter_seed=JITTER_SEED),
-            lambda: k1_census(qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT, jitter=True), True,
-            False, 8, {"jitter": True}),
+            lambda: k1_census(qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT, jitter=True), 8,
+            {"jitter": True}),
     }
     if "dynamic_qn" in env:
         dq = env["dynamic_qn"]
         cases[f"K1c {N_CAMS} cameras, the dynamic dragon's refitted records"] = (
             lambda core: traverse.trace_tiles_batch(dq, cams, quats, WIDTH, HEIGHT, FOV,
                                                     leaf_k=LEAF_K, core=core),
-            lambda: k1_census(dq, LEAF_K, cams, crop, WIDTH, HEIGHT), True, False, 2,
-            {"batch": True})
+            lambda: k1_census(dq, LEAF_K, cams, crop, WIDTH, HEIGHT), 2, {"batch": True})
     if "config5" in env:
         c5, c5cams, c5quats = env["config5"]
         cases[f"K1c raw, config 5 ({N_CAMS} x {CONFIG5_SIZE}x{CONFIG5_SIZE})"] = (
             lambda core: traverse.trace_tiles_batch(c5, c5cams, c5quats, CONFIG5_SIZE,
                                                     CONFIG5_SIZE, FOV, leaf_k=LEAF_K, raw=True,
                                                     core=core),
-            lambda: k1_census(c5, LEAF_K, c5cams, whole, CONFIG5_SIZE, CONFIG5_SIZE), True,
-            False, FRAMES, {"batch": True, "raw": True})
+            lambda: k1_census(c5, LEAF_K, c5cams, whole, CONFIG5_SIZE, CONFIG5_SIZE), FRAMES,
+            {"batch": True, "raw": True})
     if "cornell32" in env:
         box = env["cornell32"]
         cases[f"K1a Cornell box SAH K={LEAF_K} (3 records)"] = (
             tiles(box, CORNELL_CAM, LEAF_K), lambda: k1_census(
-                box, LEAF_K, [CORNELL_CAM], crop, WIDTH, HEIGHT), True, True, 8, {})
-    if step >= 2:
-        if 8 in trees_of:
-            q8, _, _ = trees_of[8]
-            cases["K1a framed Morton K=8"] = (tiles(q8, FRAMED, 8), lambda: k1_census(
-                q8, 8, [FRAMED], crop, WIDTH, HEIGHT), True, True, 8, {})
-        if "8-wide" in trees_of:
-            qw, _, _ = trees_of["8-wide"]
-            cases[f"K1e framed 8-wide SAH K={LEAF_K}"] = (tiles(qw, FRAMED, LEAF_K), lambda: (
-                k1_census(qw, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT)), False, False, 8, {})
-        if "trace_tiles_k1d" in env.get("row_calls", {}):
-            cases["K1d framed, the frame's bounds and entries"] = (
-                env["row_calls"]["trace_tiles_k1d"][1], None, False, False, 8,
-                {"bounded": True})
-        cases[f"K1f framed SAH K={LEAF_K}"] = (tiles(qn32, FRAMED, LEAF_K, stats=True), None,
-                                               False, False, 8, {"stats": True})
+                box, LEAF_K, [CORNELL_CAM], crop, WIDTH, HEIGHT), 8, {})
+    if 8 in trees_of:
+        q8, _, _ = trees_of[8]
+        cases["K1a framed Morton K=8"] = (tiles(q8, FRAMED, 8), lambda: k1_census(
+            q8, 8, [FRAMED], crop, WIDTH, HEIGHT), 8, {})
+    if "8-wide" in trees_of:
+        qw, _, _ = trees_of["8-wide"]
+        cases[f"K1e framed 8-wide SAH K={LEAF_K}"] = (tiles(qw, FRAMED, LEAF_K), lambda: (
+            k1_census(qw, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT)), 8, {})
+    if "trace_tiles_k1d" in env.get("row_calls", {}):
+        cases["K1d framed, the frame's bounds and entries"] = (
+            env["row_calls"]["trace_tiles_k1d"][1], None, 8, {"bounded": True})
+    cases[f"K1f framed SAH K={LEAF_K}"] = (tiles(qn32, FRAMED, LEAF_K, stats=True), None, 8,
+                                           {"stats": True})
 
-    totals = {}
     log(f"[k1] set-up {time.perf_counter() - t_phase:.1f} s")
-    for what, (fn, census, warp_built, sweep, frames, plan_kw) in cases.items():
+    for what, (fn, census, frames, plan_kw) in cases.items():
         t_case = time.perf_counter()
-        names = ["render"] + ([] if plan_kw.get("raw") else ["frozen"]) + (
-            ["warp"] if warp_built else []) + (["tile"] if step >= 2 else [])
+        names = ["render"] + ([] if plan_kw.get("raw") else ["frozen"]) + ["tile"]
         outs = {n: flat_planes(fn(K1_CORES[n])) for n in names}
         for n in names:
             words = differing_words(outs[n], outs["render"])
@@ -3465,28 +3479,13 @@ def k1_phase(env: dict, trees_of: dict, step: int = 2) -> None:
                 f"{json.dumps(census())}")
         ms = series({n: (lambda n=n: fn(K1_CORES[n])) for n in names}, frames, 2)
         line = ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
-        plan = ""
-        if step >= 2:
-            k = 8 if "Morton" in what else LEAF_K
-            slots = 8 if "8-wide" in what else 4
-            cid = traverse.tile_plan("hopper", leaf_k=k, slots=slots, **plan_kw)
-            picked = "tile" if cid == traverse.core_id(K1_CORES["tile"]) else "render"
-            plan = (f"; render / tile {ms['render'] / ms['tile']:.4f}; the plan runs "
-                    f"{picked} ({ms[picked]:.4f} ms)")
-            totals[what] = ms
-        log(f"[k1] {what}: {line} ms{plan}; every plane bit-identical to the render core "
-            f"on {card} ({time.perf_counter() - t_case:.1f} s)")
-        if sweep and step >= 2:
-            costs = {**{f"c={c:g}": f"{K1_CORES['tile']}@{c:g}" for c in traverse.TILE_COSTS},
-                     "c=0 (warp)": K1_CORES["warp"], "render": "order",
-                     "tile (its c)": K1_CORES["tile"]}
-            ms = series({n: (lambda c=c: fn(c)) for n, c in costs.items()}, frames, 2)
-            log(f"[k1] cost sweep {what}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
-                + f" ms on {card}")
-    env["k1_times"] = totals
-    if step < 2:
-        log(f"[k1] K1's part of phase 28 (step 1) took {time.perf_counter() - t_phase:.1f} s")
-        return
+        k = 8 if "Morton" in what else LEAF_K
+        slots = 8 if "8-wide" in what else 4
+        cid = traverse.tile_plan("hopper", leaf_k=k, slots=slots, **plan_kw)
+        picked = "tile" if cid == traverse.core_id(K1_CORES["tile"]) else "render"
+        log(f"[k1] {what}: {line} ms; render / tile {ms['render'] / ms['tile']:.4f}; the plan "
+            f"runs {picked} ({ms[picked]:.4f} ms); every plane bit-identical to the render "
+            f"core on {card} ({time.perf_counter() - t_case:.1f} s)")
 
     # the whole paths, only K1 swapped between the plan ("hopper") and the
     # render core

@@ -187,16 +187,9 @@ constexpr unsigned kAnyHitCore = kOrder | kWarpLeaves | kPackSlots;
 constexpr unsigned kTileCore = kAnyHitCore | kTileLeaves;
 
 // c of kTileLeaves' rule c·w < m: what one run of the warp's leaf tests
-// costs in iterations of a lane's loop (chip_smoke.py's K1 phase; PERF.md
-// §6). A core mask may carry another c for measurement, in quarters plus
-// one, in bits kTileCostShift and up (0: this one); tile_cost reads it.
+// costs in iterations of a lane's loop, measured on the card (a sweep of
+// c = 0, 1, 1.25, 1.5, 2, 3 on K1a; PERF.md §6).
 constexpr float kTileLeafCost = 1.5f;
-constexpr int kTileCostShift = 12;
-
-__host__ __device__ constexpr float tile_cost(unsigned feat) {
-  return (feat >> kTileCostShift) != 0u ? 0.25f * (float)((feat >> kTileCostShift) - 1u)
-                                        : kTileLeafCost;
-}
 
 constexpr unsigned kWarpMask = 0xffffffffu;
 
@@ -883,7 +876,7 @@ struct Ray {
     }
     if (m == 0) return;  // warp-uniform: no posted slot holds a triangle
     int at = -1;
-    if (tile_cost(kFeat) * (float)__reduce_add_sync(kWarpMask, (unsigned)runs) < (float)m) {
+    if (kTileLeafCost * (float)__reduce_add_sync(kWarpMask, (unsigned)runs) < (float)m) {
       for (unsigned lanes = __ballot_sync(kWarpMask, posted != 0u); lanes != 0u;
            lanes &= lanes - 1u) {
         const int src = __ffs(lanes) - 1;

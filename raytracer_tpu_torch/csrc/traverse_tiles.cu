@@ -117,15 +117,6 @@
 
 #include "traverse_core.cuh"
 
-// The source builds as two libraries (ops/cuda/traverse.py::TILE_SOURCES),
-// their nvcc runs started together: with RT_TILES_WARP the launchers take
-// the warp-leaves cores (rt::kTileCore, rt::kAnyHitCore, the cost sweep),
-// without it the render core, the frozen loop and the element sets. Each
-// refuses the other's cores (cudaErrorInvalidValue).
-#ifndef RT_TILES_WARP
-#define RT_TILES_WARP 0
-#endif
-
 namespace {
 
 constexpr int kBlock = 8;  // threads a side of a block
@@ -387,17 +378,10 @@ int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
 // (chip_smoke.py phase 28): X(mask) for each.
 #define RT_MEASURED_TILE_CORES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
 
-// rt::kTileCore with another cost c of its rule (rt::tile_cost: the field
-// 4c + 1 from bit rt::kTileCostShift), instantiated for K1a alone in both
-// packing forms, to find c on the card (chip_smoke.py's K1 phase): X(4c + 1)
-// for each c = 1, 1.25, 2, 3 (c = 0 is the warp's tests at every step, which
-// rt::kAnyHitCore's closest hit times without the pricing).
-#define RT_TILE_COSTS(X) X(5) X(6) X(9) X(13)
-
-// A warp-leaves core's mask for leaves of `leaf_k`: kPackSlots dropped from
+// rt::kTileCore's mask for leaves of `leaf_k`: kPackSlots dropped from
 // K = 32 on, where the slots' own runs won (traverse_rays.cu's rule).
-constexpr unsigned packed(unsigned core, int leaf_k) {
-  return leaf_k < 32 ? core : core & ~rt::kPackSlots;
+constexpr unsigned tile_core(int leaf_k) {
+  return leaf_k < 32 ? rt::kTileCore : rt::kTileCore & ~rt::kPackSlots;
 }
 
 }  // namespace
@@ -412,13 +396,10 @@ constexpr unsigned packed(unsigned core, int leaf_k) {
 // (focal and aspect are the frame's); visits: a sixth f32 plane or null.
 // `core`: -1 or rt::kRenderCore (1) for the render core (every render path
 // at K = 1), rt::kTileCore (225) for closest hit over leaves of K > 1 with the
-// per-step choice of leaf stage, rt::kBaseline (256, the baseline loop), for
-// all of these; rt::kAnyHitCore (97: the warp's leaf tests at every step,
-// warp_nearest) for 4-wide records without visits or tables; or for K1a (no
+// per-step choice of leaf stage (kPackSlots dropped from leaf_k = 32 on),
+// rt::kBaseline (256, the baseline loop), for all of these; or for K1a (no
 // jitter, visits or tables) one of the feature masks of
-// RT_MEASURED_TILE_CORES, or rt::kTileCore with a cost field of
-// RT_TILE_COSTS (timing an element or a cost alone). The warp-leaves cores
-// drop kPackSlots from leaf_k = 32 on.
+// RT_MEASURED_TILE_CORES (timing an element alone).
 // Returns cudaGetLastError() after the launch (0 on success, or
 // cudaErrorInvalidValue for another slot count, only one of the two tables,
 // or a core outside these sets); synchronises nothing.
@@ -442,31 +423,10 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 #define RT_ALL(C)                                                                   \
   (slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS)        \
               : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS))
-#if RT_TILES_WARP
-  const bool pack = leaf_k < 32;
-  if (core == (int)rt::kTileCore) {
-    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
-  }
-  if (slots != 4 || with_visits || bounded) return (int)cudaErrorInvalidValue;
-  if (core == (int)rt::kAnyHitCore) {
-#define RT_J(C) (j ? launch_tiles<4, true, false, false, C>(RT_TILE_ARGS) \
-                   : launch_tiles<4, false, false, false, C>(RT_TILE_ARGS))
-    return pack ? RT_J(packed(rt::kAnyHitCore, 1)) : RT_J(packed(rt::kAnyHitCore, 32));
-#undef RT_J
-  }
-  if (j) return (int)cudaErrorInvalidValue;
-#define RT_COST(V)                                                                           \
-  case (int)(rt::kTileCore | (V##u << rt::kTileCostShift)):                                  \
-    return pack ? launch_tiles<4, false, false, false,                                       \
-                               packed(rt::kTileCore, 1) | (V##u << rt::kTileCostShift)>(     \
-                      RT_TILE_ARGS)                                                          \
-                : launch_tiles<4, false, false, false,                                       \
-                               packed(rt::kTileCore, 32) | (V##u << rt::kTileCostShift)>(    \
-                      RT_TILE_ARGS);
-  switch (core) { RT_TILE_COSTS(RT_COST) default: break; }
-#undef RT_COST
-#else
   if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kTileCore) {
+    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+  }
   if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
   if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
 #define RT_CASE(M) \
@@ -474,7 +434,6 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
     return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
   switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
 #undef RT_CASE
-#endif
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
@@ -486,8 +445,7 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 // offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
 // Outputs: (num_frames, height, width) planes; visits: a sixth f32 plane or
 // null. `core`: -1 or rt::kRenderCore (1), rt::kTileCore (225) or
-// rt::kBaseline (256); or rt::kAnyHitCore (97) on 4-wide records without
-// jitter or visits. Returns cudaGetLastError() after the launch (0 on
+// rt::kBaseline (256). Returns cudaGetLastError() after the launch (0 on
 // success, or cudaErrorInvalidValue for another slot count or core);
 // synchronises nothing.
 extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, int slots,
@@ -501,19 +459,11 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
 #define RT_ALL(C)                                                            \
   (slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS))
-#if RT_TILES_WARP
-  const bool pack = leaf_k < 32;
-  if (core == (int)rt::kTileCore) {
-    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
-  }
-  if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
-    return pack ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1)>(RT_BATCH_ARGS)
-                : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32)>(RT_BATCH_ARGS);
-  }
-#else
   if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+  if (core == (int)rt::kTileCore) {
+    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+  }
   if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
-#endif
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
@@ -522,8 +472,7 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
 // raw with slots = 8; K1f raw with `stats` != 0, whose plane 5 holds the
 // visits): `num_frames` frames of width × height pixels, both multiples of
 // 32, cameras as for rt_trace_tiles_batch (each frame whole: offsets 0).
-// `core`: -1 or rt::kRenderCore (1), rt::kTileCore (225); or
-// rt::kAnyHitCore (97) on 4-wide records without jitter or stats.
+// `core`: -1 or rt::kRenderCore (1), or rt::kTileCore (225).
 // out: (num_frames, width/32 · height/32, 6, 1024) f32, every word written.
 // Returns cudaGetLastError() after the launch (0 on success, or
 // cudaErrorInvalidValue for another slot count, core, or a size that is not
@@ -545,19 +494,10 @@ extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_
 #define RT_ALL(C)                                                                  \
   (slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS))
-#if RT_TILES_WARP
-  const bool pack = leaf_k < 32;
-  if (core == (int)rt::kTileCore) {
-    return pack ? RT_ALL(packed(rt::kTileCore, 1)) : RT_ALL(packed(rt::kTileCore, 32));
-  }
-  if (core == (int)rt::kAnyHitCore && slots == 4 && !j && !with_visits) {
-    return pack
-               ? launch_batch<4, false, false, packed(rt::kAnyHitCore, 1), true>(RT_BATCH_ARGS)
-               : launch_batch<4, false, false, packed(rt::kAnyHitCore, 32), true>(RT_BATCH_ARGS);
-  }
-#else
   if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-#endif
+  if (core == (int)rt::kTileCore) {
+    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+  }
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }

@@ -73,7 +73,7 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
            "trace_rays", "trace_rays_reference", "launch_plan", "tile_plan", "ANY_HIT_CORE",
-           "CLOSEST_HIT_CORE", "TILE_CORE", "TILE_COSTS", "load_kernel", "tile_warp_ids",
+           "CLOSEST_HIT_CORE", "TILE_CORE", "load_kernel", "tile_warp_ids",
            "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
            "CORE_ELEMENTS", "core_id", "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES",
            "SMEM_BLOCK", "check_tree_space", "tree_space_limits", "l2_window"]
@@ -100,11 +100,8 @@ _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 # alone). "order" is the render core itself, and K1 and K2 build it, like
 # ANY_HIT_CORE (= CLOSEST_HIT_CORE, the set that launch_plan picks for K2
 # over leaves of K > 1), for every width, order, schedule and placement;
-# TILE_CORE is built for every K1 variant, ANY_HIT_CORE for K1a, K1b and K1c
-# (raw or not) on 4-wide records without visits, tables or a jittered
-# batch. TILE_CORE with "@c" appended (c in TILE_COSTS) is its rule with
-# another cost c, built for K1a. Only chip_smoke.py, tools_torch/ and the
-# card tests pass anything but "hopper".
+# TILE_CORE is built for every K1 variant. Only chip_smoke.py, tools_torch/
+# and the card tests pass anything but "hopper".
 CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64, "tile": 128}
 ANY_HIT_CORE = "order+warp+pack"  # rt::kAnyHitCore
 # closest hit with the warp's leaf tests: rt::kAnyHitCore's mask, launched
@@ -113,10 +110,6 @@ CLOSEST_HIT_CORE = ANY_HIT_CORE
 # K1's closest hit over leaves of K > 1 with a per-step, warp-uniform choice
 # between the warp's leaf tests and each lane's own loop (rt::kTileCore)
 TILE_CORE = "order+warp+pack+tile"
-# the costs c of TILE_CORE's rule built beside its own (traverse_tiles.cu's
-# RT_TILE_COSTS), and the field that carries one in a core id
-TILE_COSTS = (1.0, 1.25, 2.0, 3.0)
-_TILE_COST_SHIFT = 12
 _MAIN_CORE, _BASELINE_CORE = -1, 256
 _RENDER_CORE = CORE_ELEMENTS["order"]  # rt::kRenderCore, named
 _ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
@@ -168,26 +161,16 @@ def reset_launches() -> None:
 
 
 def core_id(core: str) -> int:
-    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS):
-    TILE_CORE + "@c" carries the cost c of its rule in quarters plus one
-    from bit 12 (rt::tile_cost)."""
+    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS)."""
     if core == "hopper":
         return _MAIN_CORE
     if core == "baseline":
         return _BASELINE_CORE
-    name, at, cost = core.partition("@")
-    parts = [] if name == "none" else name.split("+")
+    parts = [] if core == "none" else core.split("+")
     if not all(p in CORE_ELEMENTS for p in parts) or len(set(parts)) != len(parts):
         raise ValueError(f"core must be 'hopper', 'baseline', 'none' or elements of "
                          f"{sorted(CORE_ELEMENTS)} joined by '+', got {core!r}")
-    cid = sum(CORE_ELEMENTS[p] for p in parts)
-    if at:
-        quarters = float(cost) * 4 if cost.replace(".", "", 1).isdigit() else -1.0
-        if cid != _TILE_CORE or quarters != int(quarters) or not 0 <= quarters < 63:
-            raise ValueError(f"only {TILE_CORE!r} takes a cost '@c' (c a multiple of 0.25 "
-                             f"below 15.75), got {core!r}")
-        cid |= (int(quarters) + 1) << _TILE_COST_SHIFT
-    return cid
+    return sum(CORE_ELEMENTS[p] for p in parts)
 
 
 def _count(name: str, core: str) -> None:
@@ -353,12 +336,6 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
     return rg_w, rg_h
 
 
-# traverse_tiles.cu builds as two libraries, started together: the render
-# core, the frozen loop and the measured element sets ("traverse_tiles.cu"),
-# and the warp-leaves cores ("traverse_tiles.cu:warp", with RT_TILES_WARP),
-# so that neither nvcc takes much longer than traverse_rays.cu's.
-TILE_SOURCES = ("traverse_tiles.cu", "traverse_tiles.cu:warp")
-
 _ARGTYPES = {
     "traverse_tiles.cu": {
         "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -383,23 +360,16 @@ _ARGTYPES = {
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b/K1c/K1d/K1e/K1f; its warp-leaves cores ``traverse_tiles.cu:warp``,
-    :data:`TILE_SOURCES`) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
+    (K1a/K1b/K1c/K1d/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
     (library, nvcc log)."""
     from .build import build_library
 
-    src, _, part = source.partition(":")
-    lib, log = build_library(src, f"RT_TILES_{part.upper()}" if part else "")
-    for name, argtypes in _ARGTYPES[src].items():
+    lib, log = build_library(source)
+    for name, argtypes in _ARGTYPES[source].items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib, log
-
-
-def _tile_source(cid: int) -> str:
-    """The build of traverse_tiles.cu that holds core ``cid`` (TILE_SOURCES)."""
-    return TILE_SOURCES[cid >= 0 and bool(cid & CORE_ELEMENTS["warp"])]
 
 
 def _tile_launch_name(width: int, stats: bool, plain: str, bounded: bool = False) -> str:
@@ -493,7 +463,7 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel(_tile_source(cid))
+    lib, _ = load_kernel("traverse_tiles.cu")
     pos, quat = _camera(cam_pos, cam_quat)
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
@@ -633,7 +603,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         return tiles_layout(planes) if raw else planes
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel(_tile_source(cid))
+    lib, _ = load_kernel("traverse_tiles.cu")
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                        for p, q, s in zip(pos, quat, seeds)], qn.device)
@@ -838,9 +808,10 @@ def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: b
 # config 5's K1c raw 1.35×, Morton K = 8 1.10×, K1e 1.34×, K1d 1.60×, K1f
 # 1.55×, and stayed within 5% of the warp's tests at every step, which lose
 # 1.31× at Morton K = 8 and 1.62× on the Cornell box. That box at SAH K = 32
-# (3 records, all 32 lanes post one leaf every step) is the one tree where
-# the render core stays ahead, by 2%; config 5's tree, also in cache, wins,
-# so the plan does not read the tree's size.
+# (3 records, all 32 lanes post one leaf every step, so the rule takes the
+# lanes' loops, the render core's leaf stage, at every step) is a tie: 0.981×
+# in one run, 1.001× in another, inside the spread of the two. Config 5's
+# tree, also in cache, wins, so the plan does not read the tree's size.
 
 
 def tile_plan(core: str, *, leaf_k: int, slots: int, jitter: bool = False,
@@ -854,24 +825,19 @@ def tile_plan(core: str, *, leaf_k: int, slots: int, jitter: bool = False,
     "hopper" is the render core at K = 1 and TILE_CORE over leaves of more
     than one triangle. "order" (the render core by name) and TILE_CORE run
     as named in every variant, "baseline" in every variant but ``raw``.
-    Raises ``ValueError`` for what is not built: ANY_HIT_CORE (closest hit
-    with the warp's tests at every step) but on 4-wide records without
-    ``stats``, ``bounded`` or a jittered batch; a set of the design
-    elements, or TILE_CORE with a cost ``@c``, but for K1a (4-wide, one
-    frame, no jitter, ``stats`` or ``bounded``); "baseline" with ``raw``."""
+    Raises ``ValueError`` for what is not built: a set of the design
+    elements but for K1a (4-wide, one frame, no jitter, ``stats`` or
+    ``bounded``); "baseline" with ``raw``."""
     cid = core_id(core)
     if core == "hopper":
         return _TILE_CORE if leaf_k > 1 else _MAIN_CORE
     if cid in (_RENDER_CORE, _TILE_CORE) or (cid == _BASELINE_CORE and not raw):
         return cid
     if raw and cid == _BASELINE_CORE:
-        raise ValueError(f"raw=True runs the 'hopper' core, 'order', {TILE_CORE!r} or "
-                         f"{ANY_HIT_CORE!r}, not {core!r}")
+        raise ValueError(f"raw=True runs the 'hopper' core, 'order' or {TILE_CORE!r}, "
+                         f"not {core!r}")
     k1a = slots == 4 and not (jitter or stats or bounded or batch)
-    if cid == _ANY_HIT_CORE and slots == 4 and not (stats or bounded or (batch and jitter)):
-        return cid
-    if k1a and (cid in _MEASURED_TILE_CORES
-                or cid in {core_id(f"{TILE_CORE}@{c}") for c in TILE_COSTS}):
+    if k1a and cid in _MEASURED_TILE_CORES:
         return cid
     raise ValueError(f"core {core!r} is not built for this tile launch (slots {slots}, "
                      f"jitter {jitter}, stats {stats}, bounded {bounded}, batch {batch}, "

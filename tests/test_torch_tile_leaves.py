@@ -20,8 +20,8 @@ per-step choice of leaf stage of ``csrc/traverse_core.cuh``
 * ``traverse.tile_plan`` routes K = 1 to the render core and K > 1 by the
   rule the card measured, passes "order" and "baseline" through, and raises
   for what the launchers do not build.
-* ``TILE_CORE``'s mask, its cost field and the launchers' measured costs
-  are the C++ ones, read with a regex.
+* ``TILE_CORE``'s mask, its cost c and the launchers' cores are the C++
+  ones, read with a regex.
 
 Needs no card and no Pallas call; the kernels themselves are held against
 the render core, the frozen loop and the plain version on the card
@@ -229,61 +229,48 @@ def test_tile_plan_routes_by_leaf_size(slots):
 
 
 def test_tile_plan_refuses_what_is_not_built():
-    """The warp's tests at every step (ANY_HIT_CORE) are built for 4-wide
-    K1a, K1b and K1c (raw or not) without visits, tables or a jittered
-    batch; the element sets and TILE_CORE's other costs for K1a alone; no
-    frozen loop writes the raw layout; a bad name raises."""
+    """The element sets are built for K1a alone; the warp's tests at every
+    step (ANY_HIT_CORE, K2's core) and the warp's elements alone for no tile
+    launch; no frozen loop writes the raw layout; a bad name, or a cost
+    appended to a core's name, raises."""
     plan = traverse.tile_plan
-    warp = traverse.core_id(traverse.ANY_HIT_CORE)
-    for kw in (dict(), dict(jitter=True), dict(batch=True), dict(batch=True, raw=True)):
-        assert plan(traverse.ANY_HIT_CORE, leaf_k=32, slots=4, **kw) == warp
-    for kw in (dict(stats=True), dict(bounded=True), dict(batch=True, jitter=True)):
-        with pytest.raises(ValueError, match="not built"):
-            plan(traverse.ANY_HIT_CORE, leaf_k=32, slots=4, **kw)
-    with pytest.raises(ValueError, match="not built"):
-        plan(traverse.ANY_HIT_CORE, leaf_k=32, slots=8)
-    costs = [f"{traverse.TILE_CORE}@{c:g}" for c in traverse.TILE_COSTS]
-    for core in ("none", "order+stack", "order+stack+prefetch", *costs):
+    variants = (dict(slots=8), dict(slots=4, jitter=True), dict(slots=4, stats=True),
+                dict(slots=4, bounded=True), dict(slots=4, batch=True),
+                dict(slots=4, batch=True, raw=True))
+    for core in ("none", "order+stack", "order+stack+prefetch"):
         assert plan(core, leaf_k=32, slots=4) == traverse.core_id(core)
-        for kw in (dict(slots=8), dict(slots=4, jitter=True), dict(slots=4, stats=True),
-                   dict(slots=4, bounded=True), dict(slots=4, batch=True)):
+        for kw in variants:
             with pytest.raises(ValueError, match="not built"):
                 plan(core, leaf_k=32, **kw)
-    for core in ("warp", "order+warp", "warp+pack", f"{traverse.TILE_CORE}@2.5"):
-        with pytest.raises(ValueError, match="not built"):
-            plan(core, leaf_k=32, slots=4)
+    for core in (traverse.ANY_HIT_CORE, "warp", "order+warp", "warp+pack"):
+        for kw in (dict(slots=4), *variants):
+            with pytest.raises(ValueError, match="not built"):
+                plan(core, leaf_k=32, **kw)
     with pytest.raises(ValueError, match="'hopper' core"):
         plan("baseline", leaf_k=32, slots=4, batch=True, raw=True)
-    for bad in ("tile+tile", "fast", f"{traverse.ANY_HIT_CORE}@2", f"{traverse.TILE_CORE}@0.3",
-                f"{traverse.TILE_CORE}@16", f"{traverse.TILE_CORE}@x"):
-        with pytest.raises(ValueError, match="core must be|takes a cost"):
+    for bad in ("tile+tile", "fast", f"{traverse.TILE_CORE}@2", f"{traverse.ANY_HIT_CORE}@2"):
+        with pytest.raises(ValueError, match="core must be"):
             plan(bad, leaf_k=32, slots=4)
 
 
 def test_tile_core_is_the_kernels_mask():
-    """TILE_CORE is rt::kTileCore (rt::kAnyHitCore | rt::kTileLeaves); its
-    cost field starts at rt::kTileCostShift and holds 4c + 1; the launcher
-    builds the costs TILE_COSTS (RT_TILE_COSTS) beside rt::kTileLeafCost,
-    and takes the new core in every launcher."""
+    """TILE_CORE is rt::kTileCore (rt::kAnyHitCore | rt::kTileLeaves), whose
+    rule runs at one cost c (rt::kTileLeafCost, a constant); every launcher
+    takes the new core and none takes rt::kAnyHitCore, and the wrapper's
+    argument lists are the launchers'."""
     bits = core_masks()
     src = (build.CSRC / "traverse_core.cuh").read_text()
     parts = re.search(r"kTileCore = ([\w| ]+);", src).group(1).split("|")
     assert traverse.core_id(traverse.TILE_CORE) == sum(bits[p.strip()] for p in parts) == (
         bits["kAnyHitCore"] | bits["kTileLeaves"])
-    shift = int(re.search(r"kTileCostShift = (\d+);", src).group(1))
-    assert shift == traverse._TILE_COST_SHIFT
-    own = float(re.search(r"kTileLeafCost = ([\d.]+)f;", src).group(1))
-    assert own not in traverse.TILE_COSTS
+    cost = float(re.search(r"constexpr float kTileLeafCost = ([\d.]+)f;", src).group(1))
+    assert 0.0 < cost < 32.0
+    assert "kTileLeafCost * (float)__reduce_add_sync" in src
     tiles = (build.CSRC / "traverse_tiles.cu").read_text()
-    built = re.search(r"#define RT_TILE_COSTS\(X\) (.*)", tiles).group(1)
-    assert sorted(int(v) for v in re.findall(r"X\((\d+)\)", built)) == [
-        int(4 * c + 1) for c in traverse.TILE_COSTS]
-    for c in traverse.TILE_COSTS:
-        assert traverse.core_id(f"{traverse.TILE_CORE}@{c:g}") == (
-            bits["kAnyHitCore"] | bits["kTileLeaves"] | int(4 * c + 1) << shift)
     for fn in ("rt_trace_tiles", "rt_trace_tiles_batch", "rt_trace_tiles_batch_raw"):
         body = re.search(fn + r"\(.*?\n}\n", tiles, re.S).group(0)
         assert "rt::kTileCore" in body and "int core" in body, fn
+        assert "kAnyHitCore" not in body, fn
         params = re.search(fn + r"\(([^)]*)\)", tiles).group(1).count(",") + 1
         assert len(traverse._ARGTYPES["traverse_tiles.cu"][fn]) == params, fn
 
@@ -296,12 +283,11 @@ def test_tile_cores_run_the_plain_version_on_cpu():
     before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
     cam, quat = (0.0, 0.0, 3.0), (0.0, 0.0, 0.0, 1.0)
     ref = traverse.trace_tiles(qn, cam, quat, 24, 16, leaf_k=8)
-    for core in ("order", "baseline", traverse.TILE_CORE, traverse.ANY_HIT_CORE,
-                 f"{traverse.TILE_CORE}@{traverse.TILE_COSTS[0]:g}"):
+    for core in ("order", "baseline", traverse.TILE_CORE):
         out = traverse.trace_tiles(qn, cam, quat, 24, 16, leaf_k=8, core=core)
         assert all(torch.equal(a, b) for a, b in zip(out, ref)), core
     raw = traverse.trace_tiles_batch(qn, [cam], [quat], 32, 32, leaf_k=8, raw=True)
-    for core in ("order", traverse.TILE_CORE, traverse.ANY_HIT_CORE):
+    for core in ("order", traverse.TILE_CORE):
         assert torch.equal(traverse.trace_tiles_batch(qn, [cam], [quat], 32, 32, leaf_k=8,
                                                       raw=True, core=core), raw), core
     assert (dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)) == before

@@ -1,21 +1,19 @@
 """K1's cores on one CUDA card, apart from the rest of ``chip_smoke.py``:
 its K1 phase (``chip_smoke.k1_phase``) on the trees it needs, built here.
 
-Step 1 times the render core (``core="order"``), the warp's leaf tests at
-every step (``traverse.ANY_HIT_CORE``'s closest hit in the tile kernel) and
-the frozen loop (``core="baseline"``), A-B-B-A in one process, with every
-plane bit-identical, and logs each case's warp census (what each warp step
-posts, priced for both leaf stages): K1a framed and sparse on the dragon
-stand-in at SAH K = 32, K1b's camera wave, one 8-camera K1c batch of the
-dynamic dragon's refitted records, config 5's K1c raw and the Cornell box
-at SAH K = 32. Step 2 adds the per-step choice of leaf stage
-(``traverse.TILE_CORE``) and its cost sweep, Morton K = 8, the 8-wide tree,
-K1f, and the headline frame, one 3-bounce sample and the dynamic dragon
-frame with only K1 swapped.
+It times the render core (``core="order"``), the per-step choice of leaf
+stage (``traverse.TILE_CORE``) and the frozen loop (``core="baseline"``)
+in one process, forward and back, with every plane bit-identical, and logs
+each case's warp census (what each warp step posts, priced for both leaf
+stages): K1a framed and sparse on the dragon stand-in at SAH K = 32, K1b's
+camera wave, one 8-camera K1c batch of the dynamic dragon's refitted
+records, config 5's K1c raw, the Cornell box at SAH K = 32, Morton K = 8,
+the 8-wide tree and K1f; then the headline frame, one 3-bounce sample and
+the dynamic dragon frame with only K1 swapped, A-B-B-A.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools_torch/ab_tiles.py [1|2]
+    python3 tools_torch/ab_tiles.py
 """
 
 from __future__ import annotations
@@ -33,8 +31,7 @@ import chip_smoke as smoke  # noqa: E402
 
 
 def main() -> None:
-    step = int(sys.argv[1]) if len(sys.argv) > 1 else 2
-    if step not in (1, 2) or len(sys.argv) > 2:
+    if len(sys.argv) > 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("ab_tiles needs a CUDA card")
@@ -46,7 +43,7 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     card = smoke.card_line()
-    smoke.log(f"[ab_tiles] step {step} on {card} | torch {torch.__version__}")
+    smoke.log(f"[ab_tiles] on {card} | torch {torch.__version__}")
     smoke.build_all()
     glb = ROOT / "data" / "dragon_standin.glb"
     if not glb.exists():
@@ -86,16 +83,14 @@ def main() -> None:
     env["cornell32"] = mb_tree_space.trees(dev)["Cornell SAH K=32"][0]
 
     trees_of = {}
-    if step >= 2:
-        for key, kw in ((8, dict(builder="lbvh", leaf_size=8)),
-                        ("8-wide", dict(builder="sah", leaf_size=smoke.LEAF_K,
-                                        widener="collapse8"))):
-            other = PathTracer(smoke.WIDTH, smoke.HEIGHT, device=dev, **kw)
-            other.set_scene(scene)
-            trees_of[key] = (other._qnodes, kw["leaf_size"], str(key))
-            del other
+    for key, kw in ((8, dict(builder="lbvh", leaf_size=8)),
+                    ("8-wide", dict(builder="sah", leaf_size=smoke.LEAF_K, widener="collapse8"))):
+        other = PathTracer(smoke.WIDTH, smoke.HEIGHT, device=dev, **kw)
+        other.set_scene(scene)
+        trees_of[key] = (other._qnodes, kw["leaf_size"], str(key))
+        del other
     smoke.log(f"[ab_tiles] trees built in {time.perf_counter() - t0:.1f} s")
-    smoke.k1_phase(env, trees_of, step)
+    smoke.k1_phase(env, trees_of)
     smoke.log(card)
 
 
