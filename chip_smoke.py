@@ -692,6 +692,8 @@ def build_all() -> None:
                     timed, microbench.load_microbench),
                 "traverse_tiles.cu (K1a, K1b, K1c, K1d, K1e, K1f)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu"),
+                "traverse_tiles.cu:warp (K1 over leaves of K > 1)": pool.submit(
+                    timed, traverse.load_kernel, "traverse_tiles.cu:warp"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
                     timed, traverse.load_kernel, "traverse_rays.cu")}
         results = {name: job.result() for name, job in jobs.items()}
@@ -2893,13 +2895,12 @@ def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
     env["waves"][8], _ = capture_waves(env, trees[8]["qn"], leaf_k=8)
 
     # ptxas: each instantiation of the redesigned core (the render core and
-    # the measured sets of elements) beside its baseline twin (the tile
-    # kernels' warp-leaves cores: the K1 phase's report)
+    # the measured sets of elements) beside its baseline twin
     for src in ("traverse_tiles.cu", "traverse_rays.cu"):
         found = {k: (r, f, st, ld) for k, r, f, st, ld in ptxas_rows(traverse.load_kernel(src)[1])}
         for kernel, (regs, frame, st, ld) in found.items():
             head, core = kernel[:kernel.rindex(",")], int(kernel[kernel.rindex(",") + 1:-1])
-            if core & 256 or (src == "traverse_tiles.cu" and core & 32):
+            if core & 256:
                 continue
             # the baseline twin: the same template with core 256 (| 8, unordered)
             twin = f"{head.replace('_persistent', '')},{256 | (core & 8)}>"
@@ -3350,7 +3351,8 @@ def k1_ptxas_report() -> None:
     (rt::kTileCore, in both packing forms)."""
     from raytracer_tpu_torch.ops.cuda import traverse
 
-    for kernel, regs, frame, st, ld in ptxas_rows(traverse.load_kernel("traverse_tiles.cu")[1]):
+    warp_log = traverse.load_kernel("traverse_tiles.cu:warp")[1]
+    for kernel, regs, frame, st, ld in ptxas_rows(warp_log):
         core = int(kernel[kernel.rindex(",") + 1:-1])
         if core & traverse.CORE_ELEMENTS["warp"]:
             log(f"[k1] ptxas {kernel} (core {core}): {regs} registers, {frame} bytes stack "

@@ -117,6 +117,16 @@
 
 #include "traverse_core.cuh"
 
+// The source builds as two libraries (ops/cuda/traverse.py::TILE_SOURCES),
+// their nvcc runs started together: with RT_TILES_WARP the launchers take
+// rt::kTileCore, without it the render core, the frozen loop and the
+// element sets; each refuses the other's cores (cudaErrorInvalidValue). As
+// one library the source took 45.1 s of nvcc on the card's machine against
+// traverse_rays.cu's 34.1 s, beside it (PERF.md §6).
+#ifndef RT_TILES_WARP
+#define RT_TILES_WARP 0
+#endif
+
 namespace {
 
 constexpr int kBlock = 8;  // threads a side of a block
@@ -423,10 +433,12 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 #define RT_ALL(C)                                                                   \
   (slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS)        \
               : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#if RT_TILES_WARP
   if (core == (int)rt::kTileCore) {
     return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
   }
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
   if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
   if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
 #define RT_CASE(M) \
@@ -434,6 +446,7 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
     return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
   switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
 #undef RT_CASE
+#endif
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
@@ -459,11 +472,14 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
 #define RT_ALL(C)                                                            \
   (slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#if RT_TILES_WARP
   if (core == (int)rt::kTileCore) {
     return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
   }
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
   if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
+#endif
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
@@ -494,10 +510,13 @@ extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_
 #define RT_ALL(C)                                                                  \
   (slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS)         \
               : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS))
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#if RT_TILES_WARP
   if (core == (int)rt::kTileCore) {
     return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
   }
+#else
+  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
+#endif
 #undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }

@@ -93,9 +93,12 @@ def build_shared(name: str, sources: Sequence[Path], compiler: Callable[[], str]
     return ctypes.CDLL(str(out)), log
 
 
-def build_library(source: str) -> tuple[ctypes.CDLL, str]:
+def build_library(source: str, define: str = "") -> tuple[ctypes.CDLL, str]:
     """Compile the CUDA source ``csrc/<source>`` for sm_90a (if not built
-    yet) and load it; returns (library, nvcc log). Every ``csrc/*.cuh`` is
-    hashed in, so a changed header rebuilds every kernel source."""
-    return build_shared(Path(source).stem, [CSRC / source], _nvcc, NVCC_FLAGS,
-                        headers=cuda_headers())
+    yet) and load it; returns (library, nvcc log). ``define``: a macro set
+    to 1 for this build (``-D<define>=1``), which selects a part of the
+    source and names the library apart. Every ``csrc/*.cuh`` is hashed in,
+    so a changed header rebuilds every kernel source."""
+    flags = NVCC_FLAGS + ((f"-D{define}=1",) if define else ())
+    name = Path(source).stem + (f"-{define.lower()}" if define else "")
+    return build_shared(name, [CSRC / source], _nvcc, flags, headers=cuda_headers())

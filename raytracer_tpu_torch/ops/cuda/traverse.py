@@ -336,6 +336,13 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
     return rg_w, rg_h
 
 
+# traverse_tiles.cu builds as two libraries, started together: the render
+# core, the frozen loop and the measured element sets ("traverse_tiles.cu"),
+# and TILE_CORE ("traverse_tiles.cu:warp", with RT_TILES_WARP): as one it
+# took 45.1 s of nvcc on the card's machine against traverse_rays.cu's 34.1 s
+# (PERF.md §6).
+TILE_SOURCES = ("traverse_tiles.cu", "traverse_tiles.cu:warp")
+
 _ARGTYPES = {
     "traverse_tiles.cu": {
         "rt_trace_tiles": ([ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -360,16 +367,23 @@ _ARGTYPES = {
 @functools.cache
 def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load ``csrc/<source>`` — ``traverse_tiles.cu``
-    (K1a/K1b/K1c/K1d/K1e/K1f) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
+    (K1a/K1b/K1c/K1d/K1e/K1f; TILE_CORE's part ``traverse_tiles.cu:warp``,
+    :data:`TILE_SOURCES`) or ``traverse_rays.cu`` (K2a/K2b/K2c); returns
     (library, nvcc log)."""
     from .build import build_library
 
-    lib, log = build_library(source)
-    for name, argtypes in _ARGTYPES[source].items():
+    src, _, part = source.partition(":")
+    lib, log = build_library(src, f"RT_TILES_{part.upper()}" if part else "")
+    for name, argtypes in _ARGTYPES[src].items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib, log
+
+
+def _tile_source(cid: int) -> str:
+    """The build of traverse_tiles.cu that holds core ``cid`` (TILE_SOURCES)."""
+    return TILE_SOURCES[cid == _TILE_CORE]
 
 
 def _tile_launch_name(width: int, stats: bool, plain: str, bounded: bool = False) -> str:
@@ -463,7 +477,7 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
         return tuple(p.reshape(height, width) for p in planes)
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel("traverse_tiles.cu")
+    lib, _ = load_kernel(_tile_source(cid))
     pos, quat = _camera(cam_pos, cam_quat)
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
@@ -603,7 +617,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         return tiles_layout(planes) if raw else planes
     if qn.device.type != "cuda":
         raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel("traverse_tiles.cu")
+    lib, _ = load_kernel(_tile_source(cid))
     focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
     table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                        for p, q, s in zip(pos, quat, seeds)], qn.device)
