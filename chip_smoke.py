@@ -4059,12 +4059,19 @@ def apps_phase(env: dict, scene) -> None:
     runs = []
 
     class RecordingStats(app_main.FrameStats):
-        """The app's FrameStats, kept with the total the app reads at the end
-        of its frame loop."""
+        """The app's FrameStats, kept with its 1 Hz readouts and the total
+        the app reads at the end of its frame loop."""
 
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
+            self.history = []
             runs.append(self)
+
+        def tick(self, quiet=False):
+            rec = super().tick(quiet)
+            if rec is not None:
+                self.history.append(rec)
+            return rec
 
         def summary(self):
             self.run = super().summary()

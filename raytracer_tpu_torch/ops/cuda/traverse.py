@@ -48,6 +48,13 @@ batch with ``raw=True`` counts under its name with ``_raw`` added
 ``tree_space`` "vmem" or "smem" under its name with ``_vmem`` / ``_smem``
 added (``trace_rays_k2a_vmem``, ``trace_rays_k2b_unordered_smem``, …).
 
+Spans and counters (:mod:`raytracer_tpu_torch.utils.profiling`, off unless
+a ``tracing`` block turns them on): each call of :func:`trace_tiles` and
+:func:`trace_tiles_batch` is a span ``rt/k1``, each call of
+:func:`trace_rays` a span ``rt/k2``, which counts its rays in ``rt/k2/lanes``
+(a host int) and its active rays in ``rt/k2/active`` (the sum of
+``active`` on its device, or every ray without a mask).
+
 Record layout (f32 words, width w = 4 or 8 child slots, K triangles per leaf):
   [0 : 6w]    child AABBs (mnx,mny,mnz,mxx,mxy,mxz), +inf/−inf when empty
   [6w : 7w]   child refs as integer-valued floats: idx ≥ 0 internal node,
@@ -67,6 +74,7 @@ import functools
 
 import torch
 
+from ...utils.profiling import count, counting, span
 from ..camera import INF, camera_constants, primary_dirs, safe_inv_dir, subpixel_hash01, to_device
 from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
@@ -459,44 +467,45 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     "hopper", the per-step choice between the warp's leaf tests and each
     lane's loop, TILE_CORE; the words of every core are the same); runs the
     plain version for records on the CPU; raises for any other device."""
-    qn, slots = _check_qnodes(qnodes, leaf_k)
-    seed = _check_seed(jitter_seed)
-    rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
-    bounded = entries is not None or tbounds is not None
-    cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats,
-                    bounded=bounded)
-    if bounded:
-        entries, tbounds = _tile_tables(entries, tbounds, -(-height // TILE),
-                                        -(-width // TILE), qn.device)
-    if qn.device.type == "cpu":
-        pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
-        planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
-                                       leaf_k, pixels=pixels, jitter=jitter,
-                                       jitter_seed=seed, stats=stats, entries=entries,
-                                       tbounds=tbounds, tile_origin=(row_offset, col_offset))
-        return tuple(p.reshape(height, width) for p in planes)
-    if qn.device.type != "cuda":
-        raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel(_tile_source(cid))
-    pos, quat = _camera(cam_pos, cam_quat)
-    focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
-    planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
-              for _ in range(5 if stats else 4)]
-    tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
-    with torch.cuda.device(qn.device):
-        stream = torch.cuda.current_stream(qn.device).cuda_stream
-        err = lib.rt_trace_tiles(
-            qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
-            rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
-            tbounds.data_ptr() if bounded else None, entries.data_ptr() if bounded else None,
-            cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
-            planes[4].data_ptr() if stats else None, stream)
-    name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a",
-                             bounded)
-    if err != 0:
-        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-    _count(name, core)
-    return (*planes[:4], tri, *planes[4:])
+    with span("rt/k1"):
+        qn, slots = _check_qnodes(qnodes, leaf_k)
+        seed = _check_seed(jitter_seed)
+        rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
+        bounded = entries is not None or tbounds is not None
+        cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats,
+                        bounded=bounded)
+        if bounded:
+            entries, tbounds = _tile_tables(entries, tbounds, -(-height // TILE),
+                                            -(-width // TILE), qn.device)
+        if qn.device.type == "cpu":
+            pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
+            planes = trace_tiles_reference(qn, cam_pos, cam_quat, rg_w, rg_h, fov_degrees,
+                                           leaf_k, pixels=pixels, jitter=jitter,
+                                           jitter_seed=seed, stats=stats, entries=entries,
+                                           tbounds=tbounds, tile_origin=(row_offset, col_offset))
+            return tuple(p.reshape(height, width) for p in planes)
+        if qn.device.type != "cuda":
+            raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
+        lib, _ = load_kernel(_tile_source(cid))
+        pos, quat = _camera(cam_pos, cam_quat)
+        focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
+        planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
+                  for _ in range(5 if stats else 4)]
+        tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
+        with torch.cuda.device(qn.device):
+            stream = torch.cuda.current_stream(qn.device).cuda_stream
+            err = lib.rt_trace_tiles(
+                qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
+                rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
+                tbounds.data_ptr() if bounded else None, entries.data_ptr() if bounded else None,
+                cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+                planes[4].data_ptr() if stats else None, stream)
+        name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a",
+                                 bounded)
+        if err != 0:
+            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+        _count(name, core)
+        return (*planes[:4], tri, *planes[4:])
 
 
 def trace_tiles_reference(qnodes: torch.Tensor, cam_pos, cam_quat, width: int,
@@ -600,54 +609,55 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     8-wide records, K1f with ``stats``, with the traversal core that
     :func:`tile_plan` gives for ``core``; runs the plain version for records
     on the CPU; raises for any other device."""
-    qn, slots = _check_qnodes(qnodes, leaf_k)
-    pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
-    rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
-    f = len(pos)
-    if raw:
-        _check_raw(width, height, raygen_size, row_offset, col_offset)
-    cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats, batch=True,
-                    raw=raw)
-    if qn.device.type == "cpu":
-        pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
-        planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
-                                             pixels=pixels, jitter=jitter, jitter_seeds=seeds,
-                                             stats=stats)
-        planes = tuple(p.reshape(f, height, width) for p in planes)
-        return tiles_layout(planes) if raw else planes
-    if qn.device.type != "cuda":
-        raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel(_tile_source(cid))
-    focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
-    table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
-                       for p, q, s in zip(pos, quat, seeds)], qn.device)
-    if raw:
-        out = torch.empty((f, (height // TILE) * (width // TILE), 6, _SUB, 128),
-                          dtype=torch.float32, device=qn.device)
+    with span("rt/k1"):
+        qn, slots = _check_qnodes(qnodes, leaf_k)
+        pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
+        rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
+        f = len(pos)
+        if raw:
+            _check_raw(width, height, raygen_size, row_offset, col_offset)
+        cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats, batch=True,
+                        raw=raw)
+        if qn.device.type == "cpu":
+            pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
+            planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
+                                                 pixels=pixels, jitter=jitter, jitter_seeds=seeds,
+                                                 stats=stats)
+            planes = tuple(p.reshape(f, height, width) for p in planes)
+            return tiles_layout(planes) if raw else planes
+        if qn.device.type != "cuda":
+            raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
+        lib, _ = load_kernel(_tile_source(cid))
+        focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
+        table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
+                           for p, q, s in zip(pos, quat, seeds)], qn.device)
+        if raw:
+            out = torch.empty((f, (height // TILE) * (width // TILE), 6, _SUB, 128),
+                              dtype=torch.float32, device=qn.device)
+            with torch.cuda.device(qn.device):
+                stream = torch.cuda.current_stream(qn.device).cuda_stream
+                err = lib.rt_trace_tiles_batch_raw(
+                    qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
+                    int(bool(jitter)), int(bool(stats)), cid, out.data_ptr(), stream)
+            name = _tile_launch_name(slots, stats, "trace_tiles_k1c") + "_raw"
+            if err != 0:
+                raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+            _count(name, core)
+            return out
+        planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
+                  for _ in range(5 if stats else 4)]
+        tri = torch.empty((f, height, width), dtype=torch.int32, device=qn.device)
         with torch.cuda.device(qn.device):
             stream = torch.cuda.current_stream(qn.device).cuda_stream
-            err = lib.rt_trace_tiles_batch_raw(
+            err = lib.rt_trace_tiles_batch(
                 qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-                int(bool(jitter)), int(bool(stats)), cid, out.data_ptr(), stream)
-        name = _tile_launch_name(slots, stats, "trace_tiles_k1c") + "_raw"
+                int(bool(jitter)), cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+                planes[4].data_ptr() if stats else None, stream)
+        name = _tile_launch_name(slots, stats, "trace_tiles_k1c")
         if err != 0:
             raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
         _count(name, core)
-        return out
-    planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
-              for _ in range(5 if stats else 4)]
-    tri = torch.empty((f, height, width), dtype=torch.int32, device=qn.device)
-    with torch.cuda.device(qn.device):
-        stream = torch.cuda.current_stream(qn.device).cuda_stream
-        err = lib.rt_trace_tiles_batch(
-            qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-            int(bool(jitter)), cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
-            planes[4].data_ptr() if stats else None, stream)
-    name = _tile_launch_name(slots, stats, "trace_tiles_k1c")
-    if err != 0:
-        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-    _count(name, core)
-    return (*planes[:4], tri, *planes[4:])
+        return (*planes[:4], tri, *planes[4:])
 
 
 def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int) -> None:
@@ -912,46 +922,52 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     4-wide records and K2c on 8-wide records, with the traversal core
     ``core`` (:func:`core_id`; measurement only); runs the plain version
     for records on the CPU; raises for any other device."""
-    qn, slots = _check_qnodes(qnodes, leaf_k)
-    cid, persistent = launch_plan(core, any_hit=any_hit, leaf_k=leaf_k, slots=slots,
-                                  ordered=ordered, scattered=scattered, tree_space=tree_space)
-    block = SMEM_BLOCK if smem_block is None else int(smem_block)
-    if smem_block is not None and (tree_space != "smem" or not 32 <= block <= _SMEM_BLOCK_MAX
-                                   or block % 32):
-        raise ValueError(f"smem_block is a multiple of 32 up to {_SMEM_BLOCK_MAX} and goes "
-                         f"with tree_space='smem', got {smem_block} with {tree_space!r}")
-    _check_rays(qn, origins, dirs, active)
-    if qn.device.type == "cpu":
-        return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
-                                    active=active, ordered=ordered)
-    if qn.device.type != "cuda":
-        raise ValueError(f"trace_rays runs on cuda or cpu tensors, got {qn.device}")
-    lib, _ = load_kernel("traverse_rays.cu")
-    if tree_space != "hbm":
-        check_tree_space(qn.numel() * 4, tree_space, tree_space_limits(qn.device))
-    r = origins.shape[0]
-    planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
-    tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
-    # the persistent warps' ray counter: this launch's own 4 bytes, zeroed by
-    # the launcher on this stream
-    counter = torch.empty((1,), dtype=torch.int32, device=qn.device) if persistent else None
-    with torch.cuda.device(qn.device):
-        stream = torch.cuda.current_stream(qn.device).cuda_stream
-        err = lib.rt_trace_rays(
-            qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, origins.data_ptr(),
-            dirs.data_ptr(), None if active is None else active.data_ptr(), r,
-            int(bool(any_hit)), cid, int(bool(ordered)), int(persistent),
-            TREE_SPACES.index(tree_space), block, None if counter is None else counter.data_ptr(),
-            *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
-    name = "trace_rays_k2c" if slots == 8 else ("trace_rays_k2b" if any_hit else "trace_rays_k2a")
-    if not ordered:
-        name += "_unordered"
-    if tree_space != "hbm":
-        name += "_" + tree_space
-    if err != 0:
-        raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-    _count(name, core)
-    return (*planes, tri)
+    with span("rt/k2"):
+        qn, slots = _check_qnodes(qnodes, leaf_k)
+        cid, persistent = launch_plan(core, any_hit=any_hit, leaf_k=leaf_k, slots=slots,
+                                      ordered=ordered, scattered=scattered, tree_space=tree_space)
+        block = SMEM_BLOCK if smem_block is None else int(smem_block)
+        if smem_block is not None and (tree_space != "smem" or not 32 <= block <= _SMEM_BLOCK_MAX
+                                       or block % 32):
+            raise ValueError(f"smem_block is a multiple of 32 up to {_SMEM_BLOCK_MAX} and goes "
+                             f"with tree_space='smem', got {smem_block} with {tree_space!r}")
+        _check_rays(qn, origins, dirs, active)
+        r = origins.shape[0]
+        if counting():
+            count("rt/k2/lanes", r)
+            count("rt/k2/active", r if active is None else active.sum())
+        if qn.device.type == "cpu":
+            return trace_rays_reference(qn, origins, dirs, any_hit=any_hit, leaf_k=leaf_k,
+                                        active=active, ordered=ordered)
+        if qn.device.type != "cuda":
+            raise ValueError(f"trace_rays runs on cuda or cpu tensors, got {qn.device}")
+        lib, _ = load_kernel("traverse_rays.cu")
+        if tree_space != "hbm":
+            check_tree_space(qn.numel() * 4, tree_space, tree_space_limits(qn.device))
+        planes = [torch.empty((r,), dtype=torch.float32, device=qn.device) for _ in range(4)]
+        tri = torch.empty((r,), dtype=torch.int32, device=qn.device)
+        # the persistent warps' ray counter: this launch's own 4 bytes, zeroed by
+        # the launcher on this stream
+        counter = torch.empty((1,), dtype=torch.int32, device=qn.device) if persistent else None
+        with torch.cuda.device(qn.device):
+            stream = torch.cuda.current_stream(qn.device).cuda_stream
+            err = lib.rt_trace_rays(
+                qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, origins.data_ptr(),
+                dirs.data_ptr(), None if active is None else active.data_ptr(), r,
+                int(bool(any_hit)), cid, int(bool(ordered)), int(persistent),
+                TREE_SPACES.index(tree_space), block,
+                None if counter is None else counter.data_ptr(),
+                *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
+        name = ("trace_rays_k2c" if slots == 8
+                else "trace_rays_k2b" if any_hit else "trace_rays_k2a")
+        if not ordered:
+            name += "_unordered"
+        if tree_space != "hbm":
+            name += "_" + tree_space
+        if err != 0:
+            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
+        _count(name, core)
+        return (*planes, tri)
 
 
 def trace_rays_reference(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,

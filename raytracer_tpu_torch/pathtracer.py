@@ -71,6 +71,7 @@ from .ops.trace import make_wide_bvh, trace_rays_brute
 from .render import render_ldr_brute
 from .render_pt import accumulate, pt_sample_frame
 from .utils.config import DEFAULT_CONFIG, RenderConfig
+from .utils.profiling import span
 
 __all__ = ["PathTracer", "fast_build_options", "COMPACT_WAVES"]
 
@@ -259,39 +260,44 @@ class PathTracer:
         back to ``build_bvh`` for another triangle count, a tree of single
         triangles (as the JAX package does), the brute-force scene, or any
         widener but ``"collapse"`` (the plan
-        is the 4-wide collapse's). Adds ``plan_ms`` (first refit only) and
-        ``refit_ms`` (host clock, ending in a device synchronise) to
-        ``build_stats``."""
-        tris = np.asarray(triangles, dtype=np.float32)
-        if tris.ndim == 1:
-            tris = tris.reshape(-1, 3, 3)
-        if (self._cluster is None or self.widener != "collapse"
-                or len(tris) != len(self.triangles_data)):
-            self.build_bvh(tris)
-            return
-        stats = {}
-        if self._collapse_plan is None:
-            t0 = time.perf_counter()
-            if self._bvh2_height is None:
-                # the Morton build knows no height; the refit's sweeps need it
-                self._bvh2_height = tree_height(self._cluster.bvh2)
-            bvh2 = LBVH2(*(a.to(self.device) for a in self._cluster.bvh2))
-            self._cluster = self._cluster._replace(bvh2=bvh2)
-            self._collapse_plan = collapse_plan(bvh2, sweeps=self._bvh2_height + 2)
-            stats["plan_ms"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
-        cs = refit_lbvh2_clustered(self._cluster, tris_dev, num_sweeps=self._bvh2_height + 2)
-        self._bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
-        self._qnodes = make_qnodes(make_wide_bvh(self._bvh4), cs.tris_sorted,
-                                   tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
-        stats["refit_ms"] = (self._sync() - t0) * 1e3
-        self._cluster = cs
-        self._bvh2 = cs.bvh2
-        self._wide = None
-        self.triangles_data = tris
-        self._tris_dev = tris_dev
-        self.build_stats = {**self.build_stats, **stats}
+        is the 4-wide collapse's). Adds ``plan_ms`` (first refit only) to
+        ``build_stats``. Nothing here waits for the card: the spans
+        ``rt/refit_bvh`` and its stages ``rt/refit/upload``, ``sweeps``,
+        ``gather`` and ``records`` time it when tracing is on."""
+        with span("rt/refit_bvh"):
+            tris = np.asarray(triangles, dtype=np.float32)
+            if tris.ndim == 1:
+                tris = tris.reshape(-1, 3, 3)
+            if (self._cluster is None or self.widener != "collapse"
+                    or len(tris) != len(self.triangles_data)):
+                self.build_bvh(tris)
+                return
+            stats = {}
+            if self._collapse_plan is None:
+                t0 = time.perf_counter()
+                if self._bvh2_height is None:
+                    # the Morton build knows no height; the refit's sweeps need it
+                    self._bvh2_height = tree_height(self._cluster.bvh2)
+                bvh2 = LBVH2(*(a.to(self.device) for a in self._cluster.bvh2))
+                self._cluster = self._cluster._replace(bvh2=bvh2)
+                self._collapse_plan = collapse_plan(bvh2, sweeps=self._bvh2_height + 2)
+                stats["plan_ms"] = (time.perf_counter() - t0) * 1e3
+            with span("rt/refit/upload"):
+                tris_dev = torch.from_numpy(np.ascontiguousarray(tris)).to(self.device)
+            with span("rt/refit/sweeps"):
+                cs = refit_lbvh2_clustered(self._cluster, tris_dev,
+                                           num_sweeps=self._bvh2_height + 2)
+            with span("rt/refit/gather"):
+                self._bvh4 = collapse_apply_refit(self._collapse_plan, cs.bvh2.bounds_u32)
+            with span("rt/refit/records"):
+                self._qnodes = make_qnodes(make_wide_bvh(self._bvh4), cs.tris_sorted,
+                                           tri_ids=cs.tri_order, leaf_size=cs.leaf_size)
+            self._cluster = cs
+            self._bvh2 = cs.bvh2
+            self._wide = None
+            self.triangles_data = tris
+            self._tris_dev = tris_dev
+            self.build_stats = {**self.build_stats, **stats}
 
     def _widen(self):
         """The BVH2 through the configured widener → its wide tree
@@ -354,8 +360,9 @@ class PathTracer:
 
     def render(self) -> torch.Tensor:
         """One frame → rgba8 framebuffer (H,W,4) uint8 on ``device``."""
-        rgb, _, _ = self._render_planes()
-        return quantize_rgba8(rgb)
+        with span("rt/render"):
+            rgb, _, _ = self._render_planes()
+            return quantize_rgba8(rgb)
 
     def render_presented(self) -> torch.Tensor:
         """render() + the tonemap present pass."""
@@ -386,28 +393,30 @@ class PathTracer:
         if bounces < 0:
             raise ValueError("bounces must be >= 0")
         self._require_records()
-        cam_sig = (tuple(self.camera_position), tuple(self.camera_quaternion))
-        if self._accum_sig != cam_sig or self._accum is None:
-            self._accum_sig = cam_sig
-            self._accum = torch.zeros((self.height, self.width, 3), dtype=torch.float32,
-                                      device=self.device)
-            self.frame_count = 0
+        with span("rt/render_progressive"):
+            cam_sig = (tuple(self.camera_position), tuple(self.camera_quaternion))
+            if self._accum_sig != cam_sig or self._accum is None:
+                self._accum_sig = cam_sig
+                self._accum = torch.zeros((self.height, self.width, 3), dtype=torch.float32,
+                                          device=self.device)
+                self.frame_count = 0
 
-        if bounces == 0:
-            sample = self._primary_sample_jittered()
-        else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.frame_count)
-            brute = self._brute()
-            sample = pt_sample_frame(
-                None if brute else self._qnodes, self._tris_dev, self.camera_position,
-                self.camera_quaternion, self.width, self.height, bounces=bounces,
-                fov_degrees=self.fov_degrees, leaf_k=self.leaf_size, brute=brute,
-                tile_primary=not brute, generator=gen,
-                compact=COMPACT_WAVES and not brute and bounces >= 2)
-        self._accum = accumulate(self._accum, sample, self.frame_count)
-        self.frame_count += 1
-        return self._accum
+            if bounces == 0:
+                sample = self._primary_sample_jittered()
+            else:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self.frame_count)
+                brute = self._brute()
+                sample = pt_sample_frame(
+                    None if brute else self._qnodes, self._tris_dev, self.camera_position,
+                    self.camera_quaternion, self.width, self.height, bounces=bounces,
+                    fov_degrees=self.fov_degrees, leaf_k=self.leaf_size, brute=brute,
+                    tile_primary=not brute, generator=gen,
+                    compact=COMPACT_WAVES and not brute and bounces >= 2)
+            with span("rt/accumulate"):
+                self._accum = accumulate(self._accum, sample, self.frame_count)
+            self.frame_count += 1
+            return self._accum
 
     def _primary_sample_jittered(self) -> torch.Tensor:
         """One primary frame at the ``subpixel_hash01`` offsets of seed
@@ -429,8 +438,9 @@ class PathTracer:
         Reinhard x/(x+1) and gamma 1/2.2."""
         if self._accum is None:
             raise RuntimeError("nothing accumulated: call render_progressive first")
-        c = self._accum
-        return quantize_rgba8(torch.pow(c / (c + 1.0), 1.0 / 2.2))
+        with span("rt/present_progressive"):
+            c = self._accum
+            return quantize_rgba8(torch.pow(c / (c + 1.0), 1.0 / 2.2))
 
     def set_frame_count(self, frame_count: int) -> None:
         self.frame_count = frame_count

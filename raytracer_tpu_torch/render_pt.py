@@ -44,6 +44,7 @@ from .ops.morton import expand_bits10
 from .ops.partition import bucket_partition_perm
 from .ops.shade import MISS_COLOR
 from .ops.trace import trace_rays_brute
+from .utils.profiling import span
 
 __all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE"]
 
@@ -290,7 +291,11 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     ``RT_WAVE_ORDERED_CH`` / ``_AH``) keep the near-first traversal order of
     the bounce waves after the camera wave and of every shadow wave; False
     traces them with ``trace_rays(ordered=False)``. Nothing here waits on the
-    device."""
+    device, and only ``stats`` counts lanes.
+
+    Spans (:mod:`raytracer_tpu_torch.utils.profiling`): each wave is one,
+    ``rt/pt/camera`` (the camera rays made and traced) then ``rt/pt/bounce``,
+    each with its NEE part nested as ``rt/pt/shadow``."""
     if compact_impl not in COMPACT_IMPLS:
         raise ValueError(f"compact_impl must be one of {COMPACT_IMPLS}, got {compact_impl!r}")
     if qnodes is None and not brute:
@@ -301,74 +306,66 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     draws = _Draws(uniforms, generator, dev)
     tile_primary = tile_primary and not brute
 
-    if tile_primary:
-        pseed = draws.pseed()
-        o2, d2 = generate_rays_jittered(width, height, cam_pos, cam_quat, pseed,
-                                        fov_degrees, device=dev)
-        o = _img_to_lanes(o2, width, height)
-        d = _img_to_lanes(d2, width, height)
-    else:
-        jx, jy = draws.jitter(height, width)
-        py, px = torch.meshgrid(torch.arange(height, device=dev),
-                                torch.arange(width, device=dev), indexing="ij")
-        d = primary_dirs(px.reshape(-1), py.reshape(-1), width, height, cam_quat, fov_degrees,
-                         jx.reshape(-1), jy.reshape(-1)).reshape(height, width, 3)
-        d = _img_to_lanes(d, width, height)
-        o = to_device(cam_pos, dev).reshape(1, 3).expand(r, 3)
-
     sun = _sun(dev)
     sun_dirs = sun.expand(r, 3).contiguous()
     base = to_device(_BASE, dev)
     radiance = torch.zeros((r, 3), dtype=f32, device=dev)
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
-    alive_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    alive_rays = torch.zeros((), dtype=torch.int64, device=dev) if stats else None
     # the pixel (row-major index) of each lane, permuted with the lanes
     pix = _img_to_lanes(torch.arange(r, device=dev).reshape(height, width), width,
                         height) if compact else None
 
     for b in range(bounces):
-        alive_rays = alive_rays + alive.sum()
-        if b == 0 and tile_primary:
-            planes = trace_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees,
-                                 leaf_k=leaf_k, jitter=True, jitter_seed=pseed)
-            t, nx, ny, nz, tri = (_img_to_lanes(p, width, height) for p in planes)
-            n = _face(torch.stack([nx, ny, nz], dim=-1), d)
-        else:
-            # the lanes alive at b >= 2 are hits of random bounce rays;
-            # compacted, they lead the buffer in a run
-            t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
-                               None if b == 0 else alive, scattered=b >= 2 and not compact,
-                               ordered=ordered_ch or b == 0)
-        hit = (tri >= 0) & alive
-        miss = (tri < 0) & alive
+        with span("rt/pt/camera" if b == 0 else "rt/pt/bounce"):
+            if stats:
+                alive_rays = alive_rays + alive.sum()
+            if b == 0:
+                o, d, pseed = _camera_rays(draws, cam_pos, cam_quat, width, height,
+                                           fov_degrees, tile_primary, dev)
+            if b == 0 and tile_primary:
+                planes = trace_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees,
+                                     leaf_k=leaf_k, jitter=True, jitter_seed=pseed)
+                t, nx, ny, nz, tri = (_img_to_lanes(p, width, height) for p in planes)
+                n = _face(torch.stack([nx, ny, nz], dim=-1), d)
+            else:
+                # the lanes alive at b >= 2 are hits of random bounce rays;
+                # compacted, they lead the buffer in a run
+                t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
+                                   None if b == 0 else alive, scattered=b >= 2 and not compact,
+                                   ordered=ordered_ch or b == 0)
+            hit = (tri >= 0) & alive
+            miss = (tri < 0) & alive
 
-        # a miss sees the background on the camera wave, the sky after it
-        env = MISS_COLOR if b == 0 else _SKY
-        radiance = radiance + torch.where(miss[:, None], throughput * env, 0.0)
+            # a miss sees the background on the camera wave, the sky after it
+            env = MISS_COLOR if b == 0 else _SKY
+            radiance = radiance + torch.where(miss[:, None], throughput * env, 0.0)
 
-        p = o + d * t[:, None] + n * _EPS_OFFSET
-        # NEE: lanes that hit and face the sun cast a shadow ray
-        ndotl = torch.clamp_min((n * sun).sum(-1), 0.0)
-        nee = hit & (ndotl > 0.0)
-        alive_rays = alive_rays + nee.sum()
-        occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee,
-                        scattered=b >= 1 and not compact, ordered=ordered_ah)
-        direct = base * (ndotl * (~occ).to(f32))[:, None]
-        radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
+            with span("rt/pt/shadow"):
+                p = o + d * t[:, None] + n * _EPS_OFFSET
+                # NEE: lanes that hit and face the sun cast a shadow ray
+                ndotl = torch.clamp_min((n * sun).sum(-1), 0.0)
+                nee = hit & (ndotl > 0.0)
+                if stats:
+                    alive_rays = alive_rays + nee.sum()
+                occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee,
+                                scattered=b >= 1 and not compact, ordered=ordered_ah)
+                direct = base * (ndotl * (~occ).to(f32))[:, None]
+            radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
 
-        # continue with a cosine sample; the albedo absorbs the brdf/pdf
-        u1, u2 = draws.bounce(b, r)
-        new_d = _cosine_sample(n, u1, u2)
-        throughput = torch.where(hit[:, None], throughput * base, throughput)
-        o = torch.where(hit[:, None], p, o)
-        d = torch.where(hit[:, None], new_d, d)
-        alive = hit
+            # continue with a cosine sample; the albedo absorbs the brdf/pdf
+            u1, u2 = draws.bounce(b, r)
+            new_d = _cosine_sample(n, u1, u2)
+            throughput = torch.where(hit[:, None], throughput * base, throughput)
+            o = torch.where(hit[:, None], p, o)
+            d = torch.where(hit[:, None], new_d, d)
+            alive = hit
 
-        if compact and b < bounces - 1:
-            perm = _compaction_perm(o, d, alive, compact_impl)
-            o, d, radiance, throughput = o[perm], d[perm], radiance[perm], throughput[perm]
-            alive, pix = alive[perm], pix[perm]
+            if compact and b < bounces - 1:
+                perm = _compaction_perm(o, d, alive, compact_impl)
+                o, d, radiance, throughput = o[perm], d[perm], radiance[perm], throughput[perm]
+                alive, pix = alive[perm], pix[perm]
 
     # paths still alive after the last bounce collect the sky
     radiance = radiance + torch.where(alive[:, None], throughput * _SKY, 0.0)
@@ -380,6 +377,25 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         return img, {"alive_rays": alive_rays,
                      "lane_rays": torch.full((), 2 * r * bounces, device=dev)}
     return img
+
+
+def _camera_rays(draws, cam_pos, cam_quat, width: int, height: int, fov_degrees: float,
+                 tile_primary: bool, dev):
+    """The camera wave's rays in lane order → (o, d, the tile kernel's
+    jitter seed or None): at the ``subpixel_hash01`` offsets of a drawn
+    seed with ``tile_primary``, else at the drawn offsets ``jx``, ``jy``."""
+    if tile_primary:
+        pseed = draws.pseed()
+        o2, d2 = generate_rays_jittered(width, height, cam_pos, cam_quat, pseed,
+                                        fov_degrees, device=dev)
+        return _img_to_lanes(o2, width, height), _img_to_lanes(d2, width, height), pseed
+    jx, jy = draws.jitter(height, width)
+    py, px = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    d = primary_dirs(px.reshape(-1), py.reshape(-1), width, height, cam_quat, fov_degrees,
+                     jx.reshape(-1), jy.reshape(-1)).reshape(height, width, 3)
+    o = to_device(cam_pos, dev).reshape(1, 3).expand(width * height, 3)
+    return o, _img_to_lanes(d, width, height), None
 
 
 def accumulate(accum: torch.Tensor, sample: torch.Tensor, frame_count: int) -> torch.Tensor:

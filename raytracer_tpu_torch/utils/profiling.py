@@ -1,27 +1,50 @@
 """Profiling / metrics utilities, the counterparts of
-``raytracer_tpu/utils/profiling.py``:
+``raytracer_tpu/utils/profiling.py``, and the program's spans and counters:
 
 * :func:`sync` — wait for the card: ``torch.cuda.synchronize`` on the
   device of each CUDA tensor given (a CPU tensor is complete when an op
   returns it).
-* :class:`PhaseTimer` — named wall-clock phases, each ending in a
-  :func:`sync` of the tensors it names.
-* :class:`FrameStats` — rolling FPS/Mrays/s with a 1 Hz report line and a
-  JSON-appendable record, and the run's total (:meth:`FrameStats.summary`).
+* :class:`FrameStats` — rolling FPS/Mrays/s with a 1 Hz report line, and
+  the run's total (:meth:`FrameStats.summary`).
+* :func:`span`, :func:`count`, :func:`tracing`, :func:`collect` — the
+  spans and counters recorded at the layer boundaries of the frame path
+  (names ``rt/...``, the same from call to call), off unless a
+  :func:`tracing` block turns them on.
 * :func:`trace_annotated` — a ``torch.profiler`` trace of the block, written
-  as a Chrome trace, when a profile directory is given (a no-op otherwise).
+  as a Chrome trace with the block's spans beside it, when a profile
+  directory is given (a no-op otherwise).
+
+Spans. While spans are off, :func:`span` returns one shared no-op context
+manager: a flag test, no object made, no ``record_function``. While they
+are on, each span records a :class:`Span` on ``time.perf_counter_ns()``;
+its parent is the innermost span open on the same thread, and the id of the
+entry call at the root of its tree (``root``) is carried by every
+descendant. Where a ``torch.profiler`` runs, a span also opens
+``record_function(name)``, so that its range lies on the profiler's clock
+beside the device's operations. A span never synchronises and never
+launches device work.
+
+Counters. :func:`count` adds to a named counter while counters are on: a
+host int stays a host int, a device tensor is added on its device, without
+a synchronise. Counters switch apart from spans because a counted device
+value is a reduction launched on the card. :func:`collect` is the one
+point that waits for the card, when it reads the device counters.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["PhaseTimer", "FrameStats", "trace_annotated", "sync"]
+__all__ = ["FrameStats", "Span", "collect", "count", "counting", "span", "sync",
+           "trace_annotated", "tracing"]
 
 
 def sync(*tensors) -> None:
@@ -30,34 +53,6 @@ def sync(*tensors) -> None:
     for dev in {t.device for t in tensors
                 if isinstance(t, torch.Tensor) and t.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
-
-
-class PhaseTimer:
-    """Named wall-clock phases, printed like the reference's build report
-    (PathTracer.js:745-748) and exportable as a dict."""
-
-    def __init__(self) -> None:
-        self.phases: dict[str, float] = {}
-        self._t0 = time.perf_counter()
-
-    @contextlib.contextmanager
-    def phase(self, name: str, *sync_tensors):
-        t0 = time.perf_counter()
-        yield
-        sync(*sync_tensors)
-        self.phases[name] = (time.perf_counter() - t0) * 1e3
-
-    def total_ms(self) -> float:
-        """Wall time since construction — the build's end-to-end total."""
-        return (time.perf_counter() - self._t0) * 1e3
-
-    def report(self, prefix: str = "") -> None:
-        for name, ms in self.phases.items():
-            print(f"{prefix}{name}: {ms:.2f} ms")
-        print(f"{prefix}total: {self.total_ms():.2f} ms")
-
-    def to_dict(self) -> dict:
-        return dict(self.phases)
 
 
 class FrameStats:
@@ -69,9 +64,9 @@ class FrameStats:
         self._start = self._last = time.perf_counter()
         self._frames = 0
         self.frames = 0  # every tick since construction
-        self.history: list[dict] = []
 
     def tick(self, quiet: bool = False) -> dict | None:
+        """Count a frame → the report record when the interval has passed."""
         self._frames += 1
         self.frames += 1
         now = time.perf_counter()
@@ -84,7 +79,6 @@ class FrameStats:
             "mrays_per_s": round(fps * self.rays_per_frame / 1e6, 2),
             "t": now,
         }
-        self.history.append(rec)
         if not quiet:
             print(f"{rec['fps']:7.1f} FPS  {rec['mrays_per_s']:8.1f} Mrays/s")
         self._last = now
@@ -99,15 +93,115 @@ class FrameStats:
         return {"frames": self.frames, "seconds": secs, "fps": fps,
                 "mrays_per_s": fps * self.rays_per_frame / 1e6}
 
-    def dump_json(self, path) -> None:
-        Path(path).write_text(json.dumps(self.history))
+
+class Span(NamedTuple):
+    """A recorded span: ``parent`` is the id of the innermost span open on
+    the same thread when it began (0 for none), ``root`` the id of its
+    tree's root (its own at a root); times are ``time.perf_counter_ns()``."""
+    name: str
+    id: int
+    parent: int
+    root: int
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+_SPANS_ON = False
+_COUNTERS_ON = False
+_RECORDED: list[Span] = []
+_COUNTS: dict[str, int | torch.Tensor] = {}
+_COUNTS_LOCK = threading.Lock()
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: the spans open on this thread
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _OpenSpan:
+    __slots__ = ("name", "id", "parent", "root", "start", "ranged")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "_OpenSpan":
+        stack = _OPEN.__dict__.setdefault("stack", [])
+        self.id = next(_IDS)
+        self.parent, self.root = (stack[-1].id, stack[-1].root) if stack else (0, self.id)
+        stack.append(self)
+        self.ranged = None
+        if torch.autograd.profiler._is_profiler_enabled:  # noqa: SLF001
+            self.ranged = torch.autograd.profiler.record_function(self.name)
+            self.ranged.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        if self.ranged is not None:
+            self.ranged.__exit__(*exc)
+        _OPEN.stack.pop()
+        _RECORDED.append(Span(self.name, self.id, self.parent, self.root,
+                              threading.get_ident(), self.start, end))
+        return False
+
+
+def span(name: str):
+    """A context manager that records span ``name`` while spans are on."""
+    if not _SPANS_ON:
+        return _NO_SPAN
+    return _OpenSpan(name)
+
+
+def counting() -> bool:
+    """Whether counters are on: test it before computing a counted value
+    that costs device work."""
+    return _COUNTERS_ON
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a host int, or a device tensor added on its device) to
+    counter ``name`` while counters are on."""
+    if not _COUNTERS_ON:
+        return
+    with _COUNTS_LOCK:
+        old = _COUNTS.get(name)
+        _COUNTS[name] = value if old is None else old + value
+
+
+@contextlib.contextmanager
+def tracing(spans: bool = True, counters: bool = True):
+    """Spans and counters on (or off) inside the block, as before it after."""
+    global _SPANS_ON, _COUNTERS_ON
+    before = _SPANS_ON, _COUNTERS_ON
+    _SPANS_ON, _COUNTERS_ON = bool(spans), bool(counters)
+    try:
+        yield
+    finally:
+        _SPANS_ON, _COUNTERS_ON = before
+
+
+def collect() -> dict:
+    """{"spans": the spans recorded, in the order they ended, "counters":
+    {name: int}} since the last collect, which both are cleared of. Reading
+    a device counter waits for the card."""
+    n = len(_RECORDED)
+    spans = _RECORDED[:n]
+    del _RECORDED[:n]
+    with _COUNTS_LOCK:
+        counts = dict(_COUNTS)
+        _COUNTS.clear()
+    return {"spans": spans, "counters": {k: int(v) for k, v in counts.items()}}
 
 
 @contextlib.contextmanager
 def trace_annotated(profile_dir: str | Path | None = None):
     """``torch.profiler`` over the block (host, and the card where there is
-    one), written to ``profile_dir/trace.json`` as a Chrome trace, when a
-    directory is given; else a no-op."""
+    one) with spans on, when a directory is given, else a no-op: writes
+    ``profile_dir/trace.json`` (a Chrome trace, the spans' ranges in it) and
+    ``profile_dir/spans.json`` ({"spans": the block's spans as objects of
+    :class:`Span`'s fields, "counters": the counters recorded, while a
+    :func:`tracing` block around this one keeps them on}). Spans recorded
+    before the block and not collected are written with them."""
     if profile_dir is None:
         yield
         return
@@ -118,6 +212,9 @@ def trace_annotated(profile_dir: str | Path | None = None):
         activities.append(ProfilerActivity.CUDA)
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with tracing(spans=True, counters=_COUNTERS_ON), profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(out / "trace.json"))
+    got = collect()
+    (out / "spans.json").write_text(json.dumps(
+        {"spans": [s._asdict() for s in got["spans"]], "counters": got["counters"]}))

@@ -210,7 +210,7 @@ def test_morton_k8_records_and_frame():
     moved = tris * np.float32(1.05)
     pt.refit_bvh(moved)
     jpt.refit_bvh(moved)
-    assert "refit_ms" in pt.build_stats and pt._bvh2_height == tree_height(pt._bvh2)
+    assert "plan_ms" in pt.build_stats and pt._bvh2_height == tree_height(pt._bvh2)
     ref_qn = np.asarray(jpt._qnodes)
     assert np.array_equal(pt._qnodes.numpy().view(np.uint32),
                           ref_qn.reshape(ref_qn.shape[0], -1).view(np.uint32))
@@ -232,4 +232,4 @@ def test_k1_checkpoint_from_the_jax_package(tmp_path, jax_k1):
     assert_hits_parity(t, tri, rt, rtri, tris, image_dirs(w, h))
     pt.builder = "lbvh"
     pt.refit_bvh(tris)
-    assert "refit_ms" not in pt.build_stats and pt._qnodes is not None
+    assert pt._collapse_plan is None and pt._qnodes is not None

@@ -136,7 +136,7 @@ def test_refit_under_collapse8_rebuilds(widener_scene):
     moved = (tris * np.float32(0.8)).astype(np.float32)
     pt.refit_bvh(moved)
     assert pt._collapse_plan is None and pt._cluster is not old
-    assert "refit_ms" not in pt.build_stats and "plan_ms" not in pt.build_stats
+    assert "plan_ms" not in pt.build_stats
     fresh = PathTracer(48, 32, widener="collapse8", builder="sah", leaf_size=8, device="cpu")
     fresh.build_bvh(moved)
     assert torch.equal(pt._qnodes, fresh._qnodes) and torch.equal(pt.render(), fresh.render())
