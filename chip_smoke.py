@@ -11,8 +11,9 @@ Phases, each printing what it measures; the first failure exits non-zero:
 2. the builds, started together: the native BVH library, the primary-ray
    kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu, in two builds:
    the render core and the frozen loop, and the warp-leaves cores), the
-   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu) and the
-   microbenchmark kernels MB1–MB4 (csrc/microbench.cu), with their seconds
+   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu), the camera
+   wave's lanes (csrc/camera_lanes.cu) and the microbenchmark kernels
+   MB1–MB4 (csrc/microbench.cu), with their seconds
    and the ptxas registers, stack frame and spills of every instantiation
    (child slots × jitter × visits × bounds, any hit; the microbenchmarks'
    rows × chains × vector rounds and slots × record source);
@@ -31,7 +32,7 @@ Phases, each printing what it measures; the first failure exits non-zero:
    jittered framed view, and against brute force on 1,024 seeded pixels;
 7. the progressive main path at full size: render_progressive(bounces=3)
    four times and present_progressive, counting the launches (per sample 1
-   K1b, bounces−1 K2a, bounces K2b), the frame count, a finite
+   K1b, 1 camera_lanes, bounces−1 K2a, bounces K2b), the frame count, a finite
    non-negative buffer and the reset on a camera move; then
    render_progressive(bounces=0) four times (4 K1b); and one sample of each
    kind under torch's sync debug mode, which fails on any host-device
@@ -83,7 +84,7 @@ Phases, each printing what it measures; the first failure exits non-zero:
    the dragon: set_scene (build seconds, BVH8 rows, record bytes, peak
    memory), render framed and sparse (1 K1e each, images equal to the
    4-wide tree's but for ties), render_progressive(bounces=3) four times
-   (per sample 1 K1e and 2·bounces−1 K2c, nothing else), and one sample
+   (per sample 1 K1e, 1 camera_lanes and 2·bounces−1 K2c, nothing else), and one sample
    under sync debug mode;
 16. K1e against its plain version on the centre crop, with and without
    jitter, and against brute force on the 1,024 seeded pixels; K2c closest
@@ -300,6 +301,15 @@ runs right after phase 11, the rest after phase 26, before 28:
    compactions' ms, and one thread per ray against persistent warps on
    the compacted waves.
 
+Phase 37 runs after phase 10:
+
+37. the camera wave's lanes (csrc/camera_lanes.cu) on K1b's planes of the
+   jittered framed 1080p view (phase 6): d, t, tri and n torch.equal to
+   its plain version's (camera_lanes_reference, the composition the sample
+   ran before the kernel); the bare launch's CUDA-event time, the wrapper's
+   host issue time, the plain version's time, and the bound, 52 bytes a
+   lane (five plane words read; d, n, t and tri written) over 3.35 TB/s.
+
 Phases 34 and 35 drive the two options of the TPU kernels; they run after
 phase 14:
 
@@ -333,8 +343,9 @@ Phase 36 drives the paths that only the benchmark runs; it runs after phase
    triangles) at 512x512 from (0, 0, 2.8), 4 samples of 1 bounce + NEE, and
    config 4, the interior hall (5,250 triangles) at 512x512 from (0, 0, 0.8),
    1 sample of 4 bounces + NEE, both on SAH K = 32 records. One frame of each
-   with the launches counted (config 2: 4 K1b and 4 K2b; config 4: 1 K1b, 3
-   K2a and 4 K2b; nothing else) and its alive share; one sample of each
+   with the launches counted (config 2: 4 K1b, 4 camera_lanes and 4 K2b;
+   config 4: 1 K1b, 1 camera_lanes, 3 K2a and 4 K2b; nothing else) and its
+   alive share; one sample of each
    scene and camera at the frame's size (512x512, 262,144 lanes a wave) and
    one at 256x256 (65,536 lanes) through the kernels and through the plain
    versions, radiance within 1e-5 on >= 99.9% of the pixels; and each
@@ -389,7 +400,13 @@ count six f32 planes a pixel; a placement row's ``ms`` includes what the
 placement does around its launch ("vmem": the carve-out, the wait for the
 launch and the reset).
 
-The K1b, K2a and K2b rows also carry ``bench_launches``: phase 36's launches
+The camera_lanes row (it replaces no TPU kernel: the JAX package's
+pt_sample_frame does this set-up with array ops that XLA fuses) holds phase
+37's numbers on the whole 1080p frame: ``rays`` = ``path_rays`` = its
+lanes, ``ms`` = ``path_ms`` the bare launch, ``issue_ms`` the wrapper's
+host time, ``launches`` those of phase 7.
+
+The K1b, camera_lanes, K2a and K2b rows also carry ``bench_launches``: phase 36's launches
 of one frame of config 2 and of config 4.
 
 Every traversal row of the kernels line but the placements' also carries
@@ -441,6 +458,7 @@ DYN_FRAMES = 8
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 SLAB_OPS, MT_OPS = 25, 54  # per child slot of a visited record; per triangle test
 OUT_BYTES, RAY_BYTES = 20, 24
+LANE_BYTES = 52  # the camera wave's lanes: 5 plane words read, d, n (12 B), t, tri written
 KERNELS = {
     "trace_tiles_k1a": ("raytracer_tpu_torch/csrc/traverse_tiles.cu",
                         "raytracer_tpu/ops/pallas/traverse.py:666"),
@@ -475,6 +493,8 @@ KERNELS = {
                                           "raytracer_tpu/ops/pallas/traverse.py:1197")
        for space in ("vmem", "smem") for order in ("", "_unordered")
        for k in ("k2a", "k2b", "k2c")},
+    "camera_lanes": ("raytracer_tpu_torch/csrc/camera_lanes.cu",
+                     "none: array ops of raytracer_tpu/render_pt.py:303-356, fused by XLA"),
 }
 # the microbenchmark kernels (their launches are counted apart, in
 # ops.cuda.microbench.LAUNCHES) and the TPU kernels they replace
@@ -661,7 +681,8 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            k = re.search(r"((?:trace|mb)_\w+?_kernel)(I(?:L[ibj]\d+E)+)?", m.group(1))
+            k = re.search(r"((?:trace|mb)_\w+?_kernel|camera_lanes_kernel)(I(?:L[ibj]\d+E)+)?",
+                          m.group(1))
             name = m.group(1) if not k else k.group(1) if not k.group(2) else (
                 f"{k.group(1)}<{','.join(re.findall(r'L[ibj](\d+)E', k.group(2)))}>")
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -674,10 +695,10 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
 
 
 def build_all() -> None:
-    """Build the native library and both kernel sources at once, and print
+    """Build the native library and every kernel source at once, and print
     what ptxas says of every kernel instantiation."""
     from raytracer_tpu_torch.native import bvhtool
-    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.cuda import camera, traverse
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -686,7 +707,7 @@ def build_all() -> None:
 
     from raytracer_tpu_torch.ops.cuda import microbench
 
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         jobs = {"native BVH library": pool.submit(timed, bvhtool.ensure_built),
                 "microbench.cu (MB1, MB2, MB3, MB4)": pool.submit(
                     timed, microbench.load_microbench),
@@ -695,7 +716,9 @@ def build_all() -> None:
                 "traverse_tiles.cu:warp (K1 over leaves of K > 1)": pool.submit(
                     timed, traverse.load_kernel, "traverse_tiles.cu:warp"),
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
-                    timed, traverse.load_kernel, "traverse_rays.cu")}
+                    timed, traverse.load_kernel, "traverse_rays.cu"),
+                "camera_lanes.cu (the camera wave's lanes)": pool.submit(
+                    timed, camera.load_camera_lanes)}
         results = {name: job.result() for name, job in jobs.items()}
     for name, (out, secs) in results.items():
         log(f"[build] {name} ready in {secs:.2f} s")
@@ -1091,8 +1114,8 @@ def main() -> None:
     k1b = check_tiles(env, qn, "K1b", jitter=True)
 
     # 7. the progressive main path
-    pt_want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
-                       trace_rays_k2b=SAMPLES * BOUNCES)
+    pt_want = expected(trace_tiles_k1b=SAMPLES, camera_lanes=SAMPLES,
+                       trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES)
     progressive_samples(pt, pt_want, "progressive")
     pt.set_camera_position(*MOVED)
     pt.render_progressive(bounces=BOUNCES)
@@ -1185,6 +1208,9 @@ def main() -> None:
         f"{rows['trace_rays_k2b']['path_ms']:.4f} ms = {k1b_ms + k2_ms:.4f} ms of "
         f"{statistics.median(sample_reps[BOUNCES]):.4f} ms per sample on {card}")
 
+    # 37. the camera wave's lanes on K1b's planes
+    rows["camera_lanes"] = camera_lanes_phase(env, k1b, pt_want["camera_lanes"])
+
     # 11. where the time of a progressive sample goes
     pt.set_camera_position(*FRAMED)
     profile_calls(lambda: pt.render_progressive(bounces=BOUNCES),
@@ -1246,6 +1272,61 @@ def main() -> None:
     } for name, row in {**rows, **mb_rows}.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
+    """37. The camera wave's lanes on K1b's planes of the jittered framed
+    1080p view: the kernel against its plain version (torch.equal on d, t,
+    tri and n), the bare launch's CUDA-event time, the wrapper's host issue
+    time, the plain version's time and the bound → its kernels-line row."""
+    from raytracer_tpu_torch.ops.camera import camera_constants
+    from raytracer_tpu_torch.ops.cuda import camera
+    from raytracer_tpu_torch.ops.lanes import img_to_lanes
+
+    card, dev = env["card"], env["dev"]
+    planes = k1b["planes"]
+    args = (planes, QUAT, WIDTH, HEIGHT, FOV, JITTER_SEED)
+    ker = camera.camera_lanes(*args)
+    ref = camera.camera_lanes_reference(*args)
+    for name, a, b in zip(("d", "t", "tri", "n"), ker, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"camera_lanes {name}: {a.dtype} {tuple(a.shape)}, plain {b.dtype} "
+                 f"{tuple(b.shape)}")
+        if not torch.equal(a, b):
+            fail(f"camera_lanes {name} differs from its plain version in "
+                 f"{int((a != b).sum())} words at {WIDTH}x{HEIGHT}")
+    lanes = WIDTH * HEIGHT
+    hits = int((ker[2] >= 0).sum())
+    turned = int((ker[3] != img_to_lanes(torch.stack(planes[1:4], -1), WIDTH, HEIGHT))
+                 .any(-1).sum())
+    log(f"[camera_lanes] {WIDTH}x{HEIGHT}, jitter seed {JITTER_SEED}: d, t, tri and n equal to "
+        f"the plain version's on all {lanes} lanes ({hits} hits, {turned} normals turned)")
+
+    lib, _ = camera.load_camera_lanes()
+    focal, aspect = camera_constants(WIDTH, HEIGHT, FOV)
+    outs = [torch.empty_like(x) for x in ker]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def bare():
+        err = lib.rt_camera_lanes(*(float(q) for q in QUAT), focal, aspect, WIDTH, HEIGHT,
+                                  JITTER_SEED, *(p.data_ptr() for p in planes),
+                                  *(o.data_ptr() for o in outs), stream)
+        if err:
+            fail(f"rt_camera_lanes returned cudaError {err}")
+
+    reps = cuda_ms(bare, FRAMES, REPEATS)
+    if not all(torch.equal(o, k) for o, k in zip(outs, ker)):
+        fail("the bare camera_lanes launches wrote other lanes than the wrapper's")
+    ms = statistics.median(reps)
+    issue_ms, _ = host_issue_ms(lambda: camera.camera_lanes(*args))
+    plain_ms = statistics.median(cuda_ms(lambda: camera.camera_lanes_reference(*args), 1, 3))
+    b_ms = LANE_BYTES * lanes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] camera_lanes {WIDTH}x{HEIGHT}: kernel {ms:.4f} ms (reps "
+        f"{[round(r, 4) for r in reps]}), wrapper {issue_ms:.4f} ms of host a call, plain "
+        f"torch {plain_ms:.3f} ms, bound {b_ms:.4f} ms by bytes ({LANE_BYTES} B a lane) on {card}")
+    return {"launches": launches, "max_abs_err": 0.0, "rays": lanes, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "issue_ms": issue_ms,
+            "path_rays": lanes, "path_ms": ms, "path_bound_ms": b_ms, "path_bound_by": "bytes"}
 
 
 def host_issue_ms(fn, n: int = 8) -> tuple[float, float]:
@@ -2593,7 +2674,8 @@ def wide8_phase(env: dict, scene) -> dict:
             "the 4-wide tree's image")
         if equal < MIN_TRI_MATCH:
             fail(f"the 8-wide {view} image equals the 4-wide one on {equal:.6f} of pixels")
-    pt_want = expected(trace_tiles_k1e=SAMPLES, trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1))
+    pt_want = expected(trace_tiles_k1e=SAMPLES, camera_lanes=SAMPLES,
+                       trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1))
     progressive_samples(pt, pt_want, "wide8 progressive")
     sample_reps = cuda_ms(lambda: pt.render_progressive(bounces=BOUNCES), SAMPLES, 3)
     ms = statistics.median(sample_reps)
@@ -2743,7 +2825,7 @@ def lbvh_phase(env: dict, scene) -> dict:
             accum = pt.render_progressive(bounces=BOUNCES)
             torch.cuda.synchronize()
             launches = dict(traverse.LAUNCHES)
-            want = expected(trace_tiles_k1b=1, trace_rays_k2a=BOUNCES - 1,
+            want = expected(trace_tiles_k1b=1, camera_lanes=1, trace_rays_k2a=BOUNCES - 1,
                             trace_rays_k2b=BOUNCES)
             log(f"[{what}] launches during render_progressive(bounces={BOUNCES}): "
                 f"{json.dumps(launches)}")
@@ -3547,7 +3629,8 @@ SAMPLE_FORMS = {
 
 def compacted_progressive_phase(env: dict, pt) -> None:
     """33 (a). render_progressive(bounces=3) at 1080p with compaction on:
-    its launches (1 K1b, 2 K2a, 3 K2b a sample and nothing else), the sort's
+    its launches (1 K1b, 1 camera_lanes, 2 K2a, 3 K2b a sample and nothing
+    else), the sort's
     and gathers' kernels under torch.profiler, no host-device
     synchronisation, a finite non-negative buffer."""
     from raytracer_tpu_torch import pathtracer
@@ -3555,8 +3638,8 @@ def compacted_progressive_phase(env: dict, pt) -> None:
     saved = pathtracer.COMPACT_WAVES
     pathtracer.COMPACT_WAVES = True
     try:
-        want = expected(trace_tiles_k1b=SAMPLES, trace_rays_k2a=SAMPLES * (BOUNCES - 1),
-                        trace_rays_k2b=SAMPLES * BOUNCES)
+        want = expected(trace_tiles_k1b=SAMPLES, camera_lanes=SAMPLES,
+                        trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES)
         pt.set_camera_position(*MOVED)
         pt.render_progressive(bounces=BOUNCES)  # so that the framed view starts a buffer
         progressive_samples(pt, want, "compaction")
@@ -3569,7 +3652,7 @@ def compacted_progressive_phase(env: dict, pt) -> None:
 def plain_traversal(fn):
     """``fn`` run with render_pt's kernels replaced by their plain versions."""
     from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.ops.cuda import camera, traverse
 
     def tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
               jitter=False, jitter_seed=0):
@@ -3582,12 +3665,13 @@ def plain_traversal(fn):
         return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
                                              leaf_k=leaf_k, active=active, ordered=ordered)
 
-    real = (render_pt.trace_tiles, render_pt.trace_rays)
+    real = (render_pt.trace_tiles, render_pt.trace_rays, render_pt.camera_lanes)
     render_pt.trace_tiles, render_pt.trace_rays = tiles, rays
+    render_pt.camera_lanes = camera.camera_lanes_reference
     try:
         return fn()
     finally:
-        render_pt.trace_tiles, render_pt.trace_rays = real
+        render_pt.trace_tiles, render_pt.trace_rays, render_pt.camera_lanes = real
 
 
 def max_abs_diff(a, b) -> float:
@@ -3718,7 +3802,7 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
                                   **unordered)
     torch.cuda.synchronize()
     launches = dict(traverse.LAUNCHES)
-    want = expected(trace_tiles_k1b=1, trace_tiles_k1e=1,
+    want = expected(trace_tiles_k1b=1, trace_tiles_k1e=1, camera_lanes=2,
                     trace_rays_k2a_unordered=BOUNCES - 1, trace_rays_k2b_unordered=BOUNCES,
                     trace_rays_k2c_unordered=2 * BOUNCES - 1)
     log(f"[unordered] launches of one compacted unordered 1080p sample on 4-wide and one on "
@@ -4223,7 +4307,7 @@ def run_shardings(mesh, qn: torch.Tensor, tris: torch.Tensor, seeds, pt_seeds) -
     n = mesh.size
     want = {"tiles": expected(trace_tiles_k1a=1), "spp": expected(trace_tiles_k1b=1),
             "cams": expected(trace_tiles_k1c=1),
-            "pt": expected(trace_tiles_k1b=1, trace_rays_k2a=BOUNCES - 1,
+            "pt": expected(trace_tiles_k1b=1, camera_lanes=1, trace_rays_k2a=BOUNCES - 1,
                            trace_rays_k2b=BOUNCES)}
     out, launches, host_ms = {}, {}, {}
     for name, call in calls.items():
@@ -4648,8 +4732,8 @@ def graft_phase(env: dict) -> None:
 
 # 36. what each configuration's one frame launches, and its samples and bounces
 BENCH_LAUNCHES = {
-    2: {"trace_tiles_k1b": 4, "trace_rays_k2b": 4},
-    4: {"trace_tiles_k1b": 1, "trace_rays_k2a": 3, "trace_rays_k2b": 4},
+    2: {"trace_tiles_k1b": 4, "camera_lanes": 4, "trace_rays_k2b": 4},
+    4: {"trace_tiles_k1b": 1, "camera_lanes": 1, "trace_rays_k2a": 3, "trace_rays_k2b": 4},
 }
 
 

@@ -106,15 +106,17 @@
 // orders children by the tile-centre ray; ordering by each ray's own entry
 // distance is the per-ray form of that and changes only the visit order.
 //
-// Exactness: ray generation follows traverse.py:714-736 in the operation
-// order of the plain torch version (raytracer_tpu_torch/ops/camera.py::
-// primary_dirs), with IEEE 1.0f / sqrtf where the TPU kernel uses rsqrt.
-// All three kernels generate rays with the one function trace_primary, so a
-// K1c frame is bit-identical to K1a (K1b with its seed) for its camera.
+// Exactness: ray generation is raygen.cuh's (the TPU kernel's
+// traverse.py:714-736 in the operation order of the plain torch version
+// raytracer_tpu_torch/ops/camera.py::primary_dirs). All three kernels
+// generate rays with the one function trace_primary, so a K1c frame is
+// bit-identical to K1a (K1b with its seed) for its camera, and K1b's rays
+// are bit-identical to the directions camera_lanes.cu hands to the sample.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raygen.cuh"
 #include "traverse_core.cuh"
 
 // The source builds as two libraries (ops/cuda/traverse.py::TILE_SOURCES),
@@ -138,18 +140,6 @@ struct Camera {
   float focal, aspect, fw, fh;
 };
 
-// raytracer_tpu/ops/camera.py::subpixel_hash01 in uint32 arithmetic.
-__device__ __forceinline__ float subpixel_hash01(int px, int py, int seed) {
-  uint32_t h = (uint32_t)px * 0x9E3779B1u + (uint32_t)py * 0x85EBCA77u +
-               (uint32_t)seed * 0xC2B2AE3Du;
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return (float)(h >> 8) * 5.9604644775390625e-8f;  // 2^-24
-}
-
 // Columns of a camera row of K1c's table (the TPU kernel's (F, 16) layout;
 // columns 14 and 15 are unused).
 enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSeed = 11,
@@ -167,29 +157,12 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
                                                  int entry = 0, bool mine = true) {
   float jx = 0.5f, jy = 0.5f;
   if (kJitter) {
-    jx = subpixel_hash01(gx, gy, seed * 2);
-    jy = subpixel_hash01(gx, gy, seed * 2 + 1);
+    jx = rt::subpixel_hash01(gx, gy, seed * 2);
+    jy = rt::subpixel_hash01(gx, gy, seed * 2 + 1);
   }
-  const float u = ((float)gx + jx) / cam.fw * 2.0f - 1.0f;
-  const float v = ((float)gy + jy) / cam.fh * 2.0f - 1.0f;
-  float dx = u * cam.aspect;
-  float dy = v;
-  float dz = -cam.focal;
-  const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
-  dx = dx * inv_len;
-  dy = dy * inv_len;
-  dz = dz * inv_len;
-  {
-    const float uvx = cam.qy * dz - cam.qz * dy;
-    const float uvy = cam.qz * dx - cam.qx * dz;
-    const float uvz = cam.qx * dy - cam.qy * dx;
-    const float uuvx = cam.qy * uvz - cam.qz * uvy;
-    const float uuvy = cam.qz * uvx - cam.qx * uvz;
-    const float uuvz = cam.qx * uvy - cam.qy * uvx;
-    dx = 2.0f * (cam.qw * uvx + uuvx) + dx;
-    dy = 2.0f * (cam.qw * uvy + uuvy) + dy;
-    dz = 2.0f * (cam.qw * uvz + uuvz) + dz;
-  }
+  float dx, dy, dz;
+  rt::primary_dir(gx, gy, jx, jy, cam.fw, cam.fh, cam.focal, cam.aspect, cam.qx, cam.qy, cam.qz,
+                  cam.qw, dx, dy, dz);
   if constexpr ((kCore & rt::kWarpLeaves) != 0) {
     return rt::traverse_ray_warp<kSlots, false, kCore, kVisits>(
         qn, recw, leaf_k, mine, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,

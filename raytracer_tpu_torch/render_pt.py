@@ -12,12 +12,14 @@ Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame``,
   fixed bounce budget.
 * Waves: each bounce traces every lane as one batch. With records, the
   camera wave goes through the jittered tile kernel K1b
-  (``tile_primary``) or the ray-buffer kernel K2a; the bounce waves through
+  (``tile_primary``; then the kernel ``ops.cuda.camera.camera_lanes``
+  puts its planes, the rays' directions and the turned normals in lane
+  order) or the ray-buffer kernel K2a; the bounce waves through
   K2a with the live paths as the ``active`` mask; the NEE waves through
   the any-hit kernel K2b with ``active`` = hit and n·l > 0. Inactive lanes
   are not read and their results are never used, so the mask changes no
   pixel. ``brute`` traces every wave by brute force instead.
-* Lanes start in 32×32 tile-block order (:func:`_lane_of_pixel`): it keeps
+* Lanes start in 32×32 tile-block order (:mod:`.ops.lanes`): it keeps
   a warp's rays neighbours, and it is the lane order of the JAX package, so
   its random numbers line up lane for lane. Without compaction they stay in
   it to the end. With ``compact=True`` every wave but the last is followed
@@ -38,8 +40,12 @@ from collections.abc import Mapping
 
 import torch
 
-from .ops.camera import generate_rays_jittered, primary_dirs, to_device
+from .ops.camera import primary_dirs, to_device
+from .ops.cuda.camera import camera_lanes
 from .ops.cuda.traverse import trace_rays, trace_tiles
+from .ops.lanes import TILE, face, img_to_lanes, lanes_to_img
+# the name benchmark/tests/test_bench_reference.py imports the lane order by
+from .ops.lanes import lane_of_pixel as _lane_of_pixel  # noqa: F401
 from .ops.morton import expand_bits10
 from .ops.partition import bucket_partition_perm
 from .ops.shade import MISS_COLOR
@@ -48,7 +54,6 @@ from .utils.profiling import span
 
 __all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE"]
 
-TILE = 32
 _BASE = (0.9, 0.7, 0.3)
 _SUN_DIR = (1.0, 1.5, 1.0)
 _SKY = 0.15
@@ -83,55 +88,11 @@ def _cosine_sample(n: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch
     return t * x[..., None] + bt * y[..., None] + n * z[..., None]
 
 
-def _face(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """Flip the normals n to face the incoming rays d (a zero normal stays)."""
-    flip = torch.sign(-(n * d).sum(-1, keepdim=True))
-    return n * torch.where(flip == 0.0, 1.0, flip)
-
-
 def _normals_for(tris: torch.Tensor, tri_idx: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Geometric normals of tris[tri_idx], flipped to face the rays d."""
     v = tris[tri_idx.clamp(0, tris.shape[0] - 1).long()]
     n = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], dim=-1)
-    return _face(n / torch.linalg.vector_norm(n, dim=-1, keepdim=True), d)
-
-
-def _lane_of_pixel(width: int, height: int, device) -> torch.Tensor:
-    """(H·W,) lane of each pixel (row-major) in tile-block order: TILE×TILE
-    blocks in row-major order, each block's pixels row-major, partial edge
-    blocks packing fewer lanes. Computed on ``device``."""
-    y = torch.arange(height, device=device)[:, None]
-    x = torch.arange(width, device=device)[None, :]
-    by, bx = y // TILE, x // TILE
-    block_h = torch.clamp_max(height - by * TILE, TILE)
-    block_w = torch.clamp_max(width - bx * TILE, TILE)
-    lane = by * (TILE * width) + block_h * bx * TILE + (y % TILE) * block_w + x % TILE
-    return lane.reshape(-1)
-
-
-def _aligned(width: int, height: int) -> bool:
-    return width % TILE == 0 and height % TILE == 0
-
-
-def _img_to_lanes(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
-    """(H, W[, C]) image → (H·W[, C]) lanes in tile-block order: a reshape
-    when W and H are multiples of TILE, else a scatter."""
-    ch = img.shape[2:]
-    if _aligned(width, height):
-        a = img.reshape(height // TILE, TILE, width // TILE, TILE, *ch)
-        return a.transpose(1, 2).reshape(height * width, *ch)
-    lanes = torch.empty((height * width, *ch), dtype=img.dtype, device=img.device)
-    lanes[_lane_of_pixel(width, height, img.device)] = img.reshape(height * width, *ch)
-    return lanes
-
-
-def _lanes_to_img(lanes: torch.Tensor, width: int, height: int) -> torch.Tensor:
-    """Inverse of :func:`_img_to_lanes`: a reshape, or a gather."""
-    ch = lanes.shape[1:]
-    if _aligned(width, height):
-        a = lanes.reshape(height // TILE, width // TILE, TILE, TILE, *ch)
-        return a.transpose(1, 2).reshape(height, width, *ch)
-    return lanes[_lane_of_pixel(width, height, lanes.device)].reshape(height, width, *ch)
+    return face(n / torch.linalg.vector_norm(n, dim=-1, keepdim=True), d)
 
 
 class _Draws:
@@ -189,7 +150,7 @@ def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active, scattered: bool
         return t, tri, _normals_for(tris, tri, d)
     t, nx, ny, nz, tri = trace_rays(qnodes, o, d, leaf_k=leaf_k, active=active,
                                     scattered=scattered, ordered=ordered)
-    return t, tri, _face(torch.stack([nx, ny, nz], dim=-1), d)
+    return t, tri, face(torch.stack([nx, ny, nz], dim=-1), d)
 
 
 def _occluded(qnodes, tris, o, d, brute: bool, leaf_k: int, active,
@@ -314,22 +275,24 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     alive_rays = torch.zeros((), dtype=torch.int64, device=dev) if stats else None
     # the pixel (row-major index) of each lane, permuted with the lanes
-    pix = _img_to_lanes(torch.arange(r, device=dev).reshape(height, width), width,
+    pix = img_to_lanes(torch.arange(r, device=dev).reshape(height, width), width,
                         height) if compact else None
 
     for b in range(bounces):
         with span("rt/pt/camera" if b == 0 else "rt/pt/bounce"):
             if stats:
                 alive_rays = alive_rays + alive.sum()
-            if b == 0:
-                o, d, pseed = _camera_rays(draws, cam_pos, cam_quat, width, height,
-                                           fov_degrees, tile_primary, dev)
             if b == 0 and tile_primary:
+                pseed = draws.pseed()
                 planes = trace_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees,
                                      leaf_k=leaf_k, jitter=True, jitter_seed=pseed)
-                t, nx, ny, nz, tri = (_img_to_lanes(p, width, height) for p in planes)
-                n = _face(torch.stack([nx, ny, nz], dim=-1), d)
+                d, t, tri, n = camera_lanes(planes, cam_quat, width, height, fov_degrees, pseed)
+                # every camera ray starts at the camera: a broadcast view
+                o = to_device(cam_pos, dev).reshape(1, 3).expand(r, 3)
             else:
+                if b == 0:
+                    o, d = _camera_rays(draws, cam_pos, cam_quat, width, height, fov_degrees,
+                                        dev)
                 # the lanes alive at b >= 2 are hits of random bounce rays;
                 # compacted, they lead the buffer in a run
                 t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
@@ -372,7 +335,7 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     if compact:
         img = torch.empty_like(radiance).index_copy_(0, pix, radiance).reshape(height, width, 3)
     else:
-        img = _lanes_to_img(radiance, width, height)
+        img = lanes_to_img(radiance, width, height)
     if stats:
         return img, {"alive_rays": alive_rays,
                      "lane_rays": torch.full((), 2 * r * bounces, device=dev)}
@@ -380,22 +343,16 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
 
 
 def _camera_rays(draws, cam_pos, cam_quat, width: int, height: int, fov_degrees: float,
-                 tile_primary: bool, dev):
-    """The camera wave's rays in lane order → (o, d, the tile kernel's
-    jitter seed or None): at the ``subpixel_hash01`` offsets of a drawn
-    seed with ``tile_primary``, else at the drawn offsets ``jx``, ``jy``."""
-    if tile_primary:
-        pseed = draws.pseed()
-        o2, d2 = generate_rays_jittered(width, height, cam_pos, cam_quat, pseed,
-                                        fov_degrees, device=dev)
-        return _img_to_lanes(o2, width, height), _img_to_lanes(d2, width, height), pseed
+                 dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The camera wave's rays in lane order at the drawn offsets ``jx``,
+    ``jy`` → (o, a broadcast view of the camera's position; d)."""
     jx, jy = draws.jitter(height, width)
     py, px = torch.meshgrid(torch.arange(height, device=dev),
                             torch.arange(width, device=dev), indexing="ij")
     d = primary_dirs(px.reshape(-1), py.reshape(-1), width, height, cam_quat, fov_degrees,
                      jx.reshape(-1), jy.reshape(-1)).reshape(height, width, 3)
     o = to_device(cam_pos, dev).reshape(1, 3).expand(width * height, 3)
-    return o, _img_to_lanes(d, width, height), None
+    return o, img_to_lanes(d, width, height)
 
 
 def accumulate(accum: torch.Tensor, sample: torch.Tensor, frame_count: int) -> torch.Tensor:

@@ -32,8 +32,8 @@ from raytracer_tpu.render_pt import pt_sample_frame as jax_pt_sample_frame
 from raytracer_tpu.utils import procgen as jax_procgen
 from raytracer_tpu_torch import PathTracer, Scene, accumulate, pt_sample_frame
 from raytracer_tpu_torch.ops.camera import _mul32, generate_rays_jittered, subpixel_hash01
+from raytracer_tpu_torch.ops.lanes import img_to_lanes, lanes_to_img
 from raytracer_tpu_torch.ops.shade import MISS_COLOR
-from raytracer_tpu_torch.render_pt import _img_to_lanes, _lanes_to_img
 from test_torch_trace import jax_records
 from torch_parity import seeded_scene
 
@@ -91,10 +91,10 @@ def test_lane_order_matches_jax(width, height):
     """Tile-block lane order: the reshape branch (multiples of 32) and the
     gather/scatter branch, against the JAX package's, and the round trip."""
     img = np.random.default_rng(0).random((height, width, 3)).astype(np.float32)
-    lanes = _img_to_lanes(torch.from_numpy(img), width, height)
+    lanes = img_to_lanes(torch.from_numpy(img), width, height)
     np.testing.assert_array_equal(lanes.numpy(),
                                   np.asarray(jax_img_to_lanes(jnp.asarray(img), width, height)))
-    assert torch.equal(_lanes_to_img(lanes, width, height), torch.from_numpy(img))
+    assert torch.equal(lanes_to_img(lanes, width, height), torch.from_numpy(img))
 
 
 @pytest.mark.parametrize("width,height,bounces",

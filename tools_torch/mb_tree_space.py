@@ -42,9 +42,10 @@ from raytracer_tpu_torch.ops.camera import generate_rays  # noqa: E402
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline  # noqa: E402
 from raytracer_tpu_torch.ops.collapse import bvh2_as_bvh4  # noqa: E402
 from raytracer_tpu_torch.ops.cuda import traverse  # noqa: E402
+from raytracer_tpu_torch.ops.lanes import img_to_lanes  # noqa: E402
 from raytracer_tpu_torch.ops.lbvh import build_lbvh2  # noqa: E402
 from raytracer_tpu_torch.ops.trace import make_wide_bvh  # noqa: E402
-from raytracer_tpu_torch.render_pt import _cosine_sample, _img_to_lanes  # noqa: E402
+from raytracer_tpu_torch.render_pt import _cosine_sample  # noqa: E402
 from raytracer_tpu_torch.utils import procgen  # noqa: E402
 
 SIZE, CAM, QUAT, FOV, SEED = 512, (0.0, 0.0, 0.8), (0.0, 0.0, 0.0, 1.0), 70.0, 5
@@ -83,8 +84,8 @@ def waves(qn: torch.Tensor, leaf_k: int, size: int = SIZE, seed: int = SEED,
     lane order."""
     dev = qn.device
     o, d = generate_rays(size, size, cam, QUAT, FOV, device=dev)
-    o = _img_to_lanes(o, size, size).contiguous()
-    d = _img_to_lanes(d, size, size).contiguous()
+    o = img_to_lanes(o, size, size).contiguous()
+    d = img_to_lanes(d, size, size).contiguous()
     r = size * size
     t, nx, ny, nz, tri = traverse.trace_rays(qn, o, d, leaf_k=leaf_k)
     n = torch.stack([nx, ny, nz], -1)
