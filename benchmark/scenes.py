@@ -5,13 +5,32 @@ Frozen copies of the generators that the project's own suite runs
 ``raytracer_tpu_torch/utils/procgen.py``, and ``Scene.normalize_mesh``'s cube
 mode), so that a later change to the program cannot change the yardstick's
 inputs. Both the program and the reference get the triangles made here.
+
+A configuration names its generator in ``scene.generator``: one of the two
+built-ins above, or a module ``generators/<name>.py`` that a configuration
+brings as a new file. Such a module
+
+* is a frozen copy of the project generator it stands for;
+* imports numpy and ``scenes`` only, never ``raytracer_tpu_torch``,
+  ``raytracer_tpu`` or JAX, so that a later change to the program cannot move
+  the yardstick;
+* defines ``make(**args)``, returning the (T, 3, 3) float32 soup; it is
+  deterministic and takes no seed (the seed moves the traffic only);
+* may read data files placed beside it, located from its own ``__file__``.
+
+``normalize`` then applies to its triangles as to a built-in's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_scene", "make_dragon_solid", "make_icosphere", "normalize_cube"]
+from common import HERE, load_module
+
+__all__ = ["make_scene", "generator_of", "make_dragon_solid", "make_icosphere",
+           "normalize_cube"]
+
+GENERATORS_DIR = HERE / "generators"
 
 
 def _soup(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -97,11 +116,26 @@ def normalize_cube(tris: np.ndarray) -> np.ndarray:
     return ((tris - center[None, None, :]) * scale).astype(np.float32)
 
 
-_GENERATORS = {"dragon_solid": make_dragon_solid, "icosphere": make_icosphere}
+_BUILTIN = {"dragon_solid": make_dragon_solid, "icosphere": make_icosphere}
+
+
+def generator_of(name: str):
+    """The generator ``name``: a built-in, else ``make`` of
+    ``generators/<name>.py``; a KeyError names both places looked in."""
+    if name in _BUILTIN:
+        return _BUILTIN[name]
+    path = GENERATORS_DIR / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no scene generator {name!r}: not a built-in of scenes.py "
+                       f"({', '.join(sorted(_BUILTIN))}) and no file {path}")
+    return load_module(path, f"generator_{name}").make
 
 
 def make_scene(spec: dict) -> np.ndarray:
     """The triangles (T, 3, 3) f32 that a configuration's ``scene`` names:
     ``{"generator": name, "args": {...}, "normalize": "cube" | null}``."""
-    tris = _GENERATORS[spec["generator"]](**spec.get("args", {}))
+    tris = generator_of(spec["generator"])(**spec.get("args", {}))
+    if tris.dtype != np.float32 or tris.ndim != 3 or tris.shape[1:] != (3, 3):
+        raise ValueError(f"generator {spec['generator']!r} made {tris.dtype} "
+                         f"{tris.shape}, not a (T, 3, 3) float32 soup")
     return normalize_cube(tris) if spec.get("normalize") == "cube" else tris

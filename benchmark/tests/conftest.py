@@ -6,6 +6,7 @@ machine with a card, ``python -m pytest benchmark/tests -q -m cuda`` runs
 the card test alone.
 """
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -18,23 +19,31 @@ for p in (str(BENCH), str(REPO)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-DRAGON_TOY = {"scene": {"args": {"nu": 16, "nv": 16}}, "width": 64, "height": 40}
-BUNNY_TOY = {"scene": {"args": {"subdivisions": 2}}, "width": 64, "height": 64}
+TOYS = BENCH / "tests" / "toys"
 CELL_TOY = {"warmup_frames": 2, "check": {"pixels": 256, "frames": 3}}
 
 
-def toy_overrides(cell: str, **cell_over) -> dict:
-    """The cell at a size a CPU test holds: the same kinds, builds and checks."""
-    return {"config": BUNNY_TOY if cell.startswith("bunny") else DRAGON_TOY,
-            "cell": {**CELL_TOY, **cell_over}}
+def toy_overrides(cell: str, *, spec: dict | None = None, **cell_over) -> dict:
+    """The cell at a size a CPU test holds: the same kinds, builds and checks.
+    The configuration's toy size is ``tests/toys/<config>.json``."""
+    import harness
+
+    _, entry, _, _ = harness.spec_of(cell, spec)
+    path = TOYS / f"{entry['config']}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {entry['config']!r} has no CPU toy size: "
+                                f"add {path}")
+    return {"config": json.loads(path.read_text()), "cell": {**CELL_TOY, **cell_over}}
 
 
 def run_toy(cell: str, *, seed: int = 2147483713, seconds: float = 1.0, trace: bool = False,
-            control: bool = False, device: str = "cpu", **cell_over) -> dict:
+            control: bool = False, device: str = "cpu", spec: dict | None = None,
+            **cell_over) -> dict:
     import harness
 
     return harness.run_once(cell, seed, seconds, trace, device, t0=time.perf_counter(),
-                            overrides=toy_overrides(cell, **cell_over), control=control)
+                            spec=spec, overrides=toy_overrides(cell, spec=spec, **cell_over),
+                            control=control)
 
 
 @pytest.fixture

@@ -20,6 +20,8 @@ for kind in ("orbit", "progressive", "deform"):
     common.load_module(common.HERE / "traffic" / (kind + ".py"), "traffic_" + kind)
 for path in sorted((common.HERE / "metrics").glob("*.py")):
     common.load_module(path, "metric_" + path.stem)
+for path in sorted((common.HERE / "generators").glob("*.py")):
+    common.load_module(path, "generator_" + path.stem)
 over = {{"config": {{"scene": {{"args": {{"nu": 8, "nv": 8}}}}, "width": 32, "height": 32}},
         "cell": {{"warmup_frames": 1, "check": {{"pixels": 16, "frames": 2}}}}}}
 harness.run_once("dragon.orbit", 1, 0.2, True, "cpu", t0=time.perf_counter(),

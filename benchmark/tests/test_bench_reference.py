@@ -50,13 +50,13 @@ def test_closest_and_any_hit_equal_a_walk_on_a_toy_scene():
 
 def test_camera_hash_and_lanes_follow_the_documented_stream():
     from raytracer_tpu_torch.ops.camera import primary_dirs, subpixel_hash01
-    from raytracer_tpu_torch.render_pt import _lane_of_pixel
+    from raytracer_tpu_torch.ops.lanes import lane_of_pixel
 
     w, h = 70, 45
     py, px = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     px, py = px.reshape(-1), py.reshape(-1)
     np.testing.assert_array_equal(camera.lane_of_pixel(px, py, w, h),
-                                  _lane_of_pixel(w, h, "cpu").numpy())
+                                  lane_of_pixel(w, h, "cpu").numpy())
     for seed in (0, 7, 2 * 4194303 + 1, 2 * 2147483713):
         np.testing.assert_array_equal(camera.subpixel_hash01(px, py, seed),
                                       subpixel_hash01(torch.from_numpy(px),

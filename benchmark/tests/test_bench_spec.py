@@ -35,7 +35,9 @@ def test_names_units_and_entry_keys():
     assert len({m["name"] for m in METRICS}) == len(METRICS)
     for c in SPEC["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert _line(c["source"]) and _line(c["why"]) and c["reduced"] == []
+        assert _line(c["source"]) and _line(c["why"]) and isinstance(c["reduced"], list)
+        assert len(c["reduced"]) <= 16 and len(set(c["reduced"])) == len(c["reduced"])
+        assert all(isinstance(k, str) and NAME.match(k) for k in c["reduced"]), c["reduced"]
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1 and _line(w["why"]) and NAME.match(w["traffic"])
@@ -90,10 +92,13 @@ def test_config_file_states_its_scene_and_rays(conf):
     cfg = json.loads((REPO / conf["file"]).read_text())
     assert conf["file"].startswith("benchmark/configs/") and cfg["source"] == conf["source"]
     assert cfg["reduced"] == conf["reduced"] and cfg["assumed"]
-    gen = scenes._GENERATORS[cfg["scene"]["generator"]]  # noqa: SLF001
+    # a cut names the configuration's own key that it changed
+    assert set(cfg["reduced"]) <= set(cfg) - {"name", "source", "reduced"}
+    gen = scenes.generator_of(cfg["scene"]["generator"])
     assert callable(gen) and cfg["triangles"] > 0
     w, h = cfg["width"], cfg["height"]
-    assert cfg["nominal_rays_per_frame"]["value"] in (w * h, w * h * 4 * 2)
+    rays = cfg["nominal_rays_per_frame"]["value"]
+    assert isinstance(rays, int) and rays > 0 and rays % (w * h) == 0
 
 
 def test_frozen_scenes_equal_the_project_generators_at_small_size():
