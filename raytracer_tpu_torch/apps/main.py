@@ -10,7 +10,7 @@ fixed number of frames, a scripted camera path instead of pointer lock, and
 the last frame written as PNG.
 
 Usage:
-  python -m raytracer_tpu_torch.apps.main [--glb PATH | --scene icosphere|cornell|dragon]
+  python -m raytracer_tpu_torch.apps.main [--glb PATH | --scene icosphere|cornell|dragon|atrium]
       [--frames N] [--width W] [--height H] [--out out.png] [--api URL] [--orbit]
       [--builder auto|lbvh|ploc|sah] [--leaf K] [--device cuda|cpu]
 """
@@ -36,11 +36,18 @@ def _load_scene(args) -> Scene:
         "icosphere": lambda: procgen.make_icosphere(5),
         "cornell": procgen.make_cornell_box,
         "dragon": procgen.make_dragon_stand_in,
+        "atrium": procgen.make_sponza_atrium,
     }[args.scene]()
     s = Scene().set_triangles(tris)
     s._normalize_enabled, s._normalize_mode = True, "cube"
     s.normalize_mesh()
     return s
+
+
+# where the camera starts: (0, 0, 3.5), outside the scene, but for the
+# atrium, which encloses it: in the courtyard near its +z end, a fifth of
+# its height up, looking along -z
+_START = {"atrium": (0.0, -0.227, 0.6486)}
 
 
 def _dump_bvh2(tracer: PathTracer, api_url: str) -> None:
@@ -69,7 +76,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--glb", default=None)
     ap.add_argument("--scene", default="icosphere",
-                    choices=["icosphere", "cornell", "dragon"])
+                    choices=["icosphere", "cornell", "dragon", "atrium"])
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -92,7 +99,7 @@ def main(argv=None) -> int:
 
     config = RenderConfig(
         width=args.width, height=args.height,
-        camera=CameraConfig(position=(0.0, 0.0, 3.5)),
+        camera=CameraConfig(position=_START.get(args.scene, (0.0, 0.0, 3.5))),
     )
     builder = leaf = None
     if args.builder != "auto":

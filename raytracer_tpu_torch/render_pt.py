@@ -50,7 +50,7 @@ from .ops.morton import expand_bits10
 from .ops.partition import bucket_partition_perm
 from .ops.shade import MISS_COLOR
 from .ops.trace import trace_rays_brute
-from .utils.profiling import span
+from .utils.profiling import count, counting, span
 
 __all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE"]
 
@@ -256,7 +256,10 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
 
     Spans (:mod:`raytracer_tpu_torch.utils.profiling`): each wave is one,
     ``rt/pt/camera`` (the camera rays made and traced) then ``rt/pt/bounce``,
-    each with its NEE part nested as ``rt/pt/shadow``."""
+    each with its NEE part nested as ``rt/pt/shadow``. Counters, summed over
+    the waves on the device: ``rt/pt/shadow/cast``, the lanes that hit and
+    face the sun, so cast a shadow ray; ``rt/pt/shadow/blocked``, those of
+    them whose shadow ray hits something."""
     if compact_impl not in COMPACT_IMPLS:
         raise ValueError(f"compact_impl must be one of {COMPACT_IMPLS}, got {compact_impl!r}")
     if qnodes is None and not brute:
@@ -314,6 +317,9 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
                     alive_rays = alive_rays + nee.sum()
                 occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee,
                                 scattered=b >= 1 and not compact, ordered=ordered_ah)
+                if counting():
+                    count("rt/pt/shadow/cast", nee.sum())
+                    count("rt/pt/shadow/blocked", (occ & nee).sum())
                 direct = base * (ndotl * (~occ).to(f32))[:, None]
             radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
 

@@ -132,14 +132,20 @@ def test_span_trees_of_the_entry_calls(tracer):
 def test_k2_counters_against_the_sample_stats(tracer):
     """rt/k2/active = stats' alive_rays − H·W (the camera wave, all alive,
     goes through K1); rt/k2/lanes = H·W for each of the 2·bounces − 1 K2
-    waves."""
+    waves. The NEE shadow rays cast, which the shadow waves carry, are
+    among K2's active lanes, and those blocked among them."""
     with profiling.tracing(spans=False):
         _, stats = _sample(tracer, stats=True)
     got = profiling.collect()
     assert got["spans"] == []
-    assert got["counters"] == {"rt/k2/active": int(stats["alive_rays"]) - W * H,
-                               "rt/k2/lanes": (2 * BOUNCES - 1) * W * H}
-    assert 0 < got["counters"]["rt/k2/active"] < got["counters"]["rt/k2/lanes"]
+    counters = got["counters"]
+    assert set(counters) == {"rt/k2/active", "rt/k2/lanes", "rt/pt/shadow/cast",
+                             "rt/pt/shadow/blocked"}
+    assert {k: counters[k] for k in ("rt/k2/active", "rt/k2/lanes")} == {
+        "rt/k2/active": int(stats["alive_rays"]) - W * H, "rt/k2/lanes": (2 * BOUNCES - 1) * W * H}
+    assert 0 < counters["rt/k2/active"] < counters["rt/k2/lanes"]
+    assert 0 <= counters["rt/pt/shadow/blocked"] <= counters["rt/pt/shadow/cast"]
+    assert 0 < counters["rt/pt/shadow/cast"] < counters["rt/k2/active"]
 
 
 def _top_aten(prof, within=None):
