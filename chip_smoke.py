@@ -12,7 +12,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
    kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu, in two builds:
    the render core and the frozen loop, and the warp-leaves cores), the
    ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu), the camera
-   wave's lanes (csrc/camera_lanes.cu) and the microbenchmark kernels
+   wave's lanes (csrc/camera_lanes.cu), the sample's wave glue
+   (csrc/wave_glue.cu) and the microbenchmark kernels
    MB1–MB4 (csrc/microbench.cu), with their seconds
    and the ptxas registers, stack frame and spills of every instantiation
    (child slots × jitter × visits × bounds, any hit; the microbenchmarks'
@@ -32,7 +33,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
    jittered framed view, and against brute force on 1,024 seeded pixels;
 7. the progressive main path at full size: render_progressive(bounces=3)
    four times and present_progressive, counting the launches (per sample 1
-   K1b, 1 camera_lanes, bounces−1 K2a, bounces K2b), the frame count, a finite
+   K1b, 1 camera_lanes, bounces−1 K2a, bounces K2b, bounces wave_hit and
+   bounces wave_bounce), the frame count, a finite
    non-negative buffer and the reset on a camera move; then
    render_progressive(bounces=0) four times (4 K1b); and one sample of each
    kind under torch's sync debug mode, which fails on any host-device
@@ -84,7 +86,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
    the dragon: set_scene (build seconds, BVH8 rows, record bytes, peak
    memory), render framed and sparse (1 K1e each, images equal to the
    4-wide tree's but for ties), render_progressive(bounces=3) four times
-   (per sample 1 K1e, 1 camera_lanes and 2·bounces−1 K2c, nothing else), and one sample
+   (per sample 1 K1e, 1 camera_lanes, 2·bounces−1 K2c, bounces wave_hit and
+   bounces wave_bounce, nothing else), and one sample
    under sync debug mode;
 16. K1e against its plain version on the centre crop, with and without
    jitter, and against brute force on the 1,024 seeded pixels; K2c closest
@@ -279,7 +282,8 @@ Phase 33 drives wavefront compaction and K2 without near-first order; (a)
 runs right after phase 11, the rest after phase 26, before 28:
 
 33. (a) render_progressive(bounces=3) at 1080p with compaction on: 1 K1b,
-   2 K2a and 3 K2b a sample and nothing else, no host-device
+   1 camera_lanes, 2 K2a, 3 K2b, 3 wave_hit and 3 wave_bounce a sample and
+   nothing else, no host-device
    synchronisation, a finite non-negative buffer, the sort's and gathers'
    kernels under torch.profiler; (b) K2a / K2b / K2c with ordered=False on
    every captured wave (SAH K = 32, Morton K = 1, 8-wide): on all 2,073,600
@@ -290,8 +294,8 @@ runs right after phase 11, the rest after phase 26, before 28:
    compacted 256×256 sample, argsort and partition, through the kernels
    and through the plain versions, under phase 9's limits; (d) one
    compacted 1080p sample with both orders off on 4-wide and on 8-wide
-   records: 1 K1b, 2 K2a, 3 K2b unordered and 1 K1e, 5 K2c unordered, and
-   nothing else; (e) on the compactions of 1080p samples, the partition's
+   records: 1 K1b, 2 K2a, 3 K2b unordered and 1 K1e, 5 K2c unordered, 2
+   camera_lanes, 6 wave_hit and 6 wave_bounce, and nothing else; (e) on the compactions of 1080p samples, the partition's
    permutation the stable argsort of the 8-bit key, which groups the lanes
    as the 32-bit key's argsort does; (f) at SAH K = 32 and Morton K = 1,
    the sample with no compaction (persistent warps on the scattered
@@ -309,6 +313,17 @@ Phase 37 runs after phase 10:
    ran before the kernel); the bare launch's CUDA-event time, the wrapper's
    host issue time, the plain version's time, and the bound, 52 bytes a
    lane (five plane words read; d, n, t and tri written) over 3.35 TB/s.
+
+Phase 38 runs after phase 37:
+
+38. the sample's wave glue (csrc/wave_glue.cu) on the waves of one
+   render_progressive(bounces=3) of the framed 1080p view, captured at the
+   wrappers: each wave's wave_hit, wave_bounce and the last wave's
+   wave_last equal to their plain versions value for value (NaN for NaN);
+   each call's CUDA-event time through the wrapper, the wrapper's host issue
+   time, the plain version's time, and the bound by bytes (each input read
+   once, each output written once; the bounce reads n, p and the draws of
+   the lanes that hit, o and d of the others) over 3.35 TB/s.
 
 Phases 34 and 35 drive the two options of the TPU kernels; they run after
 phase 14:
@@ -343,8 +358,9 @@ Phase 36 drives the paths that only the benchmark runs; it runs after phase
    triangles) at 512x512 from (0, 0, 2.8), 4 samples of 1 bounce + NEE, and
    config 4, the interior hall (5,250 triangles) at 512x512 from (0, 0, 0.8),
    1 sample of 4 bounces + NEE, both on SAH K = 32 records. One frame of each
-   with the launches counted (config 2: 4 K1b, 4 camera_lanes and 4 K2b;
-   config 4: 1 K1b, 1 camera_lanes, 3 K2a and 4 K2b; nothing else) and its
+   with the launches counted (config 2: 4 K1b, 4 camera_lanes, 4 K2b, 4
+   wave_hit and 4 wave_bounce; config 4: 1 K1b, 1 camera_lanes, 3 K2a, 4
+   K2b, 4 wave_hit and 4 wave_bounce; nothing else) and its
    alive share; one sample of each
    scene and camera at the frame's size (512x512, 262,144 lanes a wave) and
    one at 256x256 (65,536 lanes) through the kernels and through the plain
@@ -406,8 +422,14 @@ pt_sample_frame does this set-up with array ops that XLA fuses) holds phase
 lanes, ``ms`` = ``path_ms`` the bare launch, ``issue_ms`` the wrapper's
 host time, ``launches`` those of phase 7.
 
-The K1b, camera_lanes, K2a and K2b rows also carry ``bench_launches``: phase 36's launches
-of one frame of config 2 and of config 4.
+The wave_hit and wave_bounce rows (they replace no TPU kernel either) hold
+phase 38's numbers summed over the waves of one 1080p sample: ``rays`` =
+``path_rays`` its lanes, ``ms`` = ``path_ms`` the launches through the
+wrapper, ``issue_ms`` the wrappers' host time, ``launches`` those of phase 7.
+
+The K1b, camera_lanes, K2a, K2b, wave_hit and wave_bounce rows also carry
+``bench_launches``: phase 36's launches of one frame of config 2 and of
+config 4.
 
 Every traversal row of the kernels line but the placements' also carries
 ``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
@@ -495,6 +517,10 @@ KERNELS = {
        for k in ("k2a", "k2b", "k2c")},
     "camera_lanes": ("raytracer_tpu_torch/csrc/camera_lanes.cu",
                      "none: array ops of raytracer_tpu/render_pt.py:303-356, fused by XLA"),
+    **{name: ("raytracer_tpu_torch/csrc/wave_glue.cu",
+              "none: array ops of raytracer_tpu/render_pt.py:369-406, 451-456, "
+              "fused by XLA")
+       for name in ("wave_hit", "wave_bounce")},
 }
 # the microbenchmark kernels (their launches are counted apart, in
 # ops.cuda.microbench.LAUNCHES) and the TPU kernels they replace
@@ -681,7 +707,7 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
-            k = re.search(r"((?:trace|mb)_\w+?_kernel|camera_lanes_kernel)(I(?:L[ibj]\d+E)+)?",
+            k = re.search(r"((?:trace|mb|wave)_\w+?_kernel|camera_lanes_kernel)(I(?:L[ibj]\d+E)+)?",
                           m.group(1))
             name = m.group(1) if not k else k.group(1) if not k.group(2) else (
                 f"{k.group(1)}<{','.join(re.findall(r'L[ibj](\d+)E', k.group(2)))}>")
@@ -698,7 +724,7 @@ def build_all() -> None:
     """Build the native library and every kernel source at once, and print
     what ptxas says of every kernel instantiation."""
     from raytracer_tpu_torch.native import bvhtool
-    from raytracer_tpu_torch.ops.cuda import camera, traverse
+    from raytracer_tpu_torch.ops.cuda import camera, traverse, wave
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -718,7 +744,9 @@ def build_all() -> None:
                 "traverse_rays.cu (K2a, K2b, K2c)": pool.submit(
                     timed, traverse.load_kernel, "traverse_rays.cu"),
                 "camera_lanes.cu (the camera wave's lanes)": pool.submit(
-                    timed, camera.load_camera_lanes)}
+                    timed, camera.load_camera_lanes),
+                "wave_glue.cu (the sample's wave glue)": pool.submit(
+                    timed, wave.load_wave_glue)}
         results = {name: job.result() for name, job in jobs.items()}
     for name, (out, secs) in results.items():
         log(f"[build] {name} ready in {secs:.2f} s")
@@ -1115,7 +1143,8 @@ def main() -> None:
 
     # 7. the progressive main path
     pt_want = expected(trace_tiles_k1b=SAMPLES, camera_lanes=SAMPLES,
-                       trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES)
+                       trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES,
+                       wave_hit=SAMPLES * BOUNCES, wave_bounce=SAMPLES * BOUNCES)
     progressive_samples(pt, pt_want, "progressive")
     pt.set_camera_position(*MOVED)
     pt.render_progressive(bounces=BOUNCES)
@@ -1210,6 +1239,9 @@ def main() -> None:
 
     # 37. the camera wave's lanes on K1b's planes
     rows["camera_lanes"] = camera_lanes_phase(env, k1b, pt_want["camera_lanes"])
+
+    # 38. the sample's wave glue on the waves of one 1080p sample
+    rows.update(wave_glue_phase(env, pt, pt_want))
 
     # 11. where the time of a progressive sample goes
     pt.set_camera_position(*FRAMED)
@@ -1327,6 +1359,90 @@ def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
     return {"launches": launches, "max_abs_err": 0.0, "rays": lanes, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "issue_ms": issue_ms,
             "path_rays": lanes, "path_ms": ms, "path_bound_ms": b_ms, "path_bound_by": "bytes"}
+
+
+def wave_bytes(name: str, args: tuple) -> int:
+    """The bytes a wave glue call must move (phase 38): each input word read
+    once (a broadcast origin once), each output written once; the bounce
+    reads n, p, u1 and u2 of the lanes that hit, o and d of the others."""
+    if name == "wave_hit":
+        t, o = args[0], args[3]
+        r = t.shape[0]
+        return r * (4 + 4 + 12 + 12 + 1 + 12 + 12 + 42) + 12 * (r if o.stride(0) else 1)
+    r = args[0].shape[0]
+    if name == "wave_last":
+        return r * (4 + 1 + 4 + 12 + 12 + 12)
+    hits, o = int(args[1].sum()), args[7]
+    return (r * (4 + 1 + 4 + 12 + 12 + 49) + hits * (12 + 12 + 4 + 4)
+            + (r - hits) * 12 + 12 * ((r - hits) if o.stride(0) else 1))
+
+
+def wave_glue_phase(env: dict, pt, pt_want: dict) -> dict:
+    """38. The sample's wave glue on the waves of one 1080p
+    render_progressive(bounces=3) of the framed view, captured at the
+    wrappers: each call against its plain version (value for value, NaN for
+    NaN), its CUDA-event time through the wrapper, the wrapper's host issue
+    time, the plain version's time and the bound by bytes → the wave_hit and
+    wave_bounce rows of the kernels line, summed over the sample's waves."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import wave
+
+    card = env["card"]
+    real = {name: getattr(render_pt, name) for name in ("wave_hit", "wave_bounce", "wave_last")}
+    plain = {"wave_hit": wave.wave_hit_reference, "wave_bounce": wave.wave_bounce_reference,
+             "wave_last": wave.wave_last_reference}
+    calls = []
+
+    def capturing(name):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(render_pt, name, capturing(name))
+    pt.set_camera_position(*FRAMED)
+    try:
+        pt.render_progressive(bounces=BOUNCES)
+    finally:
+        for name, fn in real.items():
+            setattr(render_pt, name, fn)
+    torch.cuda.synchronize()
+    order = ["wave_hit", "wave_bounce"] * (BOUNCES - 1) + ["wave_hit", "wave_last"]
+    if [c[0] for c in calls] != order:
+        fail(f"a 1080p sample called {[c[0] for c in calls]}, expected {order}")
+    rows = {k: dict.fromkeys(("rays", "ms", "plain_ms", "bound_ms", "issue_ms"), 0)
+            for k in ("wave_hit", "wave_bounce")}
+    for i, (name, args, kw) in enumerate(calls):
+        ours, ref = (x if isinstance(x, tuple) else (x,) for x in (real[name](*args, **kw),
+                                                                   plain[name](*args, **kw)))
+        for j, (a, b) in enumerate(zip(ours, ref)):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"{name} of wave {i // 2}: output {j} is {a.dtype} {tuple(a.shape)}, plain "
+                     f"{b.dtype} {tuple(b.shape)}")
+            same = a == b
+            if a.is_floating_point():
+                same |= a.isnan() & b.isnan()
+            if not bool(same.all()):
+                fail(f"{name} of wave {i // 2}: output {j} differs from its plain version in "
+                     f"{int((~same).sum())} values")
+        lanes = args[0].shape[0]
+        ms = statistics.median(cuda_ms(lambda: real[name](*args, **kw), FRAMES, REPEATS))
+        issue, _ = host_issue_ms(lambda: real[name](*args, **kw))
+        plain_ms = statistics.median(cuda_ms(lambda: plain[name](*args, **kw), 1, 3))
+        nbytes = wave_bytes(name, args)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[time] {name} of wave {i // 2} ({lanes} lanes): kernel {ms:.4f} ms, wrapper "
+            f"{issue:.4f} ms of host a call, plain torch {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"by bytes ({nbytes / lanes:.1f} B a lane), equal to the plain version on {card}")
+        row = rows["wave_hit" if name == "wave_hit" else "wave_bounce"]
+        for key, value in (("rays", lanes), ("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms), ("issue_ms", issue)):
+            row[key] += value
+    return {name: {**row, "launches": pt_want[name], "max_abs_err": 0.0, "bound_by": "bytes",
+                   "path_rays": row["rays"], "path_ms": row["ms"],
+                   "path_bound_ms": row["bound_ms"], "path_bound_by": "bytes"}
+            for name, row in rows.items()}
 
 
 def host_issue_ms(fn, n: int = 8) -> tuple[float, float]:
@@ -2675,7 +2791,8 @@ def wide8_phase(env: dict, scene) -> dict:
         if equal < MIN_TRI_MATCH:
             fail(f"the 8-wide {view} image equals the 4-wide one on {equal:.6f} of pixels")
     pt_want = expected(trace_tiles_k1e=SAMPLES, camera_lanes=SAMPLES,
-                       trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1))
+                       trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1), wave_hit=SAMPLES * BOUNCES,
+                       wave_bounce=SAMPLES * BOUNCES)
     progressive_samples(pt, pt_want, "wide8 progressive")
     sample_reps = cuda_ms(lambda: pt.render_progressive(bounces=BOUNCES), SAMPLES, 3)
     ms = statistics.median(sample_reps)
@@ -2826,7 +2943,7 @@ def lbvh_phase(env: dict, scene) -> dict:
             torch.cuda.synchronize()
             launches = dict(traverse.LAUNCHES)
             want = expected(trace_tiles_k1b=1, camera_lanes=1, trace_rays_k2a=BOUNCES - 1,
-                            trace_rays_k2b=BOUNCES)
+                            trace_rays_k2b=BOUNCES, wave_hit=BOUNCES, wave_bounce=BOUNCES)
             log(f"[{what}] launches during render_progressive(bounces={BOUNCES}): "
                 f"{json.dumps(launches)}")
             if launches != want or not bool(torch.isfinite(accum).all() & (accum >= 0).all()):
@@ -3629,8 +3746,8 @@ SAMPLE_FORMS = {
 
 def compacted_progressive_phase(env: dict, pt) -> None:
     """33 (a). render_progressive(bounces=3) at 1080p with compaction on:
-    its launches (1 K1b, 1 camera_lanes, 2 K2a, 3 K2b a sample and nothing
-    else), the sort's
+    its launches (1 K1b, 1 camera_lanes, 2 K2a, 3 K2b, 3 wave_hit and 3
+    wave_bounce a sample and nothing else), the sort's
     and gathers' kernels under torch.profiler, no host-device
     synchronisation, a finite non-negative buffer."""
     from raytracer_tpu_torch import pathtracer
@@ -3639,7 +3756,8 @@ def compacted_progressive_phase(env: dict, pt) -> None:
     pathtracer.COMPACT_WAVES = True
     try:
         want = expected(trace_tiles_k1b=SAMPLES, camera_lanes=SAMPLES,
-                        trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES)
+                        trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES,
+                        wave_hit=SAMPLES * BOUNCES, wave_bounce=SAMPLES * BOUNCES)
         pt.set_camera_position(*MOVED)
         pt.render_progressive(bounces=BOUNCES)  # so that the framed view starts a buffer
         progressive_samples(pt, want, "compaction")
@@ -3652,7 +3770,7 @@ def compacted_progressive_phase(env: dict, pt) -> None:
 def plain_traversal(fn):
     """``fn`` run with render_pt's kernels replaced by their plain versions."""
     from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import camera, traverse
+    from raytracer_tpu_torch.ops.cuda import camera, traverse, wave
 
     def tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
               jitter=False, jitter_seed=0):
@@ -3665,13 +3783,17 @@ def plain_traversal(fn):
         return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
                                              leaf_k=leaf_k, active=active, ordered=ordered)
 
-    real = (render_pt.trace_tiles, render_pt.trace_rays, render_pt.camera_lanes)
-    render_pt.trace_tiles, render_pt.trace_rays = tiles, rays
-    render_pt.camera_lanes = camera.camera_lanes_reference
+    names = ("trace_tiles", "trace_rays", "camera_lanes", "wave_hit", "wave_bounce", "wave_last")
+    real = {name: getattr(render_pt, name) for name in names}
+    plain = (tiles, rays, camera.camera_lanes_reference, wave.wave_hit_reference,
+             wave.wave_bounce_reference, wave.wave_last_reference)
+    for name, fn_plain in zip(names, plain):
+        setattr(render_pt, name, fn_plain)
     try:
         return fn()
     finally:
-        render_pt.trace_tiles, render_pt.trace_rays, render_pt.camera_lanes = real
+        for name, fn_real in real.items():
+            setattr(render_pt, name, fn_real)
 
 
 def max_abs_diff(a, b) -> float:
@@ -3804,7 +3926,8 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
     launches = dict(traverse.LAUNCHES)
     want = expected(trace_tiles_k1b=1, trace_tiles_k1e=1, camera_lanes=2,
                     trace_rays_k2a_unordered=BOUNCES - 1, trace_rays_k2b_unordered=BOUNCES,
-                    trace_rays_k2c_unordered=2 * BOUNCES - 1)
+                    trace_rays_k2c_unordered=2 * BOUNCES - 1, wave_hit=2 * BOUNCES,
+                    wave_bounce=2 * BOUNCES)
     log(f"[unordered] launches of one compacted unordered 1080p sample on 4-wide and one on "
         f"8-wide records: {json.dumps({k: v for k, v in launches.items() if v})}")
     if launches != want:
@@ -4308,7 +4431,7 @@ def run_shardings(mesh, qn: torch.Tensor, tris: torch.Tensor, seeds, pt_seeds) -
     want = {"tiles": expected(trace_tiles_k1a=1), "spp": expected(trace_tiles_k1b=1),
             "cams": expected(trace_tiles_k1c=1),
             "pt": expected(trace_tiles_k1b=1, camera_lanes=1, trace_rays_k2a=BOUNCES - 1,
-                           trace_rays_k2b=BOUNCES)}
+                           trace_rays_k2b=BOUNCES, wave_hit=BOUNCES, wave_bounce=BOUNCES)}
     out, launches, host_ms = {}, {}, {}
     for name, call in calls.items():
         torch.cuda.synchronize()
@@ -4732,8 +4855,10 @@ def graft_phase(env: dict) -> None:
 
 # 36. what each configuration's one frame launches, and its samples and bounces
 BENCH_LAUNCHES = {
-    2: {"trace_tiles_k1b": 4, "camera_lanes": 4, "trace_rays_k2b": 4},
-    4: {"trace_tiles_k1b": 1, "camera_lanes": 1, "trace_rays_k2a": 3, "trace_rays_k2b": 4},
+    2: {"trace_tiles_k1b": 4, "camera_lanes": 4, "trace_rays_k2b": 4, "wave_hit": 4,
+        "wave_bounce": 4},
+    4: {"trace_tiles_k1b": 1, "camera_lanes": 1, "trace_rays_k2a": 3, "trace_rays_k2b": 4,
+        "wave_hit": 4, "wave_bounce": 4},
 }
 
 

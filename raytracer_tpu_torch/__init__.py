@@ -3,7 +3,8 @@
 Plain tensor code is torch; the traversal kernels are CUDA C++ for Hopper
 (``csrc/``: K1a/K1b primary rays, K1c frame batches, K1d per-tile depth bounds
 and entry nodes, K1e/K2c 8-wide records, K1f visit counts, K2a/K2b ray buffers),
-built with nvcc at first use; ``ops.cuda.traverse.LAUNCHES`` counts each
+and so is a progressive sample's per-lane glue (the camera wave's lanes, each
+wave's shading), built with nvcc at first use; ``ops.cuda.traverse.LAUNCHES`` counts each
 kernel's launches. Module paths mirror the JAX package so each counterpart
 is easy to find; the headless apps are ``python -m
 raytracer_tpu_torch.apps.main`` and ``apps.debug``. The port imports neither JAX

@@ -40,11 +40,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
 #include "raygen.cuh"
 
 namespace {
 
-constexpr int kTile = 32;      // pixels a side of a block of the lane order
 constexpr int kThreads = 256;  // threads a block, one a lane
 
 __global__ void __launch_bounds__(kThreads)
@@ -56,17 +56,8 @@ camera_lanes_kernel(float qx, float qy, float qz, float qw, float focal, float a
                     int* __restrict__ tri_out, float* __restrict__ n_out) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   if (lane >= width * height) return;
-  // A band of kTile rows holds kTile·width lanes; in it, the blocks before
-  // the lane's are kTile wide and as high as the band.
-  const int band = kTile * width;
-  const int by = lane / band;
-  const int in_band = lane - by * band;
-  const int block_h = min(height - by * kTile, kTile);
-  const int bx = in_band / (kTile * block_h);
-  const int in_block = in_band - bx * kTile * block_h;
-  const int block_w = min(width - bx * kTile, kTile);
-  const int y = by * kTile + in_block / block_w;
-  const int x = bx * kTile + in_block % block_w;
+  int x, y;
+  rt::pixel_of_lane(lane, width, height, x, y);
   const size_t p = (size_t)y * (size_t)width + (size_t)x;
 
   float dx, dy, dz;

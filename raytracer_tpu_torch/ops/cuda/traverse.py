@@ -153,13 +153,15 @@ _SMEM_BLOCK_MAX = 512
 # Launches of each kernel with the "hopper" core since its count was last
 # set to 0; raised only where a wrapper launches that kernel. Launches with
 # another core count in MEASURE_LAUNCHES under the same name. "camera_lanes"
-# counts the launches of the camera wave's kernel (ops/cuda/camera.py).
+# counts the launches of the camera wave's kernel (ops/cuda/camera.py),
+# "wave_hit" and "wave_bounce" those of the sample's wave glue
+# (ops/cuda/wave.py), one of each a wave.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
             "trace_tiles_k1c_raw": 0, "trace_tiles_k1e_raw": 0, "trace_tiles_k1f_raw": 0,
             **{f"trace_rays_{k}{order}{space}": 0 for space in ("", "_vmem", "_smem")
                for order in ("", "_unordered") for k in ("k2a", "k2b", "k2c")},
-            "camera_lanes": 0}
+            "camera_lanes": 0, "wave_hit": 0, "wave_bounce": 0}
 MEASURE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 

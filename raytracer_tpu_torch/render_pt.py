@@ -19,6 +19,12 @@ Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame``,
   the any-hit kernel K2b with ``active`` = hit and n·l > 0. Inactive lanes
   are not read and their results are never used, so the mask changes no
   pixel. ``brute`` traces every wave by brute force instead.
+* Shading: after each closest-hit wave ``ops.cuda.wave.wave_hit`` turns the
+  normals, adds the miss term and sets up the shadow rays; after each
+  shadow wave ``wave_bounce`` adds the direct light and draws the bounce,
+  and on the last wave ``wave_last`` adds the sky term and returns the
+  image. Each is one CUDA kernel on the card and its plain torch version on
+  the CPU, the same numbers bit for bit.
 * Lanes start in 32×32 tile-block order (:mod:`.ops.lanes`): it keeps
   a warp's rays neighbours, and it is the lane order of the JAX package, so
   its random numbers line up lane for lane. Without compaction they stay in
@@ -35,7 +41,6 @@ injects the JAX package's draws (see :func:`pt_sample_frame`).
 
 from __future__ import annotations
 
-import math
 from collections.abc import Mapping
 
 import torch
@@ -43,12 +48,13 @@ import torch
 from .ops.camera import primary_dirs, to_device
 from .ops.cuda.camera import camera_lanes
 from .ops.cuda.traverse import trace_rays, trace_tiles
-from .ops.lanes import TILE, face, img_to_lanes, lanes_to_img
+from .ops.cuda.wave import blocked, wave_bounce, wave_hit, wave_last
+from .ops.lanes import TILE, img_to_lanes, lanes_to_img
 # the name benchmark/tests/test_bench_reference.py imports the lane order by
 from .ops.lanes import lane_of_pixel as _lane_of_pixel  # noqa: F401
 from .ops.morton import expand_bits10
 from .ops.partition import bucket_partition_perm
-from .ops.shade import MISS_COLOR
+from .ops.shade import MISS_COLOR, triangle_normals
 from .ops.trace import trace_rays_brute
 from .utils.profiling import count, counting, span
 
@@ -61,38 +67,23 @@ _EPS_OFFSET = 1e-4
 _MAX_PSEED = 1 << 22
 
 
-def _sun(device) -> torch.Tensor:
+def _unit_sun() -> tuple[float, float, float]:
+    """The sun's unit direction, as f32 values."""
     sun = torch.tensor(_SUN_DIR, dtype=torch.float32)
-    return to_device(sun / torch.linalg.vector_norm(sun), device)
+    return tuple((sun / torch.linalg.vector_norm(sun)).tolist())
 
 
-def _onb(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Orthonormal basis around the normals n (Frisvad-style, branchless)."""
-    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
-    s = torch.where(nz >= 0.0, 1.0, -1.0)
-    a = -1.0 / (s + nz)
-    b = nx * ny * a
-    t = torch.stack([1.0 + s * (nx * nx) * a, s * b, -s * nx], dim=-1)
-    bt = torch.stack([b, s + (ny * ny) * a, -ny], dim=-1)
-    return t, bt
+_SUN = _unit_sun()
+_SUN_DIRS = {}  # device → the shadow waves' directions of its last lane count
 
 
-def _cosine_sample(n: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted hemisphere directions around the normals n."""
-    r = torch.sqrt(u1)
-    phi = 2.0 * math.pi * u2
-    x = r * torch.cos(phi)
-    y = r * torch.sin(phi)
-    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
-    t, bt = _onb(n)
-    return t * x[..., None] + bt * y[..., None] + n * z[..., None]
-
-
-def _normals_for(tris: torch.Tensor, tri_idx: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """Geometric normals of tris[tri_idx], flipped to face the rays d."""
-    v = tris[tri_idx.clamp(0, tris.shape[0] - 1).long()]
-    n = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], dim=-1)
-    return face(n / torch.linalg.vector_norm(n, dim=-1, keepdim=True), d)
+def _sun_dirs(device, r: int) -> torch.Tensor:
+    """(r, 3) copies of the sun's direction on ``device``: the shadow rays'
+    directions, made once for each device and lane count."""
+    key = str(device)
+    if key not in _SUN_DIRS or _SUN_DIRS[key].shape[0] != r:
+        _SUN_DIRS[key] = to_device(_SUN, device).expand(r, 3).contiguous()
+    return _SUN_DIRS[key]
 
 
 class _Draws:
@@ -142,24 +133,26 @@ class _Draws:
 
 def _trace(qnodes, tris, o, d, brute: bool, leaf_k: int, active, scattered: bool = False,
            ordered: bool = True):
-    """One closest-hit wave → (t, tri, ray-facing normals). ``scattered``:
-    the active lanes are the hits of random bounce rays (the kernel then
-    compacts them); ``ordered``: near-first traversal order."""
+    """One closest-hit wave → (t, tri, the normals' three planes, not yet
+    turned to face the rays). ``scattered``: the active lanes are the hits
+    of random bounce rays (the kernel then compacts them); ``ordered``:
+    near-first traversal order."""
     if brute:
         t, tri = trace_rays_brute(tris, o, d)
-        return t, tri, _normals_for(tris, tri, d)
+        return t, tri, triangle_normals(tris, tri).unbind(1)
     t, nx, ny, nz, tri = trace_rays(qnodes, o, d, leaf_k=leaf_k, active=active,
                                     scattered=scattered, ordered=ordered)
-    return t, tri, face(torch.stack([nx, ny, nz], dim=-1), d)
+    return t, tri, (nx, ny, nz)
 
 
 def _occluded(qnodes, tris, o, d, brute: bool, leaf_k: int, active,
               scattered: bool = False, ordered: bool = True) -> torch.Tensor:
-    """The NEE shadow query: True where the ray hits anything."""
+    """The NEE shadow query → the triangle plane of its any-hit wave: ≥ 0
+    where the ray hits anything (:func:`~.ops.cuda.wave.blocked`)."""
     if brute:
-        return trace_rays_brute(tris, o, d)[1] >= 0
+        return trace_rays_brute(tris, o, d)[1]
     return trace_rays(qnodes, o, d, any_hit=True, leaf_k=leaf_k, active=active,
-                      scattered=scattered, ordered=ordered)[4] >= 0
+                      scattered=scattered, ordered=ordered)[4]
 
 
 COMPACT_IMPLS = ("argsort", "partition")
@@ -270,9 +263,6 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     draws = _Draws(uniforms, generator, dev)
     tile_primary = tile_primary and not brute
 
-    sun = _sun(dev)
-    sun_dirs = sun.expand(r, 3).contiguous()
-    base = to_device(_BASE, dev)
     radiance = torch.zeros((r, 3), dtype=f32, device=dev)
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
@@ -290,6 +280,7 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
                 planes = trace_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees,
                                      leaf_k=leaf_k, jitter=True, jitter_seed=pseed)
                 d, t, tri, n = camera_lanes(planes, cam_quat, width, height, fov_degrees, pseed)
+                n = n.unbind(1)
                 # every camera ray starts at the camera: a broadcast view
                 o = to_device(cam_pos, dev).reshape(1, 3).expand(r, 3)
             else:
@@ -301,47 +292,45 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
                 t, tri, n = _trace(qnodes, tris, o.contiguous(), d.contiguous(), brute, leaf_k,
                                    None if b == 0 else alive, scattered=b >= 2 and not compact,
                                    ordered=ordered_ch or b == 0)
-            hit = (tri >= 0) & alive
-            miss = (tri < 0) & alive
-
             # a miss sees the background on the camera wave, the sky after it
-            env = MISS_COLOR if b == 0 else _SKY
-            radiance = radiance + torch.where(miss[:, None], throughput * env, 0.0)
+            n, hit, radiance, p, ndotl, nee = wave_hit(
+                t, tri, n, o, d, alive, throughput, radiance, sun=_SUN,
+                env=MISS_COLOR if b == 0 else _SKY, eps=_EPS_OFFSET)
 
             with span("rt/pt/shadow"):
-                p = o + d * t[:, None] + n * _EPS_OFFSET
                 # NEE: lanes that hit and face the sun cast a shadow ray
-                ndotl = torch.clamp_min((n * sun).sum(-1), 0.0)
-                nee = hit & (ndotl > 0.0)
                 if stats:
                     alive_rays = alive_rays + nee.sum()
-                occ = _occluded(qnodes, tris, p, sun_dirs, brute, leaf_k, nee,
+                occ = _occluded(qnodes, tris, p, _sun_dirs(dev, r), brute, leaf_k, nee,
                                 scattered=b >= 1 and not compact, ordered=ordered_ah)
                 if counting():
                     count("rt/pt/shadow/cast", nee.sum())
-                    count("rt/pt/shadow/blocked", (occ & nee).sum())
-                direct = base * (ndotl * (~occ).to(f32))[:, None]
-            radiance = radiance + torch.where(hit[:, None], throughput * direct, 0.0)
+                    count("rt/pt/shadow/blocked", (blocked(occ) & nee).sum())
 
-            # continue with a cosine sample; the albedo absorbs the brdf/pdf
+            # the direct light, then a cosine sample (the albedo absorbs the
+            # brdf/pdf); the last wave instead adds the sky of the paths still
+            # alive and returns the image (the lanes where compacted). Its
+            # draws are made too, so the generator's stream stays the same.
             u1, u2 = draws.bounce(b, r)
-            new_d = _cosine_sample(n, u1, u2)
-            throughput = torch.where(hit[:, None], throughput * base, throughput)
-            o = torch.where(hit[:, None], p, o)
-            d = torch.where(hit[:, None], new_d, d)
-            alive = hit
+            if b == bounces - 1:
+                radiance = wave_last(occ, hit, ndotl, throughput, radiance, base=_BASE,
+                                     sky=_SKY, size=None if compact else (width, height))
+            else:
+                o, d, throughput, alive, radiance = wave_bounce(
+                    occ, hit, ndotl, throughput, radiance, n, p, o, d, u1, u2, base=_BASE)
+                if compact:
+                    perm = _compaction_perm(o, d, alive, compact_impl)
+                    o, d, radiance, throughput = (o[perm], d[perm], radiance[perm],
+                                                  throughput[perm])
+                    alive, pix = alive[perm], pix[perm]
 
-            if compact and b < bounces - 1:
-                perm = _compaction_perm(o, d, alive, compact_impl)
-                o, d, radiance, throughput = o[perm], d[perm], radiance[perm], throughput[perm]
-                alive, pix = alive[perm], pix[perm]
-
-    # paths still alive after the last bounce collect the sky
-    radiance = radiance + torch.where(alive[:, None], throughput * _SKY, 0.0)
+    if bounces == 0:  # no wave: every lane sees the sky
+        radiance = radiance + torch.where(alive[:, None], throughput * _SKY, 0.0)
+        if not compact:
+            radiance = lanes_to_img(radiance, width, height)
+    img = radiance
     if compact:
         img = torch.empty_like(radiance).index_copy_(0, pix, radiance).reshape(height, width, 3)
-    else:
-        img = lanes_to_img(radiance, width, height)
     if stats:
         return img, {"alive_rays": alive_rays,
                      "lane_rays": torch.full((), 2 * r * bounces, device=dev)}

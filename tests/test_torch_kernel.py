@@ -167,7 +167,7 @@ def test_build_hash_covers_included_headers(tmp_path):
     hdr.write_text("inline int g() { return 2; }\n")
     assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) != before
     assert [p.name for p in build.cuda_headers()] == [
-        "raygen.cuh", "traverse_core.cuh", "traverse_core_baseline.cuh"]
+        "lanes.cuh", "raygen.cuh", "traverse_core.cuh", "traverse_core_baseline.cuh"]
 
 
 def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hit: bool):
@@ -295,7 +295,7 @@ def test_cpu_records8_run_the_plain_version():
     assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
                            "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f",
                            "trace_tiles_k1c_raw", "trace_tiles_k1e_raw", "trace_tiles_k1f_raw",
-                           *rays, "camera_lanes"}
+                           *rays, "camera_lanes", "wave_hit", "wave_bounce"}
     assert len(rays) == 18 and "trace_rays_k2b_unordered_smem" in rays
 
 

@@ -2,7 +2,10 @@
 on the CPU, with a small scene whose waves go through ``trace_rays``: off,
 they record nothing and change no op and no pixel; on, the span trees of
 the entry calls, the K2 counters against ``pt_sample_frame``'s ``stats``,
-and the spans' ranges on the profiler's clock."""
+and the spans' ranges on the profiler's clock. On the card (``cuda``:
+``python -m pytest --noconftest -m cuda tests/test_torch_tracing.py``), the
+counters and ``stats`` of a sample through the wave kernels against those
+through their plain versions."""
 
 import json
 from collections import Counter
@@ -146,6 +149,42 @@ def test_k2_counters_against_the_sample_stats(tracer):
     assert 0 < counters["rt/k2/active"] < counters["rt/k2/lanes"]
     assert 0 <= counters["rt/pt/shadow/blocked"] <= counters["rt/pt/shadow/cast"]
     assert 0 < counters["rt/pt/shadow/cast"] < counters["rt/k2/active"]
+
+
+@pytest.mark.cuda
+def test_shadow_counters_and_stats_equal_through_the_wave_kernels_on_card(monkeypatch):
+    """On the card the sample's shading runs the wave kernels
+    (ops/cuda/wave.py): the shadow counters, the K2 counters and stats read
+    what they read through the plain versions of that shading."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the wave kernels have no CPU mode")
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import wave
+
+    from raytracer_tpu_torch.utils import procgen
+
+    width, height = 96, 64
+    pt = PathTracer(width, height, builder="lbvh", leaf_size=4, device="cuda")
+    hall = procgen.make_interior_hall()  # an interior: some shadow rays are blocked
+    pt.build_bvh(hall * np.float32(1.0 / np.abs(hall).max()))
+
+    def counted():
+        with profiling.tracing(spans=False):
+            img, stats = pt_sample_frame(
+                pt._qnodes, pt._tris_dev, (0.0, 0.0, 0.8), CAM_QUAT, width, height, bounces=3,
+                leaf_k=pt.leaf_size, tile_primary=True, stats=True,
+                generator=torch.Generator(device="cuda").manual_seed(11))
+        got = profiling.collect()["counters"]
+        return img, {k: int(v) for k, v in stats.items()}, got
+
+    img, stats, counters = counted()
+    monkeypatch.setattr(render_pt, "wave_hit", wave.wave_hit_reference)
+    monkeypatch.setattr(render_pt, "wave_bounce", wave.wave_bounce_reference)
+    monkeypatch.setattr(render_pt, "wave_last", wave.wave_last_reference)
+    plain_img, plain_stats, plain_counters = counted()
+    assert torch.equal(img, plain_img)
+    assert stats == plain_stats and counters == plain_counters
+    assert 0 < counters["rt/pt/shadow/blocked"] < counters["rt/pt/shadow/cast"]
 
 
 def _top_aten(prof, within=None):

@@ -27,7 +27,7 @@ from raytracer_tpu_torch.models.scene import Scene
 from raytracer_tpu_torch.ops.camera import INF, primary_dirs
 from raytracer_tpu_torch.ops.cuda.traverse import trace_rays_reference
 from raytracer_tpu_torch.ops.trace import WideBVH, moller_trumbore
-from raytracer_tpu_torch.render_pt import _cosine_sample
+from raytracer_tpu_torch.ops.cuda.wave import cosine_sample
 from raytracer_tpu_torch.utils import procgen
 
 CAM_POS = (0.15, -0.1, 2.5)
@@ -103,7 +103,7 @@ def ray_buffer(qnodes: torch.Tensor, leaf_k: int, n: int, seed: int = SEED):
     nrm *= np.where((nrm * d).sum(-1, keepdims=True) > 0, -1.0, 1.0).astype(np.float32)
     p = o + d * t.numpy()[:, None] + nrm * np.float32(1e-4)
     u1, u2 = (torch.from_numpy(rng.random(m).astype(np.float32)) for _ in range(2))
-    bd = _cosine_sample(torch.from_numpy(nrm), u1, u2).numpy()
+    bd = cosine_sample(torch.from_numpy(nrm), u1, u2).numpy()
     k = n - int(hit.sum())
     oo = rng.normal(size=(k, 3))
     oo = oo / np.linalg.norm(oo, axis=1, keepdims=True) * 3.0

@@ -8,7 +8,7 @@ tree, the Morton LBVH of single triangles (``bvh2_as_bvh4(build_lbvh2(…))``,
 K = 1), and through SAH K = 32, where any hit runs the baseline loop. Three
 waves of rays, in 32×32 tile-block lane order: "nee", any hit from the first
 hits toward the sun; "bounce1", closest hit in cosine-sampled directions
-from those points (the port's ``_cosine_sample``, uniforms from a seeded
+from those points (the port's ``cosine_sample``, uniforms from a seeded
 ``torch.Generator``); "incoherent", the same rays permuted at random. The
 placements run in one process in the order hbm, vmem, smem, hbm; "smem" on
 the hall raises the ``ValueError`` of a tree that does not fit a block's
@@ -45,7 +45,7 @@ from raytracer_tpu_torch.ops.cuda import traverse  # noqa: E402
 from raytracer_tpu_torch.ops.lanes import img_to_lanes  # noqa: E402
 from raytracer_tpu_torch.ops.lbvh import build_lbvh2  # noqa: E402
 from raytracer_tpu_torch.ops.trace import make_wide_bvh  # noqa: E402
-from raytracer_tpu_torch.render_pt import _cosine_sample  # noqa: E402
+from raytracer_tpu_torch.ops.cuda.wave import cosine_sample  # noqa: E402
 from raytracer_tpu_torch.utils import procgen  # noqa: E402
 
 SIZE, CAM, QUAT, FOV, SEED = 512, (0.0, 0.0, 0.8), (0.0, 0.0, 0.0, 1.0), 70.0, 5
@@ -96,7 +96,7 @@ def waves(qn: torch.Tensor, leaf_k: int, size: int = SIZE, seed: int = SEED,
     u1 = torch.rand(r, generator=gen, device=dev)
     u2 = torch.rand(r, generator=gen, device=dev)
     up = torch.tensor([0.0, 0.0, 1.0], device=dev)
-    db = _cosine_sample(torch.where(hit[:, None], n, up), u1, u2).contiguous()
+    db = cosine_sample(torch.where(hit[:, None], n, up), u1, u2).contiguous()
     perm = torch.randperm(r, generator=gen, device=dev)
     return {"nee": (p, sun, True), "bounce1": (p, db, False),
             "incoherent": (p[perm].contiguous(), db[perm].contiguous(), False)}
