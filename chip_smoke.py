@@ -10,8 +10,8 @@ Phases, each printing what it measures; the first failure exits non-zero:
    and power limit as nvidia-smi reports them;
 2. the builds, started together: the native BVH library, the primary-ray
    kernels K1a/K1b/K1c/K1d/K1e/K1f (csrc/traverse_tiles.cu, in two builds:
-   the render core and the frozen loop, and the warp-leaves cores), the
-   ray-buffer kernels K2a/K2b/K2c (csrc/traverse_rays.cu), the camera
+   the render core, and TILE_CORE over leaves of K > 1), the ray-buffer
+   kernels K2a/K2b/K2c (csrc/traverse_rays.cu), the camera
    wave's lanes (csrc/camera_lanes.cu), the sample's wave glue
    (csrc/wave_glue.cu) and the microbenchmark kernels
    MB1–MB4 (csrc/microbench.cu), with their seconds
@@ -144,7 +144,7 @@ phase 11, while the 4-wide tracer still holds the undeformed dragon:
    device busy ms.
 
 Phases 25–27 drive the JAX package's default build (Morton / Karras LBVH)
-and the microbenchmark kernels; they run last, phase 28 between 26 and 27:
+and the microbenchmark kernels; they run last, 27 after every other phase:
 
 25. the LBVH dragon at full size through PathTracer(builder="lbvh") at
    leaf_size 1 and 8: set_scene's stages, BVH2 rows, record bytes and peak
@@ -168,67 +168,14 @@ and the microbenchmark kernels; they run last, phase 28 between 26 and 27:
    block, then every variant at n = 1,000 against its plain version
    (exactly). The full sweep, with the 1 GiB table, is chip_microbench.py's.
 
-Phase 28 holds the redesigned traversal core (csrc/traverse_core.cuh, the
-wrappers' core="hopper", on the render paths) against the frozen baseline
-core (csrc/traverse_core_baseline.cuh, core="baseline"); it runs after
-phase 26, before 27:
-
-28. ptxas registers, stack frame and spills of every redesigned
-   instantiation beside its baseline twin; every plane of every pixel of the
-   full-size frames (K1a framed and sparse at SAH K = 32 and LBVH K = 1, K1b,
-   K1c's 8 frames, K1d under the frame's bounds and entries, K1e framed and
-   sparse, K1f at both widths) and of every ray of the 15 captured waves
-   (SAH K = 32, LBVH K = 1, 8-wide; closest and any hit, each with its own
-   schedule) bit-identical between the two cores (0 differing words), and
-   each wave's share of alive lanes; A-B-B-A CUDA-event times of each of
-   those frames and waves, of one whole 3-bounce sample per tree (radiance
-   equal) and of the dynamic dragon frame; each set of the design elements
-   alone (ELEMENT_CORES on K1a at K = 32 and K = 1 and the first K2a and K2b
-   waves; one thread per ray), K2's two schedules on every 4-wide wave
-   of the render core that may choose; the deepest stack the plain version
-   counts; and the baseline's times beside each kernels-line row's
-   (``baseline_ms`` on the checked rays, ``baseline_path_ms`` on the path).
-   The Morton LBVH K = 8 sample's waves are captured here too. K2b (any
-   hit over leaves of K > 1): on every any-hit wave of SAH K = 32, LBVH
-   K = 8 and the 8-wide tree, in both orders, the frozen loop, the warp's
-   leaf tests (traverse.ANY_HIT_CORE) with one thread per ray and with
-   persistent warps, every plane bit-identical, timed forward and back,
-   with what traverse.launch_plan runs there; ANY_HIT_CORES (the warp's
-   elements alone and the per-lane cores) on the first any-hit wave of
-   both 4-wide trees; and one whole 3-bounce sample at SAH K = 32 and LBVH
-   K = 8, both orders of the shadow rays, with only the any-hit waves
-   swapped between the plan's core and the frozen loop (radiance equal),
-   A-B-B-A. K2a (closest hit over leaves of K > 1): on every closest-hit
-   wave of SAH K = 32, LBVH K = 8 and the 8-wide tree, in both orders, the
-   render core (core="order") and the warp's leaf tests
-   (traverse.CLOSEST_HIT_CORE), each one thread per ray and persistent,
-   every plane bit-identical to each other and to the frozen loop, timed
-   in one series forward and back, with what traverse.launch_plan runs
-   there; CLOSEST_HIT_CORES (the warp's elements alone) on the first
-   closest-hit wave of both 4-wide trees; and one whole 3-bounce sample at
-   SAH K = 32 and LBVH K = 8, both orders of the bounce rays, with only the
-   closest-hit waves swapped between the plan's core and the render core
-   (radiance equal), A-B-B-A. K1 (over leaves of K > 1; k1_phase, also
-   alone: tools_torch/ab_tiles.py): ptxas of every instantiation of the
-   per-step tile core (traverse.TILE_CORE); then on K1a framed and sparse,
-   K1b's camera wave, one 8-camera K1c batch of the dynamic dragon's
-   refitted records, config 5's K1c raw, the Cornell box at SAH K = 32,
-   Morton K = 8, the 8-wide tree (K1e), K1d and K1f: every plane
-   bit-identical between the render core (core="order"), the frozen loop
-   and TILE_CORE, the warp census of each case (what each warp step posts,
-   priced for both leaf stages, from the plain version), the cores timed in
-   one series forward and back with what traverse.tile_plan runs, and
-   A-B-B-A with only K1 swapped between the plan's core and the render
-   core: the headline frame (K1a, shade, quantize), one 3-bounce sample and
-   the dynamic dragon frame. After every timed phase (untimed_checks), the
-   render core's machine code (what every launch at K = 1 runs) is held
-   instruction for instruction against the parent's
-   (tools_torch/render_core_sass.json, regenerated from the parent by
-   tools_torch/ab_parent.py in every change to csrc/traverse_core.cuh's
-   render core), beside phase 25's CPU builds.
+After every timed phase (untimed_checks), the render core's machine code
+(what every launch at K = 1 runs) is held instruction for instruction
+against the parent's (tools_torch/render_core_sass.json, regenerated from
+the parent by tools_torch/ab_parent.py in every change to
+csrc/traverse_core.cuh's render core), beside phase 25's CPU builds.
 
 Phase 29 drives the headless apps and the rest of the build chain; it runs
-after phase 28, before 27:
+after phase 33, before 27:
 
 29. (a) PathTracer(builder="ploc") and PathTracer(builder="sah",
    leaf_size=1) on the dragon: set_scene's stages, BVH2 rows and height,
@@ -279,7 +226,7 @@ before 27:
    frame's ms and visits a ray (K1f).
 
 Phase 33 drives wavefront compaction and K2 without near-first order; (a)
-runs right after phase 11, the rest after phase 26, before 28:
+runs right after phase 11, the rest after phase 26, before 29:
 
 33. (a) render_progressive(bounces=3) at 1080p with compaction on: 1 K1b,
    1 camera_lanes, 2 K2a, 3 K2b, 3 wave_hit and 3 wave_bounce a sample and
@@ -347,7 +294,7 @@ phase 14:
    orders; "smem" refused on the hall and the dragon, "vmem" on the
    dragon (ValueError, nothing launched); no access-policy window and the
    persisting carve-out as before after the "vmem" calls; each placement
-   against "hbm" A-B-B-A, smem_block 128 / 256 / 512, and the rows of the
+   against "hbm" A-B-B-A, and the rows of the
    kernels line against the plain version on 65,536 seeded rays a wave.
 
 Phase 36 drives the paths that only the benchmark runs; it runs after phase
@@ -431,24 +378,12 @@ The K1b, camera_lanes, K2a, K2b, wave_hit and wave_bounce rows also carry
 ``bench_launches``: phase 36's launches of one frame of config 2 and of
 config 4.
 
-Every traversal row of the kernels line but the placements' also carries
-``baseline_ms`` and ``baseline_path_ms``: the same calls with the frozen
-baseline core, timed A-B-B-A against the redesigned one in phase 28 ("vmem"
-and "smem" run the redesigned core only). The rows of closest hit over
-leaves of K > 1 (K2a, K2c, ordered and not) carry the render core's there
-instead (core="order" on their closest-hit waves, the plan's core on the
-any-hit waves), and the frozen loop's as ``frozen_ms`` and
-``frozen_path_ms``; so do the K1 rows (K1a … K1f: the render core,
-core="order", as ``baseline_ms``; K1c raw, which no frozen loop writes,
-the render core's alone).
-
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, and the line before that the card.
 """
 
 from __future__ import annotations
 
-import functools
 import json
 import math
 import re
@@ -701,9 +636,8 @@ def ptxas_rows(nvcc_log: str) -> list[tuple]:
     log. The template arguments are <child slots, jitter, visits, raw, core>
     for the batch tile kernel, <child slots, jitter, visits, bounds, core> for
     the one-frame tile kernel, <child slots, any hit, core> for both ray
-    kernels (core: the feature mask of csrc/traverse_core.cuh, 256 for the
-    frozen baseline, | 8 without near-first order, | 16 with the records in
-    shared memory)."""
+    kernels (core: the feature mask of csrc/traverse_core.cuh, | 8 without
+    near-first order, | 16 with the records in shared memory)."""
     rows, name, frame = [], None, (0, 0, 0)
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -819,10 +753,6 @@ def time_tiles(env: dict, qn: torch.Tensor, label: str, jitter: bool, checked: d
     crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
         qn, FRAMED, QUAT, CROP, CROP, FOV, raygen_size=(WIDTH, HEIGHT), row_offset=r0,
         col_offset=c0, **kw), FRAMES, REPEATS))
-    register_row(env, f"trace_tiles_{label.lower()}", lambda core: traverse.trace_tiles(
-        qn, FRAMED, QUAT, CROP, CROP, FOV, raygen_size=(WIDTH, HEIGHT), row_offset=r0,
-        col_offset=c0, core=core, **kw), lambda core: traverse.trace_tiles(
-        qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, core=core, **kw))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
         qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, pixels=crop_pix, **kw), 1, 3))
     crop_bound = bound(checked["counts"], 1.0, crop_pix.numel() * OUT_BYTES)
@@ -894,7 +824,6 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
     tris, card, dev = env["tris"], env["card"], env["dev"]
     pick_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     wave_stats: dict[str, list] = {}
-    picks = []
     for i, w in enumerate(waves):
         name = occlusion if w["any_hit"] else closest
         kind = "any hit" if w["any_hit"] else "closest hit"
@@ -909,7 +838,6 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
             fail(f"wave {i} ({name}): inactive lanes must return the miss values")
         pick = live[torch.randperm(live.numel(), generator=pick_gen)[:WAVE_SAMPLES].to(dev)]
         o, d = w["o"][pick].contiguous(), w["d"][pick].contiguous()
-        picks.append((o, d))
         counts = traverse.TraversalCounts()
         ref = traverse.trace_rays_reference(qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k,
                                             counts=counts)
@@ -941,29 +869,7 @@ def check_waves(env: dict, qn: torch.Tensor, waves: list[dict], closest: str,
     want[occlusion] = want.get(occlusion, 0) + BOUNCES
     if {name: len(ws) for name, ws in wave_stats.items()} != want:
         fail(f"captured waves {[(k, len(v)) for k, v in wave_stats.items()]}, expected {want}")
-    for name in wave_stats:
-        mine = [(w, p) for w, p in zip(waves, picks) if (occlusion if w["any_hit"] else closest)
-                == name]
-        register_row(env, name, lambda core, mine=mine: [traverse.trace_rays(
-            qn, o, d, any_hit=w["any_hit"], leaf_k=leaf_k, core=core_for(core, w["any_hit"]))
-            for w, (o, d) in mine], lambda core, mine=mine: [traverse.trace_rays(
-                qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=leaf_k, active=w["active"],
-                scattered=w["scattered"], core=core_for(core, w["any_hit"])) for w, _ in mine])
     return wave_stats
-
-
-def register_row(env: dict, name: str, checked, path) -> None:
-    """Keep the calls that a kernels-line row times — ``checked(core)`` on its
-    checked rays, ``path(core)`` on its main path — for phase 28, which times
-    both with the baseline core beside the redesigned one. The first
-    registration of a name is its row's."""
-    env.setdefault("row_calls", {}).setdefault(name, (checked, path))
-
-
-def core_for(core, any_hit: bool) -> str:
-    """A K2 row's core for one wave: ``core`` (a name) on every wave, or
-    ``core[any_hit]`` of a pair (the closest-hit core, the any-hit core)."""
-    return core if isinstance(core, str) else core[any_hit]
 
 
 def summed(details: list[dict]) -> tuple[float, str]:
@@ -1177,7 +1083,7 @@ def main() -> None:
     waves, sample_stats = capture_waves(env, qn)
     alive_rays = int(sample_stats["alive_rays"])
     wave_stats = check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b")
-    env["waves"] = {LEAF_K: waves}  # for phase 28
+    env["waves"] = {LEAF_K: waves}  # for phase 33
 
     # 9. one whole 256x256 sample: kernels vs plain versions
     def small_sample():
@@ -1274,8 +1180,6 @@ def main() -> None:
     # 33. compaction and K2 without near-first order
     compaction_phase(env, trees, rows)
 
-    # 28. the redesigned kernels against the frozen baseline core
-    hopper_phase(env, trees, rows)
     del trees
 
     # 29. the apps and the rest of the build chain
@@ -1757,9 +1661,6 @@ def bounded_phase(env: dict, pt) -> dict:
     crop_tb = bounds[ty:ty + nt, tx:tx + nt]
     ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles(
         qn, FRAMED, QUAT, CROP, CROP, FOV, tbounds=crop_tb, **window_kw), FRAMES, REPEATS))
-    register_row(env, "trace_tiles_k1d", lambda core: traverse.trace_tiles(
-        qn, FRAMED, QUAT, CROP, CROP, FOV, tbounds=crop_tb, core=core, **window_kw),
-        lambda core: tiles(entries=entries, tbounds=bounds, core=core))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_reference(
         qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, entries=entries, tbounds=bounds, **ref_kw), 1, 3))
     table_bytes = 2 * 4 * nty * ntx
@@ -1854,11 +1755,6 @@ def batch_phase(env: dict) -> dict:
     crop_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch(
         qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP, FOV, leaf_k=LEAF_K,
         raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0), FRAMES, REPEATS))
-    register_row(env, "trace_tiles_k1c", lambda core: traverse.trace_tiles_batch(
-        qn, [cams[f] for f in ends], [QUAT, QUAT], CROP, CROP, FOV, leaf_k=LEAF_K,
-        raygen_size=(WIDTH, HEIGHT), row_offset=r0, col_offset=c0, core=core),
-        lambda core: traverse.trace_tiles_batch(qn, cams, quats, WIDTH, HEIGHT, FOV,
-                                                leaf_k=LEAF_K, core=core))
     plain_ms = statistics.median(cuda_ms(lambda: traverse.trace_tiles_batch_reference(
         qn, [cams[f] for f in ends], [QUAT, QUAT], WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
         pixels=crop_pix), 1, 3))
@@ -2135,7 +2031,6 @@ def dynamic_phase(env: dict, pt) -> None:
     # (a) the plan's contract at full size, (b) containment
     check_plan_contract(r, q, plan, "dynamic frame 2")
     check_refit_boxes(r)
-    env["dynamic_qn"] = q  # frame 2's records, for the K1 phase
     log("[check] dynamic frame 2: every internal box contains its children's, every leaf box "
         "its cluster's deformed triangles")
 
@@ -2181,7 +2076,6 @@ def dynamic_phase(env: dict, pt) -> None:
     log(f"[time] one dynamic frame on the host clock: issued in {issue_ms:.4f} ms, done "
         f"{sync_ms:.4f} ms after a synchronise on {card}")
     profile_calls(lambda: frame(8), "dynamic dragon frame", card)
-    env["dynamic_frame"] = frame  # for phase 28
     log(f"[mem] peak device memory allocated in the dynamic phase: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
@@ -2254,7 +2148,6 @@ def config5_phase(env: dict) -> None:
         fail(f"config 5: hit counts of the raw layout {raw_hits.tolist()} differ from the image "
              f"layout's {hits.tolist()}")
     q = records(refit(3))
-    env["config5"] = (q, cams, quats)  # for the K1 phase
     raw, image = checked_raw(trace_raw, q, N_CAMS, size), trace(q)
     words = differing_words(raw, traverse.tiles_layout(image))
     if words:
@@ -2330,9 +2223,8 @@ def config1_phase(env: dict, config5_launches: int) -> dict:
     poss = [(1e-3 * i, 0.0, C1_Z) for i in range(n)]
     quats = [QUAT] * n
 
-    def raw_call(q=qn, p=poss, qs=quats, core="hopper"):
-        return traverse.trace_tiles_batch(q, p, qs, size, size, FOV, leaf_k=1, raw=True,
-                                          core=core)
+    def raw_call(q=qn, p=poss, qs=quats):
+        return traverse.trace_tiles_batch(q, p, qs, size, size, FOV, leaf_k=1, raw=True)
 
     def image_call(p=poss, qs=quats):
         return traverse.trace_tiles_batch(qn, p, qs, size, size, FOV, leaf_k=1)
@@ -2382,8 +2274,6 @@ def config1_phase(env: dict, config5_launches: int) -> dict:
     b_ms, b_by, detail = bound(counts, 1.0, rays * RAW_OUT_BYTES + len(ends) * 64)
 
     path = abba({"image": image_call, "raw": raw_call}, 3, REPEATS)
-    register_row(env, "trace_tiles_k1c_raw", lambda core: raw_call(
-        p=[poss[f] for f in ends], qs=[QUAT, QUAT], core=core), lambda core: raw_call(core=core))
     path_counts = traverse.TraversalCounts()
     pick = torch.Generator(device="cpu").manual_seed(SEED + 4)
     sampled = (0, n // 3, 2 * n // 3, n - 1)
@@ -2417,7 +2307,7 @@ def tree_space_phase(env: dict) -> dict:
     """35. K2's record placements (trace_rays(tree_space=...)) on the waves
     of tools_torch/mb_tree_space.py (the JAX tool's, 512x512): config 4's
     hall (SAH K = 32) and config 1's Cornell box (its Morton LBVH at K = 1,
-    and SAH K = 32, where any hit runs the baseline loop). The path: every
+    and SAH K = 32). The path: every
     wave under "vmem", and under "smem" where the tree fits, with their
     launches counted; every lane bit-identical to "hbm" in both schedules
     and on deep_records (stacks past 64, both widths and orders); the
@@ -2437,7 +2327,6 @@ def tree_space_phase(env: dict) -> dict:
     limits = traverse.tree_space_limits(dev)
     window0 = traverse.l2_window(dev)
     scenes = mb_tree_space.trees(dev)
-    env["cornell32"] = scenes["Cornell SAH K=32"][0]  # for the K1 phase
     waves = {label: mb_tree_space.waves(qn, k) for label, (qn, k) in scenes.items()}
     fits = {label: qn.numel() * 4 <= limits["smem_optin"] for label, (qn, k) in scenes.items()}
     log(f"[tree_space] limits of {card}: {json.dumps(limits)}; L2 state before: "
@@ -2518,7 +2407,7 @@ def tree_space_phase(env: dict) -> dict:
     log(f"[tree_space] after the vmem calls: stream window {after['num_bytes']} bytes at "
         f"{after['base']}, persisting carve-out {after['persisting_l2']} bytes (as before)")
 
-    # each placement against hbm, A-B-B-A; smem's block sizes
+    # each placement against hbm, A-B-B-A
     rays = waves["hall SAH K=32"]["nee"][0].shape[0]
     for label in scenes:
         for space in spaces[label]:
@@ -2529,12 +2418,6 @@ def tree_space_phase(env: dict) -> dict:
                 log(f"[A/B] {label} {name}: hbm {ms['hbm']:.4f} ms, {space} {ms[space]:.4f} ms "
                     f"({rays / ms['hbm'] / 1e3:.1f} / {rays / ms[space] / 1e3:.1f} Mrays/s) "
                     f"on {card}")
-        if fits[label]:
-            for name in waves[label]:
-                ms = series({b: (lambda label=label, name=name, b=b: run(
-                    label, "smem", name, smem_block=b)) for b in mb_tree_space.BLOCKS}, 4, 2)
-                log(f"[A/B] {label} {name} smem_block " + ", ".join(
-                    f"{b}: {v:.4f} ms" for b, v in ms.items()) + f" on {card}")
 
     # the kernels-line rows: vmem on the hall, smem on config 1's tree
     tris_of = {"hall SAH K=32": mb_tree_space.normalized(procgen.make_interior_hall()).to(dev),
@@ -2815,7 +2698,7 @@ def wide8_phase(env: dict, scene) -> dict:
     k1e_j = check_tiles(env, qn8, "K1e", jitter=True)
     waves, _ = capture_waves(env, qn8)
     wave_stats = check_waves(env, qn8, waves, "trace_rays_k2c", "trace_rays_k2c")
-    env["qn8"], env["waves"]["8-wide"] = qn8, waves  # for phase 28
+    env["qn8"], env["waves"]["8-wide"] = qn8, waves  # for phase 33
     rows = {"trace_tiles_k1e": time_tiles(
         env, qn8, "K1e", False, k1e,
         render_launches["trace_tiles_k1e"] + pt_want["trace_tiles_k1e"])}
@@ -2826,11 +2709,6 @@ def wide8_phase(env: dict, scene) -> dict:
     # 17. K1f at both widths
     visits = [check_visits(env, qn4, "K1f on 4-wide records"),
               check_visits(env, qn8, "K1f on 8-wide records")]
-    register_row(env, "trace_tiles_k1f", lambda core: [traverse.trace_tiles(
-        q, FRAMED, QUAT, CROP, CROP, FOV, leaf_k=LEAF_K, stats=True, raygen_size=(WIDTH, HEIGHT),
-        row_offset=env["r0"], col_offset=env["c0"], core=core) for q in (qn4, qn8)],
-        lambda core: [traverse.trace_tiles(q, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K,
-                                           stats=True, core=core) for q in (qn4, qn8)])
 
     # 18. the structure of the full-size BVH8
     bvh2 = LBVH2(*(a.to(dev) for a in pt._cluster.bvh2))
@@ -2951,7 +2829,7 @@ def lbvh_phase(env: dict, scene) -> dict:
                      "left a non-finite buffer")
             waves, _ = capture_waves(env, qn, leaf_k=k)
             check_waves(env, qn, waves, "trace_rays_k2a", "trace_rays_k2b", leaf_k=k)
-            env["waves"][1] = waves  # for phase 28
+            env["waves"][1] = waves  # for phase 33
         del pt, images
 
     # the Morton order, the BVH2s and K = 8's 4-wide collapse on the card,
@@ -3052,11 +2930,6 @@ def leaf_phase(env: dict, trees: dict) -> None:
             fail(f"leaf: the K={k} sample agrees with K={LEAF_K}'s on {near:.6f} of pixels")
 
 
-# the cores timed alone (traverse.core_id names), on K1a, K2a and K2b
-ELEMENT_CORES = ("baseline", "none", "order", "stack", "prefetch", "order+stack",
-                 "order+prefetch", "stack+prefetch", "order+stack+prefetch", "hopper")
-
-
 def series(fns: dict, frames: int, repeats: int) -> dict:
     """Median ms per call of each function, timed in the order given and
     then in reverse (A-B-B-A for two)."""
@@ -3065,470 +2938,6 @@ def series(fns: dict, frames: int, repeats: int) -> dict:
     for n in names + names[::-1]:
         reps[n] += cuda_ms(fns[n], frames, repeats)
     return {n: statistics.median(r) for n, r in reps.items()}
-
-
-def flat_planes(out) -> list:
-    """The planes of a traversal call's result, or of a list of results."""
-    if isinstance(out, list):
-        return [p for o in out for p in o]
-    return list(out)
-
-
-def hopper_phase(env: dict, trees: dict, rows: dict) -> None:
-    """28. The redesigned traversal core ("hopper", every render path)
-    against the frozen baseline core ("baseline") in this one process:
-    ptxas of both; every plane of every pixel and ray of the full-size frames
-    and captured waves bit-identical; A-B-B-A times of frames, waves, whole
-    samples, the K1c batch and the dynamic frame; each design element alone;
-    K2's two schedules; and the baseline's times beside each kernels-line
-    row's."""
-    from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import traverse
-
-    card, dev, tris = env["card"], env["dev"], env["tris"]
-    qn32, qn1, qn8 = env["qn"], trees[1]["qn"], env["qn8"]
-    t_phase = time.perf_counter()
-    cores = ("hopper", "baseline")
-    # the Morton K = 8 sample's waves: its three any-hit waves run K2b over
-    # leaves of 8 triangles
-    env["waves"][8], _ = capture_waves(env, trees[8]["qn"], leaf_k=8)
-
-    # ptxas: each instantiation of the redesigned core (the render core and
-    # the measured sets of elements) beside its baseline twin
-    for src in ("traverse_tiles.cu", "traverse_rays.cu"):
-        found = {k: (r, f, st, ld) for k, r, f, st, ld in ptxas_rows(traverse.load_kernel(src)[1])}
-        for kernel, (regs, frame, st, ld) in found.items():
-            head, core = kernel[:kernel.rindex(",")], int(kernel[kernel.rindex(",") + 1:-1])
-            if core & 256:
-                continue
-            # the baseline twin: the same template with core 256 (| 8, unordered)
-            twin = f"{head.replace('_persistent', '')},{256 | (core & 8)}>"
-            b = found.get(twin)
-            log(f"[hopper] ptxas {kernel}: {regs} registers, {frame} bytes stack frame, spills "
-                f"{st}/{ld} bytes; baseline {twin}: " + (
-                    f"{b[0]} registers, {b[1]} bytes stack frame, spills {b[2]}/{b[3]} bytes"
-                    if b else "none"))
-
-    # every plane of the full-size frames and waves, word for word
-    cams, quats = batch_cameras(CAM_Z)
-    frames = {
-        f"K1a framed SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
-            qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
-        f"K1a sparse SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
-            qn32, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
-        "K1a framed LBVH K=1": lambda c: traverse.trace_tiles(
-            qn1, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=1, core=c),
-        "K1a sparse LBVH K=1": lambda c: traverse.trace_tiles(
-            qn1, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=1, core=c),
-        f"K1b framed SAH K={LEAF_K}": lambda c: traverse.trace_tiles(
-            qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, jitter=True,
-            jitter_seed=JITTER_SEED, core=c),
-        f"K1c {N_CAMS} cameras": lambda c: traverse.trace_tiles_batch(
-            qn32, cams, quats, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
-        "K1d framed, the frame's bounds and entries": env["row_calls"]["trace_tiles_k1d"][1],
-        "K1e framed 8-wide": lambda c: traverse.trace_tiles(
-            qn8, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
-        "K1e sparse 8-wide": lambda c: traverse.trace_tiles(
-            qn8, SPARSE, QUAT, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K, core=c),
-        "K1f framed, 4- and 8-wide": env["row_calls"]["trace_tiles_k1f"][1],
-    }
-    trees_of = {LEAF_K: (qn32, LEAF_K, "SAH K=32"), 1: (qn1, 1, "LBVH K=1"),
-                8: (trees[8]["qn"], 8, "LBVH K=8"), "8-wide": (qn8, LEAF_K, "8-wide SAH K=32")}
-    waves = {}
-    for key, ws in env["waves"].items():
-        qn, k, label = trees_of[key]
-        for i, w in enumerate(ws):
-            kind = "any hit" if w["any_hit"] else "closest"
-            waves[f"{label} wave {i} ({kind})"] = (
-                lambda c, scattered=None, qn=qn, k=k, w=w: traverse.trace_rays(
-                    qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
-                    scattered=w["scattered"] if scattered is None else scattered, core=c))
-            lanes = w["o"].shape[0]
-            alive = lanes if w["active"] is None else int(w["active"].sum())
-            log(f"[hopper] {label} wave {i} ({kind}): {alive} of {lanes} lanes alive "
-                f"(share {alive / lanes:.4f})")
-    for what, fn in {**frames, **waves}.items():
-        words = differing_words(flat_planes(fn("hopper")), flat_planes(fn("baseline")))
-        if words:
-            fail(f"phase 28: {what}: the redesigned core differs from the baseline in {words} "
-                 "words")
-    log(f"[hopper] every plane bit-identical to the baseline core (0 differing words) on "
-        f"{len(frames)} full-size frames or batches and {len(waves)} captured waves")
-
-    # A-B-B-A: frames, waves, whole samples, the dynamic frame
-    for what, fn in frames.items():
-        if "K=1" not in what:
-            continue  # K1 over leaves of K > 1: k1_phase times it beside the frozen loop
-        ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 2 if "K1c" in what else 8, 2)
-        log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
-            f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
-    for what, fn in waves.items():
-        if "K=1 " not in what:
-            continue  # K2 over leaves of K > 1: k2a_phase and k2b_phase time it
-        ms = abba({c: (lambda c=c: fn(c)) for c in cores}, 3, 2)
-        log(f"[hopper] A-B-B-A {what}: hopper {ms['hopper']:.4f} ms, baseline "
-            f"{ms['baseline']:.4f} ms, speed-up {ms['baseline'] / ms['hopper']:.4f} on {card}")
-    real = (render_pt.trace_tiles, render_pt.trace_rays, traverse.trace_tiles_batch)
-
-    def with_core(c, fn):
-        def run():
-            render_pt.trace_tiles = functools.partial(real[0], core=c)
-            render_pt.trace_rays = functools.partial(real[1], core=c)
-            traverse.trace_tiles_batch = functools.partial(real[2], core=c)
-            try:
-                return fn()
-            finally:
-                render_pt.trace_tiles, render_pt.trace_rays, traverse.trace_tiles_batch = real
-        return run
-
-    for key in (LEAF_K, 1, 8, "8-wide"):
-        qn, k, label = trees_of[key]
-
-        def sample(qn=qn, k=k):
-            return render_pt.pt_sample_frame(
-                qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-                leaf_k=k, tile_primary=True,
-                generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
-
-        if not torch.equal(with_core("hopper", sample)(), with_core("baseline", sample)()):
-            fail(f"phase 28: the {label} sample differs between the two cores")
-        ms = abba({c: with_core(c, sample) for c in cores}, 4, 3)
-        log(f"[hopper] A-B-B-A one {BOUNCES}-bounce 1080p sample {label} (radiance equal): "
-            f"hopper {ms['hopper']:.4f} ms, baseline {ms['baseline']:.4f} ms, speed-up "
-            f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
-    frame = env["dynamic_frame"]
-    ms = abba({c: with_core(c, lambda: frame(9)) for c in cores}, 4, 3)
-    log(f"[hopper] A-B-B-A dynamic dragon frame ({N_CAMS} cameras, refit every frame): hopper "
-        f"{ms['hopper']:.4f} ms, baseline {ms['baseline']:.4f} ms, speed-up "
-        f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
-
-    # each design element alone (K2 one thread per ray), K2's two schedules
-    # on every wave where the wrapper lets the caller choose
-    firsts = {label: fn for label, fn in waves.items()
-              if ("wave 1 (closest)" in label or "wave 0 (any hit)" in label)
-              and "8-wide" not in label}
-    targets = {f"K1a framed SAH K={LEAF_K}": frames[f"K1a framed SAH K={LEAF_K}"],
-               "K1a framed LBVH K=1": frames["K1a framed LBVH K=1"], **firsts}
-    for what, fn in targets.items():
-        ms = series({c: (lambda c=c: fn(c, False)) if "wave" in what else (lambda c=c: fn(c))
-                     for c in ELEMENT_CORES}, 3 if "wave" in what else 8, 2)
-        log(f"[hopper] cores on {what} (K2: one thread per ray): "
-            + ", ".join(f"{c} {v:.4f} ({ms['baseline'] / v:.4f}x)" for c, v in ms.items())
-            + f" ms on {card}")
-    for what, fn in waves.items():
-        if "K=1 " not in what:
-            continue  # K2 over leaves of K > 1: k2a_phase and k2b_phase time its schedules
-        ms = abba({"one thread per ray": lambda fn=fn: fn("hopper", False),
-                   "persistent": lambda fn=fn: fn("hopper", True)}, 3, 2)
-        log(f"[hopper] K2 schedules on {what}: one thread per ray "
-            f"{ms['one thread per ray']:.4f} ms, persistent warps (refill below 16 lanes) "
-            f"{ms['persistent']:.4f} ms on {card}")
-
-    # the deepest stacks, as the plain version counts them (the shared part
-    # of the stack holds kSharedEntries; PERF.md)
-    for key in (LEAF_K, 1, "8-wide"):
-        qn, k, label = trees_of[key]
-        crop, first = traverse.TraversalCounts(), traverse.TraversalCounts()
-        traverse.trace_tiles_reference(qn, FRAMED, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
-                                       pixels=env["crop_pix"], counts=crop)
-        w = env["waves"][key][1]
-        live = torch.nonzero(w["active"]).squeeze(1)[:WAVE_SAMPLES]
-        traverse.trace_rays_reference(qn, w["o"][live].contiguous(), w["d"][live].contiguous(),
-                                      leaf_k=k, counts=first)
-        log(f"[hopper] deepest stack {label}: crop {crop.max_depth} entries, first closest "
-            f"wave {first.max_depth} ({live.numel()} rays); pushes dropped "
-            f"{crop.dropped + first.dropped}")
-
-    k2b_phase(env, trees_of)
-    k2a_phase(env, trees_of)
-    k1_phase(env, trees_of)
-
-    # the kernels line: the baseline's times beside each row's; beside the
-    # rows of closest hit over leaves of K > 1, the render core's (only
-    # their closest-hit waves swapped) and the frozen loop's; beside the K1
-    # rows, the render core's and the frozen loop's (the raw layout: the
-    # render core's)
-    for name, (checked, path) in env["row_calls"].items():
-        if name in CLOSEST_ROWS:
-            others = {"baseline": ("order", "hopper"), "frozen": "baseline"}
-        elif name.startswith("trace_tiles_"):
-            others = {"baseline": "order", **({} if name.endswith("_raw") else
-                                              {"frozen": "baseline"})}
-        else:
-            others = {"baseline": "baseline"}
-        c = series({"hopper": lambda: checked("hopper"),
-                    **{k: (lambda v=v: checked(v)) for k, v in others.items()}}, 4, 2)
-        p = series({"hopper": lambda: path("hopper"),
-                    **{k: (lambda v=v: path(v)) for k, v in others.items()}}, 2, 2)
-        rows[name]["baseline_ms"], rows[name]["baseline_path_ms"] = c["baseline"], p["baseline"]
-        if "frozen" in others:
-            rows[name]["frozen_ms"], rows[name]["frozen_path_ms"] = c["frozen"], p["frozen"]
-        log(f"[hopper] {name} in one series forward and back: checked rays "
-            + ", ".join(f"{k} {v:.4f}" for k, v in c.items()) + " ms; path "
-            + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
-            + f" ms (baseline: {others['baseline']}) on {card}")
-    log(f"[hopper] phase 28 took {time.perf_counter() - t_phase:.1f} s")
-
-
-# the cores of any hit over leaves of K > 1 timed on its first wave of each
-# 4-wide tree (one thread per ray): the frozen loop, the per-lane cores,
-# the warp's leaf tests without the order, without packed slots, and all
-ANY_HIT_CORES = ("baseline", "none", "order", "warp", "order+warp", "warp+pack",
-                 "order+warp+pack")
-
-
-def k2b_phase(env: dict, trees_of: dict) -> None:
-    """28 (K2b). Any hit over leaves of K > 1 with the leaf tests spread over
-    the warp (traverse.ANY_HIT_CORE) against the frozen loop (core="baseline")
-    on every captured any-hit wave of SAH K = 32, LBVH K = 8 and the 8-wide
-    tree, in both orders: the frozen loop, the new core with one thread per
-    ray and with persistent warps, every plane bit-identical, timed in one
-    series forward and back, with what the launch plan picks; each set of
-    its elements on the first any-hit wave of the 4-wide trees; and one whole
-    3-bounce sample with only the any-hit waves swapped, in both orders."""
-    from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import traverse
-
-    card, dev, tris = env["card"], env["dev"], env["tris"]
-    t_phase = time.perf_counter()
-    new = traverse.ANY_HIT_CORE
-    for key in (LEAF_K, 8, "8-wide"):
-        qn, k, label = trees_of[key]
-        slots = traverse.infer_rec_width(k, qn.shape[1])
-        for ordered in (True, False):
-            total = {"frozen": 0.0, "new": 0.0, "plan": 0.0}
-            for i, w in enumerate(env["waves"][key]):
-                if not w["any_hit"]:
-                    continue
-
-                def call(core, scattered, w=w, qn=qn, k=k, ordered=ordered):
-                    return lambda: traverse.trace_rays(
-                        qn, w["o"], w["d"], any_hit=True, leaf_k=k, active=w["active"],
-                        ordered=ordered, scattered=scattered, core=core)
-
-                fns = {"frozen": call("baseline", False), "one thread a ray": call(new, False),
-                       "persistent": call(new, True)}
-                outs = {n: fn() for n, fn in fns.items()}
-                for n, out in outs.items():
-                    words = differing_words(out, outs["frozen"])
-                    if words:
-                        fail(f"phase 28: {label} wave {i} (any hit, ordered={ordered}): {n} "
-                             f"differs from the frozen loop in {words} words")
-                ms = series(fns, 3, 2)
-                _, persistent = traverse.launch_plan(
-                    "hopper", any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=w["scattered"])
-                mine = ms["persistent" if w["scattered"] else "one thread a ray"]
-                picked = ms["persistent" if persistent else "one thread a ray"]
-                total["frozen"] += ms["frozen"]
-                total["new"] += mine
-                total["plan"] += picked
-                alive = w["o"].shape[0] if w["active"] is None else int(w["active"].sum())
-                log(f"[k2b] {label} wave {i} (any hit, {'ordered' if ordered else 'unordered'}, "
-                    f"{'scattered' if w['scattered'] else 'dense'}, alive {alive}): frozen "
-                    f"{ms['frozen']:.4f}, new core one thread a ray {ms['one thread a ray']:.4f}, "
-                    f"persistent {ms['persistent']:.4f} ms (frozen / new "
-                    f"{ms['frozen'] / mine:.4f}); the plan runs {new}"
-                    f"{', persistent' if persistent else ''}; planes bit-identical on {card}")
-            log(f"[k2b] {label} {'ordered' if ordered else 'unordered'}, the sample's any-hit "
-                f"waves: frozen {total['frozen']:.4f} ms, new core (schedule by scattered) "
-                f"{total['new']:.4f} ms, what the plan runs {total['plan']:.4f} "
-                f"ms on {card}")
-
-    # each set of the elements on the first any-hit wave (one thread a ray)
-    for key in (LEAF_K, 8):
-        qn, k, label = trees_of[key]
-        w = next(w for w in env["waves"][key] if w["any_hit"])
-        ms = series({c: (lambda c=c, w=w, qn=qn, k=k: traverse.trace_rays(
-            qn, w["o"], w["d"], any_hit=True, leaf_k=k, active=w["active"], core=c))
-            for c in ANY_HIT_CORES}, 3, 2)
-        log(f"[k2b] cores on {label}'s first any-hit wave (one thread a ray): "
-            + ", ".join(f"{c} {v:.4f} ({ms['baseline'] / v:.4f}x)" for c, v in ms.items())
-            + f" ms on {card}")
-
-    # the whole sample, only the any-hit waves swapped
-    real = render_pt.trace_rays
-
-    def any_hit_core(core, fn):
-        def traced(*args, any_hit=False, **kw):
-            return real(*args, any_hit=any_hit, **kw, **({"core": core} if any_hit else {}))
-
-        def run():
-            render_pt.trace_rays = traced
-            try:
-                return fn()
-            finally:
-                render_pt.trace_rays = real
-        return run
-
-    for key in (LEAF_K, 8):
-        qn, k, label = trees_of[key]
-        for ordered in (True, False):
-            def sample(qn=qn, k=k, ordered=ordered):
-                return render_pt.pt_sample_frame(
-                    qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-                    leaf_k=k, tile_primary=True, ordered_ah=ordered,
-                    generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
-
-            fns = {c: any_hit_core(c, sample) for c in ("hopper", "baseline")}
-            if not torch.equal(fns["hopper"](), fns["baseline"]()):
-                fail(f"phase 28: the {label} sample (ordered_ah={ordered}) differs between the "
-                     "frozen loop and the launch plan's any-hit core")
-            ms = abba(fns, 4, 3)
-            log(f"[k2b] A-B-B-A one {BOUNCES}-bounce 1080p sample {label}, ordered_ah={ordered} "
-                f"(radiance equal), only the any-hit waves swapped: the plan's core "
-                f"{ms['hopper']:.4f} ms, frozen loop {ms['baseline']:.4f} ms, speed-up "
-                f"{ms['baseline'] / ms['hopper']:.4f} on {card}")
-    log(f"[k2b] K2b's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
-
-
-# the kernels-line rows of closest hit over leaves of K > 1, timed beside the
-# render core (phase 28)
-CLOSEST_ROWS = ("trace_rays_k2a", "trace_rays_k2c", "trace_rays_k2a_unordered",
-                "trace_rays_k2c_unordered")
-# the cores of closest hit over leaves of K > 1 timed on the first
-# closest-hit wave of each 4-wide tree (one thread per ray): the render
-# core, the warp's leaf tests without the order, without packed slots, and
-# all
-CLOSEST_HIT_CORES = ("order", "warp", "order+warp", "warp+pack", "order+warp+pack")
-
-
-def k2a_phase(env: dict, trees_of: dict) -> None:
-    """28 (K2a). Closest hit over leaves of K > 1 with the leaf tests spread
-    over the warp (traverse.CLOSEST_HIT_CORE) against the render core
-    (core="order") on every captured closest-hit wave of SAH K = 32, LBVH
-    K = 8 and the 8-wide tree, in both orders: both cores one thread per ray
-    and persistent, every plane bit-identical to each other and to the
-    frozen loop, timed in one series forward and back with the frozen loop,
-    with what the launch plan picks; each set of the warp's elements on the
-    first closest-hit wave of the 4-wide trees; and one whole 3-bounce
-    sample with only the closest-hit waves swapped, in both orders."""
-    from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import traverse
-
-    card, dev, tris = env["card"], env["dev"], env["tris"]
-    t_phase = time.perf_counter()
-    new = traverse.CLOSEST_HIT_CORE
-    for key in (LEAF_K, 8, "8-wide"):
-        qn, k, label = trees_of[key]
-        slots = traverse.infer_rec_width(k, qn.shape[1])
-        for ordered in (True, False):
-            total = {"render": 0.0, "new": 0.0, "plan": 0.0}
-            for i, w in enumerate(env["waves"][key]):
-                if w["any_hit"]:
-                    continue
-
-                def call(core, scattered, w=w, qn=qn, k=k, ordered=ordered):
-                    return lambda: traverse.trace_rays(
-                        qn, w["o"], w["d"], leaf_k=k, active=w["active"], ordered=ordered,
-                        scattered=scattered, core=core)
-
-                fns = {"render": call("order", False), "render persistent": call("order", True),
-                       "new": call(new, False), "new persistent": call(new, True),
-                       "frozen": call("baseline", False)}
-                outs = {n: fn() for n, fn in fns.items()}
-                for n, out in outs.items():
-                    for other in ("render", "frozen"):
-                        words = differing_words(out, outs[other])
-                        if words:
-                            fail(f"phase 28: {label} wave {i} (closest hit, ordered={ordered}): "
-                                 f"{n} differs from {other} in {words} words")
-                ms = series(fns, 3, 2)
-                cid, persistent = traverse.launch_plan(
-                    "hopper", any_hit=False, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=w["scattered"])
-                sched = " persistent" if w["scattered"] else ""
-                picked = ("new" if cid == traverse.core_id(new) else "render") + (
-                    " persistent" if persistent else "")
-                total["render"] += ms["render" + sched]
-                total["new"] += ms["new" + sched]
-                total["plan"] += ms[picked]
-                alive = w["o"].shape[0] if w["active"] is None else int(w["active"].sum())
-                log(f"[k2a] {label} wave {i} (closest hit, "
-                    f"{'ordered' if ordered else 'unordered'}, "
-                    f"{'scattered' if w['scattered'] else 'dense'}, alive {alive}): "
-                    + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
-                    + f" ms (render / new, schedule by scattered, "
-                    f"{ms['render' + sched] / ms['new' + sched]:.4f}); the plan runs {picked}; "
-                    f"planes bit-identical on {card}")
-            log(f"[k2a] {label} {'ordered' if ordered else 'unordered'}, the sample's closest-hit "
-                f"waves: render core {total['render']:.4f} ms, new core {total['new']:.4f} ms "
-                f"(schedule by scattered), what the plan runs {total['plan']:.4f} ms on {card}")
-
-    # each set of the elements on the first closest-hit wave (one thread a ray)
-    for key in (LEAF_K, 8):
-        qn, k, label = trees_of[key]
-        w = next(w for w in env["waves"][key] if not w["any_hit"])
-        ms = series({c: (lambda c=c, w=w, qn=qn, k=k: traverse.trace_rays(
-            qn, w["o"], w["d"], leaf_k=k, active=w["active"], core=c))
-            for c in CLOSEST_HIT_CORES}, 3, 2)
-        log(f"[k2a] cores on {label}'s first closest-hit wave (one thread a ray): "
-            + ", ".join(f"{c} {v:.4f} ({ms['order'] / v:.4f}x)" for c, v in ms.items())
-            + f" ms on {card}")
-
-    # the whole sample, only the closest-hit waves swapped
-    real = render_pt.trace_rays
-
-    def closest_hit_core(core, fn):
-        def traced(*args, any_hit=False, **kw):
-            return real(*args, any_hit=any_hit, **kw, **({} if any_hit else {"core": core}))
-
-        def run():
-            render_pt.trace_rays = traced
-            try:
-                return fn()
-            finally:
-                render_pt.trace_rays = real
-        return run
-
-    for key in (LEAF_K, 8):
-        qn, k, label = trees_of[key]
-        for ordered in (True, False):
-            def sample(qn=qn, k=k, ordered=ordered):
-                return render_pt.pt_sample_frame(
-                    qn, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-                    leaf_k=k, tile_primary=True, ordered_ch=ordered,
-                    generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
-
-            fns = {c: closest_hit_core(c, sample) for c in ("hopper", "order")}
-            if not torch.equal(fns["hopper"](), fns["order"]()):
-                fail(f"phase 28: the {label} sample (ordered_ch={ordered}) differs between the "
-                     "render core and the launch plan's closest-hit core")
-            ms = abba(fns, 4, 3)
-            log(f"[k2a] A-B-B-A one {BOUNCES}-bounce 1080p sample {label}, ordered_ch={ordered} "
-                f"(radiance equal), only the closest-hit waves swapped: the plan's core "
-                f"{ms['hopper']:.4f} ms, render core {ms['order']:.4f} ms, speed-up "
-                f"{ms['order'] / ms['hopper']:.4f} on {card}")
-    log(f"[k2a] K2a's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
-
-
-# 28 (K1). The cores of K1 timed against each other (traverse.core_id
-# names): the render core (K1 at K = 1, and at K > 1 before the per-step
-# leaf stage), the per-step choice between the warp's leaf tests and the
-# lanes' own loops (traverse.TILE_CORE) and the frozen loop
-K1_CORES = {"render": "order", "tile": "order+warp+pack+tile", "frozen": "baseline"}
-CORNELL_CAM = (0.0, 0.0, 2.2)  # config 1's camera (bench_suite.py:64-140) at i = 0
-
-
-def k1_census(qn: torch.Tensor, leaf_k: int, cams: list, pixels: torch.Tensor, width: int,
-              height: int, jitter: bool = False) -> dict:
-    """TraversalCounts.warp_census of the tile kernels' warps over ``pixels``
-    (whole warps: flat indices of a width × height frame) of each camera,
-    from the plain version: what each warp step posts, priced for both leaf
-    stages."""
-    from raytracer_tpu_torch.ops.cuda import traverse
-
-    counts = traverse.TraversalCounts(leaf_log=True)
-    ids = traverse.tile_warp_ids(pixels % width, pixels // width, width)
-    span = int(ids.max()) + 1
-    visits, warps = [], []
-    for f, cam in enumerate(cams):
-        planes = traverse.trace_tiles_reference(
-            qn, cam, QUAT, width, height, FOV, leaf_k=leaf_k, pixels=pixels, jitter=jitter,
-            jitter_seed=JITTER_SEED, counts=counts, stats=True)
-        visits.append(planes[5])
-        warps.append(ids + f * span)
-    return counts.warp_census(torch.cat(warps), torch.cat(visits), leaf_k)
 
 
 def render_core_sass() -> tuple[dict, dict, str]:
@@ -3543,19 +2952,6 @@ def render_core_sass() -> tuple[dict, dict, str]:
         got = dict(zip(ref["kernels"], pool.map(
             lambda src: render_core_digests(traverse.load_kernel(src)[0]), ref["kernels"])))
     return ref, got, nvcc_version()
-
-
-def k1_ptxas_report() -> None:
-    """ptxas of every tile-kernel instantiation of a warp-leaves core
-    (rt::kTileCore, in both packing forms)."""
-    from raytracer_tpu_torch.ops.cuda import traverse
-
-    warp_log = traverse.load_kernel("traverse_tiles.cu:warp")[1]
-    for kernel, regs, frame, st, ld in ptxas_rows(warp_log):
-        core = int(kernel[kernel.rindex(",") + 1:-1])
-        if core & traverse.CORE_ELEMENTS["warp"]:
-            log(f"[k1] ptxas {kernel} (core {core}): {regs} registers, {frame} bytes stack "
-                f"frame, spills {st}/{ld} bytes")
 
 
 def check_render_core_sass(sass) -> None:
@@ -3589,150 +2985,6 @@ def untimed_checks(env: dict) -> None:
         check_render_core_sass(sass.result())
     log(f"[untimed] phase 25's CPU builds and the SASS read-back took "
         f"{time.perf_counter() - t0:.1f} s")
-
-
-def k1_phase(env: dict, trees_of: dict) -> None:
-    """28 (K1). K1 over leaves of K > 1 under its cores (K1_CORES): ptxas of
-    the new instantiations; on each case every plane bit-identical across
-    the cores; the warp census of each case (k1_census); each case's cores
-    timed in one series forward and back, with what traverse.tile_plan runs:
-    K1a framed and sparse, K1b's camera wave, one 8-camera K1c batch of the
-    dynamic dragon, config 5's K1c raw and the Cornell box at SAH K = 32,
-    Morton K = 8, the 8-wide tree (K1e), K1d and K1f; and the whole paths
-    with only K1 swapped between the plan and the render core: the headline
-    frame (render()'s device work: K1a, shade, quantize), one 3-bounce
-    sample and the dynamic dragon frame, A-B-B-A."""
-    from raytracer_tpu_torch import render_pt
-    from raytracer_tpu_torch.ops.cuda import traverse
-    from raytracer_tpu_torch.ops.shade import quantize_rgba8, shade_lambert
-
-    if K1_CORES["tile"] != traverse.TILE_CORE:
-        fail("K1_CORES no longer names traverse.TILE_CORE")
-    card, dev, tris, crop = env["card"], env["dev"], env["tris"], env["crop_pix"]
-    t_phase = time.perf_counter()
-    k1_ptxas_report()
-    qn32 = env["qn"]
-    cams, quats = batch_cameras(CAM_Z)
-    whole = torch.arange(CONFIG5_SIZE * CONFIG5_SIZE, device=dev)
-
-    def tiles(qn, cam, k, **kw):
-        return lambda core: traverse.trace_tiles(qn, cam, QUAT, WIDTH, HEIGHT, FOV, leaf_k=k,
-                                                 core=core, **kw)
-
-    # label → (call(core), its census, frames a timed run, what tile_plan is told)
-    cases = {
-        f"K1a framed SAH K={LEAF_K}": (tiles(qn32, FRAMED, LEAF_K), lambda: k1_census(
-            qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT), 8, {}),
-        f"K1a sparse SAH K={LEAF_K}": (tiles(qn32, SPARSE, LEAF_K), lambda: k1_census(
-            qn32, LEAF_K, [SPARSE], crop, WIDTH, HEIGHT), 8, {}),
-        f"K1b framed SAH K={LEAF_K} (the sample's camera wave)": (
-            tiles(qn32, FRAMED, LEAF_K, jitter=True, jitter_seed=JITTER_SEED),
-            lambda: k1_census(qn32, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT, jitter=True), 8,
-            {"jitter": True}),
-    }
-    if "dynamic_qn" in env:
-        dq = env["dynamic_qn"]
-        cases[f"K1c {N_CAMS} cameras, the dynamic dragon's refitted records"] = (
-            lambda core: traverse.trace_tiles_batch(dq, cams, quats, WIDTH, HEIGHT, FOV,
-                                                    leaf_k=LEAF_K, core=core),
-            lambda: k1_census(dq, LEAF_K, cams, crop, WIDTH, HEIGHT), 2, {"batch": True})
-    if "config5" in env:
-        c5, c5cams, c5quats = env["config5"]
-        cases[f"K1c raw, config 5 ({N_CAMS} x {CONFIG5_SIZE}x{CONFIG5_SIZE})"] = (
-            lambda core: traverse.trace_tiles_batch(c5, c5cams, c5quats, CONFIG5_SIZE,
-                                                    CONFIG5_SIZE, FOV, leaf_k=LEAF_K, raw=True,
-                                                    core=core),
-            lambda: k1_census(c5, LEAF_K, c5cams, whole, CONFIG5_SIZE, CONFIG5_SIZE), FRAMES,
-            {"batch": True, "raw": True})
-    if "cornell32" in env:
-        box = env["cornell32"]
-        cases[f"K1a Cornell box SAH K={LEAF_K} (3 records)"] = (
-            tiles(box, CORNELL_CAM, LEAF_K), lambda: k1_census(
-                box, LEAF_K, [CORNELL_CAM], crop, WIDTH, HEIGHT), 8, {})
-    if 8 in trees_of:
-        q8, _, _ = trees_of[8]
-        cases["K1a framed Morton K=8"] = (tiles(q8, FRAMED, 8), lambda: k1_census(
-            q8, 8, [FRAMED], crop, WIDTH, HEIGHT), 8, {})
-    if "8-wide" in trees_of:
-        qw, _, _ = trees_of["8-wide"]
-        cases[f"K1e framed 8-wide SAH K={LEAF_K}"] = (tiles(qw, FRAMED, LEAF_K), lambda: (
-            k1_census(qw, LEAF_K, [FRAMED], crop, WIDTH, HEIGHT)), 8, {})
-    if "trace_tiles_k1d" in env.get("row_calls", {}):
-        cases["K1d framed, the frame's bounds and entries"] = (
-            env["row_calls"]["trace_tiles_k1d"][1], None, 8, {"bounded": True})
-    cases[f"K1f framed SAH K={LEAF_K}"] = (tiles(qn32, FRAMED, LEAF_K, stats=True), None, 8,
-                                           {"stats": True})
-
-    log(f"[k1] set-up {time.perf_counter() - t_phase:.1f} s")
-    for what, (fn, census, frames, plan_kw) in cases.items():
-        t_case = time.perf_counter()
-        names = ["render"] + ([] if plan_kw.get("raw") else ["frozen"]) + ["tile"]
-        outs = {n: flat_planes(fn(K1_CORES[n])) for n in names}
-        for n in names:
-            words = differing_words(outs[n], outs["render"])
-            if words:
-                fail(f"K1 phase: {what}: the {n} core differs from the render core in {words} "
-                     "words")
-        del outs
-        if census is not None:
-            log(f"[k1] census {what} (plain version, whole warps of "
-                f"{'the crop' if 'config 5' not in what else 'every frame'}): "
-                f"{json.dumps(census())}")
-        ms = series({n: (lambda n=n: fn(K1_CORES[n])) for n in names}, frames, 2)
-        line = ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
-        k = 8 if "Morton" in what else LEAF_K
-        slots = 8 if "8-wide" in what else 4
-        cid = traverse.tile_plan("hopper", leaf_k=k, slots=slots, **plan_kw)
-        picked = "tile" if cid == traverse.core_id(K1_CORES["tile"]) else "render"
-        log(f"[k1] {what}: {line} ms; render / tile {ms['render'] / ms['tile']:.4f}; the plan "
-            f"runs {picked} ({ms[picked]:.4f} ms); every plane bit-identical to the render "
-            f"core on {card} ({time.perf_counter() - t_case:.1f} s)")
-
-    # the whole paths, only K1 swapped between the plan ("hopper") and the
-    # render core
-    def headline(core):
-        t, nx, ny, nz, tri = traverse.trace_tiles(qn32, FRAMED, QUAT, WIDTH, HEIGHT, FOV,
-                                                  leaf_k=LEAF_K, core=core)
-        return quantize_rgba8(shade_lambert(torch.stack([nx, ny, nz], dim=-1), tri >= 0))
-
-    if not torch.equal(headline("hopper"), headline("order")):
-        fail("K1 phase: the headline frame differs between the plan's core and the render core")
-    ms = abba({c: (lambda c=c: headline(c)) for c in ("hopper", "order")}, 8, 3)
-    log(f"[k1] A-B-B-A the headline frame (config 3: render()'s K1a, shade and quantize, "
-        f"framed 1080p, SAH K={LEAF_K}): the plan's core {ms['hopper']:.4f} ms, render core "
-        f"{ms['order']:.4f} ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
-    real = (render_pt.trace_tiles, traverse.trace_tiles_batch)
-
-    def k1_core(c, fn):
-        def run():
-            render_pt.trace_tiles = functools.partial(real[0], core=c)
-            traverse.trace_tiles_batch = functools.partial(real[1], core=c)
-            try:
-                return fn()
-            finally:
-                render_pt.trace_tiles, traverse.trace_tiles_batch = real
-        return run
-
-    def sample():
-        return render_pt.pt_sample_frame(
-            qn32, tris, FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES, fov_degrees=FOV,
-            leaf_k=LEAF_K, tile_primary=True,
-            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
-
-    fns = {c: k1_core(c, sample) for c in ("hopper", "order")}
-    if not torch.equal(fns["hopper"](), fns["order"]()):
-        fail("K1 phase: the sample differs between the plan's K1b core and the render core")
-    ms = abba(fns, 4, 3)
-    log(f"[k1] A-B-B-A one {BOUNCES}-bounce 1080p sample SAH K={LEAF_K} (radiance equal), only "
-        f"K1b swapped: the plan's core {ms['hopper']:.4f} ms, render core {ms['order']:.4f} "
-        f"ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
-    if "dynamic_frame" in env:
-        frame = env["dynamic_frame"]
-        ms = abba({c: k1_core(c, lambda: frame(9)) for c in ("hopper", "order")}, 4, 3)
-        log(f"[k1] A-B-B-A dynamic dragon frame ({N_CAMS} cameras, refit every frame), only "
-            f"K1c swapped: the plan's core {ms['hopper']:.4f} ms, render core "
-            f"{ms['order']:.4f} ms, speed-up {ms['order'] / ms['hopper']:.4f} on {card}")
-    log(f"[k1] K1's part of phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # 33. wavefront compaction and K2 without near-first order: the sample's
@@ -3881,18 +3133,10 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
             name = ("trace_rays_k2c_unordered" if key == "8-wide" else
                     "trace_rays_k2b_unordered" if w["any_hit"] else "trace_rays_k2a_unordered")
             row_waves.setdefault(name, []).append({
-                "w": w, "pick": (o, d), "qn": qn, "k": k, "rays": n,
+                "rays": n,
                 "max_abs_err": max_abs_diff(ker, plain), "ms": ms, "plain_ms": plain_ms,
                 "bound_detail": detail, "active": n_live, "path_ms": path["unordered"],
                 "path_bound_detail": p_detail})
-    for name, ws in row_waves.items():
-        register_row(env, name, lambda core, ws=ws: [traverse.trace_rays(
-            x["qn"], *x["pick"], any_hit=x["w"]["any_hit"], leaf_k=x["k"], ordered=False,
-            core=core_for(core, x["w"]["any_hit"])) for x in ws], lambda core, ws=ws: [
-                traverse.trace_rays(
-                    x["qn"], x["w"]["o"], x["w"]["d"], any_hit=x["w"]["any_hit"], leaf_k=x["k"],
-                    active=x["w"]["active"], scattered=x["w"]["scattered"], ordered=False,
-                    core=core_for(core, x["w"]["any_hit"])) for x in ws])
 
     # (c) a compacted 256x256 sample through the kernels and the plain versions
     for impl in ("argsort", "partition"):
@@ -4001,7 +3245,7 @@ def compaction_phase(env: dict, trees: dict, rows: dict) -> None:
             if kw.get("compact") and kw["compact_impl"] == "argsort" and kw["ordered_ah"]:
                 for i, w in enumerate(waves):
                     if w["active"] is None or (w["any_hit"] and k > 1):
-                        continue  # dense camera wave; k2b_phase times any hit at K > 1
+                        continue  # dense camera wave; any hit at K = 32 has one schedule
                     sched = abba({s: (lambda s=s, w=w: traverse.trace_rays(
                         qn, w["o"], w["d"], any_hit=w["any_hit"], leaf_k=k, active=w["active"],
                         scattered=s == "persistent")) for s in ("dense", "persistent")}, 3, 2)

@@ -12,11 +12,11 @@
 //
 // What was thought to hold the loop back (the microbenchmarks of
 // csrc/microbench.cu: one warp, clock64() cycles on an H100; PERF.md §6):
-//  * the child order. The baseline loop (traverse_core_baseline.cuh) sorts
-//    the passing children by insertion into `int cand[w]; float ckey[w]`
-//    with a data-dependent `while`; the dynamic indexing puts both arrays in
-//    local memory. MB3 prices that sort alone at 987 cycles against 1,609
-//    for a whole 4-slot visit, and at 3,403 against 2,399 at 8 slots.
+//  * the child order. The port's first loop sorted the passing children by
+//    insertion into `int cand[w]; float ckey[w]` with a data-dependent
+//    `while`; the dynamic indexing puts both arrays in local memory. MB3
+//    prices that sort alone at 987 cycles against 1,609 for a whole 4-slot
+//    visit, and at 3,403 against 2,399 at 8 slots.
 //  * the stack. 64 entries of (node, key) in local memory, 512 bytes a thread
 //    (ptxas: a 544-byte frame at 4 slots); MB3 prices the pushes and pops of
 //    one visit at 669 cycles.
@@ -29,43 +29,29 @@
 // latencies overlap, and the full kernels are bound by the instructions the
 // warps issue and by how many warps fit: an element pays where it removes
 // instructions or local-memory operations, and loses where it adds them or
-// takes L1 from the records (chip_smoke.py phase 28).
+// takes L1 from the records (PERF.md §6).
 //
-// The design elements, a feature bit each so that each is timed alone (every
-// set of the first three is built for K1a, K2a and K2b; kRenderCore is what
-// the render paths run, but over leaves of more than one triangle: there
-// K2, where ops/cuda/traverse.py::launch_plan picks kAnyHitCore, runs the
-// warp-leaves elements with the order, for any hit, where every per-lane
-// set lost to the baseline loop on the card, and for closest hit where the
-// card measured it ahead of kRenderCore; and K1 runs kTileCore where
-// ops/cuda/traverse.py::tile_plan picks it):
-//  * kOrder — child order in registers, on every render path. Each passing
+// The design elements, a feature bit each. A core is a mask of them, and the
+// launch plans of ops/cuda/traverse.py (launch_plan for K2, tile_plan for
+// K1) name every mask the launchers build: kRenderCore at K = 1,
+// kAnyHitCore (any hit and closest hit) in K2 over leaves of K > 1, and
+// kTileCore in K1 there; each with kUnordered and kSharedTree where K2 takes
+// them. The port's first loop, a stack in shared memory and a prefetch of
+// the next record were built and timed against these and retired (PERF.md
+// §6).
+//  * kOrder — child order in registers, in every core. Each passing
 //    child k (slab hit, so its key is not NaN, and ref >= 0) goes to its
 //    rank in the stable far-to-near order, pos(k) = #{j passing : key_j >
 //    key_k} + #{j < k passing : key_j == key_k}, counted over all pairs of
 //    slots in a fully unrolled loop (skipped when one child passes), and is
-//    written at stack index sp + 1 + pos(k). That is where the insertion
+//    written at stack index sp + 1 + pos(k). That is where an insertion
 //    sort's pushes land, and a push is dropped exactly when its index would
 //    pass 63, as there. No array indexed at run time is left in a visit but
 //    the stack, so the sort's local-memory loads and stores are gone; K = 1
 //    frames and the K2a waves gain most.
-//  * kSharedStack — the stack on chip; built, timed, and off: it gains
-//    nothing over kOrder and takes kSharedEntries · 8 bytes of each thread's
-//    L1 as shared memory. Stack entries 0 .. kSharedEntries − 1 live in
-//    dynamic shared memory as one 8-byte word (node, key bits), laid out
-//    [entry][thread] so that the 32 lanes of a warp touch 32 consecutive
-//    words; entries kSharedEntries .. 63 spill to a local array. The split is
-//    by index, so a ray whose stack stays within kSharedEntries (the deepest
-//    measured: 16 entries, PERF.md §6) never touches local memory; the
-//    64-entry rule is unchanged.
-//  * kPrefetch — the next record in flight during the leaf tests; built,
-//    timed, and off: it adds a stack read and a prefetch to every visit and
-//    gains little even at K = 32. The pushes depend only on the slab tests
-//    against best0, the best t at the start of the visit, so they move
-//    before the Möller–Trumbore loop; then the header of the new stack top
-//    (the next pop, unless the cull drops it) is prefetched into L1
-//    (`prefetch.global.L1`, one per 128-byte line) while the leaf's
-//    triangles are tested.
+//  * kUnordered — no near-first order (trace_rays(ordered=False)): the
+//    passing children are pushed in slot order, each with its slab entry
+//    distance (Ray::push).
 //  * kSharedTree — not an element of the loop but a placement of the
 //    records (trace_rays(tree_space="smem"), the TPU kernel's records in
 //    scalar memory): the block copies the whole record array into its
@@ -73,8 +59,7 @@
 //    word is then a shared-memory load, where the other cores read the
 //    records with __ldg (ld.global.nc, through L1 and L2). The loads go
 //    through ld_rec / ld_rec4, which are __ldg without the bit, so a core
-//    without it compiles to what it was. It takes the dynamic shared memory
-//    that kSharedStack would use: the two are never combined.
+//    without it compiles to what it was.
 //  * kWarpLeaves — any hit over leaves of K > 1: the leaf tests spread over
 //    the warp (Ray::warp_step, warp_leaves). With one lane a ray, a lane
 //    tests a whole leaf slot alone, K Möller–Trumbore tests one after
@@ -87,8 +72,8 @@
 //    another, the ray broadcast with __shfl_sync, lane j testing triangle j
 //    (one K = 32 slot is 12 contiguous 128-byte lines, read by three
 //    coalesced loads), and __ballot_sync gives the lowest accepted position:
-//    the triangle the sequential loop stops at, so every mask writes the
-//    words of the frozen loop. Slots of more than 32 triangles are served in
+//    the triangle the sequential loop (Ray::leaves) stops at, so every mask
+//    writes that loop's words. Slots of more than 32 triangles are served in
 //    runs of 32, in order, up to the first run with a hit. A lane with no
 //    ray left only helps test, so the kernels keep every lane of a warp in
 //    the loop (traverse_ray_warp; the persistent warps refill as before).
@@ -100,8 +85,8 @@
 //  * kPackSlots — with kWarpLeaves: a visit's posted slots as one run of
 //    positions k·K + j end to end (their triangles are contiguous in the
 //    record), so at K = 8 a 4-slot visit is one run of 32 lanes where one
-//    slot at a time fills 8. It pays below K = 32 only, so kAnyHitCore's
-//    launcher drops it from K = 32 on (traverse_rays.cu's dispatch).
+//    slot at a time fills 8. It pays below K = 32 only, so the launch plans
+//    drop it from K = 32 on.
 //  * kTileLeaves — with kWarpLeaves, closest hit (the primary rays of K1):
 //    a per-step, warp-uniform choice between the warp's leaf tests and each
 //    lane's own loop (Ray::tile_step). A warp of K1 is an 8×4 patch of
@@ -135,54 +120,46 @@
 // plain torch version (ops/cuda/traverse.py::_traverse) and of the TPU
 // kernel, built with -fmad=false and IEEE division and square root
 // (1.0f / sqrtf, not rsqrtf), so a kernel and its plain version differ only
-// where two triangles tie; and every feature mask, like the baseline core,
-// visits the same records in the same order and writes the same words.
+// where two triangles tie; and every core visits the same records in the
+// same order as its plain version and writes the same words.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "traverse_core_baseline.cuh"
-
 namespace rt {
 
 constexpr int kStackMax = 64;           // pushes beyond this are dropped
-constexpr int kSharedEntries = 16;      // stack entries a thread keeps in shared memory
 constexpr float kInf = 1e30f;
 constexpr float kMtEps = 1e-7f;
 constexpr float kEmptyRef = -268435456.0f;  // -2^28: empty child slot
 
-// The design elements, as bits of a core's feature mask (0: none of them,
-// the baseline loop in this core's form); kBaseline selects the frozen
-// loop of traverse_core_baseline.cuh instead.
+// The design elements, as bits of a core's feature mask. The bits keep their
+// values, so a kernel's template arguments name the same core in every
+// profile.
 enum : unsigned {
   kOrder = 1u,        // child order by rank in registers
-  kSharedStack = 2u,  // stack entries 0 .. kSharedEntries − 1 in shared memory
-  kPrefetch = 4u,     // pushes before the leaf tests, the next header prefetched
   kUnordered = 8u,    // no near-first order: children pushed in slot order
   kSharedTree = 16u,  // the records in the block's dynamic shared memory
   kWarpLeaves = 32u,  // the warp tests one ray's leaf slots at a time, a triangle a lane
   kPackSlots = 64u,   // with kWarpLeaves: a visit's leaf slots as one run of triangles
   kTileLeaves = 128u,  // with kWarpLeaves: each step picks the warp's or the lanes' leaf tests
-  kBaseline = 256u,
 };
 
-// The core of the render paths: the elements that win on the card
-// (chip_smoke.py phase 28; PERF.md §6). The shared stack and the
-// prefetch lose there, so they stay off and are built only to be timed.
+// The core of the render paths at K = 1 (PERF.md §6).
 constexpr unsigned kRenderCore = kOrder;
 
 // The core of K2 over leaves of more than one triangle, where the wrapper's
 // launch plan picks it (ops/cuda/traverse.py::launch_plan; any hit, and
 // closest hit in its kAnyHit = false form): the render core's order between
 // leaves, the leaf tests spread over the warp, the slots packed below
-// K = 32 (the launcher drops kPackSlots from there).
+// K = 32 (the plan drops kPackSlots from there).
 constexpr unsigned kAnyHitCore = kOrder | kWarpLeaves | kPackSlots;
 
 // The core of K1 over leaves of more than one triangle, where the wrapper's
 // tile plan picks it (ops/cuda/traverse.py::tile_plan): kAnyHitCore's
-// closest hit with the per-step choice of leaf stage (the launcher drops
+// closest hit with the per-step choice of leaf stage (the plan drops
 // kPackSlots from K = 32 on, as for kAnyHitCore).
 constexpr unsigned kTileCore = kAnyHitCore | kTileLeaves;
 
@@ -193,14 +170,8 @@ constexpr float kTileLeafCost = 1.5f;
 
 constexpr unsigned kWarpMask = 0xffffffffu;
 
-// Dynamic shared memory a block of `threads` threads needs for core `feat`'s
-// stack (a kSharedTree core takes the records' bytes instead).
-__host__ __device__ constexpr size_t stack_smem_bytes(unsigned feat, int threads) {
-  return (feat & kSharedStack) ? (size_t)kSharedEntries * sizeof(int2) * (size_t)threads : 0;
-}
-
 // The records of a kSharedTree block: the whole (M, recw) array, copied in
-// by stage_tree. It is the same dynamic shared memory as stack_smem.
+// by stage_tree.
 extern __shared__ float4 tree_smem[];
 
 // A record word / four record words: __ldg from global memory, or a plain
@@ -257,8 +228,8 @@ __device__ __forceinline__ float safe_inv(float d) {
 // Möller–Trumbore of the ray (o, d) against one inlined triangle record
 // [v0, e1, e2, g] (a, b, c: its three float4s): whether it is accepted, at
 // a distance tt with kMtEps < tt < best. The test of the warp's leaf tests.
-// Ray::leaves and the frozen loop keep their own copies, in the same
-// operation order, and the three must stay in step: with Ray::leaves
+// Ray::leaves keeps its own copy, in the same operation order, and the two
+// must stay in step: with Ray::leaves
 // calling this function, 85 of the 151 kernels that do not run the warp's
 // leaf tests compiled to other instructions and K1a's framed frame took
 // 1.014-1.025x the time on the card (PERF.md §6).
@@ -293,7 +264,7 @@ __device__ __forceinline__ bool mt_hit(const float4 a, const float4 b, const flo
 // it, or -1. Each posted slot is its own runs of up to 32 triangles; with
 // kPackSlots the runs go over the posted slots' positions end to end
 // instead (at K = 8 a 4-slot visit is one run). Both are right at any K;
-// the launcher takes kPackSlots below K = 32 only (traverse_rays.cu).
+// the plans take kPackSlots below K = 32 only.
 template <int kSlots, unsigned kFeat>
 __device__ __forceinline__ int warp_leaves(const float* __restrict__ rec, unsigned posted,
                                            int leaf_k, float ox, float oy, float oz, float dx,
@@ -399,39 +370,17 @@ __device__ __forceinline__ int warp_nearest(const float* __restrict__ rec, unsig
   return at;
 }
 
-// The stack columns of a block's threads: entry i of thread `tid` at
-// stack_smem[i * threads + tid].
-extern __shared__ int2 stack_smem[];
-
-// One thread's stack of (node, key bits) entries: all in local memory, or
-// the first kSharedEntries in the thread's column `col` of the block's
-// shared stack (`cols` columns) and the rest in a local array.
-template <bool kShared>
+// One thread's stack of (node, key bits) entries, in local memory: a
+// variable of its own beside the ray's state (in one struct with the
+// dynamically indexed array, the ray's scalars would live in local memory
+// too).
 struct Stack {
-  int node[kStackMax];  // two 4-byte planes, as the baseline loop keeps them
+  int node[kStackMax];  // two 4-byte planes
   int key[kStackMax];
-  __device__ __forceinline__ int2 get(int i, int, int) const { return make_int2(node[i], key[i]); }
-  __device__ __forceinline__ void put(int i, int2 v, int, int) {
+  __device__ __forceinline__ int2 get(int i) const { return make_int2(node[i], key[i]); }
+  __device__ __forceinline__ void put(int i, int2 v) {
     node[i] = v.x;
     key[i] = v.y;
-  }
-};
-
-template <>
-struct Stack<true> {
-  int node[kStackMax - kSharedEntries];
-  int key[kStackMax - kSharedEntries];
-  __device__ __forceinline__ int2 get(int i, int col, int cols) const {
-    if (i < kSharedEntries) return stack_smem[col + i * cols];
-    return make_int2(node[i - kSharedEntries], key[i - kSharedEntries]);
-  }
-  __device__ __forceinline__ void put(int i, int2 v, int col, int cols) {
-    if (i < kSharedEntries) {
-      stack_smem[col + i * cols] = v;
-    } else {
-      node[i - kSharedEntries] = v.x;
-      key[i - kSharedEntries] = v.y;
-    }
   }
 };
 
@@ -453,20 +402,15 @@ struct Stack<true> {
 // outside its subtree can hold the ray's nearest hit.
 template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
 struct Ray {
-  // The stack's storage, a variable of its own beside the ray's state: in
-  // one struct with the dynamically indexed array, the scalars below would
-  // live in local memory too.
-  using StackT = Stack<(kFeat & kSharedStack) != 0>;
+  static_assert((kFeat & kOrder) != 0, "every core ranks its children in registers");
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
   float best;
   Hit r;
-  int sp;         // the top of the stack (-1: empty)
-  int col, cols;  // the thread's column of the block's shared stack
+  int sp;  // the top of the stack (-1: empty)
 
-  // `tid` / `threads`: the thread's column of the block's shared stack.
-  __device__ __forceinline__ void start(StackT& stack, float ox_, float oy_, float oz_,
+  __device__ __forceinline__ void start(Stack& stack, float ox_, float oy_, float oz_,
                                         float dx_, float dy_, float dz_, float best_init,
-                                        int entry, int tid, int threads) {
+                                        int entry) {
     ox = ox_;
     oy = oy_;
     oz = oz_;
@@ -478,10 +422,8 @@ struct Ray {
     iz = safe_inv(dz);
     r = Hit{kInf, 0.0f, 0.0f, 0.0f, -1, 0};
     best = best_init;
-    col = tid;
-    cols = threads;
     sp = 0;
-    stack.put(0, make_int2(entry, __float_as_int(0.0f)), col, cols);
+    stack.put(0, make_int2(entry, __float_as_int(0.0f)));
   }
 
   // Whether an entry is left to pop.
@@ -498,17 +440,17 @@ struct Ray {
   // dropped. kUnordered: in slot order instead (the last passing slot is
   // popped first), each with its slab entry distance, which the pop-time
   // cull reads; pushes past index 63 are dropped, the later slots first.
-  __device__ __forceinline__ void push(StackT& stack, const float* h, const float* tmin,
+  __device__ __forceinline__ void push(Stack& stack, const float* h, const float* tmin,
                                        const bool* hit) {
     if (kFeat & kUnordered) {
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
         if (hit[k] && h[6 * kSlots + k] >= 0.0f && sp < kStackMax - 1) {
           ++sp;
-          stack.put(sp, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])), col, cols);
+          stack.put(sp, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])));
         }
       }
-    } else if (kFeat & kOrder) {
+    } else {
       bool pass[kSlots];
       int pos[kSlots];
       int npass = 0;
@@ -536,56 +478,17 @@ struct Ray {
       for (int k = 0; k < kSlots; ++k) {
         const int at = sp + 1 + pos[k];
         if (pass[k] && at < kStackMax) {
-          stack.put(at, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])), col, cols);
+          stack.put(at, make_int2((int)h[6 * kSlots + k], __float_as_int(tmin[k])));
         }
       }
       sp = min(sp + npass, kStackMax - 1);
-    } else {
-      // the baseline's insertion sort (a stable descending order)
-      int cand[kSlots];
-      float ckey[kSlots];
-      int nc = 0;
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if (hit[k] && h[6 * kSlots + k] >= 0.0f) {
-          const int cn = (int)h[6 * kSlots + k];
-          const float ck = tmin[k];
-          int i = nc - 1;
-          while (i >= 0 && ckey[i] < ck) {
-            cand[i + 1] = cand[i];
-            ckey[i + 1] = ckey[i];
-            --i;
-          }
-          cand[i + 1] = cn;
-          ckey[i + 1] = ck;
-          ++nc;
-        }
-      }
-      for (int i = 0; i < nc; ++i) {
-        if (sp < kStackMax - 1) {
-          ++sp;
-          stack.put(sp, make_int2(cand[i], __float_as_int(ckey[i])), col, cols);
-        }
-      }
-    }
-  }
-
-  // Prefetch the header of the next pop, the top of the stack, into L1.
-  __device__ __forceinline__ void prefetch_next(const StackT& stack, const float* __restrict__ qn,
-                                                int recw) const {
-    if (sp < 0) return;
-    const char* next =
-        reinterpret_cast<const char*>(qn + (size_t)stack.get(sp, col, cols).x * (size_t)recw);
-#pragma unroll
-    for (int line = 0; line < kSlots / 4; ++line) {
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(next + 128 * line));
     }
   }
 
   // Möller–Trumbore over the inlined [v0, e1, e2, g] records of the leaf
   // slots that passed, in slot then triangle order, strict t < best (the
-  // test's expression has twins that must stay in step with it: mt_hit and
-  // the frozen loop's; see mt_hit for why it is not called here). Closest
+  // test's expression has a twin that must stay in step with it, mt_hit;
+  // see mt_hit for why it is not called here). Closest
   // hit keeps the nearest in best and r and returns -1; any hit
   // returns the position k·K + j of the first accepted triangle (or -1) and
   // writes nothing: the caller leaves the loop and takes the triangle's
@@ -649,13 +552,12 @@ struct Ray {
   }
 
   // Take the top entry of the stack.
-  __device__ __forceinline__ int2 pop(const StackT& stack) { return stack.get(sp--, col, cols); }
+  __device__ __forceinline__ int2 pop(const Stack& stack) { return stack.get(sp--); }
 
   // The header of record `rec` into h ([0:6w] child boxes, [6w:7w] refs,
   // [7w:8w] counts/radii, w = kSlots), and the slab tests of all its slots
   // against the best t at the start of the visit: hit[k], and tmin[k] the
-  // slab entry distance, for visit() and warp_step (the frozen loop keeps
-  // its own copy of these lines, which must stay in step with them).
+  // slab entry distance, for visit() and warp_step.
   __device__ __forceinline__ void slabs(const float* __restrict__ rec, float* h, float* tmin,
                                         bool* hit) const {
     const float4* hdr = reinterpret_cast<const float4*>(rec);
@@ -683,7 +585,7 @@ struct Ray {
   // Visit record e.x, whose entry passed the cull. Returns the position of
   // the triangle an any-hit traversal accepted (the ray is then done; see
   // leaves), else -1.
-  __device__ __forceinline__ int visit(StackT& stack, int2 e, const float* __restrict__ qn,
+  __device__ __forceinline__ int visit(Stack& stack, int2 e, const float* __restrict__ qn,
                                        int recw, int leaf_k) {
     if (kVisits) ++r.visits;
     const float* rec = qn + (size_t)e.x * (size_t)recw;
@@ -691,12 +593,6 @@ struct Ray {
     float tmin[kSlots];
     bool hit[kSlots];
     slabs(rec, h, tmin, hit);
-
-    if (kFeat & kPrefetch) {
-      push(stack, h, tmin, hit);
-      prefetch_next(stack, qn, recw);
-      return leaves(rec, leaf_k, h, hit);
-    }
     const int at = leaves(rec, leaf_k, h, hit);
     if (at < 0) push(stack, h, tmin, hit);
     return at;
@@ -705,7 +601,7 @@ struct Ray {
   // One stack pop, visited unless the cull drops it (the persistent warps'
   // unit of work). Returns whether an entry is left to pop; call only while
   // one is.
-  __device__ __forceinline__ bool step(StackT& stack, const float* __restrict__ qn, int recw,
+  __device__ __forceinline__ bool step(Stack& stack, const float* __restrict__ qn, int recw,
                                        int leaf_k) {
     const int2 e = pop(stack);
     if (!(__int_as_float(e.y) < best)) return pending();
@@ -731,7 +627,7 @@ struct Ray {
   // (warp_nearest): the ray takes the nearest accepted triangle's t, normal
   // and id, and goes on. The same records visited in the same order, and
   // the same words, as step().
-  __device__ __forceinline__ void warp_step(StackT& stack, const float* __restrict__ qn,
+  __device__ __forceinline__ void warp_step(Stack& stack, const float* __restrict__ qn,
                                             int recw, int leaf_k) {
     unsigned posted = 0u;
     int node = 0;
@@ -833,7 +729,7 @@ struct Ray {
   // their reductions, and the warp takes the fewer. It leaves the second as
   // it is: the pricing (kSlots + 1 warp reductions a step) adds nothing to
   // a pop's fetch, and the next pop waits on its record either way.
-  __device__ __forceinline__ void tile_step(StackT& stack, const float* __restrict__ qn,
+  __device__ __forceinline__ void tile_step(Stack& stack, const float* __restrict__ qn,
                                             int recw, int leaf_k) {
     static_assert(!kAnyHit && (kFeat & kWarpLeaves) != 0, "closest hit on a warp-leaves core");
     // warp_step's visit, with the posted slots' counts taken from the
@@ -899,37 +795,26 @@ struct Ray {
   }
 };
 
-// The whole traversal of one ray with core `kFeat` (kBaseline: the frozen
-// baseline loop; kBaseline | kUnordered: that loop with slot-order pushes;
-// kSharedTree: `qn` is the block's shared copy of the records).
-// `tid` / `threads` place the thread's shared stack column (the block's
-// dynamic shared memory must hold stack_smem_bytes(kFeat, threads)).
+// The whole traversal of one ray with core `kFeat` (kSharedTree: `qn` is
+// the block's shared copy of the records).
 template <int kSlots, bool kAnyHit, bool kVisits, unsigned kFeat>
 __device__ __forceinline__ Hit traverse_ray(const float* __restrict__ qn, int recw, int leaf_k,
                                             float ox, float oy, float oz, float dx, float dy,
-                                            float dz, float best_init, int entry, int tid,
-                                            int threads) {
-  if constexpr ((kFeat & kBaseline) != 0) {
-    const rt_baseline::Hit h =
-        rt_baseline::traverse_ray<kSlots, kAnyHit, kVisits, (kFeat & kUnordered) == 0>(
-            qn, recw, leaf_k, ox, oy, oz, dx, dy, dz, best_init, entry);
-    return Hit{h.t, h.nx, h.ny, h.nz, h.tri, h.visits};
-  } else {
-    using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;
-    R ray;
-    typename R::StackT stack;
-    ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);
-    while (ray.pending()) {
-      const int2 e = ray.pop(stack);
-      if (!(__int_as_float(e.y) < ray.best)) continue;
-      const int at = ray.visit(stack, e, qn, recw, leaf_k);
-      if (at >= 0) {  // an accepted any hit
-        ray.occluder(qn + (size_t)e.x * (size_t)recw, leaf_k, at);
-        break;
-      }
+                                            float dz, float best_init, int entry) {
+  using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;
+  R ray;
+  Stack stack;
+  ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry);
+  while (ray.pending()) {
+    const int2 e = ray.pop(stack);
+    if (!(__int_as_float(e.y) < ray.best)) continue;
+    const int at = ray.visit(stack, e, qn, recw, leaf_k);
+    if (at >= 0) {  // an accepted any hit
+      ray.occluder(qn + (size_t)e.x * (size_t)recw, leaf_k, at);
+      break;
     }
-    return ray.result();
   }
+  return ray.result();
 }
 
 // The whole traversal of one ray a lane with core `kFeat` (which holds
@@ -943,13 +828,12 @@ template <int kSlots, bool kAnyHit, unsigned kFeat, bool kVisits = false>
 __device__ __forceinline__ Hit traverse_ray_warp(const float* __restrict__ qn, int recw,
                                                  int leaf_k, bool mine, float ox, float oy,
                                                  float oz, float dx, float dy, float dz,
-                                                 float best_init, int entry, int tid,
-                                                 int threads) {
-  static_assert((kFeat & kWarpLeaves) != 0 && (kFeat & kBaseline) == 0, "a warp-leaves core");
+                                                 float best_init, int entry) {
+  static_assert((kFeat & kWarpLeaves) != 0, "a warp-leaves core");
   using R = Ray<kSlots, kAnyHit, kVisits, kFeat>;
   R ray;
-  typename R::StackT stack;
-  ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry, tid, threads);
+  Stack stack;
+  ray.start(stack, ox, oy, oz, dx, dy, dz, best_init, entry);
   if (!mine) ray.sp = -1;
   while (__any_sync(kWarpMask, ray.pending())) {
     if constexpr ((kFeat & kTileLeaves) != 0) {

@@ -18,11 +18,11 @@
 // own path through the ~390 MB of main-path records, far beyond the 50 MB
 // L2, so neighbouring threads rarely share a record line and most visits
 // wait on device memory. NEE rays share one direction but start from
-// scattered surface points. With one thread per ray (the baseline), a warp
-// holds its slots until its slowest ray ends while the lanes of missed,
-// dead or finished rays idle: the checked rays ran 104× (K2a) and 91× (K2b)
-// above their bounds, against 44× for K1a, and at K = 32 most of that was
-// one lane testing a whole leaf alone.
+// scattered surface points. With one thread per ray (the port's first
+// loop), a warp holds its slots until its slowest ray ends while the lanes
+// of missed, dead or finished rays idle: the checked rays ran 104× (K2a) and
+// 91× (K2b) above their bounds, against 44× for K1a, and at K = 32 most of
+// that was one lane testing a whole leaf alone.
 //
 // What the design does about it:
 //  * The per-ray traversal of traverse_core.cuh in its render form
@@ -35,12 +35,11 @@
 //    they reach together, a triangle a lane (kWarpLeaves; any hit stops at
 //    the first accepted run, closest hit serves every run and keeps the
 //    nearest): one lane testing a whole leaf of 32 triangles alone, on
-//    loads that touch a line a lane, was what the per-lane cores and the
-//    frozen loop spent those waves on. The caller's launch plan
+//    loads that touch a line a lane, was what the per-lane cores spent
+//    those waves on. The caller's launch plan
 //    (ops/cuda/traverse.py::launch_plan) picks it and its schedule; it beat
-//    the frozen loop of traverse_core_baseline.cuh and the render core on
-//    every such wave measured, so that loop runs only as core rt::kBaseline,
-//    the yardstick, and the render core only at K = 1.
+//    the port's first loop and the render core on every such wave measured
+//    (PERF.md §6), so the render core runs only at K = 1.
 //  * Two schedules, chosen by the caller per wave (trace_rays(scattered=)):
 //    - one thread per ray in blocks of 128, where the active rays come in
 //      runs (the camera's NEE wave and the first bounce: its lanes are the
@@ -85,18 +84,16 @@
 //    reset and the carve-out put back as it was. kSmem: each block first copies the whole
 //    record array into its dynamic shared memory with 16-byte loads
 //    (rt::stage_tree) and then traverses from there (rt::kSharedTree), both
-//    schedules of the render core and of rt::kAnyHitCore, in
-//    blocks of `block` threads (at most kSmemBlockMax). A block copies the
-//    whole tree, so the per-ray schedule copies it once per `block` rays
-//    and the persistent warps once per resident block. The tree must fit
+//    schedules of the render core and of rt::kAnyHitCore, in blocks of
+//    kSmemBlock threads. A block copies the whole tree, so the per-ray
+//    schedule copies it once per kSmemBlock rays and the persistent warps
+//    once per resident block. The tree must fit
 //    one block (232,448 bytes on an H100), as on the TPU it had to fit
 //    scalar memory; the caller checks the fit.
 //
-// The launcher's `core` argument selects the traversal core (-1 or
-// rt::kRenderCore: the render core; rt::kAnyHitCore, the warp's leaf tests,
-// any or closest hit; rt::kBaseline, the frozen baseline loop with one
-// thread per ray; other feature masks for timing an element alone),
-// `persistent` the schedule, `tree_space` the placement.
+// The launcher's `core` argument is the core's whole feature mask, as the
+// launch plan gives it (RT_RAY_CORES), `persistent` the schedule,
+// `tree_space` the placement.
 //
 // Exactness: the slab and Möller–Trumbore arithmetic of traverse_core.cuh,
 // built with -fmad=false, in the operation order of the plain torch version
@@ -111,15 +108,17 @@
 namespace {
 
 constexpr int kRayBlock = 128;  // threads of a block (4 warps)
-// The most threads of a block that copies the records into shared memory
-// (a per-ray block of 1,024 would cap the 8-wide core at 64 registers).
-constexpr int kSmemBlockMax = 512;
+// Threads of a block that copies the records into shared memory (both
+// schedules): each block copies the whole tree, so larger blocks copy it
+// fewer times (PERF.md §6); a per-ray block of 1,024 would cap the 8-wide
+// core at 64 registers.
+constexpr int kSmemBlock = 512;
 enum TreeSpace { kHbm = 0, kVmem = 1, kSmem = 2 };
 
-// The launch bound of an instantiation: kRayBlock, or kSmemBlockMax for the
-// shared-tree cores, whose launcher picks the block size.
+// The launch bound of an instantiation: kRayBlock, or kSmemBlock for the
+// shared-tree cores.
 __host__ __device__ constexpr int max_block(unsigned core) {
-  return (core & rt::kSharedTree) ? kSmemBlockMax : kRayBlock;
+  return (core & rt::kSharedTree) ? kSmemBlock : kRayBlock;
 }
 constexpr unsigned kFull = 0xffffffffu;
 // Ray indices a persistent warp takes from the counter at a time: one a
@@ -140,8 +139,8 @@ __device__ __forceinline__ void store_ray(const rt::Hit& hit, size_t i, float* _
   tri_out[i] = hit.tri;
 }
 
-// One thread per ray (the baseline's schedule). `tree_f4`: the records'
-// size in float4s, read only by a kSharedTree core.
+// One thread per ray. `tree_f4`: the records' size in float4s, read only by
+// a kSharedTree core.
 template <int kSlots, bool kAnyHit, unsigned kCore>
 __global__ void __launch_bounds__(max_block(kCore))
 trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
@@ -164,8 +163,7 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
       }
     }
     const rt::Hit hit = rt::traverse_ray_warp<kSlots, kAnyHit, kCore>(
-        tree, recw, leaf_k, mine, o[0], o[1], o[2], d[0], d[1], d[2], rt::kInf, 0, threadIdx.x,
-        blockDim.x);
+        tree, recw, leaf_k, mine, o[0], o[1], o[2], d[0], d[1], d[2], rt::kInf, 0);
     if (i < n) store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
   } else {
     if (i >= n) return;
@@ -174,7 +172,7 @@ trace_rays_kernel(const float* __restrict__ qn, int recw, int leaf_k,
       const size_t r = 3 * (size_t)i;
       hit = rt::traverse_ray<kSlots, kAnyHit, false, kCore>(
           tree, recw, leaf_k, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1],
-          dirs[r + 2], rt::kInf, 0, threadIdx.x, blockDim.x);
+          dirs[r + 2], rt::kInf, 0);
     }
     store_ray(hit, (size_t)i, t_out, nx_out, ny_out, nz_out, tri_out);
   }
@@ -203,7 +201,7 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   const unsigned below = (1u << lane) - 1u;
   using R = rt::Ray<kSlots, kAnyHit, false, kCore>;
   R ray;
-  typename R::StackT stack;
+  rt::Stack stack;
   int idx = -1;                // this lane's ray; -1 while the lane is idle
   unsigned qpos = 0, qend = 0;  // the warp's indices taken, [qpos, qend) not handed out
   bool drained = false;        // every index below n has been taken
@@ -233,7 +231,7 @@ trace_rays_persistent_kernel(const float* __restrict__ qn, int recw, int leaf_k,
             if (active == nullptr || active[i] != 0) {
               const size_t r = 3 * (size_t)i;
               ray.start(stack, orig[r], orig[r + 1], orig[r + 2], dirs[r], dirs[r + 1],
-                        dirs[r + 2], rt::kInf, 0, threadIdx.x, blockDim.x);
+                        dirs[r + 2], rt::kInf, 0);
               idx = (int)i;
             } else {
               store_ray(rt::Hit{rt::kInf, 0.0f, 0.0f, 0.0f, -1, 0}, i, t_out, nx_out, ny_out,
@@ -306,12 +304,12 @@ int allow_smem(Kernel kernel, size_t bytes) {
 template <int kSlots, bool kAnyHit, unsigned kCore>
 int launch_per_ray(const float* qnodes, int recw, int leaf_k, const float* origins,
                    const float* dirs, const uint8_t* active, int n, float* t, float* nx,
-                   float* ny, float* nz, int* tri, cudaStream_t s, Tree tree, int block,
+                   float* ny, float* nz, int* tri, cudaStream_t s, Tree tree,
                    const cudaAccessPolicyWindow* win) {
   constexpr bool kShared = (kCore & rt::kSharedTree) != 0;
   const auto kernel = trace_rays_kernel<kSlots, kAnyHit, kCore>;
-  const int threads = kShared ? block : kRayBlock;
-  const size_t smem = kShared ? tree.bytes : rt::stack_smem_bytes(kCore, kRayBlock);
+  const int threads = kShared ? kSmemBlock : kRayBlock;
+  const size_t smem = kShared ? tree.bytes : 0;
   if (kShared) {
     const int err = allow_smem(kernel, smem);
     if (err != 0) return err;
@@ -324,14 +322,14 @@ template <int kSlots, bool kAnyHit, unsigned kCore>
 int launch_persistent(const float* qnodes, int recw, int leaf_k, const float* origins,
                       const float* dirs, const uint8_t* active, int n, unsigned* next, float* t,
                       float* nx, float* ny, float* nz, int* tri, cudaStream_t s, Tree tree,
-                      int block, const cudaAccessPolicyWindow* win) {
+                      const cudaAccessPolicyWindow* win) {
   constexpr bool kShared = (kCore & rt::kSharedTree) != 0;
   const auto kernel = trace_rays_persistent_kernel<kSlots, kAnyHit, kCore>;
-  const int threads = kShared ? block : kRayBlock;
-  const size_t smem = kShared ? tree.bytes : rt::stack_smem_bytes(kCore, kRayBlock);
+  const int threads = kShared ? kSmemBlock : kRayBlock;
+  const size_t smem = kShared ? tree.bytes : 0;
   // the instantiation's resident blocks per SM: queried at its first launch,
   // or at every launch of a shared-tree core, whose blocks depend on the
-  // tree and the block size
+  // tree
   int per_sm = 0;
   if (kShared) {
     int err = allow_smem(kernel, smem);
@@ -389,75 +387,48 @@ int launch_pinned(const float* qnodes, size_t bytes, cudaStream_t s, Launch laun
   return err;
 }
 
-// The feature masks instantiated for K2a and K2b alone (4-wide records,
-// one thread per ray), to time each design element and each set of them
-// (chip_smoke.py phase 28): X(any_hit, mask) for each (mask 1, kOrder, is
-// the render core, which rt_trace_rays launches as core -1).
-#define RT_MEASURED_RAY_CORES(X, A) X(A, 0) X(A, 2) X(A, 3) X(A, 4) X(A, 5) X(A, 6) X(A, 7)
-// and the leaf tests spread over the warp without the order or without the
-// packed slots (kWarpLeaves = 32, kOrder = 1, kPackSlots = 64; the set of
-// all three is rt::kAnyHitCore), for K2a and K2b
-#define RT_MEASURED_WARP_CORES(X, A) X(A, 32) X(A, 33) X(A, 96)
+// The cores rt_trace_rays builds, each at both widths, for both kinds of hit
+// and both schedules: what ops/cuda/traverse.py::launch_plan returns. The
+// render core (K = 1) and rt::kAnyHitCore (K > 1; the warp's leaf tests,
+// any hit or closest hit), the latter without rt::kPackSlots from K = 32 on
+// (from there a run holds one slot either way, and the packed loop's slot
+// arithmetic cost 7% at K = 32 on the card; in the kernel beside the
+// per-slot loop it spilled); each with and without near-first order
+// (rt::kUnordered), with the records in device memory and in shared memory
+// (rt::kSharedTree).
+#define RT_RAY_CORES(X)                                                                     \
+  X(rt::kRenderCore) X(rt::kRenderCore | rt::kUnordered) X(rt::kRenderCore | rt::kSharedTree) \
+  X(rt::kRenderCore | rt::kUnordered | rt::kSharedTree)                                      \
+  X(rt::kAnyHitCore) X(rt::kAnyHitCore | rt::kUnordered) X(rt::kAnyHitCore | rt::kSharedTree) \
+  X(rt::kAnyHitCore | rt::kUnordered | rt::kSharedTree)                                      \
+  X((rt::kAnyHitCore & ~rt::kPackSlots)) X((rt::kAnyHitCore & ~rt::kPackSlots) | rt::kUnordered) \
+  X((rt::kAnyHitCore & ~rt::kPackSlots) | rt::kSharedTree)                                   \
+  X((rt::kAnyHitCore & ~rt::kPackSlots) | rt::kUnordered | rt::kSharedTree)
 
 // The launch of everything but the placement: the arguments of
-// rt_trace_rays, with core | rt::kSharedTree chosen under kSmem.
+// rt_trace_rays.
 int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* origins,
-             const float* dirs, const uint8_t* active, int n, int any_hit, int core, int ordered,
-             int persistent, bool shared, Tree tree, int block,
-             const cudaAccessPolicyWindow* win, unsigned* next, float* t, float* nx, float* ny,
-             float* nz, int* tri, cudaStream_t s) {
+             const float* dirs, const uint8_t* active, int n, int any_hit, unsigned core,
+             int persistent, Tree tree, const cudaAccessPolicyWindow* win, unsigned* next,
+             float* t, float* nx, float* ny, float* nz, int* tri, cudaStream_t s) {
 #define RT_RAY_ARGS qnodes, recw, leaf_k, origins, dirs, active, n
-#define RT_LAUNCH_TAIL s, tree, block, win
+#define RT_LAUNCH_TAIL s, tree, win
 #define RT_PERSISTENT(S, CORE)                                                             \
   (any_hit ? launch_persistent<S, true, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, RT_LAUNCH_TAIL) \
            : launch_persistent<S, false, CORE>(RT_RAY_ARGS, next, RT_RAY_OUTS, RT_LAUNCH_TAIL))
 #define RT_PER_RAY(S, CORE)                                                             \
   (any_hit ? launch_per_ray<S, true, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL)     \
            : launch_per_ray<S, false, CORE>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL))
-// a core built for both widths and schedules
-#define RT_BOTH(CORE)                                                           \
-  (persistent ? (slots == 8 ? RT_PERSISTENT(8, CORE) : RT_PERSISTENT(4, CORE)) \
-              : (slots == 8 ? RT_PER_RAY(8, CORE) : RT_PER_RAY(4, CORE)))
-// ... and for both orders and placements
-#define RT_FREE(CORE)                                                                        \
-  (shared ? (ordered ? RT_BOTH((CORE) | kSt) : RT_BOTH((CORE) | rt::kUnordered | kSt))      \
-          : (ordered ? RT_BOTH(CORE) : RT_BOTH((CORE) | rt::kUnordered)))
-  constexpr unsigned kFreeBaseline = rt::kBaseline | rt::kUnordered;
-  constexpr unsigned kSt = rt::kSharedTree;
-  if (core == -1) return RT_FREE(rt::kRenderCore);
-  if (core == (int)rt::kAnyHitCore) {
-    // the warp's leaf tests, any hit or closest hit, the slots packed into
-    // one run only below K = 32 (from there on a run holds one slot either
-    // way, and the packed loop's slot arithmetic cost 7% at K = 32 on the
-    // card; in the kernel beside the per-slot loop it spilled)
-    return leaf_k < 32 ? RT_FREE(rt::kAnyHitCore) : RT_FREE(rt::kAnyHitCore & ~rt::kPackSlots);
-  }
-  if (shared) return (int)cudaErrorInvalidValue;
-  if (core == (int)rt::kBaseline) {
-    if (!ordered) return slots == 8 ? RT_PER_RAY(8, kFreeBaseline) : RT_PER_RAY(4, kFreeBaseline);
-    return slots == 8 ? RT_PER_RAY(8, rt::kBaseline) : RT_PER_RAY(4, rt::kBaseline);
-  }
-#define RT_CASE(A, M) \
-  case M:             \
-    return launch_per_ray<4, A, (unsigned)M>(RT_RAY_ARGS, RT_RAY_OUTS, RT_LAUNCH_TAIL);
-  if (slots == 4) {
-    if (any_hit) {
-      switch (core) {
-        RT_MEASURED_RAY_CORES(RT_CASE, true)
-        RT_MEASURED_WARP_CORES(RT_CASE, true)
-        default: break;
-      }
-    } else {
-      switch (core) {
-        RT_MEASURED_RAY_CORES(RT_CASE, false)
-        RT_MEASURED_WARP_CORES(RT_CASE, false)
-        default: break;
-      }
-    }
+#define RT_CASE(CORE)                                                                 \
+  case CORE:                                                                          \
+    return persistent ? (slots == 8 ? RT_PERSISTENT(8, CORE) : RT_PERSISTENT(4, CORE)) \
+                      : (slots == 8 ? RT_PER_RAY(8, CORE) : RT_PER_RAY(4, CORE));
+  switch (core) {
+    RT_RAY_CORES(RT_CASE)
+    default:
+      break;
   }
 #undef RT_CASE
-#undef RT_FREE
-#undef RT_BOTH
 #undef RT_PER_RAY
 #undef RT_PERSISTENT
 #undef RT_LAUNCH_TAIL
@@ -471,48 +442,36 @@ int dispatch(const float* qnodes, int recw, int leaf_k, int slots, const float* 
 // with slots = 8, K2c on 8-wide records. qnodes: (num_nodes, recw) f32,
 // 16-byte aligned rows of `slots` (4 or 8) child slots; origins, dirs: (n,
 // 3) f32; active: n bytes (0 = inactive) or null for all rays; outputs:
-// (n,) planes. `core`: -1 or rt::kRenderCore (1) for the render core,
-// rt::kAnyHitCore (97, the warp's leaf tests, any or closest hit),
-// rt::kBaseline (256, the baseline loop with one thread per ray), or on
-// 4-wide records one of the feature masks of RT_MEASURED_RAY_CORES and
-// RT_MEASURED_WARP_CORES (timing an element alone; one thread per ray).
-// `ordered` == 0 drops the near-first order (rt::kUnordered: children
-// pushed in slot order) from the render core, rt::kAnyHitCore or the
-// baseline loop (those only).
-// `persistent` != 0 runs persistent warps (the render core or rt::kAnyHitCore) and
-// needs `next`, 4 bytes of device memory that this launch alone uses
-// (zeroed here on `stream`); otherwise one thread per ray. `tree_space`:
-// kHbm (0), kVmem (1: any core; records of at most the card's persisting L2
-// and window size) or kSmem (2: the render core or rt::kAnyHitCore; records of at
-// most one block's shared memory, in blocks of `block` threads, a multiple
-// of 32 up to kSmemBlockMax). Returns the first CUDA error (0 on success, or
-// cudaErrorInvalidValue for an argument outside these sets); synchronises
-// nothing but under kVmem, which waits for its launch to end.
+// (n,) planes. `core`: one of the masks of RT_RAY_CORES, as
+// ops/cuda/traverse.py::launch_plan gives it, with rt::kSharedTree exactly
+// under kSmem. `persistent` != 0 runs persistent warps and needs `next`, 4
+// bytes of device memory that this launch alone uses (zeroed here on
+// `stream`); otherwise one thread per ray. `tree_space`: kHbm (0), kVmem (1:
+// records of at most the card's persisting L2 and window size) or kSmem (2:
+// records of at most one block's shared memory). Returns the first CUDA
+// error (0 on success, or cudaErrorInvalidValue for an argument outside
+// these sets); synchronises nothing but under kVmem, which waits for its
+// launch to end.
 extern "C" int rt_trace_rays(const float* qnodes, int num_nodes, int recw, int leaf_k, int slots,
                              const float* origins, const float* dirs, const uint8_t* active,
-                             int n, int any_hit, int core, int ordered, int persistent,
-                             int tree_space, int block, unsigned* next, float* t, float* nx,
-                             float* ny, float* nz, int* tri, void* stream) {
+                             int n, int any_hit, int core, int persistent, int tree_space,
+                             unsigned* next, float* t, float* nx, float* ny, float* nz, int* tri,
+                             void* stream) {
   if (slots != 4 && slots != 8) return (int)cudaErrorInvalidValue;
-  if (core == (int)rt::kRenderCore) core = -1;
-  const bool free_core = core == -1 || core == (int)rt::kAnyHitCore;  // any order, any schedule
-  if (persistent && (!free_core || next == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!ordered && !free_core && core != (int)rt::kBaseline) return (int)cudaErrorInvalidValue;
+  if (persistent && next == nullptr) return (int)cudaErrorInvalidValue;
   if (tree_space != kHbm && tree_space != kVmem && tree_space != kSmem) {
     return (int)cudaErrorInvalidValue;
   }
   const bool shared = tree_space == kSmem;
-  if (shared && (block < 32 || block > kSmemBlockMax || block % 32 != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (((core & (int)rt::kSharedTree) != 0) != shared) return (int)cudaErrorInvalidValue;
   const size_t bytes = (size_t)num_nodes * (size_t)recw * sizeof(float);
   if (num_nodes <= 0 || (shared && bytes > (size_t)INT32_MAX)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tree tree{(int)(shared ? bytes / sizeof(float4) : 0), bytes};
   auto launch = [&](const cudaAccessPolicyWindow* win) {
-    return dispatch(qnodes, recw, leaf_k, slots, origins, dirs, active, n, any_hit, core, ordered,
-                    persistent, shared, tree, block, win, next, RT_RAY_OUTS, s);
+    return dispatch(qnodes, recw, leaf_k, slots, origins, dirs, active, n, any_hit,
+                    (unsigned)core, persistent, tree, win, next, RT_RAY_OUTS, s);
   };
   if (tree_space == kVmem) return launch_pinned(qnodes, bytes, s, launch);
   return launch(nullptr);

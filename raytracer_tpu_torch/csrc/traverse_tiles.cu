@@ -70,9 +70,9 @@
 //  * The traversal itself (traverse_core.cuh's render core, shared with K2)
 //    reads only what a visit needs, orders children near-first by the ray's
 //    own slab entry distance, ranked in registers, and culls entries at or
-//    beyond the best t. The launchers' `core` argument selects it (-1), the
-//    frozen baseline loop (rt::kBaseline) or, for K1a, any set of the
-//    design elements, for measurement.
+//    beyond the best t. The launchers' `core` argument is the core's mask,
+//    as the wrapper's tile plan (ops/cuda/traverse.py::tile_plan) gives it
+//    (RT_TILE_CORES).
 //  * Over leaves of more than one triangle the leaf tests, not the visits,
 //    were half of K1's time (K1a framed 0.4897 ms at SAH K = 1, 1.1131 at
 //    K = 32; PERF.md §6): one lane testing a leaf of 32 triangles alone.
@@ -121,10 +121,10 @@
 
 // The source builds as two libraries (ops/cuda/traverse.py::TILE_SOURCES),
 // their nvcc runs started together: with RT_TILES_WARP the launchers take
-// rt::kTileCore, without it the render core, the frozen loop and the
-// element sets; each refuses the other's cores (cudaErrorInvalidValue). As
-// one library the source took 45.1 s of nvcc on the card's machine against
-// traverse_rays.cu's 34.1 s, beside it (PERF.md §6).
+// rt::kTileCore's forms, without it the render core; each refuses the
+// other's cores (cudaErrorInvalidValue). As one library the source took
+// 29.68 s of nvcc on the card's machine against traverse_rays.cu's 23.34 s
+// beside it (PERF.md §6).
 #ifndef RT_TILES_WARP
 #define RT_TILES_WARP 0
 #endif
@@ -165,12 +165,10 @@ __device__ __forceinline__ rt::Hit trace_primary(const float* __restrict__ qn, i
                   cam.qw, dx, dy, dz);
   if constexpr ((kCore & rt::kWarpLeaves) != 0) {
     return rt::traverse_ray_warp<kSlots, false, kCore, kVisits>(
-        qn, recw, leaf_k, mine, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
-        threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
+        qn, recw, leaf_k, mine, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry);
   } else {
     return rt::traverse_ray<kSlots, false, kVisits, kCore>(
-        qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry,
-        threadIdx.y * kBlock + threadIdx.x, kBlockThreads);
+        qn, recw, leaf_k, cam.ox, cam.oy, cam.oz, dx, dy, dz, best_init, entry);
   }
 }
 
@@ -314,13 +312,11 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
 #define RT_BATCH_ARGS \
   grid, s, qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits
 
-// Launch one instantiation with the dynamic shared memory of its core (the
-// block's stack columns; none but for the measured shared-stack cores).
+// Launch one instantiation.
 template <int S, bool J, bool V, bool B, unsigned C>
 int launch_tiles(RT_TILE_PARAMS) {
-  const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
   const dim3 block = block_of<C>();
-  trace_tiles_kernel<S, J, V, B, C><<<grid, block, smem, s>>>(
+  trace_tiles_kernel<S, J, V, B, C><<<grid, block, 0, s>>>(
       qnodes, recw, leaf_k, cam, seed, width, height, row_off, col_off, tbounds, entries,
       tiles_x, num_nodes, t, nx, ny, nz, tri, visits);
   return (int)cudaGetLastError();
@@ -328,9 +324,8 @@ int launch_tiles(RT_TILE_PARAMS) {
 
 template <int S, bool J, bool V, unsigned C, bool R = false>
 int launch_batch(RT_BATCH_PARAMS) {
-  const size_t smem = rt::stack_smem_bytes(C, kBlockThreads);
   const dim3 block = block_of<C>();
-  trace_tiles_batch_kernel<S, J, V, R, C><<<grid, block, smem, s>>>(
+  trace_tiles_batch_kernel<S, J, V, R, C><<<grid, block, 0, s>>>(
       qnodes, recw, leaf_k, cams, width, height, t, nx, ny, nz, tri, visits);
   return (int)cudaGetLastError();
 }
@@ -356,16 +351,16 @@ int dispatch_batch(bool jitter, bool with_visits, RT_BATCH_PARAMS) {
                      : launch_batch<S, false, false, C, R>(RT_BATCH_ARGS);
 }
 
-// The feature masks instantiated for K1a alone (4-wide records, no jitter,
-// visits or tables), to time each design element and each set of them
-// (chip_smoke.py phase 28): X(mask) for each.
-#define RT_MEASURED_TILE_CORES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7)
-
-// rt::kTileCore's mask for leaves of `leaf_k`: kPackSlots dropped from
-// K = 32 on, where the slots' own runs won (traverse_rays.cu's rule).
-constexpr unsigned tile_core(int leaf_k) {
-  return leaf_k < 32 ? rt::kTileCore : rt::kTileCore & ~rt::kPackSlots;
-}
+// The cores the tile launchers build, each for every variant at both
+// widths: what ops/cuda/traverse.py::tile_plan returns. The render core
+// (K = 1) and, in the RT_TILES_WARP part, rt::kTileCore (K > 1), without
+// rt::kPackSlots from K = 32 on, where the slots' own runs won (as in
+// traverse_rays.cu).
+#if RT_TILES_WARP
+#define RT_TILE_CORES(X) X(rt::kTileCore) X((rt::kTileCore & ~rt::kPackSlots))
+#else
+#define RT_TILE_CORES(X) X(rt::kRenderCore)
+#endif
 
 }  // namespace
 
@@ -377,15 +372,10 @@ constexpr unsigned tile_core(int leaf_k) {
 // aligned rows of `slots` (4 or 8) child slots; outputs: (height, width)
 // planes of the window at (row_off, col_off) of a rg_width × rg_height frame
 // (focal and aspect are the frame's); visits: a sixth f32 plane or null.
-// `core`: -1 or rt::kRenderCore (1) for the render core (every render path
-// at K = 1), rt::kTileCore (225) for closest hit over leaves of K > 1 with the
-// per-step choice of leaf stage (kPackSlots dropped from leaf_k = 32 on),
-// rt::kBaseline (256, the baseline loop), for all of these; or for K1a (no
-// jitter, visits or tables) one of the feature masks of
-// RT_MEASURED_TILE_CORES (timing an element alone).
-// Returns cudaGetLastError() after the launch (0 on success, or
+// `core`: one of the masks of this part's RT_TILE_CORES, as tile_plan
+// gives it. Returns cudaGetLastError() after the launch (0 on success, or
 // cudaErrorInvalidValue for another slot count, only one of the two tables,
-// or a core outside these sets); synchronises nothing.
+// or another core); synchronises nothing.
 extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int leaf_k,
                               int slots, float ox, float oy, float oz, float qx, float qy,
                               float qz, float qw,
@@ -403,24 +393,16 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (width + kTile - 1) / kTile;
   const bool j = jitter != 0;
-#define RT_ALL(C)                                                                   \
-  (slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS)        \
-              : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS))
-#if RT_TILES_WARP
-  if (core == (int)rt::kTileCore) {
-    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+#define RT_CASE(C)                                                          \
+  case C:                                                                   \
+    return slots == 8 ? dispatch_tiles<8, C>(j, with_visits, bounded, RT_TILE_ARGS) \
+                      : dispatch_tiles<4, C>(j, with_visits, bounded, RT_TILE_ARGS);
+  switch ((unsigned)core) {
+    RT_TILE_CORES(RT_CASE)
+    default:
+      break;
   }
-#else
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
-  if (slots != 4 || j || with_visits || bounded) return (int)cudaErrorInvalidValue;
-#define RT_CASE(M) \
-  case M:          \
-    return launch_tiles<4, false, false, false, (unsigned)M>(RT_TILE_ARGS);
-  switch (core) { RT_MEASURED_TILE_CORES(RT_CASE) default: break; }
 #undef RT_CASE
-#endif
-#undef RT_ALL
   return (int)cudaErrorInvalidValue;
 }
 
@@ -430,10 +412,10 @@ extern "C" int rt_trace_tiles(const float* qnodes, int num_nodes, int recw, int 
 // quaternion xyzw, focal, aspect, raygen W and H, jitter seed, row and column
 // offset of the window in that frame, 2 unused), jittered when `jitter` != 0.
 // Outputs: (num_frames, height, width) planes; visits: a sixth f32 plane or
-// null. `core`: -1 or rt::kRenderCore (1), rt::kTileCore (225) or
-// rt::kBaseline (256). Returns cudaGetLastError() after the launch (0 on
-// success, or cudaErrorInvalidValue for another slot count or core);
-// synchronises nothing.
+// null. `core`: one of the masks of this part's RT_TILE_CORES. Returns
+// cudaGetLastError() after the launch (0 on success, or
+// cudaErrorInvalidValue for another slot count or core); synchronises
+// nothing.
 extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, int slots,
                                     const float* cams, int num_frames, int width, int height,
                                     int jitter, int core, float* t, float* nx, float* ny,
@@ -442,18 +424,16 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
   const dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock, num_frames);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool j = jitter != 0, with_visits = visits != nullptr;
-#define RT_ALL(C)                                                            \
-  (slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS)         \
-              : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS))
-#if RT_TILES_WARP
-  if (core == (int)rt::kTileCore) {
-    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+#define RT_CASE(C)                                                      \
+  case C:                                                               \
+    return slots == 8 ? dispatch_batch<8, C>(j, with_visits, RT_BATCH_ARGS) \
+                      : dispatch_batch<4, C>(j, with_visits, RT_BATCH_ARGS);
+  switch ((unsigned)core) {
+    RT_TILE_CORES(RT_CASE)
+    default:
+      break;
   }
-#else
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-  if (core == (int)rt::kBaseline) return RT_ALL(rt::kBaseline);
-#endif
-#undef RT_ALL
+#undef RT_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -461,7 +441,7 @@ extern "C" int rt_trace_tiles_batch(const float* qnodes, int recw, int leaf_k, i
 // raw with slots = 8; K1f raw with `stats` != 0, whose plane 5 holds the
 // visits): `num_frames` frames of width × height pixels, both multiples of
 // 32, cameras as for rt_trace_tiles_batch (each frame whole: offsets 0).
-// `core`: -1 or rt::kRenderCore (1), or rt::kTileCore (225).
+// `core`: one of the masks of this part's RT_TILE_CORES.
 // out: (num_frames, width/32 · height/32, 6, 1024) f32, every word written.
 // Returns cudaGetLastError() after the launch (0 on success, or
 // cudaErrorInvalidValue for another slot count, core, or a size that is not
@@ -480,16 +460,15 @@ extern "C" int rt_trace_tiles_batch_raw(const float* qnodes, int recw, int leaf_
   float* t = out;
   float *nx = nullptr, *ny = nullptr, *nz = nullptr, *visits = nullptr;
   int* tri = nullptr;
-#define RT_ALL(C)                                                                  \
-  (slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS)         \
-              : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS))
-#if RT_TILES_WARP
-  if (core == (int)rt::kTileCore) {
-    return leaf_k < 32 ? RT_ALL(tile_core(1)) : RT_ALL(tile_core(32));
+#define RT_CASE(C)                                                            \
+  case C:                                                                     \
+    return slots == 8 ? dispatch_batch<8, C, true>(j, with_visits, RT_BATCH_ARGS) \
+                      : dispatch_batch<4, C, true>(j, with_visits, RT_BATCH_ARGS);
+  switch ((unsigned)core) {
+    RT_TILE_CORES(RT_CASE)
+    default:
+      break;
   }
-#else
-  if (core == -1 || core == (int)rt::kRenderCore) return RT_ALL(rt::kRenderCore);
-#endif
-#undef RT_ALL
+#undef RT_CASE
   return (int)cudaErrorInvalidValue;
 }

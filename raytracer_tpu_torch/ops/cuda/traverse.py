@@ -83,8 +83,7 @@ __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_rays", "trace_rays_reference", "launch_plan", "tile_plan", "ANY_HIT_CORE",
            "CLOSEST_HIT_CORE", "TILE_CORE", "load_kernel", "tile_warp_ids",
            "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
-           "CORE_ELEMENTS", "core_id", "MEASURE_LAUNCHES", "tiles_layout", "TREE_SPACES",
-           "SMEM_BLOCK", "check_tree_space", "tree_space_limits", "l2_window"]
+           "tiles_layout", "TREE_SPACES", "check_tree_space", "tree_space_limits", "l2_window"]
 
 EMPTY_REF = -float(1 << 28)
 _MAX_NODES = 1 << 24      # refs are exact integer-valued f32
@@ -97,96 +96,47 @@ _SUB = TILE * TILE // 128  # rows of 128 words in a tile plane of the raw layout
 _MAX_SEED = 1 << 24       # the TPU kernel carries the jitter seed as an exact f32
 _MAX_FRAMES = 65535       # K1c's frames are the grid's z dimension
 
-# The traversal cores a wrapper's ``core`` takes. "hopper": what every
-# render path runs, the redesigned core of csrc/traverse_core.cuh in the
-# form that wins on the card (rt::kRenderCore), and over leaves of more
-# than one triangle what launch_plan (K2) and tile_plan (K1) pick;
-# "baseline": the frozen baseline loop (csrc/traverse_core_baseline.cuh,
-# with K2's one thread per ray); or, to time design elements alone, a set of
-# CORE_ELEMENTS joined with "+", or "none" (K1a without jitter, visits or
-# tables, and K2a / K2b, on 4-wide records; "warp" and "pack" K2a / K2b
-# alone). "order" is the render core itself, and K1 and K2 build it, like
-# ANY_HIT_CORE (= CLOSEST_HIT_CORE, the set that launch_plan picks for K2
-# over leaves of K > 1), for every width, order, schedule and placement;
-# TILE_CORE is built for every K1 variant. Only chip_smoke.py, tools_torch/
-# and the card tests pass anything but "hopper".
-CORE_ELEMENTS = {"order": 1, "stack": 2, "prefetch": 4, "warp": 32, "pack": 64, "tile": 128}
-ANY_HIT_CORE = "order+warp+pack"  # rt::kAnyHitCore
-# closest hit with the warp's leaf tests: rt::kAnyHitCore's mask, launched
-# with any_hit=False (the kernels' kAnyHit = false form, warp_nearest)
+# The traversal cores, as the feature masks of csrc/traverse_core.cuh that
+# the launchers take: the render core (rt::kRenderCore, every launch at
+# K = 1); over leaves of more than one triangle, ANY_HIT_CORE
+# (rt::kAnyHitCore, the warp's leaf tests) in K2, for any hit and, as
+# CLOSEST_HIT_CORE, for closest hit, and TILE_CORE (rt::kTileCore, the
+# per-step choice between the warp's leaf tests and each lane's own loop)
+# in K1. launch_plan (K2) and tile_plan (K1) say which one a launch runs;
+# the launchers build exactly the masks the two can return.
+_RENDER_CORE = 1                                   # kOrder
+_UNORDERED, _SHARED_TREE, _PACK_SLOTS = 8, 16, 64  # kUnordered, kSharedTree, kPackSlots
+ANY_HIT_CORE = 97                                  # kOrder | kWarpLeaves | kPackSlots
 CLOSEST_HIT_CORE = ANY_HIT_CORE
-# K1's closest hit over leaves of K > 1 with a per-step, warp-uniform choice
-# between the warp's leaf tests and each lane's own loop (rt::kTileCore)
-TILE_CORE = "order+warp+pack+tile"
-_MAIN_CORE, _BASELINE_CORE = -1, 256
-_RENDER_CORE = CORE_ELEMENTS["order"]  # rt::kRenderCore, named
-_ANY_HIT_CORE = sum(CORE_ELEMENTS[e] for e in ANY_HIT_CORE.split("+"))
-_CLOSEST_HIT_CORE = _ANY_HIT_CORE
-_TILE_CORE = sum(CORE_ELEMENTS[e] for e in TILE_CORE.split("+"))
-_MEASURED_TILE_CORES = range(8)  # traverse_tiles.cu's RT_MEASURED_TILE_CORES
+TILE_CORE = 225                                    # kAnyHitCore | kTileLeaves
 
-# Any hit over leaves of more than one triangle under core="hopper"
-# (launch_plan) runs ANY_HIT_CORE, which beat the frozen loop at 4 and 8
-# slots in both orders, SAH K = 32 and Morton K = 8 (chip_smoke.py phase 28;
-# PERF.md §6), with persistent warps on the waves that ask for them
-# (scattered=True) only at K below _ANY_HIT_PERSISTENT_K (they won at K = 8
-# and lost at K = 32 on the card).
+# Any hit over leaves of more than one triangle runs persistent warps on
+# the waves that ask for them (scattered=True) only at K below this: they
+# won at K = 8 and lost at K = 32 on the card (PERF.md §6).
 _ANY_HIT_PERSISTENT_K = 32
-
-# Closest hit over leaves of more than one triangle under core="hopper"
-# (launch_plan) runs CLOSEST_HIT_CORE, which beat the render core on every
-# closest-hit wave measured (SAH K = 32, Morton K = 8 and the 8-wide tree,
-# both orders: 1.69-6.04x; chip_smoke.py phase 28, PERF.md §6), with
-# persistent warps on the waves that ask for them (scattered=True), which
-# tied or won there at K = 8 and 32 and lost on every dense wave.
 
 # Where trace_rays' records live during a traversal, under the TPU kernel's
 # names (trace_rays_pallas(tree_space=…)); trace_rays says what each is on
 # this card. A name's index is the launcher's tree_space.
 TREE_SPACES = ("hbm", "vmem", "smem")
-# Threads of a block under tree_space="smem" (both schedules): each block
-# copies the whole tree, so larger blocks copy it fewer times (PERF.md §6);
-# at most 512, a multiple of 32.
-SMEM_BLOCK = 512
-_SMEM_BLOCK_MAX = 512
 
-# Launches of each kernel with the "hopper" core since its count was last
-# set to 0; raised only where a wrapper launches that kernel. Launches with
-# another core count in MEASURE_LAUNCHES under the same name. "camera_lanes"
-# counts the launches of the camera wave's kernel (ops/cuda/camera.py),
-# "wave_hit" and "wave_bounce" those of the sample's wave glue
-# (ops/cuda/wave.py), one of each a wave.
+# Launches of each kernel since its count was last set to 0; raised only
+# where a wrapper launches that kernel. "camera_lanes" counts the launches
+# of the camera wave's kernel (ops/cuda/camera.py), "wave_hit" and
+# "wave_bounce" those of the sample's wave glue (ops/cuda/wave.py), one of
+# each a wave.
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
             "trace_tiles_k1c_raw": 0, "trace_tiles_k1e_raw": 0, "trace_tiles_k1f_raw": 0,
             **{f"trace_rays_{k}{order}{space}": 0 for space in ("", "_vmem", "_smem")
                for order in ("", "_unordered") for k in ("k2a", "k2b", "k2c")},
             "camera_lanes": 0, "wave_hit": 0, "wave_bounce": 0}
-MEASURE_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for counts in (LAUNCHES, MEASURE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
-def core_id(core: str) -> int:
-    """The launchers' `core` argument for a core's name (see CORE_ELEMENTS)."""
-    if core == "hopper":
-        return _MAIN_CORE
-    if core == "baseline":
-        return _BASELINE_CORE
-    parts = [] if core == "none" else core.split("+")
-    if not all(p in CORE_ELEMENTS for p in parts) or len(set(parts)) != len(parts):
-        raise ValueError(f"core must be 'hopper', 'baseline', 'none' or elements of "
-                         f"{sorted(CORE_ELEMENTS)} joined by '+', got {core!r}")
-    return sum(CORE_ELEMENTS[p] for p in parts)
-
-
-def _count(name: str, core: str) -> None:
-    (LAUNCHES if core == "hopper" else MEASURE_LAUNCHES)[name] += 1
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def rec_layout(leaf_size: int, width: int = 4) -> tuple[int, int, int]:
@@ -349,10 +299,9 @@ def _check_window(width, height, raygen_size, row_offset, col_offset) -> tuple[i
 
 
 # traverse_tiles.cu builds as two libraries, started together: the render
-# core, the frozen loop and the measured element sets ("traverse_tiles.cu"),
-# and TILE_CORE ("traverse_tiles.cu:warp", with RT_TILES_WARP): as one it
-# took 45.1 s of nvcc on the card's machine against traverse_rays.cu's 34.1 s
-# (PERF.md §6).
+# core ("traverse_tiles.cu") and TILE_CORE's forms ("traverse_tiles.cu:warp",
+# with RT_TILES_WARP): as one it took 29.68 s of nvcc on the card's machine
+# against traverse_rays.cu's 23.34 s (PERF.md §6).
 TILE_SOURCES = ("traverse_tiles.cu", "traverse_tiles.cu:warp")
 
 _ARGTYPES = {
@@ -368,7 +317,7 @@ _ARGTYPES = {
     },
     "traverse_rays.cu": {
         "rt_trace_rays": ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                           + [ctypes.c_void_p] * 7),
         "rt_tree_space_limits": [ctypes.c_void_p],
         "rt_l2_window": [ctypes.c_void_p] * 2,
@@ -393,9 +342,9 @@ def load_kernel(source: str) -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-def _tile_source(cid: int) -> str:
-    """The build of traverse_tiles.cu that holds core ``cid`` (TILE_SOURCES)."""
-    return TILE_SOURCES[cid == _TILE_CORE]
+def _tile_source(core: int) -> str:
+    """The part of traverse_tiles.cu that builds ``core`` (TILE_SOURCES)."""
+    return TILE_SOURCES[core != _RENDER_CORE]
 
 
 def _tile_launch_name(width: int, stats: bool, plain: str, bounded: bool = False) -> str:
@@ -437,7 +386,7 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
                 raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
                 col_offset: int = 0, jitter: bool = False, jitter_seed: int = 0,
                 stats: bool = False, entries: torch.Tensor | None = None,
-                tbounds: torch.Tensor | None = None, core: str = "hopper"):
+                tbounds: torch.Tensor | None = None):
     """Trace all primary rays → (t, nx, ny, nz, tri) planes of (H, W): on a
     miss the normal is 0, tri (int32) is −1 and t is 1e30, or under
     ``tbounds`` its tile's bound. ``stats``
@@ -467,17 +416,14 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
     For records on a CUDA device launches K1a (K1b with ``jitter``) on
     4-wide records, K1e on 8-wide records, K1d with ``entries`` or
     ``tbounds``, K1f with ``stats``, with the traversal core that
-    :func:`tile_plan` gives for ``core`` (over leaves of K > 1 under
-    "hopper", the per-step choice between the warp's leaf tests and each
-    lane's loop, TILE_CORE; the words of every core are the same); runs the
+    :func:`tile_plan` gives (over leaves of K > 1 the per-step choice
+    between the warp's leaf tests and each lane's loop, TILE_CORE); runs the
     plain version for records on the CPU; raises for any other device."""
     with span("rt/k1"):
         qn, slots = _check_qnodes(qnodes, leaf_k)
         seed = _check_seed(jitter_seed)
         rg_w, rg_h = _check_window(width, height, raygen_size, row_offset, col_offset)
         bounded = entries is not None or tbounds is not None
-        cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats,
-                        bounded=bounded)
         if bounded:
             entries, tbounds = _tile_tables(entries, tbounds, -(-height // TILE),
                                             -(-width // TILE), qn.device)
@@ -490,7 +436,8 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
             return tuple(p.reshape(height, width) for p in planes)
         if qn.device.type != "cuda":
             raise ValueError(f"trace_tiles runs on cuda or cpu tensors, got {qn.device}")
-        lib, _ = load_kernel(_tile_source(cid))
+        core = tile_plan(leaf_k=leaf_k)
+        lib, _ = load_kernel(_tile_source(core))
         pos, quat = _camera(cam_pos, cam_quat)
         focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
         planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
@@ -502,13 +449,13 @@ def trace_tiles(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, height: int
                 qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, *pos, *quat, focal, aspect,
                 rg_w, rg_h, row_offset, col_offset, width, height, int(bool(jitter)), seed,
                 tbounds.data_ptr() if bounded else None, entries.data_ptr() if bounded else None,
-                cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+                core, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
                 planes[4].data_ptr() if stats else None, stream)
         name = _tile_launch_name(slots, stats, "trace_tiles_k1b" if jitter else "trace_tiles_k1a",
                                  bounded)
         if err != 0:
-            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-        _count(name, core)
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        LAUNCHES[name] += 1
         return (*planes[:4], tri, *planes[4:])
 
 
@@ -587,7 +534,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
                       fov_degrees: float = 70.0, leaf_k: int = 1, jitter: bool = False,
                       jitter_seeds=None, stats: bool = False, *,
                       raygen_size: tuple[int, int] | None = None, row_offset: int = 0,
-                      col_offset: int = 0, core: str = "hopper", raw: bool = False):
+                      col_offset: int = 0, raw: bool = False):
     """Trace F frames in one launch, frame f from camera ``cam_pos[f]``
     (F, 3), ``cam_quat[f]`` (F, 4) → (t, nx, ny, nz, tri) planes of (F, H, W),
     each frame equal to :func:`trace_tiles` for its camera; ``stats`` appends
@@ -606,13 +553,13 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
     (−1.0 on a miss) and a sixth plane that is each pixel's visits with
     ``stats`` and 0 without (the TPU kernel writes its tile's visit count
     there). It needs width and height that are multiples of 32 and the whole
-    frame (no ``raygen_size`` or offsets), and runs every core but
-    "baseline"; the image planes are not made at all.
+    frame (no ``raygen_size`` or offsets); the image planes are not made at
+    all.
 
     For records on a CUDA device launches K1c on 4-wide records, K1e on
     8-wide records, K1f with ``stats``, with the traversal core that
-    :func:`tile_plan` gives for ``core``; runs the plain version for records
-    on the CPU; raises for any other device."""
+    :func:`tile_plan` gives; runs the plain version for records on the CPU;
+    raises for any other device."""
     with span("rt/k1"):
         qn, slots = _check_qnodes(qnodes, leaf_k)
         pos, quat, seeds = _cameras(cam_pos, cam_quat, jitter_seeds)
@@ -620,8 +567,6 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
         f = len(pos)
         if raw:
             _check_raw(width, height, raygen_size, row_offset, col_offset)
-        cid = tile_plan(core, leaf_k=leaf_k, slots=slots, jitter=jitter, stats=stats, batch=True,
-                        raw=raw)
         if qn.device.type == "cpu":
             pixels = _window_pixels(width, height, rg_w, row_offset, col_offset)
             planes = trace_tiles_batch_reference(qn, pos, quat, rg_w, rg_h, fov_degrees, leaf_k,
@@ -631,7 +576,8 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
             return tiles_layout(planes) if raw else planes
         if qn.device.type != "cuda":
             raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
-        lib, _ = load_kernel(_tile_source(cid))
+        core = tile_plan(leaf_k=leaf_k)
+        lib, _ = load_kernel(_tile_source(core))
         focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
         table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
                            for p, q, s in zip(pos, quat, seeds)], qn.device)
@@ -642,11 +588,11 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
                 stream = torch.cuda.current_stream(qn.device).cuda_stream
                 err = lib.rt_trace_tiles_batch_raw(
                     qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-                    int(bool(jitter)), int(bool(stats)), cid, out.data_ptr(), stream)
+                    int(bool(jitter)), int(bool(stats)), core, out.data_ptr(), stream)
             name = _tile_launch_name(slots, stats, "trace_tiles_k1c") + "_raw"
             if err != 0:
-                raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-            _count(name, core)
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            LAUNCHES[name] += 1
             return out
         planes = [torch.empty((f, height, width), dtype=torch.float32, device=qn.device)
                   for _ in range(5 if stats else 4)]
@@ -655,18 +601,17 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
             stream = torch.cuda.current_stream(qn.device).cuda_stream
             err = lib.rt_trace_tiles_batch(
                 qn.data_ptr(), qn.shape[1], leaf_k, slots, table.data_ptr(), f, width, height,
-                int(bool(jitter)), cid, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
+                int(bool(jitter)), core, *(p.data_ptr() for p in planes[:4]), tri.data_ptr(),
                 planes[4].data_ptr() if stats else None, stream)
         name = _tile_launch_name(slots, stats, "trace_tiles_k1c")
         if err != 0:
-            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-        _count(name, core)
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        LAUNCHES[name] += 1
         return (*planes[:4], tri, *planes[4:])
 
 
 def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int) -> None:
-    """Refuse the frames the raw tile layout does not take (trace_tiles_batch;
-    its cores: tile_plan)."""
+    """Refuse the frames the raw tile layout does not take (trace_tiles_batch)."""
     if width % TILE or height % TILE:
         raise ValueError(f"raw=True needs a width and height that are multiples of {TILE}, "
                          f"got {width}x{height}")
@@ -793,89 +738,66 @@ def l2_window(device, stream: torch.cuda.Stream | None = None) -> dict:
     return {"base": out[0], "num_bytes": out[1], "persisting_l2": out[2]}
 
 
-def launch_plan(core: str, *, any_hit: bool, leaf_k: int, slots: int, ordered: bool = True,
-                scattered: bool = False, tree_space: str = "hbm") -> tuple[int, bool]:
-    """What :func:`trace_rays` launches for these arguments (``slots``: the
-    records' child slots): (the launcher's core id, whether it runs
-    persistent warps). A pure function: no device is touched.
+def _packed(core: int, leaf_k: int) -> int:
+    """``core`` (ANY_HIT_CORE or TILE_CORE) as the launchers build it for
+    leaves of ``leaf_k`` triangles: without its packed slots from K = 32 on,
+    where a run holds one slot either way and the slots' own runs won on the
+    card (PERF.md §6)."""
+    return core if leaf_k < 32 else core & ~_PACK_SLOTS
 
-    "hopper" is the render core with persistent warps where ``scattered``,
-    but over leaves of more than one triangle: any hit runs
-    :data:`ANY_HIT_CORE` (persistent where ``scattered`` and K <
-    ``_ANY_HIT_PERSISTENT_K``), closest hit :data:`CLOSEST_HIT_CORE`
-    (persistent where ``scattered``); their launcher packs a visit's leaf
-    slots into one run of triangles below K = 32 only. Any other core runs
-    as named: persistent where ``scattered`` for "order" (the render core)
-    and ANY_HIT_CORE, one thread per ray otherwise. Raises ``ValueError``
-    for what is not built: ``ordered=False`` with any core but "hopper",
-    "order", "baseline" and ANY_HIT_CORE; ``tree_space="smem"`` with any
-    core but "hopper", "order" and ANY_HIT_CORE."""
-    cid = core_id(core)
+
+def launch_plan(*, any_hit: bool, leaf_k: int, ordered: bool = True, scattered: bool = False,
+                tree_space: str = "hbm") -> tuple[int, bool]:
+    """What :func:`trace_rays` launches for these arguments: (the core's
+    feature mask, as the launcher takes it, whether persistent warps run
+    it). A pure function: no device is touched; every mask it returns is
+    built at both record widths.
+
+    K = 1 runs the render core, persistent where ``scattered``. Over leaves
+    of more than one triangle, any hit runs :data:`ANY_HIT_CORE`
+    (persistent where ``scattered`` and K < ``_ANY_HIT_PERSISTENT_K``) and
+    closest hit :data:`CLOSEST_HIT_CORE` (persistent where ``scattered``),
+    without their packed slots from K = 32 on. ``ordered=False`` adds
+    rt::kUnordered, ``tree_space="smem"`` rt::kSharedTree. These cores beat
+    the port's first loop, and over leaves of K > 1 the render core, on
+    every wave the card measured (PERF.md §6). Raises ``ValueError`` for a
+    ``tree_space`` that is not one of :data:`TREE_SPACES`."""
     if tree_space not in TREE_SPACES:
         raise ValueError(f"tree_space must be hbm|vmem|smem, got {tree_space!r}")
-    free = (_MAIN_CORE, _RENDER_CORE, _ANY_HIT_CORE)  # built in both orders and schedules
-    if not ordered and cid not in (*free, _BASELINE_CORE):
-        raise ValueError(f"ordered=False runs the 'hopper', 'order', 'baseline' or "
-                         f"{ANY_HIT_CORE!r} core, not {core!r}")
-    if tree_space == "smem" and cid not in free:
-        raise ValueError(f"tree_space='smem' runs the 'hopper' core, 'order' or {ANY_HIT_CORE!r}, "
-                         f"not {core!r}: the others are built for device memory (the shared "
-                         "stack takes the dynamic shared memory that holds the records)")
-    if core == "hopper" and leaf_k > 1:
-        if any_hit:
-            return _ANY_HIT_CORE, scattered and leaf_k < _ANY_HIT_PERSISTENT_K
-        return _CLOSEST_HIT_CORE, scattered
-    return cid, scattered and cid in free
+    if leaf_k > 1:
+        core = _packed(ANY_HIT_CORE, leaf_k)
+        persistent = scattered and (not any_hit or leaf_k < _ANY_HIT_PERSISTENT_K)
+    else:
+        core, persistent = _RENDER_CORE, scattered
+    if not ordered:
+        core |= _UNORDERED
+    if tree_space == "smem":
+        core |= _SHARED_TREE
+    return core, persistent
 
 
-# K1 over leaves of more than one triangle under core="hopper" (tile_plan)
-# runs TILE_CORE in every variant, at either width: on the card it beat the
-# render core (render / tile, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's
-# K1 phase and tools_torch/ab_tiles.py, PERF.md §6) on K1a framed 1.57×,
-# sparse 2.67×, K1b 1.68×, K1c (8 cameras of the dynamic dragon) 1.38×,
-# config 5's K1c raw 1.35×, Morton K = 8 1.10×, K1e 1.34×, K1d 1.60×, K1f
-# 1.55×, and stayed within 5% of the warp's tests at every step, which lose
-# 1.31× at Morton K = 8 and 1.62× on the Cornell box. That box at SAH K = 32
-# (3 records, all 32 lanes post one leaf every step, so the rule takes the
-# lanes' loops, the render core's leaf stage, at every step) is a tie: 0.981×
-# in one run, 1.001× in another, inside the spread of the two. Config 5's
-# tree, also in cache, wins, so the plan does not read the tree's size.
+def tile_plan(*, leaf_k: int) -> int:
+    """The core's feature mask that :func:`trace_tiles` and
+    :func:`trace_tiles_batch` launch, in every variant and at both widths:
+    the render core at K = 1 and :data:`TILE_CORE` over leaves of more than
+    one triangle, without its packed slots from K = 32 on. A pure function.
+    TILE_CORE beat the render core on every K1 variant the card measured
+    and stayed within 5% of the warp's leaf tests at every step (PERF.md
+    §6)."""
+    return _packed(TILE_CORE, leaf_k) if leaf_k > 1 else _RENDER_CORE
 
 
-def tile_plan(core: str, *, leaf_k: int, slots: int, jitter: bool = False,
-              stats: bool = False, bounded: bool = False, batch: bool = False,
-              raw: bool = False) -> int:
-    """What :func:`trace_tiles` (``batch=False``) or :func:`trace_tiles_batch`
-    (``batch=True``, ``raw``) launch for these arguments (``slots``: the
-    records' child slots; ``stats``: K1f, ``bounded``: K1d): the launcher's
-    core id. A pure function: no device is touched.
-
-    "hopper" is the render core at K = 1 and TILE_CORE over leaves of more
-    than one triangle. "order" (the render core by name) and TILE_CORE run
-    as named in every variant, "baseline" in every variant but ``raw``.
-    Raises ``ValueError`` for what is not built: a set of the design
-    elements but for K1a (4-wide, one frame, no jitter, ``stats`` or
-    ``bounded``); "baseline" with ``raw``."""
-    cid = core_id(core)
-    if core == "hopper":
-        return _TILE_CORE if leaf_k > 1 else _MAIN_CORE
-    if cid in (_RENDER_CORE, _TILE_CORE) or (cid == _BASELINE_CORE and not raw):
-        return cid
-    if raw and cid == _BASELINE_CORE:
-        raise ValueError(f"raw=True runs the 'hopper' core, 'order' or {TILE_CORE!r}, "
-                         f"not {core!r}")
-    k1a = slots == 4 and not (jitter or stats or bounded or batch)
-    if k1a and cid in _MEASURED_TILE_CORES:
-        return cid
-    raise ValueError(f"core {core!r} is not built for this tile launch (slots {slots}, "
-                     f"jitter {jitter}, stats {stats}, bounded {bounded}, batch {batch}, "
-                     f"raw {raw}): see tile_plan")
+def _ray_launch_name(slots: int, any_hit: bool, ordered: bool, tree_space: str) -> str:
+    """The launch count a ray launch is added to (module docstring)."""
+    name = "trace_rays_k2c" if slots == 8 else "trace_rays_k2b" if any_hit else "trace_rays_k2a"
+    if not ordered:
+        name += "_unordered"
+    return name if tree_space == "hbm" else f"{name}_{tree_space}"
 
 
 def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, *,
                any_hit: bool = False, leaf_k: int, active: torch.Tensor | None = None,
-               scattered: bool = False, ordered: bool = True, core: str = "hopper",
-               tree_space: str = "hbm", smem_block: int | None = None):
+               scattered: bool = False, ordered: bool = True, tree_space: str = "hbm"):
     """Trace a buffer of rays — origins and dirs (R, 3) f32 — → (t, nx, ny,
     nz, tri) planes of (R,): the nearest hit, with t = 1e30, a zero normal
     and tri = −1 on a miss. ``any_hit`` makes it an occlusion query: a ray
@@ -895,18 +817,14 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     and no ranking or sort is done. Closest-hit planes are the same as with
     the order (the nearest hit does not depend on the visit order, but for
     exact ties of t and drops at the 64-entry stack); any-hit masks are the
-    same, the occluder reported may differ. The core must then be "hopper",
-    "order", "baseline" or ANY_HIT_CORE.
+    same, the occluder reported may differ.
 
-    Over leaves of more than one triangle, ``core="hopper"`` runs the leaf
-    tests spread over the warp (each leaf slot that a lane's ray reaches is
-    tested by the whole warp, a triangle a lane): any hit
-    :data:`ANY_HIT_CORE`, which beat the frozen loop on every wave measured,
-    and closest hit :data:`CLOSEST_HIT_CORE`, which serves every run of a
-    slot and keeps the nearest (PERF.md §6); :func:`launch_plan` picks the
-    core and its schedule. Both write the words of the frozen loop, which
-    ``core="baseline"`` still runs as the yardstick, and closest hit those
-    of the render core, ``core="order"``.
+    Over leaves of more than one triangle the launch runs the leaf tests
+    spread over the warp (each leaf slot that a lane's ray reaches is tested
+    by the whole warp, a triangle a lane): any hit :data:`ANY_HIT_CORE`, and
+    closest hit :data:`CLOSEST_HIT_CORE`, which serves every run of a slot
+    and keeps the nearest (PERF.md §6); :func:`launch_plan` picks the core
+    and its schedule. Every core writes the plain version's words.
 
     ``tree_space`` places the records during the traversal, under the TPU
     kernel's names (:data:`TREE_SPACES`): "hbm" (default) reads them from
@@ -914,27 +832,20 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
     a persisting carve-out of their size and an access-policy window over
     them given to this launch alone, the carve-out put back and the
     persisting lines reset after it, for which the call waits for its
-    launch to end — with any core; "smem" copies them into each block's
-    shared memory when the block starts and traverses from there, in blocks
-    of ``smem_block`` threads (default :data:`SMEM_BLOCK`; measurement), with
-    the "hopper" core, "order" or ANY_HIT_CORE only. Every placement writes the same words. Records
+    launch to end; "smem" copies them into each block's shared memory when
+    the block starts and traverses from there, in blocks of 512 threads.
+    Every placement writes the same words. Records
     that do not fit a placement raise ``ValueError`` (:func:`check_tree_space`
     with the card's :func:`tree_space_limits`); on the CPU every placement
     runs the plain version, the name checked as on the card.
 
     For records on a CUDA device launches K2a (K2b with ``any_hit``) on
-    4-wide records and K2c on 8-wide records, with the traversal core
-    ``core`` (:func:`core_id`; measurement only); runs the plain version
-    for records on the CPU; raises for any other device."""
+    4-wide records and K2c on 8-wide records; runs the plain version for
+    records on the CPU; raises for any other device."""
     with span("rt/k2"):
         qn, slots = _check_qnodes(qnodes, leaf_k)
-        cid, persistent = launch_plan(core, any_hit=any_hit, leaf_k=leaf_k, slots=slots,
-                                      ordered=ordered, scattered=scattered, tree_space=tree_space)
-        block = SMEM_BLOCK if smem_block is None else int(smem_block)
-        if smem_block is not None and (tree_space != "smem" or not 32 <= block <= _SMEM_BLOCK_MAX
-                                       or block % 32):
-            raise ValueError(f"smem_block is a multiple of 32 up to {_SMEM_BLOCK_MAX} and goes "
-                             f"with tree_space='smem', got {smem_block} with {tree_space!r}")
+        core, persistent = launch_plan(any_hit=any_hit, leaf_k=leaf_k, ordered=ordered,
+                                       scattered=scattered, tree_space=tree_space)
         _check_rays(qn, origins, dirs, active)
         r = origins.shape[0]
         if counting():
@@ -958,19 +869,13 @@ def trace_rays(qnodes: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor, 
             err = lib.rt_trace_rays(
                 qn.data_ptr(), qn.shape[0], qn.shape[1], leaf_k, slots, origins.data_ptr(),
                 dirs.data_ptr(), None if active is None else active.data_ptr(), r,
-                int(bool(any_hit)), cid, int(bool(ordered)), int(persistent),
-                TREE_SPACES.index(tree_space), block,
+                int(bool(any_hit)), core, int(persistent), TREE_SPACES.index(tree_space),
                 None if counter is None else counter.data_ptr(),
                 *(p.data_ptr() for p in planes), tri.data_ptr(), stream)
-        name = ("trace_rays_k2c" if slots == 8
-                else "trace_rays_k2b" if any_hit else "trace_rays_k2a")
-        if not ordered:
-            name += "_unordered"
-        if tree_space != "hbm":
-            name += "_" + tree_space
+        name = _ray_launch_name(slots, any_hit, ordered, tree_space)
         if err != 0:
-            raise RuntimeError(f"{name} launch ({core} core) failed: cudaError {err}")
-        _count(name, core)
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        LAUNCHES[name] += 1
         return (*planes, tri)
 
 

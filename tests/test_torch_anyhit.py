@@ -3,9 +3,11 @@ the launch plan of ``ops/cuda/traverse.py::trace_rays`` and the warp's leaf
 tests of ``csrc/traverse_core.cuh`` (``rt::warp_leaves``), on the CPU.
 
 * ``traverse.launch_plan`` is a pure function of a call's arguments: which
-  core it launches (``ANY_HIT_CORE``, the render core, a named core) and
-  whether persistent warps run it; what it refuses; and that its core ids
-  are the C++ masks.
+  core it launches (``ANY_HIT_CORE`` or the render core, with the
+  order and placement bits) and whether persistent warps run it; what it
+  refuses; that its masks are the C++ ones; and that each C launcher
+  instantiates exactly the masks its plan can return.
+* On CPU records every launch runs the plain version and counts nothing.
 * A plain torch model of the warp's leaf step — a visit's posted leaf
   slots tested in runs of 32 triangle positions, a lane each, the lowest
   accepted position of the first run that has one, with and without the
@@ -15,8 +17,8 @@ tests of ``csrc/traverse_core.cuh`` (``rt::warp_leaves``), on the CPU.
   runs), equal t, ``det == 0`` and NaN triangles, at 4 and 8 slots.
 
 Needs no card and no Pallas call; the kernels themselves are held against
-the frozen loop and the plain version on the card
-(``tests/test_torch_kernel.py``, marker ``cuda``).
+the plain version on the card (``tests/test_torch_kernel.py``, marker
+``cuda``).
 """
 
 import re
@@ -33,118 +35,153 @@ KS = (2, 8, 32, 33, 64)
 
 
 def core_masks() -> dict:
-    """The feature bits of csrc/traverse_core.cuh by name, and its
-    kAnyHitCore."""
+    """The feature bits of csrc/traverse_core.cuh by name, and its named
+    cores (kRenderCore, kAnyHitCore, kTileCore) as the bits they join."""
     src = (build.CSRC / "traverse_core.cuh").read_text()
     bits = {name: int(value) for name, value in re.findall(r"\b(k\w+) = (\d+)u,", src)}
-    parts = re.search(r"kAnyHitCore = ([\w| ]+);", src).group(1).split("|")
-    bits["kAnyHitCore"] = sum(bits[p.strip()] for p in parts)
+    for name, parts in re.findall(r"constexpr unsigned (k\w+Core) = ([\w| ]+);", src):
+        bits[name] = sum(bits[p.strip()] for p in parts.split("|"))
     return bits
 
 
+def built_masks(source: str, launcher: str) -> set:
+    """The core masks that ``launcher`` of ``csrc/<source>`` instantiates in
+    all the libraries built from it: the items of the RT_*_CORES lists its
+    switch expands (in rt_trace_rays, the switch of the dispatch it calls),
+    each evaluated with the header's bits."""
+    src = (build.CSRC / source).read_text().replace("\\\n", " ")
+
+    def body(fn):
+        return re.search(r"\bint " + fn + r"\(.*?\n}\n", src, re.S).group(0)
+
+    code = body(launcher)
+    if "RT_CASE" not in code:
+        assert "return dispatch(" in code, launcher
+        code = body("dispatch")
+    (macro,) = re.findall(r"\b(RT_\w+_CORES)\(RT_CASE\)", code)
+    # every build's list: a source may build as parts (traverse.TILE_SOURCES)
+    items = " ".join(re.findall(r"#define " + macro + r"\(X\)(.*)", src))
+    names = {f"rt::{k}": str(v) for k, v in core_masks().items()}
+    exprs = re.findall(r"X\(((?:[^()]|\([^()]*\))*)\)", items)
+    return {eval(re.sub(r"rt::\w+", lambda m: names[m.group(0)], e), {"__builtins__": {}})
+            for e in exprs}
+
+
 def test_core_ids_are_the_kernels_masks():
-    """The wrapper's element names and ANY_HIT_CORE are the C++ feature bits
-    and rt::kAnyHitCore; the measured sets the launcher builds for K2b are
-    the names the card tests and chip_smoke.py pass."""
+    """ANY_HIT_CORE and TILE_CORE are rt::kAnyHitCore and rt::kTileCore, the
+    render core the plans return is rt::kRenderCore, and the bits the plans
+    add or drop are the header's."""
     bits = core_masks()
-    assert traverse.CORE_ELEMENTS == {"order": bits["kOrder"], "stack": bits["kSharedStack"],
-                                      "prefetch": bits["kPrefetch"], "warp": bits["kWarpLeaves"],
-                                      "pack": bits["kPackSlots"], "tile": bits["kTileLeaves"]}
-    assert traverse.core_id(traverse.ANY_HIT_CORE) == bits["kAnyHitCore"]
-    assert traverse.core_id("baseline") == bits["kBaseline"]
-    rays = (build.CSRC / "traverse_rays.cu").read_text()
-    built = re.search(r"#define RT_MEASURED_WARP_CORES\(X, A\) (.*)", rays).group(1)
-    assert sorted(int(m) for m in re.findall(r"X\(A, (\d+)\)", built)) == sorted(
-        traverse.core_id(c) for c in ("warp", "order+warp", "warp+pack"))
+    assert traverse.ANY_HIT_CORE == bits["kAnyHitCore"]
+    assert traverse.TILE_CORE == bits["kTileCore"]
+    assert traverse.launch_plan(any_hit=True, leaf_k=1)[0] == bits["kRenderCore"]
+    assert traverse.tile_plan(leaf_k=1) == bits["kRenderCore"]
+    assert (traverse._UNORDERED, traverse._SHARED_TREE, traverse._PACK_SLOTS) == (
+        bits["kUnordered"], bits["kSharedTree"], bits["kPackSlots"])
 
 
 @pytest.mark.parametrize("slots", [4, 8])
 @pytest.mark.parametrize("ordered", [True, False])
 @pytest.mark.parametrize("scattered", [False, True])
 def test_launch_plan_picks_the_core_and_schedule(slots, ordered, scattered):
-    """Under "hopper", any hit over leaves of K > 1 runs ANY_HIT_CORE at
-    every width and in both orders (persistent where the wave is scattered
-    and K < 32, where that schedule won); closest hit there runs
-    CLOSEST_HIT_CORE (test_torch_closesthit.py), and K = 1 the render core,
-    persistent where scattered. Named cores run as named; only the render
-    core ("order") and ANY_HIT_CORE run persistent warps."""
+    """Any hit over leaves of K > 1 runs ANY_HIT_CORE, without its packed
+    slots from K = 32 on, at every width and in both orders (persistent where
+    the wave is scattered and K < 32, where that schedule won); closest hit
+    there runs CLOSEST_HIT_CORE (test_torch_closesthit.py), and K = 1 the
+    render core, persistent where scattered. ordered=False adds
+    rt::kUnordered. The launch counts under its width's kernel."""
     plan = traverse.launch_plan
-    any_hit = traverse.core_id(traverse.ANY_HIT_CORE)
-    for k in (2, 8, 32, 33, 64):
-        got = plan("hopper", any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
-                   scattered=scattered)
-        assert got == (any_hit, scattered and k < traverse._ANY_HIT_PERSISTENT_K)
-        assert plan("hopper", any_hit=False, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=scattered) == (traverse.core_id(traverse.CLOSEST_HIT_CORE),
-                                             scattered)
-        assert plan(traverse.ANY_HIT_CORE, any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=scattered) == (any_hit, scattered)
-        assert plan("baseline", any_hit=True, leaf_k=k, slots=slots, ordered=ordered,
-                    scattered=scattered) == (256, False)
-    assert plan("hopper", any_hit=True, leaf_k=1, slots=slots, ordered=ordered,
-                scattered=scattered) == (-1, scattered)
-    if ordered:
-        for core in ("warp", "order+warp", "warp+pack", "none"):
-            assert plan(core, any_hit=True, leaf_k=32, slots=slots,
-                        scattered=scattered) == (traverse.core_id(core), False)
-        assert plan("order", any_hit=True, leaf_k=32, slots=slots,
-                    scattered=scattered) == (1, scattered)
+    order = 0 if ordered else traverse._UNORDERED
+    for k in KS:
+        core = (traverse.ANY_HIT_CORE if k < 32 else 33) | order
+        assert plan(any_hit=True, leaf_k=k, ordered=ordered, scattered=scattered) == (
+            core, scattered and k < traverse._ANY_HIT_PERSISTENT_K)
+        assert plan(any_hit=False, leaf_k=k, ordered=ordered, scattered=scattered) == (
+            core, scattered)
+    assert plan(any_hit=True, leaf_k=1, ordered=ordered, scattered=scattered) == (
+        1 | order, scattered)
+    name = traverse._ray_launch_name(slots, True, ordered, "hbm")
+    assert name in traverse.LAUNCHES
+    assert name == ("trace_rays_k2c" if slots == 8 else "trace_rays_k2b") + (
+        "" if ordered else "_unordered")
 
 
 def test_launch_plan_bounds_the_persistent_schedule_by_k():
-    """The schedule's bound on K under "hopper": persistent warps below it,
-    one thread per ray from it on, at both widths and in both orders; a
-    named core takes the caller's schedule."""
+    """The schedule's bound on K: persistent warps below it, one thread per
+    ray from it on, in both orders; closest hit and K = 1 take the caller's
+    schedule."""
     assert traverse._ANY_HIT_PERSISTENT_K == 32
     plan = traverse.launch_plan
-    assert plan("hopper", any_hit=True, leaf_k=32, slots=8, scattered=True) == (97, False)
-    assert plan("hopper", any_hit=True, leaf_k=8, slots=8, scattered=True) == (97, True)
-    assert plan("hopper", any_hit=True, leaf_k=8, slots=8, ordered=False,
-                scattered=True) == (97, True)
-    assert plan("hopper", any_hit=True, leaf_k=8, slots=4, scattered=True) == (97, True)
-    assert plan("hopper", any_hit=True, leaf_k=31, slots=4, scattered=True) == (97, True)
-    assert plan("hopper", any_hit=True, leaf_k=32, slots=4, scattered=True) == (97, False)
-    assert plan("hopper", any_hit=True, leaf_k=64, slots=4, scattered=True) == (97, False)
-    assert plan("hopper", any_hit=True, leaf_k=1, slots=8, scattered=True) == (-1, True)
-    assert plan(traverse.ANY_HIT_CORE, any_hit=True, leaf_k=32, slots=4,
-                scattered=True) == (97, True)
+    assert plan(any_hit=True, leaf_k=32, scattered=True) == (33, False)
+    assert plan(any_hit=True, leaf_k=8, scattered=True) == (97, True)
+    assert plan(any_hit=True, leaf_k=8, ordered=False, scattered=True) == (105, True)
+    assert plan(any_hit=True, leaf_k=31, scattered=True) == (97, True)
+    assert plan(any_hit=True, leaf_k=64, scattered=True) == (33, False)
+    assert plan(any_hit=True, leaf_k=1, scattered=True) == (1, True)
+    assert plan(any_hit=False, leaf_k=32, scattered=True) == (33, True)
 
 
 def test_launch_plan_refuses_what_is_not_built():
-    """ordered=False and "smem" take only the cores built for them; the
-    warp's leaf tests are built for closest hit too; a bad core or
-    placement name raises."""
+    """A placement that is not one of TREE_SPACES raises; "smem" adds
+    rt::kSharedTree to the core, "vmem" (the same kernels) nothing."""
     plan = traverse.launch_plan
-    kw = dict(leaf_k=32, slots=4)
-    with pytest.raises(ValueError, match="ordered=False"):
-        plan("order+warp", any_hit=True, ordered=False, **kw)
-    assert plan(traverse.ANY_HIT_CORE, any_hit=False, **kw) == (97, False)
-    assert plan("warp", any_hit=False, **kw) == (32, False)
-    for core in ("baseline", "order+stack", "warp"):
-        with pytest.raises(ValueError, match="'hopper' core"):
-            plan(core, any_hit=True, tree_space="smem", **kw)
-    assert plan(traverse.ANY_HIT_CORE, any_hit=True, tree_space="smem", ordered=False,
-                **kw) == (97, False)
-    with pytest.raises(ValueError, match="core must be"):
-        plan("warp+warp", any_hit=True, **kw)
-    with pytest.raises(ValueError, match="tree_space must be"):
-        plan("hopper", any_hit=True, tree_space="l2", **kw)
+    for bad in ("l2", "HBM", "", "shared"):
+        with pytest.raises(ValueError, match="tree_space must be"):
+            plan(any_hit=True, leaf_k=32, tree_space=bad)
+    assert plan(any_hit=True, leaf_k=32, tree_space="smem", ordered=False) == (57, False)
+    assert plan(any_hit=True, leaf_k=8, tree_space="smem", scattered=True) == (113, True)
+    assert plan(any_hit=True, leaf_k=32, tree_space="vmem") == (33, False)
 
 
-def test_named_any_hit_cores_run_the_plain_version_on_cpu():
-    """On CPU records every any-hit core name runs the plain version (the
-    same words as "hopper") and counts no launch; so does closest hit with
-    the warp's leaf tests."""
-    tris, qn, o, d = one_record_cases(4, 8, 256, seed=3)
-    before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
-    ref = traverse.trace_rays(qn, o, d, any_hit=True, leaf_k=8)
-    for core in (traverse.ANY_HIT_CORE, "warp", "order+warp", "warp+pack"):
-        out = traverse.trace_rays(qn, o, d, any_hit=True, leaf_k=8, core=core)
-        assert all(torch.equal(a, b) for a, b in zip(out, ref)), core
-    closest = traverse.trace_rays(qn, o, d, leaf_k=8)
-    assert all(torch.equal(a, b) for a, b in
-               zip(traverse.trace_rays(qn, o, d, leaf_k=8, core="warp"), closest))
-    assert (dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)) == before
+LAUNCHERS = {"rt_trace_tiles": "traverse_tiles.cu", "rt_trace_tiles_batch": "traverse_tiles.cu",
+             "rt_trace_tiles_batch_raw": "traverse_tiles.cu", "rt_trace_rays": "traverse_rays.cu"}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_launchers_build_exactly_what_the_plans_return(launcher):
+    """The masks each C launcher instantiates are exactly those its plan
+    can return for any arguments: no core is built that no launch runs,
+    and no launch asks for one that is not built."""
+    ks = range(1, 70)
+    if launcher == "rt_trace_rays":
+        plans = {traverse.launch_plan(any_hit=a, leaf_k=k, ordered=o, scattered=s,
+                                      tree_space=t)[0]
+                 for a in (False, True) for k in ks for o in (False, True)
+                 for s in (False, True) for t in traverse.TREE_SPACES}
+    else:
+        plans = {traverse.tile_plan(leaf_k=k) for k in ks}
+    assert built_masks(LAUNCHERS[launcher], launcher) == plans
+
+
+@pytest.mark.parametrize("launch", ["any_hit", "closest_hit", "tiles"])
+def test_cores_run_the_plain_version_on_cpu(launch):
+    """On CPU records every launch runs the plain version — rays in both
+    orders, schedules and placements, tiles as frames and as the raw
+    layout — and counts no launch."""
+    before = dict(traverse.LAUNCHES)
+    if launch == "tiles":
+        _, rec, _, _ = one_record_cases(4, 8, 64, seed=2)
+        qn = rec.contiguous()
+        cam, quat = (0.0, 0.0, 3.0), (0.0, 0.0, 0.0, 1.0)
+        out = traverse.trace_tiles(qn, cam, quat, 24, 16, leaf_k=8)
+        ref = traverse.trace_tiles_reference(qn, cam, quat, 24, 16, leaf_k=8)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        raw = traverse.trace_tiles_batch(qn, [cam], [quat], 32, 32, leaf_k=8, raw=True)
+        assert torch.equal(raw, traverse.tiles_layout(traverse.trace_tiles_batch_reference(
+            qn, [cam], [quat], 32, 32, leaf_k=8)))
+    else:
+        any_hit = launch == "any_hit"
+        _, qn, o, d = one_record_cases(4, 8, 256, seed=3 if any_hit else 5)
+        for ordered in (True, False):
+            ref = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=8,
+                                                ordered=ordered)
+            for scattered in (False, True):
+                for space in traverse.TREE_SPACES:
+                    out = traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=8,
+                                              ordered=ordered, scattered=scattered,
+                                              tree_space=space)
+                    assert all(torch.equal(a, b) for a, b in zip(out, ref)), (ordered, space)
+    assert dict(traverse.LAUNCHES) == before
 
 
 def warp_leaf_position(rec: torch.Tensor, posted: torch.Tensor, o: torch.Tensor,

@@ -3,11 +3,10 @@ hit): the launch plan of ``ops/cuda/traverse.py::trace_rays`` and the warp's
 closest-hit leaf tests of ``csrc/traverse_core.cuh`` (``rt::warp_nearest``),
 on the CPU.
 
-* ``traverse.launch_plan`` routes closest hit over leaves of K > 1 under
-  "hopper" to ``CLOSEST_HIT_CORE``, K = 1 to the render core, and any hit
-  as before; "order", the render core by name, runs in both orders,
-  schedules and placements; the core's mask is the C++ one, and the
-  launcher builds its measured sets for closest hit too.
+* ``traverse.launch_plan`` routes closest hit over leaves of K > 1 to
+  ``CLOSEST_HIT_CORE``, K = 1 to the render core, and any hit as before,
+  in both orders, schedules and placements; the core's mask is the C++
+  one, and the launcher builds every core for closest hit too.
 * A plain torch model of the warp's closest-hit step — a visit's posted
   leaf slots tested in runs of 32 triangle positions, a lane each, against
   the ray's running best t; per run the least t (its bits as unsigned) and
@@ -19,8 +18,8 @@ on the CPU.
   t, ``det == 0`` and NaN triangles, at 4 and 8 slots.
 
 Needs no card and no Pallas call; the kernels themselves are held against
-the render core, the frozen loop and the plain version on the card
-(``tests/test_torch_kernel.py``, marker ``cuda``).
+the plain version on the card (``tests/test_torch_kernel.py``, marker
+``cuda``).
 """
 
 import re
@@ -152,69 +151,53 @@ def test_warp_nearest_cases_hold_ties_and_later_runs():
 @pytest.mark.parametrize("ordered", [True, False])
 @pytest.mark.parametrize("scattered", [False, True])
 def test_launch_plan_routes_closest_hit(slots, ordered, scattered):
-    """Under "hopper", closest hit over leaves of K > 1 runs
-    CLOSEST_HIT_CORE at both widths and in both orders, persistent where
-    the wave is scattered; K = 1 runs the render core; any hit keeps its
-    routing. "order" names the render core, in both orders and schedules."""
+    """Closest hit over leaves of K > 1 runs CLOSEST_HIT_CORE at both widths
+    and in both orders, persistent where the wave is scattered, without its
+    packed slots from K = 32 on; K = 1 runs the render core; any hit keeps
+    its routing. The launch counts under its width's kernel."""
     plan = traverse.launch_plan
-    closest = traverse.core_id(traverse.CLOSEST_HIT_CORE)
-    any_hit = traverse.core_id(traverse.ANY_HIT_CORE)
-    kw = dict(slots=slots, ordered=ordered, scattered=scattered)
+    order = 0 if ordered else traverse._UNORDERED
+    kw = dict(ordered=ordered, scattered=scattered)
     for k in (2, 8, 31, 32, 33, 64):
-        assert plan("hopper", any_hit=False, leaf_k=k, **kw) == (closest, scattered)
-        assert plan("hopper", any_hit=True, leaf_k=k, **kw) == (
-            any_hit, scattered and k < traverse._ANY_HIT_PERSISTENT_K)
-        assert plan("order", any_hit=False, leaf_k=k, **kw) == (1, scattered)
+        core = (traverse.CLOSEST_HIT_CORE if k < 32 else 33) | order
+        assert plan(any_hit=False, leaf_k=k, **kw) == (core, scattered)
+        assert plan(any_hit=True, leaf_k=k, **kw) == (
+            core, scattered and k < traverse._ANY_HIT_PERSISTENT_K)
     for ah in (False, True):
-        assert plan("hopper", any_hit=ah, leaf_k=1, **kw) == (-1, scattered)
+        assert plan(any_hit=ah, leaf_k=1, **kw) == (1 | order, scattered)
+    name = traverse._ray_launch_name(slots, False, ordered, "hbm")
+    assert name in traverse.LAUNCHES
+    assert name == ("trace_rays_k2c" if slots == 8 else "trace_rays_k2a") + (
+        "" if ordered else "_unordered")
 
 
 def test_closest_hit_core_is_the_kernels_mask():
     """CLOSEST_HIT_CORE is rt::kAnyHitCore's mask (the kernels' kAnyHit =
-    false form), "order" is rt::kRenderCore, and the launcher builds the
-    warp's measured sets for closest hit as for any hit."""
+    false form), the render core is rt::kRenderCore, and the ray launcher
+    builds every core for closest hit as for any hit, in both schedules."""
     bits = core_masks()
-    assert traverse.core_id(traverse.CLOSEST_HIT_CORE) == bits["kAnyHitCore"]
+    assert traverse.CLOSEST_HIT_CORE == bits["kAnyHitCore"]
     src = (build.CSRC / "traverse_core.cuh").read_text()
     render = re.search(r"kRenderCore = ([\w| ]+);", src).group(1).split("|")
-    assert traverse.core_id("order") == sum(bits[p.strip()] for p in render)
+    assert traverse.launch_plan(any_hit=False, leaf_k=1)[0] == sum(
+        bits[p.strip()] for p in render)
     rays = (build.CSRC / "traverse_rays.cu").read_text()
     for any_hit in ("true", "false"):
-        assert f"RT_MEASURED_WARP_CORES(RT_CASE, {any_hit})" in rays
+        for launch in ("launch_per_ray", "launch_persistent"):
+            assert f"{launch}<S, {any_hit}, CORE>" in rays, (launch, any_hit)
 
 
 def test_launch_plan_takes_closest_hit_cores_everywhere_they_are_built():
-    """The warp's closest-hit core takes smem, unordered and persistent
-    warps; its measured sets run one thread a ray; "order" takes every
-    placement; named cores without those forms are still refused."""
+    """The warp's closest-hit core, in both packing forms, and the render
+    core take every order, placement and schedule: the plan adds
+    rt::kUnordered and rt::kSharedTree to the core and keeps the caller's
+    schedule."""
     plan = traverse.launch_plan
-    kw = dict(leaf_k=32, slots=4)
-    cid = traverse.core_id(traverse.CLOSEST_HIT_CORE)
-    assert plan(traverse.CLOSEST_HIT_CORE, any_hit=False, tree_space="smem", ordered=False,
-                scattered=True, **kw) == (cid, True)
-    assert plan("order", any_hit=False, tree_space="smem", ordered=False, **kw) == (1, False)
-    for core in ("warp", "order+warp", "warp+pack"):
-        assert plan(core, any_hit=False, scattered=True, **kw) == (traverse.core_id(core), False)
-        with pytest.raises(ValueError, match="ordered=False"):
-            plan(core, any_hit=False, ordered=False, **kw)
-        with pytest.raises(ValueError, match="tree_space='smem'"):
-            plan(core, any_hit=False, tree_space="smem", **kw)
-
-
-def test_named_closest_hit_cores_run_the_plain_version_on_cpu():
-    """On CPU records the closest-hit core and its measured sets, each
-    order and schedule, and "order" run the plain version (the words of
-    "hopper") and count no launch."""
-    _, qn, o, d = one_record_cases(4, 8, 256, seed=5)
-    before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
-    ref = traverse.trace_rays(qn, o, d, leaf_k=8)
-    unordered = traverse.trace_rays(qn, o, d, leaf_k=8, ordered=False)
-    for core in (traverse.CLOSEST_HIT_CORE, "order", "warp", "order+warp", "warp+pack"):
-        out = traverse.trace_rays(qn, o, d, leaf_k=8, core=core)
-        assert all(torch.equal(a, b) for a, b in zip(out, ref)), core
-    for core in (traverse.CLOSEST_HIT_CORE, "order"):
-        for scattered in (False, True):
-            out = traverse.trace_rays(qn, o, d, leaf_k=8, core=core, ordered=False,
-                                      scattered=scattered, tree_space="smem")
-            assert all(torch.equal(a, b) for a, b in zip(out, unordered)), core
-    assert (dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)) == before
+    for k, core in ((8, traverse.CLOSEST_HIT_CORE), (32, 33), (1, 1)):
+        for ordered in (True, False):
+            for space in traverse.TREE_SPACES:
+                for scattered in (False, True):
+                    want = (core | (0 if ordered else traverse._UNORDERED)
+                            | (traverse._SHARED_TREE if space == "smem" else 0))
+                    assert plan(any_hit=False, leaf_k=k, ordered=ordered, scattered=scattered,
+                                tree_space=space) == (want, scattered)

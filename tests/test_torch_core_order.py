@@ -8,31 +8,31 @@ Python as its kernel writes it, against the plain version
   version's stable descending sort and drop, over random keys with ties, ±0,
   ±inf and NaN (on slots that do not pass) at 4 and 8 slots;
 * a one-ray walk with that order, a 64-entry array stack and the pushes
-  moved before the leaf tests (where the kernel prefetches the next record)
-  gives the plain version's triangle, t and visit count on every ray;
+  moved before the leaf tests (as the warp's leaf steps push them,
+  ``Ray::warp_step`` / ``tile_step``) gives the plain version's triangle, t
+  and visit count on every ray;
 * the walk's deepest stack equals the plain version's ``max_depth`` count;
   on the synthetic overflow records of ``torch_parity.deep_records`` it
-  passes the shared part of the kernel's stack (``kSharedEntries``) and
-  the 64-entry limit, where pushes are dropped.
+  passes the 16 entries the render paths' stacks stay within and the
+  64-entry limit, where pushes are dropped.
 
 Needs no card and no Pallas call: the CUDA kernels themselves are held
 against these rules on the card (``tests/test_torch_kernel.py``, marker
 ``cuda``).
 """
 
-import re
-
 import numpy as np
 import pytest
 import torch
 
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
-from raytracer_tpu_torch.ops.cuda import build, traverse
+from raytracer_tpu_torch.ops.cuda import traverse
 from raytracer_tpu_torch.ops.trace import STACK_MAX, moller_trumbore
 from torch_parity import CAM_POS, CAM_QUAT, FOV, deep_records, image_dirs, seeded_scene
 
-SHARED_ENTRIES = int(re.search(r"kSharedEntries = (\d+);",
-                               (build.CSRC / "traverse_core.cuh").read_text()).group(1))
+# the deepest stack measured on the render paths' rays (PERF.md §6), which
+# sized the shared-memory stack that the card measured and the port retired
+SHARED_ENTRIES = 16
 
 
 def rank_positions(keys: torch.Tensor, passing: torch.Tensor) -> torch.Tensor:

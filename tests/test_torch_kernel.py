@@ -20,16 +20,16 @@ equal to the plain version's on every ray whose triangle agrees, and its
 five other planes bit-equal to the kernel's without ``stats``; K1d by the
 closest-hit rule on its hits, with t = its tile's bound exactly where it finds
 none, and the bounded and temporal traces bit-equal to the unbounded kernel;
-the refit chain's records byte-equal; the redesigned core (``core="hopper"``,
-every render path) word for word equal to the frozen baseline core
-(``core="baseline"``) and to every subset of its design elements, in every
-launch shape and K2 schedule; any hit over leaves of K > 1 with the leaf
-tests spread over the warp (``traverse.ANY_HIT_CORE``) word for word equal
-to the frozen loop and the plain version at K = 2 to 64, both orders and
+the refit chain's records byte-equal; the core each launch plan runs (the
+render core at K = 1) word for word equal to the plain version run on the
+card, in every launch shape and K2 schedule; any hit over leaves of K > 1
+with the leaf tests spread over the warp (``traverse.ANY_HIT_CORE``) word
+for word equal to the plain version at K = 2 to 64, both orders and
 schedules, on stacks past 64 entries and under every placement; closest
-hit with the warp's leaf tests (``traverse.CLOSEST_HIT_CORE``) word for
-word equal to the render core (``core="order"``), the frozen loop and the
-plain version in the same cases, and on duplicate triangles at equal t; the raw
+hit with the warp's leaf tests (``traverse.CLOSEST_HIT_CORE``) the same,
+and on duplicate triangles at equal t; K1 over leaves of K > 1
+(``traverse.TILE_CORE``) word for word equal to the plain version in every
+variant; the raw
 tile layout of a batch (``raw=True``) bit-equal to the layout of its image
 planes on every word, and each record placement of K2 (``tree_space``
 "vmem", "smem") word for word equal to "hbm", leaving no access-policy
@@ -167,7 +167,7 @@ def test_build_hash_covers_included_headers(tmp_path):
     hdr.write_text("inline int g() { return 2; }\n")
     assert build.content_hash([src], build.NVCC_FLAGS, headers=[hdr]) != before
     assert [p.name for p in build.cuda_headers()] == [
-        "lanes.cuh", "raygen.cuh", "traverse_core.cuh", "traverse_core_baseline.cuh"]
+        "lanes.cuh", "raygen.cuh", "traverse_core.cuh"]
 
 
 def walk(qn: torch.Tensor, o: torch.Tensor, d: torch.Tensor, leaf_k: int, any_hit: bool):
@@ -797,12 +797,11 @@ def ray_cases(o: torch.Tensor, d: torch.Tensor, seed: int):
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("k", [1, 8, 32])
 def test_hopper_rays_equal_baseline_and_plain_on_card(cuda_device, k, width):
-    """K2a / K2b / K2c with the redesigned core, one thread per ray and as
-    persistent warps with dynamic fetch (``scattered``), write the baseline
-    core's words on every ray (closest and any hit: the any-hit order is
-    kept, so all planes agree), for every R and active share, and hold the
-    plain version's traversal rule; each launch counts once, under its
-    core."""
+    """K2a / K2b / K2c with the core the launch plan runs, one thread per
+    ray and as persistent warps with dynamic fetch (``scattered``), write
+    the plain version's words (run on the card) on every ray (closest and
+    any hit: the any-hit order is kept, so all planes agree), for every R
+    and active share; each launch counts once, under its kernel."""
     tris = room_scene()
     qn = records_of(tris, k, width, cuda_device)
     o, d = ray_buffer(qn, k, 4096)
@@ -811,93 +810,57 @@ def test_hopper_rays_equal_baseline_and_plain_on_card(cuda_device, k, width):
     for any_hit, dirs in ((False, d), (True, sun)):
         for ro, rd, act in ray_cases(o, dirs, k + width):
             kw = dict(any_hit=any_hit, leaf_k=k, active=act)
-            before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
-            base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
-            assert words_equal(traverse.trace_rays(qn, ro, rd, **kw), base)
-            ours = traverse.trace_rays(qn, ro, rd, scattered=True, **kw)
-            assert words_equal(ours, base), (any_hit, ro.shape[0])
+            plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
+            before = dict(traverse.LAUNCHES)
+            ours = traverse.trace_rays(qn, ro, rd, **kw)
+            persistent = traverse.trace_rays(qn, ro, rd, scattered=True, **kw)
             torch.cuda.synchronize()
             name = "trace_rays_k2c" if width == 8 else (
                 "trace_rays_k2b" if any_hit else "trace_rays_k2a")
-            assert launched(before[0]) == {name: 2}
-            assert traverse.MEASURE_LAUNCHES[name] == before[1][name] + 1
-            if (act if act is not None else torch.ones_like(ro[:, 0], dtype=torch.bool)
-                    ).sum() < 1000:
-                continue
-            ref = [p.cpu() for p in traverse.trace_rays_reference(qn, ro, rd, **kw)]
-            mask = slice(None) if act is None else act.cpu()
-            if any_hit:
-                assert torch.equal(base[4].cpu() >= 0, ref[4] >= 0)
-            else:
-                assert_trace_parity([p.cpu()[mask] for p in base], ref[0][mask], ref[4][mask],
-                                    torch.stack(ref[1:4], -1)[mask].numpy(), tris,
-                                    rd.cpu()[mask], ro.cpu()[mask].numpy())
+            assert launched(before) == {name: 2}
+            assert words_equal(ours, plain), (any_hit, ro.shape[0])
+            assert words_equal(persistent, plain), (any_hit, ro.shape[0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("k", [1, 8, 32])
 def test_hopper_tiles_equal_baseline_on_card(cuda_device, k, width):
-    """K1a, K1b, K1c, K1d, K1e and K1f with the redesigned core write the
-    baseline core's words on every pixel."""
+    """K1a, K1b, K1c, K1d, K1e and K1f with the core the tile plan runs
+    write the plain version's words (run on the card) on every pixel."""
     tris = seeded_scene(4)
     qn = records_of(tris, k, width, cuda_device)
-    w, h = 150, 98
-    bounds = torch.full((-(-h // 32), -(-w // 32)), 2.6, device=cuda_device)
-    entries = torch.zeros_like(bounds, dtype=torch.int32)
-    calls = {
-        "k1a": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k, **c),
-        "k1b": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
-                                                jitter=True, jitter_seed=77, **c),
-        "k1d": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
-                                                entries=entries, tbounds=bounds, **c),
-        "k1f": lambda **c: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
-                                                stats=True, **c),
-        "k1c": lambda **c: traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV,
-                                                      leaf_k=k, jitter=True,
-                                                      jitter_seeds=BATCH_SEEDS, **c),
-    }
-    for name, call in calls.items():
-        base = call(core="baseline")
-        assert words_equal(call(), base), name
-        assert words_equal(call(core="baseline"), base), name
+    calls = tile_variants(qn, k)
+    del calls["k1c_raw"]
+    assert_tiles_match_plain(calls)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 def test_hopper_drops_like_baseline_and_plain_on_card(cuda_device, width):
-    """Synthetic records whose stacks pass the shared entries and 64: the
-    redesigned kernels, one thread per ray and persistent, and at 4 slots
-    the cores with the shared stack (its spill to local memory past
-    kSharedEntries runs here), drop the same pushes as the baseline core and
-    the plain version (the same words, and the plain version's
-    triangles)."""
+    """Synthetic records whose stacks pass 64 entries: the kernels at
+    K = 1, one thread per ray and persistent, drop the same pushes as the
+    plain version (the same words, closest and any hit)."""
     qn, o, d = deep_records(width)
     qn = qn.to(cuda_device)
     o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
     counts = traverse.TraversalCounts()
-    ref = traverse.trace_rays_reference(qn, o, d, leaf_k=1, counts=counts)
+    traverse.trace_rays_reference(qn, o, d, leaf_k=1, counts=counts)
     assert counts.dropped > 0 and counts.max_depth == 64
-    stack_cores = ("stack", "order+stack", "order+stack+prefetch") if width == 4 else ()
     for any_hit in (False, True):
         kw = dict(any_hit=any_hit, leaf_k=1)
-        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
-        assert words_equal(traverse.trace_rays(qn, o, d, **kw), base)
-        assert words_equal(traverse.trace_rays(qn, o, d, scattered=True, **kw), base)
-        for core in stack_cores:
-            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
-    base = traverse.trace_rays(qn, o, d, leaf_k=1, core="baseline")
-    assert torch.equal(base[4], ref[4]) and torch.equal(base[0], ref[0])
+        plain = traverse.trace_rays_reference(qn, o, d, **kw)
+        assert words_equal(traverse.trace_rays(qn, o, d, **kw), plain)
+        assert words_equal(traverse.trace_rays(qn, o, d, scattered=True, **kw), plain)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("k", [1, 8, 32])
 def test_unordered_rays_match_plain_on_card(cuda_device, k, width):
-    """K2a / K2b / K2c with ``ordered=False`` (one thread per ray, the
-    persistent warps, and any hit over leaves of K > 1 through the baseline
-    loop) write the plain version's words (ordered=False there too, run on
-    the card) on every ray; their closest-hit planes are the ordered
+    """K2a / K2b / K2c with ``ordered=False`` (one thread per ray and the
+    persistent warps) write the plain version's words (ordered=False there
+    too, run on the card) on every ray; their closest-hit planes are the ordered
     kernel's and their occlusion masks its masks; each launch counts once,
     under its ``_unordered`` name. On records whose stacks pass 64 entries
     in slot order, the same pushes are dropped as by the plain version."""
@@ -930,9 +893,8 @@ def test_unordered_rays_match_plain_on_card(cuda_device, k, width):
     for any_hit in (False, True):
         plain = traverse.trace_rays_reference(qn, o, d, any_hit=any_hit, leaf_k=1,
                                               ordered=False, counts=counts)
-        for core in ("hopper", "baseline"):
-            assert words_equal(traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=1,
-                                                   ordered=False, core=core), plain), core
+        assert words_equal(traverse.trace_rays(qn, o, d, any_hit=any_hit, leaf_k=1,
+                                               ordered=False), plain), any_hit
     assert counts.dropped > 0
 
 
@@ -955,13 +917,12 @@ def edge_rays(tris: np.ndarray, n: int, seed: int) -> tuple[np.ndarray, np.ndarr
 @pytest.mark.parametrize("k", [2, 8, 32, 33, 64])
 def test_any_hit_core_equals_baseline_and_plain_on_card(cuda_device, k, width):
     """Any hit over leaves of K > 1 with the leaf tests spread over the warp
-    (``traverse.ANY_HIT_CORE``), one thread per ray and as persistent warps,
-    in both orders, writes the frozen loop's words (``core="baseline"``, the
-    same order) and the plain version's (run on the card) on every ray: for
+    (``traverse.ANY_HIT_CORE``, what the launch plan runs there), one thread
+    per ray and as persistent warps, in both orders, writes the plain
+    version's words (run on the card, the same order) on every ray: for
     every R and active share, on rays toward the sun and on rays that graze
-    shared edges, at K up to 64 (slots served in runs of 32). Under
-    ``core="hopper"`` each call launches once, counted under the kernel's
-    name."""
+    shared edges, at K up to 64 (slots served in runs of 32). Each call
+    launches once, counted under the kernel's name."""
     tris = room_scene()
     qn = records_of(tris, k, width, cuda_device)
     o, d = ray_buffer(qn, k, 4096)
@@ -973,44 +934,36 @@ def test_any_hit_core_equals_baseline_and_plain_on_card(cuda_device, k, width):
         for ro, rd, act in ray_cases(origins, dirs, k + width):
             for ordered in (True, False):
                 kw = dict(any_hit=True, leaf_k=k, active=act, ordered=ordered)
-                base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
+                plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
                 for scattered in (False, True):
-                    ours = traverse.trace_rays(qn, ro, rd, core=traverse.ANY_HIT_CORE,
-                                               scattered=scattered, **kw)
-                    assert words_equal(ours, base), (ordered, scattered, ro.shape[0])
                     before = dict(traverse.LAUNCHES)
-                    hopper = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
+                    ours = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
                     torch.cuda.synchronize()
                     assert launched(before) == {name + ("" if ordered else "_unordered"): 1}
-                    assert words_equal(hopper, base), (ordered, scattered, ro.shape[0])
-                plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
-                assert words_equal(plain, base), (ordered, ro.shape[0])
+                    assert words_equal(ours, plain), (ordered, scattered, ro.shape[0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 def test_any_hit_core_drops_like_baseline_on_card(cuda_device, width):
-    """On records whose stacks pass 64 entries (``deep_records``, K = 1,
-    the chain child in a seeded slot, and in the last slot, where the
-    stacks of slot order overflow too), any hit with the leaf tests spread
-    over the warp, both orders and schedules, and at 4 slots each measured
-    set of its elements, drops the frozen loop's pushes: the same words as
-    ``core="baseline"`` and the plain version."""
+    """On records whose stacks pass 64 entries (``deep_records`` laid out
+    for K = 2, one triangle a leaf, so that the launch plan runs the warp's
+    leaf tests; the chain child in a seeded slot, and in the last slot,
+    where the stacks of slot order overflow too), any hit with the leaf
+    tests spread over the warp, both orders and schedules, drops the plain
+    version's pushes: the same words."""
     for chain_slot, ordered in ((None, True), (width - 1, True), (width - 1, False)):
-        qn, o, d = deep_records(width, chain_slot=chain_slot)
+        qn, o, d = deep_records(width, chain_slot=chain_slot, leaf_k=2)
         qn = qn.to(cuda_device)
         o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
-        kw = dict(any_hit=True, leaf_k=1, ordered=ordered)
+        kw = dict(any_hit=True, leaf_k=2, ordered=ordered)
+        assert traverse.launch_plan(**kw)[0] & ~traverse._UNORDERED == traverse.ANY_HIT_CORE
         counts = traverse.TraversalCounts()
         plain = traverse.trace_rays_reference(qn, o, d, counts=counts, **kw)
         assert counts.dropped > 0
-        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
-        assert words_equal(plain, base)
         for scattered in (False, True):
-            assert words_equal(traverse.trace_rays(qn, o, d, core=traverse.ANY_HIT_CORE,
-                                                   scattered=scattered, **kw), base)
-        for core in (WARP_CORES if width == 4 and ordered else ()):
-            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
+            assert words_equal(traverse.trace_rays(qn, o, d, scattered=scattered, **kw),
+                               plain), (chain_slot, ordered, scattered)
 
 
 @pytest.mark.cuda
@@ -1019,9 +972,9 @@ def test_any_hit_core_drops_like_baseline_on_card(cuda_device, width):
 def test_any_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
     """Any hit with the leaf tests spread over the warp writes the words of
     "hbm" with the records pinned in L2 ("vmem") and in each block's shared
-    memory ("smem", 128 and 512 threads a block; the records of the room's
-    walls and part of its ball fit at both widths), in both orders and
-    schedules, with and without an active mask."""
+    memory ("smem", 512 threads a block; the records of the room's walls
+    and part of its ball fit at both widths), in both orders and schedules,
+    with and without an active mask."""
     tris = room_scene()[:120]
     qn = records_of(tris, k, width, cuda_device)
     assert qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
@@ -1032,12 +985,10 @@ def test_any_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
         for ordered in (True, False):
             for scattered in (False, True):
                 kw = dict(any_hit=True, leaf_k=k, active=act, ordered=ordered,
-                          scattered=scattered, core=traverse.ANY_HIT_CORE)
+                          scattered=scattered)
                 ref = traverse.trace_rays(qn, ro, rd, **kw)
                 assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="vmem", **kw), ref)
-                for b in (128, 512):
-                    assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="smem",
-                                                           smem_block=b, **kw), ref), b
+                assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="smem", **kw), ref)
 
 
 def dup_scene() -> np.ndarray:
@@ -1053,15 +1004,13 @@ def dup_scene() -> np.ndarray:
 @pytest.mark.parametrize("k", [2, 8, 32, 33, 64])
 def test_closest_hit_core_equals_render_core_and_baseline_on_card(cuda_device, k, width):
     """Closest hit over leaves of K > 1 with the leaf tests spread over the
-    warp (``traverse.CLOSEST_HIT_CORE``: every run of 32 served, the least t
-    and its lowest lane), one thread per ray and as persistent warps, in
-    both orders, writes the render core's words (``core="order"``), the
-    frozen loop's (``core="baseline"``) and the plain version's (run on the
-    card) on every ray: for every R and active share, on bounce-like rays,
-    on rays that graze shared edges, on a scene of duplicate triangles at
-    equal t, at K up to 64 (slots served in runs of 32). Under
-    ``core="hopper"`` each call launches once, counted under the kernel's
-    name."""
+    warp (``traverse.CLOSEST_HIT_CORE``, what the launch plan runs there:
+    every run of 32 served, the least t and its lowest lane), one thread per
+    ray and as persistent warps, in both orders, writes the plain version's
+    words (run on the card) on every ray: for every R and active share, on
+    bounce-like rays, on rays that graze shared edges, on a scene of
+    duplicate triangles at equal t, at K up to 64 (slots served in runs of
+    32). Each call launches once, counted under the kernel's name."""
     name = "trace_rays_k2c" if width == 8 else "trace_rays_k2a"
     for tris, edges in ((room_scene(), True), (dup_scene(), False)):
         qn = records_of(tris, k, width, cuda_device)
@@ -1074,123 +1023,78 @@ def test_closest_hit_core_equals_render_core_and_baseline_on_card(cuda_device, k
             for ro, rd, act in ray_cases(origins, dirs, k + width):
                 for ordered in (True, False):
                     kw = dict(leaf_k=k, active=act, ordered=ordered)
-                    base = traverse.trace_rays(qn, ro, rd, core="baseline", **kw)
+                    plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
                     for scattered in (False, True):
-                        render_core = traverse.trace_rays(qn, ro, rd, core="order",
-                                                          scattered=scattered, **kw)
-                        assert words_equal(render_core, base), (ordered, scattered)
-                        ours = traverse.trace_rays(qn, ro, rd, core=traverse.CLOSEST_HIT_CORE,
-                                                   scattered=scattered, **kw)
-                        assert words_equal(ours, base), (ordered, scattered, ro.shape[0])
                         before = dict(traverse.LAUNCHES)
-                        hopper = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
+                        ours = traverse.trace_rays(qn, ro, rd, scattered=scattered, **kw)
                         torch.cuda.synchronize()
                         assert launched(before) == {name + ("" if ordered else "_unordered"): 1}
-                        assert words_equal(hopper, base), (ordered, scattered, ro.shape[0])
-                    plain = traverse.trace_rays_reference(qn, ro, rd, **kw)
-                    assert words_equal(plain, base), (ordered, ro.shape[0])
+                        assert words_equal(ours, plain), (ordered, scattered, ro.shape[0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 def test_closest_hit_core_drops_like_baseline_on_card(cuda_device, width):
-    """On records whose stacks pass 64 entries (``deep_records``, K = 1,
-    the chain child in a seeded slot and in the last slot), closest hit with
-    the warp's leaf tests, both orders and schedules, and at 4 slots each
-    measured set of its elements, drops the pushes of the render core and
-    of the frozen loop: the same words as ``core="order"``,
-    ``core="baseline"`` and the plain version."""
+    """On records whose stacks pass 64 entries (``deep_records`` laid out
+    for K = 2, one triangle a leaf, so that the launch plan runs the warp's
+    leaf tests; the chain child in a seeded slot and in the last slot),
+    closest hit with the warp's leaf tests, both orders and schedules, drops
+    the plain version's pushes: the same words."""
     for chain_slot, ordered in ((None, True), (width - 1, True), (width - 1, False)):
-        qn, o, d = deep_records(width, chain_slot=chain_slot)
+        qn, o, d = deep_records(width, chain_slot=chain_slot, leaf_k=2)
         qn = qn.to(cuda_device)
         o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
-        kw = dict(leaf_k=1, ordered=ordered)
+        kw = dict(leaf_k=2, ordered=ordered)
+        assert (traverse.launch_plan(any_hit=False, **kw)[0] & ~traverse._UNORDERED
+                == traverse.CLOSEST_HIT_CORE)
         counts = traverse.TraversalCounts()
         plain = traverse.trace_rays_reference(qn, o, d, counts=counts, **kw)
         assert counts.dropped > 0
-        base = traverse.trace_rays(qn, o, d, core="baseline", **kw)
-        assert words_equal(plain, base)
         for scattered in (False, True):
-            for core in ("order", traverse.CLOSEST_HIT_CORE):
-                assert words_equal(traverse.trace_rays(qn, o, d, core=core,
-                                                       scattered=scattered, **kw), base), core
-        for core in (WARP_CORES if width == 4 and ordered else ()):
-            assert words_equal(traverse.trace_rays(qn, o, d, core=core, **kw), base), core
+            assert words_equal(traverse.trace_rays(qn, o, d, scattered=scattered, **kw),
+                               plain), (chain_slot, ordered, scattered)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("k", [8, 32])
 def test_closest_hit_core_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
-    """Closest hit with the warp's leaf tests writes the render core's
-    "hbm" words with the records pinned in L2 ("vmem") and in each block's
-    shared memory ("smem", 128 and 512 threads a block), in both orders and
-    schedules, with and without an active mask; "order" under "smem" too."""
+    """Closest hit with the warp's leaf tests writes the plain version's
+    words in device memory ("hbm"), with the records pinned in L2 ("vmem")
+    and in each block's shared memory ("smem", 512 threads a block), in
+    both orders and schedules, with and without an active mask."""
     tris = room_scene()[:120]
     qn = records_of(tris, k, width, cuda_device)
     assert qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
     o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, k, 4096))
     for ro, rd, act in list(ray_cases(o, d, k + width))[6:12]:
         for ordered in (True, False):
+            ref = traverse.trace_rays_reference(qn, ro, rd, leaf_k=k, active=act,
+                                                ordered=ordered)
             for scattered in (False, True):
                 kw = dict(leaf_k=k, active=act, ordered=ordered, scattered=scattered)
-                ref = traverse.trace_rays(qn, ro, rd, core="order", **kw)
-                for core in (traverse.CLOSEST_HIT_CORE, "order"):
-                    assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space="vmem",
-                                                           core=core, **kw), ref), core
-                    for b in (128, 512):
-                        assert words_equal(traverse.trace_rays(
-                            qn, ro, rd, tree_space="smem", smem_block=b, core=core, **kw),
-                            ref), (core, b)
+                for space in traverse.TREE_SPACES:
+                    assert words_equal(traverse.trace_rays(qn, ro, rd, tree_space=space, **kw),
+                                       ref), (space, ordered, scattered)
 
 
-MEASURED_CORES = ("none", "order", "stack", "prefetch", "order+stack", "order+prefetch",
-                  "stack+prefetch", "order+stack+prefetch")
-# the measured sets of the warp's leaf tests (4 slots, one thread a ray)
-WARP_CORES = ("warp", "order+warp", "warp+pack")
 
 
-@pytest.mark.cuda
-def test_element_cores_equal_hopper_on_card(cuda_device):
-    """K1a, K2a and K2b with each set of the design elements write the same
-    words as the render paths' core; a set is refused where it is not
-    built."""
-    tris = room_scene()
-    qn = records_of(tris, 8, 4, cuda_device)
-    o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 8192))
-    sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
-    full_rays = traverse.trace_rays(qn, o, d, leaf_k=8)
-    full_any = traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8)
-    full_tiles = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8)
-    for core in MEASURED_CORES:
-        assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core=core), full_rays), core
-        assert words_equal(traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8, core=core),
-                           full_any), core
-        assert words_equal(traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8,
-                                                core=core), full_tiles), core
-    for core in WARP_CORES:
-        assert words_equal(traverse.trace_rays(qn, o, sun, any_hit=True, leaf_k=8, core=core),
-                           full_any), core
-        assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core=core), full_rays), core
-    qn8 = records_of(tris, 8, 8, cuda_device)
-    with pytest.raises(RuntimeError):
-        traverse.trace_rays(qn8, o, d, leaf_k=8, core="order+stack")
-    with pytest.raises(ValueError, match="not built"):  # tile_plan refuses it unlaunched
-        traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 96, 64, FOV, leaf_k=8, jitter=True,
-                             core="stack")
+
+
 
 
 @pytest.mark.cuda
 def test_ray_counter_resets_per_launch_on_card(cuda_device):
     """Persistent K2 launches back to back on one stream, and on two streams
     at once, each with its own counter: every result equals its ray
-    buffer's baseline."""
+    buffer's plain version (run on the card)."""
     tris = room_scene()
     qn = records_of(tris, 8, 4, cuda_device)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 8192))
     halves = [(o[:5000].contiguous(), d[:5000].contiguous()),
               (o[3000:].contiguous(), d[3000:].contiguous())]
-    base = [traverse.trace_rays(qn, a, b, leaf_k=8, core="baseline") for a, b in halves]
+    base = [traverse.trace_rays_reference(qn, a, b, leaf_k=8) for a, b in halves]
     one = [traverse.trace_rays(qn, a, b, leaf_k=8, scattered=True) for a, b in halves]
     streams = [torch.cuda.Stream(cuda_device) for _ in halves]
     torch.cuda.synchronize()
@@ -1213,42 +1117,49 @@ def tile_records(tris: np.ndarray, k: int, width: int, builder: str, device) -> 
 
 
 def tile_variants(qn: torch.Tensor, k: int, w: int = 150, h: int = 98, **window) -> dict:
-    """Every K1 variant as a call of its core: K1a, K1b, K1d (bounds and
-    entries), K1f (visits), K1c (a jittered batch) and K1c raw (whole
-    frames of 96x64); on 8-wide records the first five are K1e's forms."""
+    """Every K1 variant → (its call, its plain version's call on the
+    records' device): K1a, K1b, K1d (bounds and entries), K1f (visits), K1c
+    (a jittered batch) and K1c raw (whole frames of 96x64); on 8-wide
+    records the first five are K1e's forms."""
     dev = qn.device
     bounds = torch.full((-(-h // 32), -(-w // 32)), 2.6, device=dev)
     entries = torch.zeros_like(bounds, dtype=torch.int32)
+    rg_w, rg_h = window.get("raygen_size", (w, h))
+    r0, c0 = window.get("row_offset", 0), window.get("col_offset", 0)
+    pixels = traverse._window_pixels(w, h, rg_w, r0, c0).to(dev)
 
     def tiles(**kw):
-        return lambda core: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
-                                                 core=core, **window, **kw)
+        return (lambda: traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, w, h, FOV, leaf_k=k,
+                                             **window, **kw),
+                lambda: [p.reshape(h, w) for p in traverse.trace_tiles_reference(
+                    qn, CAM_POS, CAM_QUAT, rg_w, rg_h, FOV, leaf_k=k, pixels=pixels,
+                    tile_origin=(r0, c0), **kw)])
 
+    batch = dict(jitter=True, jitter_seeds=BATCH_SEEDS)
     return {
         "k1a": tiles(), "k1b": tiles(jitter=True, jitter_seed=77),
         "k1d": tiles(entries=entries, tbounds=bounds), "k1f": tiles(stats=True),
-        "k1c": lambda core: traverse.trace_tiles_batch(
-            qn, BATCH_POS, BATCH_QUAT, w, h, FOV, leaf_k=k, jitter=True,
-            jitter_seeds=BATCH_SEEDS, core=core, **window),
-        "k1c_raw": lambda core: traverse.trace_tiles_batch(
-            qn, BATCH_POS, BATCH_QUAT, 96, 64, FOV, leaf_k=k, raw=True, core=core),
+        "k1c": (lambda: traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, w, h, FOV,
+                                                   leaf_k=k, **batch, **window),
+                lambda: [p.reshape(-1, h, w) for p in traverse.trace_tiles_batch_reference(
+                    qn, BATCH_POS, BATCH_QUAT, rg_w, rg_h, FOV, k, pixels=pixels, **batch)]),
+        "k1c_raw": (lambda: traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, 96, 64, FOV,
+                                                       leaf_k=k, raw=True),
+                    lambda: [traverse.tiles_layout(traverse.trace_tiles_batch_reference(
+                        qn, BATCH_POS, BATCH_QUAT, 96, 64, FOV, k))]),
     }
 
 
-def assert_tile_cores_agree(qn: torch.Tensor, k: int, calls: dict) -> None:
-    """Each call under TILE_CORE writes the render core's (``core="order"``)
-    and the frozen loop's words; under "hopper" it launches once, counted
-    under the variant's name."""
-    for name, call in calls.items():
-        ref = call("order")
-        if name != "k1c_raw":
-            assert words_equal(call("baseline"), ref), name
-        assert words_equal(call(traverse.TILE_CORE), ref), name
+def assert_tiles_match_plain(calls: dict) -> None:
+    """Each call (tile_variants) writes its plain version's words and
+    launches once, counted under the variant's name."""
+    for name, (call, plain) in calls.items():
+        want = plain()
         before = dict(traverse.LAUNCHES)
-        out = call("hopper")
+        out = call()
         torch.cuda.synchronize()
         assert len(launched(before)) == 1 and sum(launched(before).values()) == 1, name
-        assert words_equal(out, ref), name
+        assert words_equal(out if isinstance(out, tuple) else [out], want), name
 
 
 @pytest.mark.cuda
@@ -1256,23 +1167,17 @@ def assert_tile_cores_agree(qn: torch.Tensor, k: int, calls: dict) -> None:
 @pytest.mark.parametrize("k,builder", [(32, "sah"), (8, "lbvh"), (2, "sah"), (64, "sah")])
 def test_tile_core_equals_render_core_and_baseline_on_card(cuda_device, k, builder, width):
     """K1 over leaves of K > 1 with the per-step choice of leaf stage
-    (``traverse.TILE_CORE``: the warp's tests where c·w < m, each lane's
-    loop otherwise) writes the words of the render core and of the frozen
-    loop in every K1 variant (K1a, K1b, K1c and its raw layout, K1d, K1e at
-    8 slots, K1f), on SAH clusters of K = 2, 32, 64 and Morton runs of
-    K = 8 (packed runs below K = 32), on a scene and on the same scene with
-    every fifth triangle twice (duplicates at equal t); and K1a holds the
-    plain version's traversal rule."""
+    (``traverse.TILE_CORE``, what the tile plan runs there: the warp's
+    tests where c·w < m, each lane's loop otherwise) writes the plain
+    version's words (run on the card) in every K1 variant (K1a, K1b, K1c and
+    its raw layout, K1d, K1e at 8 slots, K1f), on SAH clusters of K = 2, 32,
+    64 and Morton runs of K = 8 (packed runs below K = 32), on a scene and
+    on the same scene with every fifth triangle twice (duplicates at equal
+    t)."""
     scene = seeded_scene(4)
     for tris in (scene, np.concatenate([scene, scene[::5]])):
         qn = tile_records(tris, k, width, builder, cuda_device)
-        calls = tile_variants(qn, k)
-        assert_tile_cores_agree(qn, k, calls)
-        ours = [p.cpu() for p in calls["k1a"](traverse.TILE_CORE)]
-        ref = [p.cpu() for p in traverse.trace_tiles_reference(qn, CAM_POS, CAM_QUAT, 150, 98,
-                                                                FOV, leaf_k=k)]
-        assert_trace_parity(ours, ref[0], ref[4], torch.stack(ref[1:4], -1).numpy(), tris,
-                            image_dirs(150, 98))
+        assert_tiles_match_plain(tile_variants(qn, k))
 
 
 @pytest.mark.cuda
@@ -1281,56 +1186,44 @@ def test_tile_core_window_off_the_block_grid_on_card(cuda_device, width):
     """A 1,000 x 600 window at (37, 53) of a 1920 x 1080 frame: its sides
     and offsets are no multiples of 8, so warps of the tile kernels hold
     lanes outside the window, which help the warp test leaves and store
-    nothing. Every variant under TILE_CORE writes the render core's words,
-    the one-frame window the same pixels as the whole frame."""
+    nothing. Every variant under TILE_CORE writes the plain version's
+    words, the one-frame window the same pixels as the whole frame."""
     tris = seeded_scene(4)
     qn = tile_records(tris, 32, width, "sah", cuda_device)
     window = dict(raygen_size=(1920, 1080), row_offset=37, col_offset=53)
     calls = tile_variants(qn, 32, 1000, 600, **window)
     del calls["k1c_raw"]  # whole frames only
-    assert_tile_cores_agree(qn, 32, calls)
-    full = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 1920, 1080, FOV, leaf_k=32,
-                                core=traverse.TILE_CORE)
-    part = calls["k1a"](traverse.TILE_CORE)
+    assert_tiles_match_plain(calls)
+    full = traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 1920, 1080, FOV, leaf_k=32)
+    part = calls["k1a"][0]()
     assert all(torch.equal(a, b[37:637, 53:1053]) for a, b in zip(part, full))
 
 
 @pytest.mark.cuda
 def test_tile_core_on_the_cornell_box_on_card(cuda_device):
     """The Cornell box at SAH K = 32 (a tree of 3 records, where every lane
-    of a warp posts the same leaf): TILE_CORE writes the render core's and
-    the frozen loop's words at 1920 x 1080 and in a jittered batch."""
+    of a warp posts the same leaf): TILE_CORE writes the plain version's
+    words at 1920 x 1080 and in a jittered batch."""
     scene = Scene().set_triangles(procgen.make_cornell_box())
     scene._normalize_enabled, scene._normalize_mode = True, "cube"
     scene.normalize_mesh()
     qn = records_of(scene.triangles, 32, 4, cuda_device)
-    cam = (0.0, 0.0, 2.2)
+    cam, quat = (0.0, 0.0, 2.2), (0, 0, 0, 1.0)
+    batch = dict(jitter=True, jitter_seeds=BATCH_SEEDS)
     calls = {
-        "k1a": lambda core: traverse.trace_tiles(qn, cam, (0, 0, 0, 1.0), 1920, 1080, FOV,
-                                                 leaf_k=32, core=core),
-        "k1c": lambda core: traverse.trace_tiles_batch(
-            qn, BATCH_POS, BATCH_QUAT, 320, 200, FOV, leaf_k=32, jitter=True,
-            jitter_seeds=BATCH_SEEDS, core=core),
+        "k1a": (lambda: traverse.trace_tiles(qn, cam, quat, 1920, 1080, FOV, leaf_k=32),
+                lambda: traverse.trace_tiles_reference(qn, cam, quat, 1920, 1080, FOV,
+                                                       leaf_k=32)),
+        "k1c": (lambda: traverse.trace_tiles_batch(qn, BATCH_POS, BATCH_QUAT, 320, 200, FOV,
+                                                   leaf_k=32, **batch),
+                lambda: traverse.trace_tiles_batch_reference(qn, BATCH_POS, BATCH_QUAT, 320,
+                                                             200, FOV, 32, **batch)),
     }
-    assert_tile_cores_agree(qn, 32, calls)
-    assert int((calls["k1a"]("hopper")[4] >= 0).sum()) > 1920 * 1080 // 4
+    assert_tiles_match_plain(calls)
+    assert int((calls["k1a"][0]()[4] >= 0).sum()) > 1920 * 1080 // 4
 
 
-def test_core_names_are_checked_on_cpu():
-    """The CPU path takes every core name and schedule (its plain version is
-    the same) and refuses an unknown core."""
-    _, qn, o, d = room("cpu", n=64)
-    ref = traverse.trace_rays(qn, o, d, leaf_k=8)
-    assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, core="baseline"), ref)
-    assert words_equal(traverse.trace_rays(qn, o, d, leaf_k=8, scattered=True), ref)
-    assert traverse.core_id("hopper") == -1 and traverse.core_id("baseline") == 256
-    assert traverse.core_id("prefetch+order") == traverse.core_id("order+prefetch") == 5
-    with pytest.raises(ValueError, match="core must be"):
-        traverse.core_id("order+order")
-    with pytest.raises(ValueError, match="core must be"):
-        traverse.trace_rays(qn, o, d, leaf_k=8, core="fast")
-    with pytest.raises(ValueError, match="core must be"):
-        traverse.trace_tiles(qn, CAM_POS, CAM_QUAT, 8, 8, FOV, leaf_k=8, core="fast")
+
 
 
 @pytest.mark.cuda
@@ -1373,18 +1266,17 @@ def test_raw_layout_equals_image_planes_on_card(cuda_device, width):
 @pytest.mark.parametrize("k", [1, 8, 32])
 def test_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
     """K2a / K2b / K2c with the records pinned in L2 ("vmem") and in each
-    block's shared memory ("smem", at 128 and 512 threads a block) write
-    the words of "hbm" on every ray, with and without near-first order,
-    one thread per ray and persistent (any hit over leaves of K > 1 through
-    the core that ``traverse.launch_plan`` picks), with and without an
-    active mask; each
+    block's shared memory ("smem", 512 threads a block) write the words of
+    "hbm" on every ray, with and without near-first order, one thread per
+    ray and persistent (over leaves of K > 1 through the core that
+    ``traverse.launch_plan`` picks), with and without an active mask; each
     launch counts once, under its _vmem / _smem name. Records larger than a
     block's shared memory (the room's at K = 1 and 4 slots) raise for
     "smem" instead, and launch nothing."""
     tris = room_scene()
     qn = records_of(tris, k, width, cuda_device)
     fits = qn.numel() * 4 <= traverse.tree_space_limits(cuda_device)["smem_optin"]
-    blocks = (128, 512) if fits else ()
+
     o, d = ray_buffer(qn, k, 4096)
     o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
     sun = torch.from_numpy(SUN).to(cuda_device).expand_as(d).contiguous()
@@ -1401,17 +1293,16 @@ def test_tree_spaces_equal_hbm_on_card(cuda_device, k, width):
                     vmem = traverse.trace_rays(qn, ro, rd, scattered=scattered,
                                                tree_space="vmem", **kw)
                     smem = [traverse.trace_rays(qn, ro, rd, scattered=scattered,
-                                                tree_space="smem", smem_block=b, **kw)
-                            for b in blocks]
+                                                tree_space="smem", **kw)] if fits else []
                     if not fits:
                         with pytest.raises(ValueError, match="shared memory"):
                             traverse.trace_rays(qn, ro, rd, tree_space="smem", **kw)
                     torch.cuda.synchronize()
-                    want = {name + "_vmem": 1, name + "_smem": len(blocks)}
+                    want = {name + "_vmem": 1, name + "_smem": len(smem)}
                     assert launched(before) == {n: c for n, c in want.items() if c}
                     assert words_equal(vmem, ref), ("vmem", any_hit, ordered, scattered)
-                    for b, out in zip(blocks, smem):
-                        assert words_equal(out, ref), ("smem", b, any_hit, ordered, scattered)
+                    for out in smem:
+                        assert words_equal(out, ref), ("smem", any_hit, ordered, scattered)
     if k == 1:
         deep, do, dd = deep_records(width, depth=24)  # fits a block at 8 slots
         deep = deep.to(cuda_device)
@@ -1428,7 +1319,7 @@ def test_vmem_leaves_no_window_or_carveout_on_card(cuda_device):
     """After "vmem" calls on PyTorch's stream and on a side stream neither
     stream holds an access-policy window and the persisting L2 carve-out is
     what it was; records beyond a placement's limit raise ValueError before
-    anything is launched, and "smem" refuses the measured cores."""
+    anything is launched."""
     tris = room_scene()
     qn = records_of(tris, 8, 4, cuda_device)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in ray_buffer(qn, 8, 4096))
@@ -1453,7 +1344,5 @@ def test_vmem_leaves_no_window_or_carveout_on_card(cuda_device):
     huge = torch.zeros((room_bytes // (4 * recw) + 1, recw), device=cuda_device)
     with pytest.raises(ValueError, match="persisting L2"):
         traverse.trace_rays(huge, o, d, leaf_k=8, tree_space="vmem")
-    with pytest.raises(ValueError, match="'hopper' core"):
-        traverse.trace_rays(qn, o, d, leaf_k=8, tree_space="smem", core="stack")
     assert traverse.LAUNCHES == counts
 

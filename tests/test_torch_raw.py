@@ -97,8 +97,7 @@ def test_raw_is_the_image_planes_in_tile_order(records, jitter):
 
 def test_raw_rejects_what_it_does_not_take(records):
     """A side that is not a multiple of 32 raises ValueError, as the JAX
-    function does; so do a window of a larger frame and a core other than
-    "hopper"."""
+    function does; so does a window of a larger frame."""
     _, qn, qt = records
     with pytest.raises(ValueError, match="TILE-aligned"):
         trace_tiles_batch_pallas(jnp.asarray(qn), jnp.asarray(POSS), jnp.asarray(QUATS), 48, 64,
@@ -109,9 +108,6 @@ def test_raw_rejects_what_it_does_not_take(records):
     with pytest.raises(ValueError, match="whole frames"):
         traverse.trace_tiles_batch(qt, POSS, QUATS, 32, 32, FOV, leaf_k=K, raw=True,
                                    raygen_size=(64, 64), row_offset=32)
-    with pytest.raises(ValueError, match="'hopper' core"):
-        traverse.trace_tiles_batch(qt, POSS, QUATS, 32, 32, FOV, leaf_k=K, raw=True,
-                                   core="baseline")
     with pytest.raises(ValueError, match="multiples of 32"):
         traverse.tiles_layout([torch.zeros(1, 40, 64)] * 5)
     out = traverse.trace_tiles_batch(qt, POSS, QUATS, 32, 32, FOV, leaf_k=K, raw=True,

@@ -17,15 +17,14 @@ per-step choice of leaf stage of ``csrc/traverse_core.cuh``
   counts below K, K = 2 … 64, exact duplicates at equal t, ``det == 0`` and
   NaN triangles, at 4 and 8 slots; and ``TraversalCounts.warp_census``
   prices those warps as the model does.
-* ``traverse.tile_plan`` routes K = 1 to the render core and K > 1 by the
-  rule the card measured, passes "order" and "baseline" through, and raises
-  for what the launchers do not build.
+* ``traverse.tile_plan`` routes K = 1 to the render core and K > 1 to
+  ``TILE_CORE``, the rule the card measured.
 * ``TILE_CORE``'s mask, its cost c and the launchers' cores are the C++
   ones, read with a regex.
 
 Needs no card and no Pallas call; the kernels themselves are held against
-the render core, the frozen loop and the plain version on the card
-(``tests/test_torch_kernel.py``, marker ``cuda``).
+the plain version on the card (``tests/test_torch_kernel.py``, marker
+``cuda``).
 """
 
 import re
@@ -208,86 +207,44 @@ def test_warp_census_prices_like_the_model(w, leaf_k):
 
 @pytest.mark.parametrize("slots", [4, 8])
 def test_tile_plan_routes_by_leaf_size(slots):
-    """Under "hopper", K = 1 runs the render core in every variant and
-    K > 1 runs TILE_CORE; "order" and TILE_CORE run as named in every
-    variant, "baseline" in every one but the raw layout."""
+    """K = 1 runs the render core and K > 1 TILE_CORE, without its packed
+    slots from K = 32 on; the plan reads nothing else, so every variant at
+    either width runs it, each launch counted under its kernel."""
     plan = traverse.tile_plan
-    tile = traverse.core_id(traverse.TILE_CORE)
-    variants = [dict(), dict(jitter=True), dict(stats=True), dict(bounded=True),
-                dict(bounded=True, jitter=True, stats=True), dict(batch=True),
-                dict(batch=True, jitter=True, stats=True), dict(batch=True, raw=True),
-                dict(batch=True, raw=True, jitter=True, stats=True)]
-    for kw in variants:
-        assert plan("hopper", leaf_k=1, slots=slots, **kw) == -1
-        for k in (2, 8, 31, 32, 33, 64):
-            assert plan("hopper", leaf_k=k, slots=slots, **kw) == tile
-        for k in (1, 8, 32):
-            assert plan("order", leaf_k=k, slots=slots, **kw) == 1
-            assert plan(traverse.TILE_CORE, leaf_k=k, slots=slots, **kw) == tile
-            if not kw.get("raw"):
-                assert plan("baseline", leaf_k=k, slots=slots, **kw) == 256
-
-
-def test_tile_plan_refuses_what_is_not_built():
-    """The element sets are built for K1a alone; the warp's tests at every
-    step (ANY_HIT_CORE, K2's core) and the warp's elements alone for no tile
-    launch; no frozen loop writes the raw layout; a bad name, or a cost
-    appended to a core's name, raises."""
-    plan = traverse.tile_plan
-    variants = (dict(slots=8), dict(slots=4, jitter=True), dict(slots=4, stats=True),
-                dict(slots=4, bounded=True), dict(slots=4, batch=True),
-                dict(slots=4, batch=True, raw=True))
-    for core in ("none", "order+stack", "order+stack+prefetch"):
-        assert plan(core, leaf_k=32, slots=4) == traverse.core_id(core)
-        for kw in variants:
-            with pytest.raises(ValueError, match="not built"):
-                plan(core, leaf_k=32, **kw)
-    for core in (traverse.ANY_HIT_CORE, "warp", "order+warp", "warp+pack"):
-        for kw in (dict(slots=4), *variants):
-            with pytest.raises(ValueError, match="not built"):
-                plan(core, leaf_k=32, **kw)
-    with pytest.raises(ValueError, match="'hopper' core"):
-        plan("baseline", leaf_k=32, slots=4, batch=True, raw=True)
-    for bad in ("tile+tile", "fast", f"{traverse.TILE_CORE}@2", f"{traverse.ANY_HIT_CORE}@2"):
-        with pytest.raises(ValueError, match="core must be"):
-            plan(bad, leaf_k=32, slots=4)
+    assert plan(leaf_k=1) == 1
+    for k in (2, 8, 31):
+        assert plan(leaf_k=k) == traverse.TILE_CORE
+    for k in (32, 33, 64):
+        assert plan(leaf_k=k) == traverse.TILE_CORE & ~traverse._PACK_SLOTS == 161
+    for stats in (False, True):
+        for bounded in (False, True):
+            name = traverse._tile_launch_name(slots, stats, "trace_tiles_k1a", bounded)
+            assert name in traverse.LAUNCHES
+            assert name == ("trace_tiles_k1f" if stats else "trace_tiles_k1d" if bounded
+                            else "trace_tiles_k1e" if slots == 8 else "trace_tiles_k1a")
 
 
 def test_tile_core_is_the_kernels_mask():
     """TILE_CORE is rt::kTileCore (rt::kAnyHitCore | rt::kTileLeaves), whose
     rule runs at one cost c (rt::kTileLeafCost, a constant); every launcher
-    takes the new core and none takes rt::kAnyHitCore, and the wrapper's
-    argument lists are the launchers'."""
+    takes the tile launchers' list of cores, which holds the new core and
+    not rt::kAnyHitCore, and the wrapper's argument lists are the
+    launchers'."""
     bits = core_masks()
+    assert traverse.TILE_CORE == bits["kTileCore"] == (bits["kAnyHitCore"] | bits["kTileLeaves"])
     src = (build.CSRC / "traverse_core.cuh").read_text()
-    parts = re.search(r"kTileCore = ([\w| ]+);", src).group(1).split("|")
-    assert traverse.core_id(traverse.TILE_CORE) == sum(bits[p.strip()] for p in parts) == (
-        bits["kAnyHitCore"] | bits["kTileLeaves"])
     cost = float(re.search(r"constexpr float kTileLeafCost = ([\d.]+)f;", src).group(1))
     assert 0.0 < cost < 32.0
     assert "kTileLeafCost * (float)__reduce_add_sync" in src
     tiles = (build.CSRC / "traverse_tiles.cu").read_text()
+    listed = re.findall(r"#define RT_TILE_CORES\(X\)(.*)", tiles)
+    assert len(listed) == len(traverse.TILE_SOURCES) == 2
+    assert "rt::kTileCore" in listed[0] and "kAnyHitCore" not in "".join(listed)
+    assert traverse._tile_source(traverse.tile_plan(leaf_k=1)) == "traverse_tiles.cu"
+    for k in (2, 32):
+        assert traverse._tile_source(traverse.tile_plan(leaf_k=k)) == "traverse_tiles.cu:warp"
     for fn in ("rt_trace_tiles", "rt_trace_tiles_batch", "rt_trace_tiles_batch_raw"):
         body = re.search(fn + r"\(.*?\n}\n", tiles, re.S).group(0)
-        assert "rt::kTileCore" in body and "int core" in body, fn
-        assert "kAnyHitCore" not in body, fn
+        assert "RT_TILE_CORES(RT_CASE)" in body and "int core" in body, fn
         params = re.search(fn + r"\(([^)]*)\)", tiles).group(1).count(",") + 1
         assert len(traverse._ARGTYPES["traverse_tiles.cu"][fn]) == params, fn
-
-
-def test_tile_cores_run_the_plain_version_on_cpu():
-    """On CPU records every core name a tile launch takes runs the plain
-    version (the words of "hopper") and counts no launch."""
-    _, rec, _, _ = one_record_cases(4, 8, 64, seed=2)
-    qn = rec.contiguous()
-    before = dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)
-    cam, quat = (0.0, 0.0, 3.0), (0.0, 0.0, 0.0, 1.0)
-    ref = traverse.trace_tiles(qn, cam, quat, 24, 16, leaf_k=8)
-    for core in ("order", "baseline", traverse.TILE_CORE):
-        out = traverse.trace_tiles(qn, cam, quat, 24, 16, leaf_k=8, core=core)
-        assert all(torch.equal(a, b) for a, b in zip(out, ref)), core
-    raw = traverse.trace_tiles_batch(qn, [cam], [quat], 32, 32, leaf_k=8, raw=True)
-    for core in ("order", traverse.TILE_CORE):
-        assert torch.equal(traverse.trace_tiles_batch(qn, [cam], [quat], 32, 32, leaf_k=8,
-                                                      raw=True, core=core), raw), core
-    assert (dict(traverse.LAUNCHES), dict(traverse.MEASURE_LAUNCHES)) == before

@@ -239,9 +239,11 @@ def assert_trace_parity(ours, ref_t, ref_tri, ref_n, tris: np.ndarray, dirs: tor
 
 
 def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED,
-                 chain_slot: int | None = None):
-    """Synthetic records (K = 1) whose stacks overflow 64 entries, and ``n``
-    rays through them → (records (M, recw) f32, origins, dirs (n, 3) f32).
+                 chain_slot: int | None = None, leaf_k: int = 1):
+    """Synthetic records whose stacks overflow 64 entries, and ``n`` rays
+    through them → (records (M, recw) f32, origins, dirs (n, 3) f32). The
+    records have room for ``leaf_k`` triangles a leaf (K) and hold one in
+    each leaf, so every K lays out the same tree.
 
     Record i < ``depth`` is a chain node: one slot holds chain node i + 1,
     the nearest box along the rays, the others dead ends, internal nodes
@@ -259,7 +261,7 @@ def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED,
     from raytracer_tpu_torch.ops.cuda.traverse import EMPTY_REF, rec_layout
 
     rng = np.random.default_rng(seed + width)
-    vbase, ibase, recw = rec_layout(1, width)
+    vbase, ibase, recw = rec_layout(leaf_k, width)
     n_dead = depth * (width - 1)
     rec = np.zeros((depth + 1 + n_dead, recw), np.float32)
     tri_id = iter(range(1 << 20))
@@ -274,9 +276,9 @@ def deep_records(width: int, depth: int = 32, n: int = 4096, seed: int = SEED,
         rec[row, 6 * width + k] = -1.0
         rec[row, 7 * width + k] = 1.0
         v0, e1, e2 = np.float32([-4, -4, z]), np.float32([12, 0, 0]), np.float32([0, 12, 0])
-        rec[row, vbase + 12 * k:vbase + 12 * k + 12] = np.concatenate(
-            [v0, e1, e2, np.cross(e1, e2)])
-        rec[row, ibase + k] = next(tri_id)
+        at = vbase + 12 * k * leaf_k
+        rec[row, at:at + 12] = np.concatenate([v0, e1, e2, np.cross(e1, e2)])
+        rec[row, ibase + k * leaf_k] = next(tri_id)
 
     def box(lo_z, hi_z):
         lo = -1.0 + rng.uniform(0.0, 0.5, size=2)

@@ -2,9 +2,11 @@
 parent commit unpacked with ``git archive``), on one CUDA card, in one
 process.
 
-1. The machine code: both checkouts build ``csrc/traverse_rays.cu`` and
-   ``csrc/traverse_tiles.cu``; ``cuobjdump -sass`` of each library is split
-   into kernels, and every kernel that both build — matched by its name and
+1. The machine code: each checkout builds every library of its own
+   ``csrc/traverse_rays.cu`` and ``csrc/traverse_tiles.cu`` (:func:`sources`,
+   the tile kernels in the parts that checkout builds);
+   ``cuobjdump -sass`` of each library is split into kernels,
+   and every kernel that both checkouts build — matched by its name and
    template arguments, a batch tile kernel of this checkout by its
    arguments without its raw flag when that flag is off — is compared
    instruction by instruction (addresses and encodings dropped). It prints
@@ -127,14 +129,35 @@ def render_core_digests(lib) -> dict:
     return out
 
 
-def compare_sass(mine, theirs, source: str) -> None:
-    a = {kernel_key(k): v for k, v in sass_kernels(mine._name).items() if kernel_key(k)}
-    b = {kernel_key(k): v for k, v in sass_kernels(theirs._name).items() if kernel_key(k)}
+def sources(traverse_module) -> tuple:
+    """The libraries of a checkout's traversal kernels, as its
+    ``load_kernel`` names them: the tile kernels' parts (``TILE_SOURCES``)
+    and the ray kernels."""
+    return (*traverse_module.TILE_SOURCES, "traverse_rays.cu")
+
+
+def kernels_of(traverse_module, source: str) -> dict:
+    """Kernel key → SASS instructions of every traversal kernel that the
+    checkout builds from ``csrc/<source>`` (a file name; all its parts)."""
+    out = {}
+    for part in sources(traverse_module):
+        if part.partition(":")[0] == source:
+            lib = traverse_module.load_kernel(part)[0]
+            out.update({kernel_key(k): v for k, v in sass_kernels(lib._name).items()
+                        if kernel_key(k)})
+    return out
+
+
+def compare_sass(a: dict, b: dict, source: str) -> None:
+    """Print how many kernels of ``source`` this checkout (``a``) and the
+    other (``b``) build (:func:`kernels_of`), how many both build and how
+    many of those are identical; name the others."""
     both = sorted(set(a) & set(b))
     differ = [k for k in both if a[k] != b[k]]
-    print(f"[sass] {source}: {len(both)} kernels in both builds, {len(both) - len(differ)} "
-          f"identical instruction for instruction; {len(set(a) - set(b))} only in this "
-          f"checkout, {len(set(b) - set(a))} only in the other", flush=True)
+    print(f"[sass] {source}: {len(a)} kernels here, {len(b)} in the other; {len(both)} in "
+          f"both, {len(both) - len(differ)} identical instruction for instruction; "
+          f"{len(set(a) - set(b))} only in this checkout, {len(set(b) - set(a))} only in the "
+          "other", flush=True)
     for k in differ:
         print(f"[sass]   differs: {k[0]}<{','.join(k[1])}> ({len(a[k])} / {len(b[k])} "
               "instructions)", flush=True)
@@ -167,8 +190,7 @@ def main() -> None:
     card = mb_tree_space.card_line()
     print(f"[ab] this checkout against {other_root} ({other.__name__}) on {card}", flush=True)
     for source in ("traverse_rays.cu", "traverse_tiles.cu"):
-        compare_sass(traverse.load_kernel(source)[0], other_traverse.load_kernel(source)[0],
-                     source)
+        compare_sass(kernels_of(traverse, source), kernels_of(other_traverse, source), source)
     if len(sys.argv) == 4:
         digests = {source: render_core_digests(other_traverse.load_kernel(source)[0])
                    for source in ("traverse_rays.cu", "traverse_tiles.cu")}

@@ -5,7 +5,7 @@ PyTorch port's counterpart of ``tools/mb_tree_space.py``.
 The hall (5,250 triangles, cube-normalized, SAH K = 32) is traced at 512×512
 from (0, 0, 0.8), as in the JAX tool; the Cornell box through config 1's
 tree, the Morton LBVH of single triangles (``bvh2_as_bvh4(build_lbvh2(…))``,
-K = 1), and through SAH K = 32, where any hit runs the baseline loop. Three
+K = 1), and through SAH K = 32. Three
 waves of rays, in 32×32 tile-block lane order: "nee", any hit from the first
 hits toward the sun; "bounce1", closest hit in cosine-sampled directions
 from those points (the port's ``cosine_sample``, uniforms from a seeded
@@ -13,8 +13,7 @@ from those points (the port's ``cosine_sample``, uniforms from a seeded
 placements run in one process in the order hbm, vmem, smem, hbm; "smem" on
 the hall raises the ``ValueError`` of a tree that does not fit a block's
 shared memory, which is the expected answer and is printed as such. Each
-placement's planes are checked word for word against "hbm". Then "smem"'s
-block size (``smem_block``) is timed on the Cornell box's waves.
+placement's planes are checked word for word against "hbm".
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -52,7 +51,6 @@ SIZE, CAM, QUAT, FOV, SEED = 512, (0.0, 0.0, 0.8), (0.0, 0.0, 0.0, 1.0), 70.0, 5
 SUN = (0.48507125, 0.7276069, 0.48507125)   # normalize(1, 1.5, 1), the JAX tool's
 SPACES = ("hbm", "vmem", "smem", "hbm")      # hbm twice to bracket drift
 CALLS, REPEATS = 8, 3                        # launches a timed run, runs a placement
-BLOCKS = (128, 256, 512)                     # smem_block values timed
 
 
 def normalized(tris) -> torch.Tensor:
@@ -168,16 +166,6 @@ def main() -> None:
                     raise SystemExit(f"{label} {name}: tree_space={space} differs from hbm")
                 results.append({"tree": label, "space": space, "wave": name, "ms": ms,
                                 "mrays_s": r / ms / 1e3, "bytes": nbytes})
-        if nbytes > limits["smem_optin"]:
-            continue
-        for block in BLOCKS + BLOCKS[::-1]:
-            for name, (o, d, ah) in ws.items():
-                ms = wave_ms(lambda o=o, d=d, ah=ah, block=block: traverse.trace_rays(
-                    qn, o, d, any_hit=ah, leaf_k=k, tree_space="smem", smem_block=block))
-                print(f"space=smem {label} {name:10s} smem_block={block:3d} {ms:8.4f} ms/wave "
-                      f"{r / ms / 1e3:8.2f} Mrays/s on {card}", flush=True)
-                results.append({"tree": label, "space": "smem", "wave": name, "ms": ms,
-                                "smem_block": block})
     if args.out:
         Path(args.out).write_text(json.dumps({"card": card, "limits": limits, "size": args.size,
                                               "results": results}, indent=1))
