@@ -34,7 +34,9 @@ Phases, each printing what it measures; the first failure exits non-zero:
 7. the progressive main path at full size: render_progressive(bounces=3)
    four times and present_progressive, counting the launches (per sample 1
    K1b, 1 camera_lanes, bounces−1 K2a, bounces K2b, bounces wave_hit and
-   bounces wave_bounce), the frame count, a finite
+   bounces wave_bounce, whether a sample runs op by op or is replayed from
+   its CUDA graph; and the first sample of a frame size op by op, the second
+   captured, the three after it replayed), the frame count, a finite
    non-negative buffer and the reset on a camera move; then
    render_progressive(bounces=0) four times (4 K1b); and one sample of each
    kind under torch's sync debug mode, which fails on any host-device
@@ -90,7 +92,10 @@ Phases, each printing what it measures; the first failure exits non-zero:
    bounces wave_bounce, nothing else), and one sample
    under sync debug mode;
 16. K1e against its plain version on the centre crop, with and without
-   jitter, and against brute force on the 1,024 seeded pixels; K2c closest
+   jitter, and against brute force on the 1,024 seeded pixels; the camera
+   wave from the camera row on the 8-wide records as in phase 37 (K1e from
+   the row equal to the host-argument K1e, the lanes to their plain
+   version); K2c closest
    hit and any hit against the plain version on 65,536 seeded active rays
    of every captured wave of one 1080p sample; their times and bounds as
    in phases 8 and 10;
@@ -254,18 +259,35 @@ runs right after phase 11, the rest after phase 26, before 29:
 
 Phase 37 runs after phase 10:
 
-37. the camera wave's lanes (csrc/camera_lanes.cu) on K1b's planes of the
-   jittered framed 1080p view (phase 6): d, t, tri and n torch.equal to
-   its plain version's (camera_lanes_reference, the composition the sample
-   ran before the kernel); the bare launch's CUDA-event time, the wrapper's
-   host issue time, the plain version's time, and the bound, 52 bytes a
-   lane (five plane words read; d, n, t and tri written) over 3.35 TB/s.
+37. the camera wave as a progressive sample runs it, from the jittered
+   framed 1080p view's camera row on the card: K1b traced from the row
+   (traverse.trace_tiles_row, K1c's kernel over one frame) equal word for
+   word on the whole frame to K1b's host-argument planes of phase 6 and
+   within phase 6's tolerances of its plain version on the crop, one K1b
+   and one camera_lanes launched; the camera wave's lanes
+   (csrc/camera_lanes.cu) from the same row: d, t, tri and n torch.equal
+   to its plain version's (camera_lanes_reference, the composition the
+   sample ran before the kernel); the bare launch's CUDA-event time, the
+   wrapper's host issue time, the plain version's time, and the bound, 52
+   bytes a lane (five plane words read; d, n, t and tri written) over
+   3.35 TB/s.
+
+Phase 39 runs after phase 7's four samples:
+
+39. one sample of the framed 1080p view replayed from the CUDA graph that
+   phase 7 captured, started anew (frame count 0, so the mean returned is
+   the sample): torch.equal to the same sample run op by op (counters on),
+   the replay counted once, and what the replay adds to the kernels'
+   launch counts equal to the launches the op-by-op sample made; and
+   against the same sample through the plain versions of every kernel
+   (plain_traversal), the share of pixels within 1e-5, as phase 9.
 
 Phase 38 runs after phase 37:
 
 38. the sample's wave glue (csrc/wave_glue.cu) on the waves of one
-   render_progressive(bounces=3) of the framed 1080p view, captured at the
-   wrappers: each wave's wave_hit, wave_bounce and the last wave's
+   render_progressive(bounces=3) of the framed 1080p view run op by op (with
+   counters on, as every counted sample runs), captured at the wrappers:
+   each wave's wave_hit, wave_bounce and the last wave's
    wave_last equal to their plain versions value for value (NaN for NaN);
    each call's CUDA-event time through the wrapper, the wrapper's host issue
    time, the plain version's time, and the bound by bytes (each input read
@@ -467,9 +489,17 @@ MB_KERNELS = {"mb_walk": (MB_SOURCE, "tools/mb_kernel.py:108"),
 MB_N_LO, MB_N_HI = 100, 1000  # small n: the full sweep is chip_microbench.py's
 
 
+# LAUNCHES' counts of the progressive samples replayed from a CUDA graph and
+# of the graphs captured (render_pt.SampleGraphs), beside the kernels'
+GRAPH_COUNTS = ("sample_graph_replay", "sample_graph_capture")
+# SAMPLES samples of a frame size a tracer has not sampled: the first runs op
+# by op, the second captures the graph, and it and the rest replay it
+GRAPHED = {"sample_graph_replay": SAMPLES - 1, "sample_graph_capture": 1}
+
+
 def expected(**counts: int) -> dict:
     """The launch counts of a run that launched ``counts`` and nothing else."""
-    return {name: counts.get(name, 0) for name in KERNELS}
+    return {name: counts.get(name, 0) for name in (*KERNELS, *GRAPH_COUNTS)}
 
 
 def log(msg: str) -> None:
@@ -1050,8 +1080,10 @@ def main() -> None:
     # 7. the progressive main path
     pt_want = expected(trace_tiles_k1b=SAMPLES, camera_lanes=SAMPLES,
                        trace_rays_k2a=SAMPLES * (BOUNCES - 1), trace_rays_k2b=SAMPLES * BOUNCES,
-                       wave_hit=SAMPLES * BOUNCES, wave_bounce=SAMPLES * BOUNCES)
+                       wave_hit=SAMPLES * BOUNCES, wave_bounce=SAMPLES * BOUNCES, **GRAPHED)
     progressive_samples(pt, pt_want, "progressive")
+    # 39. one replayed 1080p sample against op by op and the plain versions
+    replay_phase(env, pt)
     pt.set_camera_position(*MOVED)
     pt.render_progressive(bounces=BOUNCES)
     if pt.frame_count != 1:
@@ -1210,42 +1242,81 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
 
-def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
-    """37. The camera wave's lanes on K1b's planes of the jittered framed
-    1080p view: the kernel against its plain version (torch.equal on d, t,
-    tri and n), the bare launch's CUDA-event time, the wrapper's host issue
-    time, the plain version's time and the bound → its kernels-line row."""
-    from raytracer_tpu_torch.ops.camera import camera_constants
-    from raytracer_tpu_torch.ops.cuda import camera
-    from raytracer_tpu_torch.ops.lanes import img_to_lanes
+def framed_row(dev) -> torch.Tensor:
+    """The framed 1080p view's camera row with JITTER_SEED, on ``dev``: what
+    a progressive sample of that view hands K1b and the lanes kernel."""
+    from raytracer_tpu_torch.ops.cuda import traverse
 
-    card, dev = env["card"], env["dev"]
-    planes = k1b["planes"]
-    args = (planes, QUAT, WIDTH, HEIGHT, FOV, JITTER_SEED)
-    ker = camera.camera_lanes(*args)
-    ref = camera.camera_lanes_reference(*args)
-    for name, a, b in zip(("d", "t", "tri", "n"), ker, ref):
+    return torch.tensor(traverse.camera_row(FRAMED, QUAT, WIDTH, HEIGHT, FOV, JITTER_SEED),
+                        dtype=torch.float32, device=dev)
+
+
+def check_row_wave(env: dict, qn: torch.Tensor, host: dict, label: str) -> tuple:
+    """The camera wave as a progressive sample runs it, from the framed
+    view's camera row on the card: K1b (K1e on 8-wide ``qn``) traced from the
+    row (traverse.trace_tiles_row, K1c's kernel over one frame) equal word
+    for word on the whole frame to the host-argument kernel's jittered
+    planes ``host`` (check_tiles) and within phase 6's tolerances of the
+    plain version on the crop; the lanes kernel from the row equal word for
+    word to its plain version. Returns (row, planes, lanes)."""
+    from raytracer_tpu_torch.ops.cuda import camera, traverse
+
+    row = framed_row(env["dev"])
+    before = dict(traverse.LAUNCHES)
+    planes = traverse.trace_tiles_row(qn, row, WIDTH, HEIGHT, FOV, leaf_k=LEAF_K)
+    lanes = camera.camera_lanes(planes, row, WIDTH, HEIGHT, FOV)
+    torch.cuda.synchronize()
+    added = {k: v - before[k] for k, v in traverse.LAUNCHES.items() if v != before[k]}
+    name = "trace_tiles_k1e" if qn.shape[1] == traverse.rec_layout(LEAF_K, 8)[2] \
+        else "trace_tiles_k1b"
+    if added != {name: 1, "camera_lanes": 1}:
+        fail(f"{label} from the camera row launched {added}, expected one {name} and one "
+             "camera_lanes")
+    words = differing_words(planes, host["planes"])
+    if words:
+        fail(f"{label} from the camera row differs from the host-argument kernel in {words} "
+             "words of the framed 1080p frame")
+    crop_pix = env["crop_pix"]
+    check_against([p.reshape(-1)[crop_pix] for p in planes], host["ref"], env["tris"],
+                  env["origin"], frame_dirs(crop_pix, True),
+                  f"{label} from the camera row vs plain, jittered 256x256 crop")
+    ref = camera.camera_lanes_reference(planes, QUAT, WIDTH, HEIGHT, FOV, JITTER_SEED)
+    for name, a, b in zip(("d", "t", "tri", "n"), lanes, ref):
         if a.dtype != b.dtype or a.shape != b.shape:
             fail(f"camera_lanes {name}: {a.dtype} {tuple(a.shape)}, plain {b.dtype} "
                  f"{tuple(b.shape)}")
         if not torch.equal(a, b):
-            fail(f"camera_lanes {name} differs from its plain version in "
+            fail(f"camera_lanes {name} after {label} differs from its plain version in "
                  f"{int((a != b).sum())} words at {WIDTH}x{HEIGHT}")
+    log(f"[camera row] {label} traced from the framed view's camera row (jitter seed "
+        f"{JITTER_SEED}) equals the host-argument kernel on all {WIDTH * HEIGHT} pixels; "
+        "the lanes kernel from the row equals its plain version on every lane")
+    return row, planes, lanes
+
+
+def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
+    """37. The camera wave from the framed 1080p view's camera row
+    (check_row_wave on K1b), then the lanes kernel's bare launch's
+    CUDA-event time, the wrapper's host issue time, the plain version's
+    time and the bound → its kernels-line row."""
+    from raytracer_tpu_torch.ops.cuda import camera
+    from raytracer_tpu_torch.ops.lanes import img_to_lanes
+
+    card, dev = env["card"], env["dev"]
+    row, planes, ker = check_row_wave(env, env["qn"], k1b, "K1b")
     lanes = WIDTH * HEIGHT
     hits = int((ker[2] >= 0).sum())
     turned = int((ker[3] != img_to_lanes(torch.stack(planes[1:4], -1), WIDTH, HEIGHT))
                  .any(-1).sum())
-    log(f"[camera_lanes] {WIDTH}x{HEIGHT}, jitter seed {JITTER_SEED}: d, t, tri and n equal to "
-        f"the plain version's on all {lanes} lanes ({hits} hits, {turned} normals turned)")
+    log(f"[camera_lanes] {WIDTH}x{HEIGHT}, jitter seed {JITTER_SEED}: {hits} hits, {turned} "
+        "normals turned")
 
     lib, _ = camera.load_camera_lanes()
-    focal, aspect = camera_constants(WIDTH, HEIGHT, FOV)
     outs = [torch.empty_like(x) for x in ker]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def bare():
-        err = lib.rt_camera_lanes(*(float(q) for q in QUAT), focal, aspect, WIDTH, HEIGHT,
-                                  JITTER_SEED, *(p.data_ptr() for p in planes),
+        err = lib.rt_camera_lanes(row.data_ptr(), WIDTH, HEIGHT, *(p.data_ptr() for p in planes),
                                   *(o.data_ptr() for o in outs), stream)
         if err:
             fail(f"rt_camera_lanes returned cudaError {err}")
@@ -1254,8 +1325,11 @@ def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
     if not all(torch.equal(o, k) for o, k in zip(outs, ker)):
         fail("the bare camera_lanes launches wrote other lanes than the wrapper's")
     ms = statistics.median(reps)
+    args = (planes, row, WIDTH, HEIGHT, FOV)
+    plain_args = (planes, QUAT, WIDTH, HEIGHT, FOV, JITTER_SEED)
     issue_ms, _ = host_issue_ms(lambda: camera.camera_lanes(*args))
-    plain_ms = statistics.median(cuda_ms(lambda: camera.camera_lanes_reference(*args), 1, 3))
+    plain_ms = statistics.median(cuda_ms(lambda: camera.camera_lanes_reference(*plain_args),
+                                         1, 3))
     b_ms = LANE_BYTES * lanes / HBM_BYTES_PER_S * 1e3
     log(f"[time] camera_lanes {WIDTH}x{HEIGHT}: kernel {ms:.4f} ms (reps "
         f"{[round(r, 4) for r in reps]}), wrapper {issue_ms:.4f} ms of host a call, plain "
@@ -1263,6 +1337,62 @@ def camera_lanes_phase(env: dict, k1b: dict, launches: int) -> dict:
     return {"launches": launches, "max_abs_err": 0.0, "rays": lanes, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "issue_ms": issue_ms,
             "path_rays": lanes, "path_ms": ms, "path_bound_ms": b_ms, "path_bound_by": "bytes"}
+
+
+def replay_phase(env: dict, pt) -> None:
+    """39. One sample of the framed 1080p view replayed from the tracer's
+    CUDA graph (captured in phase 7), started anew (frame count 0, so the
+    mean returned is the sample): equal word for word to the same sample run
+    op by op (counters on), whose launches, counted as each kernel is
+    launched, must equal what the replay adds to LAUNCHES; and held to the
+    same sample through the plain versions of every kernel, as phase 9
+    holds the 256x256 sample."""
+    from raytracer_tpu_torch import render_pt
+    from raytracer_tpu_torch.ops.cuda import traverse
+    from raytracer_tpu_torch.utils import profiling
+
+    dev = env["dev"]
+    pt.set_camera_position(*FRAMED)
+
+    def sample(counters: bool):
+        pt.set_frame_count(0)
+        torch.cuda.synchronize()
+        before = dict(traverse.LAUNCHES)
+        with profiling.tracing(spans=False, counters=counters):
+            mean = pt.render_progressive(bounces=BOUNCES)
+        torch.cuda.synchronize()
+        profiling.collect()
+        return mean, {k: v - before[k] for k, v in traverse.LAUNCHES.items() if v != before[k]}
+
+    replayed, replay_added = sample(False)
+    eager, eager_added = sample(True)
+    log(f"[replay] launches of one replayed 1080p sample {json.dumps(replay_added)}; of the "
+        f"same sample op by op {json.dumps(eager_added)}")
+    graph = {k: replay_added.pop(k, 0) for k in GRAPH_COUNTS}
+    if graph != {"sample_graph_replay": 1, "sample_graph_capture": 0}:
+        fail(f"the 1080p sample after phase 7 was not one replay: {graph}")
+    if replay_added != eager_added:
+        fail(f"a replay adds {replay_added} to LAUNCHES; the sample op by op launches "
+             f"{eager_added}")
+    if not torch.equal(replayed, eager):
+        fail(f"the replayed 1080p sample differs from the sample op by op in "
+             f"{int((replayed != eager).sum())} words")
+
+    def plain_sample():
+        return render_pt.pt_sample_frame(
+            env["qn"], env["tris"], FRAMED, QUAT, WIDTH, HEIGHT, bounces=BOUNCES,
+            fov_degrees=FOV, leaf_k=LEAF_K, tile_primary=True,
+            generator=torch.Generator(device=dev).manual_seed(0))
+
+    plain, plain_ms = timed_once(lambda: plain_traversal(plain_sample))
+    err = (replayed - plain).abs().amax(-1)
+    share = float((err <= RADIANCE_ATOL).float().mean())
+    log(f"[replay] the replayed 1080p sample equals the sample op by op word for word; against "
+        f"the plain versions {share:.6f} of pixels within {RADIANCE_ATOL} (max |d| "
+        f"{float(err.max()):.3g}); plain sample {plain_ms:.1f} ms")
+    if share < MIN_RADIANCE_MATCH or not bool(torch.isfinite(replayed).all()):
+        fail(f"replayed 1080p sample: {share:.6f} < {MIN_RADIANCE_MATCH} of pixels within "
+             f"{RADIANCE_ATOL} of the plain sample")
 
 
 def wave_bytes(name: str, args: tuple) -> int:
@@ -1290,6 +1420,7 @@ def wave_glue_phase(env: dict, pt, pt_want: dict) -> dict:
     wave_bounce rows of the kernels line, summed over the sample's waves."""
     from raytracer_tpu_torch import render_pt
     from raytracer_tpu_torch.ops.cuda import wave
+    from raytracer_tpu_torch.utils import profiling
 
     card = env["card"]
     real = {name: getattr(render_pt, name) for name in ("wave_hit", "wave_bounce", "wave_last")}
@@ -1307,11 +1438,14 @@ def wave_glue_phase(env: dict, pt, pt_want: dict) -> dict:
         setattr(render_pt, name, capturing(name))
     pt.set_camera_position(*FRAMED)
     try:
-        pt.render_progressive(bounces=BOUNCES)
+        # counters on: the sample runs op by op, so that its wrappers are called
+        with profiling.tracing(spans=False, counters=True):
+            pt.render_progressive(bounces=BOUNCES)
     finally:
         for name, fn in real.items():
             setattr(render_pt, name, fn)
     torch.cuda.synchronize()
+    profiling.collect()
     order = ["wave_hit", "wave_bounce"] * (BOUNCES - 1) + ["wave_hit", "wave_last"]
     if [c[0] for c in calls] != order:
         fail(f"a 1080p sample called {[c[0] for c in calls]}, expected {order}")
@@ -2675,7 +2809,7 @@ def wide8_phase(env: dict, scene) -> dict:
             fail(f"the 8-wide {view} image equals the 4-wide one on {equal:.6f} of pixels")
     pt_want = expected(trace_tiles_k1e=SAMPLES, camera_lanes=SAMPLES,
                        trace_rays_k2c=SAMPLES * (2 * BOUNCES - 1), wave_hit=SAMPLES * BOUNCES,
-                       wave_bounce=SAMPLES * BOUNCES)
+                       wave_bounce=SAMPLES * BOUNCES, **GRAPHED)
     progressive_samples(pt, pt_want, "wide8 progressive")
     sample_reps = cuda_ms(lambda: pt.render_progressive(bounces=BOUNCES), SAMPLES, 3)
     ms = statistics.median(sample_reps)
@@ -2696,6 +2830,7 @@ def wide8_phase(env: dict, scene) -> dict:
     if words:
         fail(f"all-1e30 bounds and all-0 entries change K1e's frame in {words} words")
     k1e_j = check_tiles(env, qn8, "K1e", jitter=True)
+    check_row_wave(env, qn8, k1e_j, "K1e")
     waves, _ = capture_waves(env, qn8)
     wave_stats = check_waves(env, qn8, waves, "trace_rays_k2c", "trace_rays_k2c")
     env["qn8"], env["waves"]["8-wide"] = qn8, waves  # for phase 33
@@ -3024,20 +3159,26 @@ def plain_traversal(fn):
     from raytracer_tpu_torch import render_pt
     from raytracer_tpu_torch.ops.cuda import camera, traverse, wave
 
-    def tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees=70.0, leaf_k=1,
-              jitter=False, jitter_seed=0):
-        return traverse.trace_tiles_reference(qnodes, cam_pos, cam_quat, width, height,
-                                              fov_degrees, leaf_k, jitter=jitter,
-                                              jitter_seed=jitter_seed)
+    def tiles(qnodes, row, width, height, fov_degrees=70.0, leaf_k=1):
+        values = row.tolist()
+        return traverse.trace_tiles_reference(qnodes, values[0:3], values[3:7], width, height,
+                                              fov_degrees, leaf_k, jitter=True,
+                                              jitter_seed=int(values[11]))
+
+    def lanes(planes, row, width, height, fov_degrees):
+        values = row.tolist()
+        return camera.camera_lanes_reference(planes, values[3:7], width, height, fov_degrees,
+                                             int(values[11]))
 
     def rays(qnodes, origins, dirs, *, any_hit=False, leaf_k, active=None, scattered=False,
              ordered=True):
         return traverse.trace_rays_reference(qnodes, origins, dirs, any_hit=any_hit,
                                              leaf_k=leaf_k, active=active, ordered=ordered)
 
-    names = ("trace_tiles", "trace_rays", "camera_lanes", "wave_hit", "wave_bounce", "wave_last")
+    names = ("trace_tiles_row", "trace_rays", "camera_lanes", "wave_hit", "wave_bounce",
+             "wave_last")
     real = {name: getattr(render_pt, name) for name in names}
-    plain = (tiles, rays, camera.camera_lanes_reference, wave.wave_hit_reference,
+    plain = (tiles, rays, lanes, wave.wave_hit_reference,
              wave.wave_bounce_reference, wave.wave_last_reference)
     for name, fn_plain in zip(names, plain):
         setattr(render_pt, name, fn_plain)

@@ -36,6 +36,13 @@
 // (nx·dx + nz·dz) + ny·dy, the order ops/lanes.py::face states, so where
 // the sum cancels its sign, and the flip, is the plain version's too.
 // The source builds with -fmad=false and no fast math (ops/cuda/build.py).
+//
+// The camera (quaternion, focal, aspect) and the jitter seed are read, when
+// the kernel runs, from the sample's camera row on the device (raygen.cuh's
+// rt::CamCol; render_pt.py builds it, and K1c traced the planes from it), so
+// that a CUDA graph that holds the launch (render_pt.SampleGraphs) serves
+// every camera and seed. The seed is the row's f32 converted to int, as K1c
+// converts it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,14 +55,18 @@ namespace {
 constexpr int kThreads = 256;  // threads a block, one a lane
 
 __global__ void __launch_bounds__(kThreads)
-camera_lanes_kernel(float qx, float qy, float qz, float qw, float focal, float aspect,
-                    int width, int height, int seed, const float* __restrict__ t_img,
+camera_lanes_kernel(const float* __restrict__ row, int width, int height,
+                    const float* __restrict__ t_img,
                     const float* __restrict__ nx_img, const float* __restrict__ ny_img,
                     const float* __restrict__ nz_img, const int* __restrict__ tri_img,
                     float* __restrict__ d_out, float* __restrict__ t_out,
                     int* __restrict__ tri_out, float* __restrict__ n_out) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   if (lane >= width * height) return;
+  const float qx = __ldg(row + rt::kQx), qy = __ldg(row + rt::kQx + 1);
+  const float qz = __ldg(row + rt::kQx + 2), qw = __ldg(row + rt::kQx + 3);
+  const float focal = __ldg(row + rt::kFocal), aspect = __ldg(row + rt::kAspect);
+  const int seed = (int)__ldg(row + rt::kSeed);
   int x, y;
   rt::pixel_of_lane(lane, width, height, x, y);
   const size_t p = (size_t)y * (size_t)width + (size_t)x;
@@ -83,13 +94,13 @@ camera_lanes_kernel(float qx, float qy, float qz, float qw, float focal, float a
 
 // Launch the camera wave's lanes on `stream`: K1b's (height, width) planes
 // t, nx, ny, nz (f32) and tri (int32) of a whole width × height frame traced
-// with jitter seed `seed`, the camera's quaternion (qx, qy, qz, qw) and the
-// frame's focal and aspect → d (R, 3), t_out (R,), tri_out (R,) and n (R, 3)
-// in tile-block lane order, R = width · height. Returns cudaGetLastError()
-// after the launch (0 on success, or cudaErrorInvalidValue for an empty
-// frame or one of 2^31 lanes or more); synchronises nothing.
-extern "C" int rt_camera_lanes(float qx, float qy, float qz, float qw, float focal,
-                               float aspect, int width, int height, int seed, const float* t,
+// from `row`, a camera row of 16 f32 on the device (rt::CamCol: the
+// quaternion, the frame's focal and aspect, the jitter seed) → d (R, 3),
+// t_out (R,), tri_out (R,) and n (R, 3) in tile-block lane order,
+// R = width · height. Returns cudaGetLastError() after the launch (0 on
+// success, or cudaErrorInvalidValue for an empty frame or one of 2^31 lanes
+// or more); synchronises nothing.
+extern "C" int rt_camera_lanes(const float* row, int width, int height, const float* t,
                                const float* nx, const float* ny, const float* nz, const int* tri,
                                float* d, float* t_out, int* tri_out, float* n, void* stream) {
   if (width <= 0 || height <= 0 || (long long)width * height > 0x7FFFFFFFLL - kThreads) {
@@ -98,7 +109,6 @@ extern "C" int rt_camera_lanes(float qx, float qy, float qz, float qw, float foc
   const int lanes = width * height;
   camera_lanes_kernel<<<(lanes + kThreads - 1) / kThreads, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      qx, qy, qz, qw, focal, aspect, width, height, seed, t, nx, ny, nz, tri, d, t_out, tri_out,
-      n);
+      row, width, height, t, nx, ny, nz, tri, d, t_out, tri_out, n);
   return (int)cudaGetLastError();
 }

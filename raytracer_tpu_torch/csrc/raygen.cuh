@@ -15,6 +15,16 @@
 
 namespace rt {
 
+// The columns of a camera row: a row of K1c's camera table
+// (traverse_tiles.cu, the TPU kernel's (F, 16) layout: origin, quaternion
+// xyzw, focal, aspect, raygen W and H, jitter seed, row and column offset of
+// the window, 2 unused). A progressive sample's uniform block is one such
+// row on the device (raytracer_tpu_torch/render_pt.py::uniform_block), with
+// the running mean's sample count in the first unused column; the camera
+// wave's lanes (camera_lanes.cu) read it too.
+enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSeed = 11,
+              kRowOff = 12, kColOff = 13, kCamCols = 16 };
+
 // raytracer_tpu/ops/camera.py::subpixel_hash01 in uint32 arithmetic.
 __device__ __forceinline__ float subpixel_hash01(int px, int py, int seed) {
   uint32_t h = (uint32_t)px * 0x9E3779B1u + (uint32_t)py * 0x85EBCA77u +

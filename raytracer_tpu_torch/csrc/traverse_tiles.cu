@@ -100,7 +100,11 @@
 //    paid once. Blocks of one frame are adjacent in launch order, so the
 //    blocks in flight share the upper levels of the tree in L2. Camera rows
 //    are read from a device table of (F, 16) f32 (the TPU kernel's layout),
-//    so F is bounded only by the grid (65,535).
+//    so F is bounded only by the grid (65,535). A progressive sample that a
+//    CUDA graph replays traces its jittered camera wave this way, one frame
+//    whose row is the sample's uniform block (ops/cuda/traverse.py::
+//    trace_tiles_row): the camera and the seed are then read on the device,
+//    so one captured launch serves every camera and seed.
 //
 // The TPU kernel shares one stack among the 1,024 rays of a 32×32 tile and
 // orders children by the tile-centre ray; ordering by each ray's own entry
@@ -139,11 +143,6 @@ struct Camera {
   float qx, qy, qz, qw;
   float focal, aspect, fw, fh;
 };
-
-// Columns of a camera row of K1c's table (the TPU kernel's (F, 16) layout;
-// columns 14 and 15 are unused).
-enum CamCol { kOx = 0, kQx = 3, kFocal = 7, kAspect = 8, kFw = 9, kFh = 10, kSeed = 11,
-              kRowOff = 12, kColOff = 13, kCamCols = 16 };
 
 // The primary ray of pixel (gx, gy) of the whole frame, traversed from
 // record `entry` with the best t `best_init` (the root and 1e30 but in K1d).
@@ -271,13 +270,14 @@ trace_tiles_batch_kernel(const float* __restrict__ qn, int recw, int leaf_k,
   const int px = pix.x, py = pix.y;
   const bool mine = px < width && py < height;
   if (!takes_part<kCore>(mine)) return;
-  const float* row = cams + (size_t)blockIdx.z * kCamCols;
-  const Camera cam{row[kOx],     row[kOx + 1],  row[kOx + 2],   row[kQx],
-                   row[kQx + 1], row[kQx + 2],  row[kQx + 3],   row[kFocal],
-                   row[kAspect], row[kFw],      row[kFh]};
+  // the row's columns (rt::CamCol)
+  const float* row = cams + (size_t)blockIdx.z * rt::kCamCols;
+  const Camera cam{row[rt::kOx],     row[rt::kOx + 1], row[rt::kOx + 2], row[rt::kQx],
+                   row[rt::kQx + 1], row[rt::kQx + 2], row[rt::kQx + 3], row[rt::kFocal],
+                   row[rt::kAspect], row[rt::kFw],     row[rt::kFh]};
   const rt::Hit hit = trace_primary<kSlots, kJitter, kVisits, kCore>(
-      qn, recw, leaf_k, cam, (int)row[kSeed], px + (int)row[kColOff], py + (int)row[kRowOff],
-      rt::kInf, 0, mine);
+      qn, recw, leaf_k, cam, (int)row[rt::kSeed], px + (int)row[rt::kColOff],
+      py + (int)row[rt::kRowOff], rt::kInf, 0, mine);
   if ((kCore & rt::kWarpLeaves) != 0 && !mine) return;  // a helper lane stores nothing
   if (kRaw) {
     const int tiles_x = width / kTile;

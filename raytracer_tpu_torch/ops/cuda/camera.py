@@ -2,13 +2,15 @@
 plain torch version and its launch count.
 
 A progressive sample traces its camera wave with the jittered tile kernel
-K1b (``traverse.trace_tiles(jitter=True)``), which writes (H, W) image
-planes; the sample's later waves need, lane by lane in the tile-block order
-of :mod:`~raytracer_tpu_torch.ops.lanes`, each ray's direction, its hit's t
-and triangle, and its normal turned to face the ray. :func:`camera_lanes`
-computes those four in one launch on the card; its plain version
-:func:`camera_lanes_reference` composes ``generate_rays_jittered``,
-``img_to_lanes`` and ``face``, the same numbers bit for bit.
+(``traverse.trace_tiles_row``, K1b from the sample's camera row on the
+device), which writes (H, W) image planes; the sample's later waves need,
+lane by lane in the tile-block order of :mod:`~raytracer_tpu_torch.ops.lanes`,
+each ray's direction, its hit's t and triangle, and its normal turned to
+face the ray. :func:`camera_lanes` computes those four in one launch on the
+card, reading the camera and the jitter seed from the same row when it runs;
+its plain version :func:`camera_lanes_reference` composes
+``generate_rays_jittered``, ``img_to_lanes`` and ``face``, the same numbers
+bit for bit.
 
 A launch adds 1 to ``traverse.LAUNCHES["camera_lanes"]``.
 """
@@ -20,14 +22,13 @@ import functools
 
 import torch
 
-from ..camera import camera_constants, generate_rays_jittered
+from ..camera import generate_rays_jittered
 from ..lanes import face, img_to_lanes
-from .traverse import LAUNCHES
+from .traverse import LAUNCHES, check_camera_row
 
 __all__ = ["camera_lanes", "camera_lanes_reference", "load_camera_lanes"]
 
-_MAX_SEED = 1 << 24  # K1b's jitter seeds (traverse.trace_tiles)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
@@ -38,11 +39,11 @@ def load_camera_lanes() -> tuple[ctypes.CDLL, str]:
 
     lib, log = build_library("camera_lanes.cu")
     lib.rt_camera_lanes.restype = _I
-    lib.rt_camera_lanes.argtypes = [_F] * 6 + [_I] * 3 + [_P] * 10
+    lib.rt_camera_lanes.argtypes = [_P] + [_I] * 2 + [_P] * 10
     return lib, log
 
 
-def _check(planes, width: int, height: int, pseed) -> int:
+def _check(planes, width: int, height: int) -> None:
     if len(planes) != 5:
         raise ValueError(f"camera_lanes takes K1b's five planes, got {len(planes)}")
     for i, p in enumerate(planes):
@@ -52,31 +53,33 @@ def _check(planes, width: int, height: int, pseed) -> int:
                              f"{tuple(p.shape)} {p.dtype}")
         if p.device != planes[0].device or not p.is_contiguous():
             raise ValueError(f"plane {i} must be contiguous on {planes[0].device}")
-    seed = int(pseed)
-    if seed != pseed or not 0 <= seed < _MAX_SEED:
-        raise ValueError(f"pseed must be an integer in [0, 2^24), got {pseed}")
-    return seed
 
 
-def camera_lanes(planes, cam_quat, width: int, height: int, fov_degrees: float,
-                 pseed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def camera_lanes(planes, row: torch.Tensor, width: int, height: int, fov_degrees: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1b's planes (t, nx, ny, nz, tri) of a whole ``width`` × ``height``
-    frame traced with jitter seed ``pseed`` → (d (R, 3) f32, t (R,) f32,
-    tri (R,) int32, n (R, 3) f32) in tile-block lane order, R = H·W: each
-    lane's jittered ray direction, its hit's t and triangle, and its normal
-    turned to face d (negated where n·d > 0, as it is where n·d is 0).
+    frame traced from ``row``, the (16,) f32 camera row on the planes'
+    device (``traverse.camera_row`` of the frame, ``fov_degrees`` and the
+    jitter seed) → (d (R, 3) f32, t (R,) f32, tri (R,) int32, n (R, 3) f32)
+    in tile-block lane order, R = H·W: each lane's jittered ray direction,
+    its hit's t and triangle, and its normal turned to face d (negated where
+    n·d > 0, as it is where n·d is 0).
 
-    On CUDA planes launches ``camera_lanes_kernel``; on CPU planes runs
-    :func:`camera_lanes_reference`; raises for any other device."""
-    seed = _check(planes, width, height, pseed)
+    On CUDA planes launches ``camera_lanes_kernel``, which reads the
+    quaternion, focal, aspect and seed from the row when it runs, so that a
+    CUDA graph that holds the launch serves whatever camera and seed the row
+    then holds (the seed must lie in [0, 2^24); the card cannot check it);
+    on CPU planes reads the row and runs :func:`camera_lanes_reference`;
+    raises for any other device."""
+    _check(planes, width, height)
     dev = planes[0].device
-    if dev.type == "cpu":
-        return camera_lanes_reference(planes, cam_quat, width, height, fov_degrees, seed)
+    camera = check_camera_row(row, dev)
+    if camera is not None:  # on the CPU
+        _, quat, seed = camera
+        return camera_lanes_reference(planes, quat, width, height, fov_degrees, seed)
     if dev.type != "cuda":
         raise ValueError(f"camera_lanes runs on cuda or cpu tensors, got {dev}")
     lib, _ = load_camera_lanes()
-    quat = torch.as_tensor(cam_quat, dtype=torch.float32).reshape(4).tolist()
-    focal, aspect = camera_constants(width, height, fov_degrees)
     r = width * height
     d = torch.empty((r, 3), dtype=torch.float32, device=dev)
     n = torch.empty((r, 3), dtype=torch.float32, device=dev)
@@ -84,7 +87,7 @@ def camera_lanes(planes, cam_quat, width: int, height: int, fov_degrees: float,
     tri = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rt_camera_lanes(*quat, focal, aspect, width, height, seed,
+        err = lib.rt_camera_lanes(row.data_ptr(), width, height,
                                   *(p.data_ptr() for p in planes), d.data_ptr(), t.data_ptr(),
                                   tri.data_ptr(), n.data_ptr(), stream)
     if err != 0:

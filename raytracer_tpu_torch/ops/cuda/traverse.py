@@ -43,7 +43,9 @@ with neither, on 8-wide records as ``trace_tiles_k1e`` (one frame or a batch, wi
 8-wide records counts as ``trace_rays_k2c`` (closest or any hit), on 4-wide
 records as ``trace_rays_k2a`` / ``k2b``; with ``ordered=False`` as
 ``trace_rays_k2a_unordered`` / ``k2b_unordered`` / ``k2c_unordered``. A
-batch with ``raw=True`` counts under its name with ``_raw`` added
+jittered frame whose camera is a row on the device (:func:`trace_tiles_row`)
+counts as ``trace_tiles_k1b`` (``k1e`` on 8-wide records), as the one frame
+it traces. A batch with ``raw=True`` counts under its name with ``_raw`` added
 (``trace_tiles_k1c_raw``, ``k1e_raw``, ``k1f_raw``), a ray launch with
 ``tree_space`` "vmem" or "smem" under its name with ``_vmem`` / ``_smem``
 added (``trace_rays_k2a_vmem``, ``trace_rays_k2b_unordered_smem``, …).
@@ -80,6 +82,7 @@ from ..trace import STACK_MAX, WideBVH, moller_trumbore
 
 __all__ = ["rec_layout", "infer_rec_width", "make_qnodes", "trace_tiles",
            "trace_tiles_reference", "trace_tiles_batch", "trace_tiles_batch_reference",
+           "trace_tiles_row", "camera_row", "check_camera_row", "CAMERA_ROW",
            "trace_rays", "trace_rays_reference", "launch_plan", "tile_plan", "ANY_HIT_CORE",
            "CLOSEST_HIT_CORE", "TILE_CORE", "load_kernel", "tile_warp_ids",
            "TraversalCounts", "LAUNCHES", "reset_launches", "EMPTY_REF", "TILE",
@@ -124,13 +127,18 @@ TREE_SPACES = ("hbm", "vmem", "smem")
 # where a wrapper launches that kernel. "camera_lanes" counts the launches
 # of the camera wave's kernel (ops/cuda/camera.py), "wave_hit" and
 # "wave_bounce" those of the sample's wave glue (ops/cuda/wave.py), one of
-# each a wave.
+# each a wave. A progressive sample replayed from a CUDA graph
+# (render_pt.SampleGraphs) adds the launches its capture made to each
+# kernel's count, so that they count launches a sample either way;
+# "sample_graph_replay" counts those replays, "sample_graph_capture" the
+# captures (whose own launches count nothing: nothing runs).
 LAUNCHES = {"trace_tiles_k1a": 0, "trace_tiles_k1b": 0, "trace_tiles_k1c": 0,
             "trace_tiles_k1d": 0, "trace_tiles_k1e": 0, "trace_tiles_k1f": 0,
             "trace_tiles_k1c_raw": 0, "trace_tiles_k1e_raw": 0, "trace_tiles_k1f_raw": 0,
             **{f"trace_rays_{k}{order}{space}": 0 for space in ("", "_vmem", "_smem")
                for order in ("", "_unordered") for k in ("k2a", "k2b", "k2c")},
-            "camera_lanes": 0, "wave_hit": 0, "wave_bounce": 0}
+            "camera_lanes": 0, "wave_hit": 0, "wave_bounce": 0,
+            "sample_graph_replay": 0, "sample_graph_capture": 0}
 
 
 def reset_launches() -> None:
@@ -278,6 +286,38 @@ def _camera(cam_pos, cam_quat) -> tuple[list[float], list[float]]:
     pos = torch.as_tensor(cam_pos, dtype=torch.float32).reshape(3).tolist()
     quat = torch.as_tensor(cam_quat, dtype=torch.float32).reshape(4).tolist()
     return pos, quat
+
+
+CAMERA_ROW = 16  # f32 words of a camera row (csrc/raygen.cuh, rt::CamCol)
+
+
+def camera_row(cam_pos, cam_quat, width: int, height: int, fov_degrees: float, seed: int = 0,
+               row_offset: int = 0, col_offset: int = 0) -> list[float]:
+    """A row of K1c's camera table, :data:`CAMERA_ROW` values: the origin,
+    the quaternion (xyzw), focal and aspect of a ``width`` × ``height`` frame
+    of ``fov_degrees``, the frame's width and height, the jitter seed, the
+    window's row and column offset, and two unused columns (0). Refuses a
+    seed outside [0, 2^24), which f32 would not hold exactly."""
+    focal, aspect = camera_constants(width, height, fov_degrees)
+    return [*(float(x) for x in cam_pos), *(float(x) for x in cam_quat), focal, aspect,
+            float(width), float(height), float(_check_seed(seed)), float(row_offset),
+            float(col_offset),
+            0.0, 0.0]
+
+
+def check_camera_row(row: torch.Tensor, device) -> tuple[list, list, int] | None:
+    """Refuse ``row`` unless it is a contiguous (16,) f32 camera row on
+    ``device``; on the CPU → its origin, quaternion and jitter seed (checked),
+    read on the host (on a card nothing is read, and the seed is not
+    checked)."""
+    if (row.dtype != torch.float32 or tuple(row.shape) != (CAMERA_ROW,)
+            or not row.is_contiguous() or row.device != device):
+        raise ValueError(f"row must be a contiguous ({CAMERA_ROW},) float32 tensor on {device}, "
+                         f"got {tuple(row.shape)} {row.dtype} on {row.device}")
+    if row.device.type != "cpu":
+        return None
+    values = row.tolist()
+    return values[0:3], values[3:7], _check_seed(values[11])
 
 
 def _check_seed(jitter_seed) -> int:
@@ -578,8 +618,7 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
             raise ValueError(f"trace_tiles_batch runs on cuda or cpu tensors, got {qn.device}")
         core = tile_plan(leaf_k=leaf_k)
         lib, _ = load_kernel(_tile_source(core))
-        focal, aspect = camera_constants(rg_w, rg_h, fov_degrees)
-        table = to_device([[*p, *q, focal, aspect, rg_w, rg_h, s, row_offset, col_offset, 0.0, 0.0]
+        table = to_device([camera_row(p, q, rg_w, rg_h, fov_degrees, s, row_offset, col_offset)
                            for p, q, s in zip(pos, quat, seeds)], qn.device)
         if raw:
             out = torch.empty((f, (height // TILE) * (width // TILE), 6, _SUB, 128),
@@ -608,6 +647,49 @@ def trace_tiles_batch(qnodes: torch.Tensor, cam_pos, cam_quat, width: int, heigh
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
         LAUNCHES[name] += 1
         return (*planes[:4], tri, *planes[4:])
+
+
+def trace_tiles_row(qnodes: torch.Tensor, row: torch.Tensor, width: int, height: int,
+                    fov_degrees: float = 70.0, leaf_k: int = 1):
+    """K1b with its camera on the device: the jittered ``width`` × ``height``
+    frame whose camera and jitter seed are ``row``, a (16,) f32 camera row
+    on the records' device made as :func:`camera_row` (``width``, ``height``,
+    ``fov_degrees``, the seed; no offsets) makes it → the (t, nx, ny, nz, tri)
+    planes of (H, W) that :func:`trace_tiles` with ``jitter=True`` gives for
+    that camera and seed, word for word. Nothing of the row is read on the
+    host, so a CUDA graph that holds the launch traces whatever camera the
+    row holds when it runs (the seed must lie in [0, 2^24); the card cannot
+    check it).
+
+    For records on a CUDA device launches K1c's kernel over one frame with
+    jitter (the same rays, traversal core and stores as K1b; counted as
+    ``trace_tiles_k1b``, ``k1e`` on 8-wide records); for records on the CPU
+    reads the row and runs the plain version; raises for any other device."""
+    with span("rt/k1"):
+        qn, slots = _check_qnodes(qnodes, leaf_k)
+        camera = check_camera_row(row, qn.device)
+        _check_window(width, height, None, 0, 0)
+        if qn.device.type == "cpu":
+            pos, quat, seed = camera
+            return trace_tiles_reference(qn, pos, quat, width, height, fov_degrees, leaf_k,
+                                         jitter=True, jitter_seed=seed)
+        if qn.device.type != "cuda":
+            raise ValueError(f"trace_tiles_row runs on cuda or cpu tensors, got {qn.device}")
+        core = tile_plan(leaf_k=leaf_k)
+        lib, _ = load_kernel(_tile_source(core))
+        planes = [torch.empty((height, width), dtype=torch.float32, device=qn.device)
+                  for _ in range(4)]
+        tri = torch.empty((height, width), dtype=torch.int32, device=qn.device)
+        with torch.cuda.device(qn.device):
+            stream = torch.cuda.current_stream(qn.device).cuda_stream
+            err = lib.rt_trace_tiles_batch(
+                qn.data_ptr(), qn.shape[1], leaf_k, slots, row.data_ptr(), 1, width, height, 1,
+                core, *(p.data_ptr() for p in planes), tri.data_ptr(), None, stream)
+        name = _tile_launch_name(slots, False, "trace_tiles_k1b")
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        LAUNCHES[name] += 1
+        return (*planes, tri)
 
 
 def _check_raw(width: int, height: int, raygen_size, row_offset: int, col_offset: int) -> None:

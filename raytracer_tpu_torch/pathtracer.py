@@ -22,9 +22,11 @@ widener; any other, and a tree of single triangles, rebuilds). Then:
 * ``render_progressive(bounces)``: one path-traced sample
   (``render_pt.pt_sample_frame``: the jittered camera wave through K1b,
   bounce waves through K2a, shadow rays through K2b) added to a running
-  mean that resets when the camera moves; ``bounces=0`` accumulates
-  jittered primary frames (K1b) with the Lambert shade instead;
-  ``present_progressive`` tonemaps the mean.
+  mean that resets when the camera moves; on the card the sample and its
+  update of the mean are one CUDA graph, replayed from the second sample
+  of a frame size, bounce count and scene on (``render_pt.SampleGraphs``);
+  ``bounces=0`` accumulates jittered primary frames (K1b) with the Lambert
+  shade instead; ``present_progressive`` tonemaps the mean.
 
 With ``widener="collapse8"`` the records are 8-wide and the same calls run
 K1e (tiles) and K2c (ray buffers): the wrappers find the width from the
@@ -69,9 +71,9 @@ from .ops.shade import (downscale_rgb8, present_frame, quantize_rgba8, shade_lam
                         triangle_normals)
 from .ops.trace import make_wide_bvh, trace_rays_brute
 from .render import render_ldr_brute
-from .render_pt import accumulate, pt_sample_frame
+from .render_pt import SampleGraphs, accumulate, pt_sample_frame, sample_graph_eligible
 from .utils.config import DEFAULT_CONFIG, RenderConfig
-from .utils.profiling import span
+from .utils.profiling import counting, span
 
 __all__ = ["PathTracer", "fast_build_options", "COMPACT_WAVES"]
 
@@ -166,6 +168,7 @@ class PathTracer:
         self.use_tile_entries = False
         self._accum: torch.Tensor | None = None
         self._accum_sig = None
+        self._sample_graphs = SampleGraphs()
 
         self.triangles_data: np.ndarray = _default_tetrahedron()
         self._tris_dev: torch.Tensor | None = None
@@ -389,7 +392,14 @@ class PathTracer:
         package's ``jax.random`` stream, so the two converge to the same
         image by different samples. The JAX package compacts the lanes
         between waves at bounces >= 2 on its records path; here
-        :data:`COMPACT_WAVES` decides, off by the card's measurement."""
+        :data:`COMPACT_WAVES` decides, off by the card's measurement.
+
+        On the card a sample of records traced through K1b, with compaction
+        and counters off, is one CUDA graph with its update of the mean
+        (``render_pt.SampleGraphs``, span ``rt/pt/graph``): the same samples
+        and means, word for word, for one copy and one graph launch of the
+        host's. Every other sample runs its ops one by one. A mean returned
+        is never changed by a later call."""
         if bounces < 0:
             raise ValueError("bounces must be >= 0")
         self._require_records()
@@ -397,22 +407,35 @@ class PathTracer:
             cam_sig = (tuple(self.camera_position), tuple(self.camera_quaternion))
             if self._accum_sig != cam_sig or self._accum is None:
                 self._accum_sig = cam_sig
-                self._accum = torch.zeros((self.height, self.width, 3), dtype=torch.float32,
-                                          device=self.device)
+                self._accum = None  # the mean starts anew
                 self.frame_count = 0
+
+            brute = self._brute()
+            compact = COMPACT_WAVES and not brute and bounces >= 2
+            if bounces > 0 and sample_graph_eligible(self.device, tile_primary=not brute,
+                                                     compact=compact, counting=counting()):
+                with span("rt/pt/graph"):
+                    self._accum = self._sample_graphs.sample(
+                        self._qnodes, self._tris_dev, self.camera_position,
+                        self.camera_quaternion, self.width, self.height, bounces=bounces,
+                        fov_degrees=self.fov_degrees, leaf_k=self.leaf_size,
+                        frame_count=self.frame_count, accum=self._accum)
+                self.frame_count += 1
+                return self._accum
 
             if bounces == 0:
                 sample = self._primary_sample_jittered()
             else:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(self.frame_count)
-                brute = self._brute()
                 sample = pt_sample_frame(
                     None if brute else self._qnodes, self._tris_dev, self.camera_position,
                     self.camera_quaternion, self.width, self.height, bounces=bounces,
                     fov_degrees=self.fov_degrees, leaf_k=self.leaf_size, brute=brute,
-                    tile_primary=not brute, generator=gen,
-                    compact=COMPACT_WAVES and not brute and bounces >= 2)
+                    tile_primary=not brute, generator=gen, compact=compact)
+            if self._accum is None:
+                self._accum = torch.zeros((self.height, self.width, 3), dtype=torch.float32,
+                                          device=self.device)
             with span("rt/accumulate"):
                 self._accum = accumulate(self._accum, sample, self.frame_count)
             self.frame_count += 1

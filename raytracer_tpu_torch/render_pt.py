@@ -14,7 +14,9 @@ Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame``,
   camera wave goes through the jittered tile kernel K1b
   (``tile_primary``; then the kernel ``ops.cuda.camera.camera_lanes``
   puts its planes, the rays' directions and the turned normals in lane
-  order) or the ray-buffer kernel K2a; the bounce waves through
+  order; both read the camera and the jitter seed from the sample's
+  camera row, :func:`camera_block`, on the device) or the ray-buffer
+  kernel K2a; the bounce waves through
   K2a with the live paths as the ``active`` mask; the NEE waves through
   the any-hit kernel K2b with ``active`` = hit and n·l > 0. Inactive lanes
   are not read and their results are never used, so the mask changes no
@@ -37,17 +39,25 @@ Torch counterpart of ``raytracer_tpu/render_pt.py`` (``pt_sample_frame``,
 Random numbers come from an explicit ``torch.Generator`` or, for tests that
 hold the port against the JAX package, from a ``uniforms`` mapping that
 injects the JAX package's draws (see :func:`pt_sample_frame`).
+
+A sample as ``PathTracer.render_progressive`` runs it on the card is one
+CUDA graph (:class:`SampleGraphs`): the sample and its ``accumulate``
+captured once and replayed, with the camera, the jitter seed and the
+mean's sample count read from a uniform block on the device
+(:func:`uniform_block`) and the draws from a generator registered with the
+graph, so that the host issues one copy and one graph launch a sample.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from collections.abc import Mapping
 
 import torch
 
 from .ops.camera import primary_dirs, to_device
 from .ops.cuda.camera import camera_lanes
-from .ops.cuda.traverse import trace_rays, trace_tiles
+from .ops.cuda.traverse import CAMERA_ROW, LAUNCHES, camera_row, trace_rays, trace_tiles_row
 from .ops.cuda.wave import blocked, wave_bounce, wave_hit, wave_last
 from .ops.lanes import TILE, img_to_lanes, lanes_to_img
 # the name benchmark/tests/test_bench_reference.py imports the lane order by
@@ -56,9 +66,11 @@ from .ops.morton import expand_bits10
 from .ops.partition import bucket_partition_perm
 from .ops.shade import MISS_COLOR, triangle_normals
 from .ops.trace import trace_rays_brute
-from .utils.profiling import count, counting, span
+from .utils.profiling import count, counting, span, tracing
 
-__all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE"]
+__all__ = ["pt_sample_frame", "accumulate", "compaction_key", "COMPACT_IMPLS", "TILE",
+           "jitter_seed", "camera_block", "uniform_block", "COUNT_COLUMN",
+           "sample_graph_eligible", "SampleGraph", "SampleGraphs"]
 
 _BASE = (0.9, 0.7, 0.3)
 _SUN_DIR = (1.0, 1.5, 1.0)
@@ -84,6 +96,14 @@ def _sun_dirs(device, r: int) -> torch.Tensor:
     if key not in _SUN_DIRS or _SUN_DIRS[key].shape[0] != r:
         _SUN_DIRS[key] = to_device(_SUN, device).expand(r, 3).contiguous()
     return _SUN_DIRS[key]
+
+
+def jitter_seed(initial_seed: int) -> int:
+    """The jitter seed ``pseed`` of a sample whose generator was seeded with
+    ``initial_seed``: drawn on the host from a CPU generator of that seed, so
+    that a sample never waits for the device's previous work."""
+    host = torch.Generator(device="cpu").manual_seed(initial_seed)
+    return int(torch.randint(0, _MAX_PSEED, (), generator=host))
 
 
 class _Draws:
@@ -114,15 +134,14 @@ class _Draws:
         return u
 
     def pseed(self) -> int:
-        """The jitter seed, a host int the kernel takes as an argument: drawn
-        on the host from the generator's initial seed, so that a sample
-        never waits for the device's previous work."""
+        """The jitter seed, a host int the kernel takes as an argument
+        (:func:`jitter_seed` of the generator's initial seed)."""
         if "pseed" in self.uniforms:
             return int(self.uniforms["pseed"])
         if self.generator is None:
             raise ValueError("uniforms lack 'pseed' and no generator was given")
-        host = torch.Generator(device="cpu").manual_seed(self.generator.initial_seed())
-        return int(torch.randint(0, _MAX_PSEED, (), generator=host))
+        return jitter_seed(self.generator.initial_seed())
+
 
     def jitter(self, height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
         return self._given("jx", (height, width)), self._given("jy", (height, width))
@@ -235,6 +254,12 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     sequences over the bounces): the JAX package's draws make the two
     sample streams the same.
 
+    With ``tile_primary`` the camera and ``pseed`` go to the device as the
+    sample's camera row (:func:`camera_block`): K1b (``trace_tiles_row``)
+    and ``camera_lanes`` read them there, and the camera rays start at a
+    view of it. A CUDA graph that holds the sample (:class:`SampleGraph`)
+    thus serves every camera and seed.
+
     ``compact=True`` compacts the lanes after every wave but the last (the
     JAX package's ``compact``; module docstring): by a stable argsort of the
     32-bit key (``compact_impl="argsort"``) or a stable partition by the
@@ -258,10 +283,28 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
     if qnodes is None and not brute:
         raise ValueError("pt_sample_frame needs the records (qnodes) or brute=True")
     dev = tris.device
+    draws = _Draws(uniforms, generator, dev)
+    block = None
+    if tile_primary and not brute and bounces > 0:
+        block = camera_block(camera_row(cam_pos, cam_quat, width, height, fov_degrees,
+                                        draws.pseed()), dev)
+    return _sample(qnodes, tris, cam_pos, cam_quat, width, height, draws, block,
+                   bounces=bounces, fov_degrees=fov_degrees, leaf_k=leaf_k, brute=brute,
+                   stats=stats, compact=compact, compact_impl=compact_impl,
+                   ordered_ch=ordered_ch, ordered_ah=ordered_ah)
+
+
+def _sample(qnodes, tris, cam_pos, cam_quat, width: int, height: int, draws, block, *,
+            bounces: int, fov_degrees: float, leaf_k: int, brute: bool = False,
+            stats: bool = False, compact: bool = False, compact_impl: str = "argsort",
+            ordered_ch: bool = True, ordered_ah: bool = True):
+    """:func:`pt_sample_frame`'s waves with the random numbers ``draws``: the
+    camera wave through K1b from ``block``, the sample's camera row on the
+    device of ``tris``, or, where it is None, from ``cam_pos`` and
+    ``cam_quat`` at the drawn offsets."""
+    dev = tris.device
     f32 = torch.float32
     r = width * height
-    draws = _Draws(uniforms, generator, dev)
-    tile_primary = tile_primary and not brute
 
     radiance = torch.zeros((r, 3), dtype=f32, device=dev)
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
@@ -275,14 +318,14 @@ def pt_sample_frame(qnodes: torch.Tensor | None, tris: torch.Tensor, cam_pos, ca
         with span("rt/pt/camera" if b == 0 else "rt/pt/bounce"):
             if stats:
                 alive_rays = alive_rays + alive.sum()
-            if b == 0 and tile_primary:
-                pseed = draws.pseed()
-                planes = trace_tiles(qnodes, cam_pos, cam_quat, width, height, fov_degrees,
-                                     leaf_k=leaf_k, jitter=True, jitter_seed=pseed)
-                d, t, tri, n = camera_lanes(planes, cam_quat, width, height, fov_degrees, pseed)
+            if b == 0 and block is not None:
+                planes = trace_tiles_row(qnodes, block, width, height, fov_degrees,
+                                         leaf_k=leaf_k)
+                d, t, tri, n = camera_lanes(planes, block, width, height, fov_degrees)
                 n = n.unbind(1)
-                # every camera ray starts at the camera: a broadcast view
-                o = to_device(cam_pos, dev).reshape(1, 3).expand(r, 3)
+                # every camera ray starts at the camera: a broadcast view of
+                # the row's origin
+                o = block[:3].reshape(1, 3).expand(r, 3)
             else:
                 if b == 0:
                     o, d = _camera_rays(draws, cam_pos, cam_quat, width, height, fov_degrees,
@@ -350,15 +393,227 @@ def _camera_rays(draws, cam_pos, cam_quat, width: int, height: int, fov_degrees:
     return o, img_to_lanes(d, width, height)
 
 
-def accumulate(accum: torch.Tensor, sample: torch.Tensor, frame_count: int) -> torch.Tensor:
+def accumulate(accum: torch.Tensor, sample: torch.Tensor, frame_count,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Running mean: ``frame_count`` samples already in ``accum``, add one
-    more: (accum·n + sample) / (n + 1) in f32.
+    more: (accum·n + sample) / (n + 1) in f32. ``frame_count`` is an int, or
+    a 0-d f32 tensor on ``accum``'s device that holds it (a uniform block's
+    :data:`COUNT_COLUMN`, read when the op runs). ``out`` (``accum`` itself
+    may be given) receives the mean in place of a new tensor.
 
     The multiply-add is rounded once (the f32 product is exact in f64), as
     the fused multiply-add that XLA makes of the JAX package's expression;
     two roundings would drift up to 2 ulps from it. The division is by a
     tensor: CUDA torch would run a division by a Python scalar as a multiply
     by its reciprocal."""
-    n = torch.full((), float(frame_count), dtype=torch.float32, device=accum.device)
+    n = (frame_count if isinstance(frame_count, torch.Tensor)
+         else torch.full((), float(frame_count), dtype=torch.float32, device=accum.device))
     fused = (accum.double() * n.double() + sample.double()).float()
-    return fused / (n + 1.0)
+    return torch.div(fused, n + 1.0, out=out)
+
+
+# The uniform block of a sample: the camera row that the camera wave is
+# traced from (traverse.camera_row: the camera, its frame and the jitter
+# seed), with the running mean's sample count in the row's first spare
+# column.
+COUNT_COLUMN = 14
+_GRAPHS_KEPT = 4  # captured samples a tracer keeps, each with its memory pool
+_STAGES = 8       # pinned host rows the blocks are copied from, used in turn
+
+
+class _Staging:
+    """A ring of ``_STAGES`` pinned host rows of CAMERA_ROW f32 that blocks
+    on one device are copied from, without a stream synchronisation; a row
+    is written again only once the copy it last served has ended."""
+
+    def __init__(self) -> None:
+        rows = [torch.empty((CAMERA_ROW,), dtype=torch.float32, pin_memory=True)
+                for _ in range(_STAGES)]
+        self._rows = [(row, row.numpy(), torch.cuda.Event()) for row in rows]
+        self._next = 0
+
+    def load(self, block: torch.Tensor, values: list[float]) -> None:
+        """Copy ``values`` into ``block`` (on the card) from the next row."""
+        row, host, copied = self._rows[self._next]
+        self._next = (self._next + 1) % _STAGES
+        if not copied.query():
+            copied.synchronize()
+        host[:] = values
+        block.copy_(row, non_blocking=True)
+        copied.record(torch.cuda.current_stream(block.device))
+
+
+_STAGING: dict[str, _Staging] = {}  # device → its ring
+
+
+def _load(block: torch.Tensor, values: list[float]) -> None:
+    """Copy ``values`` into ``block`` on a CUDA device from pinned memory."""
+    key = str(block.device)
+    if key not in _STAGING:
+        _STAGING[key] = _Staging()
+    _STAGING[key].load(block, values)
+
+
+def camera_block(values: list[float], device) -> torch.Tensor:
+    """A sample's camera row ``values`` (``traverse.camera_row``, or a
+    :func:`uniform_block`) as a (CAMERA_ROW,) f32 tensor on ``device``: on a
+    card copied from pinned memory without a stream synchronisation."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.tensor(values, dtype=torch.float32, device=device)
+    block = torch.empty((CAMERA_ROW,), dtype=torch.float32, device=device)
+    _load(block, values)
+    return block
+
+
+def uniform_block(cam_pos, cam_quat, width: int, height: int, fov_degrees: float, pseed: int,
+                  frame_count: int) -> list[float]:
+    """The uniform block (CAMERA_ROW values) of a sample of the ``width`` ×
+    ``height`` frame of ``fov_degrees`` from camera (``cam_pos``,
+    ``cam_quat``) with jitter seed ``pseed``, added to a mean of
+    ``frame_count`` samples: its camera row, and ``frame_count`` in
+    :data:`COUNT_COLUMN`."""
+    values = camera_row(cam_pos, cam_quat, width, height, fov_degrees, pseed)
+    values[COUNT_COLUMN] = float(frame_count)
+    return values
+
+
+def sample_graph_eligible(device, *, tile_primary: bool, compact: bool, counting: bool,
+                          uniforms: Mapping | None = None) -> bool:
+    """Whether a progressive sample runs as a CUDA graph (:class:`SampleGraphs`):
+    on a CUDA device, with the camera wave through K1b (``tile_primary``:
+    records, not brute force), no injected ``uniforms``, no compaction and
+    counters off. Every other sample runs its ops one by one, so that
+    counters count what they count (a graph's replay computes no count) and
+    the paths the graph leaves out stay as they are."""
+    return (torch.device(device).type == "cuda" and tile_primary and not compact
+            and not counting and uniforms is None)
+
+
+class SampleGraph:
+    """One progressive sample and its ``accumulate`` on the card:
+    :func:`pt_sample_frame` of (``qnodes``, ``tris``, ``width`` × ``height``,
+    ``bounces``, ``fov_degrees``, ``leaf_k``) fed from ``block`` with draws
+    from ``generator``, and the mean ``mean`` updated in place, the count
+    read from the block. :meth:`run` runs it: its ops one by one until
+    :meth:`capture` has made it one CUDA graph, then a replay. Before each
+    run the caller loads the block, sets ``mean`` and seeds the generator
+    (:meth:`SampleGraphs.sample`)."""
+
+    def __init__(self, qnodes: torch.Tensor, tris: torch.Tensor, width: int, height: int, *,
+                 bounces: int, fov_degrees: float, leaf_k: int) -> None:
+        dev = tris.device
+        self._args = (qnodes, tris, width, height, bounces, fov_degrees, leaf_k)
+        self.block = torch.zeros((CAMERA_ROW,), dtype=torch.float32, device=dev)
+        self.mean = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.last: torch.Tensor | None = None  # the copy of mean the last run returned
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._launches: dict[str, int] = {}  # each kernel's launches in one sample
+        self._sun: torch.Tensor | None = None
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def _body(self) -> None:
+        qnodes, tris, width, height, bounces, fov_degrees, leaf_k = self._args
+        draws = _Draws(None, self.generator, tris.device)
+        sample = _sample(qnodes, tris, None, None, width, height, draws, self.block,
+                         bounces=bounces, fov_degrees=fov_degrees, leaf_k=leaf_k)
+        accumulate(self.mean, sample, self.block[COUNT_COLUMN], out=self.mean)
+
+    def capture(self) -> None:
+        """Capture the sample as a CUDA graph (nothing runs), after it has run
+        once op by op: the kernels' libraries are loaded and their first
+        launches made. The generator is registered with the graph, so that
+        a replay draws the stream of its seed then. The launches the capture
+        made are kept as the sample's and taken off the counts."""
+        _, tris, width, height = self._args[:4]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        # the shadow rays' directions, looked up (made anew, by a copy from
+        # the host, if another lane count replaced them) before the capture,
+        # which may copy nothing from the host, and held, so that they
+        # outlive every replay
+        self._sun = _sun_dirs(tris.device, width * height)
+        before = dict(LAUNCHES)
+        # thread_local: CUDA calls that other threads make meanwhile do not
+        # fail the capture
+        stream = torch.cuda.Stream(device=tris.device)
+        with tracing(spans=False, counters=False), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            self._body()
+        self._launches = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+        LAUNCHES.update(before)
+        LAUNCHES["sample_graph_capture"] += 1
+        self._graph = graph
+
+    def run(self) -> None:
+        """The sample: a replay once captured, its ops one by one before."""
+        if self._graph is None:
+            self._body()
+            return
+        self._graph.replay()
+        for name, n in self._launches.items():
+            LAUNCHES[name] += n
+        LAUNCHES["sample_graph_replay"] += 1
+
+
+class SampleGraphs:
+    """A tracer's progressive samples as CUDA graphs (:class:`SampleGraph`),
+    one a key: the device, the frame, the bounces, the leaf size, the field
+    of view and the identity of the records and the triangles. The first
+    sample of a key runs op by op on the current stream, the warm-up; the
+    next captures it and replays the graph, and every later one replays it.
+    At most ``_GRAPHS_KEPT`` keys are kept, the one used least recently
+    dropped first, and a key whose records or triangles are not the ones
+    asked for now (a refit, a new scene) at once, so that device memory
+    stays bounded.
+
+    A sample costs the host one copy of its uniform block from pinned
+    memory (a ring of ``_STAGES`` rows, none written again before its last
+    copy has ended), one graph launch and one copy of the mean, which it
+    returns: the graph's own buffers change at every replay, and a mean
+    returned earlier must not."""
+
+    def __init__(self) -> None:
+        self._graphs: OrderedDict = OrderedDict()
+
+    def sample(self, qnodes: torch.Tensor, tris: torch.Tensor, cam_pos, cam_quat, width: int,
+               height: int, *, bounces: int, fov_degrees: float, leaf_k: int, frame_count: int,
+               accum: torch.Tensor | None) -> torch.Tensor:
+        """Sample ``frame_count`` of ``bounces`` bounces, as
+        ``pt_sample_frame`` draws it from a device generator seeded with
+        ``frame_count``, added to the mean ``accum`` of ``frame_count``
+        samples (None: a mean that starts anew) → the new mean, (H, W, 3) f32,
+        a tensor of its own."""
+        dev = tris.device
+        scene = (id(qnodes), id(tris))
+        key = (str(dev), int(width), int(height), int(bounces), int(leaf_k),
+               float(fov_degrees), scene)
+        for old in [k for k in self._graphs if k[-1] != scene]:
+            del self._graphs[old]
+        with torch.cuda.device(dev):
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = SampleGraph(qnodes, tris, width, height, bounces=bounces,
+                                    fov_degrees=fov_degrees, leaf_k=leaf_k)
+                self._graphs[key] = graph
+                if len(self._graphs) > _GRAPHS_KEPT:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+                if not graph.captured:
+                    graph.capture()
+            graph.generator.manual_seed(frame_count)
+            pseed = jitter_seed(graph.generator.initial_seed())
+            _load(graph.block, uniform_block(cam_pos, cam_quat, width, height, fov_degrees, pseed,
+                                             frame_count))
+            if accum is None:
+                graph.mean.zero_()
+            elif accum is not graph.last:
+                graph.mean.copy_(accum)
+            graph.run()
+            graph.last = graph.mean.clone()
+        return graph.last

@@ -1,20 +1,22 @@
 """The camera wave's lanes (``ops/cuda/camera.py``, ``csrc/camera_lanes.cu``).
 
-On the CPU: the wrapper's plain version is the composition that
-``pt_sample_frame`` ran before the kernel (``generate_rays_jittered``, then
-``img_to_lanes`` of the directions and of K1b's five planes, then ``face``),
-bit for bit, at sizes that are multiples of 32 and at sizes that are not;
-the kernel's lane → pixel arithmetic, written here in torch, inverts
-``lane_of_pixel``; the wrapper refuses what the kernel does not take.
+On the CPU: the wrapper reads the camera row and runs its plain version,
+the composition that ``pt_sample_frame`` ran before the kernel
+(``generate_rays_jittered``, then ``img_to_lanes`` of the directions and of
+K1b's five planes, then ``face``), bit for bit, at sizes that are multiples
+of 32 and at sizes that are not; the kernel's lane → pixel arithmetic,
+written here in torch, inverts ``lane_of_pixel``; the wrapper refuses what
+the kernel does not take.
 
 On the card (``cuda``; needs neither JAX nor the JAX package):
 
     python -m pytest --noconftest -m cuda tests/test_torch_camera_lanes.py
 
-the kernel equals the plain version run on the card bit for bit
-(``torch.equal`` on d, t, tri and n) at 1920×1080, 512×512 and 100×70 for
-three seeds, and a progressive sample through it equals the sample through
-the plain version, counting one ``camera_lanes`` launch. The seeded planes
+the kernel, reading the camera and the seed from a row on the card, equals
+the plain version run on the card bit for bit (``torch.equal`` on d, t, tri
+and n) at 1920×1080, 512×512 and 100×70 for three seeds, and a progressive
+sample through it equals the sample through the plain version, counting
+one ``camera_lanes`` launch. The seeded planes
 hold misses (tri −1, a zero normal), normals with n·d exactly 0, and
 normals whose n·d cancels to 0 in one order of summation and not in
 another, so that the kernel's order of the sum is held to the one that
@@ -29,6 +31,7 @@ from raytracer_tpu_torch.ops.camera import generate_rays_jittered
 from raytracer_tpu_torch.ops.cluster import build_sah2_clustered, records_pipeline
 from raytracer_tpu_torch.ops.cuda import traverse
 from raytracer_tpu_torch.ops.cuda.camera import camera_lanes, camera_lanes_reference
+from raytracer_tpu_torch.ops.cuda.traverse import CAMERA_ROW, camera_row
 from raytracer_tpu_torch.ops.lanes import TILE, face, img_to_lanes, lane_of_pixel
 from torch_parity import CAM_POS, CAM_QUAT, FOV, seeded_scene
 
@@ -42,6 +45,20 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the camera wave's kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def row_of(width: int, height: int, pseed: int, device) -> torch.Tensor:
+    """The camera row of the test camera's ``width`` × ``height`` frame with
+    jitter seed ``pseed``, on ``device``."""
+    return torch.tensor(camera_row(CAM_POS, CAM_QUAT, width, height, FOV, pseed),
+                        dtype=torch.float32, device=device)
+
+
+def plain_lanes(planes, row, width, height, fov_degrees):
+    """The plain version with the camera and the seed read from ``row``."""
+    values = row.tolist()
+    return camera_lanes_reference(planes, values[3:7], width, height, fov_degrees,
+                                  int(values[11]))
 
 
 def seeded_planes(width: int, height: int, pseed: int, seed: int, device) -> list[torch.Tensor]:
@@ -92,7 +109,7 @@ def test_plain_version_is_the_sample_composition(width, height):
     pseed = 3_000_017
     planes = seeded_planes(width, height, pseed, 11, "cpu")
     before = dict(traverse.LAUNCHES)
-    d, t, tri, n = camera_lanes(planes, CAM_QUAT, width, height, FOV, pseed)
+    d, t, tri, n = camera_lanes(planes, row_of(width, height, pseed, "cpu"), width, height, FOV)
     assert traverse.LAUNCHES == before
     d_old = img_to_lanes(generate_rays_jittered(width, height, CAM_POS, CAM_QUAT, pseed, FOV,
                                                 device="cpu")[1], width, height)
@@ -142,19 +159,27 @@ def test_kernel_lane_arithmetic_inverts_lane_of_pixel(width, height):
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     planes = seeded_planes(64, 32, 5, 1, "cpu")
+    row = row_of(64, 32, 5, "cpu")
     with pytest.raises(ValueError):
-        camera_lanes(planes[:4], CAM_QUAT, 64, 32, FOV, 5)
+        camera_lanes(planes[:4], row, 64, 32, FOV)
     with pytest.raises(ValueError):
-        camera_lanes(planes, CAM_QUAT, 32, 64, FOV, 5)
+        camera_lanes(planes, row, 32, 64, FOV)
     with pytest.raises(ValueError):
-        camera_lanes([*planes[:4], planes[4].float()], CAM_QUAT, 64, 32, FOV, 5)
+        camera_lanes([*planes[:4], planes[4].float()], row, 64, 32, FOV)
     with pytest.raises(ValueError):
-        camera_lanes(planes, CAM_QUAT, 64, 32, FOV, 1 << 24)
+        camera_row(CAM_POS, CAM_QUAT, 64, 32, FOV, 1 << 24)
+    big_seed = row.clone()
+    big_seed[11] = float(1 << 24)
+    with pytest.raises(ValueError):
+        camera_lanes(planes, big_seed, 64, 32, FOV)
+    for bad in (row[:CAMERA_ROW - 1], row.double(), torch.stack([row, row], 1)[:, 0]):
+        with pytest.raises(ValueError):
+            camera_lanes(planes, bad, 64, 32, FOV)
     with pytest.raises(ValueError):
         camera_lanes([p.to(torch.float64) if i == 0 else p for i, p in enumerate(planes)],
-                     CAM_QUAT, 64, 32, FOV, 5)
+                     row, 64, 32, FOV)
     with pytest.raises(ValueError):
-        camera_lanes([planes[0].t().contiguous().t(), *planes[1:]], CAM_QUAT, 64, 32, FOV, 5)
+        camera_lanes([planes[0].t().contiguous().t(), *planes[1:]], row, 64, 32, FOV)
 
 
 @pytest.mark.cuda
@@ -163,7 +188,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 def test_kernel_equals_plain_version_on_card(cuda_device, width, height, seed):
     planes = seeded_planes(width, height, seed, seed + 1, cuda_device)
     before = traverse.LAUNCHES["camera_lanes"]
-    ours = camera_lanes(planes, CAM_QUAT, width, height, FOV, seed)
+    ours = camera_lanes(planes, row_of(width, height, seed, cuda_device), width, height, FOV)
     torch.cuda.synchronize()
     assert traverse.LAUNCHES["camera_lanes"] == before + 1
     plain = camera_lanes_reference(planes, CAM_QUAT, width, height, FOV, seed)
@@ -192,7 +217,7 @@ def test_sample_through_kernel_equals_plain_sample(cuda_device, width, height, m
     ours = sample()
     torch.cuda.synchronize()
     assert traverse.LAUNCHES["camera_lanes"] == before + 1
-    monkeypatch.setattr(render_pt, "camera_lanes", camera_lanes_reference)
+    monkeypatch.setattr(render_pt, "camera_lanes", plain_lanes)
     plain = sample()
     assert traverse.LAUNCHES["camera_lanes"] == before + 1
     assert torch.equal(ours, plain)

@@ -295,7 +295,8 @@ def test_cpu_records8_run_the_plain_version():
     assert set(before) == {"trace_tiles_k1a", "trace_tiles_k1b", "trace_tiles_k1c",
                            "trace_tiles_k1d", "trace_tiles_k1e", "trace_tiles_k1f",
                            "trace_tiles_k1c_raw", "trace_tiles_k1e_raw", "trace_tiles_k1f_raw",
-                           *rays, "camera_lanes", "wave_hit", "wave_bounce"}
+                           *rays, "camera_lanes", "wave_hit", "wave_bounce",
+                           "sample_graph_replay", "sample_graph_capture"}
     assert len(rays) == 18 and "trace_rays_k2b_unordered_smem" in rays
 
 
